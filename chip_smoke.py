@@ -9,9 +9,10 @@ final line) if anything is wrong:
   1. device    the card's name and power limit (nvidia-smi)
   2. build     compiles ops/csrc/*.cu with nvcc into build/ray_tpu_torch/
   3. kernels   each hand-written kernel against its plain PyTorch version at
-               the JAX test shapes and the serving shapes, with the kernel's,
-               the plain version's and one library call's times and the
-               card's least time for the same work (the bound)
+               the JAX test shapes and the shapes the serving and training
+               paths give it, with the kernel's, the plain version's and one
+               library call's times and the card's least time for the same
+               work (the bound)
   4. serve     TransformerConfig.llama2_7b() at full width and depth in bf16
                behind the @batch decorator (buckets 1, 4, 8) as
                release/serve_bert_http.py serves its encoder: 12 concurrent
@@ -22,12 +23,21 @@ final line) if anything is wrong:
                greedy tokens
   6. launches  the kernels' launch counts over phases 4 and 5, which must
                match the layers the path ran
+  7. train     bench.py's train step at its full config (dim 4096, 3
+               layers, hidden 16384, vocab 8192, 12 x 1024 tokens, bf16)
+               through ray_tpu_torch.train.step: one step's loss and
+               gradients against the same model with plain attention, one
+               warm-up and 10 timed steps on one batch (the loss must
+               fall), tokens/s, MFU, peak memory, one profiled step and a
+               forward/backward/optimizer split; then the launch counts over
+               the phase, which must match the steps it ran
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
 """
 
 import asyncio
+import dataclasses
 import json
 import subprocess
 import sys
@@ -39,11 +49,12 @@ import torch.nn.functional as F
 
 from ray_tpu_torch import _build
 from ray_tpu_torch.models.transformer import (
-    TransformerConfig, decode_step, forward, init_kv_cache, init_params,
+    TransformerConfig, decode_step, forward, init_kv_cache, init_params, loss_fn, num_params,
 )
 from ray_tpu_torch.ops import flash_attention as flash_mod
 from ray_tpu_torch.ops import rmsnorm as rmsnorm_mod
 from ray_tpu_torch.serve.batching import batch
+from ray_tpu_torch.train.step import make_optimizer, named_leaves, train_step
 
 SEED = 0
 # H100 SXM data-sheet peaks (dense): HBM bytes/s, and operations/s by type
@@ -67,6 +78,19 @@ LSE_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-3}
 # unbatched runs, and decode (f32 attention over the cache) against forward
 # (flash, P in bf16), round at other places; different tokens differ by O(1).
 LOGITS_TOL = 0.25
+# Flash backward against its plain version. f32 is held to 2e-4 absolute,
+# as tests/test_ops.py holds the Pallas backward; bf16 to 0.15 absolute at
+# the test shapes (test_ops.py:164). At the training shape the gradients'
+# magnitude grows with the sequence, so bf16 is held by max |kernel - plain|
+# over the plain result's largest magnitude. Bound 2e-2: the outputs round
+# to bf16 (2^-8 of the largest value at most), and P and dS are rounded to
+# bf16 from f32 values whose last bits differ between the two sum orders;
+# each flip moves one term of a 1024-term sum by a bf16 ulp, and the flips
+# add with random signs. A kernel that skips, repeats or transposes a tile
+# is off by order 1.
+BWD_F32_TOL = 2e-4
+BWD_BF16_TOL = 0.15
+BWD_TRAIN_REL_TOL = 2e-2
 SERVE_SEQ = 512
 SERVE_REQUESTS = 12
 BUCKETS = [1, 4, 8]
@@ -114,11 +138,13 @@ def bf16_ulps(out: torch.Tensor, plain: torch.Tensor) -> float:
     return float(((out.float() - ref).abs() / ulp).max())
 
 
-def device_time(fn) -> dict:
+def device_time(fn, top: int = 5) -> dict:
     """Device time of one call of fn, from torch.profiler's records of what
-    ran on the card (kernels, copies): the total, and the five that took
-    the most. The profiler slows the host, so the wall time to compare with
-    comes from an unprofiled run."""
+    ran on the card (kernels, copies): the total, and the `top` that took
+    the most. Annotation ranges recorded on the device (the optimizer's
+    step) span kernels already counted and are left out. The profiler
+    slows the host, so the wall time to compare with comes from an
+    unprofiled run."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -127,12 +153,31 @@ def device_time(fn) -> dict:
         fn()
         torch.cuda.synchronize()
     rows = [(e.key, e.self_device_time_total / 1e3, e.count)
-            for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False)]
     rows.sort(key=lambda r: -r[1])
     return {
         "device_ms": sum(r[1] for r in rows),
-        "top": [{"op": k[:60], "ms": ms, "count": n} for k, ms, n in rows[:5]],
+        "top": [{"op": k[:60], "ms": ms, "count": n} for k, ms, n in rows[:top]],
     }
+
+
+def _counts() -> dict:
+    """Every kernel's launch count, under its name in the kernels line."""
+    return {
+        "flash_attention_fwd": flash_mod.flash_attention.launches,
+        "flash_attention_bwd_dq": flash_mod._flash_bwd_dq.launches,
+        "flash_attention_bwd_dkv": flash_mod._flash_bwd_dkv.launches,
+        "rmsnorm": rmsnorm_mod.rmsnorm.launches,
+    }
+
+
+def reset_counts() -> None:
+    """Sets every kernel's launch count to 0."""
+    flash_mod.flash_attention.launches = 0
+    flash_mod._flash_bwd_dq.launches = 0
+    flash_mod._flash_bwd_dkv.launches = 0
+    rmsnorm_mod.rmsnorm.launches = 0
 
 
 def require(ok: bool, what: str) -> None:
@@ -184,7 +229,8 @@ def _causal_pairs(seq_q: int, seq_k: int, causal: bool) -> int:
 # test shapes, ragged lengths no Pallas block divides, more queries than keys
 # (rows that see no key), and every shape the main path gives the kernel:
 # the serve buckets 1, 4 and 8 at 512 tokens, and generate's forward of 4
-# prompts of 32 tokens. Times are taken at FLASH_TIMED.
+# prompts of 32 tokens, and the train step's 12 x 1024. The plain version's
+# and the library's times are taken at FLASH_TIMED and FLASH_TRAIN.
 FLASH_CHECKS = [
     ("s256_d64_causal", 2, 4, 256, 256, 64, True, torch.float32, F32_TOL),
     ("s256_d64_full", 2, 4, 256, 256, 64, False, torch.float32, F32_TOL),
@@ -197,13 +243,17 @@ FLASH_CHECKS = [
     ("serve_b1_h32_s512_d128_bf16", 1, 32, 512, 512, 128, True, torch.bfloat16, BF16_TOL),
     ("serve_b4_h32_s512_d128_bf16", 4, 32, 512, 512, 128, True, torch.bfloat16, BF16_TOL),
     ("serve_b8_h32_s512_d128_bf16", 8, 32, 512, 512, 128, True, torch.bfloat16, BF16_TOL),
+    ("train_b12_h32_s1024_d128_bf16", 12, 32, 1024, 1024, 128, True, torch.bfloat16, BF16_TOL),
 ]
 FLASH_TIMED = "serve_b8_h32_s512_d128_bf16"
+FLASH_TRAIN = "train_b12_h32_s1024_d128_bf16"
 # (name, x shape, dtype, offset, tol): any row count, an input whose data
 # starts 4 bytes past an aligned address (the wrapper copies it to an
-# aligned one), and every shape the main path gives the kernel: decode's
-# [4, 1, 4096], generate's forward, and the serve buckets. f32 is held by
-# its absolute error, bf16 in ulps. Times are taken at RMSNORM_TIMED.
+# aligned one), and every shape the main paths give the kernel: decode's
+# [4, 1, 4096], generate's forward, the serve buckets and the train step's
+# [12, 1024, 4096]. f32 is held by
+# its absolute error, bf16 in ulps. The plain version's and the library's
+# times are taken at RMSNORM_TIMED and RMSNORM_TRAIN.
 RMSNORM_CHECKS = [
     ("rows512_d512_f32", (4 * 128, 512), torch.float32, 0, RMSNORM_F32_TOL),
     ("odd_rows7_d512_f32", (7, 512), torch.float32, 0, RMSNORM_F32_TOL),
@@ -214,8 +264,34 @@ RMSNORM_CHECKS = [
     ("serve_b1_s512_d4096_bf16", (1, SERVE_SEQ, 4096), torch.bfloat16, 0, RMSNORM_BF16_ULPS),
     ("serve_b4_s512_d4096_bf16", (4, SERVE_SEQ, 4096), torch.bfloat16, 0, RMSNORM_BF16_ULPS),
     ("serve_b8_s512_d4096_bf16", (8, SERVE_SEQ, 4096), torch.bfloat16, 0, RMSNORM_BF16_ULPS),
+    ("train_b12_s1024_d4096_bf16", (12, 1024, 4096), torch.bfloat16, 0, RMSNORM_BF16_ULPS),
 ]
 RMSNORM_TIMED = "serve_b8_s512_d4096_bf16"
+RMSNORM_TRAIN = "train_b12_s1024_d4096_bf16"
+
+
+# (name, batch, heads, seq_q, seq_k, head_dim, causal, dtype, tol, unit):
+# tests/test_ops.py's backward shapes, bf16, ragged lengths no tile divides,
+# f32 at head_dim 128 (the largest shared-memory tile), more queries than
+# keys (rows that see no key), and the shape the train path gives the
+# kernels. Times are taken at BWD_TIMED.
+BWD_CHECKS = [
+    ("s256_d64_causal", 2, 4, 256, 256, 64, True, torch.float32, BWD_F32_TOL, "abs"),
+    ("s256_d64_full", 2, 4, 256, 256, 64, False, torch.float32, BWD_F32_TOL, "abs"),
+    ("s128_d32", 1, 2, 128, 128, 32, True, torch.float32, BWD_F32_TOL, "abs"),
+    ("sq64_sk128", 1, 2, 64, 128, 32, True, torch.float32, BWD_F32_TOL, "abs"),
+    ("bf16_s128_d64", 1, 2, 128, 128, 64, True, torch.bfloat16, BWD_BF16_TOL, "abs"),
+    ("ragged_s100_d64", 1, 3, 100, 100, 64, True, torch.float32, BWD_F32_TOL, "abs"),
+    ("f32_s192_d128", 1, 2, 192, 192, 128, True, torch.float32, BWD_F32_TOL, "abs"),
+    ("causal_sq130_sk70", 1, 2, 130, 70, 64, True, torch.float32, BWD_F32_TOL, "abs"),
+    ("ragged_sq37_sk200_bf16", 2, 2, 37, 200, 128, False, torch.bfloat16, BWD_BF16_TOL, "abs"),
+    ("ragged_sq37_sk200_causal_bf16", 2, 2, 37, 200, 128, True, torch.bfloat16, BWD_BF16_TOL,
+     "abs"),
+    ("train_b12_h32_s1024_d128_bf16", 12, 32, 1024, 1024, 128, True, torch.bfloat16,
+     BWD_TRAIN_REL_TOL,
+     "rel_to_max"),
+]
+BWD_TIMED = "train_b12_h32_s1024_d128_bf16"
 
 
 def _flash_bound(b, h, sq, sk, d, causal, dtype) -> tuple[float, str]:
@@ -223,6 +299,86 @@ def _flash_bound(b, h, sq, sk, d, causal, dtype) -> tuple[float, str]:
     size = torch.tensor([], dtype=dtype).element_size()
     nbytes = (2 * b * h * sq * d + 2 * b * h * sk * d) * size + b * h * sq * 4  # q k v o, LSE
     return bound(ops, nbytes, dtype)
+
+
+def _bwd_bounds(b, h, sq, sk, d, causal, dtype) -> dict:
+    """Bounds of the dQ kernel (QK^T, dO V^T, dS K; reads q k v O dO LSE,
+    writes dQ and delta) and of the dK/dV kernel (K Q^T, V dO^T, P^T dO,
+    dS^T Q; reads q k v dO LSE delta, writes dK dV): 2 * d operations per
+    product and visible pair."""
+    pairs = b * h * _causal_pairs(sq, sk, causal)
+    size = torch.tensor([], dtype=dtype).element_size()
+    rows_f32 = 2 * b * h * sq * 4
+    return {
+        "dq": bound(3 * 2 * d * pairs, (4 * sq + 2 * sk) * b * h * d * size + rows_f32, dtype),
+        "dkv": bound(4 * 2 * d * pairs, (2 * sq + 4 * sk) * b * h * d * size + rows_f32, dtype),
+    }
+
+
+def _bwd_err(out: torch.Tensor, plain: torch.Tensor, unit: str) -> float:
+    err = max_err(out, plain)
+    return err / float(plain.float().abs().max()) if unit == "rel_to_max" else err
+
+
+def _bwd_entries(gen) -> list[dict]:
+    """The dQ and dK/dV kernels against _flash_backward_reference."""
+    checks = []
+    for name, b, h, sq, sk, d, causal, dtype, tol, unit in BWD_CHECKS:
+        q = _randn(gen, (b, h, sq, d), dtype)
+        k = _randn(gen, (b, h, sk, d), dtype)
+        v = _randn(gen, (b, h, sk, d), dtype)
+        do = _randn(gen, (b, h, sq, d), dtype)
+        out, lse = flash_mod._flash_forward(q, k, v, causal=causal)
+        dq, dk, dv = flash_mod._flash_backward(q, k, v, out, lse, do, causal=causal)
+        torch.cuda.synchronize()
+        plain = flash_mod._flash_backward_reference(q, k, v, out, lse, do, causal=causal)
+        for got, want, which in zip((dq, dk, dv), plain, ("dq", "dk", "dv")):
+            require(got.dtype == want.dtype and got.shape == want.shape,
+                    f"flash bwd {name}: {which} shape/dtype")
+        errs = [_bwd_err(got, want, unit) for got, want in zip((dq, dk, dv), plain)]
+        abs_errs = [max_err(got, want) for got, want in zip((dq, dk, dv), plain)]
+        check = dict(shape=name, unit=unit, tol=tol, dq_err=errs[0], dk_err=errs[1],
+                     dv_err=errs[2], dq_abs=abs_errs[0], dkv_abs=max(abs_errs[1:]))
+        checks.append(check)
+        require(max(errs) < tol, f"flash bwd {name}: dq/dk/dv vs plain {errs} ({unit}) >= {tol}")
+        if name == BWD_TIMED:
+            inputs = (q, k, v, out, lse, do, dq, dk, dv)
+        del out, lse, dq, dk, dv, plain
+    q, k, v, out, lse, do, dq, dk, dv = inputs
+    timed = checks[[c["shape"] for c in checks].index(BWD_TIMED)]
+    scale = q.shape[-1] ** -0.5
+    delta = torch.empty(q.shape[:3], dtype=torch.float32, device="cuda")
+    dq_ms = time_ms(lambda: flash_mod._flash_bwd_dq(q, k, v, out, do, lse, delta, dq, True, scale))
+    dkv_ms = time_ms(
+        lambda: flash_mod._flash_bwd_dkv(q, k, v, do, lse, delta, dk, dv, True, scale)
+    )
+    plain_ms = time_ms(
+        lambda: flash_mod._flash_backward_reference(q, k, v, out, lse, do, causal=True), iters=5
+    )
+    # The library's backward of all three gradients, timed alone; the port
+    # never calls it.
+    ql, kl, vl = (t.detach().requires_grad_(True) for t in (q, k, v))
+    lib_out = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True)
+    library_ms = time_ms(
+        lambda: torch.autograd.grad(lib_out, (ql, kl, vl), do, retain_graph=True)
+    )
+    del lib_out
+    bounds = _bwd_bounds(*q.shape[:3], k.shape[2], q.shape[3], True, q.dtype)
+    common = dict(
+        route="cuda", source="ray_tpu_torch/ops/csrc/flash_attention_bwd.cu", launches=None,
+        unit=timed["unit"], tol=timed["tol"], plain_ms=plain_ms,
+        plain="_flash_backward_reference (dQ, dK and dV together)", library_ms=library_ms,
+        library="torch.autograd.grad through F.scaled_dot_product_attention (dQ, dK and dV)",
+        shape=BWD_TIMED, checks=checks,
+    )
+    return [
+        dict(name="flash_attention_bwd_dq", replaces="ray_tpu/ops/flash_attention.py:125",
+             max_abs_err=timed["dq_abs"], err=timed["dq_err"], ms=dq_ms,
+             bound_ms=bounds["dq"][0], bound_by=bounds["dq"][1], **common),
+        dict(name="flash_attention_bwd_dkv", replaces="ray_tpu/ops/flash_attention.py:167",
+             max_abs_err=timed["dkv_abs"], err=max(timed["dk_err"], timed["dv_err"]),
+             ms=dkv_ms, bound_ms=bounds["dkv"][0], bound_by=bounds["dkv"][1], **common),
+    ]
 
 
 def _rmsnorm_bound(rows, dim, dtype) -> tuple[float, str]:
@@ -238,7 +394,25 @@ def phase_kernels() -> list[dict]:
     gen.manual_seed(SEED)
     entries = []
 
-    checks = []
+    def flash_times(q, k, v) -> dict:
+        return dict(
+            plain_ms=time_ms(lambda: flash_mod.attention_reference(q, k, v, causal=True)),
+            library_ms=time_ms(  # seq_q == seq_k here, where its top-left causal mask agrees
+                lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True)
+            ),
+        )
+
+    def rmsnorm_times(x, w) -> dict:
+        dim = x.shape[-1]
+        return dict(
+            plain_ms=time_ms(lambda: rmsnorm_mod.rmsnorm_reference(x, w)),
+            library_ms=(
+                time_ms(lambda: F.rms_norm(x, (dim,), w, eps=1e-6))
+                if hasattr(F, "rms_norm") else None
+            ),
+        )
+
+    checks, kept = [], {}
     for name, b, h, sq, sk, d, causal, dtype, tol in FLASH_CHECKS:
         q = _randn(gen, (b, h, sq, d), dtype)
         k = _randn(gen, (b, h, sk, d), dtype)
@@ -257,27 +431,30 @@ def phase_kernels() -> list[dict]:
         require(out.dtype == dtype and out.shape == q.shape, f"flash {name}: output shape/dtype")
         require(err < tol, f"flash {name}: max |O - plain| = {err} >= {tol}")
         require(lse_err < LSE_TOL[dtype], f"flash {name}: max |LSE - plain| = {lse_err}")
-        if name == FLASH_TIMED:
-            timed, inputs = checks[-1], (q, k, v)
-    q, k, v = inputs
+        if name in (FLASH_TIMED, FLASH_TRAIN):
+            kept[name] = (checks[-1], (q, k, v))
+    timed, (q, k, v) = kept[FLASH_TIMED]
+    train, train_inputs = kept.pop(FLASH_TRAIN)
     bound_ms, bound_by = _flash_bound(*q.shape[:3], k.shape[2], q.shape[3], True, q.dtype)
     entries.append(dict(
         name="flash_attention_fwd", route="cuda",
         source="ray_tpu_torch/ops/csrc/flash_attention_fwd.cu",
         replaces="ray_tpu/ops/flash_attention.py:79",
         launches=None, max_abs_err=timed["max_abs_err"], err=timed["max_abs_err"], unit="abs",
-        tol=timed["tol"], ms=timed["kernel_ms"],
-        plain_ms=time_ms(lambda: flash_mod.attention_reference(q, k, v, causal=True)),
+        tol=timed["tol"], ms=timed["kernel_ms"], **flash_times(q, k, v),
         bound_ms=bound_ms, bound_by=bound_by,
-        library_ms=time_ms(  # seq_q == seq_k here, where its top-left causal mask agrees
-            lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True)
-        ),
         library="torch.nn.functional.scaled_dot_product_attention",
         shape=FLASH_TIMED, checks=checks,
+        at_train_shape=dict(shape=FLASH_TRAIN, ms=train["kernel_ms"], bound_ms=train["bound_ms"],
+                            **flash_times(*train_inputs)),
     ))
+    del kept, train_inputs
     _log_kernel(entries[-1])
+    for entry in _bwd_entries(gen):
+        entries.append(entry)
+        _log_kernel(entry)
 
-    checks = []
+    checks, kept = [], {}
     for name, shape, dtype, offset, tol in RMSNORM_CHECKS:
         rows, dim = int(np.prod(shape[:-1])), shape[-1]
         x = _randn(gen, (offset + rows * dim,), dtype)[offset:].view(shape)
@@ -296,23 +473,22 @@ def phase_kernels() -> list[dict]:
         ))
         require(y.dtype == dtype and y.shape == x.shape, f"rmsnorm {name}: output shape/dtype")
         require(err <= tol, f"rmsnorm {name}: y vs plain {err} {unit} > {tol}")
-        if name == RMSNORM_TIMED:
-            timed, inputs = checks[-1], (x, w)
-    x, w = inputs
+        if name in (RMSNORM_TIMED, RMSNORM_TRAIN):
+            kept[name] = (checks[-1], (x, w))
+    timed, (x, w) = kept[RMSNORM_TIMED]
+    train, train_inputs = kept[RMSNORM_TRAIN]
     dim = x.shape[-1]
     bound_ms, bound_by = _rmsnorm_bound(x.numel() // dim, dim, x.dtype)
     entries.append(dict(
         name="rmsnorm", route="cuda", source="ray_tpu_torch/ops/csrc/rmsnorm.cu",
         replaces="ray_tpu/ops/rmsnorm.py:17",
         launches=None, max_abs_err=timed["max_abs_err"], err=timed["err"], unit=timed["unit"],
-        tol=timed["tol"], ms=timed["kernel_ms"],
-        plain_ms=time_ms(lambda: rmsnorm_mod.rmsnorm_reference(x, w)),
+        tol=timed["tol"], ms=timed["kernel_ms"], **rmsnorm_times(x, w),
         bound_ms=bound_ms, bound_by=bound_by,
-        library_ms=(
-            time_ms(lambda: F.rms_norm(x, (dim,), w, eps=1e-6)) if hasattr(F, "rms_norm") else None
-        ),
         library="torch.nn.functional.rms_norm",
         shape=RMSNORM_TIMED, checks=checks,
+        at_train_shape=dict(shape=RMSNORM_TRAIN, ms=train["kernel_ms"], bound_ms=train["bound_ms"],
+                            **rmsnorm_times(*train_inputs)),
     ))
     _log_kernel(entries[-1])
     return entries
@@ -322,7 +498,8 @@ def _log_kernel(e: dict) -> None:
     log("kernels", name=e["name"], max_err=e["max_abs_err"], err=e["err"], unit=e["unit"],
         tol=e["tol"],
         kernel_ms=e["ms"], plain_ms=e["plain_ms"], library_ms=e["library_ms"],
-        bound_ms=e["bound_ms"], bound_by=e["bound_by"], checks=e["checks"])
+        bound_ms=e["bound_ms"], bound_by=e["bound_by"], at_train_shape=e.get("at_train_shape"),
+        checks=e["checks"])
 
 
 # ---------------------------------------------------------------- phase 4
@@ -453,6 +630,127 @@ def phase_generate(params: dict, config: TransformerConfig) -> dict:
     return result
 
 
+# ---------------------------------------------------------------- phase 7
+# bench.py:561-565: the JAX package's training main path at full width and
+# depth; bench.py:565 and :571 for the batch, the steps and the optimizer.
+TRAIN_CONFIG = dict(
+    vocab_size=8192, dim=4096, n_layers=3, n_heads=32, n_kv_heads=32, hidden_dim=16384,
+    max_seq=1024, dtype=torch.bfloat16,
+)
+TRAIN_BATCH, TRAIN_STEPS = 12, 10
+PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16, the MFU denominator
+# Kernel path against plain attention in the same bf16 model, one step:
+# each gradient leaf by its relative Frobenius error. The two attentions
+# round P at other places (the kernels unnormalised, the plain version
+# normalised), so O and dQ, dK, dV differ by a bf16 ulp (2^-8 relative) in
+# some elements; summed over 12,288 tokens those differences add with
+# random signs and stay near that level in a leaf's gradient. Bound 5e-2,
+# an order above it: a dQ or dK/dV kernel that drops, repeats or
+# transposes a tile moves wq's, wk's and wv's gradients by order 1. The
+# loss (about ln 8192 = 9.0, from bf16 logits) is held to 1e-2 absolute.
+TRAIN_GRAD_REL_TOL = 5e-2
+TRAIN_LOSS_TOL = 1e-2
+
+
+def _rel_frobenius(a: torch.Tensor, b: torch.Tensor) -> float:
+    return float((a.float() - b.float()).norm() / b.float().norm().clamp_min(1e-30))
+
+
+def phase_train() -> dict:
+    """Returns the phase's numbers and how many forward and backward passes
+    it ran through the kernels, and forward passes with plain attention."""
+    config = TransformerConfig(**TRAIN_CONFIG)
+    params = init_params(config, seed=SEED, device="cuda")
+    optimizer = make_optimizer(params)
+    names, leaves = zip(*named_leaves(params))
+    rng = np.random.default_rng(SEED + 3)
+    tokens = torch.from_numpy(
+        rng.integers(0, config.vocab_size, (TRAIN_BATCH, config.max_seq + 1))
+    ).cuda()
+    inputs, targets = tokens[:, :-1], tokens[:, 1:]
+    passes = {"kernel_forwards": 0, "kernel_backwards": 0, "plain_forwards": 0}
+
+    # One step's loss and gradients, kernel path against plain attention.
+    loss_k = loss_fn(params, inputs, targets, config)
+    grads_k = torch.autograd.grad(loss_k, leaves)
+    plain_config = dataclasses.replace(config, attention="reference")
+    loss_p = loss_fn(params, inputs, targets, plain_config)
+    grads_p = torch.autograd.grad(loss_p, leaves)
+    passes["kernel_forwards"] += 1
+    passes["kernel_backwards"] += 1
+    passes["plain_forwards"] += 1
+    grad_errs = {n: _rel_frobenius(a, b) for n, a, b in zip(names, grads_k, grads_p)}
+    loss_err = abs(float(loss_k.detach()) - float(loss_p.detach()))
+    del grads_k, grads_p, loss_k, loss_p
+    torch.cuda.empty_cache()
+    log("train_check", loss_err=loss_err, loss_tol=TRAIN_LOSS_TOL, grad_rel_frobenius=grad_errs,
+        grad_tol=TRAIN_GRAD_REL_TOL)
+    require(loss_err < TRAIN_LOSS_TOL, f"train: kernel vs plain loss {loss_err}")
+    worst = max(grad_errs, key=grad_errs.get)
+    require(grad_errs[worst] < TRAIN_GRAD_REL_TOL,
+            f"train: {worst} gradient kernel vs plain {grad_errs[worst]} >= {TRAIN_GRAD_REL_TOL}")
+
+    torch.cuda.reset_peak_memory_stats()
+    first_loss = float(train_step(params, optimizer, tokens, config))  # warm-up
+    before = _counts()
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    losses = [train_step(params, optimizer, tokens, config) for _ in range(TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - start
+    after = _counts()
+    passes["kernel_forwards"] += 1 + TRAIN_STEPS
+    passes["kernel_backwards"] += 1 + TRAIN_STEPS
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    losses = [float(x) for x in losses]
+    per_step = {name: (after[name] - before[name]) / TRAIN_STEPS for name in after}
+    layers = config.n_layers
+    want_per_step = {"flash_attention_fwd": layers, "flash_attention_bwd_dq": layers,
+                     "flash_attention_bwd_dkv": layers, "rmsnorm": 2 * layers + 1}
+    require(all(np.isfinite(losses)), f"train: non-finite loss {losses}")
+    require(losses[-1] < first_loss, f"train: loss did not fall ({first_loss} -> {losses[-1]})")
+    require(per_step == want_per_step, f"train: launches per step {per_step} != {want_per_step}")
+
+    step_ms = 1e3 * elapsed / TRAIN_STEPS
+    tokens_per_s = TRAIN_BATCH * config.max_seq / (step_ms / 1e3)
+    n_params = num_params(params)
+    prof = device_time(lambda: train_step(params, optimizer, tokens, config), top=8)
+
+    # The forward / backward / optimizer split, after the timed window.
+    split = {"forward_ms": 0.0, "backward_ms": 0.0, "optimizer_ms": 0.0}
+    reps = 2
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = loss_fn(params, inputs, targets, config)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        loss.backward()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        optimizer.step()
+        optimizer.zero_grad(set_to_none=True)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        for key, dt in zip(split, (t1 - t0, t2 - t1, t3 - t2)):
+            split[key] += 1e3 * dt / reps
+    passes["kernel_forwards"] += 1 + reps
+    passes["kernel_backwards"] += 1 + reps
+
+    result = dict(
+        config="bench.py:561-565", layers=layers, dim=config.dim, hidden=config.hidden_dim,
+        vocab=config.vocab_size, batch=TRAIN_BATCH, seq=config.max_seq, dtype=str(config.dtype),
+        params=n_params, steps=TRAIN_STEPS, first_loss=first_loss, losses=losses,
+        step_ms=step_ms, tokens_per_s=tokens_per_s,
+        mfu=6.0 * n_params * tokens_per_s / PEAK_BF16_FLOPS, peak_gib=peak_gib,
+        step_device_ms=prof["device_ms"], device_idle_share=1.0 - prof["device_ms"] / step_ms,
+        step_top=prof["top"], split=split, launches_per_step=per_step,
+        grad_check_worst=worst, grad_check_worst_err=grad_errs[worst], **passes,
+    )
+    log("train", **result)
+    return result
+
+
 # ---------------------------------------------------------------- main
 def main() -> None:
     phase_device()
@@ -467,29 +765,47 @@ def main() -> None:
         dtype=str(config.dtype), seconds=time.perf_counter() - start,
         gib=torch.cuda.memory_allocated() / 2**30)
 
-    # The main path runs from here: every count starts at 0.
-    flash_mod.flash_attention.launches = 0
-    rmsnorm_mod.rmsnorm.launches = 0
+    # The serving path runs from here: every count starts at 0.
+    reset_counts()
     torch.cuda.reset_peak_memory_stats()
     serve = phase_serve(params, config)
     gen = phase_generate(params, config)
-    flash_launches = flash_mod.flash_attention.launches
-    rmsnorm_launches = rmsnorm_mod.rmsnorm.launches
+    serve_counts = _counts()
 
     forwards = serve["forwards"] + gen["forwards"]
     layers = config.n_layers
-    want_flash = layers * forwards
-    want_rmsnorm = (2 * layers + 1) * (forwards + gen["decode_steps"])
-    log("launches", flash_attention=flash_launches, rmsnorm=rmsnorm_launches,
-        forwards=forwards, decode_steps=gen["decode_steps"],
-        expected_flash=want_flash, expected_rmsnorm=want_rmsnorm,
-        peak_gib=torch.cuda.max_memory_allocated() / 2**30)
-    require(flash_launches == want_flash, "flash kernel launches do not match the path")
-    require(rmsnorm_launches == want_rmsnorm, "rmsnorm kernel launches do not match the path")
-    entries[0]["launches"] = flash_launches
-    entries[1]["launches"] = rmsnorm_launches
-    for e in entries:  # the same numbers under the names the phase-3 lines use
-        e["max_err"], e["kernel_ms"] = e["max_abs_err"], e["ms"]
+    want = {
+        "flash_attention_fwd": layers * forwards, "flash_attention_bwd_dq": 0,
+        "flash_attention_bwd_dkv": 0,
+        "rmsnorm": (2 * layers + 1) * (forwards + gen["decode_steps"]),
+    }
+    log("launches", path="serve", counts=serve_counts, expected=want, forwards=forwards,
+        decode_steps=gen["decode_steps"], peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    require(serve_counts == want, "serve: kernel launches do not match the path")
+    del params
+    torch.cuda.empty_cache()
+
+    # The training path runs from here: every count starts at 0 again.
+    reset_counts()
+    train = phase_train()
+    train_counts = _counts()
+    layers = TRAIN_CONFIG["n_layers"]
+    want = {
+        "flash_attention_fwd": layers * train["kernel_forwards"],
+        "flash_attention_bwd_dq": layers * train["kernel_backwards"],
+        "flash_attention_bwd_dkv": layers * train["kernel_backwards"],
+        "rmsnorm": (2 * layers + 1) * (train["kernel_forwards"] + train["plain_forwards"]),
+    }
+    log("launches", path="train", counts=train_counts, expected=want,
+        kernel_forwards=train["kernel_forwards"], kernel_backwards=train["kernel_backwards"],
+        plain_forwards=train["plain_forwards"])
+    require(train_counts == want, "train: kernel launches do not match the path")
+
+    for e in entries:
+        by_path = {"serve": serve_counts[e["name"]], "train": train_counts[e["name"]]}
+        e["launches"], e["launches_by_path"] = sum(by_path.values()), by_path
+        require(e["launches"] > 0, f"{e['name']}: no launch on the main paths")
+        e["max_err"], e["kernel_ms"] = e["max_abs_err"], e["ms"]  # the phase-3 lines' names
 
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {

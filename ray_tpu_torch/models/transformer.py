@@ -1,30 +1,36 @@
-"""LLaMA-style decoder-only transformer: the serving path, in PyTorch.
+"""LLaMA-style decoder-only transformer, for serving and training, in PyTorch.
 
 Port of ray_tpu's ``models/transformer.py``: the config, parameter init,
-``forward`` and the KV-cache ``init_kv_cache`` / ``decode_step``. The
-parameter tree keeps the JAX package's names and layouts (weights
-``[in, out]`` used as ``h @ w``, the layer dim stacked first), so the JAX
-parameters load one to one (``models/convert.py``).
+``forward``, the loss (``logits_loss``, ``loss_fn``) and the KV-cache
+``init_kv_cache`` / ``decode_step``. The parameter tree keeps the JAX
+package's names and layouts (weights ``[in, out]`` used as ``h @ w``, the
+layer dim stacked first), so the JAX parameters load one to one
+(``models/convert.py``).
 
-  * Layers run as a Python loop over the stacked layer dim.
+  * ``forward`` serves inference and training alike: under autograd the
+    gradients flow through the flash kernels (forward, dQ, dK/dV) and the
+    RMSNorm kernel's autograd Function.
+  * Layers run as a Python loop over the stacked layer dim, each under the
+    config's remat policy when autograd records.
   * Attention goes through the flash-attention kernel (``attention="flash"``),
     the plain ``attention_reference`` (``"reference"``) or a callable.
   * Every norm goes through the RMSNorm kernel: 2 per layer and the final
     one, 65 launches per forward pass or decode step at 32 layers.
   * Weights default to bf16; norms, RoPE, SwiGLU and softmax math is f32.
-
-Only inference exists in this module: the flash kernel has no backward yet,
-so ``remat`` is kept as a config field and has no effect.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Callable
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import (
+    CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts,
+)
 
 from ray_tpu_torch import resolve_device
 from ray_tpu_torch.ops.flash_attention import attention_reference, flash_attention
@@ -56,8 +62,9 @@ class TransformerConfig:
     moe: MoEConfig | None = None
     # "flash" | "reference" | callable(q, k, v, causal) -> o
     attention: Any = "flash"
-    # Rematerialization policy of the JAX package's training path: None,
-    # "dots" or "full". Validated, and without effect under inference.
+    # Rematerialization of each layer under autograd: None saves every
+    # activation, "full" recomputes the layer in the backward, "dots" saves
+    # only the matrix products' outputs and recomputes the rest.
     remat: str | None = None
 
     @property
@@ -161,8 +168,11 @@ def _embed(table: torch.Tensor, tokens) -> torch.Tensor:
     return table[ids.to(table.device)]
 
 
-def _layer(layers: dict, i: int) -> dict:
-    return {name: w[i] for name, w in layers.items()}
+def _per_layer(layers: dict) -> list[dict]:
+    """The stacked layer tree as one dict per layer. unbind, not indexing:
+    its backward stacks the layers' gradients once."""
+    names = list(layers)
+    return [dict(zip(names, ws)) for ws in zip(*(layers[n].unbind(0) for n in names))]
 
 
 def _attention_block(x, layer, config, cos_sin, positions, attention_fn):
@@ -181,15 +191,60 @@ def _attention_block(x, layer, config, cos_sin, positions, attention_fn):
     return x + (o @ layer["wo"]).to(x.dtype)
 
 
+class _SiluMul(torch.autograd.Function):
+    """silu(gate) * up with f32 math and residency in the inputs' dtype: it
+    saves only gate and up, and the backward recomputes the f32
+    intermediates from them (the JAX model's ``jax.checkpoint``)."""
+
+    @staticmethod
+    def forward(ctx, gate, up):
+        ctx.save_for_backward(gate, up)
+        return (F.silu(gate.float()) * up.float()).to(gate.dtype)
+
+    @staticmethod
+    def backward(ctx, dy):
+        gate, up = ctx.saved_tensors
+        g, dyf = gate.float(), dy.float()
+        sig = torch.sigmoid(g)
+        d_up = dyf * g * sig
+        d_gate = dyf * up.float() * sig * (1.0 + g * (1.0 - sig))
+        return d_gate.to(gate.dtype), d_up.to(up.dtype)
+
+
 def _silu_mul(gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
     """silu(gate) * up with f32 math, stored in gate's dtype."""
-    return (F.silu(gate.float()) * up.float()).to(gate.dtype)
+    return _SiluMul.apply(gate, up)
 
 
 def _dense_mlp(h: torch.Tensor, layer: dict) -> torch.Tensor:
     gate = (h @ layer["w_gate"]).to(h.dtype)
     up = (h @ layer["w_up"]).to(h.dtype)
     return _silu_mul(gate, up) @ layer["w_down"]
+
+
+def _layer_step(x, layer, config, cos_sin, positions, attention_fn):
+    x = _attention_block(x, layer, config, cos_sin, positions, attention_fn)
+    h = rmsnorm(x, layer["mlp_norm"])
+    return x + _dense_mlp(h, layer).to(x.dtype)
+
+
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default, torch.ops.aten.bmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    """The counterpart of ``dots_with_no_batch_dims_saveable``: keep the
+    outputs of the matrix products, recompute everything else."""
+    return CheckpointPolicy.MUST_SAVE if op in _DOTS else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(step: Callable, policy: str | None) -> Callable:
+    """``step`` under the remat policy: None, "full" or "dots"."""
+    if policy is None:
+        return step
+    kwargs = {"use_reentrant": False}
+    if policy == "dots":
+        kwargs["context_fn"] = functools.partial(create_selective_checkpoint_contexts, _save_dots)
+    return lambda *args: checkpoint(step, *args, **kwargs)
 
 
 def forward(
@@ -206,14 +261,32 @@ def forward(
         config.head_dim, config.max_seq, config.rope_theta, device=embed.device
     )
     x = _embed(embed, tokens)
-    layers = params["layers"]
-    for i in range(layers["wq"].shape[0]):
-        layer = _layer(layers, i)
-        x = _attention_block(x, layer, config, (cos, sin), positions, attention_fn)
-        h = rmsnorm(x, layer["mlp_norm"])
-        x = x + _dense_mlp(h, layer).to(x.dtype)
+    step = _remat(_layer_step, config.remat if torch.is_grad_enabled() else None)
+    for layer in _per_layer(params["layers"]):
+        x = step(x, layer, config, (cos, sin), positions, attention_fn)
     x = rmsnorm(x, params["final_norm"])
     return (x @ params["lm_head"]).float()
+
+
+def logits_loss(
+    logits: torch.Tensor, targets, mask: torch.Tensor | None = None
+) -> torch.Tensor:
+    """Token cross-entropy from logits [..., vocab]: the mean over tokens,
+    or over the tokens where ``mask`` is set. f32 log-softmax."""
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    targets = torch.as_tensor(targets, device=logits.device).long()
+    nll = -logp.gather(-1, targets.unsqueeze(-1)).squeeze(-1)
+    if mask is not None:
+        mask = torch.as_tensor(mask, device=logits.device).to(nll.dtype)
+        return (nll * mask).sum() / mask.sum().clamp_min(1.0)
+    return nll.mean()
+
+
+def loss_fn(
+    params: dict, tokens, targets, config: TransformerConfig,
+    mask: torch.Tensor | None = None,
+) -> torch.Tensor:
+    return logits_loss(forward(params, tokens, config), targets, mask)
 
 
 def num_params(params: dict) -> int:
@@ -311,9 +384,7 @@ def decode_step(
     write_at = length.clamp(max=cache_len - 1).long().view(1)
     visible = torch.arange(cache_len, device=device) <= length
     rep = config.n_heads // config.n_kv_heads
-    layers = params["layers"]
-    for i in range(layers["wq"].shape[0]):
-        layer = _layer(layers, i)
+    for i, layer in enumerate(_per_layer(params["layers"])):
         k_cache, v_cache = k_all[i], v_all[i]
         h = rmsnorm(x, layer["attn_norm"])
         q = (h @ layer["wq"]).view(batch, 1, config.n_heads, hd).transpose(1, 2)

@@ -21,165 +21,18 @@
 // stops at the last tile the causal mask needs. S and P never reach
 // device memory. bf16 products run on the tensor cores (mma.sync
 // m16n8k16, f32 accumulation); f32 inputs use f32 FMAs in the same
-// register layout, so both types share the softmax code. Plain loads
-// (no TMA, no wgmma, no pipelining) keep this first version simple.
+// register layout (flash_common.cuh), so both types share the softmax
+// code. Plain loads (no TMA, no wgmma, no pipelining) keep this first
+// version simple.
 //
 // Any seq_q and seq_k work: rows past seq_q are neither computed into O
 // nor stored, and keys past seq_k score -inf, so they weigh nothing.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "flash_common.cuh"
 
 namespace {
 
-constexpr int kBlockM = 64;  // q rows per block, 16 per warp
-constexpr int kBlockN = 64;  // keys per kv tile
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * 32;
-constexpr float kMasked = -1e30f;
-
-// Row padding of the shared-memory tiles: 16 bytes, which keeps every row
-// 16-byte aligned and shifts consecutive rows by four banks.
-template <typename T> struct Pad;
-template <> struct Pad<float> { static constexpr int value = 4; };
-template <> struct Pad<__nv_bfloat16> { static constexpr int value = 8; };
-
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// d += a * b for one m16n8k16 tile: bf16 operands, f32 accumulator.
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// Copies rows [row0, row0 + kRows) of a [seq, D] matrix into shared memory
-// (row stride D + pad) in 16-byte pieces, writing zeros past `seq`.
-template <typename T, int D, int kRows>
-__device__ __forceinline__ void load_tile(T* smem, const T* gmem, int row0, int seq) {
-  constexpr int kVec = 16 / sizeof(T);
-  constexpr int kVecPerRow = D / kVec;
-  constexpr int LD = D + Pad<T>::value;
-  for (int i = threadIdx.x; i < kRows * kVecPerRow; i += kThreads) {
-    const int r = i / kVecPerRow;
-    const int c = (i % kVecPerRow) * kVec;
-    int4 val = make_int4(0, 0, 0, 0);
-    if (row0 + r < seq) {
-      val = *reinterpret_cast<const int4*>(gmem + (size_t)(row0 + r) * D + c);
-    }
-    *reinterpret_cast<int4*>(smem + r * LD + c) = val;
-  }
-}
-
-// Accumulator layout shared by both types (that of mma.sync m16n8k16):
-// with g = lane / 4 and t = lane % 4, element e of n-tile j holds
-// row g + 8 * (e / 2), column 8 * j + 2 * t + e % 2.
-
-// s = Q K^T for this warp's 16 rows and the tile's 64 keys.
-template <int D>
-__device__ __forceinline__ void qk_tile(float (&s)[8][4], const __nv_bfloat16* sQ,
-                                        const __nv_bfloat16* sK, int lane) {
-  constexpr int LD = D + Pad<__nv_bfloat16>::value;
-  const int g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int j = 0; j < 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-#pragma unroll
-  for (int kk = 0; kk < D; kk += 16) {
-    uint32_t a[4];
-    a[0] = ld32(sQ + g * LD + kk + 2 * t);
-    a[1] = ld32(sQ + (g + 8) * LD + kk + 2 * t);
-    a[2] = ld32(sQ + g * LD + kk + 2 * t + 8);
-    a[3] = ld32(sQ + (g + 8) * LD + kk + 2 * t + 8);
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      uint32_t b[2];
-      b[0] = ld32(sK + (8 * j + g) * LD + kk + 2 * t);
-      b[1] = ld32(sK + (8 * j + g) * LD + kk + 2 * t + 8);
-      mma_bf16(s[j], a, b);
-    }
-  }
-}
-
-template <int D>
-__device__ __forceinline__ void qk_tile(float (&s)[8][4], const float* sQ, const float* sK,
-                                        int lane) {
-  constexpr int LD = D + Pad<float>::value;
-  const int g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const float* qrow = sQ + (g + 8 * (e >> 1)) * LD;
-      const float* krow = sK + (8 * j + 2 * t + (e & 1)) * LD;
-      float acc = 0.f;
-#pragma unroll 8
-      for (int k = 0; k < D; ++k) acc = fmaf(qrow[k], krow[k], acc);
-      s[j][e] = acc;
-    }
-  }
-}
-
-// o += P V for this warp's 16 rows; P is [16, 64] with row stride LDP.
-template <int D>
-__device__ __forceinline__ void pv_tile(float (&o)[D / 8][4], const __nv_bfloat16* sP,
-                                        const __nv_bfloat16* sV, int lane) {
-  constexpr int LD = D + Pad<__nv_bfloat16>::value;
-  constexpr int LDP = kBlockN + Pad<__nv_bfloat16>::value;
-  const int g = lane >> 2, t = lane & 3;
-  const unsigned short* v = reinterpret_cast<const unsigned short*>(sV);
-#pragma unroll
-  for (int kk = 0; kk < kBlockN; kk += 16) {
-    uint32_t a[4];
-    a[0] = ld32(sP + g * LDP + kk + 2 * t);
-    a[1] = ld32(sP + (g + 8) * LDP + kk + 2 * t);
-    a[2] = ld32(sP + g * LDP + kk + 2 * t + 8);
-    a[3] = ld32(sP + (g + 8) * LDP + kk + 2 * t + 8);
-    const int r0 = kk + 2 * t;
-#pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
-      const int col = 8 * j + g;
-      uint32_t b[2];
-      // B fragment: keys r0, r0 + 1 (and r0 + 8, r0 + 9) of column col,
-      // the lower key in the low half.
-      b[0] = uint32_t(v[r0 * LD + col]) | (uint32_t(v[(r0 + 1) * LD + col]) << 16);
-      b[1] = uint32_t(v[(r0 + 8) * LD + col]) | (uint32_t(v[(r0 + 9) * LD + col]) << 16);
-      mma_bf16(o[j], a, b);
-    }
-  }
-}
-
-template <int D>
-__device__ __forceinline__ void pv_tile(float (&o)[D / 8][4], const float* sP, const float* sV,
-                                        int lane) {
-  constexpr int LD = D + Pad<float>::value;
-  constexpr int LDP = kBlockN + Pad<float>::value;
-  const int g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int j = 0; j < D / 8; ++j) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const float* prow = sP + (g + 8 * (e >> 1)) * LDP;
-      const float* vcol = sV + 8 * j + 2 * t + (e & 1);
-      float acc = 0.f;
-#pragma unroll 8
-      for (int k = 0; k < kBlockN; ++k) acc = fmaf(prow[k], vcol[k * LD], acc);
-      o[j][e] += acc;
-    }
-  }
-}
+using namespace flash;
 
 template <typename T, int D>
 constexpr size_t smem_bytes() {

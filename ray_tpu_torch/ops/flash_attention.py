@@ -1,14 +1,20 @@
-"""Flash attention forward: a hand-written CUDA kernel
-(``csrc/flash_attention_fwd.cu``) and its plain version.
+"""Flash attention, forward and backward: hand-written CUDA kernels
+(``csrc/flash_attention_fwd.cu``, ``csrc/flash_attention_bwd.cu``) and
+their plain versions.
 
-``flash_attention`` launches the kernel for CUDA tensors and uses the plain
-``attention_reference`` only for tensors on the CPU. The causal mask is
-aligned to the END of the keys (``causal_offset = seq_k - seq_q``, the
-decode convention), and masked scores are -1e30, not -inf.
+``flash_attention`` is differentiable through ``_FlashAttention``, the
+counterpart of the JAX package's ``_flash_vjp``: the forward saves
+(q, k, v, O, LSE) and the backward recomputes P tile by tile in the dQ and
+dK/dV kernels. For CUDA tensors both passes launch the kernels; the plain
+``attention_reference`` and ``_flash_backward_reference`` serve only
+tensors on the CPU. The causal mask is aligned to the END of the keys
+(``causal_offset = seq_k - seq_q``, the decode convention), and masked
+scores are -1e30, not -inf.
 
-Only the forward pass exists: the backward kernels are not ported yet, so
-an input that requires grad raises ``NotImplementedError`` rather than
-giving a result with no gradient.
+A query row that sees no key (causal with seq_q > seq_k) gets equal
+weights over every key, as ``attention_reference`` gives it. Its gradient is
+that function's derivative: its dQ and its share of dK are zero (its masked
+scores do not depend on q or k) and it adds dO / seq_k to every dV row.
 """
 
 from __future__ import annotations
@@ -53,16 +59,55 @@ def _lse_reference(
     return torch.logsumexp(s, dim=-1)
 
 
+def _flash_backward_reference(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
+    lse: torch.Tensor, do: torch.Tensor, *, causal: bool = True,
+    scale: float | None = None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The kernels' formulas on whole tensors: (dQ, dK, dV) in the dtypes
+    of q, k and v. P and dS are cast to q's dtype before their products;
+    every sum is f32."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    do = do.to(q.dtype)
+    dof = do.float()
+    delta = (dof * out.float()).sum(-1, keepdim=True)
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
+    p = torch.exp(s - lse.float()[..., None])
+    dp = torch.einsum("bhqd,bhkd->bhqk", dof, v.float())
+    ds = p * (dp - delta) * scale
+    if causal:
+        seq_q, seq_k = s.shape[-2:]
+        mask = _causal_mask(seq_q, seq_k, s.device)
+        sees_none = ~mask.any(-1, keepdim=True)  # rows that see no key
+        p = torch.where(mask, p, 0.0)
+        p = torch.where(sees_none, torch.full_like(p, 1.0 / seq_k), p)
+        ds = torch.where(mask, ds, 0.0)
+    p = p.to(q.dtype).float()
+    ds = ds.to(q.dtype).float()
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, k.float())
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, q.float())
+    dv = torch.einsum("bhqk,bhqd->bhkd", p, dof)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
 def _check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
-    if q.requires_grad or k.requires_grad or v.requires_grad:
-        raise NotImplementedError(
-            "flash_attention has no backward yet: call it under "
-            "torch.inference_mode() or on tensors that do not require grad"
-        )
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("q, k, v must be [batch, heads, seq, head_dim]")
     if k.shape[1] != q.shape[1] or v.shape != k.shape:
         raise ValueError("repeat kv heads before calling (GQA)")
+
+
+def _check_kernel_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+    """What the CUDA kernels take; raises on anything else."""
+    if q.device.type != "cuda" or k.device != q.device or v.device != q.device:
+        raise ValueError(f"flash_attention: q, k, v on {q.device}, {k.device}, {v.device}")
+    if q.dtype not in _KERNEL_DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(
+            f"flash kernel takes f32 or bf16 of one dtype, got {q.dtype}, {k.dtype}, {v.dtype}"
+        )
+    if q.shape[-1] not in _KERNEL_HEAD_DIMS:
+        raise ValueError(f"flash kernel takes head_dim in {_KERNEL_HEAD_DIMS}, got {q.shape[-1]}")
 
 
 def _flash_forward(
@@ -81,14 +126,7 @@ def _flash_forward(
             attention_reference(q, k, v, causal=causal, scale=scale),
             _lse_reference(q, k, causal=causal, scale=scale),
         )
-    if q.device.type != "cuda" or k.device != q.device or v.device != q.device:
-        raise ValueError(f"flash_attention: q, k, v on {q.device}, {k.device}, {v.device}")
-    if q.dtype not in _KERNEL_DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(
-            f"flash kernel takes f32 or bf16 of one dtype, got {q.dtype}, {k.dtype}, {v.dtype}"
-        )
-    if dim not in _KERNEL_HEAD_DIMS:
-        raise ValueError(f"flash kernel takes head_dim in {_KERNEL_HEAD_DIMS}, got {dim}")
+    _check_kernel_inputs(q, k, v)
     q, k, v = (_build.contiguous_aligned(t) for t in (q, k, v))
     out = torch.empty_like(q)
     lse = torch.empty(batch, heads, seq_q, dtype=torch.float32, device=q.device)
@@ -104,14 +142,98 @@ def _flash_forward(
     return out, lse
 
 
+def _flash_bwd_dq(q, k, v, out, do, lse, delta, dq, causal: bool, scale: float) -> None:
+    """Launches the dQ kernel, which also writes delta = rowsum(dO * O)."""
+    batch, heads, seq_q, dim = q.shape
+    _build.launch(
+        "rt_flash_bwd_dq", q.device,
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+        batch * heads, seq_q, k.shape[2], dim, int(q.dtype == torch.bfloat16),
+        int(causal), float(scale),
+    )
+    _flash_bwd_dq.launches += 1
+
+
+def _flash_bwd_dkv(q, k, v, do, lse, delta, dk, dv, causal: bool, scale: float) -> None:
+    """Launches the dK/dV kernel; delta comes from the dQ kernel."""
+    batch, heads, seq_q, dim = q.shape
+    _build.launch(
+        "rt_flash_bwd_dkv", q.device,
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+        delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        batch * heads, seq_q, k.shape[2], dim, int(q.dtype == torch.bfloat16),
+        int(causal), float(scale),
+    )
+    _flash_bwd_dkv.launches += 1
+
+
+def _flash_backward(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
+    lse: torch.Tensor, do: torch.Tensor, *, causal: bool = True,
+    scale: float | None = None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dQ, dK, dV) of flash attention from the forward's O and LSE and the
+    output's gradient dO, in the dtypes of q, k and v. dO is cast to q's
+    dtype first, as the JAX package does, before delta and both kernels."""
+    _check_inputs(q, k, v)
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    do = do.to(q.dtype)
+    if all(t.device.type == "cpu" for t in (q, k, v, out, lse, do)):
+        return _flash_backward_reference(q, k, v, out, lse, do, causal=causal, scale=scale)
+    _check_kernel_inputs(q, k, v)
+    if out.shape != q.shape or do.shape != q.shape or lse.shape != q.shape[:3]:
+        raise ValueError(
+            f"flash backward: O {tuple(out.shape)}, dO {tuple(do.shape)}, "
+            f"LSE {tuple(lse.shape)} for q {tuple(q.shape)}"
+        )
+    if lse.dtype != torch.float32 or any(t.device != q.device for t in (out, lse, do)):
+        raise ValueError("flash backward: LSE must be f32 and O, LSE, dO on q's device")
+    q, k, v, out, do = (_build.contiguous_aligned(t) for t in (q, k, v, out, do))
+    lse = lse.contiguous()
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    if q.numel() == 0 or k.numel() == 0:
+        return dq.zero_(), dk.zero_(), dv.zero_()
+    delta = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
+    _flash_bwd_dq(q, k, v, out, do, lse, delta, dq, causal, scale)
+    _flash_bwd_dkv(q, k, v, do, lse, delta, dk, dv, causal, scale)
+    return dq, dk, dv
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Mirrors the JAX package's ``_flash_vjp``: saves (q, k, v, O, LSE)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, scale: float):
+        if q.device.type == "cuda":  # save the copies the kernels read
+            q, k, v = (_build.contiguous_aligned(t) for t in (q, k, v))
+        out, lse = _flash_forward(q, k, v, causal=causal, scale=scale)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.scale = causal, scale
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = _flash_backward(q, k, v, out, lse, do, causal=ctx.causal, scale=ctx.scale)
+        return dq, dk, dv, None, None
+
+
 def flash_attention(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = True,
     scale: float | None = None,
 ) -> torch.Tensor:
     """q, k, v: [batch, heads, seq, head_dim] (kv heads repeated to q's by
-    the caller). Returns O, shaped and typed like q."""
-    return _flash_forward(q, k, v, causal=causal, scale=scale)[0]
+    the caller). Returns O, shaped and typed like q; differentiable in q,
+    k and v."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    return _FlashAttention.apply(q, k, v, causal, float(scale))
 
 
-# Kernel launches since the count was last set to 0.
+# Kernel launches since each count was last set to 0: the forward kernel,
+# and the backward's dQ and dK/dV kernels.
 flash_attention.launches = 0
+_flash_bwd_dq.launches = 0
+_flash_bwd_dkv.launches = 0

@@ -3,7 +3,8 @@
 The same numpy inputs, made from a seed, go through both. The JAX side runs
 its Pallas kernels as tests/test_ops.py runs them (interpret mode on the
 CPU); the port side runs the plain versions on CPU tensors. Tolerances are
-those of tests/test_ops.py: 2e-5 for f32, 3e-2 for bf16.
+those of tests/test_ops.py: 2e-5 for f32, 3e-2 for bf16 on the forward;
+2e-4 for f32 (at Precision.HIGHEST) and 0.15 for bf16 on the gradients.
 """
 
 import jax
@@ -21,6 +22,8 @@ from ray_tpu_torch.ops import rope as port_rope
 
 F32_TOL = 2e-5
 BF16_TOL = 3e-2
+GRAD_F32_TOL = 2e-4
+GRAD_BF16_TOL = 0.15
 
 
 def _normal(seed, *shape):
@@ -145,3 +148,102 @@ def test_flash_attention_rejects_unrepeated_kv_heads():
     kv = torch.zeros(1, 2, 8, 32)
     with pytest.raises(ValueError, match="repeat kv heads"):
         port_flash.flash_attention(q, kv, kv)
+
+
+def _flash_grads_jax(qj, kj, vj, do, causal, blocks, *, precision):
+    def f(q, k, v):
+        return jax_flash.flash_attention(
+            q, k, v, causal=causal, block_q=blocks[0], block_k=blocks[1], precision=precision
+        )
+
+    _, vjp = jax.vjp(f, qj, kj, vj)
+    return vjp(jnp.asarray(do, qj.dtype))
+
+
+@pytest.mark.parametrize("case", ["s256_d64_causal", "s256_d64_full", "sq64_sk128",
+                                  "bf16_s128_d64"])
+def test_flash_gradients_match_jax(case):
+    (qj, kj, vj), (qt, kt, vt), causal, _, blocks = _flash_inputs(case)
+    bf16 = qt.dtype == torch.bfloat16
+    do = _normal(13, *qt.shape)
+    precision = None if bf16 else jax.lax.Precision.HIGHEST
+    refs = _flash_grads_jax(qj, kj, vj, do, causal, blocks, precision=precision)
+    leaves = [t.requires_grad_(True) for t in (qt, kt, vt)]
+    out = port_flash.flash_attention(*leaves, causal=causal)
+    grads = torch.autograd.grad(out, leaves, torch.from_numpy(do).to(qt.dtype))
+    tol = GRAD_BF16_TOL if bf16 else GRAD_F32_TOL
+    for got, ref, leaf in zip(grads, refs, leaves):
+        assert got.dtype == leaf.dtype and got.shape == leaf.shape
+        assert _max_err(got, ref.astype(jnp.float32)) < tol
+
+
+@pytest.mark.parametrize("case", ["s256_d64_causal", "sq64_sk128", "bf16_s128_d64"])
+def test_flash_backward_on_explicit_inputs_matches_jax(case):
+    """The plain backward and JAX's _flash_backward (its Pallas dQ and dK/dV
+    kernels) on the same (q, k, v, O, LSE, dO)."""
+    (qj, kj, vj), (qt, kt, vt), causal, _, (bq, bk) = _flash_inputs(case)
+    bf16 = qt.dtype == torch.bfloat16
+    out_j, lse_j = jax_flash._flash_forward(qj, kj, vj, causal=causal, block_q=bq, block_k=bk)
+    do = _normal(14, *qt.shape)
+    scale = qt.shape[-1] ** -0.5
+    refs = jax_flash._flash_backward(
+        qj, kj, vj, out_j, lse_j, jnp.asarray(do, qj.dtype), causal=causal, scale=scale,
+        block_q=bq, block_k=bk, interpret=None,
+        precision=None if bf16 else jax.lax.Precision.HIGHEST,
+    )
+    out = torch.from_numpy(np.array(out_j, np.float32)).to(qt.dtype)
+    lse = torch.from_numpy(np.array(lse_j))
+    grads = port_flash._flash_backward_reference(
+        qt, kt, vt, out, lse, torch.from_numpy(do), causal=causal, scale=scale
+    )
+    tol = GRAD_BF16_TOL if bf16 else GRAD_F32_TOL
+    for got, ref in zip(grads, refs):
+        assert got.dtype == qt.dtype
+        assert _max_err(got, ref.astype(jnp.float32)) < tol
+    # On the CPU the wrapper is its plain version, exactly.
+    again = port_flash._flash_backward(qt, kt, vt, out, lse, torch.from_numpy(do), causal=causal)
+    assert all(torch.equal(a, b) for a, b in zip(again, grads))
+
+
+@pytest.mark.parametrize("seq_q,seq_k", [(130, 70), (37, 200), (100, 100)])
+def test_flash_gradients_are_the_plain_derivative(seq_q, seq_k):
+    """Ragged lengths and, at 130 x 70, rows that see no key: the flash
+    gradients equal autograd through attention_reference (f32 sums in
+    another order)."""
+    rng = np.random.default_rng(15)
+    q, k, v = (torch.from_numpy(rng.standard_normal((1, 2, n, 32), np.float32))
+               for n in (seq_q, seq_k, seq_k))
+    do = torch.from_numpy(rng.standard_normal((1, 2, seq_q, 32), np.float32))
+    leaves = [t.requires_grad_(True) for t in (q, k, v)]
+    grads = torch.autograd.grad(port_flash.flash_attention(*leaves), leaves, do)
+    plain = torch.autograd.grad(port_flash.attention_reference(*leaves), leaves, do)
+    for got, want in zip(grads, plain):
+        assert float((got - want).abs().max()) < 1e-5
+    if seq_q > seq_k:  # rows that see no key: no dQ, dO / seq_k into every dV row
+        blind = seq_q - seq_k
+        assert float(grads[0][:, :, :blind].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rmsnorm_gradients_match_jax(dtype):
+    """dx and dw of the norm's autograd Function against jax.vjp of
+    rmsnorm_reference on the same x, w and dy."""
+    x, w, dy = _normal(30, 3, 16, 256), _normal(31, 256), _normal(32, 3, 16, 256)
+    xj, wj = jnp.asarray(x, dtype), jnp.asarray(w, dtype)
+    _, vjp = jax.vjp(jax_rmsnorm.rmsnorm_reference, xj, wj)
+    dxj, dwj = vjp(jnp.asarray(dy, dtype))
+    tdtype = getattr(torch, dtype)
+    xt = torch.from_numpy(x).to(tdtype).requires_grad_(True)
+    wt = torch.from_numpy(w).to(tdtype).requires_grad_(True)
+    dx, dw = torch.autograd.grad(port_rmsnorm.rmsnorm(xt, wt), (xt, wt),
+                                 torch.from_numpy(dy).to(tdtype))
+    assert dx.dtype == dw.dtype == tdtype
+    dxj, dwj = np.asarray(dxj, np.float32), np.asarray(dwj, np.float32)
+    if dtype == "float32":
+        # f32 sums of 256 (dx) and 48 (dw) terms in another order.
+        assert _max_err(dx, dxj) < 1e-5 and _max_err(dw, dwj) < 1e-4
+    else:
+        # Each rounds once to bf16 from nearly equal f32 values: one ulp of
+        # the largest magnitude at most.
+        for got, ref in ((dx, dxj), (dw, dwj)):
+            assert _max_err(got, ref) <= np.abs(ref).max() * 2.0 ** -8
