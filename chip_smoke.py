@@ -7,12 +7,17 @@ Phases, each printing one line and failing the script (non-zero exit, no
 final line) if anything is wrong:
 
   1. device    the card's name and power limit (nvidia-smi)
-  2. build     compiles ops/csrc/*.cu with nvcc into build/ray_tpu_torch/
+  2. build     compiles ops/csrc/*.cu with nvcc into build/ray_tpu_torch/;
+               ptxas's registers, spills and shared memory per kernel (the
+               TMA/wgmma kernels must not spill)
   3. kernels   each hand-written kernel against its plain PyTorch version at
                the JAX test shapes and the shapes the serving and training
                paths give it, with the kernel's, the plain version's and one
                library call's times and the card's least time for the same
-               work (the bound)
+               work (the bound); bf16 at head_dim 128 reaches the TMA/wgmma
+               forward and dK/dV kernels, f32 and head_dim 32/64 the
+               mma.sync ones, and the route each C entry point reports is
+               held against flash_attention.kernel_route
   4. serve     TransformerConfig.llama2_7b() at full width and depth in bf16
                behind the @batch decorator (buckets 1, 4, 8) as
                release/serve_bert_http.py serves its encoder: 12 concurrent
@@ -22,7 +27,8 @@ final line) if anything is wrong:
                checked against forward at the last prompt step, then 32
                greedy tokens
   6. launches  the kernels' launch counts over phases 4 and 5, which must
-               match the layers the path ran
+               match the layers the path ran; every flash forward must
+               have taken the wgmma route
   7. train     bench.py's train step at its full config (dim 4096, 3
                layers, hidden 16384, vocab 8192, 12 x 1024 tokens, bf16)
                through ray_tpu_torch.train.step: one step's loss and
@@ -30,7 +36,8 @@ final line) if anything is wrong:
                warm-up and 10 timed steps on one batch (the loss must
                fall), tokens/s, MFU, peak memory, one profiled step and a
                forward/backward/optimizer split; then the launch counts over
-               the phase, which must match the steps it ran
+               the phase, which must match the steps it ran, every flash
+               forward and dK/dV launch on the wgmma route
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
@@ -39,9 +46,11 @@ The line before the last is {"kernels": [...]}; the last line is
 import asyncio
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -79,18 +88,27 @@ LSE_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-3}
 # (flash, P in bf16), round at other places; different tokens differ by O(1).
 LOGITS_TOL = 0.25
 # Flash backward against its plain version. f32 is held to 2e-4 absolute,
-# as tests/test_ops.py holds the Pallas backward; bf16 to 0.15 absolute at
-# the test shapes (test_ops.py:164). At the training shape the gradients'
-# magnitude grows with the sequence, so bf16 is held by max |kernel - plain|
-# over the plain result's largest magnitude. Bound 2e-2: the outputs round
-# to bf16 (2^-8 of the largest value at most), and P and dS are rounded to
-# bf16 from f32 values whose last bits differ between the two sum orders;
-# each flip moves one term of a 1024-term sum by a bf16 ulp, and the flips
-# add with random signs. A kernel that skips, repeats or transposes a tile
-# is off by order 1.
+# as tests/test_ops.py holds the Pallas backward; bf16 at head_dim 64 to
+# 0.15 absolute, that test's bf16 bound (test_ops.py:164). bf16 at head_dim
+# 128 (the wgmma dK/dV route) is held by max |kernel - plain| over the plain
+# result's largest magnitude: at the training shape the gradients grow with
+# the sequence, and at the small edge shapes their largest magnitude is
+# below 1, where 0.15 absolute would let a dropped tile pass. Bound 2e-2:
+# the outputs round to bf16 (2^-8 of the largest value at most), and P and
+# dS are rounded to bf16 from f32 values whose last bits differ between the
+# two sum orders; each flip moves one term of a sum by a bf16 ulp, and the
+# flips add with random signs. A kernel that skips, repeats or transposes a
+# tile is off by order 1.
 BWD_F32_TOL = 2e-4
 BWD_BF16_TOL = 0.15
-BWD_TRAIN_REL_TOL = 2e-2
+BWD_REL_TOL = 2e-2
+# The mma.sync kernels' times at the same shapes before the TMA/wgmma
+# redesign, as PERF.md's kernel table records them. Printed on a line of
+# their own, labelled as recorded: they are not measured by this run.
+RECORDED_BEFORE_MS = {"flash_attention_fwd": 0.2261, "flash_attention_fwd_train": 1.029,
+                      "flash_attention_bwd_dkv": 2.296}
+RECORDED_BEFORE_SOURCE = ("PERF.md section 6: the mma.sync kernels before the TMA/wgmma "
+                          "redesign, chip_smoke.py on an NVIDIA H100 80GB HBM3 at 700 W")
 SERVE_SEQ = 512
 SERVE_REQUESTS = 12
 BUCKETS = [1, 4, 8]
@@ -172,11 +190,36 @@ def _counts() -> dict:
     }
 
 
+def _route_counts() -> dict:
+    """The launches of the kernels with two routes, by route."""
+    return {
+        "flash_attention_fwd": dict(flash_mod.flash_attention.launches_by_route),
+        "flash_attention_bwd_dkv": dict(flash_mod._flash_bwd_dkv.launches_by_route),
+    }
+
+
+def _require_wgmma_route(path: str, counts: dict, routes: dict) -> None:
+    """Every launch of the two-route kernels on `path` took the wgmma route."""
+    for name, by_route in routes.items():
+        require(by_route == {"wgmma": counts[name], "mma_sync": 0},
+                f"{path}: {name} launches by route {by_route}, {counts[name]} in all")
+
+
+def _reported_route(fn, call, dtype, head_dim, what: str):
+    """Runs `call`, which launches fn's kernel once, and returns its result
+    and the route the C entry point reported, which must be the one
+    flash_attention.kernel_route states for (dtype, head_dim)."""
+    before = dict(fn.launches_by_route)
+    result = call()
+    taken = {r: n - before[r] for r, n in fn.launches_by_route.items() if n != before[r]}
+    want = flash_mod.kernel_route(dtype, head_dim)
+    require(taken == {want: 1}, f"{what}: launched on {taken}, kernel_route says {want}")
+    return result, want
+
+
 def reset_counts() -> None:
     """Sets every kernel's launch count to 0."""
-    flash_mod.flash_attention.launches = 0
-    flash_mod._flash_bwd_dq.launches = 0
-    flash_mod._flash_bwd_dkv.launches = 0
+    flash_mod.reset_launch_counts()
     rmsnorm_mod.rmsnorm.launches = 0
 
 
@@ -201,15 +244,37 @@ def phase_device() -> str:
 
 
 # ---------------------------------------------------------------- phase 2
-def phase_build() -> None:
+def _ptxas_report(text: str) -> dict:
+    """Per kernel (mangled name) from nvcc -Xptxas=-v: registers, spill
+    bytes and static shared memory."""
+    report, name = {}, None
+    for line in text.splitlines():
+        found = re.search(r"Compiling entry function '(\w+)'", line)
+        if found:
+            name = found.group(1)
+            report[name] = {}
+        elif name and "spill stores" in line:
+            stores, loads = re.findall(r"(\d+) bytes spill (?:stores|loads)", line)
+            report[name].update(spill_stores=int(stores), spill_loads=int(loads))
+        elif name and "Used" in line and "registers" in line:
+            report[name]["registers"] = int(re.search(r"Used (\d+) registers", line).group(1))
+            smem = re.search(r"(\d+) bytes smem", line)
+            report[name]["static_smem"] = int(smem.group(1)) if smem else 0
+    return report
+
+
+def phase_build() -> dict:
     start = time.perf_counter()
     _build.library()
-    ptxas = [
-        line.strip() for line in (_build.BUILD_DIR / "build.log").read_text().splitlines()
-        if "registers" in line or "spill" in line
-    ] if _build.build_seconds else []
+    report = _ptxas_report((_build.BUILD_DIR / "build.log").read_text())
+    wgmma = {name: info for name, info in report.items() if "wgmma" in name}
     log("build", seconds=round(time.perf_counter() - start, 2),
-        nvcc_seconds=_build.build_seconds, ptxas=ptxas)
+        nvcc_seconds=_build.build_seconds, wgmma_kernels=wgmma, ptxas=report)
+    require(len(wgmma) == 2, f"build: expected the two wgmma kernels in ptxas's report, {wgmma}")
+    for name, info in wgmma.items():
+        require(info.get("spill_stores") == 0 and info.get("spill_loads") == 0,
+                f"build: {name} spills: {info}")
+    return wgmma
 
 
 # ---------------------------------------------------------------- phase 3
@@ -244,6 +309,21 @@ FLASH_CHECKS = [
     ("serve_b4_h32_s512_d128_bf16", 4, 32, 512, 512, 128, True, torch.bfloat16, BF16_TOL),
     ("serve_b8_h32_s512_d128_bf16", 8, 32, 512, 512, 128, True, torch.bfloat16, BF16_TOL),
     ("train_b12_h32_s1024_d128_bf16", 12, 32, 1024, 1024, 128, True, torch.bfloat16, BF16_TOL),
+    # The edges of the wgmma route (bf16 at head_dim 128): ragged causal
+    # lengths, rows that see no key, lengths no 128-row tile divides, and a
+    # long causal sequence.
+    ("causal_sq37_sk200_bf16", 2, 2, 37, 200, 128, True, torch.bfloat16, BF16_TOL),
+    ("causal_sq130_sk70_bf16", 1, 2, 130, 70, 128, True, torch.bfloat16, BF16_TOL),
+    ("s200_causal_bf16", 1, 2, 200, 200, 128, True, torch.bfloat16, BF16_TOL),
+    ("s200_full_bf16", 1, 2, 200, 200, 128, False, torch.bfloat16, BF16_TOL),
+    ("s1000_causal_bf16", 1, 4, 1000, 1000, 128, True, torch.bfloat16, BF16_TOL),
+    # More queries than keys over several key tiles: blocks whose first rows
+    # see no key visit every tile while one warpgroup skips most of them.
+    ("causal_sq1024_sk512_bf16", 1, 2, 1024, 512, 128, True, torch.bfloat16, BF16_TOL),
+    ("causal_sq600_sk300_bf16", 1, 2, 600, 300, 128, True, torch.bfloat16, BF16_TOL),
+    # batch * heads past 65535, the largest grid y: the grid is 1-D. One
+    # query over 16 keys keeps |O| under 4, where a bf16 ulp is under 3e-2.
+    ("heads65537_sq1_sk16_bf16", 1, 65537, 1, 16, 128, True, torch.bfloat16, BF16_TOL),
 ]
 FLASH_TIMED = "serve_b8_h32_s512_d128_bf16"
 FLASH_TRAIN = "train_b12_h32_s1024_d128_bf16"
@@ -284,11 +364,26 @@ BWD_CHECKS = [
     ("ragged_s100_d64", 1, 3, 100, 100, 64, True, torch.float32, BWD_F32_TOL, "abs"),
     ("f32_s192_d128", 1, 2, 192, 192, 128, True, torch.float32, BWD_F32_TOL, "abs"),
     ("causal_sq130_sk70", 1, 2, 130, 70, 64, True, torch.float32, BWD_F32_TOL, "abs"),
-    ("ragged_sq37_sk200_bf16", 2, 2, 37, 200, 128, False, torch.bfloat16, BWD_BF16_TOL, "abs"),
-    ("ragged_sq37_sk200_causal_bf16", 2, 2, 37, 200, 128, True, torch.bfloat16, BWD_BF16_TOL,
-     "abs"),
+    ("ragged_sq37_sk200_bf16", 2, 2, 37, 200, 128, False, torch.bfloat16, BWD_REL_TOL,
+     "rel_to_max"),
+    ("ragged_sq37_sk200_causal_bf16", 2, 2, 37, 200, 128, True, torch.bfloat16, BWD_REL_TOL,
+     "rel_to_max"),
     ("train_b12_h32_s1024_d128_bf16", 12, 32, 1024, 1024, 128, True, torch.bfloat16,
-     BWD_TRAIN_REL_TOL,
+     BWD_REL_TOL, "rel_to_max"),
+    # The edges of the wgmma dK/dV route (bf16 at head_dim 128), as for the
+    # forward; seq_q > seq_k over several key tiles makes a warpgroup skip
+    # runs of q tiles.
+    ("causal_sq130_sk70_bf16", 1, 2, 130, 70, 128, True, torch.bfloat16, BWD_REL_TOL,
+     "rel_to_max"),
+    ("s200_causal_bf16", 1, 2, 200, 200, 128, True, torch.bfloat16, BWD_REL_TOL, "rel_to_max"),
+    ("s200_full_bf16", 1, 2, 200, 200, 128, False, torch.bfloat16, BWD_REL_TOL, "rel_to_max"),
+    ("s1000_causal_bf16", 1, 4, 1000, 1000, 128, True, torch.bfloat16, BWD_REL_TOL,
+     "rel_to_max"),
+    ("causal_sq1024_sk512_bf16", 1, 2, 1024, 512, 128, True, torch.bfloat16, BWD_REL_TOL,
+     "rel_to_max"),
+    ("causal_sq600_sk300_bf16", 1, 2, 600, 300, 128, True, torch.bfloat16, BWD_REL_TOL,
+     "rel_to_max"),
+    ("heads65537_sq1_sk16_bf16", 1, 65537, 1, 16, 128, True, torch.bfloat16, BWD_REL_TOL,
      "rel_to_max"),
 ]
 BWD_TIMED = "train_b12_h32_s1024_d128_bf16"
@@ -329,7 +424,11 @@ def _bwd_entries(gen) -> list[dict]:
         v = _randn(gen, (b, h, sk, d), dtype)
         do = _randn(gen, (b, h, sq, d), dtype)
         out, lse = flash_mod._flash_forward(q, k, v, causal=causal)
-        dq, dk, dv = flash_mod._flash_backward(q, k, v, out, lse, do, causal=causal)
+        (dq, dk, dv), route = _reported_route(
+            flash_mod._flash_bwd_dkv,
+            lambda: flash_mod._flash_backward(q, k, v, out, lse, do, causal=causal),
+            dtype, d, f"flash bwd {name}",
+        )
         torch.cuda.synchronize()
         plain = flash_mod._flash_backward_reference(q, k, v, out, lse, do, causal=causal)
         for got, want, which in zip((dq, dk, dv), plain, ("dq", "dk", "dv")):
@@ -337,8 +436,9 @@ def _bwd_entries(gen) -> list[dict]:
                     f"flash bwd {name}: {which} shape/dtype")
         errs = [_bwd_err(got, want, unit) for got, want in zip((dq, dk, dv), plain)]
         abs_errs = [max_err(got, want) for got, want in zip((dq, dk, dv), plain)]
-        check = dict(shape=name, unit=unit, tol=tol, dq_err=errs[0], dk_err=errs[1],
-                     dv_err=errs[2], dq_abs=abs_errs[0], dkv_abs=max(abs_errs[1:]))
+        check = dict(shape=name, dkv_route=route, unit=unit, tol=tol,
+                     dq_err=errs[0], dk_err=errs[1], dv_err=errs[2], dq_abs=abs_errs[0],
+                     dkv_abs=max(abs_errs[1:]))
         checks.append(check)
         require(max(errs) < tol, f"flash bwd {name}: dq/dk/dv vs plain {errs} ({unit}) >= {tol}")
         if name == BWD_TIMED:
@@ -377,7 +477,9 @@ def _bwd_entries(gen) -> list[dict]:
              bound_ms=bounds["dq"][0], bound_by=bounds["dq"][1], **common),
         dict(name="flash_attention_bwd_dkv", replaces="ray_tpu/ops/flash_attention.py:167",
              max_abs_err=timed["dkv_abs"], err=max(timed["dk_err"], timed["dv_err"]),
-             ms=dkv_ms, bound_ms=bounds["dkv"][0], bound_by=bounds["dkv"][1], **common),
+             ms=dkv_ms, bound_ms=bounds["dkv"][0], bound_by=bounds["dkv"][1],
+             **{**common, "source": "ray_tpu_torch/ops/csrc/flash_bwd_dkv_wgmma.cu"},
+             kernel_route=timed["dkv_route"]),
     ]
 
 
@@ -417,14 +519,18 @@ def phase_kernels() -> list[dict]:
         q = _randn(gen, (b, h, sq, d), dtype)
         k = _randn(gen, (b, h, sk, d), dtype)
         v = _randn(gen, (b, h, sk, d), dtype)
-        out, lse = flash_mod._flash_forward(q, k, v, causal=causal)
+        (out, lse), route = _reported_route(
+            flash_mod.flash_attention, lambda: flash_mod._flash_forward(q, k, v, causal=causal),
+            dtype, d, f"flash {name}",
+        )
         torch.cuda.synchronize()
         ref = flash_mod.attention_reference(q, k, v, causal=causal)
         lse_ref = flash_mod._lse_reference(q, k, causal=causal, scale=d ** -0.5)
         err, lse_err = max_err(out, ref), max_err(lse, lse_ref)
         bound_ms, bound_by = _flash_bound(b, h, sq, sk, d, causal, dtype)
         checks.append(dict(
-            shape=name, max_abs_err=err, tol=tol, lse_err=lse_err, lse_tol=LSE_TOL[dtype],
+            shape=name, route=route, max_abs_err=err, tol=tol,
+            lse_err=lse_err, lse_tol=LSE_TOL[dtype],
             kernel_ms=time_ms(lambda: flash_mod.flash_attention(q, k, v, causal=causal)),
             bound_ms=bound_ms,
         ))
@@ -438,10 +544,10 @@ def phase_kernels() -> list[dict]:
     bound_ms, bound_by = _flash_bound(*q.shape[:3], k.shape[2], q.shape[3], True, q.dtype)
     entries.append(dict(
         name="flash_attention_fwd", route="cuda",
-        source="ray_tpu_torch/ops/csrc/flash_attention_fwd.cu",
+        source="ray_tpu_torch/ops/csrc/flash_fwd_wgmma.cu",
         replaces="ray_tpu/ops/flash_attention.py:79",
-        launches=None, max_abs_err=timed["max_abs_err"], err=timed["max_abs_err"], unit="abs",
-        tol=timed["tol"], ms=timed["kernel_ms"], **flash_times(q, k, v),
+        kernel_route=timed["route"], launches=None, max_abs_err=timed["max_abs_err"],
+        err=timed["max_abs_err"], unit="abs", tol=timed["tol"], ms=timed["kernel_ms"], **flash_times(q, k, v),
         bound_ms=bound_ms, bound_by=bound_by,
         library="torch.nn.functional.scaled_dot_product_attention",
         shape=FLASH_TIMED, checks=checks,
@@ -491,6 +597,8 @@ def phase_kernels() -> list[dict]:
                             **rmsnorm_times(*train_inputs)),
     ))
     _log_kernel(entries[-1])
+    log("recorded", measured_by_this_run=False, source=RECORDED_BEFORE_SOURCE,
+        before_redesign_ms=RECORDED_BEFORE_MS)
     return entries
 
 
@@ -754,8 +862,11 @@ def phase_train() -> dict:
 # ---------------------------------------------------------------- main
 def main() -> None:
     phase_device()
-    phase_build()
+    wgmma_ptxas = phase_build()
     entries = phase_kernels()
+    for e in entries:  # ptxas's report beside each TMA/wgmma kernel
+        stem = Path(e["source"]).stem
+        e["ptxas"] = next((v for k, v in wgmma_ptxas.items() if stem in k), None)
 
     start = time.perf_counter()
     config = TransformerConfig.llama2_7b()
@@ -771,6 +882,7 @@ def main() -> None:
     serve = phase_serve(params, config)
     gen = phase_generate(params, config)
     serve_counts = _counts()
+    serve_routes = _route_counts()
 
     forwards = serve["forwards"] + gen["forwards"]
     layers = config.n_layers
@@ -779,9 +891,11 @@ def main() -> None:
         "flash_attention_bwd_dkv": 0,
         "rmsnorm": (2 * layers + 1) * (forwards + gen["decode_steps"]),
     }
-    log("launches", path="serve", counts=serve_counts, expected=want, forwards=forwards,
+    log("launches", path="serve", counts=serve_counts, routes=serve_routes, expected=want,
+        forwards=forwards,
         decode_steps=gen["decode_steps"], peak_gib=torch.cuda.max_memory_allocated() / 2**30)
     require(serve_counts == want, "serve: kernel launches do not match the path")
+    _require_wgmma_route("serve", serve_counts, serve_routes)
     del params
     torch.cuda.empty_cache()
 
@@ -789,6 +903,7 @@ def main() -> None:
     reset_counts()
     train = phase_train()
     train_counts = _counts()
+    train_routes = _route_counts()
     layers = TRAIN_CONFIG["n_layers"]
     want = {
         "flash_attention_fwd": layers * train["kernel_forwards"],
@@ -796,14 +911,20 @@ def main() -> None:
         "flash_attention_bwd_dkv": layers * train["kernel_backwards"],
         "rmsnorm": (2 * layers + 1) * (train["kernel_forwards"] + train["plain_forwards"]),
     }
-    log("launches", path="train", counts=train_counts, expected=want,
+    log("launches", path="train", counts=train_counts, routes=train_routes, expected=want,
         kernel_forwards=train["kernel_forwards"], kernel_backwards=train["kernel_backwards"],
         plain_forwards=train["plain_forwards"])
     require(train_counts == want, "train: kernel launches do not match the path")
+    _require_wgmma_route("train", train_counts, train_routes)
 
     for e in entries:
         by_path = {"serve": serve_counts[e["name"]], "train": train_counts[e["name"]]}
         e["launches"], e["launches_by_path"] = sum(by_path.values()), by_path
+        if e["name"] in serve_routes:
+            e["launches_by_route"] = {
+                route: serve_routes[e["name"]][route] + train_routes[e["name"]][route]
+                for route in ("wgmma", "mma_sync")
+            }
         require(e["launches"] > 0, f"{e['name']}: no launch on the main paths")
         e["max_err"], e["kernel_ms"] = e["max_abs_err"], e["ms"]  # the phase-3 lines' names
 

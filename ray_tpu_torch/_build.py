@@ -38,16 +38,18 @@ build_seconds: float | None = None
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_IP = ctypes.POINTER(ctypes.c_int)
 # name -> argtypes of every C entry point; each returns a cudaError_t.
 _SIGNATURES = {
-    # q, k, v, o, lse, bh, seq_q, seq_k, head_dim, is_bf16, causal, scale, stream
-    "rt_flash_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P],
+    # q, k, v, o, lse, bh, seq_q, seq_k, head_dim, is_bf16, causal, scale,
+    # route (out), stream
+    "rt_flash_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _IP, _P],
     # q, k, v, o, dout, lse, delta, dq, bh, seq_q, seq_k, head_dim, is_bf16,
     # causal, scale, stream
     "rt_flash_bwd_dq": [_P] * 8 + [_I] * 6 + [_F, _P],
     # q, k, v, dout, lse, delta, dk, dv, bh, seq_q, seq_k, head_dim, is_bf16,
-    # causal, scale, stream
-    "rt_flash_bwd_dkv": [_P] * 8 + [_I] * 6 + [_F, _P],
+    # causal, scale, route (out), stream
+    "rt_flash_bwd_dkv": [_P] * 8 + [_I] * 6 + [_F, _IP, _P],
     # x, w, y, rows, dim, is_bf16, eps, stream
     "rt_rmsnorm": [_P, _P, _P, _I, _I, _I, _F, _P],
 }

@@ -37,7 +37,10 @@
 //     a register tile is needed.
 // The products run on the tensor cores for bf16 (mma.sync m16n8k16) and
 // as f32 FMAs for f32 (flash_common.cuh). Plain loads (no TMA, no wgmma,
-// no pipelining) keep this first version simple.
+// no pipelining) keep them simple. rt_flash_bwd_dkv routes bf16 at
+// head_dim 128, the model's shapes, to the TMA/wgmma kernel of
+// flash_bwd_dkv_wgmma.cu; this file's dK/dV kernel serves f32 and bf16 at
+// head_dim 32 and 64, and its dQ kernel every type and width.
 //
 // Any seq_q and seq_k work: rows past seq_q and keys past seq_k are
 // neither used nor stored. A row that sees no key (causal with seq_q >
@@ -46,6 +49,8 @@
 // are zero, because its masked scores do not depend on q or k. That is the
 // derivative of the plain attention_reference; the Pallas kernels, which
 // skip masked tiles, differ from it there.
+
+#include <type_traits>
 
 #include "flash_common.cuh"
 
@@ -285,6 +290,7 @@ struct Args {
   int bh, seq_q, seq_k, causal;
   float scale;
   cudaStream_t stream;
+  int* route;  // dK/dV: where the route taken is written
 };
 
 template <typename T, int D>
@@ -317,12 +323,28 @@ cudaError_t launch_dkv(const Args& a) {
   return cudaGetLastError();
 }
 
+// dK/dV in bf16 at head_dim 128 takes the TMA/wgmma kernel; the rest,
+// and dQ at every width, this file's.
+template <bool kDq, typename T, int D>
+cudaError_t launch_one(const Args& a) {
+  if constexpr (kDq) {
+    return launch_dq<T, D>(a);
+  } else if constexpr (std::is_same<T, __nv_bfloat16>::value && D == 128) {
+    *a.route = kRouteWgmma;
+    return flash_bwd_dkv_wgmma(a.q, a.k, a.v, a.dout, a.lse, a.delta, a.dk, a.dv, a.bh, a.seq_q,
+                               a.seq_k, a.causal, a.scale, a.stream);
+  } else {
+    *a.route = kRouteMmaSync;
+    return launch_dkv<T, D>(a);
+  }
+}
+
 template <bool kDq, typename T>
 cudaError_t dispatch_dim(const Args& a, int head_dim) {
   switch (head_dim) {
-    case 32: return kDq ? launch_dq<T, 32>(a) : launch_dkv<T, 32>(a);
-    case 64: return kDq ? launch_dq<T, 64>(a) : launch_dkv<T, 64>(a);
-    case 128: return kDq ? launch_dq<T, 128>(a) : launch_dkv<T, 128>(a);
+    case 32: return launch_one<kDq, T, 32>(a);
+    case 64: return launch_one<kDq, T, 64>(a);
+    case 128: return launch_one<kDq, T, 128>(a);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -346,18 +368,18 @@ extern "C" int rt_flash_bwd_dq(const void* q, const void* k, const void* v, cons
                                int seq_q, int seq_k, int head_dim, int is_bf16, int causal,
                                float scale, void* stream) {
   const Args a{q, k, v, o, dout, lse, delta, dq, nullptr, nullptr,
-               bh, seq_q, seq_k, causal, scale, static_cast<cudaStream_t>(stream)};
+               bh, seq_q, seq_k, causal, scale, static_cast<cudaStream_t>(stream), nullptr};
   return dispatch<true>(a, head_dim, is_bf16);
 }
 
 // The same layouts; delta as rt_flash_bwd_dq wrote it. Writes dK and dV
-// ([bh, seq_k, head_dim]). Launch it after rt_flash_bwd_dq on the same
-// stream.
+// ([bh, seq_k, head_dim]) and the route it took to *route (kRouteMmaSync
+// or kRouteWgmma). Launch it after rt_flash_bwd_dq on the same stream.
 extern "C" int rt_flash_bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
                                 const void* lse, const void* delta, void* dk, void* dv, int bh,
                                 int seq_q, int seq_k, int head_dim, int is_bf16, int causal,
-                                float scale, void* stream) {
+                                float scale, int* route, void* stream) {
   const Args a{q, k, v, nullptr, dout, lse, const_cast<void*>(delta), nullptr, dk, dv,
-               bh, seq_q, seq_k, causal, scale, static_cast<cudaStream_t>(stream)};
+               bh, seq_q, seq_k, causal, scale, static_cast<cudaStream_t>(stream), route};
   return dispatch<false>(a, head_dim, is_bf16);
 }

@@ -22,11 +22,15 @@
 // device memory. bf16 products run on the tensor cores (mma.sync
 // m16n8k16, f32 accumulation); f32 inputs use f32 FMAs in the same
 // register layout (flash_common.cuh), so both types share the softmax
-// code. Plain loads (no TMA, no wgmma, no pipelining) keep this first
-// version simple.
+// code. Plain loads (no TMA, no wgmma, no pipelining) keep it simple: it
+// serves f32 and bf16 at head_dim 32 and 64 (the JAX test shapes), and
+// rt_flash_fwd routes bf16 at head_dim 128, every shape the model gives
+// the kernel, to the TMA/wgmma kernel of flash_fwd_wgmma.cu.
 //
 // Any seq_q and seq_k work: rows past seq_q are neither computed into O
 // nor stored, and keys past seq_k score -inf, so they weigh nothing.
+
+#include <type_traits>
 
 #include "flash_common.cuh"
 
@@ -176,14 +180,24 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, void* l
   return cudaGetLastError();
 }
 
+// bf16 at head_dim 128 takes the TMA/wgmma kernel; the rest this file's.
+// Writes the route taken to *route.
 template <typename T>
 cudaError_t dispatch(const void* q, const void* k, const void* v, void* o, void* lse, int bh,
-                     int seq_q, int seq_k, int head_dim, int causal, float scale,
+                     int seq_q, int seq_k, int head_dim, int causal, float scale, int* route,
                      cudaStream_t stream) {
+  constexpr bool kBf16 = std::is_same<T, __nv_bfloat16>::value;
+  *route = kRouteMmaSync;
   switch (head_dim) {
     case 32: return launch<T, 32>(q, k, v, o, lse, bh, seq_q, seq_k, causal, scale, stream);
     case 64: return launch<T, 64>(q, k, v, o, lse, bh, seq_q, seq_k, causal, scale, stream);
-    case 128: return launch<T, 128>(q, k, v, o, lse, bh, seq_q, seq_k, causal, scale, stream);
+    case 128:
+      if constexpr (kBf16) {
+        *route = kRouteWgmma;
+        return flash_fwd_wgmma(q, k, v, o, lse, bh, seq_q, seq_k, causal, scale, stream);
+      } else {
+        return launch<T, 128>(q, k, v, o, lse, bh, seq_q, seq_k, causal, scale, stream);
+      }
     default: return cudaErrorInvalidValue;
   }
 }
@@ -191,15 +205,17 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, void* o, void*
 }  // namespace
 
 // q, k, v, o: contiguous [bh, seq, head_dim] of one type (bf16 when is_bf16,
-// else f32), 16-byte aligned; lse: f32 [bh, seq_q]. Launches on `stream`
-// and returns the launch's cudaError_t.
+// else f32), 16-byte aligned; lse: f32 [bh, seq_q]. Launches on `stream`,
+// writes the route it took to *route (kRouteMmaSync or kRouteWgmma) and
+// returns the launch's cudaError_t.
 extern "C" int rt_flash_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
                             int bh, int seq_q, int seq_k, int head_dim, int is_bf16, int causal,
-                            float scale, void* stream) {
+                            float scale, int* route, void* stream) {
   if (bh <= 0 || seq_q <= 0 || seq_k <= 0) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16) {
-    return dispatch<__nv_bfloat16>(q, k, v, o, lse, bh, seq_q, seq_k, head_dim, causal, scale, s);
+    return dispatch<__nv_bfloat16>(q, k, v, o, lse, bh, seq_q, seq_k, head_dim, causal, scale,
+                                   route, s);
   }
-  return dispatch<float>(q, k, v, o, lse, bh, seq_q, seq_k, head_dim, causal, scale, s);
+  return dispatch<float>(q, k, v, o, lse, bh, seq_q, seq_k, head_dim, causal, scale, route, s);
 }

@@ -1,6 +1,16 @@
 """Flash attention, forward and backward: hand-written CUDA kernels
-(``csrc/flash_attention_fwd.cu``, ``csrc/flash_attention_bwd.cu``) and
-their plain versions.
+(``csrc/flash_attention_fwd.cu``, ``csrc/flash_attention_bwd.cu``,
+``csrc/flash_fwd_wgmma.cu``, ``csrc/flash_bwd_dkv_wgmma.cu``) and their
+plain versions.
+
+Two routes, chosen by (dtype, head_dim) in the C entry points: bf16 at
+head_dim 128, every shape the model gives the kernels, takes the forward
+and dK/dV kernels built on TMA and ``wgmma``; f32 and bf16 at head_dim 32
+and 64 take the ``mma.sync`` kernels. The dQ kernel has one route. The
+entry points report the route they launched and the wrappers count
+launches by it; ``kernel_route`` states the rule, and ``chip_smoke.py``
+holds every reported route against it. A launch error on either route
+raises.
 
 ``flash_attention`` is differentiable through ``_FlashAttention``, the
 counterpart of the JAX package's ``_flash_vjp``: the forward saves
@@ -19,6 +29,8 @@ scores do not depend on q or k) and it adds dO / seq_k to every dV row.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from ray_tpu_torch import _build
@@ -26,6 +38,22 @@ from ray_tpu_torch import _build
 _NEG_INF = -1e30
 _KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 _KERNEL_HEAD_DIMS = (32, 64, 128)
+
+
+def kernel_route(dtype: torch.dtype, head_dim: int) -> str:
+    """Which kernels ``rt_flash_fwd`` and ``rt_flash_bwd_dkv`` launch:
+    "wgmma" (TMA and wgmma) for bf16 at head_dim 128, else "mma_sync"."""
+    return "wgmma" if dtype == torch.bfloat16 and head_dim == 128 else "mma_sync"
+
+
+# The route codes the C entry points report (kRouteMmaSync, kRouteWgmma).
+_ROUTES = ("mma_sync", "wgmma")
+
+
+def _count(fn, route: ctypes.c_int) -> None:
+    """Counts one launch of fn's kernel, on the route its entry point reported."""
+    fn.launches += 1
+    fn.launches_by_route[_ROUTES[route.value]] += 1
 
 
 def _causal_mask(seq_q: int, seq_k: int, device) -> torch.Tensor:
@@ -132,13 +160,14 @@ def _flash_forward(
     lse = torch.empty(batch, heads, seq_q, dtype=torch.float32, device=q.device)
     if out.numel() == 0:
         return out, lse
+    route = ctypes.c_int(-1)
     _build.launch(
         "rt_flash_fwd", q.device,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
         batch * heads, seq_q, seq_k, dim, int(q.dtype == torch.bfloat16),
-        int(causal), float(scale),
+        int(causal), float(scale), ctypes.byref(route),
     )
-    flash_attention.launches += 1
+    _count(flash_attention, route)
     return out, lse
 
 
@@ -158,14 +187,15 @@ def _flash_bwd_dq(q, k, v, out, do, lse, delta, dq, causal: bool, scale: float) 
 def _flash_bwd_dkv(q, k, v, do, lse, delta, dk, dv, causal: bool, scale: float) -> None:
     """Launches the dK/dV kernel; delta comes from the dQ kernel."""
     batch, heads, seq_q, dim = q.shape
+    route = ctypes.c_int(-1)
     _build.launch(
         "rt_flash_bwd_dkv", q.device,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
         delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
         batch * heads, seq_q, k.shape[2], dim, int(q.dtype == torch.bfloat16),
-        int(causal), float(scale),
+        int(causal), float(scale), ctypes.byref(route),
     )
-    _flash_bwd_dkv.launches += 1
+    _count(_flash_bwd_dkv, route)
 
 
 def _flash_backward(
@@ -232,8 +262,15 @@ def flash_attention(
     return _FlashAttention.apply(q, k, v, causal, float(scale))
 
 
-# Kernel launches since each count was last set to 0: the forward kernel,
-# and the backward's dQ and dK/dV kernels.
-flash_attention.launches = 0
-_flash_bwd_dq.launches = 0
-_flash_bwd_dkv.launches = 0
+def reset_launch_counts() -> None:
+    """Sets every launch count of this module to 0."""
+    for fn in (flash_attention, _flash_bwd_dkv):
+        fn.launches_by_route = {"wgmma": 0, "mma_sync": 0}
+    for fn in (flash_attention, _flash_bwd_dq, _flash_bwd_dkv):
+        fn.launches = 0
+
+
+# Kernel launches since the counts were last set to 0: the forward kernel,
+# and the backward's dQ and dK/dV kernels; the forward's and dK/dV's also by
+# route.
+reset_launch_counts()
