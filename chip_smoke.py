@@ -9,15 +9,18 @@ final line) if anything is wrong:
   1. device    the card's name and power limit (nvidia-smi)
   2. build     compiles ops/csrc/*.cu with nvcc into build/ray_tpu_torch/;
                ptxas's registers, spills and shared memory per kernel (the
-               TMA/wgmma kernels must not spill)
+               three TMA/wgmma kernels must not spill)
   3. kernels   each hand-written kernel against its plain PyTorch version at
                the JAX test shapes and the shapes the serving and training
                paths give it, with the kernel's, the plain version's and one
-               library call's times and the card's least time for the same
+               library call's times (the median of five windows, with the
+               lowest and highest) and the card's least time for the same
                work (the bound); bf16 at head_dim 128 reaches the TMA/wgmma
-               forward and dK/dV kernels, f32 and head_dim 32/64 the
+               forward, dQ and dK/dV kernels, f32 and head_dim 32/64 the
                mma.sync ones, and the route each C entry point reports is
-               held against flash_attention.kernel_route
+               held against flash_attention.kernel_route; the backward's
+               yardstick is SDPA's backward under the fastest of its
+               backends
   4. serve     TransformerConfig.llama2_7b() at full width and depth in bf16
                behind the @batch decorator (buckets 1, 4, 8) as
                release/serve_bert_http.py serves its encoder: 12 concurrent
@@ -37,7 +40,7 @@ final line) if anything is wrong:
                fall), tokens/s, MFU, peak memory, one profiled step and a
                forward/backward/optimizer split; then the launch counts over
                the phase, which must match the steps it ran, every flash
-               forward and dK/dV launch on the wgmma route
+               forward, dQ and dK/dV launch on the wgmma route
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
@@ -47,6 +50,7 @@ import asyncio
 import dataclasses
 import json
 import re
+import statistics
 import subprocess
 import sys
 import time
@@ -90,7 +94,7 @@ LOGITS_TOL = 0.25
 # Flash backward against its plain version. f32 is held to 2e-4 absolute,
 # as tests/test_ops.py holds the Pallas backward; bf16 at head_dim 64 to
 # 0.15 absolute, that test's bf16 bound (test_ops.py:164). bf16 at head_dim
-# 128 (the wgmma dK/dV route) is held by max |kernel - plain| over the plain
+# 128 (the wgmma dQ and dK/dV route) is held by max |kernel - plain| over the plain
 # result's largest magnitude: at the training shape the gradients grow with
 # the sequence, and at the small edge shapes their largest magnitude is
 # below 1, where 0.15 absolute would let a dropped tile pass. Bound 2e-2:
@@ -106,7 +110,7 @@ BWD_REL_TOL = 2e-2
 # redesign, as PERF.md's kernel table records them. Printed on a line of
 # their own, labelled as recorded: they are not measured by this run.
 RECORDED_BEFORE_MS = {"flash_attention_fwd": 0.2261, "flash_attention_fwd_train": 1.029,
-                      "flash_attention_bwd_dkv": 2.296}
+                      "flash_attention_bwd_dq": 1.6274, "flash_attention_bwd_dkv": 2.296}
 RECORDED_BEFORE_SOURCE = ("PERF.md section 6: the mma.sync kernels before the TMA/wgmma "
                           "redesign, chip_smoke.py on an NVIDIA H100 80GB HBM3 at 700 W")
 SERVE_SEQ = 512
@@ -121,19 +125,24 @@ def log(phase: str, **fields) -> None:
     print(f"[{time.perf_counter() - _t_start:7.1f}s] {phase}: {json.dumps(fields)}", flush=True)
 
 
-def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Device time of one call, from CUDA events around `iters` calls."""
+def time_ms(fn, iters: int = 20, windows: int = 5, warmup: int = 3) -> dict:
+    """Device time of one call, from CUDA events around each of `windows`
+    windows of `iters` calls: the median window ("ms"), and the lowest and
+    highest ("range")."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    times = []
+    for _ in range(windows):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / iters)
+    return {"ms": statistics.median(times), "range": [min(times), max(times)]}
 
 
 def bound(ops: float, nbytes: float, dtype) -> tuple[float, str]:
@@ -194,6 +203,7 @@ def _route_counts() -> dict:
     """The launches of the kernels with two routes, by route."""
     return {
         "flash_attention_fwd": dict(flash_mod.flash_attention.launches_by_route),
+        "flash_attention_bwd_dq": dict(flash_mod._flash_bwd_dq.launches_by_route),
         "flash_attention_bwd_dkv": dict(flash_mod._flash_bwd_dkv.launches_by_route),
     }
 
@@ -205,15 +215,18 @@ def _require_wgmma_route(path: str, counts: dict, routes: dict) -> None:
                 f"{path}: {name} launches by route {by_route}, {counts[name]} in all")
 
 
-def _reported_route(fn, call, dtype, head_dim, what: str):
-    """Runs `call`, which launches fn's kernel once, and returns its result
-    and the route the C entry point reported, which must be the one
-    flash_attention.kernel_route states for (dtype, head_dim)."""
-    before = dict(fn.launches_by_route)
+def _reported_route(fns, call, dtype, head_dim, what: str):
+    """Runs `call`, which launches the kernel of each of `fns` once, and
+    returns its result and the route the C entry points reported, which
+    must be the one flash_attention.kernel_route states for (dtype,
+    head_dim)."""
+    before = [dict(fn.launches_by_route) for fn in fns]
     result = call()
-    taken = {r: n - before[r] for r, n in fn.launches_by_route.items() if n != before[r]}
     want = flash_mod.kernel_route(dtype, head_dim)
-    require(taken == {want: 1}, f"{what}: launched on {taken}, kernel_route says {want}")
+    for fn, counts in zip(fns, before):
+        taken = {r: n - counts[r] for r, n in fn.launches_by_route.items() if n != counts[r]}
+        require(taken == {want: 1},
+                f"{what}: {fn.__name__} launched on {taken}, kernel_route says {want}")
     return result, want
 
 
@@ -270,7 +283,7 @@ def phase_build() -> dict:
     wgmma = {name: info for name, info in report.items() if "wgmma" in name}
     log("build", seconds=round(time.perf_counter() - start, 2),
         nvcc_seconds=_build.build_seconds, wgmma_kernels=wgmma, ptxas=report)
-    require(len(wgmma) == 2, f"build: expected the two wgmma kernels in ptxas's report, {wgmma}")
+    require(len(wgmma) == 3, f"build: expected the three wgmma kernels in ptxas's report, {wgmma}")
     for name, info in wgmma.items():
         require(info.get("spill_stores") == 0 and info.get("spill_loads") == 0,
                 f"build: {name} spills: {info}")
@@ -425,7 +438,7 @@ def _bwd_entries(gen) -> list[dict]:
         do = _randn(gen, (b, h, sq, d), dtype)
         out, lse = flash_mod._flash_forward(q, k, v, causal=causal)
         (dq, dk, dv), route = _reported_route(
-            flash_mod._flash_bwd_dkv,
+            (flash_mod._flash_bwd_dq, flash_mod._flash_bwd_dkv),
             lambda: flash_mod._flash_backward(q, k, v, out, lse, do, causal=causal),
             dtype, d, f"flash bwd {name}",
         )
@@ -436,7 +449,7 @@ def _bwd_entries(gen) -> list[dict]:
                     f"flash bwd {name}: {which} shape/dtype")
         errs = [_bwd_err(got, want, unit) for got, want in zip((dq, dk, dv), plain)]
         abs_errs = [max_err(got, want) for got, want in zip((dq, dk, dv), plain)]
-        check = dict(shape=name, dkv_route=route, unit=unit, tol=tol,
+        check = dict(shape=name, route=route, unit=unit, tol=tol,
                      dq_err=errs[0], dk_err=errs[1], dv_err=errs[2], dq_abs=abs_errs[0],
                      dkv_abs=max(abs_errs[1:]))
         checks.append(check)
@@ -448,39 +461,64 @@ def _bwd_entries(gen) -> list[dict]:
     timed = checks[[c["shape"] for c in checks].index(BWD_TIMED)]
     scale = q.shape[-1] ** -0.5
     delta = torch.empty(q.shape[:3], dtype=torch.float32, device="cuda")
-    dq_ms = time_ms(lambda: flash_mod._flash_bwd_dq(q, k, v, out, do, lse, delta, dq, True, scale))
-    dkv_ms = time_ms(
+    dq_t = time_ms(lambda: flash_mod._flash_bwd_dq(q, k, v, out, do, lse, delta, dq, True, scale))
+    dkv_t = time_ms(
         lambda: flash_mod._flash_bwd_dkv(q, k, v, do, lse, delta, dk, dv, True, scale)
     )
     plain_ms = time_ms(
         lambda: flash_mod._flash_backward_reference(q, k, v, out, lse, do, causal=True), iters=5
-    )
-    # The library's backward of all three gradients, timed alone; the port
-    # never calls it.
-    ql, kl, vl = (t.detach().requires_grad_(True) for t in (q, k, v))
-    lib_out = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True)
-    library_ms = time_ms(
-        lambda: torch.autograd.grad(lib_out, (ql, kl, vl), do, retain_graph=True)
-    )
-    del lib_out
+    )["ms"]
+    by_backend = _sdpa_backward_times(q, k, v, do)
+    backend = min((b for b, t in by_backend.items() if "ms" in t),
+                  key=lambda b: by_backend[b]["ms"], default=None)
+    require(backend is not None, f"flash bwd: no SDPA backend ran its backward: {by_backend}")
     bounds = _bwd_bounds(*q.shape[:3], k.shape[2], q.shape[3], True, q.dtype)
     common = dict(
-        route="cuda", source="ray_tpu_torch/ops/csrc/flash_attention_bwd.cu", launches=None,
+        route="cuda", launches=None, kernel_route=timed["route"],
         unit=timed["unit"], tol=timed["tol"], plain_ms=plain_ms,
-        plain="_flash_backward_reference (dQ, dK and dV together)", library_ms=library_ms,
-        library="torch.autograd.grad through F.scaled_dot_product_attention (dQ, dK and dV)",
-        shape=BWD_TIMED, checks=checks,
+        plain="_flash_backward_reference (dQ, dK and dV together)",
+        library_ms=by_backend[backend]["ms"], library_ms_range=by_backend[backend]["range"],
+        library=("torch.autograd.grad through F.scaled_dot_product_attention (dQ, dK and dV), "
+                 f"the fastest backend: {backend}"),
+        library_by_backend=by_backend, shape=BWD_TIMED, checks=checks,
     )
     return [
         dict(name="flash_attention_bwd_dq", replaces="ray_tpu/ops/flash_attention.py:125",
-             max_abs_err=timed["dq_abs"], err=timed["dq_err"], ms=dq_ms,
-             bound_ms=bounds["dq"][0], bound_by=bounds["dq"][1], **common),
+             source="ray_tpu_torch/ops/csrc/flash_bwd_dq_wgmma.cu",
+             max_abs_err=timed["dq_abs"], err=timed["dq_err"], ms=dq_t["ms"],
+             ms_range=dq_t["range"], bound_ms=bounds["dq"][0], bound_by=bounds["dq"][1],
+             **common),
         dict(name="flash_attention_bwd_dkv", replaces="ray_tpu/ops/flash_attention.py:167",
+             source="ray_tpu_torch/ops/csrc/flash_bwd_dkv_wgmma.cu",
              max_abs_err=timed["dkv_abs"], err=max(timed["dk_err"], timed["dv_err"]),
-             ms=dkv_ms, bound_ms=bounds["dkv"][0], bound_by=bounds["dkv"][1],
-             **{**common, "source": "ray_tpu_torch/ops/csrc/flash_bwd_dkv_wgmma.cu"},
-             kernel_route=timed["dkv_route"]),
+             ms=dkv_t["ms"], ms_range=dkv_t["range"], bound_ms=bounds["dkv"][0],
+             bound_by=bounds["dkv"][1], **common),
     ]
+
+
+def _sdpa_backward_times(q, k, v, do) -> dict:
+    """SDPA's backward (dQ, dK and dV) under each backend, timed alone at
+    these inputs; a backend that cannot run them reports its error. The
+    port never calls SDPA: this is the yardstick."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    times = {}
+    for name in ("FLASH_ATTENTION", "EFFICIENT_ATTENTION", "CUDNN_ATTENTION"):
+        backend = getattr(SDPBackend, name, None)
+        if backend is None:
+            continue
+        ql, kl, vl = (t.detach().requires_grad_(True) for t in (q, k, v))
+        try:
+            with sdpa_kernel(backend):
+                lib_out = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True)
+                times[name.lower()] = time_ms(
+                    lambda: torch.autograd.grad(lib_out, (ql, kl, vl), do, retain_graph=True)
+                )
+        except RuntimeError as err:
+            times[name.lower()] = {"error": str(err)[:200]}
+        lib_out = None  # frees this backend's graph before the next one's forward
+    log("sdpa_backward", shape=BWD_TIMED, by_backend=times)
+    return times
 
 
 def _rmsnorm_bound(rows, dim, dtype) -> tuple[float, str]:
@@ -497,21 +535,20 @@ def phase_kernels() -> list[dict]:
     entries = []
 
     def flash_times(q, k, v) -> dict:
+        # seq_q == seq_k here, where SDPA's top-left causal mask agrees.
+        library = time_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True))
         return dict(
-            plain_ms=time_ms(lambda: flash_mod.attention_reference(q, k, v, causal=True)),
-            library_ms=time_ms(  # seq_q == seq_k here, where its top-left causal mask agrees
-                lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True)
-            ),
+            plain_ms=time_ms(lambda: flash_mod.attention_reference(q, k, v, causal=True))["ms"],
+            library_ms=library["ms"], library_ms_range=library["range"],
         )
 
     def rmsnorm_times(x, w) -> dict:
         dim = x.shape[-1]
+        library = (time_ms(lambda: F.rms_norm(x, (dim,), w, eps=1e-6))
+                   if hasattr(F, "rms_norm") else {"ms": None, "range": None})
         return dict(
-            plain_ms=time_ms(lambda: rmsnorm_mod.rmsnorm_reference(x, w)),
-            library_ms=(
-                time_ms(lambda: F.rms_norm(x, (dim,), w, eps=1e-6))
-                if hasattr(F, "rms_norm") else None
-            ),
+            plain_ms=time_ms(lambda: rmsnorm_mod.rmsnorm_reference(x, w))["ms"],
+            library_ms=library["ms"], library_ms_range=library["range"],
         )
 
     checks, kept = [], {}
@@ -520,7 +557,7 @@ def phase_kernels() -> list[dict]:
         k = _randn(gen, (b, h, sk, d), dtype)
         v = _randn(gen, (b, h, sk, d), dtype)
         (out, lse), route = _reported_route(
-            flash_mod.flash_attention, lambda: flash_mod._flash_forward(q, k, v, causal=causal),
+            (flash_mod.flash_attention,), lambda: flash_mod._flash_forward(q, k, v, causal=causal),
             dtype, d, f"flash {name}",
         )
         torch.cuda.synchronize()
@@ -528,11 +565,11 @@ def phase_kernels() -> list[dict]:
         lse_ref = flash_mod._lse_reference(q, k, causal=causal, scale=d ** -0.5)
         err, lse_err = max_err(out, ref), max_err(lse, lse_ref)
         bound_ms, bound_by = _flash_bound(b, h, sq, sk, d, causal, dtype)
+        kernel = time_ms(lambda: flash_mod.flash_attention(q, k, v, causal=causal))
         checks.append(dict(
             shape=name, route=route, max_abs_err=err, tol=tol,
             lse_err=lse_err, lse_tol=LSE_TOL[dtype],
-            kernel_ms=time_ms(lambda: flash_mod.flash_attention(q, k, v, causal=causal)),
-            bound_ms=bound_ms,
+            kernel_ms=kernel["ms"], kernel_ms_range=kernel["range"], bound_ms=bound_ms,
         ))
         require(out.dtype == dtype and out.shape == q.shape, f"flash {name}: output shape/dtype")
         require(err < tol, f"flash {name}: max |O - plain| = {err} >= {tol}")
@@ -547,11 +584,13 @@ def phase_kernels() -> list[dict]:
         source="ray_tpu_torch/ops/csrc/flash_fwd_wgmma.cu",
         replaces="ray_tpu/ops/flash_attention.py:79",
         kernel_route=timed["route"], launches=None, max_abs_err=timed["max_abs_err"],
-        err=timed["max_abs_err"], unit="abs", tol=timed["tol"], ms=timed["kernel_ms"], **flash_times(q, k, v),
+        err=timed["max_abs_err"], unit="abs", tol=timed["tol"], ms=timed["kernel_ms"],
+        ms_range=timed["kernel_ms_range"], **flash_times(q, k, v),
         bound_ms=bound_ms, bound_by=bound_by,
         library="torch.nn.functional.scaled_dot_product_attention",
         shape=FLASH_TIMED, checks=checks,
-        at_train_shape=dict(shape=FLASH_TRAIN, ms=train["kernel_ms"], bound_ms=train["bound_ms"],
+        at_train_shape=dict(shape=FLASH_TRAIN, ms=train["kernel_ms"],
+                            ms_range=train["kernel_ms_range"], bound_ms=train["bound_ms"],
                             **flash_times(*train_inputs)),
     ))
     del kept, train_inputs
@@ -572,9 +611,10 @@ def phase_kernels() -> list[dict]:
             err, unit = bf16_ulps(y, plain), "bf16_ulps"
         else:
             err, unit = max_err(y, plain), "abs"
+        kernel = time_ms(lambda: rmsnorm_mod.rmsnorm(x, w))
         checks.append(dict(
             shape=name, max_abs_err=max_err(y, plain), err=err, unit=unit, tol=tol,
-            kernel_ms=time_ms(lambda: rmsnorm_mod.rmsnorm(x, w)),
+            kernel_ms=kernel["ms"], kernel_ms_range=kernel["range"],
             bound_ms=_rmsnorm_bound(rows, dim, dtype)[0],
         ))
         require(y.dtype == dtype and y.shape == x.shape, f"rmsnorm {name}: output shape/dtype")
@@ -589,11 +629,13 @@ def phase_kernels() -> list[dict]:
         name="rmsnorm", route="cuda", source="ray_tpu_torch/ops/csrc/rmsnorm.cu",
         replaces="ray_tpu/ops/rmsnorm.py:17",
         launches=None, max_abs_err=timed["max_abs_err"], err=timed["err"], unit=timed["unit"],
-        tol=timed["tol"], ms=timed["kernel_ms"], **rmsnorm_times(x, w),
+        tol=timed["tol"], ms=timed["kernel_ms"], ms_range=timed["kernel_ms_range"],
+        **rmsnorm_times(x, w),
         bound_ms=bound_ms, bound_by=bound_by,
         library="torch.nn.functional.rms_norm",
         shape=RMSNORM_TIMED, checks=checks,
-        at_train_shape=dict(shape=RMSNORM_TRAIN, ms=train["kernel_ms"], bound_ms=train["bound_ms"],
+        at_train_shape=dict(shape=RMSNORM_TRAIN, ms=train["kernel_ms"],
+                            ms_range=train["kernel_ms_range"], bound_ms=train["bound_ms"],
                             **rmsnorm_times(*train_inputs)),
     ))
     _log_kernel(entries[-1])
@@ -605,7 +647,8 @@ def phase_kernels() -> list[dict]:
 def _log_kernel(e: dict) -> None:
     log("kernels", name=e["name"], max_err=e["max_abs_err"], err=e["err"], unit=e["unit"],
         tol=e["tol"],
-        kernel_ms=e["ms"], plain_ms=e["plain_ms"], library_ms=e["library_ms"],
+        kernel_ms=e["ms"], kernel_ms_range=e["ms_range"], plain_ms=e["plain_ms"],
+        library_ms=e["library_ms"], library=e["library"],
         bound_ms=e["bound_ms"], bound_by=e["bound_by"], at_train_shape=e.get("at_train_shape"),
         checks=e["checks"])
 

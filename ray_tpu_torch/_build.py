@@ -45,8 +45,8 @@ _SIGNATURES = {
     # route (out), stream
     "rt_flash_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _IP, _P],
     # q, k, v, o, dout, lse, delta, dq, bh, seq_q, seq_k, head_dim, is_bf16,
-    # causal, scale, stream
-    "rt_flash_bwd_dq": [_P] * 8 + [_I] * 6 + [_F, _P],
+    # causal, scale, route (out), stream
+    "rt_flash_bwd_dq": [_P] * 8 + [_I] * 6 + [_F, _IP, _P],
     # q, k, v, dout, lse, delta, dk, dv, bh, seq_q, seq_k, head_dim, is_bf16,
     # causal, scale, route (out), stream
     "rt_flash_bwd_dkv": [_P] * 8 + [_I] * 6 + [_F, _IP, _P],

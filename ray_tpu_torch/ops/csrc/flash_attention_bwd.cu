@@ -37,10 +37,10 @@
 //     a register tile is needed.
 // The products run on the tensor cores for bf16 (mma.sync m16n8k16) and
 // as f32 FMAs for f32 (flash_common.cuh). Plain loads (no TMA, no wgmma,
-// no pipelining) keep them simple. rt_flash_bwd_dkv routes bf16 at
-// head_dim 128, the model's shapes, to the TMA/wgmma kernel of
-// flash_bwd_dkv_wgmma.cu; this file's dK/dV kernel serves f32 and bf16 at
-// head_dim 32 and 64, and its dQ kernel every type and width.
+// no pipelining) keep them simple. rt_flash_bwd_dq and rt_flash_bwd_dkv
+// route bf16 at head_dim 128, the model's shapes, to the TMA/wgmma kernels
+// of flash_bwd_dq_wgmma.cu and flash_bwd_dkv_wgmma.cu; this file's kernels
+// serve f32 and bf16 at head_dim 32 and 64.
 //
 // Any seq_q and seq_k work: rows past seq_q and keys past seq_k are
 // neither used nor stored. A row that sees no key (causal with seq_q >
@@ -290,7 +290,7 @@ struct Args {
   int bh, seq_q, seq_k, causal;
   float scale;
   cudaStream_t stream;
-  int* route;  // dK/dV: where the route taken is written
+  int* route;  // where the route taken is written
 };
 
 template <typename T, int D>
@@ -323,19 +323,25 @@ cudaError_t launch_dkv(const Args& a) {
   return cudaGetLastError();
 }
 
-// dK/dV in bf16 at head_dim 128 takes the TMA/wgmma kernel; the rest,
-// and dQ at every width, this file's.
+// bf16 at head_dim 128 takes the TMA/wgmma kernels; the rest this file's.
 template <bool kDq, typename T, int D>
 cudaError_t launch_one(const Args& a) {
-  if constexpr (kDq) {
-    return launch_dq<T, D>(a);
-  } else if constexpr (std::is_same<T, __nv_bfloat16>::value && D == 128) {
+  if constexpr (std::is_same<T, __nv_bfloat16>::value && D == 128) {
     *a.route = kRouteWgmma;
-    return flash_bwd_dkv_wgmma(a.q, a.k, a.v, a.dout, a.lse, a.delta, a.dk, a.dv, a.bh, a.seq_q,
-                               a.seq_k, a.causal, a.scale, a.stream);
+    if constexpr (kDq) {
+      return flash_bwd_dq_wgmma(a.q, a.k, a.v, a.o, a.dout, a.lse, a.delta, a.dq, a.bh, a.seq_q,
+                                a.seq_k, a.causal, a.scale, a.stream);
+    } else {
+      return flash_bwd_dkv_wgmma(a.q, a.k, a.v, a.dout, a.lse, a.delta, a.dk, a.dv, a.bh,
+                                 a.seq_q, a.seq_k, a.causal, a.scale, a.stream);
+    }
   } else {
     *a.route = kRouteMmaSync;
-    return launch_dkv<T, D>(a);
+    if constexpr (kDq) {
+      return launch_dq<T, D>(a);
+    } else {
+      return launch_dkv<T, D>(a);
+    }
   }
 }
 
@@ -360,15 +366,15 @@ int dispatch(const Args& a, int head_dim, int is_bf16) {
 
 // q, o, dout, dq: contiguous [bh, seq_q, head_dim]; k, v: [bh, seq_k,
 // head_dim]; all of one type (bf16 when is_bf16, else f32), 16-byte
-// aligned. lse (in) and delta (out): f32 [bh, seq_q]. Writes dQ and
-// delta = rowsum(dout * o). Launches on `stream` and returns the launch's
-// cudaError_t.
+// aligned. lse (in) and delta (out): f32 [bh, seq_q]. Writes dQ, delta =
+// rowsum(dout * o) and the route it took to *route (kRouteMmaSync or
+// kRouteWgmma). Launches on `stream` and returns the launch's cudaError_t.
 extern "C" int rt_flash_bwd_dq(const void* q, const void* k, const void* v, const void* o,
                                const void* dout, const void* lse, void* delta, void* dq, int bh,
                                int seq_q, int seq_k, int head_dim, int is_bf16, int causal,
-                               float scale, void* stream) {
+                               float scale, int* route, void* stream) {
   const Args a{q, k, v, o, dout, lse, delta, dq, nullptr, nullptr,
-               bh, seq_q, seq_k, causal, scale, static_cast<cudaStream_t>(stream), nullptr};
+               bh, seq_q, seq_k, causal, scale, static_cast<cudaStream_t>(stream), route};
   return dispatch<true>(a, head_dim, is_bf16);
 }
 

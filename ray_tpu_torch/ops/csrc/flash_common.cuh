@@ -172,17 +172,21 @@ __device__ __forceinline__ void pv_tile(float (&o)[D / 8][4], const float* sP, c
   }
 }
 
-// The TMA/wgmma route, taken for bf16 at head_dim 128 by rt_flash_fwd and
-// rt_flash_bwd_dkv (flash_fwd_wgmma.cu, flash_bwd_dkv_wgmma.cu); the
-// kernels of this header serve f32 and bf16 at head_dim 32 and 64, and the
-// dQ kernel every type and width. Arguments as those entry points take them.
-// The two entry points report the route they launched in `*route`, and the
-// Python wrappers count launches by what they report.
+// The TMA/wgmma route, taken for bf16 at head_dim 128 by rt_flash_fwd,
+// rt_flash_bwd_dq and rt_flash_bwd_dkv (flash_fwd_wgmma.cu,
+// flash_bwd_dq_wgmma.cu, flash_bwd_dkv_wgmma.cu); the kernels of this header
+// serve f32 and bf16 at head_dim 32 and 64. Arguments as those entry points
+// take them. The entry points report the route they launched in `*route`,
+// and the Python wrappers count launches by what they report.
 constexpr int kRouteMmaSync = 0;
 constexpr int kRouteWgmma = 1;
 cudaError_t flash_fwd_wgmma(const void* q, const void* k, const void* v, void* o, void* lse,
                             int bh, int seq_q, int seq_k, int causal, float scale,
                             cudaStream_t stream);
+cudaError_t flash_bwd_dq_wgmma(const void* q, const void* k, const void* v, const void* o,
+                               const void* dout, const void* lse, void* delta, void* dq, int bh,
+                               int seq_q, int seq_k, int causal, float scale,
+                               cudaStream_t stream);
 cudaError_t flash_bwd_dkv_wgmma(const void* q, const void* k, const void* v, const void* dout,
                                 const void* lse, const void* delta, void* dk, void* dv, int bh,
                                 int seq_q, int seq_k, int causal, float scale,

@@ -1,6 +1,6 @@
 // TMA, mbarrier and wgmma building blocks of the Hopper (sm_90a) kernels
-// (flash_fwd_wgmma.cu, flash_bwd_dkv_wgmma.cu), and the host-side tensor
-// maps they load through.
+// (flash_fwd_wgmma.cu, flash_bwd_dq_wgmma.cu, flash_bwd_dkv_wgmma.cu), and
+// the host-side tensor maps they load through.
 //
 // Tiles live in shared memory in the layout a TMA load with 128-byte
 // swizzle writes: a tile of R rows by 128 bf16 columns is two boxes of
@@ -14,8 +14,8 @@
 // row 16w + g + 8 * (e / 2), column 8j + 2t + e % 2. Two neighbouring
 // n-tiles of an accumulator, converted to bf16 pairs, are the register A
 // operand of the next m64k16 product (a[0]: row g, a[1]: row g + 8, both at
-// the first 8 columns; a[2], a[3] at the next 8), so P, P^T and dS^T never
-// leave registers.
+// the first 8 columns; a[2], a[3] at the next 8), so P, P^T, dS and dS^T
+// never leave registers.
 
 #pragma once
 

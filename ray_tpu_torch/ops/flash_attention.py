@@ -1,16 +1,15 @@
 """Flash attention, forward and backward: hand-written CUDA kernels
 (``csrc/flash_attention_fwd.cu``, ``csrc/flash_attention_bwd.cu``,
-``csrc/flash_fwd_wgmma.cu``, ``csrc/flash_bwd_dkv_wgmma.cu``) and their
-plain versions.
+``csrc/flash_fwd_wgmma.cu``, ``csrc/flash_bwd_dq_wgmma.cu``,
+``csrc/flash_bwd_dkv_wgmma.cu``) and their plain versions.
 
 Two routes, chosen by (dtype, head_dim) in the C entry points: bf16 at
-head_dim 128, every shape the model gives the kernels, takes the forward
-and dK/dV kernels built on TMA and ``wgmma``; f32 and bf16 at head_dim 32
-and 64 take the ``mma.sync`` kernels. The dQ kernel has one route. The
-entry points report the route they launched and the wrappers count
-launches by it; ``kernel_route`` states the rule, and ``chip_smoke.py``
-holds every reported route against it. A launch error on either route
-raises.
+head_dim 128, every shape the model gives the kernels, takes the forward,
+dQ and dK/dV kernels built on TMA and ``wgmma``; f32 and bf16 at head_dim
+32 and 64 take the ``mma.sync`` kernels. The entry points report the route
+they launched and the wrappers count launches by it; ``kernel_route``
+states the rule, and ``chip_smoke.py`` holds every reported route against
+it. A launch error on either route raises.
 
 ``flash_attention`` is differentiable through ``_FlashAttention``, the
 counterpart of the JAX package's ``_flash_vjp``: the forward saves
@@ -41,8 +40,9 @@ _KERNEL_HEAD_DIMS = (32, 64, 128)
 
 
 def kernel_route(dtype: torch.dtype, head_dim: int) -> str:
-    """Which kernels ``rt_flash_fwd`` and ``rt_flash_bwd_dkv`` launch:
-    "wgmma" (TMA and wgmma) for bf16 at head_dim 128, else "mma_sync"."""
+    """Which kernels ``rt_flash_fwd``, ``rt_flash_bwd_dq`` and
+    ``rt_flash_bwd_dkv`` launch: "wgmma" (TMA and wgmma) for bf16 at
+    head_dim 128, else "mma_sync"."""
     return "wgmma" if dtype == torch.bfloat16 and head_dim == 128 else "mma_sync"
 
 
@@ -174,14 +174,15 @@ def _flash_forward(
 def _flash_bwd_dq(q, k, v, out, do, lse, delta, dq, causal: bool, scale: float) -> None:
     """Launches the dQ kernel, which also writes delta = rowsum(dO * O)."""
     batch, heads, seq_q, dim = q.shape
+    route = ctypes.c_int(-1)
     _build.launch(
         "rt_flash_bwd_dq", q.device,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
         batch * heads, seq_q, k.shape[2], dim, int(q.dtype == torch.bfloat16),
-        int(causal), float(scale),
+        int(causal), float(scale), ctypes.byref(route),
     )
-    _flash_bwd_dq.launches += 1
+    _count(_flash_bwd_dq, route)
 
 
 def _flash_bwd_dkv(q, k, v, do, lse, delta, dk, dv, causal: bool, scale: float) -> None:
@@ -264,13 +265,11 @@ def flash_attention(
 
 def reset_launch_counts() -> None:
     """Sets every launch count of this module to 0."""
-    for fn in (flash_attention, _flash_bwd_dkv):
-        fn.launches_by_route = {"wgmma": 0, "mma_sync": 0}
     for fn in (flash_attention, _flash_bwd_dq, _flash_bwd_dkv):
         fn.launches = 0
+        fn.launches_by_route = {"wgmma": 0, "mma_sync": 0}
 
 
-# Kernel launches since the counts were last set to 0: the forward kernel,
-# and the backward's dQ and dK/dV kernels; the forward's and dK/dV's also by
-# route.
+# Kernel launches since the counts were last set to 0, in all and by route:
+# the forward kernel, and the backward's dQ and dK/dV kernels.
 reset_launch_counts()

@@ -130,56 +130,61 @@ def test_launch_counters_stay_zero_on_cpu_tensors():
     optimizer = port_step.make_optimizer(params)
     port_step.train_step(params, optimizer, torch.zeros(1, 9, dtype=torch.int64), cfg)
     assert [fn.launches for fn in counters] == [0, 0, 0, 0]
-    for fn in (port_flash.flash_attention, port_flash._flash_bwd_dkv):
+    for fn in counters[:3]:
         assert fn.launches_by_route == {"wgmma": 0, "mma_sync": 0}
 
 
 @pytest.mark.parametrize("head_dim", [32, 64, 128])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 def test_kernel_route(dtype, head_dim):
-    # States the dispatch of rt_flash_fwd and rt_flash_bwd_dkv, against which
-    # chip_smoke.py holds the routes they report on the card: wgmma has no
+    # States the dispatch of rt_flash_fwd, rt_flash_bwd_dq and
+    # rt_flash_bwd_dkv, against which chip_smoke.py holds the routes they
+    # report on the card: wgmma has no
     # f32-input form that keeps f32's tolerance, and the wgmma kernels are
     # written for the model's head_dim.
     want = "wgmma" if (dtype, head_dim) == (torch.bfloat16, 128) else "mma_sync"
     assert port_flash.kernel_route(dtype, head_dim) == want
 
 
+@pytest.mark.parametrize("wrapper", ["_flash_bwd_dq", "_flash_bwd_dkv"])
 @pytest.mark.parametrize("code, route", [(0, "mma_sync"), (1, "wgmma")])
-def test_launches_are_counted_on_the_route_the_entry_point_reports(code, route):
+def test_launches_are_counted_on_the_route_the_entry_point_reports(code, route, wrapper):
     # The wrappers pass a C int by reference; the entry point writes the
     # route it launched (kRouteMmaSync = 0, kRouteWgmma = 1) into it.
+    fn = getattr(port_flash, wrapper)
     reported = ctypes.c_int(-1)
     ctypes.CFUNCTYPE(None, ctypes.POINTER(ctypes.c_int))(
         lambda out: out.__setitem__(0, code)
     )(ctypes.byref(reported))
     port_flash.reset_launch_counts()
-    port_flash._count(port_flash._flash_bwd_dkv, reported)
-    assert port_flash._flash_bwd_dkv.launches == 1
-    assert port_flash._flash_bwd_dkv.launches_by_route[route] == 1
+    port_flash._count(fn, reported)
+    assert fn.launches == 1
+    assert fn.launches_by_route == {"wgmma": 0, "mma_sync": 0, route: 1}
     port_flash.reset_launch_counts()
 
 
 def test_reset_launch_counts_clears_every_flash_counter():
     port_flash.flash_attention.launches = 3
     port_flash._flash_bwd_dq.launches = 2
+    port_flash._flash_bwd_dq.launches_by_route["wgmma"] = 2
     port_flash._flash_bwd_dkv.launches_by_route["wgmma"] = 1
     port_flash.reset_launch_counts()
     assert port_flash.flash_attention.launches == port_flash._flash_bwd_dq.launches == 0
-    assert port_flash._flash_bwd_dkv.launches_by_route == {"wgmma": 0, "mma_sync": 0}
+    for fn in (port_flash._flash_bwd_dq, port_flash._flash_bwd_dkv):
+        assert fn.launches_by_route == {"wgmma": 0, "mma_sync": 0}
 
 
 def test_kernel_sources_and_build_digest():
     sources = _build._sources()
     assert [p.name for p in sources] == [
         "flash_attention_bwd.cu", "flash_attention_fwd.cu", "flash_bwd_dkv_wgmma.cu",
-        "flash_fwd_wgmma.cu", "rmsnorm.cu",
+        "flash_bwd_dq_wgmma.cu", "flash_fwd_wgmma.cu", "rmsnorm.cu",
     ]
     for path in sources:
         head = path.read_text().split("#include")[0]
         assert "Replaces: ray_tpu/ops/" in head and "bounds it on the H100" in head
     # The TMA/wgmma kernels name what their design does about the bound.
-    for name in ("flash_fwd_wgmma.cu", "flash_bwd_dkv_wgmma.cu"):
+    for name in ("flash_fwd_wgmma.cu", "flash_bwd_dq_wgmma.cu", "flash_bwd_dkv_wgmma.cu"):
         head = (_build.CSRC / name).read_text().split("#include")[0]
         assert all(word in head for word in ("TMA", "mbarrier", "wgmma", "registers"))
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
