@@ -9,7 +9,8 @@ final line) if anything is wrong:
   1. device    the card's name and power limit (nvidia-smi)
   2. build     compiles ops/csrc/*.cu with nvcc into build/ray_tpu_torch/;
                ptxas's registers, spills and shared memory per kernel (the
-               three TMA/wgmma kernels must not spill)
+               three TMA/wgmma kernels and the RMSNorm kernels must not
+               spill)
   3. kernels   each hand-written kernel against its plain PyTorch version at
                the JAX test shapes and the shapes the serving and training
                paths give it, with the kernel's, the plain version's and one
@@ -20,7 +21,10 @@ final line) if anything is wrong:
                mma.sync ones, and the route each C entry point reports is
                held against flash_attention.kernel_route; the backward's
                yardstick is SDPA's backward under the fastest of its
-               backends
+               backends; the RMSNorm forward and backward kernels at every
+               shape of RMSNORM_CHECKS, each with its torch.profiler device
+               time beside the events window, the backward's yardstick
+               PyTorch's own fused RMSNorm backward
   4. serve     TransformerConfig.llama2_7b() at full width and depth in bf16
                behind the @batch decorator (buckets 1, 4, 8) as
                release/serve_bert_http.py serves its encoder: 12 concurrent
@@ -40,7 +44,10 @@ final line) if anything is wrong:
                fall), tokens/s, MFU, peak memory, one profiled step and a
                forward/backward/optimizer split; then the launch counts over
                the phase, which must match the steps it ran, every flash
-               forward, dQ and dK/dV launch on the wgmma route
+               forward, dQ and dK/dV launch on the wgmma route; the plain
+               side of the gradient check also takes the norm's plain
+               backward, so the check holds the RMSNorm backward kernel
+               inside the model
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
@@ -49,6 +56,7 @@ The line before the last is {"kernels": [...]}; the last line is
 import asyncio
 import dataclasses
 import json
+import math
 import re
 import statistics
 import subprocess
@@ -85,6 +93,18 @@ F32_TOL = 2e-5
 BF16_TOL = 3e-2
 RMSNORM_F32_TOL = 1e-5
 RMSNORM_BF16_ULPS = 1.0
+# RMSNorm backward against _rmsnorm_backward, each output by max |kernel -
+# plain|. f32: over the plain result's largest magnitude, bound 1e-5: the
+# row sums and dw's sum over rows are taken in another order, which moves
+# them by a few f32 ulps of their terms' magnitude. bf16: in bf16 ulps of
+# the plain result's largest magnitude, bound 1: both round nearly equal
+# f32 values once, so an element lands at most one of its own ulps away,
+# and no element's ulp is larger than the largest one's; f32 differences
+# where dx cancels (g close to n * mean(g * n)) are far below that ulp. A
+# kernel that rounds an intermediate to bf16, or drops a row of dw's sum,
+# lands further.
+RMSNORM_BWD_F32_TOL = 1e-5
+RMSNORM_BWD_BF16_TOL = 1.0
 # LSE: f32 sums in another order; |LSE| ~ log(seq) + O(1).
 LSE_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-3}
 # bf16 logits of the 32-layer model (values of order 1): the batched and
@@ -189,6 +209,12 @@ def device_time(fn, top: int = 5) -> dict:
     }
 
 
+def per_call_device_ms(fn, calls: int = 20) -> float:
+    """torch.profiler's device time of one call of fn: the mean over `calls`
+    calls."""
+    return device_time(lambda: [fn() for _ in range(calls)])["device_ms"] / calls
+
+
 def _counts() -> dict:
     """Every kernel's launch count, under its name in the kernels line."""
     return {
@@ -196,6 +222,7 @@ def _counts() -> dict:
         "flash_attention_bwd_dq": flash_mod._flash_bwd_dq.launches,
         "flash_attention_bwd_dkv": flash_mod._flash_bwd_dkv.launches,
         "rmsnorm": rmsnorm_mod.rmsnorm.launches,
+        "rmsnorm_bwd": rmsnorm_mod.rmsnorm_backward.launches,
     }
 
 
@@ -234,6 +261,7 @@ def reset_counts() -> None:
     """Sets every kernel's launch count to 0."""
     flash_mod.reset_launch_counts()
     rmsnorm_mod.rmsnorm.launches = 0
+    rmsnorm_mod.rmsnorm_backward.launches = 0
 
 
 def require(ok: bool, what: str) -> None:
@@ -281,13 +309,16 @@ def phase_build() -> dict:
     _build.library()
     report = _ptxas_report((_build.BUILD_DIR / "build.log").read_text())
     wgmma = {name: info for name, info in report.items() if "wgmma" in name}
+    norm = {name: info for name, info in report.items() if "rmsnorm" in name}
     log("build", seconds=round(time.perf_counter() - start, 2),
-        nvcc_seconds=_build.build_seconds, wgmma_kernels=wgmma, ptxas=report)
+        nvcc_seconds=_build.build_seconds, wgmma_kernels=wgmma, rmsnorm_kernels=norm,
+        ptxas=report)
     require(len(wgmma) == 3, f"build: expected the three wgmma kernels in ptxas's report, {wgmma}")
-    for name, info in wgmma.items():
-        require(info.get("spill_stores") == 0 and info.get("spill_loads") == 0,
-                f"build: {name} spills: {info}")
-    return wgmma
+    require(norm, "build: no RMSNorm kernel in ptxas's report")
+    spills = {name: info for name, info in {**wgmma, **norm}.items()
+              if info.get("spill_stores") != 0 or info.get("spill_loads") != 0}
+    require(not spills, f"build: kernels that spill: {spills}")
+    return {**wgmma, **norm}
 
 
 # ---------------------------------------------------------------- phase 3
@@ -342,11 +373,11 @@ FLASH_TIMED = "serve_b8_h32_s512_d128_bf16"
 FLASH_TRAIN = "train_b12_h32_s1024_d128_bf16"
 # (name, x shape, dtype, offset, tol): any row count, an input whose data
 # starts 4 bytes past an aligned address (the wrapper copies it to an
-# aligned one), and every shape the main paths give the kernel: decode's
+# aligned one), and every shape the main paths give the kernels: decode's
 # [4, 1, 4096], generate's forward, the serve buckets and the train step's
-# [12, 1024, 4096]. f32 is held by
-# its absolute error, bf16 in ulps. The plain version's and the library's
-# times are taken at RMSNORM_TIMED and RMSNORM_TRAIN.
+# [12, 1024, 4096]. The forward's f32 is held by its absolute error, bf16
+# in ulps; the backward by RMSNORM_BWD_*. The plain versions' and the
+# library's times are taken at RMSNORM_TIMED (forward) and RMSNORM_TRAIN.
 RMSNORM_CHECKS = [
     ("rows512_d512_f32", (4 * 128, 512), torch.float32, 0, RMSNORM_F32_TOL),
     ("odd_rows7_d512_f32", (7, 512), torch.float32, 0, RMSNORM_F32_TOL),
@@ -358,9 +389,32 @@ RMSNORM_CHECKS = [
     ("serve_b4_s512_d4096_bf16", (4, SERVE_SEQ, 4096), torch.bfloat16, 0, RMSNORM_BF16_ULPS),
     ("serve_b8_s512_d4096_bf16", (8, SERVE_SEQ, 4096), torch.bfloat16, 0, RMSNORM_BF16_ULPS),
     ("train_b12_s1024_d4096_bf16", (12, 1024, 4096), torch.bfloat16, 0, RMSNORM_BF16_ULPS),
+    # The other routes through the kernels: a dim of one 16-byte piece, one
+    # warp a row, 2 and 8 warps a row (at 6144 with pieces past the row's
+    # end), f32 at the model's width, and rows too wide for registers (the
+    # looped routes, past dim 8192 in bf16 and 4096 in f32).
+    ("d8_rows9_bf16", (9, 8), torch.bfloat16, 0, RMSNORM_BF16_ULPS),
+    ("d512_rows33_bf16", (33, 512), torch.bfloat16, 0, RMSNORM_BF16_ULPS),
+    ("d2048_rows33_bf16", (33, 2048), torch.bfloat16, 0, RMSNORM_BF16_ULPS),
+    ("d6144_rows5_bf16", (5, 6144), torch.bfloat16, 0, RMSNORM_BF16_ULPS),
+    ("d4096_rows300_f32", (300, 4096), torch.float32, 0, RMSNORM_F32_TOL),
+    ("d16384_rows3_bf16", (3, 16384), torch.bfloat16, 0, RMSNORM_BF16_ULPS),
+    ("d40960_rows3_bf16", (3, 40960), torch.bfloat16, 0, RMSNORM_BF16_ULPS),
+    ("d20480_rows3_f32", (3, 20480), torch.float32, 0, RMSNORM_F32_TOL),
 ]
 RMSNORM_TIMED = "serve_b8_s512_d4096_bf16"
 RMSNORM_TRAIN = "train_b12_s1024_d4096_bf16"
+# Parts of the mangled names of the kernels each entry's timed shape
+# launches (bf16; RMSNorm at dim 4096: four warps a row, four 16-byte
+# pieces a lane, in both directions, then the dw sum).
+PTXAS_NAMES = {
+    "flash_attention_fwd": ("flash_fwd_wgmma",),
+    "flash_attention_bwd_dq": ("flash_bwd_dq_wgmma",),
+    "flash_attention_bwd_dkv": ("flash_bwd_dkv_wgmma",),
+    "rmsnorm": ("rmsnorm_fwd_kernelI13__nv_bfloat16Li4ELi4E",),
+    "rmsnorm_bwd": ("rmsnorm_bwd_kernelI13__nv_bfloat16Li4ELi4E",
+                    "rmsnorm_dw_kernelI13__nv_bfloat16E"),
+}
 
 
 # (name, batch, heads, seq_q, seq_k, head_dim, causal, dtype, tol, unit):
@@ -527,6 +581,203 @@ def _rmsnorm_bound(rows, dim, dtype) -> tuple[float, str]:
     return bound(ops, (2 * rows * dim + dim) * size, torch.float32)
 
 
+def _rmsnorm_bwd_bound(rows, dim, dtype) -> tuple[float, str]:
+    """Reads x, dy and w, writes dx and dw; about 10 f32 operations per
+    element (two square-adds, n, dy * n into dw, and dx's four). The
+    kernel's per-block dw sums are its own traffic, not the function's."""
+    size = torch.tensor([], dtype=dtype).element_size()
+    return bound(10 * rows * dim, (3 * rows * dim + 2 * dim) * size, torch.float32)
+
+
+def _bf16_ulp(value: float) -> float:
+    """One bf16 ulp at |value|: 2^(e-8) for |value| in [2^(e-1), 2^e)."""
+    return math.ldexp(1.0, math.frexp(abs(value))[1] - 8) if value else 2.0 ** -133
+
+
+def _rmsnorm_bwd_err(out: torch.Tensor, plain: torch.Tensor) -> float:
+    """max |out - plain| in bf16 ulps of plain's largest magnitude (bf16), or
+    over that magnitude (f32)."""
+    top = float(plain.float().abs().max())
+    err = max_err(out, plain)
+    if plain.dtype == torch.bfloat16:
+        return err / _bf16_ulp(top)
+    return err / top if top else err
+
+
+def _rows_input(gen, shape, dtype, offset: int) -> torch.Tensor:
+    """A [..., dim] input whose data starts `offset` elements past the
+    allocation (4 bytes past an aligned address for offset 1 in f32)."""
+    n = int(np.prod(shape))
+    return _randn(gen, (offset + n,), dtype)[offset:].view(shape)
+
+
+def _library_rmsnorm_backward(x, w, dy) -> tuple:
+    """One PyTorch call that computes the norm's dx and dw from x, w and dy:
+    aten's fused RMSNorm backward given its forward's rstd where this torch
+    has it, else autograd through F.rms_norm. The port never calls it."""
+    dim = x.shape[-1]
+    aten = torch.ops.aten
+    if hasattr(aten, "_fused_rms_norm") and hasattr(aten, "_fused_rms_norm_backward"):
+        try:
+            _, rstd = aten._fused_rms_norm(x, [dim], w, 1e-6)
+            aten._fused_rms_norm_backward(dy, x, [dim], rstd, w, [True, True])
+            return (lambda: aten._fused_rms_norm_backward(dy, x, [dim], rstd, w, [True, True]),
+                    "torch.ops.aten._fused_rms_norm_backward, given _fused_rms_norm's rstd")
+        except (NotImplementedError, RuntimeError) as err:  # no kernel for this device
+            log("rmsnorm_library", fused_backward_error=str(err)[:200])
+    xl, wl = x.detach().requires_grad_(True), w.detach().requires_grad_(True)
+    out = F.rms_norm(xl, (dim,), wl, eps=1e-6)
+    return (lambda: torch.autograd.grad(out, (xl, wl), dy, retain_graph=True),
+            "torch.autograd.grad through F.rms_norm")
+
+
+def host_us(fn, calls: int = 2000) -> float:
+    """Host microseconds per call of fn: the wall time of `calls` calls and
+    one synchronize, after a warm-up. Meant for shapes whose kernels take a
+    few microseconds, where the host's issue rate is what the card waits on."""
+    for _ in range(50):
+        fn()
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - start) / calls * 1e6
+
+
+def rmsnorm_forward_path() -> dict:
+    """The RMSNorm forward through the package's public ``rmsnorm``, beside
+    F.rms_norm: host microseconds a call at decode's [4, 4096] bf16 (65
+    calls a decode step) with autograd off, as serving and decode call it,
+    and with a weight that requires a gradient, as training does; and the
+    device time a call at the serving and train shapes. Uses nothing but
+    ``rmsnorm``, so it also measures another version of the package put
+    first on the path."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+    shapes = {"decode": (GEN_BATCH, 4096), "serve": (8 * SERVE_SEQ, 4096),
+              "train": (TRAIN_BATCH * 1024, 4096)}
+    x, w = {}, _randn(gen, (4096,), torch.bfloat16)
+    for name, shape in shapes.items():
+        x[name] = _randn(gen, shape, torch.bfloat16)
+    trained = w.detach().requires_grad_(True)
+    result = dict(package=str(Path(rmsnorm_mod.__file__).parents[2]))
+    with torch.no_grad():
+        result["host_us_no_grad"] = host_us(lambda: rmsnorm_mod.rmsnorm(x["decode"], w))
+        result["library_host_us"] = host_us(lambda: F.rms_norm(x["decode"], (4096,), w, eps=1e-6))
+        for name in ("serve", "train"):
+            result[f"{name}_device_ms"] = per_call_device_ms(
+                lambda: rmsnorm_mod.rmsnorm(x[name], w))
+            result[f"{name}_library_device_ms"] = per_call_device_ms(
+                lambda: F.rms_norm(x[name], (4096,), w, eps=1e-6))
+    result["host_us_grad"] = host_us(lambda: rmsnorm_mod.rmsnorm(x["decode"], trained))
+    log("rmsnorm_forward_path", **result)
+    return result
+
+
+def _rmsnorm_entries(gen) -> list[dict]:
+    """The RMSNorm forward and backward kernels against rmsnorm_reference
+    and _rmsnorm_backward at every RMSNORM_CHECKS shape."""
+    def library_fwd(x, w):
+        return lambda: F.rms_norm(x, (x.shape[-1],), w, eps=1e-6)
+
+    def fwd_times(x, w) -> dict:
+        library = time_ms(library_fwd(x, w))
+        return dict(
+            plain_ms=time_ms(lambda: rmsnorm_mod.rmsnorm_reference(x, w))["ms"],
+            library_ms=library["ms"], library_ms_range=library["range"],
+            library_device_ms=per_call_device_ms(library_fwd(x, w)),
+        )
+
+    fwd_checks, bwd_checks, kept = [], [], {}
+    for name, shape, dtype, offset, tol in RMSNORM_CHECKS:
+        rows, dim = int(np.prod(shape[:-1])), shape[-1]
+        x = _rows_input(gen, shape, dtype, offset)
+        w = _randn(gen, (dim,), dtype)
+        dy = _rows_input(gen, shape, dtype, offset)
+        y = rmsnorm_mod.rmsnorm(x, w)
+        torch.cuda.synchronize()
+        plain = rmsnorm_mod.rmsnorm_reference(x, w)
+        if dtype == torch.bfloat16:
+            err, unit = bf16_ulps(y, plain), "bf16_ulps"
+        else:
+            err, unit = max_err(y, plain), "abs"
+        kernel = time_ms(lambda: rmsnorm_mod.rmsnorm(x, w))
+        fwd_checks.append(dict(
+            shape=name, max_abs_err=max_err(y, plain), err=err, unit=unit, tol=tol,
+            kernel_ms=kernel["ms"], kernel_ms_range=kernel["range"],
+            kernel_device_ms=per_call_device_ms(lambda: rmsnorm_mod.rmsnorm(x, w)),
+            bound_ms=_rmsnorm_bound(rows, dim, dtype)[0],
+        ))
+        require(y.dtype == dtype and y.shape == x.shape, f"rmsnorm {name}: output shape/dtype")
+        require(err <= tol, f"rmsnorm {name}: y vs plain {err} {unit} > {tol}")
+
+        dx, dw = rmsnorm_mod.rmsnorm_backward(x, w, dy)
+        again = rmsnorm_mod.rmsnorm_backward(x, w, dy)
+        torch.cuda.synchronize()
+        pdx, pdw = rmsnorm_mod._rmsnorm_backward(x, w, dy, 1e-6)
+        bwd_tol = RMSNORM_BWD_BF16_TOL if dtype == torch.bfloat16 else RMSNORM_BWD_F32_TOL
+        dx_err, dw_err = _rmsnorm_bwd_err(dx, pdx), _rmsnorm_bwd_err(dw, pdw)
+        bwd_checks.append(dict(
+            shape=name, unit="bf16_ulps_of_max" if dtype == torch.bfloat16 else "rel_to_max",
+            tol=bwd_tol, dx_err=dx_err, dw_err=dw_err, dx_abs=max_err(dx, pdx),
+            dw_abs=max_err(dw, pdw), bound_ms=_rmsnorm_bwd_bound(rows, dim, dtype)[0],
+        ))
+        require(dx.dtype == dtype and dx.shape == x.shape and dw.dtype == dtype
+                and dw.shape == w.shape, f"rmsnorm bwd {name}: output shape/dtype")
+        require(max(dx_err, dw_err) <= bwd_tol,
+                f"rmsnorm bwd {name}: dx, dw vs plain {dx_err}, {dw_err} > {bwd_tol}")
+        require(torch.equal(dx, again[0]) and torch.equal(dw, again[1]),
+                f"rmsnorm bwd {name}: two calls on the same inputs differ")
+        if name in (RMSNORM_TIMED, RMSNORM_TRAIN):
+            kept[name] = (fwd_checks[-1], bwd_checks[-1], (x, w, dy))
+        del y, plain, dx, dw, again, pdx, pdw
+
+    timed, _, (x, w, _) = kept[RMSNORM_TIMED]
+    train, train_bwd, (tx, tw, tdy) = kept[RMSNORM_TRAIN]
+    dim = x.shape[-1]
+    bound_ms, bound_by = _rmsnorm_bound(x.numel() // dim, dim, x.dtype)
+    forward = dict(
+        name="rmsnorm", route="cuda", source="ray_tpu_torch/ops/csrc/rmsnorm.cu",
+        replaces="ray_tpu/ops/rmsnorm.py:17",
+        launches=None, max_abs_err=timed["max_abs_err"], err=timed["err"], unit=timed["unit"],
+        tol=timed["tol"], ms=timed["kernel_ms"], ms_range=timed["kernel_ms_range"],
+        device_ms=timed["kernel_device_ms"], **fwd_times(x, w),
+        bound_ms=bound_ms, bound_by=bound_by,
+        library="torch.nn.functional.rms_norm", forward_path=rmsnorm_forward_path(),
+        shape=RMSNORM_TIMED, checks=fwd_checks,
+        at_train_shape=dict(shape=RMSNORM_TRAIN, ms=train["kernel_ms"],
+                            ms_range=train["kernel_ms_range"],
+                            device_ms=train["kernel_device_ms"], bound_ms=train["bound_ms"],
+                            **fwd_times(tx, tw)),
+    )
+
+    kernel = time_ms(lambda: rmsnorm_mod.rmsnorm_backward(tx, tw, tdy))
+    library_call, library_name = _library_rmsnorm_backward(tx, tw, tdy)
+    library_dx, library_dw = library_call()[:2]
+    pdx, pdw = rmsnorm_mod._rmsnorm_backward(tx, tw, tdy, 1e-6)
+    library = time_ms(library_call)
+    bound_ms, bound_by = _rmsnorm_bwd_bound(tx.numel() // dim, dim, tx.dtype)
+    backward = dict(
+        name="rmsnorm_bwd", route="cuda", source="ray_tpu_torch/ops/csrc/rmsnorm.cu",
+        replaces="ray_tpu/ops/rmsnorm.py:17",
+        replaces_note=("the backward of _rmsnorm_kernel's function, which the JAX model "
+                       "leaves to XLA's fusion of jax.checkpoint(rmsnorm_reference) "
+                       "(ray_tpu/models/transformer.py:229)"),
+        launches=None, max_abs_err=max(train_bwd["dx_abs"], train_bwd["dw_abs"]),
+        err=max(train_bwd["dx_err"], train_bwd["dw_err"]), unit=train_bwd["unit"],
+        tol=train_bwd["tol"], ms=kernel["ms"], ms_range=kernel["range"],
+        device_ms=per_call_device_ms(lambda: rmsnorm_mod.rmsnorm_backward(tx, tw, tdy)),
+        plain_ms=time_ms(lambda: rmsnorm_mod._rmsnorm_backward(tx, tw, tdy, 1e-6), iters=5)["ms"],
+        plain="_rmsnorm_backward",
+        library_ms=library["ms"], library_ms_range=library["range"],
+        library_device_ms=per_call_device_ms(library_call), library=library_name,
+        library_err=[_rmsnorm_bwd_err(library_dx, pdx), _rmsnorm_bwd_err(library_dw, pdw)],
+        bound_ms=bound_ms, bound_by=bound_by, shape=RMSNORM_TRAIN, checks=bwd_checks,
+    )
+    return [forward, backward]
+
+
 def phase_kernels() -> list[dict]:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -539,15 +790,6 @@ def phase_kernels() -> list[dict]:
         library = time_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True))
         return dict(
             plain_ms=time_ms(lambda: flash_mod.attention_reference(q, k, v, causal=True))["ms"],
-            library_ms=library["ms"], library_ms_range=library["range"],
-        )
-
-    def rmsnorm_times(x, w) -> dict:
-        dim = x.shape[-1]
-        library = (time_ms(lambda: F.rms_norm(x, (dim,), w, eps=1e-6))
-                   if hasattr(F, "rms_norm") else {"ms": None, "range": None})
-        return dict(
-            plain_ms=time_ms(lambda: rmsnorm_mod.rmsnorm_reference(x, w))["ms"],
             library_ms=library["ms"], library_ms_range=library["range"],
         )
 
@@ -599,46 +841,9 @@ def phase_kernels() -> list[dict]:
         entries.append(entry)
         _log_kernel(entry)
 
-    checks, kept = [], {}
-    for name, shape, dtype, offset, tol in RMSNORM_CHECKS:
-        rows, dim = int(np.prod(shape[:-1])), shape[-1]
-        x = _randn(gen, (offset + rows * dim,), dtype)[offset:].view(shape)
-        w = _randn(gen, (dim,), dtype)
-        y = rmsnorm_mod.rmsnorm(x, w)
-        torch.cuda.synchronize()
-        plain = rmsnorm_mod.rmsnorm_reference(x, w)
-        if dtype == torch.bfloat16:
-            err, unit = bf16_ulps(y, plain), "bf16_ulps"
-        else:
-            err, unit = max_err(y, plain), "abs"
-        kernel = time_ms(lambda: rmsnorm_mod.rmsnorm(x, w))
-        checks.append(dict(
-            shape=name, max_abs_err=max_err(y, plain), err=err, unit=unit, tol=tol,
-            kernel_ms=kernel["ms"], kernel_ms_range=kernel["range"],
-            bound_ms=_rmsnorm_bound(rows, dim, dtype)[0],
-        ))
-        require(y.dtype == dtype and y.shape == x.shape, f"rmsnorm {name}: output shape/dtype")
-        require(err <= tol, f"rmsnorm {name}: y vs plain {err} {unit} > {tol}")
-        if name in (RMSNORM_TIMED, RMSNORM_TRAIN):
-            kept[name] = (checks[-1], (x, w))
-    timed, (x, w) = kept[RMSNORM_TIMED]
-    train, train_inputs = kept[RMSNORM_TRAIN]
-    dim = x.shape[-1]
-    bound_ms, bound_by = _rmsnorm_bound(x.numel() // dim, dim, x.dtype)
-    entries.append(dict(
-        name="rmsnorm", route="cuda", source="ray_tpu_torch/ops/csrc/rmsnorm.cu",
-        replaces="ray_tpu/ops/rmsnorm.py:17",
-        launches=None, max_abs_err=timed["max_abs_err"], err=timed["err"], unit=timed["unit"],
-        tol=timed["tol"], ms=timed["kernel_ms"], ms_range=timed["kernel_ms_range"],
-        **rmsnorm_times(x, w),
-        bound_ms=bound_ms, bound_by=bound_by,
-        library="torch.nn.functional.rms_norm",
-        shape=RMSNORM_TIMED, checks=checks,
-        at_train_shape=dict(shape=RMSNORM_TRAIN, ms=train["kernel_ms"],
-                            ms_range=train["kernel_ms_range"], bound_ms=train["bound_ms"],
-                            **rmsnorm_times(*train_inputs)),
-    ))
-    _log_kernel(entries[-1])
+    for entry in _rmsnorm_entries(gen):
+        entries.append(entry)
+        _log_kernel(entry)
     log("recorded", measured_by_this_run=False, source=RECORDED_BEFORE_SOURCE,
         before_redesign_ms=RECORDED_BEFORE_MS)
     return entries
@@ -649,8 +854,8 @@ def _log_kernel(e: dict) -> None:
         tol=e["tol"],
         kernel_ms=e["ms"], kernel_ms_range=e["ms_range"], plain_ms=e["plain_ms"],
         library_ms=e["library_ms"], library=e["library"],
-        bound_ms=e["bound_ms"], bound_by=e["bound_by"], at_train_shape=e.get("at_train_shape"),
-        checks=e["checks"])
+        bound_ms=e["bound_ms"], bound_by=e["bound_by"], device_ms=e.get("device_ms"),
+        at_train_shape=e.get("at_train_shape"), checks=e["checks"])
 
 
 # ---------------------------------------------------------------- phase 4
@@ -790,8 +995,10 @@ TRAIN_CONFIG = dict(
 )
 TRAIN_BATCH, TRAIN_STEPS = 12, 10
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16, the MFU denominator
-# Kernel path against plain attention in the same bf16 model, one step:
-# each gradient leaf by its relative Frobenius error. The two attentions
+# Kernel path against plain attention and the norm's plain backward in the
+# same bf16 model, one step: each gradient leaf by its relative Frobenius
+# error. The norm's two backwards differ by f32 sum order and one bf16
+# rounding of dx and dw, far below the attention's share. The two attentions
 # round P at other places (the kernels unnormalised, the plain version
 # normalised), so O and dQ, dK, dV differ by a bf16 ulp (2^-8 relative) in
 # some elements; summed over 12,288 tokens those differences add with
@@ -821,12 +1028,18 @@ def phase_train() -> dict:
     inputs, targets = tokens[:, :-1], tokens[:, 1:]
     passes = {"kernel_forwards": 0, "kernel_backwards": 0, "plain_forwards": 0}
 
-    # One step's loss and gradients, kernel path against plain attention.
+    # One step's loss and gradients, kernel path against plain attention and
+    # the norm's plain backward, swapped in for this pass only.
     loss_k = loss_fn(params, inputs, targets, config)
     grads_k = torch.autograd.grad(loss_k, leaves)
     plain_config = dataclasses.replace(config, attention="reference")
-    loss_p = loss_fn(params, inputs, targets, plain_config)
-    grads_p = torch.autograd.grad(loss_p, leaves)
+    kernel_backward = rmsnorm_mod.rmsnorm_backward
+    rmsnorm_mod.rmsnorm_backward = rmsnorm_mod._rmsnorm_backward
+    try:
+        loss_p = loss_fn(params, inputs, targets, plain_config)
+        grads_p = torch.autograd.grad(loss_p, leaves)
+    finally:
+        rmsnorm_mod.rmsnorm_backward = kernel_backward
     passes["kernel_forwards"] += 1
     passes["kernel_backwards"] += 1
     passes["plain_forwards"] += 1
@@ -857,7 +1070,8 @@ def phase_train() -> dict:
     per_step = {name: (after[name] - before[name]) / TRAIN_STEPS for name in after}
     layers = config.n_layers
     want_per_step = {"flash_attention_fwd": layers, "flash_attention_bwd_dq": layers,
-                     "flash_attention_bwd_dkv": layers, "rmsnorm": 2 * layers + 1}
+                     "flash_attention_bwd_dkv": layers, "rmsnorm": 2 * layers + 1,
+                     "rmsnorm_bwd": 2 * layers + 1}
     require(all(np.isfinite(losses)), f"train: non-finite loss {losses}")
     require(losses[-1] < first_loss, f"train: loss did not fall ({first_loss} -> {losses[-1]})")
     require(per_step == want_per_step, f"train: launches per step {per_step} != {want_per_step}")
@@ -905,11 +1119,11 @@ def phase_train() -> dict:
 # ---------------------------------------------------------------- main
 def main() -> None:
     phase_device()
-    wgmma_ptxas = phase_build()
+    kernel_ptxas = phase_build()
     entries = phase_kernels()
-    for e in entries:  # ptxas's report beside each TMA/wgmma kernel
-        stem = Path(e["source"]).stem
-        e["ptxas"] = next((v for k, v in wgmma_ptxas.items() if stem in k), None)
+    for e in entries:  # ptxas's report beside the kernels of each entry's shape
+        e["ptxas"] = {k: v for k, v in kernel_ptxas.items()
+                      if any(part in k for part in PTXAS_NAMES[e["name"]])}
 
     start = time.perf_counter()
     config = TransformerConfig.llama2_7b()
@@ -932,7 +1146,7 @@ def main() -> None:
     want = {
         "flash_attention_fwd": layers * forwards, "flash_attention_bwd_dq": 0,
         "flash_attention_bwd_dkv": 0,
-        "rmsnorm": (2 * layers + 1) * (forwards + gen["decode_steps"]),
+        "rmsnorm": (2 * layers + 1) * (forwards + gen["decode_steps"]), "rmsnorm_bwd": 0,
     }
     log("launches", path="serve", counts=serve_counts, routes=serve_routes, expected=want,
         forwards=forwards,
@@ -953,6 +1167,7 @@ def main() -> None:
         "flash_attention_bwd_dq": layers * train["kernel_backwards"],
         "flash_attention_bwd_dkv": layers * train["kernel_backwards"],
         "rmsnorm": (2 * layers + 1) * (train["kernel_forwards"] + train["plain_forwards"]),
+        "rmsnorm_bwd": (2 * layers + 1) * train["kernel_backwards"],
     }
     log("launches", path="train", counts=train_counts, routes=train_routes, expected=want,
         kernel_forwards=train["kernel_forwards"], kernel_backwards=train["kernel_backwards"],

@@ -32,6 +32,8 @@ NVCC_FLAGS = [
 
 _LOCK = threading.Lock()
 _LIB: ctypes.CDLL | None = None
+# name -> the library's bound entry point, filled at first launch.
+_FUNCS: dict = {}
 # Seconds the last build took (0.0 when an existing library was loaded).
 build_seconds: float | None = None
 
@@ -52,6 +54,9 @@ _SIGNATURES = {
     "rt_flash_bwd_dkv": [_P] * 8 + [_I] * 6 + [_F, _IP, _P],
     # x, w, y, rows, dim, is_bf16, eps, stream
     "rt_rmsnorm": [_P, _P, _P, _I, _I, _I, _F, _P],
+    # x, w, dy, dx, dw, partial, parts (in/out), rows, dim, is_bf16, eps,
+    # stream
+    "rt_rmsnorm_bwd": [_P] * 6 + [_IP, _I, _I, _I, _F, _P],
 }
 
 
@@ -158,15 +163,22 @@ def contiguous_aligned(t: torch.Tensor) -> torch.Tensor:
 
 def launch(name: str, device: torch.device, *args) -> None:
     """Calls C entry point ``name`` with ``args`` and the current stream of
-    ``device``, and raises if it returns a CUDA error. It enters ``device``
-    only when that is not the current device: this runs at every launch."""
-    fn = getattr(library(), name)
-    if device.index == torch.cuda.current_device():
-        status = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    ``device``, and raises if it returns a CUDA error. This runs at every
+    launch, so it keeps the bound function, reads the current device and
+    stream's raw handle without building Python objects for them, and
+    enters ``device`` only when that is not the current device. The caller
+    holds a tensor on ``device``, so CUDA is initialised."""
+    fn = _FUNCS.get(name)
+    if fn is None:
+        fn = _FUNCS[name] = getattr(library(), name)
+    index = device.index
+    if index == torch._C._cuda_getDevice():
+        status = fn(*args, torch._C._cuda_getCurrentRawStream(index))
     else:
         with torch.cuda.device(device):
-            status = fn(*args, torch.cuda.current_stream(device).cuda_stream)
-    check(status, name)
+            status = fn(*args, torch._C._cuda_getCurrentRawStream(index))
+    if status:
+        check(status, name)
 
 
 def check(status: int, what: str) -> None:

@@ -1,18 +1,23 @@
-"""RMSNorm: a hand-written CUDA kernel (``csrc/rmsnorm.cu``) and its plain
-version, differentiable through ``_RMSNorm``.
+"""RMSNorm: hand-written CUDA kernels for both directions (``csrc/rmsnorm.cu``)
+and their plain versions, differentiable through ``_RMSNorm``.
 
-``rmsnorm`` launches the kernel for CUDA tensors and uses the plain
-``rmsnorm_reference`` only for tensors on the CPU. It takes any row count;
-on the card, ``dim`` must be a multiple of 8 (the kernel moves 8 elements
-per 16-byte access).
+``rmsnorm`` launches the forward kernel for CUDA tensors and uses the plain
+``rmsnorm_reference`` only for tensors on the CPU; ``rmsnorm_backward``
+launches the backward kernel for CUDA tensors and uses the plain
+``_rmsnorm_backward`` only for tensors on the CPU. Both take any row count;
+on the card, ``dim`` must be a multiple of 8 (the kernels move 16 bytes per
+access).
 
-The backward is plain PyTorch, as the JAX package leaves it to XLA (it has
-no backward kernel for the norm). Like the JAX model's ``_rmsnorm_ckpt``
-(``jax.checkpoint`` of the reference) it saves only x and the weight and
-recomputes the f32 normalisation from x.
+Like the JAX model's ``_rmsnorm_ckpt`` (``jax.checkpoint`` of the
+reference), ``_RMSNorm`` saves only x and the weight, and the backward
+recomputes the f32 normalisation from x. Where autograd has nothing to
+record (grad mode off, or no input that requires a gradient: serving and
+decode), ``rmsnorm`` calls the forward without the autograd Function.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -28,32 +33,54 @@ def rmsnorm_reference(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6) 
     return (xf * torch.rsqrt(var + eps) * weight.float()).to(x.dtype)
 
 
-def _rmsnorm_forward(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
-    if x.device.type == "cpu" and weight.device.type == "cpu":
-        return rmsnorm_reference(x, weight, eps=eps)
-    if x.device.type != "cuda" or weight.device != x.device:
-        raise ValueError(f"rmsnorm: x on {x.device}, weight on {weight.device}")
+def _check_kernel_inputs(
+    what: str, x: torch.Tensor, weight: torch.Tensor, dy: torch.Tensor | None = None
+) -> None:
+    """Raises unless the kernels take these tensors (dy, where given, shaped
+    and typed like x). This runs at every launch, so the common path is one
+    test of cheap attributes (``is_cuda`` and device indices, not device
+    objects), and the reason is worked out only when it fails."""
+    index, dtype, dim = x.get_device(), x.dtype, x.shape[-1]
+    if (not x.is_cuda or not weight.is_cuda or weight.get_device() != index
+            or dtype not in _KERNEL_DTYPES or weight.dtype != dtype
+            or weight.shape != (dim,) or dim % 8
+            or (dy is not None
+                and (not dy.is_cuda or dy.get_device() != index or dy.dtype != dtype
+                     or dy.shape != x.shape))):
+        _reject(what, x, weight, dy)
+
+
+def _reject(what: str, x: torch.Tensor, weight: torch.Tensor, dy: torch.Tensor | None) -> None:
+    if x.device.type != "cuda" or weight.device != x.device or (
+            dy is not None and dy.device != x.device):
+        raise ValueError(f"{what}: x on {x.device}, weight on {weight.device}")
     if x.dtype not in _KERNEL_DTYPES or weight.dtype != x.dtype:
         raise TypeError(
-            f"rmsnorm kernel takes x and weight both f32 or both bf16, got {x.dtype}, {weight.dtype}"
+            f"{what} kernel takes x and weight both f32 or both bf16, got {x.dtype}, {weight.dtype}"
         )
     dim = x.shape[-1]
     if weight.shape != (dim,):
-        raise ValueError(f"rmsnorm: weight {tuple(weight.shape)} for dim {dim}")
+        raise ValueError(f"{what}: weight {tuple(weight.shape)} for dim {dim}")
     if dim % 8:
-        raise ValueError(f"rmsnorm kernel takes a dim that is a multiple of 8, got {dim}")
-    x = _build.contiguous_aligned(x)
-    weight = _build.contiguous_aligned(weight)
+        raise ValueError(f"{what} kernel takes a dim that is a multiple of 8, got {dim}")
+    raise ValueError(f"{what}: dy {tuple(dy.shape)} {dy.dtype} beside x {tuple(x.shape)} {x.dtype}")
+
+
+def _rmsnorm_forward(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
+    if not x.is_cuda and x.device.type == "cpu" and weight.device.type == "cpu":
+        return rmsnorm_reference(x, weight, eps=eps)
+    _check_kernel_inputs("rmsnorm", x, weight)
+    x, weight = _build.contiguous_aligned(x), _build.contiguous_aligned(weight)
     y = torch.empty_like(x)
+    dim = x.shape[-1]
     rows = x.numel() // dim if dim else 0
-    if rows == 0:
-        return y
-    _build.launch(
-        "rt_rmsnorm", x.device,
-        x.data_ptr(), weight.data_ptr(), y.data_ptr(), rows, dim,
-        int(x.dtype == torch.bfloat16), float(eps),
-    )
-    rmsnorm.launches += 1
+    if rows:
+        _build.launch(
+            "rt_rmsnorm", x.device,
+            x.data_ptr(), weight.data_ptr(), y.data_ptr(), rows, dim,
+            x.dtype is torch.bfloat16, eps,
+        )
+        rmsnorm.launches += 1
     return y
 
 
@@ -73,6 +100,34 @@ def _rmsnorm_backward(
     return dx.to(x.dtype), dw.to(weight.dtype)
 
 
+def rmsnorm_backward(
+    x: torch.Tensor, weight: torch.Tensor, dy: torch.Tensor, eps: float = 1e-6
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """(dx, dw) of ``rmsnorm(x, weight, eps)`` for the output gradient dy,
+    the same function as ``_rmsnorm_backward``. On the card dw is summed in
+    a fixed order, so it is the same on every run."""
+    if not x.is_cuda and all(t.device.type == "cpu" for t in (x, weight, dy)):
+        return _rmsnorm_backward(x, weight, dy, eps)
+    _check_kernel_inputs("rmsnorm_backward", x, weight, dy)
+    x, weight, dy = (_build.contiguous_aligned(t) for t in (x, weight, dy))
+    dx = torch.empty_like(x)
+    dim = x.shape[-1]
+    rows = x.numel() // dim if dim else 0
+    if rows == 0:
+        return dx, torch.zeros_like(weight)
+    dw = torch.empty_like(weight)
+    parts = ctypes.c_int(0)
+    head = (x.data_ptr(), weight.data_ptr(), dy.data_ptr(), dx.data_ptr(), dw.data_ptr())
+    tail = (ctypes.byref(parts), rows, dim, x.dtype is torch.bfloat16, float(eps))
+    # With no scratch the entry point only says how many f32 rows of
+    # per-block dw sums the launch needs.
+    _build.launch("rt_rmsnorm_bwd", x.device, *head, None, *tail)
+    partial = torch.empty(parts.value, dim, dtype=torch.float32, device=x.device)
+    _build.launch("rt_rmsnorm_bwd", x.device, *head, partial.data_ptr(), *tail)
+    rmsnorm_backward.launches += 1
+    return dx, dw
+
+
 class _RMSNorm(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, weight, eps: float):
@@ -83,15 +138,18 @@ class _RMSNorm(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy):
         x, weight = ctx.saved_tensors
-        dx, dw = _rmsnorm_backward(x, weight, dy, ctx.eps)
+        dx, dw = rmsnorm_backward(x, weight, dy, ctx.eps)
         return dx, dw, None
 
 
 def rmsnorm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     """x: [..., dim]; weight: [dim]. Same function as ``rmsnorm_reference``,
     differentiable in x and weight."""
-    return _RMSNorm.apply(x, weight, float(eps))
+    if torch.is_grad_enabled() and (x.requires_grad or weight.requires_grad):
+        return _RMSNorm.apply(x, weight, float(eps))
+    return _rmsnorm_forward(x, weight, float(eps))
 
 
-# Kernel launches since the count was last set to 0.
+# Kernel launches since the counts were last set to 0.
 rmsnorm.launches = 0
+rmsnorm_backward.launches = 0

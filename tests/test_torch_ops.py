@@ -224,11 +224,17 @@ def test_flash_gradients_are_the_plain_derivative(seq_q, seq_k):
         assert float(grads[0][:, :, :blind].abs().max()) == 0.0
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_rmsnorm_gradients_match_jax(dtype):
+@pytest.mark.parametrize(
+    "dtype,shape",
+    [("float32", (3, 16, 256)), ("bfloat16", (3, 16, 256)),
+     ("float32", (7, 4096)), ("bfloat16", (7, 4096))],
+    ids=["float32", "bfloat16", "float32-train_width", "bfloat16-train_width"],
+)
+def test_rmsnorm_gradients_match_jax(dtype, shape):
     """dx and dw of the norm's autograd Function against jax.vjp of
-    rmsnorm_reference on the same x, w and dy."""
-    x, w, dy = _normal(30, 3, 16, 256), _normal(31, 256), _normal(32, 3, 16, 256)
+    rmsnorm_reference on the same x, w and dy, at a small width and at the
+    train step's (dim 4096, an odd row count)."""
+    x, w, dy = _normal(30, *shape), _normal(31, shape[-1]), _normal(32, *shape)
     xj, wj = jnp.asarray(x, dtype), jnp.asarray(w, dtype)
     _, vjp = jax.vjp(jax_rmsnorm.rmsnorm_reference, xj, wj)
     dxj, dwj = vjp(jnp.asarray(dy, dtype))
@@ -240,10 +246,14 @@ def test_rmsnorm_gradients_match_jax(dtype):
     assert dx.dtype == dw.dtype == tdtype
     dxj, dwj = np.asarray(dxj, np.float32), np.asarray(dwj, np.float32)
     if dtype == "float32":
-        # f32 sums of 256 (dx) and 48 (dw) terms in another order.
+        # f32 sums of up to 4096 (dx) and 48 (dw) terms in another order.
         assert _max_err(dx, dxj) < 1e-5 and _max_err(dw, dwj) < 1e-4
     else:
         # Each rounds once to bf16 from nearly equal f32 values: one ulp of
         # the largest magnitude at most.
         for got, ref in ((dx, dxj), (dw, dwj)):
             assert _max_err(got, ref) <= np.abs(ref).max() * 2.0 ** -8
+    # On the CPU the backward wrapper is its plain version, exactly.
+    plain = port_rmsnorm._rmsnorm_backward(xt.detach(), wt.detach(),
+                                           torch.from_numpy(dy).to(tdtype), 1e-6)
+    assert torch.equal(dx, plain[0]) and torch.equal(dw, plain[1])

@@ -10,10 +10,16 @@
   with autograd or without, in total and by the route the C entry point
   reports.
 * bf16 at head_dim 128 takes the TMA/wgmma route; the rest the mma.sync one.
+* The RMSNorm wrappers (forward and backward) take the plain version only
+  for CPU tensors and raise on any other device that is not a card; the
+  forward skips the autograd Function where autograd records nothing.
+* ``_build.launch`` binds each entry point once and passes the current
+  stream's raw handle last.
 """
 
 import ast
 import ctypes
+import re
 import shutil
 from pathlib import Path
 
@@ -118,9 +124,10 @@ def test_flash_runs_under_inference_mode_with_grad_params():
 
 def test_launch_counters_stay_zero_on_cpu_tensors():
     counters = (port_flash.flash_attention, port_flash._flash_bwd_dq,
-                port_flash._flash_bwd_dkv, port_rmsnorm.rmsnorm)
+                port_flash._flash_bwd_dkv, port_rmsnorm.rmsnorm, port_rmsnorm.rmsnorm_backward)
     port_flash.reset_launch_counts()
     port_rmsnorm.rmsnorm.launches = 0
+    port_rmsnorm.rmsnorm_backward.launches = 0
     cfg = pt.TransformerConfig.tiny()
     params = pt.init_params(cfg, 0, device="cpu")
     pt.forward(params, torch.zeros(1, 8, dtype=torch.int64), cfg)
@@ -129,7 +136,7 @@ def test_launch_counters_stay_zero_on_cpu_tensors():
     # With autograd: a train step runs both flash passes and the norm's.
     optimizer = port_step.make_optimizer(params)
     port_step.train_step(params, optimizer, torch.zeros(1, 9, dtype=torch.int64), cfg)
-    assert [fn.launches for fn in counters] == [0, 0, 0, 0]
+    assert [fn.launches for fn in counters] == [0, 0, 0, 0, 0]
     for fn in counters[:3]:
         assert fn.launches_by_route == {"wgmma": 0, "mma_sync": 0}
 
@@ -187,10 +194,91 @@ def test_kernel_sources_and_build_digest():
     for name in ("flash_fwd_wgmma.cu", "flash_bwd_dq_wgmma.cu", "flash_bwd_dkv_wgmma.cu"):
         head = (_build.CSRC / name).read_text().split("#include")[0]
         assert all(word in head for word in ("TMA", "mbarrier", "wgmma", "registers"))
+    # The RMSNorm kernels name theirs: a persistent grid, rows in registers,
+    # and a dw summed in a fixed order.
+    head = (_build.CSRC / "rmsnorm.cu").read_text().split("#include")[0]
+    assert all(word in head for word in ("persistent", "registers", "deterministic"))
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     digest = _build._digest("nvcc", sources)
     assert digest == _build._digest("nvcc", sources) and len(digest) == 16
     assert _build.BUILD_DIR.relative_to(ROOT).parts[0] == "build"
+
+
+def test_every_entry_point_has_a_signature():
+    # rt_rmsnorm_bwd: x, w, dy, dx, dw, partial, parts (in/out), rows, dim,
+    # is_bf16, eps, stream.
+    sig = _build._SIGNATURES["rt_rmsnorm_bwd"]
+    assert len(sig) == 12 and sig[6] is _build._IP and sig[-2] is ctypes.c_float
+    names = set(_build._SIGNATURES)
+    defined = set()
+    for path in _build._sources():
+        defined |= set(re.findall(r'extern "C" int (rt_\w+)\(', path.read_text()))
+    assert names == defined
+
+
+@pytest.mark.parametrize("which", ["forward", "backward"])
+def test_rmsnorm_wrappers_raise_off_the_card(which):
+    # A tensor on neither the CPU nor a card gets no plain version.
+    x = torch.empty(4, 16, device="meta")
+    w = torch.empty(16, device="meta")
+    with pytest.raises(ValueError, match="meta"):
+        if which == "forward":
+            port_rmsnorm.rmsnorm(x, w)
+        else:
+            port_rmsnorm.rmsnorm_backward(x, w, x)
+
+
+@pytest.mark.parametrize("grad", ["none", "no_grad", "x", "weight"])
+def test_rmsnorm_records_autograd_only_where_needed(grad):
+    x, w = torch.randn(3, 16), torch.randn(16)
+    if grad in ("x", "weight"):
+        (x if grad == "x" else w).requires_grad_(True)
+    with torch.set_grad_enabled(grad != "no_grad"):
+        y = port_rmsnorm.rmsnorm(x, w)
+    assert (y.grad_fn is not None) == (grad in ("x", "weight"))
+    assert torch.equal(y.detach(), port_rmsnorm.rmsnorm_reference(x.detach(), w.detach()))
+
+
+class _FakeLibrary:
+    """Entry points that record their arguments and return `status`."""
+
+    def __init__(self, status: int = 0):
+        self.status, self.calls, self.lookups = status, [], []
+
+    def __getattr__(self, name):
+        self.lookups.append(name)
+        if name == "rt_error_string":
+            return lambda status: b"an error"
+        return lambda *args: self.calls.append(args) or self.status
+
+
+@pytest.fixture
+def fake_card(monkeypatch):
+    monkeypatch.setattr(_build, "_FUNCS", {})
+    monkeypatch.setattr(torch._C, "_cuda_getDevice", lambda: 0, raising=False)
+    monkeypatch.setattr(torch._C, "_cuda_getCurrentRawStream", lambda index: 1000 + index,
+                        raising=False)
+
+    def install(status):
+        lib = _FakeLibrary(status)
+        monkeypatch.setattr(_build, "library", lambda: lib)
+        return lib
+    return install
+
+
+def test_launch_binds_each_entry_point_once(fake_card):
+    lib = fake_card(0)
+    device = torch.device("cuda", 0)
+    _build.launch("rt_rmsnorm", device, 1, 2)
+    _build.launch("rt_rmsnorm", device, 3, 4)
+    assert lib.lookups == ["rt_rmsnorm"]
+    assert lib.calls == [(1, 2, 1000), (3, 4, 1000)]
+
+
+def test_launch_raises_on_a_cuda_error(fake_card):
+    fake_card(700)
+    with pytest.raises(RuntimeError, match="rt_rmsnorm_bwd: CUDA error 700 .an error."):
+        _build.launch("rt_rmsnorm_bwd", torch.device("cuda", 0), 1)
 
 
 def test_build_without_nvcc_raises(monkeypatch):
