@@ -24,7 +24,12 @@ final line) if anything is wrong:
                backends; the RMSNorm forward and backward kernels at every
                shape of RMSNORM_CHECKS, each with its torch.profiler device
                time beside the events window, the backward's yardstick
-               PyTorch's own fused RMSNorm backward
+               PyTorch's own fused RMSNorm backward; then every other input
+               the reference takes (FLASH_INSTANTIATIONS: head_dim 16 in
+               f32, bf16 and f16, f16 at head_dim 64 and 128, head_dim 80
+               zero-padded to 128; RMSNORM_INSTANTIATIONS: dim 64, dim 50,
+               f16, bf16 x with an f32 weight), forward and backward, each
+               an entry of its own in the kernels line
   4. serve     TransformerConfig.llama2_7b() at full width and depth in bf16
                behind the @batch decorator (buckets 1, 4, 8) as
                release/serve_bert_http.py serves its encoder: 12 concurrent
@@ -48,6 +53,28 @@ final line) if anything is wrong:
                side of the gradient check also takes the norm's plain
                backward, so the check holds the RMSNorm backward kernel
                inside the model
+  8. tiny      TransformerConfig.tiny(attention="flash") (f32, head_dim 16):
+               forward and one step's gradients through the kernels against
+               plain attention, then train steps; every flash launch on the
+               mma.sync route
+  9. moe_serve llama2_7b(moe=MoEConfig(), n_layers=4) (dim 4096, hidden
+               11008, 8 experts, top-2, bf16) behind @batch as in phase 4:
+               finite answers, each bucket's answers bitwise equal to a
+               direct forward on the same padded bucket, _moe_mlp's routing
+               on the card equal to the CPU's, prefill tokens/s, the
+               bucket-8 forward's wall and device time and the MoE einsums'
+               share of it
+ 10. stages    partition_stages of those parameters into 2 stages, the
+               stage_forward chain against forward, merge_stages back to the
+               same tree
+ 11. moe_train llama2_7b(moe=MoEConfig(), n_layers=2), 4 x 1024 tokens: one
+               step's loss and gradients against plain attention (with the
+               tokens whose routing differs between the two), train steps
+               whose loss falls, tokens/s, the split, peak memory and the
+               step's matrix-product operations counted from their shapes
+Each path (4-5, 7, 8, 9, 10, 11) runs with every launch count set to 0 just
+before it; its counts, read just after, must equal what its layers and
+passes imply, every flash launch on the route the path's inputs take.
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
@@ -69,8 +96,10 @@ import torch
 import torch.nn.functional as F
 
 from ray_tpu_torch import _build
+from ray_tpu_torch.models import transformer as transformer_mod
 from ray_tpu_torch.models.transformer import (
-    TransformerConfig, decode_step, forward, init_kv_cache, init_params, loss_fn, num_params,
+    MoEConfig, TransformerConfig, decode_step, forward, init_kv_cache, init_params, loss_fn,
+    merge_stages, num_params, partition_stages, stage_forward,
 )
 from ray_tpu_torch.ops import flash_attention as flash_mod
 from ray_tpu_torch.ops import rmsnorm as rmsnorm_mod
@@ -79,9 +108,10 @@ from ray_tpu_torch.train.step import make_optimizer, named_leaves, train_step
 
 SEED = 0
 # H100 SXM data-sheet peaks (dense): HBM bytes/s, and operations/s by type
-# (bf16 on the tensor cores; f32 on the CUDA cores, as the kernels use it).
+# (bf16 and f16 on the tensor cores; f32 on the CUDA cores, as the kernels
+# use it).
 PEAK_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {torch.bfloat16: 989e12, torch.float32: 67e12}
+PEAK_OPS_PER_S = {torch.bfloat16: 989e12, torch.float16: 989e12, torch.float32: 67e12}
 # Kernel against plain version. Flash O is held by its absolute error, with
 # the tolerances tests/test_ops.py holds the Pallas kernel to (the kernel
 # rounds P to bf16 before P.V unnormalised, the plain version normalised,
@@ -106,7 +136,7 @@ RMSNORM_BF16_ULPS = 1.0
 RMSNORM_BWD_F32_TOL = 1e-5
 RMSNORM_BWD_BF16_TOL = 1.0
 # LSE: f32 sums in another order; |LSE| ~ log(seq) + O(1).
-LSE_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-3}
+LSE_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-3, torch.float16: 1e-3}
 # bf16 logits of the 32-layer model (values of order 1): the batched and
 # unbatched runs, and decode (f32 attention over the cache) against forward
 # (flash, P in bf16), round at other places; different tokens differ by O(1).
@@ -176,12 +206,17 @@ def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a.float() - b.float()).abs().max())
 
 
-def bf16_ulps(out: torch.Tensor, plain: torch.Tensor) -> float:
-    """max |out - plain| in bf16 units in the last place of plain: 2^(e-8)
-    for |plain| in [2^(e-1), 2^e)."""
+# Significand bits (with the implicit one) of the 16-bit types: an ulp at
+# |x| in [2^(e-1), 2^e) is 2^(e - bits).
+SIGNIFICAND_BITS = {torch.bfloat16: 8, torch.float16: 11}
+
+
+def ulps(out: torch.Tensor, plain: torch.Tensor) -> float:
+    """max |out - plain| in units in the last place of plain, in plain's
+    16-bit dtype."""
     ref = plain.float()
     _, exp = torch.frexp(ref.abs().clamp_min(2.0 ** -126))
-    ulp = torch.pow(2.0, (exp - 8).float())
+    ulp = torch.pow(2.0, (exp - SIGNIFICAND_BITS[plain.dtype]).float())
     return float(((out.float() - ref).abs() / ulp).max())
 
 
@@ -233,13 +268,6 @@ def _route_counts() -> dict:
         "flash_attention_bwd_dq": dict(flash_mod._flash_bwd_dq.launches_by_route),
         "flash_attention_bwd_dkv": dict(flash_mod._flash_bwd_dkv.launches_by_route),
     }
-
-
-def _require_wgmma_route(path: str, counts: dict, routes: dict) -> None:
-    """Every launch of the two-route kernels on `path` took the wgmma route."""
-    for name, by_route in routes.items():
-        require(by_route == {"wgmma": counts[name], "mma_sync": 0},
-                f"{path}: {name} launches by route {by_route}, {counts[name]} in all")
 
 
 def _reported_route(fns, call, dtype, head_dim, what: str):
@@ -318,7 +346,7 @@ def phase_build() -> dict:
     spills = {name: info for name, info in {**wgmma, **norm}.items()
               if info.get("spill_stores") != 0 or info.get("spill_loads") != 0}
     require(not spills, f"build: kernels that spill: {spills}")
-    return {**wgmma, **norm}
+    return report
 
 
 # ---------------------------------------------------------------- phase 3
@@ -550,7 +578,7 @@ def _bwd_entries(gen) -> list[dict]:
     ]
 
 
-def _sdpa_backward_times(q, k, v, do) -> dict:
+def _sdpa_backward_times(q, k, v, do, label: str = BWD_TIMED) -> dict:
     """SDPA's backward (dQ, dK and dV) under each backend, timed alone at
     these inputs; a backend that cannot run them reports its error. The
     port never calls SDPA: this is the yardstick."""
@@ -571,36 +599,41 @@ def _sdpa_backward_times(q, k, v, do) -> dict:
         except RuntimeError as err:
             times[name.lower()] = {"error": str(err)[:200]}
         lib_out = None  # frees this backend's graph before the next one's forward
-    log("sdpa_backward", shape=BWD_TIMED, by_backend=times)
+    log("sdpa_backward", shape=label, by_backend=times)
     return times
 
 
-def _rmsnorm_bound(rows, dim, dtype) -> tuple[float, str]:
+def _rmsnorm_bound(rows, dim, dtype, wdtype=None) -> tuple[float, str]:
     ops = 4 * rows * dim  # square-add, and two multiplies per element (f32)
-    size = torch.tensor([], dtype=dtype).element_size()
-    return bound(ops, (2 * rows * dim + dim) * size, torch.float32)
+    return bound(ops, 2 * rows * dim * _size(dtype) + dim * _size(wdtype or dtype),
+                 torch.float32)
 
 
-def _rmsnorm_bwd_bound(rows, dim, dtype) -> tuple[float, str]:
+def _rmsnorm_bwd_bound(rows, dim, dtype, wdtype=None) -> tuple[float, str]:
     """Reads x, dy and w, writes dx and dw; about 10 f32 operations per
     element (two square-adds, n, dy * n into dw, and dx's four). The
     kernel's per-block dw sums are its own traffic, not the function's."""
-    size = torch.tensor([], dtype=dtype).element_size()
-    return bound(10 * rows * dim, (3 * rows * dim + 2 * dim) * size, torch.float32)
+    nbytes = 3 * rows * dim * _size(dtype) + 2 * dim * _size(wdtype or dtype)
+    return bound(10 * rows * dim, nbytes, torch.float32)
 
 
-def _bf16_ulp(value: float) -> float:
-    """One bf16 ulp at |value|: 2^(e-8) for |value| in [2^(e-1), 2^e)."""
-    return math.ldexp(1.0, math.frexp(abs(value))[1] - 8) if value else 2.0 ** -133
+def _size(dtype) -> int:
+    return torch.tensor([], dtype=dtype).element_size()
+
+
+def _ulp(value: float, bits: int) -> float:
+    """One ulp at |value| with `bits` significand bits: 2^(e - bits) for
+    |value| in [2^(e-1), 2^e)."""
+    return math.ldexp(1.0, math.frexp(abs(value))[1] - bits) if value else 2.0 ** -133
 
 
 def _rmsnorm_bwd_err(out: torch.Tensor, plain: torch.Tensor) -> float:
-    """max |out - plain| in bf16 ulps of plain's largest magnitude (bf16), or
-    over that magnitude (f32)."""
+    """max |out - plain| in ulps of plain's largest magnitude (bf16, f16),
+    or over that magnitude (f32)."""
     top = float(plain.float().abs().max())
     err = max_err(out, plain)
-    if plain.dtype == torch.bfloat16:
-        return err / _bf16_ulp(top)
+    if plain.dtype in SIGNIFICAND_BITS:
+        return err / _ulp(top, SIGNIFICAND_BITS[plain.dtype])
     return err / top if top else err
 
 
@@ -699,7 +732,7 @@ def _rmsnorm_entries(gen) -> list[dict]:
         torch.cuda.synchronize()
         plain = rmsnorm_mod.rmsnorm_reference(x, w)
         if dtype == torch.bfloat16:
-            err, unit = bf16_ulps(y, plain), "bf16_ulps"
+            err, unit = ulps(y, plain), "bf16_ulps"
         else:
             err, unit = max_err(y, plain), "abs"
         kernel = time_ms(lambda: rmsnorm_mod.rmsnorm(x, w))
@@ -778,6 +811,275 @@ def _rmsnorm_entries(gen) -> list[dict]:
     return [forward, backward]
 
 
+# ---------------------------------------------------------------- other inputs
+# The kernels' instantiations for the inputs the reference takes beyond the
+# model's bf16 at head_dim 128 and dim 4096: TransformerConfig.tiny()'s
+# head_dim 16 (the tiny path runs it in f32) in f32, bf16 and f16; f16 at
+# head_dim 64 and 128; a head_dim no kernel is built for (80, zero-padded to
+# 128); and RMSNorm at tiny's dim 64, at a dim of no whole 16-byte pieces
+# (50), in f16, and with bf16 x and an f32 weight. Each is held against its
+# plain version, forward and backward, at its timed shape and at the edge
+# shapes beside it, and timed at the timed shape.
+TINY_BATCH, TINY_SEQ = 2, 64
+# (label, dtype, head_dim, timed (batch, heads, seq), edge shapes (batch,
+# heads, seq_q, seq_k, causal)). The timed shape is causal with seq_q ==
+# seq_k, where SDPA's causal mask agrees.
+FLASH_INSTANTIATIONS = [
+    ("d16_f32", torch.float32, 16, (TINY_BATCH, 4, TINY_SEQ),
+     [(1, 3, 100, 160, True), (1, 2, 130, 70, True), (2, 2, 37, 200, False)]),
+    ("d16_bf16", torch.bfloat16, 16, (TINY_BATCH, 4, TINY_SEQ),
+     [(1, 3, 100, 160, True), (1, 2, 130, 70, True), (2, 2, 37, 200, False)]),
+    ("d16_f16", torch.float16, 16, (TINY_BATCH, 4, TINY_SEQ),
+     [(1, 3, 100, 160, True), (1, 2, 130, 70, True), (2, 2, 37, 200, False)]),
+    ("d64_f16", torch.float16, 64, (4, 32, SERVE_SEQ),
+     [(2, 4, 256, 256, False), (1, 2, 130, 70, True), (2, 2, 37, 200, False)]),
+    ("d128_f16", torch.float16, 128, (4, 32, SERVE_SEQ),
+     [(1, 2, 192, 192, True), (1, 2, 130, 70, True), (2, 2, 37, 200, False)]),
+    ("d80_bf16_padded", torch.bfloat16, 80, (4, 32, SERVE_SEQ),
+     [(1, 3, 100, 160, True), (1, 3, 100, 160, False), (1, 2, 130, 70, True)]),
+]
+# (label, timed x shape, x dtype, weight dtype, edge x shapes).
+RMSNORM_INSTANTIATIONS = [
+    ("d64_f32", (TINY_BATCH, TINY_SEQ, 64), torch.float32, torch.float32, [(9, 64)]),
+    ("d50_bf16", (8 * SERVE_SEQ, 50), torch.bfloat16, torch.bfloat16, [(9, 50), (3, 7, 50)]),
+    ("d4096_f16", (8, SERVE_SEQ, 4096), torch.float16, torch.float16, [(9, 4096), (33, 512)]),
+    ("bf16_x_f32_w", (8, SERVE_SEQ, 4096), torch.bfloat16, torch.float32, [(9, 50), (33, 512)]),
+]
+# The instantiations the tiny path runs; every launch on it is one of these.
+TINY_ENTRIES = ("d16_f32", "d64_f32")
+
+
+def _flash_sources(route: str) -> dict:
+    if route == "wgmma":
+        return {"fwd": "flash_fwd_wgmma.cu", "dq": "flash_bwd_dq_wgmma.cu",
+                "dkv": "flash_bwd_dkv_wgmma.cu"}
+    return {"fwd": "flash_attention_fwd.cu", "dq": "flash_attention_bwd.cu",
+            "dkv": "flash_attention_bwd.cu"}
+
+
+def _mangled(dtype) -> str:
+    return {torch.float32: "f", torch.bfloat16: "13__nv_bfloat16", torch.float16: "6__half"}[dtype]
+
+
+def _flash_check(gen, b, h, sq, sk, d, causal, dtype, what: str) -> dict:
+    """One shape through the forward and both backward kernels against the
+    plain versions; returns the errors and the tensors."""
+    q, k, v, do = (_randn(gen, (b, h, n, d), dtype) for n in (sq, sk, sk, sq))
+    (out, lse), route = _reported_route(
+        (flash_mod.flash_attention,), lambda: flash_mod._flash_forward(q, k, v, causal=causal),
+        dtype, d, f"{what} fwd")
+    grads, _ = _reported_route(
+        (flash_mod._flash_bwd_dq, flash_mod._flash_bwd_dkv),
+        lambda: flash_mod._flash_backward(q, k, v, out, lse, do, causal=causal),
+        dtype, d, f"{what} bwd")
+    torch.cuda.synchronize()
+    ref = flash_mod.attention_reference(q, k, v, causal=causal)
+    lse_ref = flash_mod._lse_reference(q, k, causal=causal, scale=d ** -0.5)
+    plain = flash_mod._flash_backward_reference(q, k, v, out, lse, do, causal=causal)
+    require(out.shape == q.shape and out.dtype == dtype, f"{what}: O shape/dtype")
+    for got, want in zip(grads, plain):
+        require(got.shape == want.shape and got.dtype == want.dtype, f"{what}: grad shape/dtype")
+    unit = "abs" if dtype == torch.float32 else "rel_to_max"
+    check = dict(shape=[b, h, sq, sk, d], causal=causal, route=route,
+                 max_abs_err=max_err(out, ref), lse_err=max_err(lse, lse_ref), unit=unit,
+                 dq_err=_bwd_err(grads[0], plain[0], unit),
+                 dkv_err=max(_bwd_err(g, p, unit) for g, p in zip(grads[1:], plain[1:])),
+                 dq_abs=max_err(grads[0], plain[0]),
+                 dkv_abs=max(max_err(g, p) for g, p in zip(grads[1:], plain[1:])))
+    fwd_tol = F32_TOL if dtype == torch.float32 else BF16_TOL
+    bwd_tol = BWD_F32_TOL if dtype == torch.float32 else BWD_REL_TOL
+    require(check["max_abs_err"] < fwd_tol, f"{what}: max |O - plain| {check['max_abs_err']}")
+    require(check["lse_err"] < LSE_TOL[dtype], f"{what}: max |LSE - plain| {check['lse_err']}")
+    require(max(check["dq_err"], check["dkv_err"]) < bwd_tol,
+            f"{what}: dq, dk/dv vs plain {check['dq_err']}, {check['dkv_err']} ({unit})")
+    check.update(fwd_tol=fwd_tol, bwd_tol=bwd_tol)
+    return check, (q, k, v, do, out, lse)
+
+
+def _flash_instantiation_entries(gen) -> list[dict]:
+    """Forward, dQ and dK/dV entries for each of FLASH_INSTANTIATIONS."""
+    entries = []
+    for label, dtype, d, (b, h, s), edges in FLASH_INSTANTIATIONS:
+        checks = []
+        for eb, eh, sq, sk, causal in edges:
+            checks.append(_flash_check(gen, eb, eh, sq, sk, d, causal, dtype,
+                                       f"flash {label} {[eb, eh, sq, sk]}")[0])
+        timed, (q, k, v, do, out, lse) = _flash_check(gen, b, h, s, s, d, True, dtype,
+                                                      f"flash {label} timed")
+        checks.append(timed)
+        route = timed["route"]
+        size = flash_mod.padded_head_dim(d)
+        scale = d ** -0.5
+        # The backward kernels as the wrapper launches them: on inputs
+        # padded to the built head_dim.
+        qp, kp, vp, outp, dop = (flash_mod._pad_head(t, size).contiguous()
+                                 for t in (q, k, v, out, do))
+        dq, dk, dv = (torch.empty_like(t) for t in (qp, kp, vp))
+        delta = torch.empty(q.shape[:3], dtype=torch.float32, device="cuda")
+        calls = {
+            "fwd": lambda: flash_mod.flash_attention(q, k, v, causal=True),
+            "dq": lambda: flash_mod._flash_bwd_dq(qp, kp, vp, outp, dop, lse, delta, dq, True,
+                                                  scale),
+            "dkv": lambda: flash_mod._flash_bwd_dkv(qp, kp, vp, dop, lse, delta, dk, dv, True,
+                                                    scale),
+        }
+        fwd_t, dq_t, dkv_t = (time_ms(call) for call in calls.values())
+        # torch.profiler's device time a call: the events windows of these
+        # small shapes can time the host path instead.
+        device = {part: per_call_device_ms(call) for part, call in calls.items()}
+        plain_fwd = time_ms(lambda: flash_mod.attention_reference(q, k, v, causal=True))["ms"]
+        plain_bwd = time_ms(lambda: flash_mod._flash_backward_reference(
+            q, k, v, out, lse, do, causal=True), iters=5)["ms"]
+        library = time_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True))
+        by_backend = _sdpa_backward_times(q, k, v, do, label=f"{label} {[b, h, s, s, d]}")
+        backend = min((n for n, t in by_backend.items() if "ms" in t),
+                      key=lambda n: by_backend[n]["ms"], default=None)
+        fwd_bound = _flash_bound(b, h, s, s, d, True, dtype)
+        bwd_bounds = _bwd_bounds(b, h, s, s, d, True, dtype)
+        sources = _flash_sources(route)
+        common = dict(route="cuda", kernel_route=route, launches=None, shape=[b, h, s, s, d],
+                      instantiation=label, on_main_path=label in TINY_ENTRIES, checks=checks)
+        bwd_library = dict(
+            library_ms=by_backend[backend]["ms"] if backend else None,
+            library_ms_range=by_backend[backend]["range"] if backend else None,
+            library=(f"torch.autograd.grad through F.scaled_dot_product_attention, the "
+                     f"fastest backend: {backend}"), library_by_backend=by_backend,
+            plain_ms=plain_bwd, plain="_flash_backward_reference (dQ, dK and dV together)")
+        kernel = {"fwd": "flash_fwd", "dq": "flash_bwd_dq", "dkv": "flash_bwd_dkv"}
+        ptxas = {part: ((f"{kernel[part]}_wgmma",) if route == "wgmma" else
+                        (f"{kernel[part]}_kernelI{_mangled(dtype)}Li{size}E",))
+                 for part in kernel}
+        entries.append(dict(
+            name=f"flash_attention_fwd[{label}]",
+            source=f"ray_tpu_torch/ops/csrc/{sources['fwd']}",
+            replaces="ray_tpu/ops/flash_attention.py:79", max_abs_err=timed["max_abs_err"],
+            err=timed["max_abs_err"], unit="abs", tol=timed["fwd_tol"], ms=fwd_t["ms"],
+            ms_range=fwd_t["range"], plain_ms=plain_fwd, library_ms=library["ms"],
+            library_ms_range=library["range"],
+            library="torch.nn.functional.scaled_dot_product_attention",
+            bound_ms=fwd_bound[0], bound_by=fwd_bound[1], device_ms=device["fwd"],
+            ptxas_names=ptxas["fwd"], **common))
+        entries.append(dict(
+            name=f"flash_attention_bwd_dq[{label}]",
+            source=f"ray_tpu_torch/ops/csrc/{sources['dq']}",
+            replaces="ray_tpu/ops/flash_attention.py:125", max_abs_err=timed["dq_abs"],
+            err=timed["dq_err"], unit=timed["unit"], tol=timed["bwd_tol"], ms=dq_t["ms"],
+            ms_range=dq_t["range"], bound_ms=bwd_bounds["dq"][0],
+            bound_by=bwd_bounds["dq"][1], device_ms=device["dq"], ptxas_names=ptxas["dq"],
+            **bwd_library, **common))
+        entries.append(dict(
+            name=f"flash_attention_bwd_dkv[{label}]",
+            source=f"ray_tpu_torch/ops/csrc/{sources['dkv']}",
+            replaces="ray_tpu/ops/flash_attention.py:167", max_abs_err=timed["dkv_abs"],
+            err=timed["dkv_err"], unit=timed["unit"], tol=timed["bwd_tol"], ms=dkv_t["ms"],
+            ms_range=dkv_t["range"], bound_ms=bwd_bounds["dkv"][0],
+            bound_by=bwd_bounds["dkv"][1], device_ms=device["dkv"], ptxas_names=ptxas["dkv"],
+            **bwd_library, **common))
+        for entry in entries[-3:]:
+            _log_kernel(entry)
+        del q, k, v, do, out, lse, qp, kp, vp, outp, dop, dq, dk, dv
+    return entries
+
+
+def _rmsnorm_check(gen, shape, dtype, wdtype, what: str) -> tuple[dict, tuple]:
+    """One shape through the RMSNorm forward and backward kernels against
+    the plain versions, with the backward run twice (dw's fixed order)."""
+    x, dy = _randn(gen, shape, dtype), _randn(gen, shape, dtype)
+    w = _randn(gen, shape[-1:], wdtype)
+    y = rmsnorm_mod.rmsnorm(x, w)
+    dx, dw = rmsnorm_mod.rmsnorm_backward(x, w, dy)
+    again = rmsnorm_mod.rmsnorm_backward(x, w, dy)
+    torch.cuda.synchronize()
+    plain = rmsnorm_mod.rmsnorm_reference(x, w)
+    pdx, pdw = rmsnorm_mod._rmsnorm_backward(x, w, dy, 1e-6)
+    require(y.dtype == dtype and dx.dtype == dtype and dw.dtype == wdtype
+            and y.shape == x.shape and dx.shape == x.shape and dw.shape == w.shape,
+            f"{what}: output shapes/dtypes")
+    if dtype in SIGNIFICAND_BITS:
+        err, unit, tol = ulps(y, plain), "ulps", RMSNORM_BF16_ULPS
+    else:
+        err, unit, tol = max_err(y, plain), "abs", RMSNORM_F32_TOL
+    bwd = {}
+    for name, got, want in (("dx", dx, pdx), ("dw", dw, pdw)):
+        bound_ = RMSNORM_BWD_BF16_TOL if want.dtype in SIGNIFICAND_BITS else RMSNORM_BWD_F32_TOL
+        bwd[name] = (_rmsnorm_bwd_err(got, want), bound_, max_err(got, want))
+    check = dict(shape=list(shape), dtype=str(dtype), weight_dtype=str(wdtype),
+                 max_abs_err=max_err(y, plain), err=err, unit=unit, tol=tol,
+                 dx_err=bwd["dx"][0], dw_err=bwd["dw"][0], dx_abs=bwd["dx"][2],
+                 dw_abs=bwd["dw"][2], bwd_tol=[bwd["dx"][1], bwd["dw"][1]],
+                 bwd_unit="[dx, dw]: ulps of the largest magnitude (bf16, f16) or over it (f32)")
+    require(err <= tol, f"{what}: y vs plain {err} {unit} > {tol}")
+    for name, (e, bound_, _) in bwd.items():
+        require(e <= bound_, f"{what}: {name} vs plain {e} > {bound_}")
+    require(torch.equal(dx, again[0]) and torch.equal(dw, again[1]),
+            f"{what}: two backward calls on the same inputs differ")
+    return check, (x, w, dy)
+
+
+def _library_time(make_call) -> tuple:
+    """time_ms of the library call make_call() returns, or (None, reason)
+    where this torch has no call for these inputs."""
+    try:
+        call, name = make_call()
+        call()
+        return time_ms(call), name
+    except (RuntimeError, NotImplementedError, TypeError) as err:
+        return None, f"no library call for these inputs: {str(err)[:160]}"
+
+
+def _rmsnorm_instantiation_entries(gen) -> list[dict]:
+    """Forward and backward entries for each of RMSNORM_INSTANTIATIONS."""
+    entries = []
+    for label, shape, dtype, wdtype, edges in RMSNORM_INSTANTIATIONS:
+        checks = [_rmsnorm_check(gen, e, dtype, wdtype, f"rmsnorm {label} {list(e)}")[0]
+                  for e in edges]
+        timed, (x, w, dy) = _rmsnorm_check(gen, shape, dtype, wdtype, f"rmsnorm {label} timed")
+        checks.append(timed)
+        rows, dim = x.numel() // shape[-1], shape[-1]
+        fwd_t = time_ms(lambda: rmsnorm_mod.rmsnorm(x, w))
+        bwd_t = time_ms(lambda: rmsnorm_mod.rmsnorm_backward(x, w, dy))
+        lib_fwd, lib_fwd_name = _library_time(lambda: (
+            lambda: F.rms_norm(x, (dim,), w, eps=1e-6), "torch.nn.functional.rms_norm"))
+        lib_bwd, lib_bwd_name = _library_time(lambda: _library_rmsnorm_backward(x, w, dy))
+        fwd_bound = _rmsnorm_bound(rows, dim, dtype, wdtype)
+        bwd_bound = _rmsnorm_bwd_bound(rows, dim, dtype, wdtype)
+        scalar = dtype != wdtype or dim % (16 // _size(dtype)) != 0
+        common = dict(route="cuda", source="ray_tpu_torch/ops/csrc/rmsnorm.cu",
+                      replaces="ray_tpu/ops/rmsnorm.py:17", launches=None, shape=list(shape),
+                      instantiation=label, kernel_route="scalar" if scalar else "vector",
+                      on_main_path=label in TINY_ENTRIES, checks=checks)
+        fwd_name = "rmsnorm_fwd_scalar_kernelI" if scalar else (
+            "rmsnorm_fwd_f16_kernel" if dtype == torch.float16 else "rmsnorm_fwd_kernelI")
+        bwd_name = "rmsnorm_bwd_scalar_kernelI" if scalar else "rmsnorm_bwd_kernelI"
+        entries.append(dict(
+            name=f"rmsnorm[{label}]", max_abs_err=timed["max_abs_err"], err=timed["err"],
+            unit=timed["unit"], tol=timed["tol"], ms=fwd_t["ms"], ms_range=fwd_t["range"],
+            device_ms=per_call_device_ms(lambda: rmsnorm_mod.rmsnorm(x, w)),
+            plain_ms=time_ms(lambda: rmsnorm_mod.rmsnorm_reference(x, w))["ms"],
+            library_ms=lib_fwd["ms"] if lib_fwd else None,
+            library_ms_range=lib_fwd["range"] if lib_fwd else None, library=lib_fwd_name,
+            bound_ms=fwd_bound[0], bound_by=fwd_bound[1],
+            ptxas_names=(fwd_name + ("" if fwd_name.endswith("f16_kernel") else _mangled(dtype)),),
+            **common))
+        entries.append(dict(
+            name=f"rmsnorm_bwd[{label}]", max_abs_err=max(timed["dx_abs"], timed["dw_abs"]),
+            err=[timed["dx_err"], timed["dw_err"]], unit=timed["bwd_unit"],
+            tol=timed["bwd_tol"], ms=bwd_t["ms"], ms_range=bwd_t["range"],
+            device_ms=per_call_device_ms(lambda: rmsnorm_mod.rmsnorm_backward(x, w, dy)),
+            plain_ms=time_ms(lambda: rmsnorm_mod._rmsnorm_backward(x, w, dy, 1e-6),
+                             iters=5)["ms"], plain="_rmsnorm_backward",
+            library_ms=lib_bwd["ms"] if lib_bwd else None,
+            library_ms_range=lib_bwd["range"] if lib_bwd else None, library=lib_bwd_name,
+            bound_ms=bwd_bound[0], bound_by=bwd_bound[1],
+            ptxas_names=(bwd_name + _mangled(dtype),
+                         "rmsnorm_dw_scalar_kernelI" if scalar else "rmsnorm_dw_kernelI"),
+            **common))
+        for entry in entries[-2:]:
+            _log_kernel(entry)
+        del x, w, dy
+    return entries
+
+
 def phase_kernels() -> list[dict]:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -844,6 +1146,8 @@ def phase_kernels() -> list[dict]:
     for entry in _rmsnorm_entries(gen):
         entries.append(entry)
         _log_kernel(entry)
+    entries += _flash_instantiation_entries(gen)
+    entries += _rmsnorm_instantiation_entries(gen)
     log("recorded", measured_by_this_run=False, source=RECORDED_BEFORE_SOURCE,
         before_redesign_ms=RECORDED_BEFORE_MS)
     return entries
@@ -866,6 +1170,7 @@ class Llama2Encoder:
     def __init__(self, params: dict, config: TransformerConfig, seq: int):
         self.params, self.config, self.seq = params, config, seq
         self.forwards = 0
+        self.flushes = []  # (padded bucket's tokens, its answers' last logits)
         # Warm every batching bucket once, as the JAX deployment compiles them.
         for bucket in BUCKETS:
             self._run(np.zeros((bucket, seq), np.int64))
@@ -884,6 +1189,7 @@ class Llama2Encoder:
             ids = body["token_ids"][: self.seq]
             tokens[i, : len(ids)] = ids
         last = self._run(tokens)[:, -1].cpu()
+        self.flushes.append((tokens, last))
         return [{"logits": row, "next_token": int(row.argmax())} for row in last]
 
 
@@ -935,6 +1241,7 @@ def phase_serve(params: dict, config: TransformerConfig) -> dict:
         forward_b8_top=prof["top"], forwards=encoder.forwards,
     )
     log("serve", **result)
+    encoder.params = None  # @batch's queue keeps the encoder, not its weights
     return result
 
 
@@ -1014,6 +1321,86 @@ def _rel_frobenius(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a.float() - b.float()).norm() / b.float().norm().clamp_min(1e-30))
 
 
+def _grads(params, leaves, inputs, targets, config) -> tuple:
+    """One step's loss and gradients: (loss, grads)."""
+    loss = loss_fn(params, inputs, targets, config)
+    return float(loss.detach()), torch.autograd.grad(loss, leaves)
+
+
+def _plain_grads(params, leaves, inputs, targets, config) -> tuple:
+    """_grads through plain attention and the norm's plain backward (swapped
+    in for this pass only)."""
+    kernel_backward = rmsnorm_mod.rmsnorm_backward
+    rmsnorm_mod.rmsnorm_backward = rmsnorm_mod._rmsnorm_backward
+    try:
+        return _grads(params, leaves, inputs, targets,
+                      dataclasses.replace(config, attention="reference"))
+    finally:
+        rmsnorm_mod.rmsnorm_backward = kernel_backward
+
+
+def _kernel_and_plain_grads(params, leaves, inputs, targets, config) -> tuple:
+    """One step's loss and gradients through the kernels and through the
+    plain versions: (loss_k, grads_k, loss_p, grads_p)."""
+    return (*_grads(params, leaves, inputs, targets, config),
+            *_plain_grads(params, leaves, inputs, targets, config))
+
+
+def _step_split(params, optimizer, inputs, targets, config, reps: int = 2) -> dict:
+    """Wall ms of a train step's forward, backward and optimizer, each
+    ended by a synchronize: the mean of `reps` steps."""
+    split = {"forward_ms": 0.0, "backward_ms": 0.0, "optimizer_ms": 0.0}
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = loss_fn(params, inputs, targets, config)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        loss.backward()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        optimizer.step()
+        optimizer.zero_grad(set_to_none=True)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        for key, dt in zip(split, (t1 - t0, t2 - t1, t3 - t2)):
+            split[key] += 1e3 * dt / reps
+    return split
+
+
+def _launches_per_step(params, optimizer, tokens, config, steps: int) -> tuple:
+    """Runs `steps` train steps after a warm-up one; returns the warm-up's
+    loss, the steps' losses, their wall seconds and the kernels' launches
+    per step."""
+    first_loss = float(train_step(params, optimizer, tokens, config))  # warm-up
+    before = _counts()
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    losses = [train_step(params, optimizer, tokens, config) for _ in range(steps)]
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - start
+    after = _counts()
+    per_step = {name: (after[name] - before[name]) / steps for name in after}
+    return first_loss, [float(x) for x in losses], elapsed, per_step
+
+
+def _expected(layers: int, kernel_forwards: int = 0, kernel_backwards: int = 0,
+              plain_forwards: int = 0, decode_steps: int = 0) -> dict:
+    """The launches of a path that ran the model's layers in these passes:
+    a flash forward a layer and kernel forward, a dQ and a dK/dV a layer and
+    kernel backward, and 2 norms a layer and the final one in every pass
+    (plain attention keeps the norm's kernels; the plain gradient pass
+    swaps in the norm's plain backward)."""
+    norms = 2 * layers + 1
+    return {
+        "flash_attention_fwd": layers * kernel_forwards,
+        "flash_attention_bwd_dq": layers * kernel_backwards,
+        "flash_attention_bwd_dkv": layers * kernel_backwards,
+        "rmsnorm": norms * (kernel_forwards + plain_forwards + decode_steps),
+        "rmsnorm_bwd": norms * kernel_backwards,
+    }
+
+
 def phase_train() -> dict:
     """Returns the phase's numbers and how many forward and backward passes
     it ran through the kernels, and forward passes with plain attention."""
@@ -1030,22 +1417,14 @@ def phase_train() -> dict:
 
     # One step's loss and gradients, kernel path against plain attention and
     # the norm's plain backward, swapped in for this pass only.
-    loss_k = loss_fn(params, inputs, targets, config)
-    grads_k = torch.autograd.grad(loss_k, leaves)
-    plain_config = dataclasses.replace(config, attention="reference")
-    kernel_backward = rmsnorm_mod.rmsnorm_backward
-    rmsnorm_mod.rmsnorm_backward = rmsnorm_mod._rmsnorm_backward
-    try:
-        loss_p = loss_fn(params, inputs, targets, plain_config)
-        grads_p = torch.autograd.grad(loss_p, leaves)
-    finally:
-        rmsnorm_mod.rmsnorm_backward = kernel_backward
+    loss_k, grads_k, loss_p, grads_p = _kernel_and_plain_grads(
+        params, leaves, inputs, targets, config)
     passes["kernel_forwards"] += 1
     passes["kernel_backwards"] += 1
     passes["plain_forwards"] += 1
     grad_errs = {n: _rel_frobenius(a, b) for n, a, b in zip(names, grads_k, grads_p)}
-    loss_err = abs(float(loss_k.detach()) - float(loss_p.detach()))
-    del grads_k, grads_p, loss_k, loss_p
+    loss_err = abs(loss_k - loss_p)
+    del grads_k, grads_p
     torch.cuda.empty_cache()
     log("train_check", loss_err=loss_err, loss_tol=TRAIN_LOSS_TOL, grad_rel_frobenius=grad_errs,
         grad_tol=TRAIN_GRAD_REL_TOL)
@@ -1055,23 +1434,13 @@ def phase_train() -> dict:
             f"train: {worst} gradient kernel vs plain {grad_errs[worst]} >= {TRAIN_GRAD_REL_TOL}")
 
     torch.cuda.reset_peak_memory_stats()
-    first_loss = float(train_step(params, optimizer, tokens, config))  # warm-up
-    before = _counts()
-    torch.cuda.synchronize()
-    start = time.perf_counter()
-    losses = [train_step(params, optimizer, tokens, config) for _ in range(TRAIN_STEPS)]
-    torch.cuda.synchronize()
-    elapsed = time.perf_counter() - start
-    after = _counts()
+    first_loss, losses, elapsed, per_step = _launches_per_step(
+        params, optimizer, tokens, config, TRAIN_STEPS)
     passes["kernel_forwards"] += 1 + TRAIN_STEPS
     passes["kernel_backwards"] += 1 + TRAIN_STEPS
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
-    losses = [float(x) for x in losses]
-    per_step = {name: (after[name] - before[name]) / TRAIN_STEPS for name in after}
     layers = config.n_layers
-    want_per_step = {"flash_attention_fwd": layers, "flash_attention_bwd_dq": layers,
-                     "flash_attention_bwd_dkv": layers, "rmsnorm": 2 * layers + 1,
-                     "rmsnorm_bwd": 2 * layers + 1}
+    want_per_step = _expected(layers, kernel_forwards=1, kernel_backwards=1)
     require(all(np.isfinite(losses)), f"train: non-finite loss {losses}")
     require(losses[-1] < first_loss, f"train: loss did not fall ({first_loss} -> {losses[-1]})")
     require(per_step == want_per_step, f"train: launches per step {per_step} != {want_per_step}")
@@ -1082,23 +1451,8 @@ def phase_train() -> dict:
     prof = device_time(lambda: train_step(params, optimizer, tokens, config), top=8)
 
     # The forward / backward / optimizer split, after the timed window.
-    split = {"forward_ms": 0.0, "backward_ms": 0.0, "optimizer_ms": 0.0}
     reps = 2
-    for _ in range(reps):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        loss = loss_fn(params, inputs, targets, config)
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        loss.backward()
-        torch.cuda.synchronize()
-        t2 = time.perf_counter()
-        optimizer.step()
-        optimizer.zero_grad(set_to_none=True)
-        torch.cuda.synchronize()
-        t3 = time.perf_counter()
-        for key, dt in zip(split, (t1 - t0, t2 - t1, t3 - t2)):
-            split[key] += 1e3 * dt / reps
+    split = _step_split(params, optimizer, inputs, targets, config, reps)
     passes["kernel_forwards"] += 1 + reps
     passes["kernel_backwards"] += 1 + reps
 
@@ -1116,14 +1470,409 @@ def phase_train() -> dict:
     return result
 
 
+# ---------------------------------------------------------------- tiny
+# TransformerConfig.tiny(): f32, dim 64, 4 heads over 2 kv heads (head_dim
+# 16), 2 layers, vocab 256: the preset of the JAX package's model tests,
+# through the kernels (the mma.sync route at head_dim 16, RMSNorm at dim
+# 64) against plain attention and the norm's plain backward. Held as
+# ROADMAP's parity rules hold f32: the forward (logits, loss) to 2e-5 and
+# each gradient leaf to 2e-4, max |kernel - plain|.
+TINY_LOGITS_TOL = 2e-5
+TINY_GRAD_TOL = 2e-4
+
+
+def phase_tiny() -> dict:
+    config = TransformerConfig.tiny(attention="flash")
+    params = init_params(config, seed=SEED, device="cuda")
+    rng = np.random.default_rng(SEED + 5)
+    tokens = torch.from_numpy(
+        rng.integers(0, config.vocab_size, (TINY_BATCH, TINY_SEQ + 1))).cuda()
+    inputs, targets = tokens[:, :-1], tokens[:, 1:]
+    with torch.inference_mode():
+        logits_k = forward(params, inputs, config)
+        logits_p = forward(params, inputs, dataclasses.replace(config, attention="reference"))
+    torch.cuda.synchronize()
+    logits_err = max_err(logits_k, logits_p)
+    optimizer = make_optimizer(params)
+    names, leaves = zip(*named_leaves(params))
+    loss_k, grads_k, loss_p, grads_p = _kernel_and_plain_grads(
+        params, leaves, inputs, targets, config)
+    grad_errs = {n: max_err(a, b) for n, a, b in zip(names, grads_k, grads_p)}
+    worst = max(grad_errs, key=grad_errs.get)
+    first_loss, losses, _, per_step = _launches_per_step(params, optimizer, tokens, config, 1)
+    result = dict(
+        config="TransformerConfig.tiny(attention='flash')", head_dim=config.head_dim,
+        dtype=str(config.dtype), batch=TINY_BATCH, seq=TINY_SEQ,
+        logits_err=logits_err, logits_tol=TINY_LOGITS_TOL, loss_err=abs(loss_k - loss_p),
+        grad_err=grad_errs, grad_tol=TINY_GRAD_TOL, first_loss=first_loss, losses=losses,
+        launches_per_step=per_step,
+        # forwards: 2 inference (kernel, plain), the gradient check's pair,
+        # and 2 train steps
+        kernel_forwards=4, kernel_backwards=3, plain_forwards=2,
+    )
+    log("tiny", **result)
+    require(bool(torch.isfinite(logits_k).all()), "tiny: non-finite logits")
+    require(logits_err < TINY_LOGITS_TOL, f"tiny: kernel vs plain logits {logits_err}")
+    require(result["loss_err"] < TINY_LOGITS_TOL, f"tiny: kernel vs plain loss {loss_k}, {loss_p}")
+    require(grad_errs[worst] < TINY_GRAD_TOL,
+            f"tiny: {worst} gradient kernel vs plain {grad_errs[worst]} >= {TINY_GRAD_TOL}")
+    require(all(np.isfinite(losses)), f"tiny: non-finite loss {losses}")
+    want = _expected(config.n_layers, kernel_forwards=1, kernel_backwards=1)
+    require(per_step == want, f"tiny: launches per step {per_step} != {want}")
+    return result
+
+
+# ---------------------------------------------------------------- MoE
+# TransformerConfig.llama2_7b(moe=MoEConfig()): dim 4096, 32 heads and 32
+# kv heads (head_dim 128), hidden 11008, vocab 32000, 8 experts, top-2,
+# capacity factor 1.25, bf16. Full width; depth cut to fit one card with
+# its train state (32 layers would be ~37.0 B parameters, 74 GB in bf16).
+MOE_SERVE_LAYERS = 4
+MOE_TRAIN_LAYERS = 2
+MOE_TRAIN_BATCH, MOE_TRAIN_SEQ, MOE_TRAIN_STEPS = 4, 1024, 5
+# _moe_mlp on one bf16 h on the card against the same call on the CPU: the
+# routing (f32 logits, softmax, top-2, slots) must agree exactly; the
+# output rounds to bf16 at five places (gate, up, SwiGLU, expert out,
+# combine) after sums in other orders, a few bf16 ulps of values of order
+# 1, held to ROADMAP's bf16 forward bound.
+MOE_ROUTING_TOKENS = 256
+
+
+def moe_config(n_layers: int) -> TransformerConfig:
+    return TransformerConfig.llama2_7b(moe=MoEConfig(), n_layers=n_layers)
+
+
+def op_device_ms(fn, op: str) -> float:
+    """torch.profiler's device time of the kernels launched under every
+    call of `op` in one call of fn."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    total = sum(getattr(e, "device_time_total", None) or e.cuda_time_total
+                for e in prof.key_averages() if e.key == op)
+    return total / 1e3
+
+
+def moe_block_ms(params: dict, config: TransformerConfig, tokens: int) -> dict:
+    """CUDA-events ms of each part of _moe_mlp at layer 0's weights, for
+    `tokens` tokens of random bf16 h routed by the layer's router: the
+    routing (_moe_combine), and the einsums as _moe_mlp writes them
+    (dispatch; the experts' gate and up; their down; the combine)."""
+    layer = {name: params["layers"][name][0] for name in ("router", "w_gate", "w_up", "w_down")}
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 9)
+    ht = torch.randn((tokens, config.dim), generator=gen, device="cuda").to(config.dtype)
+    moe = config.moe
+    with torch.inference_mode():
+        combine = transformer_mod._moe_combine(ht, layer["router"], moe)
+        dispatch, weights = (combine > 0).to(ht.dtype), combine.to(ht.dtype)
+        expert_in = torch.einsum("tec,td->ecd", dispatch, ht)
+        gate = torch.einsum("ecd,edm->ecm", expert_in, layer["w_gate"]).to(ht.dtype)
+        up = torch.einsum("ecd,edm->ecm", expert_in, layer["w_up"]).to(ht.dtype)
+        act = transformer_mod._silu_mul(gate, up)
+        expert_out = torch.einsum("ecm,emd->ecd", act, layer["w_down"])
+        parts = {
+            "routing": lambda: transformer_mod._moe_combine(ht, layer["router"], moe),
+            "dispatch_einsum": lambda: torch.einsum("tec,td->ecd", dispatch, ht),
+            "expert_gate_up_einsums": lambda: (
+                torch.einsum("ecd,edm->ecm", expert_in, layer["w_gate"]),
+                torch.einsum("ecd,edm->ecm", expert_in, layer["w_up"])),
+            "expert_down_einsum": lambda: torch.einsum("ecm,emd->ecd", act, layer["w_down"]),
+            "combine_einsum": lambda: torch.einsum("tec,ecd->td", weights, expert_out),
+        }
+        return {name: time_ms(fn, iters=10)["ms"] for name, fn in parts.items()}
+
+
+def _moe_routing_check(params: dict, config: TransformerConfig) -> dict:
+    layer = {name: params["layers"][name][0] for name in ("router", "w_gate", "w_up", "w_down")}
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 6)
+    h = torch.randn((1, MOE_ROUTING_TOKENS, config.dim), generator=gen,
+                    device="cuda").to(config.dtype)
+    cpu_layer = {name: t.cpu() for name, t in layer.items()}
+    with torch.inference_mode():
+        out = transformer_mod._moe_mlp(h, layer, config).cpu()
+        combine = transformer_mod._moe_combine(h[0], layer["router"], config.moe).cpu()
+        out_cpu = transformer_mod._moe_mlp(h.cpu(), cpu_layer, config)
+        combine_cpu = transformer_mod._moe_combine(h[0].cpu(), cpu_layer["router"], config.moe)
+    dispatch, dispatch_cpu = combine > 0, combine_cpu > 0
+    result = dict(tokens=MOE_ROUTING_TOKENS, capacity=combine.shape[-1],
+                  dispatch_equal=bool(torch.equal(dispatch, dispatch_cpu)),
+                  tokens_routed_differently=int((dispatch != dispatch_cpu).flatten(1).any(1).sum()),
+                  combine_max_err=max_err(combine, combine_cpu),
+                  out_max_err=max_err(out, out_cpu), out_tol=BF16_TOL,
+                  out_abs_max=float(out_cpu.float().abs().max()))
+    require(result["dispatch_equal"], f"moe routing: card and CPU dispatch differ: {result}")
+    require(result["out_max_err"] < BF16_TOL, f"moe routing: card vs CPU output {result}")
+    return result
+
+
+def phase_moe_serve(params: dict, config: TransformerConfig) -> dict:
+    rng = np.random.default_rng(SEED + 4)
+    start = time.perf_counter()
+    encoder = Llama2Encoder(params, config, SERVE_SEQ)
+    warm_s = time.perf_counter() - start
+    requests = [
+        {"token_ids": rng.integers(0, config.vocab_size, SERVE_SEQ).tolist()}
+        for _ in range(SERVE_REQUESTS)
+    ]
+
+    async def fire():
+        return await asyncio.gather(*(encoder(body) for body in requests))
+
+    start = time.perf_counter()
+    answers = asyncio.run(fire())
+    elapsed = time.perf_counter() - start
+    for answer in answers:
+        require(answer["logits"].shape == (config.vocab_size,), "moe serve: answer shape")
+        require(bool(torch.isfinite(answer["logits"]).all()), "moe serve: non-finite logits")
+    # A bucket's capacity and its padding rows decide the routing (the
+    # reference's semantics), so each batched answer is held against a
+    # direct forward on the same padded bucket, not against its request
+    # alone.
+    buckets = []
+    for tokens, last in encoder.flushes:
+        direct = encoder._run(tokens)[:, -1].cpu()
+        buckets.append(dict(bucket=tokens.shape[0], bitwise_equal=bool(torch.equal(last, direct)),
+                            max_err=max_err(last, direct)))
+    require(all(b["bitwise_equal"] for b in buckets),
+            f"moe serve: batched answers differ from a direct forward: {buckets}")
+    alone = encoder._run(np.asarray([requests[0]["token_ids"]], np.int64))[0, -1].cpu()
+    tokens8 = np.asarray([body["token_ids"] for body in requests[:8]], np.int64)
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    encoder._run(tokens8)
+    torch.cuda.synchronize()
+    forward8_ms = (time.perf_counter() - start) * 1e3
+    prof = device_time(lambda: encoder._run(tokens8), top=8)
+    einsum_ms = op_device_ms(lambda: encoder._run(tokens8), "aten::einsum")
+    parts = moe_block_ms(params, config, 8 * SERVE_SEQ)
+    result = dict(
+        config="llama2_7b(moe=MoEConfig(), n_layers=4)", layers=config.n_layers,
+        params=num_params(params), experts=config.moe.num_experts, top_k=config.moe.top_k,
+        capacity_b8=transformer_mod.moe_capacity(config.moe, 8 * SERVE_SEQ),
+        requests=len(answers), seq=SERVE_SEQ, batches=len(encoder.flushes), seconds=elapsed,
+        prefill_tokens_per_s=len(answers) * SERVE_SEQ / elapsed, warmup_seconds=warm_s,
+        buckets=buckets,
+        batched_vs_alone_diff=max_err(answers[0]["logits"], alone),
+        different_request_diff=max_err(answers[0]["logits"], answers[1]["logits"]),
+        forward_b8_ms=forward8_ms, forward_b8_device_ms=prof["device_ms"],
+        forward_b8_device_idle_share=1.0 - prof["device_ms"] / forward8_ms,
+        forward_b8_top=prof["top"], moe_einsum_device_ms=einsum_ms,
+        moe_einsum_device_share=einsum_ms / prof["device_ms"],
+        moe_block_ms_per_layer=parts,
+        moe_block_share_b8={name: config.n_layers * ms / prof["device_ms"]
+                            for name, ms in parts.items()},
+        routing=_moe_routing_check(params, config), forwards=encoder.forwards,
+        peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+    )
+    log("moe_serve", **result)
+    encoder.params = None  # @batch's queue keeps the encoder, not its weights
+    return result
+
+
+def phase_stages(params: dict, config: TransformerConfig) -> dict:
+    """partition_stages into 2 stages, stage_forward chained against the
+    fused forward (bf16 logits, ROADMAP's bf16 forward bound), and
+    merge_stages back to the same tree."""
+    rng = np.random.default_rng(SEED + 8)
+    tokens = torch.from_numpy(rng.integers(0, config.vocab_size, (2, SERVE_SEQ))).cuda()
+    stages = partition_stages(params, config, 2)
+    with torch.inference_mode():
+        x = tokens
+        for s, tree in enumerate(stages):
+            x = stage_forward(tree, x, config, first=s == 0, last=s == len(stages) - 1)
+        fused = forward(params, tokens, config)
+    torch.cuda.synchronize()
+    merged = merge_stages(stages)
+    restored = [(n, torch.equal(a, b) and a.dtype == b.dtype)
+                for (n, a), (_, b) in zip(named_leaves(merged), named_leaves(params))]
+    result = dict(stages=len(stages), layers_per_stage=config.n_layers // len(stages),
+                  stage_leaves=[sorted(dict(named_leaves(t))) for t in stages],
+                  max_err=max_err(x, fused), tol=BF16_TOL, bitwise_equal=bool(torch.equal(x, fused)),
+                  merged_equal=all(ok for _, ok in restored), forwards=2)
+    del merged
+    log("stages", **result)
+    require(bool(torch.isfinite(x).all()), "stages: non-finite logits")
+    require(result["max_err"] < BF16_TOL, f"stages: chain vs fused {result['max_err']}")
+    require(result["merged_equal"] and len(restored) == len(list(named_leaves(params))),
+            f"stages: merge_stages does not give the tree back: {restored}")
+    return result
+
+
+def moe_train_flops(config: TransformerConfig, batch: int, seq: int) -> dict:
+    """Operations (2 per multiply-add) of one train step's matrix products
+    and einsums, from their shapes: the forward's, and the backward's as
+    autograd and the kernels run them: 2 products for each weight product
+    (dX and dW), 1 for the dispatch einsum (its 0/1 dispatch takes no
+    gradient), 2 for the combine (dcombine, dexpert_out), and the flash
+    backward's 7 products per visible pair (dQ kernel 3, dK/dV kernel 4)
+    against the forward's 2. Elementwise work (norms, RoPE, SwiGLU,
+    routing, softmax, Adam) is left out."""
+    tokens, d, hd = batch * seq, config.dim, config.head_dim
+    experts, hidden = config.moe.num_experts, config.hidden_dim
+    capacity = transformer_mod.moe_capacity(config.moe, tokens)
+    pairs = batch * config.n_heads * _causal_pairs(seq, seq, True)
+    q_out, kv_out = config.n_heads * hd, config.n_kv_heads * hd
+    layer = {  # forward operations, backward multiple
+        "attention_projections": (2 * tokens * d * (q_out + 2 * kv_out) + 2 * tokens * q_out * d,
+                                  2.0),
+        "attention_flash": (2 * 2 * hd * pairs, 3.5),
+        "moe_router": (2 * tokens * d * experts, 2.0),
+        "moe_dispatch_einsum": (2 * tokens * experts * capacity * d, 1.0),
+        "moe_expert_einsums": (3 * 2 * experts * capacity * d * hidden, 2.0),
+        "moe_combine_einsum": (2 * tokens * experts * capacity * d, 2.0),
+    }
+    head = 2 * tokens * d * config.vocab_size
+    forward_ops = config.n_layers * sum(f for f, _ in layer.values()) + head
+    backward_ops = config.n_layers * sum(f * m for f, m in layer.values()) + 2 * head
+    return dict(capacity=capacity, per_layer_forward={k: f for k, (f, _) in layer.items()},
+                lm_head_forward=head, forward=forward_ops, backward=backward_ops,
+                step=forward_ops + backward_ops)
+
+
+def phase_moe_train() -> dict:
+    """Returns the phase's numbers and how many forward and backward passes
+    it ran through the kernels, and forward passes with plain attention."""
+    held_gib = torch.cuda.memory_allocated() / 2**30  # by earlier phases
+    config = moe_config(MOE_TRAIN_LAYERS)
+    params = init_params(config, seed=SEED, device="cuda")
+    optimizer = make_optimizer(params)
+    names, leaves = zip(*named_leaves(params))
+    rng = np.random.default_rng(SEED + 7)
+    tokens = torch.from_numpy(
+        rng.integers(0, config.vocab_size, (MOE_TRAIN_BATCH, MOE_TRAIN_SEQ + 1))).cuda()
+    inputs, targets = tokens[:, :-1], tokens[:, 1:]
+    passes = {"kernel_forwards": 1, "kernel_backwards": 1, "plain_forwards": 2}
+    layers = config.n_layers
+
+    # Routing is a discrete choice: where two experts' probabilities are
+    # within the paths' rounding of each other, the kernel and plain passes
+    # send a token to different experts, and its gradient differs by order
+    # 1. The kernels are held with the routing pinned: the plain pass
+    # replays the kernel pass's dispatch with its own gates (the
+    # reference's combine is the dispatch times the chosen experts'
+    # probabilities, which the kernel pass checks). The free plain pass is
+    # run too: its loss, gradients and the tokens it routes otherwise are
+    # reported, not held.
+    combine_fn = transformer_mod._moe_combine
+    dispatch = {"kernel": [], "free": []}
+    identity_held = []
+
+    def _probs(ht, router):
+        return torch.softmax(ht.float() @ router.float(), dim=-1)
+
+    def recording(into):
+        def record(ht, router, moe):
+            combine = combine_fn(ht, router, moe)
+            dispatch[into].append(combine > 0)
+            identity_held.append(bool(torch.equal(
+                combine, dispatch[into][-1] * _probs(ht, router)[:, :, None])))
+            return combine
+        return record
+
+    def replaying(ht, router, moe):
+        layer = len(dispatch.setdefault("replayed", []))
+        dispatch["replayed"].append(None)
+        return dispatch["kernel"][layer] * _probs(ht, router)[:, :, None]
+
+    try:
+        transformer_mod._moe_combine = recording("kernel")
+        loss_k, grads_k = _grads(params, leaves, inputs, targets, config)
+        transformer_mod._moe_combine = recording("free")
+        loss_f, grads_f = _plain_grads(params, leaves, inputs, targets, config)
+        free_errs = {n: _rel_frobenius(a, b) for n, a, b in zip(names, grads_k, grads_f)}
+        del grads_f
+        transformer_mod._moe_combine = replaying
+        loss_p, grads_p = _plain_grads(params, leaves, inputs, targets, config)
+    finally:
+        transformer_mod._moe_combine = combine_fn
+    flips = [int((a.any(-1) != b.any(-1)).any(-1).sum())
+             for a, b in zip(dispatch["kernel"], dispatch["free"])]
+    grad_errs = {n: _rel_frobenius(a, b) for n, a, b in zip(names, grads_k, grads_p)}
+    loss_err = abs(loss_k - loss_p)
+    del grads_k, grads_p, dispatch
+    torch.cuda.empty_cache()
+    worst = max(grad_errs, key=grad_errs.get)
+    check = dict(loss_err=loss_err, loss_tol=TRAIN_LOSS_TOL, grad_rel_frobenius=grad_errs,
+                 grad_tol=TRAIN_GRAD_REL_TOL, combine_is_dispatch_times_probs=identity_held,
+                 free_routing=dict(tokens_routed_differently_by_layer=flips,
+                                   tokens=MOE_TRAIN_BATCH * MOE_TRAIN_SEQ,
+                                   loss_err=abs(loss_k - loss_f),
+                                   grad_rel_frobenius=free_errs))
+    log("moe_train_check", **check)
+    require(all(identity_held) and len(identity_held) == 2 * layers,
+            f"moe train: combine is not dispatch * probs: {identity_held}")
+    require(loss_err < TRAIN_LOSS_TOL, f"moe train: kernel vs plain loss {loss_err}")
+    require(grad_errs[worst] < TRAIN_GRAD_REL_TOL,
+            f"moe train: {worst} gradient kernel vs plain {grad_errs[worst]} "
+            f">= {TRAIN_GRAD_REL_TOL}")
+
+    torch.cuda.reset_peak_memory_stats()
+    first_loss, losses, elapsed, per_step = _launches_per_step(
+        params, optimizer, tokens, config, MOE_TRAIN_STEPS)
+    passes["kernel_forwards"] += 1 + MOE_TRAIN_STEPS
+    passes["kernel_backwards"] += 1 + MOE_TRAIN_STEPS
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    want_per_step = _expected(layers, kernel_forwards=1, kernel_backwards=1)
+    require(all(np.isfinite(losses)), f"moe train: non-finite loss {losses}")
+    require(losses[-1] < first_loss, f"moe train: loss did not fall ({first_loss} -> {losses[-1]})")
+    require(per_step == want_per_step,
+            f"moe train: launches per step {per_step} != {want_per_step}")
+    step_ms = 1e3 * elapsed / MOE_TRAIN_STEPS
+    prof = device_time(lambda: train_step(params, optimizer, tokens, config), top=8)
+    reps = 2
+    split = _step_split(params, optimizer, inputs, targets, config, reps)
+    passes["kernel_forwards"] += 1 + reps
+    passes["kernel_backwards"] += 1 + reps
+    flops = moe_train_flops(config, MOE_TRAIN_BATCH, MOE_TRAIN_SEQ)
+    result = dict(
+        config="llama2_7b(moe=MoEConfig(), n_layers=2)", layers=layers, dim=config.dim,
+        hidden=config.hidden_dim, experts=config.moe.num_experts, top_k=config.moe.top_k,
+        batch=MOE_TRAIN_BATCH, seq=MOE_TRAIN_SEQ, dtype=str(config.dtype),
+        params=num_params(params), steps=MOE_TRAIN_STEPS, first_loss=first_loss, losses=losses,
+        step_ms=step_ms, tokens_per_s=MOE_TRAIN_BATCH * MOE_TRAIN_SEQ / (step_ms / 1e3),
+        flops=flops, matmul_tflops_per_s=flops["step"] / (step_ms / 1e3) / 1e12,
+        matmul_share_of_peak=flops["step"] / (step_ms / 1e3) / PEAK_BF16_FLOPS,
+        peak_gib=peak_gib, held_at_start_gib=held_gib, step_device_ms=prof["device_ms"],
+        device_idle_share=1.0 - prof["device_ms"] / step_ms, step_top=prof["top"],
+        split=split, launches_per_step=per_step, grad_check_worst=worst,
+        grad_check_worst_err=grad_errs[worst], grad_check=check, **passes,
+    )
+    log("moe_train", **result)
+    return result
+
+
 # ---------------------------------------------------------------- main
+def _path(name: str, want: dict, counts: dict, routes: dict, route: str, **fields) -> None:
+    """Logs a path's launch counts and fails unless they are what the path
+    implies and every flash launch took `route`."""
+    log("launches", path=name, counts=counts, routes=routes, expected=want, **fields)
+    require(counts == want, f"{name}: kernel launches do not match the path")
+    for kernel, by_route in routes.items():
+        require(by_route[route] == counts[kernel] and sum(by_route.values()) == counts[kernel],
+                f"{name}: {kernel} launches by route {by_route}, {counts[kernel]} in all")
+
+
+def _run_path(fn, *args) -> tuple:
+    """fn(*args) with every count set to 0 just before it; returns its
+    result and the counts and routes read just after."""
+    reset_counts()
+    result = fn(*args)
+    return result, _counts(), _route_counts()
+
+
 def main() -> None:
     phase_device()
-    kernel_ptxas = phase_build()
+    ptxas = phase_build()
     entries = phase_kernels()
     for e in entries:  # ptxas's report beside the kernels of each entry's shape
-        e["ptxas"] = {k: v for k, v in kernel_ptxas.items()
-                      if any(part in k for part in PTXAS_NAMES[e["name"]])}
+        names = e.pop("ptxas_names", None) or PTXAS_NAMES[e["name"]]
+        e["ptxas"] = {k: v for k, v in ptxas.items() if any(part in k for part in names)}
+    counts, routes = {}, {}
 
     start = time.perf_counter()
     config = TransformerConfig.llama2_7b()
@@ -1133,59 +1882,73 @@ def main() -> None:
         dtype=str(config.dtype), seconds=time.perf_counter() - start,
         gib=torch.cuda.memory_allocated() / 2**30)
 
-    # The serving path runs from here: every count starts at 0.
-    reset_counts()
+    # Each path runs with every count set to 0 just before it.
     torch.cuda.reset_peak_memory_stats()
-    serve = phase_serve(params, config)
-    gen = phase_generate(params, config)
-    serve_counts = _counts()
-    serve_routes = _route_counts()
-
+    (serve, gen), counts["serve"], routes["serve"] = _run_path(
+        lambda: (phase_serve(params, config), phase_generate(params, config)))
     forwards = serve["forwards"] + gen["forwards"]
-    layers = config.n_layers
-    want = {
-        "flash_attention_fwd": layers * forwards, "flash_attention_bwd_dq": 0,
-        "flash_attention_bwd_dkv": 0,
-        "rmsnorm": (2 * layers + 1) * (forwards + gen["decode_steps"]), "rmsnorm_bwd": 0,
-    }
-    log("launches", path="serve", counts=serve_counts, routes=serve_routes, expected=want,
-        forwards=forwards,
-        decode_steps=gen["decode_steps"], peak_gib=torch.cuda.max_memory_allocated() / 2**30)
-    require(serve_counts == want, "serve: kernel launches do not match the path")
-    _require_wgmma_route("serve", serve_counts, serve_routes)
+    _path("serve", _expected(config.n_layers, kernel_forwards=forwards,
+                             decode_steps=gen["decode_steps"]),
+          counts["serve"], routes["serve"], "wgmma", forwards=forwards,
+          decode_steps=gen["decode_steps"], peak_gib=torch.cuda.max_memory_allocated() / 2**30)
     del params
     torch.cuda.empty_cache()
 
-    # The training path runs from here: every count starts at 0 again.
-    reset_counts()
-    train = phase_train()
-    train_counts = _counts()
-    train_routes = _route_counts()
-    layers = TRAIN_CONFIG["n_layers"]
-    want = {
-        "flash_attention_fwd": layers * train["kernel_forwards"],
-        "flash_attention_bwd_dq": layers * train["kernel_backwards"],
-        "flash_attention_bwd_dkv": layers * train["kernel_backwards"],
-        "rmsnorm": (2 * layers + 1) * (train["kernel_forwards"] + train["plain_forwards"]),
-        "rmsnorm_bwd": (2 * layers + 1) * train["kernel_backwards"],
-    }
-    log("launches", path="train", counts=train_counts, routes=train_routes, expected=want,
-        kernel_forwards=train["kernel_forwards"], kernel_backwards=train["kernel_backwards"],
-        plain_forwards=train["plain_forwards"])
-    require(train_counts == want, "train: kernel launches do not match the path")
-    _require_wgmma_route("train", train_counts, train_routes)
+    train, counts["train"], routes["train"] = _run_path(phase_train)
+    passes = {k: train[k] for k in ("kernel_forwards", "kernel_backwards", "plain_forwards")}
+    _path("train", _expected(TRAIN_CONFIG["n_layers"], **passes), counts["train"],
+          routes["train"], "wgmma", **passes)
+    torch.cuda.empty_cache()
 
+    tiny, counts["tiny"], routes["tiny"] = _run_path(phase_tiny)
+    passes = {k: tiny[k] for k in ("kernel_forwards", "kernel_backwards", "plain_forwards")}
+    _path("tiny", _expected(TransformerConfig.tiny().n_layers, **passes), counts["tiny"],
+          routes["tiny"], "mma_sync", **passes)
+
+    start = time.perf_counter()
+    config = moe_config(MOE_SERVE_LAYERS)
+    params = init_params(config, seed=SEED, device="cuda")
+    torch.cuda.synchronize()
+    log("params", config="llama2_7b(moe=MoEConfig(), n_layers=4)", layers=config.n_layers,
+        params=num_params(params), seconds=time.perf_counter() - start,
+        gib=torch.cuda.memory_allocated() / 2**30)
+    torch.cuda.reset_peak_memory_stats()
+    moe_serve, counts["moe_serve"], routes["moe_serve"] = _run_path(
+        phase_moe_serve, params, config)
+    _path("moe_serve", _expected(config.n_layers, kernel_forwards=moe_serve["forwards"]),
+          counts["moe_serve"], routes["moe_serve"], "wgmma", forwards=moe_serve["forwards"])
+    stages, counts["stages"], routes["stages"] = _run_path(phase_stages, params, config)
+    _path("stages", _expected(config.n_layers, kernel_forwards=stages["forwards"]),
+          counts["stages"], routes["stages"], "wgmma", forwards=stages["forwards"])
+    del params
+    torch.cuda.empty_cache()
+
+    moe_train, counts["moe_train"], routes["moe_train"] = _run_path(phase_moe_train)
+    passes = {k: moe_train[k] for k in ("kernel_forwards", "kernel_backwards", "plain_forwards")}
+    _path("moe_train", _expected(MOE_TRAIN_LAYERS, **passes), counts["moe_train"],
+          routes["moe_train"], "wgmma", **passes)
+
+    # Every launch on the tiny path is of its instantiations (head_dim 16 in
+    # f32, RMSNorm at dim 64 in f32); on every other path, of the model's.
     for e in entries:
-        by_path = {"serve": serve_counts[e["name"]], "train": train_counts[e["name"]]}
+        kernel = e["name"].split("[")[0]
+        if "instantiation" in e:
+            paths = ["tiny"] if e["on_main_path"] else []
+        else:
+            paths = [p for p in counts if p != "tiny"]
+        by_path = {p: counts[p][kernel] for p in paths}
         e["launches"], e["launches_by_path"] = sum(by_path.values()), by_path
-        if e["name"] in serve_routes:
-            e["launches_by_route"] = {
-                route: serve_routes[e["name"]][route] + train_routes[e["name"]][route]
-                for route in ("wgmma", "mma_sync")
-            }
-        require(e["launches"] > 0, f"{e['name']}: no launch on the main paths")
+        if kernel in routes["serve"]:
+            e["launches_by_route"] = {r: sum(routes[p][kernel][r] for p in paths)
+                                      for r in ("wgmma", "mma_sync")}
+        if paths:
+            require(e["launches"] > 0, f"{e['name']}: no launch on the main paths")
         e["max_err"], e["kernel_ms"] = e["max_abs_err"], e["ms"]  # the phase-3 lines' names
 
+    log("summary", train_tokens_per_s=train["tokens_per_s"],
+        moe_serve_prefill_tokens_per_s=moe_serve["prefill_tokens_per_s"],
+        moe_train_tokens_per_s=moe_train["tokens_per_s"],
+        seconds=time.perf_counter() - _t_start)
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -41,22 +41,25 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _IP = ctypes.POINTER(ctypes.c_int)
-# name -> argtypes of every C entry point; each returns a cudaError_t.
+# The element-type codes of the C entry points (csrc/dtype_codes.cuh).
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+# name -> argtypes of every C entry point; each returns a cudaError_t. A
+# dtype argument is one of DTYPE_CODES.
 _SIGNATURES = {
-    # q, k, v, o, lse, bh, seq_q, seq_k, head_dim, is_bf16, causal, scale,
+    # q, k, v, o, lse, bh, seq_q, seq_k, head_dim, dtype, causal, scale,
     # route (out), stream
     "rt_flash_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _IP, _P],
-    # q, k, v, o, dout, lse, delta, dq, bh, seq_q, seq_k, head_dim, is_bf16,
+    # q, k, v, o, dout, lse, delta, dq, bh, seq_q, seq_k, head_dim, dtype,
     # causal, scale, route (out), stream
     "rt_flash_bwd_dq": [_P] * 8 + [_I] * 6 + [_F, _IP, _P],
-    # q, k, v, dout, lse, delta, dk, dv, bh, seq_q, seq_k, head_dim, is_bf16,
+    # q, k, v, dout, lse, delta, dk, dv, bh, seq_q, seq_k, head_dim, dtype,
     # causal, scale, route (out), stream
     "rt_flash_bwd_dkv": [_P] * 8 + [_I] * 6 + [_F, _IP, _P],
-    # x, w, y, rows, dim, is_bf16, eps, stream
-    "rt_rmsnorm": [_P, _P, _P, _I, _I, _I, _F, _P],
-    # x, w, dy, dx, dw, partial, parts (in/out), rows, dim, is_bf16, eps,
-    # stream
-    "rt_rmsnorm_bwd": [_P] * 6 + [_IP, _I, _I, _I, _F, _P],
+    # x, w, y, rows, dim, x dtype, w dtype, eps, stream
+    "rt_rmsnorm": [_P, _P, _P, _I, _I, _I, _I, _F, _P],
+    # x, w, dy, dx, dw, partial, parts (in/out), rows, dim, x dtype,
+    # w dtype, eps, stream
+    "rt_rmsnorm_bwd": [_P] * 6 + [_IP, _I, _I, _I, _I, _F, _P],
 }
 
 

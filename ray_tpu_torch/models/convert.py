@@ -14,10 +14,16 @@ import torch
 from ray_tpu_torch import resolve_device
 
 
-def _map(fn, tree):
+# Leaves that keep their dtype under params_from_numpy's ``dtype``: the MoE
+# router is f32 in every model dtype, since its logits decide the routing.
+_F32_LEAVES = ("router",)
+
+
+def _map(fn, tree, key=None):
+    """fn(leaf, key of the leaf) over a dict tree."""
     if isinstance(tree, dict):
-        return {key: _map(fn, value) for key, value in tree.items()}
-    return fn(tree)
+        return {k: _map(fn, value, k) for k, value in tree.items()}
+    return fn(tree, key)
 
 
 def _is_bf16(array: np.ndarray) -> bool:
@@ -26,16 +32,17 @@ def _is_bf16(array: np.ndarray) -> bool:
 
 def params_from_numpy(tree: dict, *, device=None, dtype: torch.dtype | None = None) -> dict:
     """numpy tree -> tree of tensors on ``device`` (cuda by default), each
-    in its own dtype or in ``dtype`` when given."""
+    in its own dtype or in ``dtype`` when given; the MoE router keeps its
+    own dtype either way."""
     device = resolve_device(device)
 
-    def leaf(array) -> torch.Tensor:
+    def leaf(array, key) -> torch.Tensor:
         array = np.asarray(array)
         if _is_bf16(array):
             t = torch.from_numpy(array.astype(np.float32)).to(torch.bfloat16)
         else:
             t = torch.from_numpy(np.array(array))  # a writable copy
-        if dtype is not None:
+        if dtype is not None and key not in _F32_LEAVES:
             t = t.to(dtype)
         return t.to(device)
 
@@ -46,7 +53,7 @@ def params_to_numpy(params: dict) -> dict:
     """Inverse of ``params_from_numpy``: bf16 tensors become
     ``ml_dtypes.bfloat16`` arrays, the others numpy arrays of their dtype."""
 
-    def leaf(t: torch.Tensor) -> np.ndarray:
+    def leaf(t: torch.Tensor, key) -> np.ndarray:
         t = t.detach().cpu()
         if t.dtype == torch.bfloat16:
             import ml_dtypes

@@ -1,22 +1,32 @@
-"""LLaMA-style decoder-only transformer, for serving and training, in PyTorch.
+"""LLaMA-style decoder-only transformer, dense or mixture-of-experts, for
+serving and training, in PyTorch.
 
-Port of ray_tpu's ``models/transformer.py``: the config, parameter init,
-``forward``, the loss (``logits_loss``, ``loss_fn``) and the KV-cache
-``init_kv_cache`` / ``decode_step``. The parameter tree keeps the JAX
-package's names and layouts (weights ``[in, out]`` used as ``h @ w``, the
-layer dim stacked first), so the JAX parameters load one to one
-(``models/convert.py``).
+Port of ray_tpu's ``models/transformer.py``: the config, parameter init and
+logical dims, ``forward``, the MoE block (``_moe_mlp``), the loss
+(``logits_loss``, ``loss_fn``), the pipeline-stage functions
+(``partition_stages``, ``merge_stages``, ``stage_logical_dims``,
+``stage_forward``) and the KV-cache ``init_kv_cache`` / ``decode_step``.
+The parameter tree keeps the JAX package's names and layouts (weights
+``[in, out]`` used as ``h @ w``, the layer dim stacked first), so the JAX
+parameters load one to one (``models/convert.py``).
 
   * ``forward`` serves inference and training alike: under autograd the
     gradients flow through the flash kernels (forward, dQ, dK/dV) and the
-    RMSNorm kernel's autograd Function.
+    RMSNorm kernel's autograd Function. It is ``stage_forward`` of the one
+    stage that holds every layer, so a chain of stages is the fused forward.
   * Layers run as a Python loop over the stacked layer dim, each under the
     config's remat policy when autograd records.
   * Attention goes through the flash-attention kernel (``attention="flash"``),
     the plain ``attention_reference`` (``"reference"``) or a callable.
   * Every norm goes through the RMSNorm kernel: 2 per layer and the final
     one, 65 launches per forward pass or decode step at 32 layers.
-  * Weights default to bf16; norms, RoPE, SwiGLU and softmax math is f32.
+  * The MoE block routes with the reference's dense dispatch and combine
+    tensors ``[tokens, experts, capacity]``; its einsums are matrix products
+    (cuBLAS), as the JAX package leaves them to XLA.
+  * Weights default to bf16 (the MoE router is f32); norms, RoPE, SwiGLU,
+    routing and softmax math is f32.
+  * ``decode_step`` runs dense models only: the reference's decode has no
+    MoE branch.
 """
 
 from __future__ import annotations
@@ -58,7 +68,6 @@ class TransformerConfig:
     max_seq: int = 4096
     rope_theta: float = 10000.0
     dtype: torch.dtype = torch.bfloat16
-    # Not ported yet: a config with moe set raises NotImplementedError.
     moe: MoEConfig | None = None
     # "flash" | "reference" | callable(q, k, v, causal) -> o
     attention: Any = "flash"
@@ -101,10 +110,38 @@ class TransformerConfig:
 
 
 def _check_supported(config: TransformerConfig) -> None:
-    if config.moe is not None:
-        raise NotImplementedError("MoE layers are not ported to ray_tpu_torch yet")
     if config.remat not in _REMAT_POLICIES:
         raise ValueError(f"unknown remat policy {config.remat!r}")
+
+
+def param_logical_dims(config: TransformerConfig) -> dict:
+    """Logical dim names per parameter leaf (layer-stacked leaves lead with
+    "layer"), the JAX package's tree: what sharding rules map to mesh axes."""
+    dense_mlp = {
+        "w_gate": ("layer", "embed", "mlp"),
+        "w_up": ("layer", "embed", "mlp"),
+        "w_down": ("layer", "mlp", "embed"),
+    }
+    moe_mlp = {
+        "router": ("layer", "embed", None),
+        "w_gate": ("layer", "expert", "embed", "mlp"),
+        "w_up": ("layer", "expert", "embed", "mlp"),
+        "w_down": ("layer", "expert", "mlp", "embed"),
+    }
+    return {
+        "embed": ("vocab", "embed"),
+        "layers": {
+            "attn_norm": ("layer", None),
+            "wq": ("layer", "embed", "heads"),
+            "wk": ("layer", "embed", "kv"),
+            "wv": ("layer", "embed", "kv"),
+            "wo": ("layer", "heads", "embed"),
+            "mlp_norm": ("layer", None),
+            **(moe_mlp if config.moe else dense_mlp),
+        },
+        "final_norm": (None,),
+        "lm_head": ("embed", "vocab"),
+    }
 
 
 def init_params(config: TransformerConfig, seed: int, device=None) -> dict:
@@ -127,6 +164,23 @@ def init_params(config: TransformerConfig, seed: int, device=None) -> dict:
     def ones(*shape):
         return torch.ones(shape, dtype=dt, device=device)
 
+    hidden = config.hidden_dim
+    if config.moe:
+        experts = config.moe.num_experts
+        # The router is f32 in every model dtype (drawn in the model dtype
+        # first, as the reference's is): its logits decide the routing.
+        mlp = {
+            "router": dense(nl, d, experts).float(),
+            "w_gate": dense(nl, experts, d, hidden),
+            "w_up": dense(nl, experts, d, hidden),
+            "w_down": dense(nl, experts, hidden, d, scale=hidden ** -0.5),
+        }
+    else:
+        mlp = {
+            "w_gate": dense(nl, d, hidden),
+            "w_up": dense(nl, d, hidden),
+            "w_down": dense(nl, hidden, d, scale=hidden ** -0.5),
+        }
     return {
         "embed": dense(config.vocab_size, d, scale=0.02),
         "layers": {
@@ -136,9 +190,7 @@ def init_params(config: TransformerConfig, seed: int, device=None) -> dict:
             "wv": dense(nl, d, kv_out),
             "wo": dense(nl, q_out, d, scale=q_out ** -0.5),
             "mlp_norm": ones(nl, d),
-            "w_gate": dense(nl, d, config.hidden_dim),
-            "w_up": dense(nl, d, config.hidden_dim),
-            "w_down": dense(nl, config.hidden_dim, d, scale=config.hidden_dim ** -0.5),
+            **mlp,
         },
         "final_norm": ones(d),
         "lm_head": dense(d, config.vocab_size, scale=d ** -0.5),
@@ -222,10 +274,66 @@ def _dense_mlp(h: torch.Tensor, layer: dict) -> torch.Tensor:
     return _silu_mul(gate, up) @ layer["w_down"]
 
 
+def moe_capacity(moe: MoEConfig, tokens: int) -> int:
+    """Slots per expert for ``tokens`` tokens: the reference's
+    ``max(1, int(capacity_factor * top_k * tokens / num_experts))``, in
+    Python floats and in that order."""
+    return max(1, int(moe.capacity_factor * moe.top_k * tokens / moe.num_experts))
+
+
+def _moe_combine(ht: torch.Tensor, router: torch.Tensor, moe: MoEConfig) -> torch.Tensor:
+    """The combine tensor [tokens, experts, capacity] (f32) of top-k routing
+    with the reference's rules: f32 router logits and softmax; for each of
+    the top_k choices, the gate is the largest remaining probability (its
+    gradient split equally among tied maxima, as ``jnp.max``'s) and the
+    expert the first index of it; a token takes the next free slot of its
+    expert, after every earlier choice's (the GShard occupancy offset), and
+    is dropped past the capacity. f32 cumsum, exact to 2^24 tokens."""
+    tokens, experts = ht.shape[0], moe.num_experts
+    capacity = moe_capacity(moe, tokens)
+    probs = torch.softmax(ht.float() @ router.float(), dim=-1)  # [T, E]
+    slots = torch.arange(capacity, device=ht.device)
+    combine = probs.new_zeros(tokens, experts, capacity)
+    occupancy = probs.new_zeros(experts)
+    remaining = probs
+    for _ in range(moe.top_k):
+        gate = remaining.amax(dim=-1)
+        choice = remaining.argmax(dim=-1)
+        onehot = F.one_hot(choice, experts).to(probs.dtype)
+        position = (torch.cumsum(onehot, dim=0) - 1.0 + occupancy) * onehot
+        pos_idx = position.sum(dim=-1).to(torch.int32)
+        keep = pos_idx < capacity
+        # A slot index past the capacity matches no slot: an all-zero row,
+        # as jax.nn.one_hot gives it.
+        slot = (pos_idx[:, None] == slots).to(probs.dtype)
+        combine = combine + (gate * keep)[:, None, None] * onehot[:, :, None] * slot[:, None, :]
+        occupancy = occupancy + onehot.sum(dim=0)
+        remaining = remaining * (1.0 - onehot)
+    return combine
+
+
+def _moe_mlp(h: torch.Tensor, layer: dict, config: TransformerConfig) -> torch.Tensor:
+    """Dense dispatch/combine MoE (Mesh-TF style), the reference's: the
+    dispatch is ``combine > 0`` in the model dtype, each expert runs
+    SwiGLU on its capacity slots, and the combine, cast to the model dtype,
+    weighs the experts' outputs back into the tokens."""
+    batch, seq, d = h.shape
+    ht = h.reshape(batch * seq, d)
+    combine = _moe_combine(ht, layer["router"], config.moe)
+    dispatch = (combine > 0).to(h.dtype)  # [T, E, C]
+    expert_in = torch.einsum("tec,td->ecd", dispatch, ht)  # [E, C, D]
+    gate = torch.einsum("ecd,edm->ecm", expert_in, layer["w_gate"]).to(h.dtype)
+    up = torch.einsum("ecd,edm->ecm", expert_in, layer["w_up"]).to(h.dtype)
+    expert_out = torch.einsum("ecm,emd->ecd", _silu_mul(gate, up), layer["w_down"])
+    out = torch.einsum("tec,ecd->td", combine.to(h.dtype), expert_out)
+    return out.reshape(batch, seq, d)
+
+
 def _layer_step(x, layer, config, cos_sin, positions, attention_fn):
     x = _attention_block(x, layer, config, cos_sin, positions, attention_fn)
     h = rmsnorm(x, layer["mlp_norm"])
-    return x + _dense_mlp(h, layer).to(x.dtype)
+    mlp = _moe_mlp(h, layer, config) if config.moe else _dense_mlp(h, layer)
+    return x + mlp.to(x.dtype)
 
 
 _DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default, torch.ops.aten.bmm.default)
@@ -254,18 +362,7 @@ def forward(
     positions: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """tokens: [batch, seq] int -> logits [batch, seq, vocab] (f32)."""
-    _check_supported(config)
-    attention_fn = _attention_impl(config)
-    embed = params["embed"]
-    cos, sin = rope_frequencies(
-        config.head_dim, config.max_seq, config.rope_theta, device=embed.device
-    )
-    x = _embed(embed, tokens)
-    step = _remat(_layer_step, config.remat if torch.is_grad_enabled() else None)
-    for layer in _per_layer(params["layers"]):
-        x = step(x, layer, config, (cos, sin), positions, attention_fn)
-    x = rmsnorm(x, params["final_norm"])
-    return (x @ params["lm_head"]).float()
+    return stage_forward(params, tokens, config, first=True, last=True, positions=positions)
 
 
 def logits_loss(
@@ -306,6 +403,86 @@ def config_num_params(config: TransformerConfig) -> int:
         mlp = 3 * d * config.hidden_dim
     per_layer = attn + mlp + 2 * d
     return config.n_layers * per_layer + 2 * config.vocab_size * d + d
+
+
+# ---------------------------------------------------------------------------
+# Pipeline stages (the JAX package's MPMD stage form)
+# ---------------------------------------------------------------------------
+def partition_stages(params: dict, config: TransformerConfig, num_stages: int) -> list[dict]:
+    """Splits a full parameter tree into ``num_stages`` contiguous layer
+    groups. Stage 0 also holds the embedding table, the last stage the
+    final norm and the lm_head. The stages' layer leaves are views of the
+    stacked leaves (no copy) and do not overlap, so per-stage updates
+    compose to the fused update."""
+    if config.n_layers % num_stages != 0:
+        raise ValueError(f"n_layers={config.n_layers} not divisible by {num_stages} stages")
+    per = config.n_layers // num_stages
+    stages = []
+    for s in range(num_stages):
+        tree = {"layers": {name: leaf[s * per:(s + 1) * per]
+                           for name, leaf in params["layers"].items()}}
+        if s == 0:
+            tree["embed"] = params["embed"]
+        if s == num_stages - 1:
+            tree["final_norm"] = params["final_norm"]
+            tree["lm_head"] = params["lm_head"]
+        stages.append(tree)
+    return stages
+
+
+def merge_stages(stage_trees: list[dict]) -> dict:
+    """Inverse of ``partition_stages``: the fused tree, its layer leaves
+    concatenated into new tensors."""
+    layers = {name: torch.cat([t["layers"][name] for t in stage_trees], dim=0)
+              for name in stage_trees[0]["layers"]}
+    return {
+        "embed": stage_trees[0]["embed"],
+        "layers": layers,
+        "final_norm": stage_trees[-1]["final_norm"],
+        "lm_head": stage_trees[-1]["lm_head"],
+    }
+
+
+def stage_logical_dims(config: TransformerConfig, stage: int, num_stages: int) -> dict:
+    """The part of ``param_logical_dims`` that matches one stage's tree."""
+    full = param_logical_dims(config)
+    tree = {"layers": full["layers"]}
+    if stage == 0:
+        tree["embed"] = full["embed"]
+    if stage == num_stages - 1:
+        tree["final_norm"] = full["final_norm"]
+        tree["lm_head"] = full["lm_head"]
+    return tree
+
+
+def stage_forward(
+    stage_params: dict,
+    x,
+    config: TransformerConfig,
+    *,
+    first: bool,
+    last: bool,
+    positions: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Runs one pipeline stage's layers. First stage: ``x`` is int tokens
+    [batch, seq], embedded first; other stages: activations [batch, seq,
+    dim] from the stage before. The last stage also applies the final norm
+    and the lm_head and returns f32 logits."""
+    _check_supported(config)
+    attention_fn = _attention_impl(config)
+    layers = stage_params["layers"]
+    cos, sin = rope_frequencies(
+        config.head_dim, config.max_seq, config.rope_theta, device=layers["wq"].device
+    )
+    if first:
+        x = _embed(stage_params["embed"], x)
+    step = _remat(_layer_step, config.remat if torch.is_grad_enabled() else None)
+    for layer in _per_layer(layers):
+        x = step(x, layer, config, (cos, sin), positions, attention_fn)
+    if last:
+        x = rmsnorm(x, stage_params["final_norm"])
+        x = (x @ stage_params["lm_head"]).float()
+    return x
 
 
 class Transformer(nn.Module):
@@ -366,9 +543,15 @@ def decode_step(
     new length, so callers use it as they would the JAX one. The write at
     ``length`` clamps to the last slot, as ``dynamic_update_slice`` clamps
     its start, and attention is f32 over the whole cache with the
-    ``idx <= length`` mask.
+    ``idx <= length`` mask. Dense models only: the reference's decode runs
+    the dense MLP in every layer and has no MoE branch.
     """
     _check_supported(config)
+    if config.moe is not None:
+        raise NotImplementedError(
+            "decode_step runs dense models only: the JAX reference's decode has no MoE "
+            "branch (it calls the dense MLP in every layer)"
+        )
     embed = params["embed"]
     device = embed.device
     cos, sin = rope_frequencies(

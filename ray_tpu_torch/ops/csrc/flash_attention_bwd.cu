@@ -35,12 +35,14 @@
 //     rows), so P^T and dS^T come out in the layout that the products
 //     P^T dO and dS^T Q take as their left operand, and no transpose of
 //     a register tile is needed.
-// The products run on the tensor cores for bf16 (mma.sync m16n8k16) and
-// as f32 FMAs for f32 (flash_common.cuh). Plain loads (no TMA, no wgmma,
-// no pipelining) keep them simple. rt_flash_bwd_dq and rt_flash_bwd_dkv
-// route bf16 at head_dim 128, the model's shapes, to the TMA/wgmma kernels
-// of flash_bwd_dq_wgmma.cu and flash_bwd_dkv_wgmma.cu; this file's kernels
-// serve f32 and bf16 at head_dim 32 and 64.
+// The products run on the tensor cores for bf16 and f16 (mma.sync
+// m16n8k16) and as f32 FMAs for f32 (flash_common.cuh). Plain loads (no
+// TMA, no wgmma, no pipelining) keep them simple. rt_flash_bwd_dq and
+// rt_flash_bwd_dkv route bf16 at head_dim 128, the model's shapes, to the
+// TMA/wgmma kernels of flash_bwd_dq_wgmma.cu and flash_bwd_dkv_wgmma.cu;
+// this file's kernels serve f32 and f16 at head_dim 16, 32, 64 and 128 and
+// bf16 at 16, 32 and 64. The Python wrapper pads any other head_dim up to
+// 128 with zero columns to the next of these sizes.
 //
 // Any seq_q and seq_k work: rows past seq_q and keys past seq_k are
 // neither used nor stored. A row that sees no key (causal with seq_q >
@@ -348,6 +350,7 @@ cudaError_t launch_one(const Args& a) {
 template <bool kDq, typename T>
 cudaError_t dispatch_dim(const Args& a, int head_dim) {
   switch (head_dim) {
+    case 16: return launch_one<kDq, T, 16>(a);
     case 32: return launch_one<kDq, T, 32>(a);
     case 64: return launch_one<kDq, T, 64>(a);
     case 128: return launch_one<kDq, T, 128>(a);
@@ -356,26 +359,30 @@ cudaError_t dispatch_dim(const Args& a, int head_dim) {
 }
 
 template <bool kDq>
-int dispatch(const Args& a, int head_dim, int is_bf16) {
+int dispatch(const Args& a, int head_dim, int dtype) {
   if (a.bh <= 0 || a.seq_q <= 0 || a.seq_k <= 0) return cudaErrorInvalidValue;
-  return is_bf16 ? dispatch_dim<kDq, __nv_bfloat16>(a, head_dim)
-                 : dispatch_dim<kDq, float>(a, head_dim);
+  switch (dtype) {
+    case kDtypeF32: return dispatch_dim<kDq, float>(a, head_dim);
+    case kDtypeBf16: return dispatch_dim<kDq, __nv_bfloat16>(a, head_dim);
+    case kDtypeF16: return dispatch_dim<kDq, __half>(a, head_dim);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 
 // q, o, dout, dq: contiguous [bh, seq_q, head_dim]; k, v: [bh, seq_k,
-// head_dim]; all of one type (bf16 when is_bf16, else f32), 16-byte
-// aligned. lse (in) and delta (out): f32 [bh, seq_q]. Writes dQ, delta =
+// head_dim]; all of one type (dtype a dtype_codes.cuh code), 16-byte
+// aligned; head_dim 16, 32, 64 or 128. lse (in) and delta (out): f32 [bh, seq_q]. Writes dQ, delta =
 // rowsum(dout * o) and the route it took to *route (kRouteMmaSync or
 // kRouteWgmma). Launches on `stream` and returns the launch's cudaError_t.
 extern "C" int rt_flash_bwd_dq(const void* q, const void* k, const void* v, const void* o,
                                const void* dout, const void* lse, void* delta, void* dq, int bh,
-                               int seq_q, int seq_k, int head_dim, int is_bf16, int causal,
+                               int seq_q, int seq_k, int head_dim, int dtype, int causal,
                                float scale, int* route, void* stream) {
   const Args a{q, k, v, o, dout, lse, delta, dq, nullptr, nullptr,
                bh, seq_q, seq_k, causal, scale, static_cast<cudaStream_t>(stream), route};
-  return dispatch<true>(a, head_dim, is_bf16);
+  return dispatch<true>(a, head_dim, dtype);
 }
 
 // The same layouts; delta as rt_flash_bwd_dq wrote it. Writes dK and dV
@@ -383,9 +390,9 @@ extern "C" int rt_flash_bwd_dq(const void* q, const void* k, const void* v, cons
 // or kRouteWgmma). Launch it after rt_flash_bwd_dq on the same stream.
 extern "C" int rt_flash_bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
                                 const void* lse, const void* delta, void* dk, void* dv, int bh,
-                                int seq_q, int seq_k, int head_dim, int is_bf16, int causal,
+                                int seq_q, int seq_k, int head_dim, int dtype, int causal,
                                 float scale, int* route, void* stream) {
   const Args a{q, k, v, nullptr, dout, lse, const_cast<void*>(delta), nullptr, dk, dv,
                bh, seq_q, seq_k, causal, scale, static_cast<cudaStream_t>(stream), route};
-  return dispatch<false>(a, head_dim, is_bf16);
+  return dispatch<false>(a, head_dim, dtype);
 }

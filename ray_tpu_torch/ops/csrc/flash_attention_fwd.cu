@@ -19,13 +19,15 @@
 // stays in shared memory while a loop walks the K and V tiles (64 keys at
 // a time), which stands in for the Pallas grid's sequential kv axis and
 // stops at the last tile the causal mask needs. S and P never reach
-// device memory. bf16 products run on the tensor cores (mma.sync
+// device memory. bf16 and f16 products run on the tensor cores (mma.sync
 // m16n8k16, f32 accumulation); f32 inputs use f32 FMAs in the same
-// register layout (flash_common.cuh), so both types share the softmax
+// register layout (flash_common.cuh), so every type shares the softmax
 // code. Plain loads (no TMA, no wgmma, no pipelining) keep it simple: it
-// serves f32 and bf16 at head_dim 32 and 64 (the JAX test shapes), and
-// rt_flash_fwd routes bf16 at head_dim 128, every shape the model gives
-// the kernel, to the TMA/wgmma kernel of flash_fwd_wgmma.cu.
+// serves f32 and f16 at head_dim 16, 32, 64 and 128 and bf16 at 16, 32
+// and 64 (the JAX test shapes: tiny()'s head_dim is 16), and rt_flash_fwd
+// routes bf16 at head_dim 128, every shape the model gives the kernel, to
+// the TMA/wgmma kernel of flash_fwd_wgmma.cu. The Python wrapper pads any
+// other head_dim up to 128 with zero columns to the next of these sizes.
 //
 // Any seq_q and seq_k work: rows past seq_q are neither computed into O
 // nor stored, and keys past seq_k score -inf, so they weigh nothing.
@@ -189,6 +191,7 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, void* o, void*
   constexpr bool kBf16 = std::is_same<T, __nv_bfloat16>::value;
   *route = kRouteMmaSync;
   switch (head_dim) {
+    case 16: return launch<T, 16>(q, k, v, o, lse, bh, seq_q, seq_k, causal, scale, stream);
     case 32: return launch<T, 32>(q, k, v, o, lse, bh, seq_q, seq_k, causal, scale, stream);
     case 64: return launch<T, 64>(q, k, v, o, lse, bh, seq_q, seq_k, causal, scale, stream);
     case 128:
@@ -204,18 +207,25 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, void* o, void*
 
 }  // namespace
 
-// q, k, v, o: contiguous [bh, seq, head_dim] of one type (bf16 when is_bf16,
-// else f32), 16-byte aligned; lse: f32 [bh, seq_q]. Launches on `stream`,
-// writes the route it took to *route (kRouteMmaSync or kRouteWgmma) and
-// returns the launch's cudaError_t.
+// q, k, v, o: contiguous [bh, seq, head_dim] of one type (dtype a
+// dtype_codes.cuh code), 16-byte aligned; head_dim 16, 32, 64 or 128; lse: f32
+// [bh, seq_q]. Launches on `stream`, writes the route it took to *route
+// (kRouteMmaSync or kRouteWgmma) and returns the launch's cudaError_t.
 extern "C" int rt_flash_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
-                            int bh, int seq_q, int seq_k, int head_dim, int is_bf16, int causal,
+                            int bh, int seq_q, int seq_k, int head_dim, int dtype, int causal,
                             float scale, int* route, void* stream) {
   if (bh <= 0 || seq_q <= 0 || seq_k <= 0) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16) {
-    return dispatch<__nv_bfloat16>(q, k, v, o, lse, bh, seq_q, seq_k, head_dim, causal, scale,
-                                   route, s);
+  switch (dtype) {
+    case kDtypeF32:
+      return dispatch<float>(q, k, v, o, lse, bh, seq_q, seq_k, head_dim, causal, scale, route,
+                             s);
+    case kDtypeBf16:
+      return dispatch<__nv_bfloat16>(q, k, v, o, lse, bh, seq_q, seq_k, head_dim, causal, scale,
+                                     route, s);
+    case kDtypeF16:
+      return dispatch<__half>(q, k, v, o, lse, bh, seq_q, seq_k, head_dim, causal, scale, route,
+                              s);
+    default: return cudaErrorInvalidValue;
   }
-  return dispatch<float>(q, k, v, o, lse, bh, seq_q, seq_k, head_dim, causal, scale, route, s);
 }

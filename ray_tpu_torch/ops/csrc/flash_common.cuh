@@ -4,21 +4,26 @@
 // the C functions route bf16 at head_dim 128 to.
 //
 // A block has four warps; each warp owns 16 rows of the tile it computes
-// and walks a 64-wide tile of the other axis. bf16 products run on the
-// tensor cores (mma.sync m16n8k16, f32 accumulation); f32 inputs use f32
-// FMAs in the same register layout, so the kernels' softmax and masking
-// code is written once for both types.
+// and walks a 64-wide tile of the other axis. bf16 and f16 products run on
+// the tensor cores (mma.sync m16n8k16, f32 accumulation); f32 inputs use
+// f32 FMAs in the same register layout, so the kernels' softmax and masking
+// code is written once for every type.
 //
-// Accumulator layout shared by both types (that of mma.sync m16n8k16):
+// Accumulator layout shared by every type (that of mma.sync m16n8k16):
 // with g = lane / 4 and t = lane % 4, element e of n-tile j holds
 // row g + 8 * (e / 2), column 8 * j + 2 * t + e % 2.
 
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
+
+#include "dtype_codes.cuh"
 
 namespace flash {
 
@@ -28,22 +33,34 @@ constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
 constexpr float kMasked = -1e30f;
 
+// The 16-bit types, whose products run on the tensor cores.
+template <typename T>
+constexpr bool kHalfWidth = std::is_same<T, __nv_bfloat16>::value ||
+                            std::is_same<T, __half>::value;
+
 // Row padding of the shared-memory tiles: 16 bytes, which keeps every row
 // 16-byte aligned and shifts consecutive rows by four banks.
 template <typename T> struct Pad;
 template <> struct Pad<float> { static constexpr int value = 4; };
 template <> struct Pad<__nv_bfloat16> { static constexpr int value = 8; };
+template <> struct Pad<__half> { static constexpr int value = 8; };
 
 template <typename T> __device__ __forceinline__ T from_f32(float x);
 template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
 template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16_rn(x);
 }
+template <> __device__ __forceinline__ __half from_f32<__half>(float x) {
+  return __float2half_rn(x);
+}
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_f32(__half x) { return __half2float(x); }
 
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
+// Two neighbouring 16-bit elements as one register.
+template <typename T>
+__device__ __forceinline__ uint32_t ld32(const T* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
 
@@ -55,6 +72,27 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// The same tile with f16 operands.
+__device__ __forceinline__ void mma_f16(float (&d)[4], const uint32_t (&a)[4],
+                                        const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// The m16n8k16 product for the operands' type.
+template <typename T>
+__device__ __forceinline__ void mma16(float (&d)[4], const uint32_t (&a)[4],
+                                      const uint32_t (&b)[2]) {
+  if constexpr (std::is_same<T, __half>::value) {
+    mma_f16(d, a, b);
+  } else {
+    mma_bf16(d, a, b);
+  }
 }
 
 // Copies rows [row0, row0 + kRows) of a [seq, D] matrix into shared memory
@@ -77,11 +115,11 @@ __device__ __forceinline__ void load_tile(T* smem, const T* gmem, int row0, int 
 
 // s = A B^T for A's 16 rows and B's 64 rows, both [*, D] in shared memory
 // (row stride D + pad): Q K^T in the forward, also dO V^T, K Q^T and
-// V dO^T in the backward.
-template <int D>
-__device__ __forceinline__ void qk_tile(float (&s)[8][4], const __nv_bfloat16* sQ,
-                                        const __nv_bfloat16* sK, int lane) {
-  constexpr int LD = D + Pad<__nv_bfloat16>::value;
+// V dO^T in the backward. D is a multiple of 16 (one k step at D = 16).
+template <int D, typename T, typename = std::enable_if_t<kHalfWidth<T>>>
+__device__ __forceinline__ void qk_tile(float (&s)[8][4], const T* sQ, const T* sK, int lane) {
+  static_assert(D % 16 == 0, "the k steps of m16n8k16");
+  constexpr int LD = D + Pad<T>::value;
   const int g = lane >> 2, t = lane & 3;
 #pragma unroll
   for (int j = 0; j < 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
@@ -97,7 +135,7 @@ __device__ __forceinline__ void qk_tile(float (&s)[8][4], const __nv_bfloat16* s
       uint32_t b[2];
       b[0] = ld32(sK + (8 * j + g) * LD + kk + 2 * t);
       b[1] = ld32(sK + (8 * j + g) * LD + kk + 2 * t + 8);
-      mma_bf16(s[j], a, b);
+      mma16<T>(s[j], a, b);
     }
   }
 }
@@ -124,11 +162,11 @@ __device__ __forceinline__ void qk_tile(float (&s)[8][4], const float* sQ, const
 // o += P V for P's 16 rows; P is [16, 64] with row stride LDP, V is
 // [64, D] with row stride D + pad: P V in the forward, also dS K, P^T dO
 // and dS^T Q in the backward.
-template <int D>
-__device__ __forceinline__ void pv_tile(float (&o)[D / 8][4], const __nv_bfloat16* sP,
-                                        const __nv_bfloat16* sV, int lane) {
-  constexpr int LD = D + Pad<__nv_bfloat16>::value;
-  constexpr int LDP = kBlockN + Pad<__nv_bfloat16>::value;
+template <int D, typename T, typename = std::enable_if_t<kHalfWidth<T>>>
+__device__ __forceinline__ void pv_tile(float (&o)[D / 8][4], const T* sP, const T* sV,
+                                        int lane) {
+  constexpr int LD = D + Pad<T>::value;
+  constexpr int LDP = kBlockN + Pad<T>::value;
   const int g = lane >> 2, t = lane & 3;
   const unsigned short* v = reinterpret_cast<const unsigned short*>(sV);
 #pragma unroll
@@ -147,7 +185,7 @@ __device__ __forceinline__ void pv_tile(float (&o)[D / 8][4], const __nv_bfloat1
       // the lower row in the low half.
       b[0] = uint32_t(v[r0 * LD + col]) | (uint32_t(v[(r0 + 1) * LD + col]) << 16);
       b[1] = uint32_t(v[(r0 + 8) * LD + col]) | (uint32_t(v[(r0 + 9) * LD + col]) << 16);
-      mma_bf16(o[j], a, b);
+      mma16<T>(o[j], a, b);
     }
   }
 }
@@ -175,7 +213,8 @@ __device__ __forceinline__ void pv_tile(float (&o)[D / 8][4], const float* sP, c
 // The TMA/wgmma route, taken for bf16 at head_dim 128 by rt_flash_fwd,
 // rt_flash_bwd_dq and rt_flash_bwd_dkv (flash_fwd_wgmma.cu,
 // flash_bwd_dq_wgmma.cu, flash_bwd_dkv_wgmma.cu); the kernels of this header
-// serve f32 and bf16 at head_dim 32 and 64. Arguments as those entry points
+// serve f32 and f16 at head_dim 16, 32, 64 and 128 and bf16 at 16, 32
+// and 64. Arguments as those entry points
 // take them. The entry points report the route they launched in `*route`,
 // and the Python wrappers count launches by what they report.
 constexpr int kRouteMmaSync = 0;

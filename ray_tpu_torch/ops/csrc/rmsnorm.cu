@@ -9,7 +9,7 @@
 //            type, dw = sum over rows of dy * n in f32, cast to w's type.
 //
 // What bounds it on the H100, in both directions: bytes. Each kernel does a
-// few operations per element and moves 2 (bf16) or 4 (f32) bytes per
+// few operations per element and moves 2 (bf16, f16) or 4 (f32) bytes per
 // element and tensor, far below the card's ~295 operations per byte, so the
 // best either can do is read each input once and write each output once at
 // 3.35 TB/s.
@@ -43,50 +43,100 @@
 //    take a looped route: one block a row, x read twice (the second time
 //    from L2), dw's partial row kept in global memory by the thread that
 //    owns each column.
-// Any row count works; dim must be a multiple of 8 and every pointer
-// 16-byte aligned (the wrapper checks the one and ensures the other).
+//  - Types: x (and dy, y, dx) f32, bf16 or f16, and w (and dw) of its own
+//    type among those three. The routes above (the vector routes) take x
+//    and w of one type, a dim that is a multiple of a 16-byte piece (4 in
+//    f32, 8 in bf16 and f16) and 16-byte aligned pointers: every shape the
+//    model gives the kernels. Anything else (a dim such as 50, or bf16 x
+//    with f32 w) takes the scalar route: one warp a row on a persistent
+//    grid, one element a lane at a time, x read twice (the second time
+//    from L1 or L2), and dw's per-warp partial row kept in global memory
+//    by the lane that owns each column, then summed in a fixed order as
+//    above. It moves the same bytes less efficiently; no model dim takes
+//    it.
+// Any row count works.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
+
+#include "dtype_codes.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;  // 8 warps a block, in 8 / G teams
 constexpr int kSumWarps = 32;  // warps a block of the dw sum
 constexpr int kMaxDevices = 64;
+constexpr int kWarps = kThreads / 32;  // rows a block of the scalar route
 
-// 16 bytes of T (8 bf16 or 4 f32) <-> f32; the overload follows the
-// length of the f32 array: 4 for f32, 8 for bf16.
+// 16 bytes of T (4 f32, or 8 bf16 or f16) <-> f32.
 template <typename T>
 constexpr int kElems = 16 / static_cast<int>(sizeof(T));
 
-__device__ __forceinline__ void unpack(const uint4& v, float (&f)[4]) {
-  f[0] = __uint_as_float(v.x);
-  f[1] = __uint_as_float(v.y);
-  f[2] = __uint_as_float(v.z);
-  f[3] = __uint_as_float(v.w);
-}
-__device__ __forceinline__ void unpack(const uint4& v, float (&f)[8]) {
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 p = __bfloat1622float2(h[i]);
-    f[2 * i] = p.x;
-    f[2 * i + 1] = p.y;
+template <typename T> struct Pieces;
+template <> struct Pieces<float> {
+  static __device__ __forceinline__ void unpack(const uint4& v, float (&f)[4]) {
+    f[0] = __uint_as_float(v.x);
+    f[1] = __uint_as_float(v.y);
+    f[2] = __uint_as_float(v.z);
+    f[3] = __uint_as_float(v.w);
   }
-}
-
-__device__ __forceinline__ uint4 pack(const float (&f)[4]) {
-  return make_uint4(__float_as_uint(f[0]), __float_as_uint(f[1]), __float_as_uint(f[2]),
-                    __float_as_uint(f[3]));
-}
-__device__ __forceinline__ uint4 pack(const float (&f)[8]) {
-  uint4 v;
-  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&v);
+  static __device__ __forceinline__ uint4 pack(const float (&f)[4]) {
+    return make_uint4(__float_as_uint(f[0]), __float_as_uint(f[1]), __float_as_uint(f[2]),
+                      __float_as_uint(f[3]));
+  }
+};
+template <> struct Pieces<__nv_bfloat16> {
+  static __device__ __forceinline__ void unpack(const uint4& v, float (&f)[8]) {
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
 #pragma unroll
-  for (int i = 0; i < 4; ++i) h[i] = __floats2bfloat162_rn(f[2 * i], f[2 * i + 1]);
-  return v;
+    for (int i = 0; i < 4; ++i) {
+      const float2 p = __bfloat1622float2(h[i]);
+      f[2 * i] = p.x;
+      f[2 * i + 1] = p.y;
+    }
+  }
+  static __device__ __forceinline__ uint4 pack(const float (&f)[8]) {
+    uint4 v;
+    __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&v);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) h[i] = __floats2bfloat162_rn(f[2 * i], f[2 * i + 1]);
+    return v;
+  }
+};
+template <> struct Pieces<__half> {
+  static __device__ __forceinline__ void unpack(const uint4& v, float (&f)[8]) {
+    const __half2* h = reinterpret_cast<const __half2*>(&v);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 p = __half22float2(h[i]);
+      f[2 * i] = p.x;
+      f[2 * i + 1] = p.y;
+    }
+  }
+  static __device__ __forceinline__ uint4 pack(const float (&f)[8]) {
+    uint4 v;
+    __half2* h = reinterpret_cast<__half2*>(&v);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) h[i] = __floats2half2_rn(f[2 * i], f[2 * i + 1]);
+    return v;
+  }
+};
+
+// One element of the scalar route <-> f32.
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_f32(__half x) { return __half2float(x); }
+template <typename T> __device__ __forceinline__ T from_f32(float x);
+template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
+template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
+  return __float2bfloat16_rn(x);
+}
+template <> __device__ __forceinline__ __half from_f32<__half>(float x) {
+  return __float2half_rn(x);
 }
 
 __device__ __forceinline__ void team_barrier(int id, int threads) {
@@ -147,7 +197,7 @@ __device__ __forceinline__ void fwd_row(const uint4 (&xb)[V], const uint4 (&wv)[
 #pragma unroll
   for (int j = 0; j < V; ++j) {
     float f[E];
-    unpack(xb[j], f);
+    Pieces<T>::unpack(xb[j], f);
 #pragma unroll
     for (int e = 0; e < E; ++e) ss[0] = fmaf(f[e], f[e], ss[0]);
   }
@@ -158,19 +208,20 @@ __device__ __forceinline__ void fwd_row(const uint4 (&xb)[V], const uint4 (&wv)[
     const int i = t + j * 32 * G;
     if (i < nvec) {
       float f[E], g[E];
-      unpack(xb[j], f);
-      unpack(wv[j], g);
+      Pieces<T>::unpack(xb[j], f);
+      Pieces<T>::unpack(wv[j], g);
 #pragma unroll
       for (int e = 0; e < E; ++e) f[e] = (f[e] * r) * g[e];
-      yr[i] = pack(f);
+      yr[i] = Pieces<T>::pack(f);
     }
   }
 }
 
+// A block's rows, for the forward kernels below.
 template <typename T, int G, int V>
-__global__ void __launch_bounds__(kThreads)
-rmsnorm_fwd_kernel(const T* __restrict__ x, const T* __restrict__ w, T* __restrict__ y, int rows,
-                   int dim, float inv_dim, float eps) {
+__device__ __forceinline__ void fwd_rows(const T* __restrict__ x, const T* __restrict__ w,
+                                         T* __restrict__ y, int rows, int dim, float inv_dim,
+                                         float eps) {
   constexpr int kTeams = kThreads / (32 * G);
   __shared__ float scratch[kTeams * 2 * G];
   const int team = threadIdx.x / (32 * G), t = threadIdx.x % (32 * G);
@@ -195,6 +246,22 @@ rmsnorm_fwd_kernel(const T* __restrict__ x, const T* __restrict__ w, T* __restri
   }
 }
 
+template <typename T, int G, int V>
+__global__ void __launch_bounds__(kThreads)
+rmsnorm_fwd_kernel(const T* __restrict__ x, const T* __restrict__ w, T* __restrict__ y, int rows,
+                   int dim, float inv_dim, float eps) {
+  fwd_rows<T, G, V>(x, w, y, rows, dim, inv_dim, eps);
+}
+
+// f16 states two blocks an SM: under the bound above alone, ptxas holds
+// the one-warp, two-piece instantiation to 64 registers and spills.
+template <int G, int V>
+__global__ void __launch_bounds__(kThreads, 2)
+rmsnorm_fwd_f16_kernel(const __half* __restrict__ x, const __half* __restrict__ w,
+                       __half* __restrict__ y, int rows, int dim, float inv_dim, float eps) {
+  fwd_rows<__half, G, V>(x, w, y, rows, dim, inv_dim, eps);
+}
+
 // Rows too wide for registers: one block a row, x read twice.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
@@ -211,7 +278,7 @@ rmsnorm_fwd_looped_kernel(const T* __restrict__ x, const T* __restrict__ w, T* _
     float ss[1] = {0.f};
     for (int i = threadIdx.x; i < nvec; i += kThreads) {
       float f[E];
-      unpack(xr[i], f);
+      Pieces<T>::unpack(xr[i], f);
 #pragma unroll
       for (int e = 0; e < E; ++e) ss[0] = fmaf(f[e], f[e], ss[0]);
     }
@@ -219,11 +286,11 @@ rmsnorm_fwd_looped_kernel(const T* __restrict__ x, const T* __restrict__ w, T* _
     const float r = rsqrtf(ss[0] * inv_dim + eps);
     for (int i = threadIdx.x; i < nvec; i += kThreads) {
       float f[E], g[E];
-      unpack(xr[i], f);
-      unpack(wv[i], g);
+      Pieces<T>::unpack(xr[i], f);
+      Pieces<T>::unpack(wv[i], g);
 #pragma unroll
       for (int e = 0; e < E; ++e) f[e] = (f[e] * r) * g[e];
-      yr[i] = pack(f);
+      yr[i] = Pieces<T>::pack(f);
     }
   }
 }
@@ -241,9 +308,9 @@ __device__ __forceinline__ void bwd_row(const uint4 (&xb)[V], const uint4 (&gb)[
 #pragma unroll
   for (int j = 0; j < V; ++j) {
     float f[E], d[E], g[E];
-    unpack(xb[j], f);
-    unpack(gb[j], d);
-    unpack(wv[j], g);
+    Pieces<T>::unpack(xb[j], f);
+    Pieces<T>::unpack(gb[j], d);
+    Pieces<T>::unpack(wv[j], g);
 #pragma unroll
     for (int e = 0; e < E; ++e) {
       s[0] = fmaf(f[e], f[e], s[0]);
@@ -258,16 +325,16 @@ __device__ __forceinline__ void bwd_row(const uint4 (&xb)[V], const uint4 (&gb)[
     const int i = t + j * 32 * G;
     if (i < nvec) {
       float f[E], d[E], g[E];
-      unpack(xb[j], f);
-      unpack(gb[j], d);
-      unpack(wv[j], g);
+      Pieces<T>::unpack(xb[j], f);
+      Pieces<T>::unpack(gb[j], d);
+      Pieces<T>::unpack(wv[j], g);
 #pragma unroll
       for (int e = 0; e < E; ++e) {
         const float n = f[e] * r;
         acc[j][e] = fmaf(d[e], n, acc[j][e]);
         f[e] = r * (d[e] * g[e] - n * m);
       }
-      dxr[i] = pack(f);
+      dxr[i] = Pieces<T>::pack(f);
     }
   }
 }
@@ -359,9 +426,9 @@ rmsnorm_bwd_looped_kernel(const T* __restrict__ x, const T* __restrict__ w,
     float s[2] = {0.f, 0.f};
     for (int i = threadIdx.x; i < nvec; i += kThreads) {
       float f[E], d[E], g[E];
-      unpack(xr[i], f);
-      unpack(gr[i], d);
-      unpack(wv[i], g);
+      Pieces<T>::unpack(xr[i], f);
+      Pieces<T>::unpack(gr[i], d);
+      Pieces<T>::unpack(wv[i], g);
 #pragma unroll
       for (int e = 0; e < E; ++e) {
         s[0] = fmaf(f[e], f[e], s[0]);
@@ -373,9 +440,9 @@ rmsnorm_bwd_looped_kernel(const T* __restrict__ x, const T* __restrict__ w,
     const float m = r * s[1] * inv_dim;
     for (int i = threadIdx.x; i < nvec; i += kThreads) {
       float f[E], d[E], g[E], acc[E];
-      unpack(xr[i], f);
-      unpack(gr[i], d);
-      unpack(wv[i], g);
+      Pieces<T>::unpack(xr[i], f);
+      Pieces<T>::unpack(gr[i], d);
+      Pieces<T>::unpack(wv[i], g);
 #pragma unroll
       for (int k = 0; k < E; k += 4) {
         const float4 p = *reinterpret_cast<const float4*>(pr + i * E + k);
@@ -391,7 +458,7 @@ rmsnorm_bwd_looped_kernel(const T* __restrict__ x, const T* __restrict__ w,
         f[e] = r * (d[e] * g[e] - n * m);
       }
       store_f32<E>(pr + i * E, acc);
-      dxr[i] = pack(f);
+      dxr[i] = Pieces<T>::pack(f);
     }
   }
 }
@@ -431,10 +498,101 @@ rmsnorm_dw_kernel(const float* __restrict__ partial, T* __restrict__ dw, int par
     }
     if constexpr (sizeof(T) == 4) {
       reinterpret_cast<float4*>(dw)[c4] = s;
+    } else if constexpr (std::is_same<T, __half>::value) {
+      __half2 h[2] = {__floats2half2_rn(s.x, s.y), __floats2half2_rn(s.z, s.w)};
+      reinterpret_cast<uint2*>(dw)[c4] = *reinterpret_cast<const uint2*>(h);
     } else {
       __nv_bfloat162 h[2] = {__floats2bfloat162_rn(s.x, s.y), __floats2bfloat162_rn(s.z, s.w)};
       reinterpret_cast<uint2*>(dw)[c4] = *reinterpret_cast<const uint2*>(h);
     }
+  }
+}
+
+// ---------------------------------------------------------------- scalar route
+// Sum over the 32 lanes of a warp, in every lane (team_sum's shuffles).
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
+}
+
+// Forward, one warp a row: the sum of squares, then y = x * r * w.
+template <typename T, typename W>
+__global__ void __launch_bounds__(kThreads)
+rmsnorm_fwd_scalar_kernel(const T* __restrict__ x, const W* __restrict__ w, T* __restrict__ y,
+                          int rows, int dim, float inv_dim, float eps) {
+  const int lane = threadIdx.x & 31;
+  const int stride = gridDim.x * kWarps;
+  for (int row = blockIdx.x * kWarps + (threadIdx.x >> 5); row < rows; row += stride) {
+    const T* xr = x + (size_t)row * dim;
+    T* yr = y + (size_t)row * dim;
+    float ss = 0.f;
+    for (int c = lane; c < dim; c += 32) {
+      const float f = to_f32(xr[c]);
+      ss = fmaf(f, f, ss);
+    }
+    const float r = rsqrtf(warp_sum(ss) * inv_dim + eps);
+    for (int c = lane; c < dim; c += 32) {
+      yr[c] = from_f32<T>((to_f32(xr[c]) * r) * to_f32(w[c]));
+    }
+  }
+}
+
+// Backward, one warp a row. The warp's partial row of dw (zeros for a warp
+// that had no row) is in global memory; column c belongs to lane c % 32,
+// the only thread that reads or writes it.
+template <typename T, typename W>
+__global__ void __launch_bounds__(kThreads)
+rmsnorm_bwd_scalar_kernel(const T* __restrict__ x, const W* __restrict__ w,
+                          const T* __restrict__ dy, T* __restrict__ dx,
+                          float* __restrict__ partial, int rows, int dim, float inv_dim,
+                          float eps) {
+  const int lane = threadIdx.x & 31;
+  const int first = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  float* pr = partial + (size_t)first * dim;
+  for (int c = lane; c < dim; c += 32) pr[c] = 0.f;
+  const int stride = gridDim.x * kWarps;
+  for (int row = first; row < rows; row += stride) {
+    const T* xr = x + (size_t)row * dim;
+    const T* gr = dy + (size_t)row * dim;
+    T* dxr = dx + (size_t)row * dim;
+    float s0 = 0.f, s1 = 0.f;  // sum(x^2), sum(dy * w * x)
+    for (int c = lane; c < dim; c += 32) {
+      const float f = to_f32(xr[c]);
+      s0 = fmaf(f, f, s0);
+      s1 = fmaf(to_f32(gr[c]) * to_f32(w[c]), f, s1);
+    }
+    const float r = rsqrtf(warp_sum(s0) * inv_dim + eps);
+    const float m = r * warp_sum(s1) * inv_dim;  // mean(g * n)
+    for (int c = lane; c < dim; c += 32) {
+      const float d = to_f32(gr[c]);
+      const float n = to_f32(xr[c]) * r;
+      pr[c] = fmaf(d, n, pr[c]);
+      dxr[c] = from_f32<T>(r * (d * to_f32(w[c]) - n * m));
+    }
+  }
+}
+
+// dw[c] = sum over p of partial[p][c] in rmsnorm_dw_kernel's fixed order,
+// one column a lane: a block takes 32 columns.
+template <typename W>
+__global__ void __launch_bounds__(kSumWarps * 32)
+rmsnorm_dw_scalar_kernel(const float* __restrict__ partial, W* __restrict__ dw, int parts,
+                         int dim) {
+  __shared__ float sums[kSumWarps][32];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int c = blockIdx.x * 32 + lane;
+  float acc = 0.f;
+  if (c < dim) {
+    for (int p = warp; p < parts; p += kSumWarps) acc += partial[(size_t)p * dim + c];
+  }
+  sums[warp][lane] = acc;
+  __syncthreads();
+  if (warp == 0 && c < dim) {
+    float total = sums[0][lane];
+#pragma unroll
+    for (int k = 1; k < kSumWarps; ++k) total += sums[k][lane];
+    dw[c] = from_f32<W>(total);
   }
 }
 
@@ -486,7 +644,7 @@ cudaError_t by_width(int dim, const L& launch) {
   return launch.looped();
 }
 
-template <typename T>
+template <typename T, typename W>
 struct FwdLaunch {
   const void *x, *w;
   void* y;
@@ -499,20 +657,28 @@ struct FwdLaunch {
     int grid = 0;
     const cudaError_t e = grid_for<K>(rows, kTeams, &grid);
     if (e != cudaSuccess) return e;
-    K<<<grid, kThreads, 0, stream>>>(static_cast<const T*>(x), static_cast<const T*>(w),
+    K<<<grid, kThreads, 0, stream>>>(static_cast<const T*>(x), static_cast<const W*>(w),
                                      static_cast<T*>(y), rows, dim, 1.f / (float)dim, eps);
     return cudaGetLastError();
   }
   template <int G, int V>
   cudaError_t resident() const {
-    return this->template go<&rmsnorm_fwd_kernel<T, G, V>, kThreads / (32 * G)>();
+    if constexpr (std::is_same<T, __half>::value) {
+      return this->template go<&rmsnorm_fwd_f16_kernel<G, V>, kThreads / (32 * G)>();
+    } else {
+      return this->template go<&rmsnorm_fwd_kernel<T, G, V>, kThreads / (32 * G)>();
+    }
   }
   cudaError_t looped() const { return this->template go<&rmsnorm_fwd_looped_kernel<T>, 1>(); }
+  cudaError_t scalar() const {
+    return this->template go<&rmsnorm_fwd_scalar_kernel<T, W>, kWarps>();
+  }
 };
 
 // With partial null, go() writes the partial rows the launch needs into
-// *parts; otherwise it launches K and the dw sum over those rows.
-template <typename T>
+// *parts; otherwise it launches K and then Dw, the dw sum over those rows,
+// on blocks of kCols columns.
+template <typename T, typename W>
 struct BwdLaunch {
   const void *x, *w, *dy;
   void *dx, *dw;
@@ -522,7 +688,7 @@ struct BwdLaunch {
   float eps;
   cudaStream_t stream;
 
-  template <auto K, int kTeams>
+  template <auto K, int kTeams, auto Dw, int kCols>
   cudaError_t go() const {
     int grid = 0;
     cudaError_t e = grid_for<K>(rows, kTeams, &grid);
@@ -533,62 +699,98 @@ struct BwdLaunch {
       return cudaSuccess;
     }
     if (needed > *parts) return cudaErrorInvalidValue;
-    K<<<grid, kThreads, 0, stream>>>(static_cast<const T*>(x), static_cast<const T*>(w),
+    K<<<grid, kThreads, 0, stream>>>(static_cast<const T*>(x), static_cast<const W*>(w),
                                      static_cast<const T*>(dy), static_cast<T*>(dx), partial,
                                      rows, dim, 1.f / (float)dim, eps);
     e = cudaGetLastError();
     if (e != cudaSuccess) return e;
-    rmsnorm_dw_kernel<T><<<(dim / 4 + 31) / 32, kSumWarps * 32, 0, stream>>>(
-        partial, static_cast<T*>(dw), needed, dim);
+    Dw<<<(dim + kCols - 1) / kCols, kSumWarps * 32, 0, stream>>>(partial, static_cast<W*>(dw),
+                                                                 needed, dim);
     return cudaGetLastError();
   }
   template <int G, int V>
   cudaError_t resident() const {
-    return this->template go<&rmsnorm_bwd_kernel<T, G, V>, kThreads / (32 * G)>();
+    return this->template go<&rmsnorm_bwd_kernel<T, G, V>, kThreads / (32 * G),
+                             &rmsnorm_dw_kernel<T>, 128>();
   }
-  cudaError_t looped() const { return this->template go<&rmsnorm_bwd_looped_kernel<T>, 1>(); }
+  cudaError_t looped() const {
+    return this->template go<&rmsnorm_bwd_looped_kernel<T>, 1, &rmsnorm_dw_kernel<T>, 128>();
+  }
+  cudaError_t scalar() const {
+    return this->template go<&rmsnorm_bwd_scalar_kernel<T, W>, kWarps,
+                             &rmsnorm_dw_scalar_kernel<W>, 32>();
+  }
 };
 
 bool misaligned(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 != 0; }
 
-}  // namespace
-
-// x, y: contiguous [rows, dim]; w: [dim]; all bf16 when is_bf16, else f32;
-// dim a multiple of 8 and every pointer 16-byte aligned. Launches on
-// `stream` and returns the launch's cudaError_t.
-extern "C" int rt_rmsnorm(const void* x, const void* w, void* y, int rows, int dim, int is_bf16,
-                          float eps, void* stream) {
-  if (rows <= 0 || dim <= 0 || dim % 8 != 0 || misaligned(x) || misaligned(w) || misaligned(y)) {
-    return cudaErrorInvalidValue;
+// The vector routes (by_width) for x and w of one type, a dim of whole
+// 16-byte pieces and aligned pointers; else the scalar route.
+template <typename T, typename W, typename L>
+cudaError_t by_route(int dim, bool aligned, const L& launch) {
+  if constexpr (std::is_same<T, W>::value) {
+    if (aligned && dim % kElems<T> == 0) return by_width<T>(dim, launch);
   }
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return is_bf16
-             ? by_width<__nv_bfloat16>(dim, FwdLaunch<__nv_bfloat16>{x, w, y, rows, dim, eps, s})
-             : by_width<float>(dim, FwdLaunch<float>{x, w, y, rows, dim, eps, s});
+  return launch.scalar();
 }
 
-// x, dy, dx: contiguous [rows, dim]; w, dw: [dim]; all bf16 when is_bf16,
-// else f32; dim a multiple of 8 and every pointer 16-byte aligned.
-// partial: f32 scratch of *parts rows of dim. Called with partial null, it
-// launches nothing and writes into *parts the rows of scratch that a call
-// with these rows, dim and type needs on the current device; called with
-// the scratch, it launches the backward and the dw sum on `stream` and
-// returns the launches' cudaError_t.
+template <typename T> struct Tag { using type = T; };
+
+// f(Tag<T>{}) for the element type of a dtype code.
+template <typename F>
+cudaError_t with_type(int code, const F& f) {
+  switch (code) {
+    case kDtypeF32: return f(Tag<float>{});
+    case kDtypeBf16: return f(Tag<__nv_bfloat16>{});
+    case kDtypeF16: return f(Tag<__half>{});
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace
+
+// x, y: contiguous [rows, dim] of type x_dtype; w: [dim] of type w_dtype
+// (dtype_codes.cuh codes). Launches on `stream` and returns the
+// launch's cudaError_t.
+extern "C" int rt_rmsnorm(const void* x, const void* w, void* y, int rows, int dim, int x_dtype,
+                          int w_dtype, float eps, void* stream) {
+  if (rows <= 0 || dim <= 0) return cudaErrorInvalidValue;
+  const bool aligned = !misaligned(x) && !misaligned(w) && !misaligned(y);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return with_type(x_dtype, [&](auto xt) {
+    return with_type(w_dtype, [&](auto wt) {
+      using T = typename decltype(xt)::type;
+      using W = typename decltype(wt)::type;
+      return by_route<T, W>(dim, aligned, FwdLaunch<T, W>{x, w, y, rows, dim, eps, s});
+    });
+  });
+}
+
+// x, dy, dx: contiguous [rows, dim] of type x_dtype; w, dw: [dim] of type
+// w_dtype. partial: f32 scratch of *parts rows of dim, 16-byte aligned.
+// Called with partial null, it launches nothing and writes into *parts the
+// rows of scratch that a call with these rows, dim, types and pointers
+// needs on the current device; called with the scratch, it launches the
+// backward and the dw sum on `stream` and returns the launches'
+// cudaError_t.
 extern "C" int rt_rmsnorm_bwd(const void* x, const void* w, const void* dy, void* dx, void* dw,
-                              void* partial, int* parts, int rows, int dim, int is_bf16,
-                              float eps, void* stream) {
-  if (rows <= 0 || dim <= 0 || dim % 8 != 0 || parts == nullptr || misaligned(x) ||
-      misaligned(w) || misaligned(dy) || misaligned(dx) || misaligned(dw) ||
-      misaligned(partial)) {
+                              void* partial, int* parts, int rows, int dim, int x_dtype,
+                              int w_dtype, float eps, void* stream) {
+  if (rows <= 0 || dim <= 0 || parts == nullptr || misaligned(partial)) {
     return cudaErrorInvalidValue;
   }
+  const bool aligned = !misaligned(x) && !misaligned(w) && !misaligned(dy) && !misaligned(dx) &&
+                       !misaligned(dw);
   float* scratch = static_cast<float*>(partial);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return is_bf16 ? by_width<__nv_bfloat16>(
-                       dim, BwdLaunch<__nv_bfloat16>{x, w, dy, dx, dw, scratch, parts, rows, dim,
-                                                     eps, s})
-                 : by_width<float>(
-                       dim, BwdLaunch<float>{x, w, dy, dx, dw, scratch, parts, rows, dim, eps, s});
+  return with_type(x_dtype, [&](auto xt) {
+    return with_type(w_dtype, [&](auto wt) {
+      using T = typename decltype(xt)::type;
+      using W = typename decltype(wt)::type;
+      return by_route<T, W>(
+          dim, aligned, BwdLaunch<T, W>{x, w, dy, dx, dw, scratch, parts, rows, dim, eps, s});
+    });
+  });
 }
 
 // The message of a cudaError_t returned by the entry points above.

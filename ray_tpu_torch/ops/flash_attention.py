@@ -5,11 +5,17 @@
 
 Two routes, chosen by (dtype, head_dim) in the C entry points: bf16 at
 head_dim 128, every shape the model gives the kernels, takes the forward,
-dQ and dK/dV kernels built on TMA and ``wgmma``; f32 and bf16 at head_dim
-32 and 64 take the ``mma.sync`` kernels. The entry points report the route
-they launched and the wrappers count launches by it; ``kernel_route``
-states the rule, and ``chip_smoke.py`` holds every reported route against
-it. A launch error on either route raises.
+dQ and dK/dV kernels built on TMA and ``wgmma``; f32, bf16 and f16 at
+head_dim 16, 32 and 64, and f32 and f16 at 128, take the ``mma.sync``
+kernels. The kernels are built for head_dim 16, 32, 64 and 128; any other
+head_dim up to 128 is zero-padded on the last axis to the next of those
+(``padded_head_dim``), run with the scale of the true head_dim and sliced
+back. That is exact: zero columns add nothing to Q K^T, to rowsum(dO * O)
+or to dP, and give zero columns of O, dQ, dK and dV. A head_dim over 128
+raises. The entry points report the route they launched and the wrappers
+count launches by it; ``kernel_route`` states the rule, and
+``chip_smoke.py`` holds every reported route against it. A launch error on
+either route raises.
 
 ``flash_attention`` is differentiable through ``_FlashAttention``, the
 counterpart of the JAX package's ``_flash_vjp``: the forward saves
@@ -31,19 +37,40 @@ from __future__ import annotations
 import ctypes
 
 import torch
+import torch.nn.functional as F
 
 from ray_tpu_torch import _build
 
 _NEG_INF = -1e30
-_KERNEL_DTYPES = (torch.float32, torch.bfloat16)
-_KERNEL_HEAD_DIMS = (32, 64, 128)
+# The head_dims the kernels are built for.
+_KERNEL_HEAD_DIMS = (16, 32, 64, 128)
+
+
+def padded_head_dim(head_dim: int) -> int:
+    """The head_dim the kernels run ``head_dim`` at: the least built size
+    (16, 32, 64 or 128) that holds it. Raises above 128."""
+    for size in _KERNEL_HEAD_DIMS:
+        if 0 < head_dim <= size:
+            return size
+    raise ValueError(
+        f"flash kernels take head_dim 1 to {_KERNEL_HEAD_DIMS[-1]}, got {head_dim}: "
+        "no kernel is built for a wider head"
+    )
+
+
+def _pad_head(t: torch.Tensor, size: int) -> torch.Tensor:
+    """t with zero columns appended on the last axis up to ``size``."""
+    extra = size - t.shape[-1]
+    return F.pad(t, (0, extra)) if extra else t
 
 
 def kernel_route(dtype: torch.dtype, head_dim: int) -> str:
     """Which kernels ``rt_flash_fwd``, ``rt_flash_bwd_dq`` and
-    ``rt_flash_bwd_dkv`` launch: "wgmma" (TMA and wgmma) for bf16 at
-    head_dim 128, else "mma_sync"."""
-    return "wgmma" if dtype == torch.bfloat16 and head_dim == 128 else "mma_sync"
+    ``rt_flash_bwd_dkv`` launch for inputs of this dtype and head_dim:
+    "wgmma" (TMA and wgmma) for bf16 at a padded head_dim of 128, else
+    "mma_sync"."""
+    size = padded_head_dim(head_dim)
+    return "wgmma" if dtype == torch.bfloat16 and size == 128 else "mma_sync"
 
 
 # The route codes the C entry points report (kRouteMmaSync, kRouteWgmma).
@@ -126,16 +153,17 @@ def _check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
         raise ValueError("repeat kv heads before calling (GQA)")
 
 
-def _check_kernel_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
-    """What the CUDA kernels take; raises on anything else."""
+def _check_kernel_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> int:
+    """What the CUDA kernels take; raises on anything else. Returns the
+    head_dim the kernels run at."""
     if q.device.type != "cuda" or k.device != q.device or v.device != q.device:
         raise ValueError(f"flash_attention: q, k, v on {q.device}, {k.device}, {v.device}")
-    if q.dtype not in _KERNEL_DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+    if q.dtype not in _build.DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(
-            f"flash kernel takes f32 or bf16 of one dtype, got {q.dtype}, {k.dtype}, {v.dtype}"
+            f"flash kernel takes f32, bf16 or f16 of one dtype, got {q.dtype}, {k.dtype}, "
+            f"{v.dtype}"
         )
-    if q.shape[-1] not in _KERNEL_HEAD_DIMS:
-        raise ValueError(f"flash kernel takes head_dim in {_KERNEL_HEAD_DIMS}, got {q.shape[-1]}")
+    return padded_head_dim(q.shape[-1])
 
 
 def _flash_forward(
@@ -154,21 +182,21 @@ def _flash_forward(
             attention_reference(q, k, v, causal=causal, scale=scale),
             _lse_reference(q, k, causal=causal, scale=scale),
         )
-    _check_kernel_inputs(q, k, v)
-    q, k, v = (_build.contiguous_aligned(t) for t in (q, k, v))
+    size = _check_kernel_inputs(q, k, v)
+    q, k, v = (_build.contiguous_aligned(_pad_head(t, size)) for t in (q, k, v))
     out = torch.empty_like(q)
     lse = torch.empty(batch, heads, seq_q, dtype=torch.float32, device=q.device)
     if out.numel() == 0:
-        return out, lse
+        return out[..., :dim], lse
     route = ctypes.c_int(-1)
     _build.launch(
         "rt_flash_fwd", q.device,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
-        batch * heads, seq_q, seq_k, dim, int(q.dtype == torch.bfloat16),
+        batch * heads, seq_q, seq_k, size, _build.DTYPE_CODES[q.dtype],
         int(causal), float(scale), ctypes.byref(route),
     )
     _count(flash_attention, route)
-    return out, lse
+    return out[..., :dim], lse
 
 
 def _flash_bwd_dq(q, k, v, out, do, lse, delta, dq, causal: bool, scale: float) -> None:
@@ -179,7 +207,7 @@ def _flash_bwd_dq(q, k, v, out, do, lse, delta, dq, causal: bool, scale: float) 
         "rt_flash_bwd_dq", q.device,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-        batch * heads, seq_q, k.shape[2], dim, int(q.dtype == torch.bfloat16),
+        batch * heads, seq_q, k.shape[2], dim, _build.DTYPE_CODES[q.dtype],
         int(causal), float(scale), ctypes.byref(route),
     )
     _count(_flash_bwd_dq, route)
@@ -193,7 +221,7 @@ def _flash_bwd_dkv(q, k, v, do, lse, delta, dk, dv, causal: bool, scale: float) 
         "rt_flash_bwd_dkv", q.device,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
         delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        batch * heads, seq_q, k.shape[2], dim, int(q.dtype == torch.bfloat16),
+        batch * heads, seq_q, k.shape[2], dim, _build.DTYPE_CODES[q.dtype],
         int(causal), float(scale), ctypes.byref(route),
     )
     _count(_flash_bwd_dkv, route)
@@ -213,7 +241,7 @@ def _flash_backward(
     do = do.to(q.dtype)
     if all(t.device.type == "cpu" for t in (q, k, v, out, lse, do)):
         return _flash_backward_reference(q, k, v, out, lse, do, causal=causal, scale=scale)
-    _check_kernel_inputs(q, k, v)
+    size = _check_kernel_inputs(q, k, v)
     if out.shape != q.shape or do.shape != q.shape or lse.shape != q.shape[:3]:
         raise ValueError(
             f"flash backward: O {tuple(out.shape)}, dO {tuple(do.shape)}, "
@@ -221,15 +249,18 @@ def _flash_backward(
         )
     if lse.dtype != torch.float32 or any(t.device != q.device for t in (out, lse, do)):
         raise ValueError("flash backward: LSE must be f32 and O, LSE, dO on q's device")
-    q, k, v, out, do = (_build.contiguous_aligned(t) for t in (q, k, v, out, do))
+    dim = q.shape[-1]
+    q, k, v, out, do = (
+        _build.contiguous_aligned(_pad_head(t, size)) for t in (q, k, v, out, do)
+    )
     lse = lse.contiguous()
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     if q.numel() == 0 or k.numel() == 0:
-        return dq.zero_(), dk.zero_(), dv.zero_()
+        return dq[..., :dim].zero_(), dk[..., :dim].zero_(), dv[..., :dim].zero_()
     delta = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
     _flash_bwd_dq(q, k, v, out, do, lse, delta, dq, causal, scale)
     _flash_bwd_dkv(q, k, v, do, lse, delta, dk, dv, causal, scale)
-    return dq, dk, dv
+    return dq[..., :dim], dk[..., :dim], dv[..., :dim]
 
 
 class _FlashAttention(torch.autograd.Function):

@@ -4,9 +4,12 @@ and their plain versions, differentiable through ``_RMSNorm``.
 ``rmsnorm`` launches the forward kernel for CUDA tensors and uses the plain
 ``rmsnorm_reference`` only for tensors on the CPU; ``rmsnorm_backward``
 launches the backward kernel for CUDA tensors and uses the plain
-``_rmsnorm_backward`` only for tensors on the CPU. Both take any row count;
-on the card, ``dim`` must be a multiple of 8 (the kernels move 16 bytes per
-access).
+``_rmsnorm_backward`` only for tensors on the CPU. Both take any row count
+and any dim, x in f32, bf16 or f16 and the weight in any of those three,
+as the JAX reference does: the math is f32, y and dx take x's dtype and dw
+the weight's. The kernels move 16-byte pieces where x and the weight share
+a dtype and the dim is a whole number of pieces (every model dim), and one
+element at a time otherwise.
 
 Like the JAX model's ``_rmsnorm_ckpt`` (``jax.checkpoint`` of the
 reference), ``_RMSNorm`` saves only x and the weight, and the backward
@@ -22,8 +25,6 @@ import ctypes
 import torch
 
 from ray_tpu_torch import _build
-
-_KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 
 
 def rmsnorm_reference(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
@@ -42,8 +43,8 @@ def _check_kernel_inputs(
     objects), and the reason is worked out only when it fails."""
     index, dtype, dim = x.get_device(), x.dtype, x.shape[-1]
     if (not x.is_cuda or not weight.is_cuda or weight.get_device() != index
-            or dtype not in _KERNEL_DTYPES or weight.dtype != dtype
-            or weight.shape != (dim,) or dim % 8
+            or dtype not in _build.DTYPE_CODES or weight.dtype not in _build.DTYPE_CODES
+            or weight.shape != (dim,)
             or (dy is not None
                 and (not dy.is_cuda or dy.get_device() != index or dy.dtype != dtype
                      or dy.shape != x.shape))):
@@ -54,15 +55,13 @@ def _reject(what: str, x: torch.Tensor, weight: torch.Tensor, dy: torch.Tensor |
     if x.device.type != "cuda" or weight.device != x.device or (
             dy is not None and dy.device != x.device):
         raise ValueError(f"{what}: x on {x.device}, weight on {weight.device}")
-    if x.dtype not in _KERNEL_DTYPES or weight.dtype != x.dtype:
+    if x.dtype not in _build.DTYPE_CODES or weight.dtype not in _build.DTYPE_CODES:
         raise TypeError(
-            f"{what} kernel takes x and weight both f32 or both bf16, got {x.dtype}, {weight.dtype}"
+            f"{what} kernel takes x and weight in f32, bf16 or f16, got {x.dtype}, {weight.dtype}"
         )
     dim = x.shape[-1]
     if weight.shape != (dim,):
         raise ValueError(f"{what}: weight {tuple(weight.shape)} for dim {dim}")
-    if dim % 8:
-        raise ValueError(f"{what} kernel takes a dim that is a multiple of 8, got {dim}")
     raise ValueError(f"{what}: dy {tuple(dy.shape)} {dy.dtype} beside x {tuple(x.shape)} {x.dtype}")
 
 
@@ -78,7 +77,7 @@ def _rmsnorm_forward(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch
         _build.launch(
             "rt_rmsnorm", x.device,
             x.data_ptr(), weight.data_ptr(), y.data_ptr(), rows, dim,
-            x.dtype is torch.bfloat16, eps,
+            _build.DTYPE_CODES[x.dtype], _build.DTYPE_CODES[weight.dtype], eps,
         )
         rmsnorm.launches += 1
     return y
@@ -118,7 +117,8 @@ def rmsnorm_backward(
     dw = torch.empty_like(weight)
     parts = ctypes.c_int(0)
     head = (x.data_ptr(), weight.data_ptr(), dy.data_ptr(), dx.data_ptr(), dw.data_ptr())
-    tail = (ctypes.byref(parts), rows, dim, x.dtype is torch.bfloat16, float(eps))
+    tail = (ctypes.byref(parts), rows, dim, _build.DTYPE_CODES[x.dtype],
+            _build.DTYPE_CODES[weight.dtype], float(eps))
     # With no scratch the entry point only says how many f32 rows of
     # per-block dw sums the launch needs.
     _build.launch("rt_rmsnorm_bwd", x.device, *head, None, *tail)

@@ -101,6 +101,8 @@ FLASH_CASES = {
     "s128_d32": (1, 2, 128, 128, 32, True, "float32", 128, 32),
     "sq64_sk128": (1, 2, 64, 128, 32, True, "float32", 32, 32),
     "bf16_s128_d64": (1, 2, 128, 128, 64, True, "bfloat16", 64, 64),
+    # TransformerConfig.tiny()'s attention: head_dim 16.
+    "tiny_s32_d16": (2, 4, 32, 32, 16, True, "float32", 32, 32),
 }
 
 
@@ -257,3 +259,98 @@ def test_rmsnorm_gradients_match_jax(dtype, shape):
     plain = port_rmsnorm._rmsnorm_backward(xt.detach(), wt.detach(),
                                            torch.from_numpy(dy).to(tdtype), 1e-6)
     assert torch.equal(dx, plain[0]) and torch.equal(dw, plain[1])
+
+
+@pytest.mark.parametrize(
+    "head_dim,size",
+    [(8, 16), (16, 16), (17, 32), (48, 64), (64, 64), (80, 128), (96, 128), (128, 128)],
+)
+def test_padded_head_dim(head_dim, size):
+    assert port_flash.padded_head_dim(head_dim) == size
+
+
+@pytest.mark.parametrize("head_dim", [0, 129, 256])
+def test_a_head_dim_no_kernel_holds_is_refused(head_dim):
+    with pytest.raises(ValueError, match="head_dim"):
+        port_flash.padded_head_dim(head_dim)
+
+
+@pytest.mark.parametrize(
+    "head_dim,causal,seq_q,seq_k",
+    [(8, True, 40, 56), (48, False, 33, 20), (80, True, 100, 160), (80, False, 100, 160),
+     (96, True, 70, 50)],
+    ids=["d8_causal", "d48_full", "d80_causal", "d80_full", "d96_blind_rows"],
+)
+def test_zero_padding_the_head_is_exact(head_dim, causal, seq_q, seq_k):
+    """The kernels' wrappers run a head_dim they are not built for padded
+    with zero columns to padded_head_dim, at the true head_dim's scale, and
+    slice the result back. On the plain versions that rule gives the
+    unpadded O, LSE and gradients, zeros in the padding, and JAX's
+    attention at that head_dim."""
+    rng = np.random.default_rng(40)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal((1, 3, n, head_dim), np.float32))
+                   for n in (seq_q, seq_k, seq_k, seq_q))
+    size, scale = port_flash.padded_head_dim(head_dim), head_dim ** -0.5
+
+    def pad(t):
+        return port_flash._pad_head(t, size)
+
+    out = port_flash.attention_reference(q, k, v, causal=causal)
+    lse = port_flash._lse_reference(q, k, causal=causal, scale=scale)
+    out_p = port_flash.attention_reference(pad(q), pad(k), pad(v), causal=causal, scale=scale)
+    lse_p = port_flash._lse_reference(pad(q), pad(k), causal=causal, scale=scale)
+    # Zero columns add exact zeros to every score: f32 sums of the same
+    # terms, in a blocked order that the width may change.
+    assert float((out_p[..., :head_dim] - out).abs().max()) < 1e-6
+    assert float((lse_p - lse).abs().max()) < 1e-6
+    assert not out_p[..., head_dim:].any()
+    ref = jax_flash.attention_reference(*(jnp.asarray(t.numpy()) for t in (q, k, v)),
+                                        causal=causal)
+    assert _max_err(out_p[..., :head_dim], ref) < F32_TOL
+
+    grads = port_flash._flash_backward_reference(q, k, v, out, lse, do, causal=causal,
+                                                 scale=scale)
+    grads_p = port_flash._flash_backward_reference(pad(q), pad(k), pad(v), out_p, lse_p,
+                                                   pad(do), causal=causal, scale=scale)
+    for got, want in zip(grads_p, grads):
+        assert float((got[..., :head_dim] - want).abs().max()) < 1e-6
+        assert not got[..., head_dim:].any()
+
+
+# (shape, x dtype, weight dtype): a dim that is no whole number of 16-byte
+# pieces, f16, and a weight in another dtype than x, which the kernels take
+# on their scalar route and the plain versions as the reference does.
+RMSNORM_OTHER_INPUTS = {
+    "d50_f32": ((3, 7, 50), "float32", "float32"),
+    "d50_bf16": ((5, 50), "bfloat16", "bfloat16"),
+    "d64_f16": ((4, 64), "float16", "float16"),
+    "bf16_x_f32_w": ((6, 256), "bfloat16", "float32"),
+    "f16_x_bf16_w_d50": ((3, 50), "float16", "bfloat16"),
+}
+
+
+def _one_rounding(dtype: str, ref: np.ndarray) -> float:
+    """The bound for two results that round nearly equal f32 values once:
+    one ulp of the largest magnitude in a 16-bit dtype; f32 sums in another
+    order otherwise."""
+    bits = {"bfloat16": 8, "float16": 11}.get(dtype)
+    return np.abs(ref).max() * 2.0 ** -bits if bits else 1e-4
+
+
+@pytest.mark.parametrize("case", list(RMSNORM_OTHER_INPUTS))
+def test_rmsnorm_takes_every_input_the_reference_takes(case):
+    """Forward and gradients of the norm against JAX's rmsnorm_reference
+    (f32 math, y and dx in x's dtype, dw in the weight's)."""
+    shape, xdtype, wdtype = RMSNORM_OTHER_INPUTS[case]
+    x, w, dy = _normal(50, *shape), _normal(51, shape[-1]), _normal(52, *shape)
+    xj, wj = jnp.asarray(x, xdtype), jnp.asarray(w, wdtype)
+    ref, vjp = jax.vjp(jax_rmsnorm.rmsnorm_reference, xj, wj)
+    dxj, dwj = vjp(jnp.asarray(dy, xdtype))
+    xt = torch.from_numpy(x).to(getattr(torch, xdtype)).requires_grad_(True)
+    wt = torch.from_numpy(w).to(getattr(torch, wdtype)).requires_grad_(True)
+    out = port_rmsnorm.rmsnorm(xt, wt)
+    dx, dw = torch.autograd.grad(out, (xt, wt), torch.from_numpy(dy).to(xt.dtype))
+    assert out.dtype == dx.dtype == xt.dtype and dw.dtype == wt.dtype
+    for got, want, dtype in ((out, ref, xdtype), (dx, dxj, xdtype), (dw, dwj, wdtype)):
+        want = np.asarray(want, np.float32)
+        assert _max_err(got.detach(), want) <= _one_rounding(dtype, want)

@@ -153,6 +153,19 @@ def test_kernel_route(dtype, head_dim):
     assert port_flash.kernel_route(dtype, head_dim) == want
 
 
+@pytest.mark.parametrize(
+    "dtype,head_dim,route",
+    [(torch.float16, 16, "mma_sync"), (torch.float16, 64, "mma_sync"),
+     (torch.float16, 128, "mma_sync"), (torch.float32, 16, "mma_sync"),
+     (torch.bfloat16, 16, "mma_sync"), (torch.bfloat16, 80, "wgmma"),
+     (torch.float32, 80, "mma_sync"), (torch.bfloat16, 8, "mma_sync")],
+)
+def test_kernel_route_of_f16_and_other_head_dims(dtype, head_dim, route):
+    # f16 takes the mma.sync kernels at every head_dim; another head_dim
+    # takes the route of the size it is padded to (80 -> 128, 8 -> 16).
+    assert port_flash.kernel_route(dtype, head_dim) == route
+
+
 @pytest.mark.parametrize("wrapper", ["_flash_bwd_dq", "_flash_bwd_dkv"])
 @pytest.mark.parametrize("code, route", [(0, "mma_sync"), (1, "wgmma")])
 def test_launches_are_counted_on_the_route_the_entry_point_reports(code, route, wrapper):
@@ -206,14 +219,17 @@ def test_kernel_sources_and_build_digest():
 
 def test_every_entry_point_has_a_signature():
     # rt_rmsnorm_bwd: x, w, dy, dx, dw, partial, parts (in/out), rows, dim,
-    # is_bf16, eps, stream.
+    # x dtype, w dtype, eps, stream.
     sig = _build._SIGNATURES["rt_rmsnorm_bwd"]
-    assert len(sig) == 12 and sig[6] is _build._IP and sig[-2] is ctypes.c_float
-    names = set(_build._SIGNATURES)
-    defined = set()
+    assert len(sig) == 13 and sig[6] is _build._IP and sig[-2] is ctypes.c_float
+    defined = {}
     for path in _build._sources():
-        defined |= set(re.findall(r'extern "C" int (rt_\w+)\(', path.read_text()))
-    assert names == defined
+        for name, params in re.findall(r'extern "C" int (rt_\w+)\(([^)]*)\)', path.read_text()):
+            defined[name] = params.count(",") + 1
+    assert set(_build._SIGNATURES) == set(defined)
+    # Each signature has one argtype per parameter of the C function.
+    for name, count in defined.items():
+        assert len(_build._SIGNATURES[name]) == count, name
 
 
 @pytest.mark.parametrize("which", ["forward", "backward"])

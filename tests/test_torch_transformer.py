@@ -176,8 +176,12 @@ def test_transformer_module_matches_forward():
 
 
 def test_moe_and_bad_remat_are_refused():
+    # The reference's decode has no MoE branch, so the port's refuses one.
+    moe = pt.TransformerConfig.tiny(moe=pt.MoEConfig())
+    params = pt.init_params(moe, 0, device="cpu")
+    cache = pt.init_kv_cache(moe, 1, 8, device="cpu")
     with pytest.raises(NotImplementedError, match="MoE"):
-        pt.init_params(pt.TransformerConfig.tiny(moe=pt.MoEConfig()), 0, device="cpu")
+        pt.decode_step(params, cache, torch.zeros(1, 1, dtype=torch.int64), moe)
     _, _, _, pparams = _models()
     with pytest.raises(ValueError, match="remat"):
         pt.forward(pparams, torch.zeros(1, 4, dtype=torch.int64),
