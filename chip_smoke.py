@@ -27,9 +27,10 @@ final line) if anything is wrong:
                PyTorch's own fused RMSNorm backward; then every other input
                the reference takes (FLASH_INSTANTIATIONS: head_dim 16 in
                f32, bf16 and f16, f16 at head_dim 64 and 128, head_dim 80
-               zero-padded to 128; RMSNORM_INSTANTIATIONS: dim 64, dim 50,
-               f16, bf16 x with an f32 weight), forward and backward, each
-               an entry of its own in the kernels line
+               zero-padded to 128, head_dim 256 in f32, bf16 and f16,
+               head_dim 192 zero-padded to 256; RMSNORM_INSTANTIATIONS:
+               dim 64, dim 50, f16, bf16 x with an f32 weight), forward and
+               backward, each an entry of its own in the kernels line
   4. serve     TransformerConfig.llama2_7b() at full width and depth in bf16
                behind the @batch decorator (buckets 1, 4, 8) as
                release/serve_bert_http.py serves its encoder: 12 concurrent
@@ -72,8 +73,18 @@ final line) if anything is wrong:
                tokens whose routing differs between the two), train steps
                whose loss falls, tokens/s, the split, peak memory and the
                step's matrix-product operations counted from their shapes
-Each path (4-5, 7, 8, 9, 10, 11) runs with every launch count set to 0 just
-before it; its counts, read just after, must equal what its layers and
+ 12. sharded_train  bench.py's sharded config (bench.py:133-138: dim 4096,
+               4 layers, hidden 16384, vocab 8192, 4 x 1024 tokens, bf16)
+               through setup_sharded_training and build_sharded_train_step
+               on a one-rank NCCL mesh {dp 1, fsdp 1, tp 1}: the budget
+               check (llama2_7b in f32 refused before any allocation, in
+               bf16 accepted), three steps against train_step from the same
+               parameters and batch (bitwise, or within SHARDED_LOSS_TOL and
+               SHARDED_UPDATE_TOL), then a warm-up and 10 timed steps of
+               each (the loss must fall), tokens/s and peak memory; the
+               tensor-parallel and fsdp collectives must be counted
+Each path (4-5, 7, 8, 9, 10, 11, 12) runs with every launch count set to 0
+just before it; its counts, read just after, must equal what its layers and
 passes imply, every flash launch on the route the path's inputs take.
 
 The line before the last is {"kernels": [...]}; the last line is
@@ -82,6 +93,7 @@ The line before the last is {"kernels": [...]}; the last line is
 
 import asyncio
 import dataclasses
+import functools
 import json
 import math
 import re
@@ -99,12 +111,18 @@ from ray_tpu_torch import _build
 from ray_tpu_torch.models import transformer as transformer_mod
 from ray_tpu_torch.models.transformer import (
     MoEConfig, TransformerConfig, decode_step, forward, init_kv_cache, init_params, loss_fn,
-    merge_stages, num_params, partition_stages, stage_forward,
+    merge_stages, num_params, param_logical_dims, partition_stages, stage_forward,
 )
 from ray_tpu_torch.ops import flash_attention as flash_mod
 from ray_tpu_torch.ops import rmsnorm as rmsnorm_mod
+from ray_tpu_torch.parallel import tensor_parallel as tp_mod
+from ray_tpu_torch.parallel.mesh import MeshSpec
 from ray_tpu_torch.serve.batching import batch
 from ray_tpu_torch.train.step import make_optimizer, named_leaves, train_step
+from ray_tpu_torch.train.torch_utils import (
+    MemoryBudgetError, build_sharded_train_step, device_memory_budget, plan_sharded_training,
+    setup_sharded_training,
+)
 
 SEED = 0
 # H100 SXM data-sheet peaks (dense): HBM bytes/s, and operations/s by type
@@ -286,10 +304,12 @@ def _reported_route(fns, call, dtype, head_dim, what: str):
 
 
 def reset_counts() -> None:
-    """Sets every kernel's launch count to 0."""
+    """Sets every kernel's launch count, and the tensor-parallel and sharded
+    step's collective counts, to 0."""
     flash_mod.reset_launch_counts()
     rmsnorm_mod.rmsnorm.launches = 0
     rmsnorm_mod.rmsnorm_backward.launches = 0
+    tp_mod.reset_calls()
 
 
 def require(ok: bool, what: str) -> None:
@@ -836,6 +856,17 @@ FLASH_INSTANTIATIONS = [
     ("d128_f16", torch.float16, 128, (4, 32, SERVE_SEQ),
      [(1, 2, 192, 192, True), (1, 2, 130, 70, True), (2, 2, 37, 200, False)]),
     ("d80_bf16_padded", torch.bfloat16, 80, (4, 32, SERVE_SEQ),
+     [(1, 3, 100, 160, True), (1, 3, 100, 160, False), (1, 2, 130, 70, True)]),
+    # Gemma's head_dim: each block computes half of the output's columns;
+    # f32 blocks have two warps, so the edge shapes include a ragged tile
+    # of 32 rows.
+    ("d256_f32", torch.float32, 256, (4, 32, SERVE_SEQ),
+     [(1, 2, 192, 192, True), (1, 2, 130, 70, True), (2, 2, 37, 200, False)]),
+    ("d256_bf16", torch.bfloat16, 256, (4, 32, SERVE_SEQ),
+     [(1, 2, 192, 192, True), (1, 2, 130, 70, True), (2, 2, 37, 200, False)]),
+    ("d256_f16", torch.float16, 256, (4, 32, SERVE_SEQ),
+     [(1, 2, 192, 192, True), (1, 2, 130, 70, True), (2, 2, 37, 200, False)]),
+    ("d192_bf16_padded", torch.bfloat16, 192, (4, 32, SERVE_SEQ),
      [(1, 3, 100, 160, True), (1, 3, 100, 160, False), (1, 2, 130, 70, True)]),
 ]
 # (label, timed x shape, x dtype, weight dtype, edge x shapes).
@@ -1846,6 +1877,180 @@ def phase_moe_train() -> dict:
     return result
 
 
+# ---------------------------------------------------------------- sharded_train
+# bench.py:133-138: the JAX package's sharded benchmark (bench.py --sharding)
+# on an accelerator, at its batch for one device (4 x n_dev, bench.py:139).
+# One card: the mesh has one rank, so every collective is of one rank and
+# the step runs the single-device step's ops; the multi-rank math is held
+# on the CPU by tests/test_torch_sharded.py.
+SHARDED_CONFIG = dict(
+    vocab_size=8192, dim=4096, n_layers=4, n_heads=32, n_kv_heads=32, hidden_dim=16384,
+    max_seq=1024, dtype=torch.bfloat16,
+)
+SHARDED_MESH = {"dp": 1, "fsdp": 1, "tp": 1}
+SHARDED_BATCH, SHARDED_STEPS, SHARDED_CHECK_STEPS = 4, 10, 3
+# Sharded step against train_step from the same parameters and batch. The
+# ops are the same, so bitwise equality is expected and reported; where it
+# does not hold, the loss is held to 3e-2 (bf16 logits of a loss near
+# ln 8192 = 9.0) and each leaf's update over the check's steps to 10% of
+# that leaf's largest update: AdamW's first steps are near lr a element,
+# and an update taken from a wrong gradient differs by its own size.
+SHARDED_LOSS_TOL = 3e-2
+SHARDED_UPDATE_TOL = 0.1
+
+
+def _sharded_budget(mesh) -> dict:
+    """The plan of TransformerConfig.llama2_7b() on the one-rank mesh: in
+    f32 setup_sharded_training refuses it before allocating anything; in
+    bf16 the plan is accepted."""
+    budget = device_memory_budget()
+    inits, plans = {}, {}
+    for name, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        config = TransformerConfig.llama2_7b(dtype=dtype)
+        inits[name] = (functools.partial(init_params, config, SEED), param_logical_dims(config))
+        _, _, estimate = plan_sharded_training(inits[name][0], mesh=mesh,
+                                               logical_dims=inits[name][1], enforce_budget=False)
+        plans[name] = estimate
+    before = torch.cuda.memory_allocated()
+    try:
+        setup_sharded_training(inits["f32"][0], make_optimizer, mesh=mesh,
+                               logical_dims=inits["f32"][1])
+        refusal = None
+    except MemoryBudgetError as err:
+        refusal = str(err)
+    moved = torch.cuda.memory_allocated() - before
+    require(refusal is not None and moved == 0,
+            f"sharded_train: the f32 llama2_7b setup was not refused before allocating "
+            f"({moved} bytes moved)")
+    plan_sharded_training(inits["bf16"][0], mesh=mesh, logical_dims=inits["bf16"][1])
+    return dict(budget_bytes=budget, llama2_7b_f32_bytes=plans["f32"],
+                llama2_7b_bf16_bytes=plans["bf16"], f32_refusal=refusal,
+                allocated_moved_by_refusal=moved)
+
+
+def _timed_steps(run_step, steps: int) -> tuple:
+    """One warm-up step and `steps` timed ones; (warm-up loss, losses,
+    seconds, peak GiB)."""
+    torch.cuda.reset_peak_memory_stats()
+    first = float(run_step())
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    losses = [run_step() for _ in range(steps)]
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - start
+    return first, [float(x) for x in losses], elapsed, torch.cuda.max_memory_allocated() / 2**30
+
+
+def phase_sharded_train() -> dict:
+    """setup_sharded_training and build_sharded_train_step at bench.py's
+    sharded config on a one-rank NCCL mesh: the budget check, three steps
+    against train_step, then timed steps of each. Returns the numbers and
+    the passes it ran through the kernels."""
+    import torch.distributed as dist
+
+    config = TransformerConfig(**SHARDED_CONFIG)
+    mesh = MeshSpec(SHARDED_MESH).build()
+    try:
+        budget = _sharded_budget(mesh)
+
+        def init(device):
+            return init_params(config, seed=SEED, device=device)
+
+        setup = setup_sharded_training(init, make_optimizer, mesh=mesh,
+                                       logical_dims=param_logical_dims(config))
+
+        def batch_loss(params, tok):
+            return loss_fn(params, tok[:, :-1], tok[:, 1:], config)
+
+        step = build_sharded_train_step(batch_loss, setup)
+        ref = init("cuda")
+        ref_opt = make_optimizer(ref)
+        rng = np.random.default_rng(SEED + 11)
+        tokens = torch.from_numpy(
+            rng.integers(0, config.vocab_size, (SHARDED_BATCH, config.max_seq + 1))).cuda()
+        batch = setup.shard_batch(tokens)
+        names = [n for n, _ in named_leaves(ref)]
+        init_leaves = [leaf.detach().clone() for _, leaf in named_leaves(ref)]
+        require(all(torch.equal(a.full_tensor(), b) for (_, a), b in
+                    zip(named_leaves(setup.params), init_leaves)),
+                "sharded_train: the sharded and single-device inits differ")
+
+        # Three steps of each from the same parameters and batch.
+        params, opt_state = setup.params, setup.opt_state
+        sharded_losses, ref_losses = [], []
+        for _ in range(SHARDED_CHECK_STEPS):
+            params, opt_state, loss = step(params, opt_state, batch)
+            sharded_losses.append(loss)
+            ref_losses.append(train_step(ref, ref_opt, tokens, config))
+        torch.cuda.synchronize()
+        got = [leaf.detach().full_tensor() for _, leaf in named_leaves(params)]
+        want = [leaf.detach() for _, leaf in named_leaves(ref)]
+        bitwise = (all(torch.equal(a, b) for a, b in zip(sharded_losses, ref_losses))
+                   and all(torch.equal(a, b) for a, b in zip(got, want)))
+        loss_err = max(abs(float(a) - float(b)) for a, b in zip(sharded_losses, ref_losses))
+        update_err = {}
+        for name, a, b, w0 in zip(names, got, want, init_leaves):
+            ref_update = b.float() - w0.float()
+            update_err[name] = float((a.float() - b.float()).abs().max()
+                                     / ref_update.abs().max().clamp_min(1e-30))
+        worst = max(update_err, key=update_err.get)
+        check = dict(steps=SHARDED_CHECK_STEPS, bitwise=bitwise, loss_err=loss_err,
+                     loss_tol=SHARDED_LOSS_TOL, worst_update_err=update_err[worst],
+                     worst_leaf=worst, update_tol=SHARDED_UPDATE_TOL,
+                     held="bitwise" if bitwise else "tolerance",
+                     sharded_losses=[float(x) for x in sharded_losses],
+                     train_step_losses=[float(x) for x in ref_losses])
+        log("sharded_check", **check)
+        if not bitwise:
+            require(loss_err < SHARDED_LOSS_TOL and update_err[worst] < SHARDED_UPDATE_TOL,
+                    f"sharded_train: sharded step vs train_step: loss {loss_err}, "
+                    f"{worst} update {update_err[worst]}")
+        del ref, ref_opt, got, want, init_leaves, ref_losses
+        torch.cuda.empty_cache()
+
+        # The sharded step alone, then train_step alone, timed.
+        state = {"params": params, "opt": opt_state}
+
+        def sharded_step():
+            state["params"], state["opt"], loss = step(state["params"], state["opt"], batch)
+            return loss
+
+        first, losses, elapsed, peak = _timed_steps(sharded_step, SHARDED_STEPS)
+        require(all(np.isfinite(losses)), f"sharded_train: non-finite loss {losses}")
+        require(losses[-1] < first,
+                f"sharded_train: loss did not fall ({first} -> {losses[-1]})")
+        calls = dict(tp_mod.calls)
+        require(calls["tp"] > 0 and calls["fsdp"] > 0,
+                f"sharded_train: tp and fsdp collectives not counted: {calls}")
+        n_params = sum(leaf.numel() for _, leaf in named_leaves(state["params"]))
+        del state, params, opt_state, setup, step
+        torch.cuda.empty_cache()
+        ref = init("cuda")
+        ref_opt = make_optimizer(ref)
+        ref_first, ref_losses, ref_elapsed, ref_peak = _timed_steps(
+            lambda: train_step(ref, ref_opt, tokens, config), SHARDED_STEPS)
+        del ref, ref_opt
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+
+    tokens_per_step = SHARDED_BATCH * config.max_seq
+    steps = SHARDED_CHECK_STEPS + 1 + SHARDED_STEPS
+    result = dict(
+        config="bench.py:133-138", mesh=SHARDED_MESH, layers=config.n_layers, dim=config.dim,
+        hidden=config.hidden_dim, vocab=config.vocab_size, batch=SHARDED_BATCH,
+        seq=config.max_seq, dtype=str(config.dtype), params=n_params, check=check,
+        first_loss=first, losses=losses, step_ms=1e3 * elapsed / SHARDED_STEPS,
+        tokens_per_s=tokens_per_step * SHARDED_STEPS / elapsed, peak_gib=peak,
+        train_step_ms=1e3 * ref_elapsed / SHARDED_STEPS,
+        train_step_tokens_per_s=tokens_per_step * SHARDED_STEPS / ref_elapsed,
+        train_step_peak_gib=ref_peak, train_step_losses=ref_losses, collective_calls=calls,
+        budget=budget, kernel_forwards=2 * steps, kernel_backwards=2 * steps, plain_forwards=0,
+    )
+    log("sharded_train", **result)
+    return result
+
+
 # ---------------------------------------------------------------- main
 def _path(name: str, want: dict, counts: dict, routes: dict, route: str, **fields) -> None:
     """Logs a path's launch counts and fails unless they are what the path
@@ -1927,6 +2132,13 @@ def main() -> None:
     passes = {k: moe_train[k] for k in ("kernel_forwards", "kernel_backwards", "plain_forwards")}
     _path("moe_train", _expected(MOE_TRAIN_LAYERS, **passes), counts["moe_train"],
           routes["moe_train"], "wgmma", **passes)
+    torch.cuda.empty_cache()
+
+    sharded, counts["sharded_train"], routes["sharded_train"] = _run_path(phase_sharded_train)
+    passes = {k: sharded[k] for k in ("kernel_forwards", "kernel_backwards", "plain_forwards")}
+    _path("sharded_train", _expected(SHARDED_CONFIG["n_layers"], **passes),
+          counts["sharded_train"], routes["sharded_train"], "wgmma", **passes,
+          collective_calls=sharded["collective_calls"])
 
     # Every launch on the tiny path is of its instantiations (head_dim 16 in
     # f32, RMSNorm at dim 64 in f32); on every other path, of the model's.
@@ -1948,6 +2160,8 @@ def main() -> None:
     log("summary", train_tokens_per_s=train["tokens_per_s"],
         moe_serve_prefill_tokens_per_s=moe_serve["prefill_tokens_per_s"],
         moe_train_tokens_per_s=moe_train["tokens_per_s"],
+        sharded_train_tokens_per_s=sharded["tokens_per_s"],
+        sharded_train_step_tokens_per_s=sharded["train_step_tokens_per_s"],
         seconds=time.perf_counter() - _t_start)
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -27,6 +27,11 @@ parameters load one to one (``models/convert.py``).
     routing and softmax math is f32.
   * ``decode_step`` runs dense models only: the reference's decode has no
     MoE branch.
+  * Under the sharded train step (``train/torch_utils.py``) the blocks read
+    its tensor-parallel context (``parallel/tensor_parallel.py``): each rank
+    holds its column or row shards of the split weights and its share of
+    the heads, and the blocks add Megatron's collectives. Without one they
+    run as on one device.
 """
 
 from __future__ import annotations
@@ -46,6 +51,7 @@ from ray_tpu_torch import resolve_device
 from ray_tpu_torch.ops.flash_attention import attention_reference, flash_attention
 from ray_tpu_torch.ops.rmsnorm import rmsnorm
 from ray_tpu_torch.ops.rope import apply_rope, clamp_index, rope_frequencies
+from ray_tpu_torch.parallel import tensor_parallel as tp
 
 _REMAT_POLICIES = (None, "dots", "full")
 
@@ -146,11 +152,14 @@ def param_logical_dims(config: TransformerConfig) -> dict:
 
 def init_params(config: TransformerConfig, seed: int, device=None) -> dict:
     """Random parameters from a seeded ``torch.Generator``: the JAX
-    package's distributions and scales (not its bits)."""
+    package's distributions and scales (not its bits). On the ``meta``
+    device, shapes and dtypes only: the plan of the sharded setup."""
     _check_supported(config)
     device = resolve_device(device)
-    gen = torch.Generator(device=device)
-    gen.manual_seed(seed)
+    gen = None
+    if device.type != "meta":
+        gen = torch.Generator(device=device)
+        gen.manual_seed(seed)
     dt = config.dtype
     d, nl = config.dim, config.n_layers
     q_out = config.n_heads * config.head_dim
@@ -215,9 +224,19 @@ def _repeat_kv(x: torch.Tensor, repeats: int) -> torch.Tensor:
 def _embed(table: torch.Tensor, tokens) -> torch.Tensor:
     """Rows of ``table`` for ``tokens``, with JAX's out-of-range rule (-1 is
     the last row, an id past the end the last row), applied before the
-    ids reach the gather."""
-    ids = clamp_index(torch.as_tensor(tokens), table.shape[0])
-    return table[ids.to(table.device)]
+    ids reach the gather. Under tensor parallelism ``table`` is this rank's
+    rows of the vocab: each rank looks up the ids it holds, zeros the
+    others, and the ranks' rows are summed."""
+    ctx = tp.current()
+    if ctx is None:
+        ids = clamp_index(torch.as_tensor(tokens), table.shape[0])
+        return table[ids.to(table.device)]
+    rows = table.shape[0]
+    ids = clamp_index(torch.as_tensor(tokens), rows * ctx.size).to(table.device)
+    local = ids - ctx.rank * rows
+    mine = (local >= 0) & (local < rows)
+    out = table[local.clamp(0, rows - 1)]
+    return tp.reduce(torch.where(mine[..., None], out, torch.zeros_like(out)))
 
 
 def _per_layer(layers: dict) -> list[dict]:
@@ -228,19 +247,27 @@ def _per_layer(layers: dict) -> list[dict]:
 
 
 def _attention_block(x, layer, config, cos_sin, positions, attention_fn):
+    """Under tensor parallelism wq holds this rank's heads (columns) and wo
+    their rows; wk and wv stay whole (``"kv"`` maps to no axis), so each
+    rank computes every k and v head and keeps those its q heads read. The
+    copy after the k and v products sums their gradients over the ranks,
+    so wk's and wv's gradients come out whole on every rank, as the norm's
+    do behind the copy of h."""
     batch, seq, _ = x.shape
     hd = config.head_dim
+    first, heads = tp.local_heads(tp.current(), config.n_heads, layer["wq"].shape[-1] // hd)
     h = rmsnorm(x, layer["attn_norm"])
-    q = (h @ layer["wq"]).view(batch, seq, config.n_heads, hd).transpose(1, 2)
-    k = (h @ layer["wk"]).view(batch, seq, config.n_kv_heads, hd).transpose(1, 2)
-    v = (h @ layer["wv"]).view(batch, seq, config.n_kv_heads, hd).transpose(1, 2)
+    q = (tp.copy(h) @ layer["wq"]).view(batch, seq, heads, hd).transpose(1, 2)
+    k = tp.copy(h @ layer["wk"]).view(batch, seq, config.n_kv_heads, hd).transpose(1, 2)
+    v = tp.copy(h @ layer["wv"]).view(batch, seq, config.n_kv_heads, hd).transpose(1, 2)
     cos, sin = cos_sin
     q = apply_rope(q, cos, sin, positions)
     k = apply_rope(k, cos, sin, positions)
     rep = config.n_heads // config.n_kv_heads
-    o = attention_fn(q, _repeat_kv(k, rep), _repeat_kv(v, rep), True)
-    o = o.transpose(1, 2).reshape(batch, seq, config.n_heads * hd)
-    return x + (o @ layer["wo"]).to(x.dtype)
+    k, v = (_repeat_kv(t, rep)[:, first:first + heads] for t in (k, v))
+    o = attention_fn(q, k, v, True)
+    o = o.transpose(1, 2).reshape(batch, seq, heads * hd)
+    return x + tp.reduce(o @ layer["wo"]).to(x.dtype)
 
 
 class _SiluMul(torch.autograd.Function):
@@ -269,9 +296,12 @@ def _silu_mul(gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
 
 
 def _dense_mlp(h: torch.Tensor, layer: dict) -> torch.Tensor:
+    """SwiGLU; under tensor parallelism w_gate and w_up hold this rank's
+    columns and w_down their rows."""
+    h = tp.copy(h)
     gate = (h @ layer["w_gate"]).to(h.dtype)
     up = (h @ layer["w_up"]).to(h.dtype)
-    return _silu_mul(gate, up) @ layer["w_down"]
+    return tp.reduce(_silu_mul(gate, up) @ layer["w_down"])
 
 
 def moe_capacity(moe: MoEConfig, tokens: int) -> int:
@@ -316,7 +346,18 @@ def _moe_mlp(h: torch.Tensor, layer: dict, config: TransformerConfig) -> torch.T
     """Dense dispatch/combine MoE (Mesh-TF style), the reference's: the
     dispatch is ``combine > 0`` in the model dtype, each expert runs
     SwiGLU on its capacity slots, and the combine, cast to the model dtype,
-    weighs the experts' outputs back into the tokens."""
+    weighs the experts' outputs back into the tokens.
+
+    Refused in a sharded step with more than one data rank or with tp or ep
+    above 1: the reference's capacity and slot order run over the global
+    tokens, which per-rank routing would not reproduce."""
+    ctx = tp.current()
+    if ctx is not None and (ctx.data_ranks > 1 or ctx.size > 1 or ctx.ep > 1):
+        raise NotImplementedError(
+            f"MoE under sharding (data ranks {ctx.data_ranks}, tp {ctx.size}, ep {ctx.ep}): "
+            "the reference routes over the global token order, which needs the per-expert "
+            "counts gathered across data ranks (ROADMAP Queue A item 3a)"
+        )
     batch, seq, d = h.shape
     ht = h.reshape(batch * seq, d)
     combine = _moe_combine(ht, layer["router"], config.moe)
@@ -481,7 +522,9 @@ def stage_forward(
         x = step(x, layer, config, (cos, sin), positions, attention_fn)
     if last:
         x = rmsnorm(x, stage_params["final_norm"])
-        x = (x @ stage_params["lm_head"]).float()
+        # Under tensor parallelism the lm_head holds this rank's vocab
+        # columns; the logits are gathered whole.
+        x = tp.gather(tp.copy(x) @ stage_params["lm_head"]).float()
     return x
 
 

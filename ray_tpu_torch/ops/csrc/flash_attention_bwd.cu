@@ -40,9 +40,16 @@
 // TMA, no wgmma, no pipelining) keep them simple. rt_flash_bwd_dq and
 // rt_flash_bwd_dkv route bf16 at head_dim 128, the model's shapes, to the
 // TMA/wgmma kernels of flash_bwd_dq_wgmma.cu and flash_bwd_dkv_wgmma.cu;
-// this file's kernels serve f32 and f16 at head_dim 16, 32, 64 and 128 and
-// bf16 at 16, 32 and 64. The Python wrapper pads any other head_dim up to
-// 128 with zero columns to the next of these sizes.
+// this file's kernels serve f32 and f16 at head_dim 16, 32, 64, 128 and
+// 256 and bf16 at 16, 32, 64 and 256. The Python wrapper pads any other
+// head_dim up to 256 with zero columns to the next of these sizes.
+//
+// At head_dim 256 (flash_common.cuh, Tile) a block computes one half of
+// the columns of dQ, or of dK and dV, named by blockIdx.z: the scores and
+// dP still take the full-width Q, K, V and dO tiles, and the products that
+// accumulate read the block's column half of K (dQ), dO (dV) or Q (dK).
+// Both halves' dQ blocks compute delta; the first half's write it. f32
+// blocks there have two warps (32 rows of the tile a block owns).
 //
 // Any seq_q and seq_k work: rows past seq_q and keys past seq_k are
 // neither used nor stored. A row that sees no key (causal with seq_q >
@@ -62,10 +69,13 @@ using namespace flash;
 
 static_assert(kBlockM == kBlockN, "pv_tile sums over a 64-wide tile of either axis");
 
+// Both kernels keep two tiles of the rows a block owns and two of the
+// 64-wide tiles it walks, all full-width, and a warp's P or dS tile.
 template <typename T, int D>
 constexpr size_t dq_smem_bytes() {
-  return sizeof(T) * ((2 * kBlockM + 2 * kBlockN) * (D + Pad<T>::value) +
-                      kWarps * 16 * (kBlockN + Pad<T>::value));
+  using Tl = Tile<T, D>;
+  return sizeof(T) * ((2 * Tl::kRows + 2 * kBlockN) * (D + Pad<T>::value) +
+                      Tl::kWarps * 16 * (kBlockN + Pad<T>::value));
 }
 
 template <typename T, int D>
@@ -81,22 +91,27 @@ __device__ __forceinline__ float warp_sum(float x) {
 }
 
 template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(Tile<T, D>::kThreads)
 flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                     const T* __restrict__ o, const T* __restrict__ dout,
                     const float* __restrict__ lse, float* __restrict__ delta,
                     T* __restrict__ dq, int seq_q, int seq_k, int causal, float scale) {
+  constexpr int kRows = Tile<T, D>::kRows;
+  constexpr int kCols = Tile<T, D>::kCols;
+  constexpr int kThr = Tile<T, D>::kThreads;
   constexpr int LD = D + Pad<T>::value;
   constexpr int LDP = kBlockN + Pad<T>::value;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* sQ = reinterpret_cast<T*>(smem_raw);
-  T* sdO = sQ + kBlockM * LD;
-  T* sK = sdO + kBlockM * LD;
+  T* sdO = sQ + kRows * LD;
+  T* sK = sdO + kRows * LD;
   T* sV = sK + kBlockN * LD;
-  T* sdS = sV + kBlockN * LD;  // [kWarps][16][LDP]
+  T* sdS = sV + kBlockN * LD;  // [warps][16][LDP]
 
   const int bh = blockIdx.x;
-  const int q0 = blockIdx.y * kBlockM;
+  const int q0 = blockIdx.y * kRows;
+  // The dQ columns this block computes start here.
+  const int col0 = kCols < D ? blockIdx.z * kCols : 0;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
   const int causal_offset = seq_k - seq_q;
@@ -104,8 +119,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
   const T* kb = k + (size_t)bh * seq_k * D;
   const T* vb = v + (size_t)bh * seq_k * D;
 
-  load_tile<T, D, kBlockM>(sQ, q + row_base * D, q0, seq_q);
-  load_tile<T, D, kBlockM>(sdO, dout + row_base * D, q0, seq_q);
+  load_tile<T, D, kRows, D, kThr>(sQ, q + row_base * D, q0, seq_q);
+  load_tile<T, D, kRows, D, kThr>(sdO, dout + row_base * D, q0, seq_q);
   __syncthreads();
 
   const T* sQw = sQ + warp * 16 * LD;
@@ -127,7 +142,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
     acc = warp_sum(acc);
     if (r == g) row_delta[0] = acc;
     if (r == g + 8) row_delta[1] = acc;
-    if (lane == 0 && row < seq_q) delta[row_base + row] = acc;
+    if (lane == 0 && row < seq_q && col0 == 0) delta[row_base + row] = acc;
   }
   float row_lse[2];
 #pragma unroll
@@ -138,19 +153,19 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
   // every row of the block sees no key.
   int n_tiles = (seq_k + kBlockN - 1) / kBlockN;
   if (causal) {
-    const int last_key = causal_offset + min(q0 + kBlockM, seq_q) - 1;
+    const int last_key = causal_offset + min(q0 + kRows, seq_q) - 1;
     n_tiles = last_key < 0 ? 0 : min(n_tiles, last_key / kBlockN + 1);
   }
 
-  float acc[D / 8][4];
+  float acc[kCols / 8][4];
 #pragma unroll
-  for (int j = 0; j < D / 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+  for (int j = 0; j < kCols / 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
 
   for (int n = 0; n < n_tiles; ++n) {
     const int k0 = n * kBlockN;
     __syncthreads();  // every warp is done with the previous K, V and dS tiles
-    load_tile<T, D, kBlockN>(sK, kb, k0, seq_k);
-    load_tile<T, D, kBlockN>(sV, vb, k0, seq_k);
+    load_tile<T, D, kBlockN, D, kThr>(sK, kb, k0, seq_k);
+    load_tile<T, D, kBlockN, D, kThr>(sV, vb, k0, seq_k);
     __syncthreads();
 
     float s[8][4], dp[8][4];
@@ -173,38 +188,43 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
       }
     }
     __syncwarp();  // the warp's dS tile is written
-    pv_tile<D>(acc, sdSw, sK, lane);
+    pv_tile<kCols, LD>(acc, sdSw, sK + col0, lane);
   }
-  store_rows<T, D>(dq + row_base * D, acc, q0 + warp * 16, seq_q, lane);
+  store_rows<T, kCols, D>(dq + row_base * D + col0, acc, q0 + warp * 16, seq_q, lane);
 }
 
 template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(Tile<T, D>::kThreads)
 flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                      const T* __restrict__ dout, const float* __restrict__ lse,
                      const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv,
                      int seq_q, int seq_k, int causal, float scale) {
+  constexpr int kRows = Tile<T, D>::kRows;  // keys a block owns
+  constexpr int kCols = Tile<T, D>::kCols;
+  constexpr int kThr = Tile<T, D>::kThreads;
   constexpr int LD = D + Pad<T>::value;
   constexpr int LDP = kBlockN + Pad<T>::value;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* sK = reinterpret_cast<T*>(smem_raw);
-  T* sV = sK + kBlockN * LD;
-  T* sQ = sV + kBlockN * LD;
+  T* sV = sK + kRows * LD;
+  T* sQ = sV + kRows * LD;
   T* sdO = sQ + kBlockM * LD;
-  T* sP = sdO + kBlockM * LD;  // [kWarps][16][LDP]: P^T, then dS^T
-  float* sLse = reinterpret_cast<float*>(sP + kWarps * 16 * LDP);
+  T* sP = sdO + kBlockM * LD;  // [warps][16][LDP]: P^T, then dS^T
+  float* sLse = reinterpret_cast<float*>(sP + Tile<T, D>::kWarps * 16 * LDP);
   float* sDelta = sLse + kBlockM;
 
   const int bh = blockIdx.x;
-  const int k0 = blockIdx.y * kBlockN;
+  const int k0 = blockIdx.y * kRows;
+  // The dK and dV columns this block computes start here.
+  const int col0 = kCols < D ? blockIdx.z * kCols : 0;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
   const int causal_offset = seq_k - seq_q;
   const size_t row_base = (size_t)bh * seq_q;
   const size_t key_base = (size_t)bh * seq_k;
 
-  load_tile<T, D, kBlockN>(sK, k + key_base * D, k0, seq_k);
-  load_tile<T, D, kBlockN>(sV, v + key_base * D, k0, seq_k);
+  load_tile<T, D, kRows, D, kThr>(sK, k + key_base * D, k0, seq_k);
+  load_tile<T, D, kRows, D, kThr>(sV, v + key_base * D, k0, seq_k);
   const T* sKw = sK + warp * 16 * LD;
   const T* sVw = sV + warp * 16 * LD;
   T* sPw = sP + warp * 16 * LDP;
@@ -218,9 +238,9 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
   int first = 0;
   if (causal && causal_offset >= 0) first = max(0, k0 - causal_offset) / kBlockM;
 
-  float acc_dk[D / 8][4], acc_dv[D / 8][4];
+  float acc_dk[kCols / 8][4], acc_dv[kCols / 8][4];
 #pragma unroll
-  for (int j = 0; j < D / 8; ++j) {
+  for (int j = 0; j < kCols / 8; ++j) {
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc_dk[j][e] = acc_dv[j][e] = 0.f;
   }
@@ -228,9 +248,9 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
   for (int m = first; m < n_tiles; ++m) {
     const int q0 = m * kBlockM;
     __syncthreads();  // every warp is done with the previous Q, dO tiles
-    load_tile<T, D, kBlockM>(sQ, q + row_base * D, q0, seq_q);
-    load_tile<T, D, kBlockM>(sdO, dout + row_base * D, q0, seq_q);
-    for (int i = threadIdx.x; i < kBlockM; i += kThreads) {
+    load_tile<T, D, kBlockM, D, kThr>(sQ, q + row_base * D, q0, seq_q);
+    load_tile<T, D, kBlockM, D, kThr>(sdO, dout + row_base * D, q0, seq_q);
+    for (int i = threadIdx.x; i < kBlockM; i += kThr) {
       const bool in = q0 + i < seq_q;
       sLse[i] = in ? lse[row_base + q0 + i] : 0.f;
       sDelta[i] = in ? delta[row_base + q0 + i] : 0.f;
@@ -260,7 +280,7 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
       }
     }
     __syncwarp();  // the warp's P^T tile is written
-    pv_tile<D>(acc_dv, sPw, sdO, lane);
+    pv_tile<kCols, LD>(acc_dv, sPw, sdO + col0, lane);
 
     // dP^T, then dS^T in place of P^T.
     float dp[8][4];
@@ -280,10 +300,10 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
       }
     }
     __syncwarp();  // the warp's dS^T tile is written
-    pv_tile<D>(acc_dk, sPw, sQ, lane);
+    pv_tile<kCols, LD>(acc_dk, sPw, sQ + col0, lane);
   }
-  store_rows<T, D>(dk + key_base * D, acc_dk, k0 + warp * 16, seq_k, lane);
-  store_rows<T, D>(dv + key_base * D, acc_dv, k0 + warp * 16, seq_k, lane);
+  store_rows<T, kCols, D>(dk + key_base * D + col0, acc_dk, k0 + warp * 16, seq_k, lane);
+  store_rows<T, kCols, D>(dv + key_base * D + col0, acc_dv, k0 + warp * 16, seq_k, lane);
 }
 
 struct Args {
@@ -301,8 +321,9 @@ cudaError_t launch_dq(const Args& a) {
   cudaError_t err = cudaFuncSetAttribute(
       flash_bwd_dq_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid(a.bh, (a.seq_q + kBlockM - 1) / kBlockM);
-  flash_bwd_dq_kernel<T, D><<<grid, kThreads, smem, a.stream>>>(
+  using Tl = Tile<T, D>;
+  const dim3 grid(a.bh, (a.seq_q + Tl::kRows - 1) / Tl::kRows, D / Tl::kCols);
+  flash_bwd_dq_kernel<T, D><<<grid, Tl::kThreads, smem, a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
       static_cast<const T*>(a.o), static_cast<const T*>(a.dout),
       static_cast<const float*>(a.lse), static_cast<float*>(a.delta), static_cast<T*>(a.dq),
@@ -316,8 +337,9 @@ cudaError_t launch_dkv(const Args& a) {
   cudaError_t err = cudaFuncSetAttribute(
       flash_bwd_dkv_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid(a.bh, (a.seq_k + kBlockN - 1) / kBlockN);
-  flash_bwd_dkv_kernel<T, D><<<grid, kThreads, smem, a.stream>>>(
+  using Tl = Tile<T, D>;
+  const dim3 grid(a.bh, (a.seq_k + Tl::kRows - 1) / Tl::kRows, D / Tl::kCols);
+  flash_bwd_dkv_kernel<T, D><<<grid, Tl::kThreads, smem, a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
       static_cast<const T*>(a.dout), static_cast<const float*>(a.lse),
       static_cast<const float*>(a.delta), static_cast<T*>(a.dk), static_cast<T*>(a.dv),
@@ -325,7 +347,8 @@ cudaError_t launch_dkv(const Args& a) {
   return cudaGetLastError();
 }
 
-// bf16 at head_dim 128 takes the TMA/wgmma kernels; the rest this file's.
+// bf16 at head_dim 128 takes the TMA/wgmma kernels; the rest this file's
+// (bf16 at 256 too).
 template <bool kDq, typename T, int D>
 cudaError_t launch_one(const Args& a) {
   if constexpr (std::is_same<T, __nv_bfloat16>::value && D == 128) {
@@ -354,6 +377,7 @@ cudaError_t dispatch_dim(const Args& a, int head_dim) {
     case 32: return launch_one<kDq, T, 32>(a);
     case 64: return launch_one<kDq, T, 64>(a);
     case 128: return launch_one<kDq, T, 128>(a);
+    case 256: return launch_one<kDq, T, 256>(a);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -373,7 +397,7 @@ int dispatch(const Args& a, int head_dim, int dtype) {
 
 // q, o, dout, dq: contiguous [bh, seq_q, head_dim]; k, v: [bh, seq_k,
 // head_dim]; all of one type (dtype a dtype_codes.cuh code), 16-byte
-// aligned; head_dim 16, 32, 64 or 128. lse (in) and delta (out): f32 [bh, seq_q]. Writes dQ, delta =
+// aligned; head_dim 16, 32, 64, 128 or 256. lse (in) and delta (out): f32 [bh, seq_q]. Writes dQ, delta =
 // rowsum(dout * o) and the route it took to *route (kRouteMmaSync or
 // kRouteWgmma). Launches on `stream` and returns the launch's cudaError_t.
 extern "C" int rt_flash_bwd_dq(const void* q, const void* k, const void* v, const void* o,

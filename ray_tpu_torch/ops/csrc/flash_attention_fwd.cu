@@ -23,11 +23,18 @@
 // m16n8k16, f32 accumulation); f32 inputs use f32 FMAs in the same
 // register layout (flash_common.cuh), so every type shares the softmax
 // code. Plain loads (no TMA, no wgmma, no pipelining) keep it simple: it
-// serves f32 and f16 at head_dim 16, 32, 64 and 128 and bf16 at 16, 32
-// and 64 (the JAX test shapes: tiny()'s head_dim is 16), and rt_flash_fwd
-// routes bf16 at head_dim 128, every shape the model gives the kernel, to
-// the TMA/wgmma kernel of flash_fwd_wgmma.cu. The Python wrapper pads any
-// other head_dim up to 128 with zero columns to the next of these sizes.
+// serves f32 and f16 at head_dim 16, 32, 64, 128 and 256 and bf16 at 16,
+// 32, 64 and 256 (the JAX test shapes: tiny()'s head_dim is 16; Gemma's
+// decoders use 256), and rt_flash_fwd routes bf16 at head_dim 128, every
+// shape the model gives the kernel, to the TMA/wgmma kernel of
+// flash_fwd_wgmma.cu. The Python wrapper pads any other head_dim up to 256
+// with zero columns to the next of these sizes.
+//
+// At head_dim 256 (flash_common.cuh, Tile) a block computes one half of
+// O's columns, named by blockIdx.z, so a warp's accumulator stays at 64
+// f32 registers a thread: Q and K stay full-width for the scores, V is
+// loaded for the block's columns only, and the first half's blocks write
+// the LSE. f32 blocks there have two warps (32 q rows).
 //
 // Any seq_q and seq_k work: rows past seq_q are neither computed into O
 // nor stored, and keys past seq_k score -inf, so they weigh nothing.
@@ -42,25 +49,33 @@ using namespace flash;
 
 template <typename T, int D>
 constexpr size_t smem_bytes() {
-  return sizeof(T) * ((kBlockM + 2 * kBlockN) * (D + Pad<T>::value) +
-                      kWarps * 16 * (kBlockN + Pad<T>::value));
+  using Tl = Tile<T, D>;
+  return sizeof(T) * ((Tl::kRows + kBlockN) * (D + Pad<T>::value) +
+                      kBlockN * (Tl::kCols + Pad<T>::value) +
+                      Tl::kWarps * 16 * (kBlockN + Pad<T>::value));
 }
 
 template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(Tile<T, D>::kThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                  T* __restrict__ o, float* __restrict__ lse, int seq_q, int seq_k, int causal,
                  float scale) {
+  constexpr int kRows = Tile<T, D>::kRows;
+  constexpr int kCols = Tile<T, D>::kCols;
+  constexpr int kThr = Tile<T, D>::kThreads;
   constexpr int LD = D + Pad<T>::value;
+  constexpr int LDV = kCols + Pad<T>::value;
   constexpr int LDP = kBlockN + Pad<T>::value;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* sQ = reinterpret_cast<T*>(smem_raw);
-  T* sK = sQ + kBlockM * LD;
-  T* sV = sK + kBlockN * LD;
-  T* sP = sV + kBlockN * LD;  // [kWarps][16][LDP]
+  T* sK = sQ + kRows * LD;
+  T* sV = sK + kBlockN * LD;  // [kBlockN][LDV]: the block's columns of V
+  T* sP = sV + kBlockN * LDV;  // [warps][16][LDP]
 
   const int bh = blockIdx.x;
-  const int q0 = blockIdx.y * kBlockM;
+  const int q0 = blockIdx.y * kRows;
+  // The output columns this block computes start here.
+  const int col0 = kCols < D ? blockIdx.z * kCols : 0;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
   const int causal_offset = seq_k - seq_q;
@@ -76,11 +91,11 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   // such a row visits every tile.
   int n_tiles = (seq_k + kBlockN - 1) / kBlockN;
   if (causal && causal_offset + q0 >= 0) {
-    const int last_key = causal_offset + min(q0 + kBlockM, seq_q) - 1;
+    const int last_key = causal_offset + min(q0 + kRows, seq_q) - 1;
     n_tiles = min(n_tiles, last_key / kBlockN + 1);
   }
 
-  load_tile<T, D, kBlockM>(sQ, qb, q0, seq_q);
+  load_tile<T, D, kRows, D, kThr>(sQ, qb, q0, seq_q);
   const T* sQw = sQ + warp * 16 * LD;
   T* sPw = sP + warp * 16 * LDP;
   // The two q rows this thread's accumulator elements belong to.
@@ -88,15 +103,15 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 
   float m[2] = {kMasked, kMasked};
   float l[2] = {0.f, 0.f};
-  float acc[D / 8][4];
+  float acc[kCols / 8][4];
 #pragma unroll
-  for (int j = 0; j < D / 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+  for (int j = 0; j < kCols / 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
 
   for (int n = 0; n < n_tiles; ++n) {
     const int k0 = n * kBlockN;
     __syncthreads();  // every warp is done with the previous K, V tiles
-    load_tile<T, D, kBlockN>(sK, kb, k0, seq_k);
-    load_tile<T, D, kBlockN>(sV, vb, k0, seq_k);
+    load_tile<T, D, kBlockN, D, kThr>(sK, kb, k0, seq_k);
+    load_tile<T, D, kBlockN, kCols, kThr>(sV, vb, k0, seq_k, col0);
     __syncthreads();
 
     float s[8][4];
@@ -145,12 +160,12 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
       m[r] = m_new[r];
     }
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
+    for (int j = 0; j < kCols / 8; ++j) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[j][e] *= corr[e >> 1];
     }
     __syncwarp();  // the warp's P tile is written
-    pv_tile<D>(acc, sPw, sV, lane);
+    pv_tile<kCols>(acc, sPw, sV, lane);
   }
 
 #pragma unroll
@@ -158,13 +173,13 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
     const int row = rows[r];
     if (row >= seq_q) continue;
     const float denom = fmaxf(l[r], 1e-30f);
-    T* orow = o + ((size_t)bh * seq_q + row) * D;
+    T* orow = o + ((size_t)bh * seq_q + row) * D + col0;
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
+    for (int j = 0; j < kCols / 8; ++j) {
       orow[8 * j + 2 * t] = from_f32<T>(acc[j][2 * r] / denom);
       orow[8 * j + 2 * t + 1] = from_f32<T>(acc[j][2 * r + 1] / denom);
     }
-    if (t == 0) lse[(size_t)bh * seq_q + row] = m[r] + logf(denom);
+    if (t == 0 && col0 == 0) lse[(size_t)bh * seq_q + row] = m[r] + logf(denom);
   }
 }
 
@@ -175,15 +190,16 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, void* l
   cudaError_t err = cudaFuncSetAttribute(
       flash_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid(bh, (seq_q + kBlockM - 1) / kBlockM);
-  flash_fwd_kernel<T, D><<<grid, kThreads, smem, stream>>>(
+  using Tl = Tile<T, D>;
+  const dim3 grid(bh, (seq_q + Tl::kRows - 1) / Tl::kRows, D / Tl::kCols);
+  flash_fwd_kernel<T, D><<<grid, Tl::kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<T*>(o), static_cast<float*>(lse), seq_q, seq_k, causal, scale);
   return cudaGetLastError();
 }
 
-// bf16 at head_dim 128 takes the TMA/wgmma kernel; the rest this file's.
-// Writes the route taken to *route.
+// bf16 at head_dim 128 takes the TMA/wgmma kernel; the rest this file's
+// (bf16 at 256 too). Writes the route taken to *route.
 template <typename T>
 cudaError_t dispatch(const void* q, const void* k, const void* v, void* o, void* lse, int bh,
                      int seq_q, int seq_k, int head_dim, int causal, float scale, int* route,
@@ -201,6 +217,7 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, void* o, void*
       } else {
         return launch<T, 128>(q, k, v, o, lse, bh, seq_q, seq_k, causal, scale, stream);
       }
+    case 256: return launch<T, 256>(q, k, v, o, lse, bh, seq_q, seq_k, causal, scale, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -208,7 +225,7 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, void* o, void*
 }  // namespace
 
 // q, k, v, o: contiguous [bh, seq, head_dim] of one type (dtype a
-// dtype_codes.cuh code), 16-byte aligned; head_dim 16, 32, 64 or 128; lse: f32
+// dtype_codes.cuh code), 16-byte aligned; head_dim 16, 32, 64, 128 or 256; lse: f32
 // [bh, seq_q]. Launches on `stream`, writes the route it took to *route
 // (kRouteMmaSync or kRouteWgmma) and returns the launch's cudaError_t.
 extern "C" int rt_flash_fwd(const void* q, const void* k, const void* v, void* o, void* lse,

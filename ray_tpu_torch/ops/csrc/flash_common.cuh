@@ -3,11 +3,13 @@
 // TMA/wgmma kernels share with them: the masked score and the entry points
 // the C functions route bf16 at head_dim 128 to.
 //
-// A block has four warps; each warp owns 16 rows of the tile it computes
-// and walks a 64-wide tile of the other axis. bf16 and f16 products run on
-// the tensor cores (mma.sync m16n8k16, f32 accumulation); f32 inputs use
-// f32 FMAs in the same register layout, so the kernels' softmax and masking
-// code is written once for every type.
+// Each warp owns 16 rows of the tile it computes and walks a 64-wide tile
+// of the other axis. A block has four warps and computes every output
+// column up to head_dim 128; at head_dim 256 (Tile below) it computes half
+// of them. bf16 and f16 products run on the tensor cores (mma.sync
+// m16n8k16, f32 accumulation); f32 inputs use f32 FMAs in the same register
+// layout, so the kernels' softmax and masking code is written once for
+// every type.
 //
 // Accumulator layout shared by every type (that of mma.sync m16n8k16):
 // with g = lane / 4 and t = lane % 4, element e of n-tile j holds
@@ -32,6 +34,22 @@ constexpr int kBlockN = 64;  // width of the tiles a block walks
 constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
 constexpr float kMasked = -1e30f;
+
+// The tile shape at head_dim D. Up to D = 128 a block has kWarps warps
+// (kBlockM rows) and computes all D output columns. At D = 256 a warp's f32
+// O accumulator alone would take 128 registers a thread, and dK/dV holds
+// two of them, so a block computes 128 of the output columns (kCols; the
+// grid's z index names which) and recomputes the scores, which need all D
+// columns, for each half. The scores keep full-width tiles of Q and K (and
+// of dO and V in the backward) in shared memory; in f32 four warps' tiles
+// would pass the 227 KB a block may use, so f32 blocks have two warps.
+template <typename T, int D>
+struct Tile {
+  static constexpr int kCols = D > 128 ? 128 : D;
+  static constexpr int kWarps = (D > 128 && sizeof(T) == 4) ? 2 : flash::kWarps;
+  static constexpr int kThreads = kWarps * 32;
+  static constexpr int kRows = kWarps * 16;  // rows of the tile a block owns
+};
 
 // The 16-bit types, whose products run on the tensor cores.
 template <typename T>
@@ -95,19 +113,21 @@ __device__ __forceinline__ void mma16(float (&d)[4], const uint32_t (&a)[4],
   }
 }
 
-// Copies rows [row0, row0 + kRows) of a [seq, D] matrix into shared memory
-// (row stride D + pad) in 16-byte pieces, writing zeros past `seq`.
-template <typename T, int D, int kRows>
-__device__ __forceinline__ void load_tile(T* smem, const T* gmem, int row0, int seq) {
+// Copies rows [row0, row0 + kRows) and columns [col0, col0 + kCols) of a
+// [seq, D] matrix into shared memory (row stride kCols + pad) in 16-byte
+// pieces, writing zeros past `seq`; kLoadThreads threads take part.
+template <typename T, int D, int kRows, int kCols = D, int kLoadThreads = kThreads>
+__device__ __forceinline__ void load_tile(T* smem, const T* gmem, int row0, int seq,
+                                          int col0 = 0) {
   constexpr int kVec = 16 / sizeof(T);
-  constexpr int kVecPerRow = D / kVec;
-  constexpr int LD = D + Pad<T>::value;
-  for (int i = threadIdx.x; i < kRows * kVecPerRow; i += kThreads) {
+  constexpr int kVecPerRow = kCols / kVec;
+  constexpr int LD = kCols + Pad<T>::value;
+  for (int i = threadIdx.x; i < kRows * kVecPerRow; i += kLoadThreads) {
     const int r = i / kVecPerRow;
     const int c = (i % kVecPerRow) * kVec;
     int4 val = make_int4(0, 0, 0, 0);
     if (row0 + r < seq) {
-      val = *reinterpret_cast<const int4*>(gmem + (size_t)(row0 + r) * D + c);
+      val = *reinterpret_cast<const int4*>(gmem + (size_t)(row0 + r) * D + col0 + c);
     }
     *reinterpret_cast<int4*>(smem + r * LD + c) = val;
   }
@@ -160,12 +180,14 @@ __device__ __forceinline__ void qk_tile(float (&s)[8][4], const float* sQ, const
 }
 
 // o += P V for P's 16 rows; P is [16, 64] with row stride LDP, V is
-// [64, D] with row stride D + pad: P V in the forward, also dS K, P^T dO
-// and dS^T Q in the backward.
-template <int D, typename T, typename = std::enable_if_t<kHalfWidth<T>>>
+// [64, D] with row stride kLD (D + pad unless given): P V in the forward,
+// also dS K, P^T dO and dS^T Q in the backward. At head_dim 256 the
+// backward passes a column half of a full-width tile as V, with the full
+// tile's row stride.
+template <int D, int kLD = 0, typename T, typename = std::enable_if_t<kHalfWidth<T>>>
 __device__ __forceinline__ void pv_tile(float (&o)[D / 8][4], const T* sP, const T* sV,
                                         int lane) {
-  constexpr int LD = D + Pad<T>::value;
+  constexpr int LD = kLD ? kLD : D + Pad<T>::value;
   constexpr int LDP = kBlockN + Pad<T>::value;
   const int g = lane >> 2, t = lane & 3;
   const unsigned short* v = reinterpret_cast<const unsigned short*>(sV);
@@ -190,10 +212,10 @@ __device__ __forceinline__ void pv_tile(float (&o)[D / 8][4], const T* sP, const
   }
 }
 
-template <int D>
+template <int D, int kLD = 0>
 __device__ __forceinline__ void pv_tile(float (&o)[D / 8][4], const float* sP, const float* sV,
                                         int lane) {
-  constexpr int LD = D + Pad<float>::value;
+  constexpr int LD = kLD ? kLD : D + Pad<float>::value;
   constexpr int LDP = kBlockN + Pad<float>::value;
   const int g = lane >> 2, t = lane & 3;
 #pragma unroll
@@ -213,8 +235,8 @@ __device__ __forceinline__ void pv_tile(float (&o)[D / 8][4], const float* sP, c
 // The TMA/wgmma route, taken for bf16 at head_dim 128 by rt_flash_fwd,
 // rt_flash_bwd_dq and rt_flash_bwd_dkv (flash_fwd_wgmma.cu,
 // flash_bwd_dq_wgmma.cu, flash_bwd_dkv_wgmma.cu); the kernels of this header
-// serve f32 and f16 at head_dim 16, 32, 64 and 128 and bf16 at 16, 32
-// and 64. Arguments as those entry points
+// serve f32 and f16 at head_dim 16, 32, 64, 128 and 256 and bf16 at 16,
+// 32, 64 and 256. Arguments as those entry points
 // take them. The entry points report the route they launched in `*route`,
 // and the Python wrappers count launches by what they report.
 constexpr int kRouteMmaSync = 0;
@@ -232,8 +254,9 @@ cudaError_t flash_bwd_dkv_wgmma(const void* q, const void* k, const void* v, con
                                 cudaStream_t stream);
 
 // Stores this warp's accumulator rows (16 of them from row0) of a
-// [seq, D] output, skipping rows past `seq`.
-template <typename T, int D>
+// [seq, D] output with row stride kStride (D unless given: a column block
+// of a wider output), skipping rows past `seq`.
+template <typename T, int D, int kStride = D>
 __device__ __forceinline__ void store_rows(T* out, float (&acc)[D / 8][4], int row0,
                                            int seq, int lane) {
   const int g = lane >> 2, t = lane & 3;
@@ -241,7 +264,7 @@ __device__ __forceinline__ void store_rows(T* out, float (&acc)[D / 8][4], int r
   for (int r = 0; r < 2; ++r) {
     const int row = row0 + g + 8 * r;
     if (row >= seq) continue;
-    T* orow = out + (size_t)row * D;
+    T* orow = out + (size_t)row * kStride;
 #pragma unroll
     for (int j = 0; j < D / 8; ++j) {
       orow[8 * j + 2 * t] = from_f32<T>(acc[j][2 * r]);

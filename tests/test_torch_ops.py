@@ -103,6 +103,11 @@ FLASH_CASES = {
     "bf16_s128_d64": (1, 2, 128, 128, 64, True, "bfloat16", 64, 64),
     # TransformerConfig.tiny()'s attention: head_dim 16.
     "tiny_s32_d16": (2, 4, 32, 32, 16, True, "float32", 32, 32),
+    # Gemma's head_dim, the widest the kernels are built for, and one the
+    # wrapper pads to it on the card.
+    "s128_d256": (1, 2, 128, 128, 256, True, "float32", 64, 64),
+    "bf16_s128_d256": (1, 2, 128, 128, 256, True, "bfloat16", 64, 64),
+    "sq64_sk128_d192": (1, 2, 64, 128, 192, True, "float32", 32, 64),
 }
 
 
@@ -163,7 +168,8 @@ def _flash_grads_jax(qj, kj, vj, do, causal, blocks, *, precision):
 
 
 @pytest.mark.parametrize("case", ["s256_d64_causal", "s256_d64_full", "sq64_sk128",
-                                  "bf16_s128_d64"])
+                                  "bf16_s128_d64", "s128_d256", "bf16_s128_d256",
+                                  "sq64_sk128_d192"])
 def test_flash_gradients_match_jax(case):
     (qj, kj, vj), (qt, kt, vt), causal, _, blocks = _flash_inputs(case)
     bf16 = qt.dtype == torch.bfloat16
@@ -263,13 +269,14 @@ def test_rmsnorm_gradients_match_jax(dtype, shape):
 
 @pytest.mark.parametrize(
     "head_dim,size",
-    [(8, 16), (16, 16), (17, 32), (48, 64), (64, 64), (80, 128), (96, 128), (128, 128)],
+    [(8, 16), (16, 16), (17, 32), (48, 64), (64, 64), (80, 128), (96, 128), (128, 128),
+     (129, 256), (192, 256), (256, 256)],
 )
 def test_padded_head_dim(head_dim, size):
     assert port_flash.padded_head_dim(head_dim) == size
 
 
-@pytest.mark.parametrize("head_dim", [0, 129, 256])
+@pytest.mark.parametrize("head_dim", [0, 257, 512])
 def test_a_head_dim_no_kernel_holds_is_refused(head_dim):
     with pytest.raises(ValueError, match="head_dim"):
         port_flash.padded_head_dim(head_dim)
@@ -278,8 +285,9 @@ def test_a_head_dim_no_kernel_holds_is_refused(head_dim):
 @pytest.mark.parametrize(
     "head_dim,causal,seq_q,seq_k",
     [(8, True, 40, 56), (48, False, 33, 20), (80, True, 100, 160), (80, False, 100, 160),
-     (96, True, 70, 50)],
-    ids=["d8_causal", "d48_full", "d80_causal", "d80_full", "d96_blind_rows"],
+     (96, True, 70, 50), (192, True, 100, 160), (192, False, 70, 50)],
+    ids=["d8_causal", "d48_full", "d80_causal", "d80_full", "d96_blind_rows", "d192_causal",
+         "d192_full"],
 )
 def test_zero_padding_the_head_is_exact(head_dim, causal, seq_q, seq_k):
     """The kernels' wrappers run a head_dim they are not built for padded

@@ -158,11 +158,14 @@ def test_kernel_route(dtype, head_dim):
     [(torch.float16, 16, "mma_sync"), (torch.float16, 64, "mma_sync"),
      (torch.float16, 128, "mma_sync"), (torch.float32, 16, "mma_sync"),
      (torch.bfloat16, 16, "mma_sync"), (torch.bfloat16, 80, "wgmma"),
-     (torch.float32, 80, "mma_sync"), (torch.bfloat16, 8, "mma_sync")],
+     (torch.float32, 80, "mma_sync"), (torch.bfloat16, 8, "mma_sync"),
+     (torch.bfloat16, 256, "mma_sync"), (torch.bfloat16, 192, "mma_sync"),
+     (torch.float32, 256, "mma_sync"), (torch.float16, 256, "mma_sync")],
 )
 def test_kernel_route_of_f16_and_other_head_dims(dtype, head_dim, route):
     # f16 takes the mma.sync kernels at every head_dim; another head_dim
-    # takes the route of the size it is padded to (80 -> 128, 8 -> 16).
+    # takes the route of the size it is padded to (80 -> 128, 8 -> 16,
+    # 192 -> 256); bf16 at 256 takes the mma.sync kernels.
     assert port_flash.kernel_route(dtype, head_dim) == route
 
 
