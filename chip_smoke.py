@@ -28,7 +28,8 @@ final line) if anything is wrong:
                the reference takes (FLASH_INSTANTIATIONS: head_dim 16 in
                f32, bf16 and f16, f16 at head_dim 64 and 128, head_dim 80
                zero-padded to 128, head_dim 256 in f32, bf16 and f16,
-               head_dim 192 zero-padded to 256; RMSNORM_INSTANTIATIONS:
+               head_dim 192 zero-padded to 256, head_dim 512 in f32, bf16
+               and f16, head_dim 320 zero-padded to 384; RMSNORM_INSTANTIATIONS:
                dim 64, dim 50, f16, bf16 x with an f32 weight), forward and
                backward, each an entry of its own in the kernels line
   4. serve     TransformerConfig.llama2_7b() at full width and depth in bf16
@@ -83,9 +84,27 @@ final line) if anything is wrong:
                SHARDED_UPDATE_TOL), then a warm-up and 10 timed steps of
                each (the loss must fall), tokens/s and peak memory; the
                tensor-parallel and fsdp collectives must be counted
-Each path (4-5, 7, 8, 9, 10, 11, 12) runs with every launch count set to 0
+ 13. collectives  a one-rank NCCL collective group (util.collective): every
+               op with the reference's world-size-1 semantics, the
+               refusals, and the bucketed asynchronous gradient sync against
+               sync_gradients; the group and its process group destroyed
+ 14. trainer   TorchTrainer with one GPU worker (a spawned process, NCCL)
+               at phase 12's config and mesh: 6 steps, a report each, a
+               save_sharded_state checkpoint at step 3 committed by the
+               trainer; in the first run the worker exits hard after step
+               4's report and the trainer restarts it from the step-3
+               checkpoint; a second run has no failure. Resumed steps 4-6
+               must equal the second run's bitwise (losses and the final
+               parameters' bits), and the parameters' bits must differ
+               before step 1, after it and after step 6; checkpoint
+               bytes, save and restore
+               seconds (GB/s), the restart's wall time, gang formation, and
+               the step time against phase 12's
+Each path (4-5, 7, 8, 9, 10, 11, 12, 14) runs with every launch count set to 0
 just before it; its counts, read just after, must equal what its layers and
-passes imply, every flash launch on the route the path's inputs take.
+passes imply, every flash launch on the route the path's inputs take. The
+trainer path's kernels launch in its worker processes, whose counts start
+at 0 with each process and come back in its reports.
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
@@ -94,9 +113,12 @@ The line before the last is {"kernels": [...]}; the last line is
 import asyncio
 import dataclasses
 import functools
+import gc
 import json
 import math
+import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -118,11 +140,16 @@ from ray_tpu_torch.ops import rmsnorm as rmsnorm_mod
 from ray_tpu_torch.parallel import tensor_parallel as tp_mod
 from ray_tpu_torch.parallel.mesh import MeshSpec
 from ray_tpu_torch.serve.batching import batch
+from ray_tpu_torch.train import session as session_mod
+from ray_tpu_torch.train.config import CheckpointConfig, FailureConfig, RunConfig, ScalingConfig
 from ray_tpu_torch.train.step import make_optimizer, named_leaves, train_step
 from ray_tpu_torch.train.torch_utils import (
-    MemoryBudgetError, build_sharded_train_step, device_memory_budget, plan_sharded_training,
-    setup_sharded_training,
+    MemoryBudgetError, begin_gradient_sync, build_sharded_train_step, device_memory_budget,
+    plan_sharded_training, restore_sharded_state, save_sharded_state, setup_sharded_training,
+    sync_gradients,
 )
+from ray_tpu_torch.train.trainer import TorchTrainer
+from ray_tpu_torch.util import collective as collective_mod
 
 SEED = 0
 # H100 SXM data-sheet peaks (dense): HBM bytes/s, and operations/s by type
@@ -868,6 +895,17 @@ FLASH_INSTANTIATIONS = [
      [(1, 2, 192, 192, True), (1, 2, 130, 70, True), (2, 2, 37, 200, False)]),
     ("d192_bf16_padded", torch.bfloat16, 192, (4, 32, SERVE_SEQ),
      [(1, 3, 100, 160, True), (1, 3, 100, 160, False), (1, 2, 130, 70, True)]),
+    # Above 256 (flash_attention_wide.cu): a block per 128-column slice of
+    # the output, the scores summed over 128-column chunks of the head. The
+    # f32 FMA kernels are timed at one batch row.
+    ("d512_f32", torch.float32, 512, (1, 32, SERVE_SEQ),
+     [(1, 2, 192, 192, True), (1, 2, 130, 70, True), (2, 2, 37, 200, False)]),
+    ("d512_bf16", torch.bfloat16, 512, (4, 32, SERVE_SEQ),
+     [(1, 2, 192, 192, True), (1, 2, 130, 70, True), (2, 2, 37, 200, False)]),
+    ("d512_f16", torch.float16, 512, (4, 32, SERVE_SEQ),
+     [(1, 2, 192, 192, True), (1, 2, 130, 70, True), (2, 2, 37, 200, False)]),
+    ("d320_bf16_padded", torch.bfloat16, 320, (4, 32, SERVE_SEQ),
+     [(1, 3, 100, 160, True), (1, 3, 100, 160, False), (1, 2, 130, 70, True)]),
 ]
 # (label, timed x shape, x dtype, weight dtype, edge x shapes).
 RMSNORM_INSTANTIATIONS = [
@@ -880,10 +918,12 @@ RMSNORM_INSTANTIATIONS = [
 TINY_ENTRIES = ("d16_f32", "d64_f32")
 
 
-def _flash_sources(route: str) -> dict:
+def _flash_sources(route: str, size: int = 128) -> dict:
     if route == "wgmma":
         return {"fwd": "flash_fwd_wgmma.cu", "dq": "flash_bwd_dq_wgmma.cu",
                 "dkv": "flash_bwd_dkv_wgmma.cu"}
+    if size > 256:
+        return dict.fromkeys(("fwd", "dq", "dkv"), "flash_attention_wide.cu")
     return {"fwd": "flash_attention_fwd.cu", "dq": "flash_attention_bwd.cu",
             "dkv": "flash_attention_bwd.cu"}
 
@@ -967,7 +1007,7 @@ def _flash_instantiation_entries(gen) -> list[dict]:
                       key=lambda n: by_backend[n]["ms"], default=None)
         fwd_bound = _flash_bound(b, h, s, s, d, True, dtype)
         bwd_bounds = _bwd_bounds(b, h, s, s, d, True, dtype)
-        sources = _flash_sources(route)
+        sources = _flash_sources(route, size)
         common = dict(route="cuda", kernel_route=route, launches=None, shape=[b, h, s, s, d],
                       instantiation=label, on_main_path=label in TINY_ENTRIES, checks=checks)
         bwd_library = dict(
@@ -978,6 +1018,7 @@ def _flash_instantiation_entries(gen) -> list[dict]:
             plain_ms=plain_bwd, plain="_flash_backward_reference (dQ, dK and dV together)")
         kernel = {"fwd": "flash_fwd", "dq": "flash_bwd_dq", "dkv": "flash_bwd_dkv"}
         ptxas = {part: ((f"{kernel[part]}_wgmma",) if route == "wgmma" else
+                        (f"{kernel[part]}_wide_kernelI{_mangled(dtype)}E",) if size > 256 else
                         (f"{kernel[part]}_kernelI{_mangled(dtype)}Li{size}E",))
                  for part in kernel}
         entries.append(dict(
@@ -1797,15 +1838,15 @@ def phase_moe_train() -> dict:
         return torch.softmax(ht.float() @ router.float(), dim=-1)
 
     def recording(into):
-        def record(ht, router, moe):
-            combine = combine_fn(ht, router, moe)
+        def record(ht, router, moe, ctx=None):
+            combine = combine_fn(ht, router, moe, ctx)
             dispatch[into].append(combine > 0)
             identity_held.append(bool(torch.equal(
                 combine, dispatch[into][-1] * _probs(ht, router)[:, :, None])))
             return combine
         return record
 
-    def replaying(ht, router, moe):
+    def replaying(ht, router, moe, ctx=None):
         layer = len(dispatch.setdefault("replayed", []))
         dispatch["replayed"].append(None)
         return dispatch["kernel"][layer] * _probs(ht, router)[:, :, None]
@@ -2051,6 +2092,227 @@ def phase_sharded_train() -> dict:
     return result
 
 
+# ---------------------------------------------------------------- phase 13
+def phase_collectives() -> dict:
+    """A one-rank NCCL group: every op with the reference's world-size-1
+    semantics (each returns its input; reducescatter flattens it), the
+    refusals, and the bucketed asynchronous gradient sync, whose NCCL
+    all-reduces run even at one rank, against sync_gradients. The group is
+    destroyed at the end, and the process group with it."""
+    import torch.distributed as dist
+
+    require(not dist.is_initialized(), "collectives: a process group is already up")
+    collective_mod.init_collective_group(1, 0, backend="nccl", group_name="smoke")
+    checks = {}
+    try:
+        group = collective_mod.get_group("smoke")
+        require(dist.get_backend() == "nccl", f"collectives: backend {dist.get_backend()}")
+        x = np.arange(12, dtype=np.float32).reshape(3, 4)
+        t = torch.arange(12, dtype=torch.bfloat16, device="cuda").reshape(3, 4)
+        for op in ("sum", "product", "min", "max"):
+            checks[f"allreduce_{op}"] = bool(np.array_equal(group.allreduce(x, op=op), x)
+                                             and group.allreduce(t, op=op) is t)
+        checks["allgather"] = [np.array_equal(a, x) for a in group.allgather(x)] == [True]
+        checks["broadcast"] = bool(np.array_equal(group.broadcast(x), x))
+        checks["reducescatter"] = bool(np.array_equal(group.reducescatter(x), x.reshape(-1)))
+        group.barrier()
+        for name, call in (("p2p_self", lambda: group.p2p(x, 0, 0)),
+                           ("recv_without_like", lambda: group.recv(0)),
+                           ("unknown_op", lambda: group.allreduce(x, op="mean"))):
+            try:
+                call()
+                checks[name] = False
+            except ValueError:
+                checks[name] = True
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(SEED)
+        grads = {f"w{i}": _randn(gen, (1024, 1024), torch.bfloat16) for i in range(3)}
+        grads["b"] = _randn(gen, (4096,), torch.float32)
+        handle = begin_gradient_sync(grads, "smoke", bucket_bytes=4 << 20)
+        overlapped = handle.result()
+        plain = sync_gradients(grads, "smoke")
+        checks["bucketed_sync"] = all(torch.equal(overlapped[k], plain[k]) for k in grads)
+        stats = dict(handle.stats)
+    finally:
+        collective_mod.destroy_collective_group("smoke")
+    checks["destroyed"] = not dist.is_initialized()
+    log("collectives", checks=checks, bucketed_sync_stats=stats)
+    require(all(checks.values()), f"collectives: {checks}")
+    return {"checks": checks, "bucketed_sync_stats": stats}
+
+
+# ---------------------------------------------------------------- phase 14
+# The trainer phase: bench.py's sharded config through TorchTrainer on one
+# GPU worker. The loop takes TRAINER_STEPS steps and saves at
+# TRAINER_SAVE_AT; in the run that fails, the worker exits hard after
+# TRAINER_DIE_AFTER's report and the trainer restarts it from that save.
+TRAINER_STEPS, TRAINER_SAVE_AT, TRAINER_DIE_AFTER = 6, 3, 4
+TRAINER_STORAGE = Path(__file__).resolve().parent / "build" / "chip_smoke_trainer"
+# bf16 params and AdamW's two bf16 moments, plus the step count.
+TRAINER_CKPT_BYTES = 3 * 2 * 1_140_887_552
+
+
+def _trainer_batch(step: int, config: TransformerConfig) -> torch.Tensor:
+    """Step ``step``'s tokens, from a generator seeded by the step's index,
+    so that a resumed run sees the same data."""
+    rng = np.random.default_rng(SEED + 1000 + step)
+    return torch.from_numpy(rng.integers(0, config.vocab_size,
+                                         (SHARDED_BATCH, config.max_seq + 1)))
+
+
+def _params_digest(params) -> list[int]:
+    """Two integer sums over every parameter's bits (plain and weighted by
+    position): equal for equal parameters, bit for bit."""
+    total, weighted = 0, 0
+    for _, leaf in named_leaves(params):
+        bits = leaf.detach().full_tensor().reshape(-1).view(torch.int16).to(torch.int64)
+        total += int(bits.sum())
+        weighted += int((bits * (torch.arange(bits.numel(), device=bits.device) % 8191 + 1))
+                        .sum())
+    return [total, weighted]
+
+
+def trainer_loop(loop_config: dict) -> None:
+    """TorchTrainer's train_loop_per_worker: setup_sharded_training and
+    build_sharded_train_step on the session's mesh, a report a step, a save
+    at TRAINER_SAVE_AT; restores from the session's checkpoint when there is
+    one. Each report carries the worker's kernel launch counts since the
+    loop began (the counts live in this process)."""
+    reset_counts()
+    ctx = session_mod.get_context()
+    config = TransformerConfig(**SHARDED_CONFIG)
+    setup = setup_sharded_training(lambda device: init_params(config, seed=SEED, device=device),
+                                   make_optimizer, logical_dims=param_logical_dims(config))
+    step = build_sharded_train_step(
+        lambda params, tok: loss_fn(params, tok[:, :-1], tok[:, 1:], config), setup)
+    start, resumed, restore_s = 0, session_mod.get_checkpoint(), None
+    if resumed is not None:
+        t0 = time.perf_counter()
+        _, _, extra = restore_sharded_state(resumed, setup)
+        torch.cuda.synchronize()
+        restore_s, start = time.perf_counter() - t0, extra["step"]
+    params, opt = setup.params, setup.opt_state
+    init_digest = _params_digest(params) if resumed is None else None
+    for i in range(start, TRAINER_STEPS):
+        batch = setup.shard_batch(_trainer_batch(i, config).cuda())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, loss = step(params, opt, batch)
+        loss = float(loss)
+        metrics = {"step": i + 1, "loss": loss, "step_s": time.perf_counter() - t0,
+                   "restore_s": restore_s, "pid": os.getpid(), "counts": _counts(),
+                   "routes": _route_counts(), "world": ctx.world_size}
+        checkpoint = None
+        if i + 1 == TRAINER_SAVE_AT:
+            t0 = time.perf_counter()
+            checkpoint = save_sharded_state(params, opt, extra={"step": i + 1})
+            metrics["save_s"] = time.perf_counter() - t0
+            metrics["ckpt_bytes"] = sum(f.stat().st_size for f in
+                                        Path(checkpoint.path).rglob("*") if f.is_file())
+        if i == 0:  # the parameters before and after the first update
+            metrics["init_digest"], metrics["digest"] = init_digest, _params_digest(params)
+        if i + 1 == TRAINER_STEPS:
+            metrics["digest"] = _params_digest(params)
+            metrics["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        session_mod.report(metrics, checkpoint=checkpoint)
+        if loop_config.get("die_after") == i + 1 and resumed is None:
+            os._exit(1)
+
+
+def _trainer_run(name: str, die_after: int | None):
+    trainer = TorchTrainer(
+        trainer_loop, train_loop_config={"die_after": die_after},
+        scaling_config=ScalingConfig(num_workers=1, use_gpu=True, mesh_axes=SHARDED_MESH),
+        run_config=RunConfig(name=name, storage_path=str(TRAINER_STORAGE),
+                             failure_config=FailureConfig(max_failures=1),
+                             checkpoint_config=CheckpointConfig(num_to_keep=1)))
+    result = trainer.fit()
+    shutil.rmtree(result.path, ignore_errors=True)
+    require(result.error is None, f"trainer {name}: {result.error}")
+    return result
+
+
+def phase_trainer(sharded_step_ms: float) -> dict:
+    """TorchTrainer with one GPU worker at bench.py's sharded config: a run
+    whose worker exits hard after step TRAINER_DIE_AFTER's report and is
+    restarted from the step-TRAINER_SAVE_AT checkpoint, then a run with no
+    failure. The resumed steps must equal the uninterrupted run's bitwise
+    (losses and the final parameters' bits). Returns the numbers, and the
+    launch counts the workers reported (summed over every worker process
+    of both runs) with the steps they ran."""
+    gc.collect()
+    torch.cuda.empty_cache()  # the worker shares the card with this process
+    if TRAINER_STORAGE.exists():
+        shutil.rmtree(TRAINER_STORAGE)
+    TRAINER_STORAGE.mkdir(parents=True)
+    free = shutil.disk_usage(TRAINER_STORAGE).free
+    require(free > 1.5 * TRAINER_CKPT_BYTES,
+            f"trainer: {free / 1e9:.1f} GB free under {TRAINER_STORAGE}, a checkpoint takes "
+            f"{TRAINER_CKPT_BYTES / 1e9:.1f} GB")
+    try:
+        killed = _trainer_run("killed", TRAINER_DIE_AFTER)
+        whole = _trainer_run("whole", None)
+    finally:
+        shutil.rmtree(TRAINER_STORAGE, ignore_errors=True)
+
+    def steps(result):
+        return [m["step"] for m in result.metrics_history]
+
+    resumed_from = TRAINER_SAVE_AT + 1
+    want = list(range(1, TRAINER_DIE_AFTER + 1)) + list(range(resumed_from, TRAINER_STEPS + 1))
+    require(steps(killed) == want and steps(whole) == list(range(1, TRAINER_STEPS + 1)),
+            f"trainer: steps {steps(killed)}, {steps(whole)}")
+    require([a["ended_by"] for a in killed.attempts] == ["gang_died", "done"]
+            and len(killed.resizes) == 1 and not whole.resizes,
+            f"trainer: attempts {killed.attempts}, resizes {killed.resizes}")
+    resumed = killed.metrics_history[TRAINER_DIE_AFTER:]
+    uninterrupted = whole.metrics_history[TRAINER_SAVE_AT:]
+    bitwise = ([m["loss"] for m in resumed] == [m["loss"] for m in uninterrupted]
+               and resumed[-1]["digest"] == uninterrupted[-1]["digest"])
+    # Each step sees fresh random tokens, so the loss need not fall; it
+    # must be finite, and the parameters must move at the first step and
+    # again by the last, so that the bitwise check compares real updates.
+    losses = [m["loss"] for m in whole.metrics_history]
+    first_step, last_step = whole.metrics_history[0], whole.metrics_history[-1]
+    digests = [first_step["init_digest"], first_step["digest"], last_step["digest"]]
+    moved = len({tuple(d) for d in digests}) == 3
+    # Every worker process's last report holds its counts since its loop
+    # began: sum them over the three processes (two attempts and the run
+    # with no failure).
+    last_of = {}
+    for m in killed.metrics_history + whole.metrics_history:
+        last_of[m["pid"]] = m
+    lasts = list(last_of.values())
+    require(len(lasts) == 3, f"trainer: reports came from {len(lasts)} worker processes")
+    counts = {k: sum(m["counts"][k] for m in lasts) for k in lasts[0]["counts"]}
+    routes = {k: {r: sum(m["routes"][k][r] for m in lasts) for r in ("wgmma", "mma_sync")}
+              for k in lasts[0]["routes"]}
+    ran = TRAINER_DIE_AFTER + (TRAINER_STEPS - TRAINER_SAVE_AT) + TRAINER_STEPS
+    save = next(m for m in whole.metrics_history if "save_s" in m)
+    first = killed.attempts[1]
+    step_ms = 1e3 * statistics.median(m["step_s"] for m in whole.metrics_history[1:])
+    result = dict(
+        config="bench.py:133-138", mesh=SHARDED_MESH, batch=SHARDED_BATCH, steps=TRAINER_STEPS,
+        save_at=TRAINER_SAVE_AT, die_after=TRAINER_DIE_AFTER, bitwise=bitwise,
+        losses=losses, resumed_losses=[m["loss"] for m in resumed],
+        params_moved=moved, ckpt_bytes=save["ckpt_bytes"], save_s=save["save_s"],
+        save_gb_per_s=save["ckpt_bytes"] / save["save_s"] / 1e9,
+        restore_s=resumed[0]["restore_s"],
+        restore_gb_per_s=save["ckpt_bytes"] / resumed[0]["restore_s"] / 1e9,
+        restart_s=first["first_report"] - killed.attempts[0]["end"],
+        gang_form_s=first["formed"] - first["start"],
+        step_ms=step_ms, sharded_step_ms=sharded_step_ms,
+        peak_gib=whole.metrics_history[-1]["peak_gib"], counts=counts, routes=routes,
+        kernel_forwards=ran, kernel_backwards=ran, plain_forwards=0)
+    log("trainer", **result)
+    require(all(np.isfinite(losses)), f"trainer: losses {losses}")
+    require(moved, f"trainer: parameter digests {digests} (before step 1, after it, after "
+                   f"step {TRAINER_STEPS}) are not all different")
+    require(bitwise, f"trainer: resumed steps {resumed} differ from the uninterrupted "
+                     f"{uninterrupted}")
+    return result
+
+
 # ---------------------------------------------------------------- main
 def _path(name: str, want: dict, counts: dict, routes: dict, route: str, **fields) -> None:
     """Logs a path's launch counts and fails unless they are what the path
@@ -2140,6 +2402,16 @@ def main() -> None:
           counts["sharded_train"], routes["sharded_train"], "wgmma", **passes,
           collective_calls=sharded["collective_calls"])
 
+    phase_collectives()
+    # The trainer path's kernels launch in its worker processes, which
+    # count from 0 and report their counts; this process's stay at 0.
+    trainer, local, _ = _run_path(phase_trainer, sharded["step_ms"])
+    require(not any(local.values()), f"trainer: launches in the driver process {local}")
+    counts["trainer"], routes["trainer"] = trainer["counts"], trainer["routes"]
+    passes = {k: trainer[k] for k in ("kernel_forwards", "kernel_backwards", "plain_forwards")}
+    _path("trainer", _expected(SHARDED_CONFIG["n_layers"], **passes), counts["trainer"],
+          routes["trainer"], "wgmma", **passes)
+
     # Every launch on the tiny path is of its instantiations (head_dim 16 in
     # f32, RMSNorm at dim 64 in f32); on every other path, of the model's.
     for e in entries:
@@ -2162,6 +2434,7 @@ def main() -> None:
         moe_train_tokens_per_s=moe_train["tokens_per_s"],
         sharded_train_tokens_per_s=sharded["tokens_per_s"],
         sharded_train_step_tokens_per_s=sharded["train_step_tokens_per_s"],
+        trainer_step_ms=trainer["step_ms"], trainer_restart_s=trainer["restart_s"],
         seconds=time.perf_counter() - _t_start)
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -30,8 +30,9 @@ parameters load one to one (``models/convert.py``).
   * Under the sharded train step (``train/torch_utils.py``) the blocks read
     its tensor-parallel context (``parallel/tensor_parallel.py``): each rank
     holds its column or row shards of the split weights and its share of
-    the heads, and the blocks add Megatron's collectives. Without one they
-    run as on one device.
+    the heads, and the blocks add Megatron's collectives; the MoE routing
+    and the masked loss run over the global batch across the data ranks.
+    Without one they run as on one device.
 """
 
 from __future__ import annotations
@@ -311,16 +312,25 @@ def moe_capacity(moe: MoEConfig, tokens: int) -> int:
     return max(1, int(moe.capacity_factor * moe.top_k * tokens / moe.num_experts))
 
 
-def _moe_combine(ht: torch.Tensor, router: torch.Tensor, moe: MoEConfig) -> torch.Tensor:
+def _moe_combine(ht: torch.Tensor, router: torch.Tensor, moe: MoEConfig,
+                 ctx: tp.TPContext | None = None) -> torch.Tensor:
     """The combine tensor [tokens, experts, capacity] (f32) of top-k routing
     with the reference's rules: f32 router logits and softmax; for each of
     the top_k choices, the gate is the largest remaining probability (its
     gradient split equally among tied maxima, as ``jnp.max``'s) and the
     expert the first index of it; a token takes the next free slot of its
     expert, after every earlier choice's (the GShard occupancy offset), and
-    is dropped past the capacity. f32 cumsum, exact to 2^24 tokens."""
+    is dropped past the capacity. f32 cumsum, exact to 2^24 tokens.
+
+    In a sharded step with more than one data rank (``ctx``), ``ht`` is this
+    rank's part of a batch split dp-major over the data axes, and the
+    routing is the reference's over the global batch, as GSPMD runs it: the
+    capacity comes from the global token count, and in each round every
+    rank's per-expert counts are gathered, so that a token's slot follows
+    every choice of its expert by the tokens of the ranks before it."""
     tokens, experts = ht.shape[0], moe.num_experts
-    capacity = moe_capacity(moe, tokens)
+    ranks = ctx.data_ranks if ctx is not None else 1
+    capacity = moe_capacity(moe, tokens * ranks)
     probs = torch.softmax(ht.float() @ router.float(), dim=-1)  # [T, E]
     slots = torch.arange(capacity, device=ht.device)
     combine = probs.new_zeros(tokens, experts, capacity)
@@ -330,14 +340,20 @@ def _moe_combine(ht: torch.Tensor, router: torch.Tensor, moe: MoEConfig) -> torc
         gate = remaining.amax(dim=-1)
         choice = remaining.argmax(dim=-1)
         onehot = F.one_hot(choice, experts).to(probs.dtype)
-        position = (torch.cumsum(onehot, dim=0) - 1.0 + occupancy) * onehot
+        counts = onehot.sum(dim=0)
+        if ranks > 1:
+            every = tp.gather_data_ranks(counts.detach(), ctx)  # [ranks, E], dp-major
+            before, counts = every[:ctx.data_rank].sum(dim=0), every.sum(dim=0)
+            position = (torch.cumsum(onehot, dim=0) - 1.0 + occupancy + before) * onehot
+        else:
+            position = (torch.cumsum(onehot, dim=0) - 1.0 + occupancy) * onehot
         pos_idx = position.sum(dim=-1).to(torch.int32)
         keep = pos_idx < capacity
         # A slot index past the capacity matches no slot: an all-zero row,
         # as jax.nn.one_hot gives it.
         slot = (pos_idx[:, None] == slots).to(probs.dtype)
         combine = combine + (gate * keep)[:, None, None] * onehot[:, :, None] * slot[:, None, :]
-        occupancy = occupancy + onehot.sum(dim=0)
+        occupancy = occupancy + counts
         remaining = remaining * (1.0 - onehot)
     return combine
 
@@ -348,19 +364,20 @@ def _moe_mlp(h: torch.Tensor, layer: dict, config: TransformerConfig) -> torch.T
     SwiGLU on its capacity slots, and the combine, cast to the model dtype,
     weighs the experts' outputs back into the tokens.
 
-    Refused in a sharded step with more than one data rank or with tp or ep
-    above 1: the reference's capacity and slot order run over the global
-    tokens, which per-rank routing would not reproduce."""
+    In a sharded step the routing runs over the global token order across
+    the data ranks (``_moe_combine``); dispatch, the experts' products and
+    the combine stay local, and the experts' gradients are reduced over the
+    data axes by the step. Refused with tp or ep above 1: the experts would
+    be split across ranks (ROADMAP Queue A item 4b, expert parallelism)."""
     ctx = tp.current()
-    if ctx is not None and (ctx.data_ranks > 1 or ctx.size > 1 or ctx.ep > 1):
+    if ctx is not None and (ctx.size > 1 or ctx.ep > 1):
         raise NotImplementedError(
-            f"MoE under sharding (data ranks {ctx.data_ranks}, tp {ctx.size}, ep {ctx.ep}): "
-            "the reference routes over the global token order, which needs the per-expert "
-            "counts gathered across data ranks (ROADMAP Queue A item 3a)"
+            f"MoE under tensor or expert parallelism (tp {ctx.size}, ep {ctx.ep}): the "
+            "experts' split across ranks is expert parallelism (ROADMAP Queue A item 4b)"
         )
     batch, seq, d = h.shape
     ht = h.reshape(batch * seq, d)
-    combine = _moe_combine(ht, layer["router"], config.moe)
+    combine = _moe_combine(ht, layer["router"], config.moe, ctx)
     dispatch = (combine > 0).to(h.dtype)  # [T, E, C]
     expert_in = torch.einsum("tec,td->ecd", dispatch, ht)  # [E, C, D]
     gate = torch.einsum("ecd,edm->ecm", expert_in, layer["w_gate"]).to(h.dtype)
@@ -410,13 +427,21 @@ def logits_loss(
     logits: torch.Tensor, targets, mask: torch.Tensor | None = None
 ) -> torch.Tensor:
     """Token cross-entropy from logits [..., vocab]: the mean over tokens,
-    or over the tokens where ``mask`` is set. f32 log-softmax."""
+    or over the tokens where ``mask`` is set. f32 log-softmax.
+
+    Inside a sharded step with more than one data rank, the masked mean is
+    the reference's over the global batch: this rank's ``sum(nll * mask)``
+    over the mask's count summed across the data ranks, clamped at 1, times
+    the data ranks. The step averages every loss over the data ranks, so
+    that this term's mean is the global masked mean, and a term added to
+    it (a regulariser, an auxiliary loss) keeps its own mean."""
     logp = torch.log_softmax(logits.float(), dim=-1)
     targets = torch.as_tensor(targets, device=logits.device).long()
     nll = -logp.gather(-1, targets.unsqueeze(-1)).squeeze(-1)
     if mask is not None:
         mask = torch.as_tensor(mask, device=logits.device).to(nll.dtype)
-        return (nll * mask).sum() / mask.sum().clamp_min(1.0)
+        count, ranks = tp.data_rank_sum(mask.sum().detach())
+        return (nll * mask).sum() * ranks / count.clamp_min(1.0)
     return nll.mean()
 
 

@@ -397,7 +397,8 @@ int dispatch(const Args& a, int head_dim, int dtype) {
 
 // q, o, dout, dq: contiguous [bh, seq_q, head_dim]; k, v: [bh, seq_k,
 // head_dim]; all of one type (dtype a dtype_codes.cuh code), 16-byte
-// aligned; head_dim 16, 32, 64, 128 or 256. lse (in) and delta (out): f32 [bh, seq_q]. Writes dQ, delta =
+// aligned; head_dim 16, 32, 64, 128 or 256, or a multiple of 128 above 256
+// (flash_attention_wide.cu). lse (in) and delta (out): f32 [bh, seq_q]. Writes dQ, delta =
 // rowsum(dout * o) and the route it took to *route (kRouteMmaSync or
 // kRouteWgmma). Launches on `stream` and returns the launch's cudaError_t.
 extern "C" int rt_flash_bwd_dq(const void* q, const void* k, const void* v, const void* o,
@@ -406,6 +407,11 @@ extern "C" int rt_flash_bwd_dq(const void* q, const void* k, const void* v, cons
                                float scale, int* route, void* stream) {
   const Args a{q, k, v, o, dout, lse, delta, dq, nullptr, nullptr,
                bh, seq_q, seq_k, causal, scale, static_cast<cudaStream_t>(stream), route};
+  if (head_dim > 256 && bh > 0 && seq_q > 0 && seq_k > 0) {
+    *route = kRouteMmaSync;
+    return flash_bwd_dq_wide(q, k, v, o, dout, lse, delta, dq, bh, seq_q, seq_k, head_dim, dtype,
+                             causal, scale, a.stream);
+  }
   return dispatch<true>(a, head_dim, dtype);
 }
 
@@ -418,5 +424,10 @@ extern "C" int rt_flash_bwd_dkv(const void* q, const void* k, const void* v, con
                                 float scale, int* route, void* stream) {
   const Args a{q, k, v, nullptr, dout, lse, const_cast<void*>(delta), nullptr, dk, dv,
                bh, seq_q, seq_k, causal, scale, static_cast<cudaStream_t>(stream), route};
+  if (head_dim > 256 && bh > 0 && seq_q > 0 && seq_k > 0) {
+    *route = kRouteMmaSync;
+    return flash_bwd_dkv_wide(q, k, v, dout, lse, delta, dk, dv, bh, seq_q, seq_k, head_dim,
+                              dtype, causal, scale, a.stream);
+  }
   return dispatch<false>(a, head_dim, dtype);
 }

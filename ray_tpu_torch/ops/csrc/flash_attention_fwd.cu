@@ -225,7 +225,8 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, void* o, void*
 }  // namespace
 
 // q, k, v, o: contiguous [bh, seq, head_dim] of one type (dtype a
-// dtype_codes.cuh code), 16-byte aligned; head_dim 16, 32, 64, 128 or 256; lse: f32
+// dtype_codes.cuh code), 16-byte aligned; head_dim 16, 32, 64, 128 or 256,
+// or a multiple of 128 above 256 (flash_attention_wide.cu); lse: f32
 // [bh, seq_q]. Launches on `stream`, writes the route it took to *route
 // (kRouteMmaSync or kRouteWgmma) and returns the launch's cudaError_t.
 extern "C" int rt_flash_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
@@ -233,6 +234,10 @@ extern "C" int rt_flash_fwd(const void* q, const void* k, const void* v, void* o
                             float scale, int* route, void* stream) {
   if (bh <= 0 || seq_q <= 0 || seq_k <= 0) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (head_dim > 256) {
+    *route = kRouteMmaSync;
+    return flash_fwd_wide(q, k, v, o, lse, bh, seq_q, seq_k, head_dim, dtype, causal, scale, s);
+  }
   switch (dtype) {
     case kDtypeF32:
       return dispatch<float>(q, k, v, o, lse, bh, seq_q, seq_k, head_dim, causal, scale, route,

@@ -236,7 +236,8 @@ __device__ __forceinline__ void pv_tile(float (&o)[D / 8][4], const float* sP, c
 // rt_flash_bwd_dq and rt_flash_bwd_dkv (flash_fwd_wgmma.cu,
 // flash_bwd_dq_wgmma.cu, flash_bwd_dkv_wgmma.cu); the kernels of this header
 // serve f32 and f16 at head_dim 16, 32, 64, 128 and 256 and bf16 at 16,
-// 32, 64 and 256. Arguments as those entry points
+// 32, 64 and 256, and flash_attention_wide.cu's every dtype above 256.
+// Arguments as those entry points
 // take them. The entry points report the route they launched in `*route`,
 // and the Python wrappers count launches by what they report.
 constexpr int kRouteMmaSync = 0;
@@ -252,6 +253,22 @@ cudaError_t flash_bwd_dkv_wgmma(const void* q, const void* k, const void* v, con
                                 const void* lse, const void* delta, void* dk, void* dv, int bh,
                                 int seq_q, int seq_k, int causal, float scale,
                                 cudaStream_t stream);
+
+// Head_dims above 256, a multiple of 128 (flash_attention_wide.cu): every
+// dtype on the mma.sync route, a block per 128-column slice of the output.
+// The entry points send any head_dim above 256 here; dtype is a
+// dtype_codes.cuh code.
+cudaError_t flash_fwd_wide(const void* q, const void* k, const void* v, void* o, void* lse,
+                           int bh, int seq_q, int seq_k, int head_dim, int dtype, int causal,
+                           float scale, cudaStream_t stream);
+cudaError_t flash_bwd_dq_wide(const void* q, const void* k, const void* v, const void* o,
+                              const void* dout, const void* lse, void* delta, void* dq, int bh,
+                              int seq_q, int seq_k, int head_dim, int dtype, int causal,
+                              float scale, cudaStream_t stream);
+cudaError_t flash_bwd_dkv_wide(const void* q, const void* k, const void* v, const void* dout,
+                               const void* lse, const void* delta, void* dk, void* dv, int bh,
+                               int seq_q, int seq_k, int head_dim, int dtype, int causal,
+                               float scale, cudaStream_t stream);
 
 // Stores this warp's accumulator rows (16 of them from row0) of a
 // [seq, D] output with row stride kStride (D unless given: a column block

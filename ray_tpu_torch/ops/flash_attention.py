@@ -7,16 +7,18 @@ Two routes, chosen by (dtype, head_dim) in the C entry points: bf16 at
 head_dim 128, every shape the model gives the kernels, takes the forward,
 dQ and dK/dV kernels built on TMA and ``wgmma``; f32, bf16 and f16 at
 head_dim 16, 32, 64 and 256, and f32 and f16 at 128, take the ``mma.sync``
-kernels (at 256 each block computes half of the output's columns). The
-kernels are built for head_dim 16, 32, 64, 128 and 256; any other head_dim
-up to 256 is zero-padded on the last axis to the next of those
-(``padded_head_dim``), run with the scale of the true head_dim and sliced
-back. That is exact: zero columns add nothing to Q K^T, to rowsum(dO * O)
-or to dP, and give zero columns of O, dQ, dK and dV. A head_dim over 256
-raises. The entry points report the route they launched and the wrappers
-count launches by it; ``kernel_route`` states the rule, and
-``chip_smoke.py`` holds every reported route against it. A launch error on
-either route raises.
+kernels (at 256 each block computes half of the output's columns), and so
+does every dtype at a head_dim above 256 (``flash_attention_wide.cu``: a
+block per 128-column slice of the output, the scores summed over the head
+in 128-column chunks). The kernels are built for head_dim 16, 32, 64, 128
+and 256 and for every multiple of 128 above 256; any other head_dim is
+zero-padded on the last axis to the next of those (``padded_head_dim``),
+run with the scale of the true head_dim and sliced back. That is exact:
+zero columns add nothing to Q K^T, to rowsum(dO * O) or to dP, and give
+zero columns of O, dQ, dK and dV. The entry points report the route they
+launched and the wrappers count launches by it; ``kernel_route`` states
+the rule, and ``chip_smoke.py`` holds every reported route against it. A
+launch error on either route raises.
 
 ``flash_attention`` is differentiable through ``_FlashAttention``, the
 counterpart of the JAX package's ``_flash_vjp``: the forward saves
@@ -43,21 +45,22 @@ import torch.nn.functional as F
 from ray_tpu_torch import _build
 
 _NEG_INF = -1e30
-# The head_dims the kernels are built for.
+# The head_dims up to 256 the kernels are built for; above 256 every
+# multiple of _WIDE_STEP.
 _KERNEL_HEAD_DIMS = (16, 32, 64, 128, 256)
+_WIDE_STEP = 128
 
 
 def padded_head_dim(head_dim: int) -> int:
     """The head_dim the kernels run ``head_dim`` at: the least built size
-    (16, 32, 64, 128 or 256) that holds it. Raises above 256 (ROADMAP
-    Queue C item 1)."""
+    (16, 32, 64, 128 or 256, or a multiple of 128 above 256) that holds
+    it."""
+    if head_dim <= 0:
+        raise ValueError(f"flash kernels take a positive head_dim, got {head_dim}")
     for size in _KERNEL_HEAD_DIMS:
-        if 0 < head_dim <= size:
+        if head_dim <= size:
             return size
-    raise ValueError(
-        f"flash kernels take head_dim 1 to {_KERNEL_HEAD_DIMS[-1]}, got {head_dim}: "
-        "no kernel is built for a wider head (ROADMAP Queue C item 1)"
-    )
+    return -(-head_dim // _WIDE_STEP) * _WIDE_STEP
 
 
 def _pad_head(t: torch.Tensor, size: int) -> torch.Tensor:
@@ -70,7 +73,7 @@ def kernel_route(dtype: torch.dtype, head_dim: int) -> str:
     """Which kernels ``rt_flash_fwd``, ``rt_flash_bwd_dq`` and
     ``rt_flash_bwd_dkv`` launch for inputs of this dtype and head_dim:
     "wgmma" (TMA and wgmma) for bf16 at a padded head_dim of 128, else
-    "mma_sync" (bf16 at 256 included)."""
+    "mma_sync" (bf16 at 256 and above included)."""
     size = padded_head_dim(head_dim)
     return "wgmma" if dtype == torch.bfloat16 and size == 128 else "mma_sync"
 

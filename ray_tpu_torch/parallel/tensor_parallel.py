@@ -44,18 +44,23 @@ def reset_calls() -> None:
         calls[axis] = 0
 
 
-@dataclasses.dataclass(frozen=True)
+@dataclasses.dataclass
 class TPContext:
     """What the blocks need of the sharded step's mesh: the tp group (None
     on a mesh without a tp axis: the pieces are then identities), this
-    rank's place in it, and the sizes the MoE block refuses (ROADMAP Queue
-    A item 3a)."""
+    rank's place in it, the data axes (dp, fsdp) as one group of
+    ``data_ranks`` ranks with this rank's index in their dp-major order
+    (the MoE routing and the masked loss run over the global batch across
+    them), and ep, which the MoE block refuses above 1 (ROADMAP Queue A
+    item 4b)."""
 
     group: Any
     rank: int
     size: int
     data_ranks: int = 1
     ep: int = 1
+    data_group: Any = None
+    data_rank: int = 0
 
 
 _CURRENT: contextvars.ContextVar[TPContext | None] = contextvars.ContextVar(
@@ -122,6 +127,32 @@ class _Gather(torch.autograd.Function):
     def backward(ctx, dy):
         lo = ctx.rank * ctx.width
         return dy[..., lo:lo + ctx.width].contiguous(), None, None, None
+
+
+def gather_data_ranks(x: torch.Tensor, ctx: TPContext) -> torch.Tensor:
+    """Every data rank's ``x`` stacked in dp-major order, [data_ranks,
+    *x.shape]; no gradient flows back."""
+    import torch.distributed as dist
+
+    parts = [torch.empty_like(x) for _ in range(ctx.data_ranks)]
+    dist.all_gather(parts, x.contiguous(), group=ctx.data_group)
+    calls["dp"] += 1
+    return torch.stack(parts)
+
+
+def data_rank_sum(x: torch.Tensor) -> tuple[torch.Tensor, int]:
+    """(``x`` summed over the data ranks of the active context, their
+    count); (x, 1) where there is one data rank or no context. No gradient
+    flows back."""
+    ctx = current()
+    if ctx is None or ctx.data_ranks == 1:
+        return x, 1
+    import torch.distributed as dist
+
+    out = x.detach().clone()
+    dist.all_reduce(out, group=ctx.data_group)
+    calls["dp"] += 1
+    return out, ctx.data_ranks
 
 
 def copy(x: torch.Tensor) -> torch.Tensor:

@@ -22,10 +22,13 @@ gradients back to the storage placements: summed over dp, reduce-scattered
 over fsdp. The optimizer, built over the DTensor leaves, keeps its state
 in the params' placements and steps each rank's shards.
 
-Out of this slice (ROADMAP Queue A items 3a and 4): the split
-fwd/bwd/grad_sync/opt step over a collective group (``group_name``), the
-sharded checkpoint, the train session's mesh, and MoE on a mesh with more
-than one data rank or with ep or tp above 1; each raises.
+Also here: the split fwd/bwd/grad_sync/opt step across a collective
+group (``build_sharded_train_step(group_name=...)``) with the gradient
+syncs it runs on (``sync_gradients``, ``begin_gradient_sync``,
+``sync_gradients_sharded``, ``grad_psum``), the sharded state's
+checkpoint (``save_sharded_state``, ``restore_sharded_state``) and the
+train session's mesh. MoE with ep or tp above 1 raises (ROADMAP Queue A
+item 4b).
 """
 
 from __future__ import annotations
@@ -33,6 +36,7 @@ from __future__ import annotations
 import dataclasses
 import logging
 import os
+import time
 from typing import Any, Callable, Iterable, Iterator
 
 import numpy as np
@@ -140,6 +144,18 @@ def build_mesh(axes: dict[str, int] | None = None, device=None):
     1-D "dp" mesh over every rank. (The JAX package's ``topology=`` for
     multi-slice meshes waits for ROADMAP Queue A item 5.)"""
     return MeshSpec(dict(axes) if axes else {"dp": _world_size()}).build(device)
+
+
+def _session_mesh(device=None):
+    """The mesh of the active train session's ``mesh_axes`` on the worker's
+    device (every rank on "dp" when it names none), or ``build_mesh()``
+    outside a session."""
+    from ray_tpu_torch.train import session
+
+    if session.in_session():
+        ctx = session.get_context()
+        return build_mesh(dict(ctx.mesh or {}), device or ctx.device or None)
+    return build_mesh(None, device)
 
 
 def _device_of(mesh) -> torch.device:
@@ -277,8 +293,9 @@ def setup_sharded_training(
     ``eval_shape``, so the plan calls it on "meta"). ``optimizer(params)``
     builds the optimizer over the tree's leaves, as ``train.step.
     make_optimizer`` does. ``mesh``: a DeviceMesh, a MeshSpec (built here,
-    on the card) or None (every rank on "dp", on the card). The flow is
-    plan before materialize:
+    on the card) or None: the train session's mesh on the worker's device,
+    or outside a session every rank on "dp", on the card. The flow is plan
+    before materialize:
 
       1. ``init_fn("meta")``: shapes only;
       2. per-leaf shardings from ``auto_shard_specs``;
@@ -292,7 +309,7 @@ def setup_sharded_training(
          placements.
     """
     if mesh is None:
-        mesh = build_mesh()
+        mesh = _session_mesh()
     _, shardings, estimate = plan_sharded_training(
         init_fn, mesh=mesh, logical_dims=logical_dims, rules=rules, fsdp_axis=fsdp_axis,
         enforce_budget=enforce_budget)
@@ -311,6 +328,28 @@ def setup_sharded_training(
         factorization=mesh_factorization(mesh),
         state_bytes_per_device=estimate,
     )
+
+
+def _data_group(mesh, data_axes: list[str]):
+    """One process group over the data axes of ``mesh`` (dp and fsdp), its
+    ranks in dp-major order: the axis's own group when only one is there;
+    otherwise every rank creates one group per slice of the other axes (as
+    ``new_group`` needs) and keeps its own."""
+    import torch.distributed as dist
+
+    if len(data_axes) == 1:
+        return mesh.get_group(data_axes[0])
+    names = list(mesh.mesh_dim_names)
+    data_dims = [names.index(a) for a in data_axes]
+    others = [i for i in range(len(names)) if i not in data_dims]
+    slices = mesh.mesh.permute(others + data_dims).reshape(-1, int(np.prod(
+        [mesh.size(d) for d in data_dims])))
+    mine, me = None, dist.get_rank()
+    for ranks in slices.tolist():
+        group = dist.new_group(ranks)
+        if me in ranks:
+            mine = group
+    return mine
 
 
 def _compute_placements(leaf, names: tuple[str, ...]) -> tuple[tuple, tuple]:
@@ -345,45 +384,71 @@ def build_sharded_train_step(
     host tensors (the same on every rank), which the step splits over the
     data axes; its leading dim must divide by the data ranks. ``loss_fn``
     sees this rank's part of the batch and the params gathered for
-    compute, and must be a mean over equal-weight examples: the local loss
-    is scaled by 1 / (dp x fsdp) before the backward, so that the gradients
-    summed over the data ranks are those of the global mean. JAX's
-    ``optimizer`` argument is not taken: ``setup.opt_state`` is the torch
-    optimizer and carries its own update.
+    compute. The user's loss stays opaque, as in JAX; GSPMD computes it
+    over the global batch. The step takes the mean of the ranks' losses:
+    each is scaled by 1 / (dp x fsdp) before the backward, so that the
+    gradients summed over the data ranks are those of that mean. It equals
+    the reference's loss in two cases, and in any sum of them:
 
-    ``group_name`` (the split step across a collective group) raises: it
-    needs the port's collective group (ROADMAP Queue A item 4).
+      * a loss that is a mean over equal-weight examples (an unmasked
+        ``loss_fn``), or a term that is the same on every rank (a
+        regulariser of the params). Exact for the even local batches
+        ``shard_batch`` makes;
+      * the masked ``logits_loss`` (``loss_fn(..., mask=)``): it reads the
+        step's context and returns this rank's ``sum(nll * mask)`` over
+        the mask's count summed across the data ranks, clamped at 1, times
+        the data ranks; the mean over the ranks is then the reference's
+        ``jnp.sum(nll * mask) / jnp.maximum(jnp.sum(mask), 1.0)`` over the
+        global batch, also where the masks' counts differ across ranks.
+
+    A user's own loss that weighs the ranks' examples unevenly (a masked
+    mean of its own) gets the mean of the ranks' values, which is not the
+    reference's. The MoE block routes over the global token order the same
+    way (``models.transformer._moe_combine``). JAX's ``optimizer`` argument is
+    not taken: ``setup.opt_state`` is the torch optimizer and carries its
+    own update.
+
+    ``group_name`` names a collective group of this process's gang
+    (``util.collective``): the step then runs JAX's split form across the
+    group's workers (``_split_step``).
     """
     import torch.distributed as dist
     from torch.distributed.tensor import DTensor
 
-    if group_name is not None:
-        raise NotImplementedError(
-            "the split fwd/bwd/grad_sync/opt step over a collective group needs the port's "
-            "collective group (ROADMAP Queue A item 4)"
-        )
     mesh = setup.mesh
+
+    def local_batch(x):
+        if not isinstance(x, DTensor):
+            x = mesh_mod.shard_batch(x, mesh)
+        return x.to_local()
+
+    if group_name is not None:
+        from ray_tpu_torch.util import collective
+
+        if collective.get_group(group_name).world_size > 1:
+            return _split_step(loss_fn, setup, group_name, local_batch)
     axes = mesh_axes(mesh)
     names = tuple(axes)
     data_axes = [a for a in _DATA_AXES if a in axes]
     data_ranks = int(np.prod([axes[a] for a in data_axes], dtype=np.int64))
+    data_rank = 0
+    for axis in data_axes:  # this rank's index in the dp-major order
+        data_rank = data_rank * axes[axis] + mesh.get_local_rank(axis)
     ctx = tp.TPContext(
         group=mesh.get_group("tp") if "tp" in axes else None,
         rank=mesh.get_local_rank("tp") if "tp" in axes else 0,
         size=axes.get("tp", 1),
         data_ranks=data_ranks,
         ep=axes.get("ep", 1),
+        data_group=_data_group(mesh, data_axes) if data_ranks > 1 else None,
+        data_rank=data_rank,
     )
+
     def gather(leaf):
         compute, grad = _compute_placements(leaf, names)
         for axis in data_axes:  # the gather, or the gradient's reduction, over axis
             tp.calls[axis] += 1
         return leaf.redistribute(mesh, compute).to_local(grad_placements=grad)
-
-    def local_batch(x):
-        if not isinstance(x, DTensor):
-            x = mesh_mod.shard_batch(x, mesh)
-        return x.to_local()
 
     def step(params, opt_state, batch):
         local = tree_map(gather, params)
@@ -399,3 +464,254 @@ def build_sharded_train_step(
         return params, opt_state, mean / data_ranks
 
     return step
+
+
+def _split_step(loss_fn, setup: ShardedTrainSetup, group_name: str,
+                local_batch: Callable) -> Callable:
+    """JAX's split form across a collective group (``jax_utils.py``'s
+    ``build_sharded_train_step`` with ``group_name``): forward, backward,
+    an eager gradient mean through the group, then the optimizer, each a
+    phase whose seconds (the device synchronized at its end) land in
+    ``step.stats``. The group's workers are the mesh's data ranks: the
+    mesh must be dp over exactly them, its leaves replicated, so that each
+    rank's gradient is whole before the sync.
+
+    As in the reference, where each worker owns a private mesh, the loss
+    is this worker's over its part of the batch alone (a masked mean over
+    its own mask, MoE routed over its own tokens), the update takes the
+    mean of the workers' gradients, and the step returns this worker's
+    loss."""
+    from ray_tpu_torch.util import collective
+
+    group = collective.get_group(group_name)
+    axes = mesh_axes(setup.mesh)
+    if axes.get("dp", 1) != group.world_size or any(
+            n > 1 for a, n in axes.items() if a != "dp"):
+        raise NotImplementedError(
+            f"the split step syncs whole gradients over group {group_name!r} of "
+            f"{group.world_size} workers: it takes a mesh of dp {group.world_size} only, "
+            f"got {axes}")
+    leaves = [leaf for _, leaf in tree_leaves(setup.params)]
+    ctx = tp.TPContext(group=None, rank=0, size=1)  # the worker's own mesh
+
+    def sync_device():
+        if setup.mesh.device_type == "cuda":
+            torch.cuda.synchronize()
+
+    def step(params, opt_state, batch):
+        t0 = time.perf_counter()
+        local = tree_map(lambda leaf: leaf.to_local(), params)
+        with tp.tensor_parallel(ctx):
+            loss = loss_fn(local, tree_map(local_batch, batch))
+        sync_device()
+        t1 = time.perf_counter()
+        loss.backward()
+        sync_device()
+        t2 = time.perf_counter()
+        grads = [leaf.grad.to_local() for leaf in leaves]
+        for grad, synced in zip(grads, sync_gradients(grads, group_name)):
+            grad.copy_(synced)
+        sync_device()
+        t3 = time.perf_counter()
+        opt_state.step()
+        opt_state.zero_grad(set_to_none=True)
+        sync_device()
+        t4 = time.perf_counter()
+        step.stats = {"fwd_s": t1 - t0, "bwd_s": t2 - t1, "grad_sync_s": t3 - t2,
+                      "opt_s": t4 - t3}
+        return params, opt_state, loss.detach()
+
+    step.stats = {}
+    return step
+
+
+# ---------------------------------------------------------------------------
+# Gradient syncs across a collective group (ray_tpu/train/jax_utils.py)
+# ---------------------------------------------------------------------------
+
+# Payload of one bucket of an overlapped sync, as the reference's default.
+DEFAULT_BUCKET_BYTES = 25 * 1024 * 1024
+
+
+def _flat(leaves: list[torch.Tensor]) -> torch.Tensor:
+    return torch.cat([leaf.detach().float().reshape(-1) for leaf in leaves])
+
+
+def _unflat(flat: torch.Tensor, leaves: list[torch.Tensor]) -> list[torch.Tensor]:
+    out, offset = [], 0
+    for leaf in leaves:
+        n = leaf.numel()
+        out.append(flat[offset:offset + n].reshape(leaf.shape).to(leaf.dtype))
+        offset += n
+    return out
+
+
+def _tree_leaves_list(tree: Any) -> tuple[list, Callable[[list], Any]]:
+    """A tree's leaves and the function that rebuilds the tree from new
+    ones (a list of tensors is its own tree)."""
+    if isinstance(tree, list):
+        return list(tree), list
+    paths = [path for path, _ in tree_leaves(tree)]
+    return ([leaf for _, leaf in tree_leaves(tree)],
+            lambda values: _rebuild(tree, dict(zip(paths, values))))
+
+
+def _rebuild(tree: Any, found: dict, path: tuple = ()) -> Any:
+    if isinstance(tree, dict):
+        return {k: _rebuild(v, found, path + (k,)) for k, v in tree.items()}
+    return found[path]
+
+
+def sync_gradients(grads: Any, group_name: str) -> Any:
+    """The mean of ``grads`` (a dict tree or a list of tensors) across the
+    group's workers: one all-reduce of the leaves flattened in f32, each
+    leaf cast back to its dtype. A group of one returns ``grads``."""
+    from ray_tpu_torch.util import collective
+
+    group = collective.get_group(group_name)
+    if group.world_size == 1:
+        return grads
+    leaves, rebuild = _tree_leaves_list(grads)
+    flat = group.allreduce(_flat(leaves)) / group.world_size
+    return rebuild(_unflat(flat, leaves))
+
+
+class GradientSyncHandle:
+    """An in-flight overlapped gradient sync (``begin_gradient_sync``)."""
+
+    def __init__(self, works, buckets, leaves, rebuild, denom, launch_s):
+        self._works, self._buckets, self._leaves = works, buckets, leaves
+        self._rebuild, self._denom = rebuild, denom
+        self.stats: dict[str, float] = {"buckets": len(buckets), "launch_s": launch_s}
+
+    def result(self) -> Any:
+        """Fence: waits for every bucket, records the wait as the exposed
+        communication time, and returns the mean gradient tree."""
+        start = time.perf_counter()
+        for work in self._works:
+            if work is not None:
+                work.wait()
+        if self._buckets and self._buckets[0][1].device.type == "cuda":
+            torch.cuda.current_stream().synchronize()
+        self.stats["comm_exposed_s"] = time.perf_counter() - start
+        out: list = [None] * len(self._leaves)
+        for indices, flat in self._buckets:
+            chunk = [self._leaves[i] for i in indices]
+            for i, value in zip(indices, _unflat(flat / self._denom, chunk)):
+                out[i] = value
+        return self._rebuild(out)
+
+
+def begin_gradient_sync(grads: Any, group_name: str, *,
+                        bucket_bytes: int | None = None) -> GradientSyncHandle:
+    """Launches a bucketed, asynchronous gradient mean of ``grads`` (a dict
+    tree or a list of tensors) and returns at once. The port runs one
+    process a device, so where the reference takes one tree per local
+    device, this takes the process's one tree. Its leaves are split into
+    buckets of about ``bucket_bytes`` of f32, in reverse leaf order (the
+    last layers' gradients, which the backward makes first, go first),
+    each an all-reduce with ``async_op=True``. ``handle.result()``
+    fences."""
+    import torch.distributed as dist
+
+    from ray_tpu_torch.util import collective
+
+    group = collective.get_group(group_name)
+    start = time.perf_counter()
+    leaves, rebuild = _tree_leaves_list(grads)
+    limit = (bucket_bytes or DEFAULT_BUCKET_BYTES) // 4
+    buckets, current, size = [], [], 0
+    for i in reversed(range(len(leaves))):
+        current.append(i)
+        size += leaves[i].numel()
+        if size >= limit:
+            buckets.append(current)
+            current, size = [], 0
+    if current:
+        buckets.append(current)
+    works, flats = [], []
+    for indices in buckets:
+        flat = _flat([leaves[i] for i in indices]).to(group.device)
+        works.append(dist.all_reduce(flat, async_op=True) if group.world_size > 1 else None)
+        flats.append((indices, flat))
+    return GradientSyncHandle(works, flats, leaves, rebuild, group.world_size,
+                              time.perf_counter() - start)
+
+
+def sync_gradients_sharded(grads: Any, group_name: str, *, overlap: bool = False,
+                           bucket_bytes: int | None = None) -> Any:
+    """The mean of ``grads`` over the group's workers (one tree: one process
+    a device): ``sync_gradients``, or with ``overlap=True`` the bucketed
+    asynchronous path, fenced before returning."""
+    if overlap:
+        return begin_gradient_sync(grads, group_name, bucket_bytes=bucket_bytes).result()
+    return sync_gradients(grads, group_name)
+
+
+def grad_psum(x: torch.Tensor, axis: str = "dp", *, mesh=None) -> torch.Tensor:
+    """``x`` summed over the ranks of ``mesh``'s ``axis`` (every rank of the
+    process group when no mesh is given): the in-step gradient reduce. The
+    reference's multi-slice ``topology`` waits for ROADMAP Queue A item 5."""
+    import torch.distributed as dist
+
+    out = x.detach().clone()
+    if mesh is not None and axis not in mesh_axes(mesh):
+        return out
+    dist.all_reduce(out, group=mesh.get_group(axis) if mesh is not None else None)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# The sharded state's checkpoint (ray_tpu/train/jax_utils.py)
+# ---------------------------------------------------------------------------
+
+
+def save_sharded_state(params: Any, opt_state: torch.optim.Optimizer, *,
+                       extra: dict | None = None):
+    """Persists {"params", "opt_state"} as one checkpoint (``train.
+    checkpoint``'s two-phase format): each leaf's shards with their global
+    index, the optimizer's state under optax's key paths
+    (``models.convert.optax_adam_state``), so that
+    ``restore_sharded_state`` places the state onto any (dp, fsdp, tp)
+    factorization, and the JAX package reads it. Returns the Checkpoint."""
+    from ray_tpu_torch.models import convert
+    from ray_tpu_torch.train.checkpoint import save_pytree_checkpoint
+
+    return save_pytree_checkpoint(
+        {"params": params, "opt_state": convert.optax_adam_state(opt_state, params)},
+        extra=extra)
+
+
+def restore_sharded_state(checkpoint, setup: ShardedTrainSetup) -> tuple[Any, Any, dict]:
+    """Loads a checkpoint onto ``setup``'s mesh, whatever factorization
+    wrote it (dp 4 restores onto dp 2 x fsdp 2): each rank copies its
+    shard of every parameter into ``setup.params`` in place (the optimizer
+    holds those tensors) and sets the optimizer's step and moments,
+    placed like their parameters. Returns (params, opt_state, extra)."""
+    from torch.distributed.tensor import DTensor
+
+    from ray_tpu_torch.models import convert
+    from ray_tpu_torch.train.checkpoint import load_pytree_checkpoint
+
+    template = {"params": setup.params,
+                "opt_state": convert.optax_adam_template(setup.opt_state, setup.params)}
+    tree, extra = load_pytree_checkpoint(checkpoint, template)
+    sharding_of = {id(leaf): s for (_, leaf), (_, s) in
+                   zip(tree_leaves(setup.params), tree_leaves(setup.param_shardings))}
+    device = _device_of(setup.mesh)
+
+    def place(full: torch.Tensor, leaf) -> torch.Tensor:
+        full = full.to(device=device, dtype=leaf.dtype)
+        if isinstance(leaf, DTensor):
+            return _place(full, sharding_of[id(leaf)])
+        return full
+
+    with torch.no_grad():
+        for (_, leaf), (_, full) in zip(tree_leaves(setup.params), tree_leaves(tree["params"])):
+            shard = place(full, leaf)
+            if isinstance(leaf, DTensor):
+                leaf.to_local().copy_(shard.to_local())
+            else:
+                leaf.copy_(shard)
+    convert.load_optax_adam_state(setup.opt_state, setup.params, tree["opt_state"], place)
+    return setup.params, setup.opt_state, extra

@@ -1,0 +1,271 @@
+"""WorkerGang: an SPMD group of worker processes on one host, one a device.
+
+Port of ray_tpu's ``util/gang.py`` (``GangContext``, ``_GangMember``,
+``WorkerGang``) onto ``torch.multiprocessing`` (spawn). Each rank is a
+process; ``MASTER_ADDR`` / ``MASTER_PORT`` come from a free port on this
+host (the reference's ``coordinator="auto"``), each member calls
+``torch.distributed.init_process_group`` where the reference calls
+``jax.distributed.initialize`` (NCCL on the card, gloo on the CPU), then
+forms its collective group (``util.collective``). ``run``, ``run_async``,
+``rank_infos``, ``healthy`` and ``shutdown`` keep their meaning.
+
+The gang is the failure domain: one dead member wedges every member's
+collectives, so a member's death raises ``GangDiedError`` in the caller
+(the trainer restarts the whole gang from its checkpoint), and
+``shutdown`` reaps every process. The device probe is
+``torch.cuda.device_count()`` (the reference's
+``BackendExecutor._worker_local_devices``); a gang asking for more cards
+than the host has raises, as the reference's ``resources={"TPU": n}``
+request would not place. Out of this port: placement groups and gangs
+across hosts (ROADMAP Queue A item 4).
+"""
+
+from __future__ import annotations
+
+import os
+import socket
+import time
+import traceback
+from typing import Any, Callable, Sequence
+
+import torch
+
+
+class GangDiedError(RuntimeError):
+    """A gang member died, or the gang could not form."""
+
+
+class WorkerError(RuntimeError):
+    """A function a gang member ran raised; ``worker_traceback`` holds the
+    member's traceback."""
+
+    def __init__(self, rank: int, error: str, worker_traceback: str):
+        super().__init__(f"gang member rank={rank} raised {error}\n{worker_traceback}")
+        self.rank, self.worker_traceback = rank, worker_traceback
+
+
+class _Channel:
+    """A member's end of its pipe to the caller."""
+
+    def __init__(self, conn):
+        self._conn = conn
+
+    def send(self, message) -> None:
+        self._conn.send(message)
+
+    def recv(self):
+        return self._conn.recv()
+
+
+class GangContext:
+    """Handed to every function a gang runs: rank identity, the channel to
+    the caller, and scratch state that persists across run() calls on the
+    same member."""
+
+    def __init__(self, rank: int, world_size: int, group_name: str, node_id: str,
+                 channel: _Channel, device: torch.device):
+        self.rank = rank
+        self.world_size = world_size
+        self.group_name = group_name
+        self.node_id = node_id
+        self.channel = channel
+        self.device = device
+        self.state: dict[str, Any] = {}
+
+    def collective(self):
+        from ray_tpu_torch.util import collective
+
+        return collective.get_group(self.group_name)
+
+
+def _member_main(rank: int, world_size: int, group_name: str, backend: str,
+                 master_port: int, conn) -> None:
+    """A member process: join the process group and the collective group,
+    then run what the caller sends until it says stop."""
+    import torch.distributed as dist
+
+    from ray_tpu_torch.util import collective
+
+    channel = _Channel(conn)
+    try:
+        os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(master_port),
+                          RANK=str(rank), WORLD_SIZE=str(world_size), LOCAL_RANK=str(rank))
+        device = torch.device("cpu")
+        if backend == "nccl":
+            torch.cuda.set_device(rank)
+            device = torch.device("cuda", rank)
+        dist.init_process_group(backend, init_method="env://", rank=rank,
+                                world_size=world_size)
+        collective.init_collective_group(world_size, rank, backend=backend,
+                                         group_name=group_name)
+        ctx = GangContext(rank, world_size, group_name, socket.gethostname(), channel, device)
+        channel.send(("ready", {"rank": rank, "node_id": ctx.node_id, "pid": os.getpid(),
+                                "device": str(device)}))
+    except Exception as exc:
+        channel.send(("error", repr(exc), traceback.format_exc()))
+        return
+    try:
+        while True:
+            try:
+                message = channel.recv()
+            except EOFError:  # the caller closed the pipe
+                break
+            if message[0] == "stop":
+                break
+            _, fn, args, kwargs = message
+            try:
+                result = fn(ctx, *args, **kwargs)
+            except Exception as exc:
+                channel.send(("error", repr(exc), traceback.format_exc()))
+            else:
+                channel.send(("result", result))
+    finally:
+        collective.destroy_collective_group(group_name)
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _free_port() -> int:
+    probe = socket.socket()
+    probe.bind(("127.0.0.1", 0))
+    port = probe.getsockname()[1]
+    probe.close()
+    return port
+
+
+class WorkerGang:
+    """``num_workers`` member processes, one a card (``use_gpu``) or on the
+    CPU, sharing one process group and collective group ``group_name``."""
+
+    def __init__(self, num_workers: int, *, use_gpu: bool = True, group_name: str | None = None,
+                 ready_timeout: float = 300.0):
+        import torch.multiprocessing as mp
+
+        self.num_workers = int(num_workers)
+        self.group_name = group_name or f"gang-{os.urandom(4).hex()}"
+        self.backend = "nccl" if use_gpu else "gloo"
+        if use_gpu:
+            cards = torch.cuda.device_count()
+            if self.num_workers > cards:
+                raise ValueError(f"gang asks for {self.num_workers} GPUs, this host has {cards}")
+        ctx = mp.get_context("spawn")
+        port = _free_port()
+        self.members, self._conns, self._infos = [], [], []
+        for rank in range(self.num_workers):
+            parent, child = ctx.Pipe()
+            proc = ctx.Process(target=_member_main, name=f"{self.group_name}-rank{rank}",
+                               args=(rank, self.num_workers, self.group_name, self.backend,
+                                     port, child))
+            proc.start()
+            child.close()
+            self.members.append(proc)
+            self._conns.append(parent)
+        try:
+            for rank in range(self.num_workers):
+                kind, *body = self.recv(rank, timeout=ready_timeout)
+                if kind != "ready":
+                    raise GangDiedError(f"gang member rank={rank} failed to start: "
+                                        f"{body[0]}\n{body[1]}")
+                self._infos.append(body[0])
+        except (GangDiedError, TimeoutError) as exc:
+            self.shutdown()
+            raise GangDiedError(f"gang failed to start: {exc}") from exc
+
+    # -- messages ------------------------------------------------------------
+    def send(self, rank: int, message) -> None:
+        self._conns[rank].send(message)
+
+    def recv(self, rank: int, timeout: float | None = None):
+        """The next message from member ``rank``. Raises GangDiedError when
+        any member has died (the gang is the failure domain), TimeoutError
+        after ``timeout`` seconds."""
+        return self.recv_any([rank], timeout)[1]
+
+    def recv_any(self, ranks, timeout: float | None = None) -> tuple[int, Any]:
+        """(rank, message) of the first of ``ranks`` with a message, lowest
+        rank first. Raises as ``recv``."""
+        from multiprocessing.connection import wait
+
+        conns = [self._conns[r] for r in ranks]
+        deadline = None if timeout is None else time.monotonic() + timeout
+        while True:
+            for rank, conn in zip(ranks, conns):
+                if conn.poll():
+                    try:
+                        return rank, conn.recv()
+                    except EOFError:
+                        pass  # the member is gone; its exit code says how
+            dead = [(r, p.exitcode) for r, p in enumerate(self.members)
+                    if p.exitcode is not None]
+            if dead:
+                raise GangDiedError(
+                    "gang member died: " + ", ".join(f"rank={r} exit code {c}" for r, c in dead))
+            left = None if deadline is None else deadline - time.monotonic()
+            if left is not None and left <= 0:
+                raise TimeoutError(f"gang members {list(ranks)} sent nothing within {timeout} s")
+            wait(conns + [p.sentinel for p in self.members],
+                 timeout=None if left is None else min(left, 5.0))
+
+    # -- the reference's API -------------------------------------------------
+    def run_async(self, fn: Callable, per_rank_args: Sequence[tuple] | None = None,
+                  **kwargs) -> None:
+        """Sends fn(gang_ctx, *args, **kwargs) to every member; its results
+        (and any messages it sends first, such as a session's reports)
+        arrive through ``recv``."""
+        if per_rank_args is not None and len(per_rank_args) != self.num_workers:
+            raise ValueError(f"per_rank_args has {len(per_rank_args)} entries for "
+                             f"{self.num_workers} workers")
+        for rank in range(self.num_workers):
+            args = tuple(per_rank_args[rank]) if per_rank_args else ()
+            self.send(rank, ("run", fn, args, kwargs))
+
+    def run(self, fn: Callable, per_rank_args: Sequence[tuple] | None = None,
+            timeout: float | None = None, **kwargs) -> list:
+        """SPMD-executes fn(gang_ctx, *args, **kwargs) on every member and
+        returns the results in rank order. A member's exception raises
+        WorkerError; a member's death GangDiedError."""
+        self.run_async(fn, per_rank_args, **kwargs)
+        results = []
+        for rank in range(self.num_workers):
+            kind, *body = self.recv(rank, timeout=timeout)
+            if kind == "error":
+                raise WorkerError(rank, body[0], body[1])
+            if kind != "result":
+                raise RuntimeError(f"gang member rank={rank} sent {kind!r} during run()")
+            results.append(body[0])
+        return results
+
+    def died(self, within: float = 0.0) -> list[int]:
+        """The ranks whose process has exited, waiting up to ``within``
+        seconds for one to: a member's error can be the echo of a peer's
+        death (a collective whose other end is gone), which the dead
+        process's exit follows by moments."""
+        from multiprocessing.connection import wait
+
+        wait([p.sentinel for p in self.members], timeout=within)
+        return [r for r, p in enumerate(self.members) if p.exitcode is not None]
+
+    def rank_infos(self) -> list[dict]:
+        return list(self._infos)
+
+    def healthy(self) -> bool:
+        return all(p.is_alive() for p in self.members)
+
+    def shutdown(self, grace_s: float = 5.0) -> None:
+        """Asks every live member to stop, then kills what is left and
+        reaps every process."""
+        for rank, proc in enumerate(self.members):
+            if proc.is_alive():
+                try:
+                    self.send(rank, ("stop",))
+                except (BrokenPipeError, OSError):
+                    pass  # the member is already gone
+        deadline = time.monotonic() + grace_s
+        for proc in self.members:
+            proc.join(max(0.0, deadline - time.monotonic()))
+        for proc in self.members:
+            if proc.is_alive():
+                proc.kill()
+            proc.join()
+        for conn in self._conns:
+            conn.close()

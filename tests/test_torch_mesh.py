@@ -261,7 +261,8 @@ def test_build_mesh_and_the_batch_helpers(one_rank_group):
 def test_one_rank_sharded_step_is_the_train_step(one_rank_group):
     """On a one-rank mesh the sharded step runs the single-device step's
     ops, plus collectives of one rank: three steps give the same losses
-    and parameters, bitwise, and the tp and fsdp collectives are counted."""
+    and parameters, bitwise, and the tp and fsdp collectives are counted;
+    so does a fourth through a one-worker collective group."""
     config = pt.TransformerConfig.tiny()
     mesh = MeshSpec({"dp": 1, "fsdp": 1, "tp": 1}).build("cpu")
     setup = torch_utils.setup_sharded_training(
@@ -281,5 +282,19 @@ def test_one_rank_sharded_step_is_the_train_step(one_rank_group):
         assert tp.calls["tp"] > 0 and tp.calls["fsdp"] > 0
     for (name, got), (_, want) in zip(named_leaves(params), named_leaves(ref)):
         assert torch.equal(got.full_tensor(), want.detach()), name
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A item 4"):
+    # With a collective group of one worker the step is the fused one (the
+    # reference's split form runs across two or more workers); a group
+    # that was never formed raises.
+    from ray_tpu_torch.util import collective
+
+    collective.init_collective_group(1, 0, backend="gloo", group_name="g")
+    try:
+        step = torch_utils.build_sharded_train_step(
+            lambda p, tok: pt.loss_fn(p, tok[:, :-1], tok[:, 1:], config), setup,
+            group_name="g")
+        params, opt_state, loss = step(params, opt_state, setup.shard_batch(tokens))
+        assert torch.equal(loss, train_step(ref, optimizer, tokens, config))
+    finally:
+        collective.destroy_collective_group("g")
+    with pytest.raises(ValueError, match="not initialized"):
         torch_utils.build_sharded_train_step(lambda p, b: 0, setup, group_name="g")

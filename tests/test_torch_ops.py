@@ -270,13 +270,15 @@ def test_rmsnorm_gradients_match_jax(dtype, shape):
 @pytest.mark.parametrize(
     "head_dim,size",
     [(8, 16), (16, 16), (17, 32), (48, 64), (64, 64), (80, 128), (96, 128), (128, 128),
-     (129, 256), (192, 256), (256, 256)],
+     (129, 256), (192, 256), (256, 256), (257, 384), (320, 384), (384, 384), (512, 512),
+     (513, 640)],
 )
 def test_padded_head_dim(head_dim, size):
+    # Above 256 the kernels take every multiple of 128.
     assert port_flash.padded_head_dim(head_dim) == size
 
 
-@pytest.mark.parametrize("head_dim", [0, 257, 512])
+@pytest.mark.parametrize("head_dim", [0, -1, -256])
 def test_a_head_dim_no_kernel_holds_is_refused(head_dim):
     with pytest.raises(ValueError, match="head_dim"):
         port_flash.padded_head_dim(head_dim)
@@ -285,9 +287,10 @@ def test_a_head_dim_no_kernel_holds_is_refused(head_dim):
 @pytest.mark.parametrize(
     "head_dim,causal,seq_q,seq_k",
     [(8, True, 40, 56), (48, False, 33, 20), (80, True, 100, 160), (80, False, 100, 160),
-     (96, True, 70, 50), (192, True, 100, 160), (192, False, 70, 50)],
+     (96, True, 70, 50), (192, True, 100, 160), (192, False, 70, 50), (320, True, 100, 160),
+     (300, False, 70, 50)],
     ids=["d8_causal", "d48_full", "d80_causal", "d80_full", "d96_blind_rows", "d192_causal",
-         "d192_full"],
+         "d192_full", "d320_causal", "d300_blind_rows"],
 )
 def test_zero_padding_the_head_is_exact(head_dim, causal, seq_q, seq_k):
     """The kernels' wrappers run a head_dim they are not built for padded

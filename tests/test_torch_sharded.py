@@ -9,7 +9,8 @@ virtual CPU devices, from the same JAX init and batches:
     batch, as its ``_run_sharded`` takes them;
   * ``TransformerConfig.tiny()`` (4 heads over 2 kv heads): two Adam(1e-2)
     steps on fresh batches;
-  * an MoE config on {dp 2, fsdp 2}, which the port refuses.
+  * an MoE config on {fsdp 2, tp 2}, which the port refuses: expert
+    parallelism (MoE on data ranks: ``tests/test_torch_data_ranks.py``).
 
 On a machine with four cards, ``test_sharded_step_on_four_cards`` runs the
 same trajectories on NCCL ranks, one a card, against the single-device
@@ -134,7 +135,7 @@ def _moe_refusal():
     config = pt.TransformerConfig.tiny(moe=pt.MoEConfig(num_experts=4, top_k=2))
     setup = torch_utils.setup_sharded_training(
         lambda d: pt.init_params(config, 0, d), _optimizer("adam"),
-        mesh=MeshSpec({"dp": 2, "fsdp": 2}).build("cpu"),
+        mesh=MeshSpec({"fsdp": 2, "tp": 2}).build("cpu"),
         logical_dims=pt.param_logical_dims(config))
     step = torch_utils.build_sharded_train_step(
         lambda p, tok: pt.loss_fn(p, tok[:, :-1], tok[:, 1:], config), setup)
@@ -282,10 +283,13 @@ def test_sharded_trajectory_matches_jax(trajectories, kind, mesh):
 
 
 def test_moe_on_data_ranks_is_refused(trajectories):
+    # MoE on data ranks trains (tests/test_torch_data_ranks.py); beside tp
+    # it is refused, since the experts would be split across ranks: expert
+    # parallelism.
     port_results, _, _ = trajectories
     moe = port_results["moe"]
     assert moe["raised"] == "NotImplementedError"
-    assert "ROADMAP Queue A item 3a" in moe["message"]
+    assert "ROADMAP Queue A item 4b" in moe["message"]
 
 
 # ------------------------------------------------------------ four cards
