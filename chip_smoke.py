@@ -100,7 +100,29 @@ final line) if anything is wrong:
                bytes, save and restore
                seconds (GB/s), the restart's wall time, gang formation, and
                the step time against phase 12's
-Each path (4-5, 7, 8, 9, 10, 11, 12, 14) runs with every launch count set to 0
+ 15. sequence_parallel  ring and Ulysses attention (ray_tpu_torch.parallel.
+               ring_attention) on 4 ranks run as threads on the card
+               (ThreadGroup: the port's wire for ranks that share one card)
+               at bench.py's train config (bench.py:561-565: 12 x 1024
+               tokens, 32 heads of 128, bf16): 256 tokens a rank for ring,
+               8 heads a rank over 1024 tokens for Ulysses, causal and
+               full; O, dQ, dK and dV against flash_attention over the whole
+               sequence and against the plain version (O within BF16_TOL,
+               the gradients within BWD_REL_TOL of the largest); then one
+               forward and backward of that model with attention=
+               make_ring_attention(...) on the 4 ranks, each with a quarter
+               of every sequence at its global positions, against the whole
+               sequence through flash (loss and each gradient leaf as phase
+               7 holds them); ring chunks on B1, B2 and B3
+ 16. pipeline  two PipelineStageRunners (S=2, v=2, M=8) on 2 thread ranks
+               at bench.py's sharded config (4 layers, 16 x 1024 tokens,
+               AdamW), as bench.py's _bench_pp runs it: one step against
+               the fused microbatched step from the same parameters and
+               batch (bitwise, or within SHARDED_LOSS_TOL and
+               SHARDED_UPDATE_TOL), then timed steps of each: tokens/s,
+               each rank's fwd/bwd/opt/pp_bubble seconds and the bubble's
+               share against bubble_fraction(2, 8, 2)
+Each path (4-5, 7, 8, 9, 10, 11, 12, 14, 15, 16) runs with every launch count set to 0
 just before it; its counts, read just after, must equal what its layers and
 passes imply, every flash launch on the route the path's inputs take. The
 trainer path's kernels launch in its worker processes, whose counts start
@@ -111,17 +133,20 @@ The line before the last is {"kernels": [...]}; the last line is
 """
 
 import asyncio
+import contextlib
 import dataclasses
 import functools
 import gc
 import json
 import math
 import os
+import queue
 import re
 import shutil
 import statistics
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -132,16 +157,26 @@ import torch.nn.functional as F
 from ray_tpu_torch import _build
 from ray_tpu_torch.models import transformer as transformer_mod
 from ray_tpu_torch.models.transformer import (
-    MoEConfig, TransformerConfig, decode_step, forward, init_kv_cache, init_params, loss_fn,
-    merge_stages, num_params, param_logical_dims, partition_stages, stage_forward,
+    MoEConfig, TransformerConfig, decode_step, forward, init_kv_cache, init_params,
+    logits_loss, loss_fn, merge_stages, num_params, param_logical_dims, partition_stages,
+    stage_forward,
 )
 from ray_tpu_torch.ops import flash_attention as flash_mod
 from ray_tpu_torch.ops import rmsnorm as rmsnorm_mod
+from ray_tpu_torch.ops.flash_attention import attention_reference, flash_attention
+from ray_tpu_torch.parallel import _wire
 from ray_tpu_torch.parallel import tensor_parallel as tp_mod
-from ray_tpu_torch.parallel.mesh import MeshSpec
+from ray_tpu_torch.parallel.mesh import MeshSpec, tree_map
+from ray_tpu_torch.parallel.pipeline import (
+    bubble_fraction, check_message_order, schedule_interleaved_1f1b, validate_schedule,
+)
+from ray_tpu_torch.parallel.ring_attention import (
+    make_ring_attention, make_ulysses_attention, sequence_positions,
+)
 from ray_tpu_torch.serve.batching import batch
 from ray_tpu_torch.train import session as session_mod
 from ray_tpu_torch.train.config import CheckpointConfig, FailureConfig, RunConfig, ScalingConfig
+from ray_tpu_torch.train.stage_runner import PipelineStageRunner, microbatch_slicer
 from ray_tpu_torch.train.step import make_optimizer, named_leaves, train_step
 from ray_tpu_torch.train.torch_utils import (
     MemoryBudgetError, begin_gradient_sync, build_sharded_train_step, device_memory_budget,
@@ -2313,6 +2348,474 @@ def phase_trainer(sharded_step_ms: float) -> dict:
     return result
 
 
+# ---------------------------------------------------------------- ranks as threads
+class ThreadGroup:
+    """``size`` ranks as threads of this process on the one card: the
+    second implementation of the port's wire (``parallel._wire.Wire``),
+    beside ``ProcessGroupWire``. The gang refuses more GPU workers than
+    cards, and NCCL refuses two ranks on one device, so on one card the
+    port's own ring attention, Ulysses attention and PipelineStageRunner
+    run their sp 4 and pp 2 paths through this group.
+
+    Each rank runs on a CUDA stream of its own. A message carries an event
+    recorded on the sender's stream; the receiver's stream waits for it,
+    the sender's tensor is recorded as in use on the receiver's stream (so
+    the allocator keeps it until the copy ran), and the receiver copies it.
+    Each rank's backward runs on its own thread
+    (``set_multithreading_enabled(False)``): autograd's default is one
+    worker thread per device for every backward, where a rank waiting in a
+    collective would stop the other ranks' backwards. A rank's error aborts
+    the group's barrier, so the others stop too."""
+
+    def __init__(self, size: int, device="cuda", timeout_s: float = 600.0):
+        self.size, self.device, self.timeout_s = size, torch.device(device), timeout_s
+        self._barrier = threading.Barrier(size, timeout=timeout_s)
+        self._slots = [None] * size
+        self.queues = {(a, b): queue.Queue() for a in range(size) for b in range(size)
+                        if a != b}
+
+    def exchange(self, rank: int, value):
+        """Every rank's ``value``, in rank order, on every rank."""
+        self._slots[rank] = value
+        self._barrier.wait()
+        values = list(self._slots)
+        self._barrier.wait()
+        return values
+
+    def run(self, fn) -> list:
+        """fn(rank) on ``size`` threads; the results in rank order. Raises
+        the first rank's error."""
+        cuda = self.device.type == "cuda"
+        if cuda:
+            torch.cuda.synchronize()
+            streams = [torch.cuda.Stream(self.device) for _ in range(self.size)]
+        results, errors = [None] * self.size, [None] * self.size
+
+        def main(rank):
+            try:
+                with contextlib.ExitStack() as stack:
+                    if cuda:
+                        stack.enter_context(torch.cuda.stream(streams[rank]))
+                    stack.enter_context(torch.autograd.set_multithreading_enabled(False))
+                    results[rank] = fn(rank)
+                    if cuda:
+                        streams[rank].synchronize()
+            except BaseException as exc:  # noqa: BLE001 - re-raised by run()
+                errors[rank] = exc
+                self._barrier.abort()
+
+        threads = [threading.Thread(target=main, args=(r,), name=f"rank{r}")
+                   for r in range(self.size)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        first = ([e for e in errors if e is not None
+                  and not isinstance(e, threading.BrokenBarrierError)]
+                 or [e for e in errors if e is not None])
+        if first:
+            raise first[0]
+        if cuda:
+            torch.cuda.synchronize()
+        return results
+
+
+class ThreadWire(_wire.Wire):
+    """Rank ``rank``'s wire in a ThreadGroup."""
+
+    def __init__(self, group: ThreadGroup, rank: int):
+        self.group, self.rank, self.size = group, rank, group.size
+
+    @staticmethod
+    def _post(t: torch.Tensor):
+        t = t.detach()
+        event = None
+        if t.is_cuda:
+            event = torch.cuda.Event()
+            event.record(torch.cuda.current_stream(t.device))
+        return t, event
+
+    @staticmethod
+    def _take(message, index=None) -> torch.Tensor:
+        t, event = message
+        if event is not None:
+            stream = torch.cuda.current_stream(t.device)
+            stream.wait_event(event)
+            t.record_stream(stream)
+        return (t if index is None else t[index]).clone()
+
+    def shift(self, tensors, offset=1):
+        values = self.group.exchange(self.rank, [self._post(t) for t in tensors])
+        return [self._take(m) for m in values[(self.rank - offset) % self.size]]
+
+    def all_to_all(self, x):
+        values = self.group.exchange(self.rank, self._post(x))
+        return torch.stack([self._take(values[j], self.rank) for j in range(self.size)])
+
+    def all_reduce(self, x):
+        values = self.group.exchange(self.rank, self._post(x))
+        out = self._take(values[0])
+        for j in range(1, self.size):
+            out += self._take(values[j])
+        return out
+
+    def broadcast(self, x, src):
+        return self._take(self.group.exchange(self.rank, self._post(x))[src])
+
+    def send(self, x, dst):
+        self.group.queues[(self.rank, dst)].put(self._post(x))
+
+    def recv(self, like, src):
+        out = self._take(self.group.queues[(src, self.rank)].get(timeout=self.group.timeout_s))
+        require(tuple(out.shape) == tuple(like.shape) and out.dtype == like.dtype,
+                f"thread wire: rank {self.rank} got {tuple(out.shape)} {out.dtype} from {src}, "
+                f"expected {tuple(like.shape)} {like.dtype}")
+        return out
+
+
+class ThreadMesh:
+    """One rank-thread's view of a mesh of thread ranks: ``wire(axis)`` is
+    what the port's ``axis_wire`` asks of a mesh."""
+
+    def __init__(self, **wires: ThreadWire):
+        self._wires = wires
+
+    def wire(self, axis: str) -> ThreadWire:
+        return self._wires[axis]
+
+
+# ---------------------------------------------------------------- phase 15
+SP_RANKS = 4
+
+
+def _sync(device) -> None:
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _sp_attention(kind: str, causal: bool, q, k, v, do, device) -> tuple:
+    """The port's ring or Ulysses attention on SP_RANKS thread ranks, each
+    holding its sequence shard: forward, then backward from do. Returns O,
+    dQ, dK, dV gathered along the sequence, and the pass's wall ms."""
+    maker = make_ring_attention if kind == "ring" else make_ulysses_attention
+    group = ThreadGroup(SP_RANKS, device)
+    seq = q.shape[2] // SP_RANKS
+
+    def rank_fn(rank):
+        attn = maker(ThreadMesh(sp=ThreadWire(group, rank)))
+        cut = slice(rank * seq, (rank + 1) * seq)
+        ql, kl, vl = (t[:, :, cut].detach().clone().requires_grad_(True) for t in (q, k, v))
+        out = attn(ql, kl, vl, causal)
+        out.backward(do[:, :, cut])
+        return out.detach(), ql.grad, kl.grad, vl.grad
+
+    _sync(device)
+    start = time.perf_counter()
+    results = group.run(rank_fn)
+    ms = 1e3 * (time.perf_counter() - start)
+    return [torch.cat([r[i] for r in results], dim=2) for i in range(4)], ms
+
+
+def _sp_chunks(kind: str, causal: bool) -> int:
+    """Flash launches (forward, or dQ, or dK/dV) of one pass over all ranks:
+    ring attention runs n(n+1)/2 chunks causal, n^2 full; Ulysses one each."""
+    n = SP_RANKS
+    if kind == "ulysses":
+        return n
+    return n * (n + 1) // 2 if causal else n * n
+
+
+def _sp_errs(got, whole, plain) -> dict:
+    """O by max |a - b|; dQ, dK, dV by max |a - b| over b's largest."""
+    names = ("o", "dq", "dk", "dv")
+    errs = {}
+    for label, ref in (("whole", whole), ("plain", plain)):
+        for i, name in enumerate(names):
+            errs[f"{name}_vs_{label}"] = (max_err(got[i], ref[i]) if i == 0
+                                          else _bwd_err(got[i], ref[i], "rel_to_max"))
+    return errs
+
+
+def phase_sequence_parallel(config_kwargs=None, batch_size=TRAIN_BATCH, device="cuda") -> dict:
+    """Ring and Ulysses attention, then the model with ring attention, on
+    SP_RANKS thread ranks at bench.py's train config (bench.py:561-565).
+    Returns the numbers and the launches the phase implies."""
+    config = TransformerConfig(**(config_kwargs or TRAIN_CONFIG))
+    b, h, s, d = batch_size, config.n_heads, config.max_seq, config.head_dim
+    gen = torch.Generator(device=device).manual_seed(SEED + 15)
+    q, k, v, do = (torch.randn((b, h, s, d), generator=gen, device=device).to(config.dtype)
+                   for _ in range(4))
+    want = {"flash_attention_fwd": 0, "flash_attention_bwd_dq": 0,
+            "flash_attention_bwd_dkv": 0, "rmsnorm": 0, "rmsnorm_bwd": 0}
+
+    def add(chunks, norms=0):
+        for name in ("flash_attention_fwd", "flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
+            want[name] += chunks
+        want["rmsnorm"] += norms
+        want["rmsnorm_bwd"] += norms
+
+    def timed(fn):
+        _sync(device)
+        start = time.perf_counter()
+        out = fn()
+        _sync(device)
+        return out, 1e3 * (time.perf_counter() - start)
+
+    def whole_pass(causal):
+        leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+        out = flash_attention(*leaves, causal=causal)
+        out.backward(do)
+        return [out.detach()] + [t.grad for t in leaves]
+
+    # Each pass runs twice: the second is timed (wall, the ranks' threads
+    # started and joined) and checked. The causal passes run again for
+    # their device time: flash over the whole sequence by CUDA events on
+    # its one stream, ring and Ulysses by torch.profiler, the kernels'
+    # times summed over the ranks' streams.
+    checks, times, device_ms = {}, {}, {}
+    for causal in (True, False):
+        mode = "causal" if causal else "full"
+        whole_pass(causal)
+        whole, times[f"whole_{mode}_ms"] = timed(lambda: whole_pass(causal))
+        add(2)
+        if causal and device == "cuda":  # one stream: CUDA events time the device
+            device_ms["whole_causal"] = time_ms(lambda: whole_pass(True), iters=5, windows=3,
+                                                warmup=1)["ms"]
+            add(1 + 5 * 3)
+        out_p = attention_reference(q, k, v, causal=causal)
+        lse_p = flash_mod._lse_reference(q, k, causal=causal, scale=d ** -0.5)
+        plain = [out_p] + list(flash_mod._flash_backward_reference(q, k, v, out_p, lse_p, do,
+                                                                   causal=causal))
+        del lse_p, out_p
+        for kind in ("ring", "ulysses"):
+            _sp_attention(kind, causal, q, k, v, do, device)
+            got, times[f"{kind}_{mode}_ms"] = _sp_attention(kind, causal, q, k, v, do, device)
+            add(2 * _sp_chunks(kind, causal))
+            if causal and device == "cuda":
+                device_ms[f"{kind}_causal"] = device_time(
+                    lambda: _sp_attention(kind, True, q, k, v, do, device))["device_ms"]
+                add(_sp_chunks(kind, True))
+            errs = _sp_errs(got, whole, plain)
+            checks[f"{kind}_{mode}"] = errs
+            require(all(torch.isfinite(t).all() for t in got), f"sp {kind} {mode}: non-finite")
+            bad = {n: e for n, e in errs.items()
+                   if e >= (BF16_TOL if n.startswith("o_") else BWD_REL_TOL)}
+            require(not bad, f"sp {kind} {mode}: {bad} (O bound {BF16_TOL} absolute, dQ/dK/dV "
+                             f"{BWD_REL_TOL} of the largest)")
+            del got
+        del whole, plain
+    del q, k, v, do
+    if device == "cuda":
+        torch.cuda.empty_cache()
+
+    # The model with ring attention on the thread ranks, each holding its
+    # quarter of every sequence, against the whole sequence through flash.
+    params = init_params(config, seed=SEED, device=device)
+    names, leaves = zip(*named_leaves(params))
+    for leaf in leaves:
+        leaf.requires_grad_(True)
+    rng = np.random.default_rng(SEED + 16)
+    tokens = torch.from_numpy(rng.integers(0, config.vocab_size, (b, s + 1))).to(device)
+    inputs, targets = tokens[:, :-1], tokens[:, 1:]
+    _grads(params, leaves, inputs, targets, config)
+    (loss_whole, grads_whole), whole_ms = timed(
+        lambda: _grads(params, leaves, inputs, targets, config))
+    norms = 2 * config.n_layers + 1
+    add(2 * config.n_layers, 2 * norms)
+    seq = s // SP_RANKS
+
+    def ring_pass():
+        group = ThreadGroup(SP_RANKS, device)
+        return group.run(functools.partial(rank_fn, group))
+
+    def rank_fn(group, rank):
+        mesh = ThreadMesh(sp=ThreadWire(group, rank))
+        ring = dataclasses.replace(config, attention=make_ring_attention(mesh))
+        cut = slice(rank * seq, (rank + 1) * seq)
+        logits = forward(params, inputs[:, cut], ring, sequence_positions(mesh, b, seq,
+                                                                          device=device))
+        loss = logits_loss(logits, targets[:, cut])
+        return float(loss.detach()), torch.autograd.grad(loss, leaves)
+
+    ring_pass()
+    ranks, ring_ms = timed(ring_pass)
+    add(2 * config.n_layers * _sp_chunks("ring", True), 2 * SP_RANKS * norms)
+    # Each rank's loss is the mean over its quarter of the tokens.
+    loss_ring = sum(r[0] for r in ranks) / SP_RANKS
+    grad_errs = {}
+    for i, name in enumerate(names):
+        total = sum(r[1][i].float() for r in ranks) / SP_RANKS
+        grad_errs[name] = _rel_frobenius(total, grads_whole[i])
+    del ranks, grads_whole
+    worst = max(grad_errs, key=grad_errs.get)
+    model = dict(loss_ring=loss_ring, loss_whole=loss_whole,
+                 loss_err=abs(loss_ring - loss_whole), loss_tol=TRAIN_LOSS_TOL,
+                 grad_rel_frobenius=grad_errs, worst_leaf=worst, grad_tol=TRAIN_GRAD_REL_TOL,
+                 ring_fwd_bwd_ms=ring_ms, whole_fwd_bwd_ms=whole_ms)
+    result = dict(config="bench.py:561-565", sp=SP_RANKS, batch=b, seq=s, heads=h,
+                  head_dim=d, dtype=str(config.dtype), ring_tokens_per_rank=seq,
+                  ulysses_heads_per_rank=h // SP_RANKS, attention=checks,
+                  attention_wall_ms=times, attention_device_ms=device_ms, model=model,
+                  want=want)
+    log("sequence_parallel", **result)
+    require(model["loss_err"] < TRAIN_LOSS_TOL, f"sp model: loss {loss_ring} vs {loss_whole}")
+    require(grad_errs[worst] < TRAIN_GRAD_REL_TOL,
+            f"sp model: {worst} gradient ring vs whole {grad_errs[worst]}")
+    del params, leaves
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return result
+
+
+# ---------------------------------------------------------------- phase 16
+PP_STAGES, PP_VIRTUAL, PP_MICRO, PP_BATCH, PP_STEPS = 2, 2, 8, 16, 3
+
+
+def _pp_runner(rank, group, chunks, config):
+    """Rank ``rank``'s PipelineStageRunner over ``group``'s thread wire."""
+    ctx = session_mod.TrainContext(world_size=PP_STAGES, world_rank=rank, pipeline={
+        "num_stages": PP_STAGES, "microbatches": PP_MICRO, "virtual": PP_VIRTUAL,
+        "attempt": 0, "stage": rank, "stage_rank": 0})
+
+    def make_fn(vs):
+        def fn(p, a):
+            return stage_forward(p, a, config, first=(vs == 0), last=False)
+        return fn
+
+    def last_fn(p, a, micro):
+        return logits_loss(stage_forward(p, a, config, first=False, last=True), micro["y"])
+
+    mine = [c * PP_STAGES + rank for c in range(PP_VIRTUAL)]
+    return PipelineStageRunner(
+        ctx=ctx, stage_fn=[make_fn(vs) for vs in mine], last_stage_fn=last_fn,
+        params=[chunks[vs] for vs in mine], optimizer=make_optimizer,
+        activation_like=lambda micro: torch.empty((*micro["y"].shape, config.dim),
+                                                  dtype=config.dtype, device="meta"),
+        microbatch_fn=microbatch_slicer, wire=ThreadWire(group, rank))
+
+
+def _fused_microbatched_step(params, leaves, optimizer, batch, config) -> torch.Tensor:
+    """bench.py's _bench_pp reference in one process: the loss's gradient
+    summed over the microbatches in order, over their count, then one
+    optimizer step; returns the mean microbatch loss."""
+    micro = PP_BATCH // PP_MICRO
+    acc, losses = None, []
+    for m in range(PP_MICRO):
+        cut = slice(m * micro, (m + 1) * micro)
+        loss = loss_fn(params, batch["x"][cut], batch["y"][cut], config)
+        grads = torch.autograd.grad(loss, leaves)
+        acc = list(grads) if acc is None else [a + g for a, g in zip(acc, grads)]
+        losses.append(loss.detach())
+    for leaf, grad in zip(leaves, acc):
+        leaf.grad = grad / PP_MICRO
+    optimizer.step()
+    optimizer.zero_grad(set_to_none=True)
+    return torch.stack(losses).float().mean()
+
+
+def phase_pipeline(config_kwargs=None, batch_size=PP_BATCH, device="cuda") -> dict:
+    """Two PipelineStageRunners (S=2, v=2, M=8) on two thread ranks at
+    bench.py's sharded config, as bench.py's _bench_pp runs it, held against
+    the fused microbatched step from the same parameters and batch; then
+    timed steps of each. Returns the numbers and the launches the phase
+    implies."""
+    config = TransformerConfig(**(config_kwargs or SHARDED_CONFIG))
+    scheds = [schedule_interleaved_1f1b(PP_STAGES, PP_MICRO, r, PP_VIRTUAL)
+              for r in range(PP_STAGES)]
+    validate_schedule(scheds, PP_VIRTUAL)
+    check_message_order(scheds, PP_VIRTUAL)
+    rng = np.random.default_rng(SEED + 17)
+    tokens = torch.from_numpy(rng.integers(0, config.vocab_size,
+                                           (batch_size, config.max_seq + 1))).to(device)
+    batch = {"x": tokens[:, :-1], "y": tokens[:, 1:]}
+    fused = init_params(config, seed=SEED, device=device)
+    fused_names, fused_leaves = zip(*named_leaves(fused))
+    fused_opt = make_optimizer(fused)
+    chunks = [tree_map(lambda t: t.detach().clone(), tree)
+              for tree in partition_stages(fused, config, PP_STAGES * PP_VIRTUAL)]
+    group = ThreadGroup(PP_STAGES, device)
+    runners = [_pp_runner(r, group, chunks, config) for r in range(PP_STAGES)]
+
+    def pipeline_step():
+        return group.run(lambda rank: runners[rank].train_step(batch))
+
+    # One step of each from the same parameters and batch.
+    pp_losses = pipeline_step()
+    fused_loss = float(_fused_microbatched_step(fused, fused_leaves, fused_opt, batch, config))
+    merged = merge_stages(chunks)
+    got = dict(named_leaves(merged))
+    bitwise = (pp_losses[0] == pp_losses[1] == fused_loss
+               and all(torch.equal(got[n], leaf) for n, leaf in zip(fused_names, fused_leaves)))
+    update_err = {}
+    if not bitwise:
+        init = dict(named_leaves(init_params(config, seed=SEED, device=device)))
+        for n, leaf in zip(fused_names, fused_leaves):
+            ref_update = leaf.detach().float() - init[n].float()
+            update_err[n] = float((got[n].float() - leaf.detach().float()).abs().max()
+                                  / ref_update.abs().max().clamp_min(1e-30))
+        del init
+    del merged, got
+    worst = max(update_err, key=update_err.get) if update_err else None
+    check = dict(bitwise=bitwise, pipeline_losses=pp_losses, fused_loss=fused_loss,
+                 loss_err=abs(pp_losses[0] - fused_loss), loss_tol=SHARDED_LOSS_TOL,
+                 worst_leaf=worst, worst_update_err=update_err.get(worst),
+                 update_tol=SHARDED_UPDATE_TOL, held="bitwise" if bitwise else "tolerance")
+    log("pipeline_check", **check)
+    require(pp_losses[0] == pp_losses[1], f"pipeline: the ranks report {pp_losses}")
+    if not bitwise:
+        require(check["loss_err"] < SHARDED_LOSS_TOL and update_err[worst] < SHARDED_UPDATE_TOL,
+                f"pipeline: against the fused step: loss {check['loss_err']}, {worst} update "
+                f"{update_err[worst]}")
+
+    # Timed steps of each.
+    stats = []
+    _sync(device)
+    start = time.perf_counter()
+    losses = []
+    for _ in range(PP_STEPS):
+        losses.append(pipeline_step()[0])
+        stats.append([dict(r.stats) for r in runners])
+    _sync(device)
+    pp_s = (time.perf_counter() - start) / PP_STEPS
+    start = time.perf_counter()
+    fused_losses = [float(_fused_microbatched_step(fused, fused_leaves, fused_opt, batch, config))
+                    for _ in range(PP_STEPS)]
+    _sync(device)
+    fused_s = (time.perf_counter() - start) / PP_STEPS
+    require(all(np.isfinite(losses)) and losses[-1] < pp_losses[0],
+            f"pipeline: loss did not fall ({pp_losses[0]} -> {losses})")
+    per_rank = [{k: statistics.mean(step[r][k] for step in stats) for k in stats[0][r]}
+                for r in range(PP_STAGES)]
+    bubble = [p["pp_bubble"] / p["step"] for p in per_rank]
+
+    # Launches: a chunk of L/(S v) layers; every chunk but the last runs its
+    # forward twice a microbatch (once, then again in the backward), the
+    # last once with the loss; every layer one backward.
+    layers, steps = config.n_layers, 1 + PP_STEPS
+    last_chunk = layers // (PP_STAGES * PP_VIRTUAL)
+    layer_fwds = PP_MICRO * (2 * (layers - last_chunk) + last_chunk)
+    per_step = {"flash_attention_fwd": layer_fwds, "flash_attention_bwd_dq": PP_MICRO * layers,
+                "flash_attention_bwd_dkv": PP_MICRO * layers,
+                "rmsnorm": 2 * layer_fwds + PP_MICRO, "rmsnorm_bwd": PP_MICRO * (2 * layers + 1)}
+    fused_per_step = _expected(layers, kernel_forwards=PP_MICRO, kernel_backwards=PP_MICRO)
+    want = {k: steps * (per_step[k] + fused_per_step[k]) for k in per_step}
+    tokens_per_step = batch_size * config.max_seq
+    result = dict(
+        config="bench.py:133-138 (_bench_pp: bench.py:203-300)", stages=PP_STAGES,
+        virtual=PP_VIRTUAL, microbatches=PP_MICRO, batch=batch_size, seq=config.max_seq,
+        layers=layers, dtype=str(config.dtype), check=check, losses=losses,
+        step_ms=1e3 * pp_s, tokens_per_s=tokens_per_step / pp_s,
+        fused_step_ms=1e3 * fused_s, fused_tokens_per_s=tokens_per_step / fused_s,
+        fused_losses=fused_losses, per_rank_s=per_rank, pp_bubble_share=bubble,
+        bubble_fraction=bubble_fraction(PP_STAGES, PP_MICRO, PP_VIRTUAL),
+        per_step_launches=per_step, want=want)
+    log("pipeline", **result)
+    del runners, chunks, fused, fused_leaves, fused_opt
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return result
+
+
 # ---------------------------------------------------------------- main
 def _path(name: str, want: dict, counts: dict, routes: dict, route: str, **fields) -> None:
     """Logs a path's launch counts and fails unless they are what the path
@@ -2412,6 +2915,13 @@ def main() -> None:
     _path("trainer", _expected(SHARDED_CONFIG["n_layers"], **passes), counts["trainer"],
           routes["trainer"], "wgmma", **passes)
 
+    sp, counts["sequence_parallel"], routes["sequence_parallel"] = _run_path(
+        phase_sequence_parallel)
+    _path("sequence_parallel", sp["want"], counts["sequence_parallel"],
+          routes["sequence_parallel"], "wgmma")
+    pipe, counts["pipeline"], routes["pipeline"] = _run_path(phase_pipeline)
+    _path("pipeline", pipe["want"], counts["pipeline"], routes["pipeline"], "wgmma")
+
     # Every launch on the tiny path is of its instantiations (head_dim 16 in
     # f32, RMSNorm at dim 64 in f32); on every other path, of the model's.
     for e in entries:
@@ -2435,6 +2945,11 @@ def main() -> None:
         sharded_train_tokens_per_s=sharded["tokens_per_s"],
         sharded_train_step_tokens_per_s=sharded["train_step_tokens_per_s"],
         trainer_step_ms=trainer["step_ms"], trainer_restart_s=trainer["restart_s"],
+        sp_ring_fwd_bwd_ms=sp["model"]["ring_fwd_bwd_ms"],
+        sp_whole_fwd_bwd_ms=sp["model"]["whole_fwd_bwd_ms"],
+        pipeline_tokens_per_s=pipe["tokens_per_s"],
+        pipeline_fused_tokens_per_s=pipe["fused_tokens_per_s"],
+        pipeline_bubble_share=pipe["pp_bubble_share"], bubble_fraction=pipe["bubble_fraction"],
         seconds=time.perf_counter() - _t_start)
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -31,6 +31,9 @@ NVCC_FLAGS = [
 ]
 
 _LOCK = threading.Lock()
+# Held while a wrapper adds to its launch count: ranks run as threads of
+# one process may launch the same kernel at once.
+COUNT_LOCK = threading.Lock()
 _LIB: ctypes.CDLL | None = None
 # name -> the library's bound entry point, filled at first launch.
 _FUNCS: dict = {}

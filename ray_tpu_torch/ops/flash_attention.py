@@ -84,8 +84,9 @@ _ROUTES = ("mma_sync", "wgmma")
 
 def _count(fn, route: ctypes.c_int) -> None:
     """Counts one launch of fn's kernel, on the route its entry point reported."""
-    fn.launches += 1
-    fn.launches_by_route[_ROUTES[route.value]] += 1
+    with _build.COUNT_LOCK:
+        fn.launches += 1
+        fn.launches_by_route[_ROUTES[route.value]] += 1
 
 
 def _causal_mask(seq_q: int, seq_k: int, device) -> torch.Tensor:

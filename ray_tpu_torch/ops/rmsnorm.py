@@ -79,7 +79,8 @@ def _rmsnorm_forward(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch
             x.data_ptr(), weight.data_ptr(), y.data_ptr(), rows, dim,
             _build.DTYPE_CODES[x.dtype], _build.DTYPE_CODES[weight.dtype], eps,
         )
-        rmsnorm.launches += 1
+        with _build.COUNT_LOCK:
+            rmsnorm.launches += 1
     return y
 
 
@@ -124,7 +125,8 @@ def rmsnorm_backward(
     _build.launch("rt_rmsnorm_bwd", x.device, *head, None, *tail)
     partial = torch.empty(parts.value, dim, dtype=torch.float32, device=x.device)
     _build.launch("rt_rmsnorm_bwd", x.device, *head, partial.data_ptr(), *tail)
-    rmsnorm_backward.launches += 1
+    with _build.COUNT_LOCK:
+        rmsnorm_backward.launches += 1
     return dx, dw
 
 

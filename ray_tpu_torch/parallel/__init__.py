@@ -1,8 +1,10 @@
 """Parallelism primitives of the port: the mesh and its logical-dim
-sharding rules (``mesh``), and the tensor-parallel pieces the model's
-blocks use under the sharded train step (``tensor_parallel``). The
-pipeline schedulers and sequence-parallel attention of the JAX package's
-``parallel/`` are not ported yet (ROADMAP Queue A item 5)."""
+sharding rules (``mesh``), the tensor-parallel pieces the model's blocks
+use under the sharded train step (``tensor_parallel``), the pipeline
+schedules and ``pipeline_apply`` (``pipeline``), ring and Ulysses
+attention (``ring_attention``), and the wire between the ranks of one
+axis they share (``_wire``). The multi-slice ``SliceTopology`` waits for
+ROADMAP Queue A item 4a, two-tier."""
 
 from ray_tpu_torch.parallel.mesh import (
     AXES,

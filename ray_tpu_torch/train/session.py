@@ -33,6 +33,9 @@ class TrainContext:
     collective_group: str = ""
     # The worker's device ("cuda:<rank>" or "cpu"), where its mesh is built.
     device: str = ""
+    # With ScalingConfig.pipeline_stages > 1: {num_stages, microbatches,
+    # virtual, attempt, stage, stage_rank}; else None.
+    pipeline: Optional[dict] = None
 
     def get_world_size(self) -> int:
         return self.world_size

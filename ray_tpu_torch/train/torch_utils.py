@@ -142,7 +142,7 @@ def _world_size() -> int:
 def build_mesh(axes: dict[str, int] | None = None, device=None):
     """A DeviceMesh over the initialized world; ``axes`` empty or None: a
     1-D "dp" mesh over every rank. (The JAX package's ``topology=`` for
-    multi-slice meshes waits for ROADMAP Queue A item 5.)"""
+    multi-slice meshes waits for ROADMAP Queue A item 4a, two-tier.)"""
     return MeshSpec(dict(axes) if axes else {"dp": _world_size()}).build(device)
 
 
@@ -651,7 +651,8 @@ def sync_gradients_sharded(grads: Any, group_name: str, *, overlap: bool = False
 def grad_psum(x: torch.Tensor, axis: str = "dp", *, mesh=None) -> torch.Tensor:
     """``x`` summed over the ranks of ``mesh``'s ``axis`` (every rank of the
     process group when no mesh is given): the in-step gradient reduce. The
-    reference's multi-slice ``topology`` waits for ROADMAP Queue A item 5."""
+    reference's multi-slice ``topology`` waits for ROADMAP Queue A item 4a,
+    two-tier."""
     import torch.distributed as dist
 
     out = x.detach().clone()

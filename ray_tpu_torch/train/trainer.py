@@ -74,13 +74,21 @@ class Result:
 
 
 def _run_session(gang_ctx, train_fn: Callable, train_loop_config: dict, experiment_name: str,
-                 trial_dir: str, latest_checkpoint: Optional[Checkpoint], mesh_axes: dict) -> dict:
-    """Runs on every member: the user's loop inside a train session."""
+                 trial_dir: str, latest_checkpoint: Optional[Checkpoint], mesh_axes: dict,
+                 pipeline: dict | None = None) -> dict:
+    """Runs on every member: the user's loop inside a train session. Under
+    pipeline stages, gang rank r is stage r // (world / stages):
+    contiguous ranks form one stage's gang."""
+    if pipeline is not None:
+        per_stage = max(1, gang_ctx.world_size // int(pipeline["num_stages"]))
+        pipeline = {**pipeline, "stage": gang_ctx.rank // per_stage,
+                    "stage_rank": gang_ctx.rank % per_stage}
     ctx = session_mod.TrainContext(
         world_size=gang_ctx.world_size, world_rank=gang_ctx.rank, local_rank=gang_ctx.rank,
         node_id=gang_ctx.node_id, experiment_name=experiment_name, trial_dir=trial_dir,
         train_loop_config=dict(train_loop_config), latest_checkpoint=latest_checkpoint,
-        mesh=mesh_axes, collective_group=gang_ctx.group_name, device=str(gang_ctx.device))
+        mesh=mesh_axes, collective_group=gang_ctx.group_name, device=str(gang_ctx.device),
+        pipeline=pipeline)
     session_mod.init_session(ctx, gang_ctx.channel)
     try:
         train_fn(dict(train_loop_config))
@@ -128,7 +136,10 @@ class TorchTrainer:
                                train_loop_config=self.train_loop_config,
                                experiment_name=self._experiment_name(),
                                trial_dir=storage.trial_dir, latest_checkpoint=latest,
-                               mesh_axes=dict(sc.mesh_axes))
+                               mesh_axes=dict(sc.mesh_axes),
+                               # The attempt fences a re-formed gang's
+                               # traffic from a dead one's.
+                               pipeline=sc.pipeline(attempt=len(result.attempts) - 1))
                 result.error = self._drive(gang, storage, result, attempt)
                 attempt["ended_by"] = "error" if result.error else "done"
             except (GangDiedError, TrainingFailedError) as exc:

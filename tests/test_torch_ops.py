@@ -43,6 +43,29 @@ def test_rope_tables_match_jax():
     assert _max_err(sin_p, sin_j) < F32_TOL
 
 
+# fesetround's code for round-down (toward -inf) on x86-64 glibc.
+_FE_DOWNWARD = 0x400
+
+
+def test_rope_tables_ignore_the_threads_rounding_mode():
+    """The tables must not depend on the calling thread's floating-point
+    rounding mode: a library that leaves it set to round-down moved f32
+    tables by 1.1e-4 at (64, 128)."""
+    import ctypes
+
+    libm = ctypes.CDLL("libm.so.6")
+    cos_j, sin_j = jax_rope.rope_frequencies(64, 128)
+    before = libm.fegetround()
+    if libm.fesetround(_FE_DOWNWARD) != 0:
+        pytest.skip("libm refused round-down")
+    try:
+        cos_p, sin_p = port_rope.rope_frequencies(64, 128, device="cpu")
+    finally:
+        libm.fesetround(before)
+    assert _max_err(cos_p, cos_j) < F32_TOL
+    assert _max_err(sin_p, sin_j) < F32_TOL
+
+
 @pytest.mark.parametrize(
     "positions",
     [None, [[3, 7, 0, 127], [1, 2, 3, 4]], [[-1, 130, 5, 1000], [0, -3, 64, 128]]],
