@@ -122,11 +122,33 @@ final line) if anything is wrong:
                SHARDED_UPDATE_TOL), then timed steps of each: tokens/s,
                each rank's fwd/bwd/opt/pp_bubble seconds and the bubble's
                share against bubble_fraction(2, 8, 2)
-Each path (4-5, 7, 8, 9, 10, 11, 12, 14, 15, 16) runs with every launch count set to 0
-just before it; its counts, read just after, must equal what its layers and
-passes imply, every flash launch on the route the path's inputs take. The
-trainer path's kernels launch in its worker processes, whose counts start
-at 0 with each process and come back in its reports.
+ 17. expert_parallel  phase 11's MoE model (llama2_7b(moe=MoEConfig(),
+               n_layers=2), 8 experts, bf16, 4 x 1024 tokens) on 4 thread
+               ranks of ep (ThreadGroup), each holding 2 experts' shard,
+               against one rank on the same weights and batch with the
+               routing pinned: the loss within EP_LOSS_REL_TOL relative,
+               each gradient leaf within BWD_REL_TOL by relative Frobenius
+               norm, the replicated leaves' gradients equal on every rank;
+               then AdamW steps of each (the loss must fall), tokens/s,
+               peak memory and a profiled ep step
+ 18. lora      release/train_llama_lora.py --full: TransformerConfig.
+               llama2_7b(max_seq=2048) in bf16 at full width and depth,
+               batch 1 x 2048, rank 8 on wq and wv, AdamW(1e-4) on the
+               adapters alone: lora_forward equal to forward at init
+               (bitwise), steps whose loss falls, tokens/s, peak memory and
+               a profiled step, then the adapters' gradients against plain
+               attention and the norm's plain backward (as phase 7)
+ 19. cnn       CNNConfig() at batch 64 and ResNetConfig() (ResNet-18
+               layout, width 64, 32 x 32 x 3) at batch 128, f32 with TF32
+               off: the first step's logits against the CPU's, Adam(1e-3)
+               steps whose loss falls, img/s from the median step; no
+               kernel of the port runs
+Each path (4-5, 7, 8, 9, 10, 11, 12, 14, 15, 16, 17, 18, 19) runs with every
+launch count set to 0 just before it; its counts, read just after, must
+equal what its layers and passes imply, every flash launch on the route the
+path's inputs take. The trainer path's kernels launch in its worker
+processes, whose counts start at 0 with each process and come back in its
+reports.
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
@@ -2816,6 +2838,407 @@ def phase_pipeline(config_kwargs=None, batch_size=PP_BATCH, device="cuda") -> di
     return result
 
 
+# ---------------------------------------------------------------- phase 17
+# Expert parallelism: phase 11's MoE model (llama2_7b(moe=MoEConfig(),
+# n_layers=2), 8 experts, bf16) on EP_RANKS thread ranks of the card, each
+# holding 2 experts' shard of w_gate, w_up and w_down and its own copy of
+# every other leaf, against the one-rank model on the same weights and
+# batch. Routing is pinned as phase 11 pins it: the ep ranks replay the
+# one-rank pass's dispatch with their own gates (the sum over ep rounds the
+# MoE output otherwise than one einsum does, which moves layer 1's router
+# inputs by bf16 ulps). The loss is held to EP_LOSS_REL_TOL relative (the
+# two passes differ by the bf16 roundings of the ep sum only), each
+# gradient leaf to BWD_REL_TOL by relative Frobenius norm (the experts'
+# leaves as the ranks' shards put together), as phase 15 holds its model.
+EP_RANKS = 4
+EP_STEPS = 3
+EP_LOSS_REL_TOL = 1e-5
+EXPERT_LEAVES = ("w_gate", "w_up", "w_down")
+
+
+def _ep_shard(params: dict, rank: int) -> dict:
+    """Rank's own copy of every leaf, the experts' leaves cut to its share
+    of the expert dim; each leaf requires grad."""
+    def cut(name, leaf):
+        if name in EXPERT_LEAVES:
+            per = leaf.shape[1] // EP_RANKS
+            leaf = leaf[:, rank * per:(rank + 1) * per]
+        return leaf.detach().clone().requires_grad_(True)
+
+    return {"embed": cut("embed", params["embed"]),
+            "layers": {n: cut(n, leaf) for n, leaf in params["layers"].items()},
+            "final_norm": cut("final_norm", params["final_norm"]),
+            "lm_head": cut("lm_head", params["lm_head"])}
+
+
+def _ep_context(group: ThreadGroup, rank: int) -> tp_mod.TPContext:
+    return tp_mod.TPContext(group=None, rank=0, size=1, ep=EP_RANKS,
+                            ep_wire=ThreadWire(group, rank), ep_rank=rank)
+
+
+def phase_expert_parallel(config=None, batch_size=MOE_TRAIN_BATCH, device="cuda") -> dict:
+    """The MoE model on EP_RANKS thread ranks against one rank: one step's
+    loss and gradients with the routing pinned, then timed AdamW steps of
+    each. Returns the numbers and the launches the phase implies."""
+    config = config or moe_config(MOE_TRAIN_LAYERS)
+    seq = config.max_seq if device == "cpu" else MOE_TRAIN_SEQ
+    params = init_params(config, seed=SEED, device=device)
+    names, leaves = zip(*named_leaves(params))
+    for leaf in leaves:
+        leaf.requires_grad_(True)
+    rng = np.random.default_rng(SEED + 19)
+    tokens = torch.from_numpy(rng.integers(0, config.vocab_size, (batch_size, seq + 1))).to(device)
+    inputs, targets = tokens[:, :-1], tokens[:, 1:]
+    passes = {"kernel_forwards": 0, "kernel_backwards": 0}
+
+    def count(ranks=1):
+        passes["kernel_forwards"] += ranks
+        passes["kernel_backwards"] += ranks
+
+    # The one-rank pass records each layer's dispatch; the ep ranks replay it.
+    combine_fn = transformer_mod._moe_combine
+    dispatch, held = [], []
+    layer_of = threading.local()
+
+    def probs(ht, router):
+        return torch.softmax(ht.float() @ router.float(), dim=-1)
+
+    def record(ht, router, moe, ctx=None):
+        combine = combine_fn(ht, router, moe, ctx)
+        dispatch.append(combine > 0)
+        held.append(bool(torch.equal(combine, dispatch[-1] * probs(ht, router)[:, :, None])))
+        return combine
+
+    def replay(ht, router, moe, ctx=None):
+        i = getattr(layer_of, "i", 0)
+        layer_of.i = i + 1
+        return dispatch[i] * probs(ht, router)[:, :, None]
+
+    shards = [_ep_shard(params, r) for r in range(EP_RANKS)]
+    group = ThreadGroup(EP_RANKS, device)
+
+    def rank_grads(rank):
+        with tp_mod.tensor_parallel(_ep_context(group, rank)):
+            loss = loss_fn(shards[rank], inputs, targets, config)
+        own = [leaf for _, leaf in named_leaves(shards[rank])]
+        return float(loss.detach()), torch.autograd.grad(loss, own)
+
+    try:
+        transformer_mod._moe_combine = record
+        loss_one, grads_one = _grads(params, leaves, inputs, targets, config)
+        count()
+        transformer_mod._moe_combine = replay
+        ranks = group.run(rank_grads)
+        count(EP_RANKS)
+    finally:
+        transformer_mod._moe_combine = combine_fn
+    require(all(held) and len(held) == config.n_layers,
+            f"ep: combine is not dispatch * probs: {held}")
+    losses_ep = [r[0] for r in ranks]
+    grad_errs, rank_spread = {}, {}
+    for i, name in enumerate(names):
+        leaf = name.split(".")[-1]
+        if leaf in EXPERT_LEAVES and name.startswith("layers."):
+            got = torch.cat([r[1][i] for r in ranks], dim=1)
+        else:  # whole on every rank, and equal
+            got = ranks[0][1][i]
+            rank_spread[name] = max(float((r[1][i].float() - got.float()).abs().max())
+                                    for r in ranks[1:])
+        grad_errs[name] = _rel_frobenius(got, grads_one[i])
+    del ranks, grads_one, dispatch
+    worst = max(grad_errs, key=grad_errs.get)
+    loss_rel = abs(losses_ep[0] - loss_one) / abs(loss_one)
+    check = dict(loss_one_rank=loss_one, losses_ep=losses_ep, loss_rel_err=loss_rel,
+                 loss_tol=EP_LOSS_REL_TOL, grad_rel_frobenius=grad_errs,
+                 grad_tol=BWD_REL_TOL, worst_leaf=worst,
+                 replicated_grads_max_spread_over_ranks=max(rank_spread.values()))
+    log("expert_parallel_check", **check)
+    require(len(set(losses_ep)) == 1, f"ep: the ranks' losses differ: {losses_ep}")
+    require(max(rank_spread.values()) == 0.0,
+            f"ep: a replicated leaf's gradient differs across the ep ranks: {rank_spread}")
+    require(loss_rel < EP_LOSS_REL_TOL, f"ep: loss {losses_ep[0]} vs one rank {loss_one}")
+    require(grad_errs[worst] < BWD_REL_TOL,
+            f"ep: {worst} gradient ep vs one rank {grad_errs[worst]} >= {BWD_REL_TOL}")
+    _sync(device)
+
+    # Timed AdamW steps on one batch: one rank (train_step), then the ep
+    # ranks, each with its own optimizer over its leaves; a warm-up first.
+    optimizer = make_optimizer(params)
+    one_first = float(train_step(params, optimizer, tokens, config))
+    count()
+    _sync(device)
+    start = time.perf_counter()
+    one_losses = [float(train_step(params, optimizer, tokens, config)) for _ in range(EP_STEPS)]
+    _sync(device)
+    one_ms = 1e3 * (time.perf_counter() - start) / EP_STEPS
+    count(EP_STEPS)
+    del optimizer, params, leaves
+    if device == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    optimizers = [make_optimizer(shard) for shard in shards]
+
+    def rank_step(rank):
+        with tp_mod.tensor_parallel(_ep_context(group, rank)):
+            loss = loss_fn(shards[rank], inputs, targets, config)
+        loss.backward()
+        optimizers[rank].step()
+        optimizers[rank].zero_grad(set_to_none=True)
+        return float(loss.detach())
+
+    ep_first = group.run(rank_step)[0]
+    count(EP_RANKS)
+    _sync(device)
+    start = time.perf_counter()
+    ep_losses = [group.run(rank_step)[0] for _ in range(EP_STEPS)]
+    _sync(device)
+    ep_ms = 1e3 * (time.perf_counter() - start) / EP_STEPS
+    count(EP_RANKS * EP_STEPS)
+    prof = device_time(lambda: group.run(rank_step), top=8) if device == "cuda" else None
+    if prof is not None:
+        count(EP_RANKS)
+    peak = torch.cuda.max_memory_allocated() / 2**30 if device == "cuda" else None
+    require(all(np.isfinite(ep_losses + one_losses)), f"ep: losses {ep_losses}, {one_losses}")
+    require(ep_losses[-1] < ep_first and one_losses[-1] < one_first,
+            f"ep: loss did not fall (ep {ep_first} -> {ep_losses}, one rank {one_first} -> "
+            f"{one_losses})")
+    step_tokens = batch_size * seq
+    result = dict(
+        config="llama2_7b(moe=MoEConfig(), n_layers=2)", ep=EP_RANKS,
+        experts=config.moe.num_experts, experts_per_rank=config.moe.num_experts // EP_RANKS,
+        batch=batch_size, seq=seq, dtype=str(config.dtype), check=check,
+        ep_first_loss=ep_first, ep_losses=ep_losses, one_rank_losses=one_losses,
+        ep_step_ms=ep_ms, ep_tokens_per_s=step_tokens / (ep_ms / 1e3),
+        one_rank_step_ms=one_ms, one_rank_tokens_per_s=step_tokens / (one_ms / 1e3),
+        ep_peak_gib=peak, ep_collective_calls=dict(tp_mod.calls),
+        ep_step_device_ms_summed_over_ranks=prof and prof["device_ms"],
+        ep_step_top=prof and prof["top"], **passes)
+    log("expert_parallel", **result)
+    del shards, optimizers
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return result
+
+
+# ---------------------------------------------------------------- phase 18
+# LoRA: release/train_llama_lora.py --full (BASELINE config 5):
+# TransformerConfig.llama2_7b(max_seq=2048) in bf16 at full width and
+# depth, batch 1 x 2048, rank 8 on wq and wv, AdamW(1e-4) on the adapters
+# alone (lines 46-47, 54, 91-102). The adapters' gradients through the
+# kernels are held against the same step through plain attention and the
+# norm's plain backward, as phase 7 holds the model's (TRAIN_GRAD_REL_TOL).
+LORA_BATCH, LORA_SEQ, LORA_STEPS = 1, 2048, 3
+LORA_PARAMS_RANK_8 = 4_194_304  # 32 layers x 2 targets x (4096 x 8 + 8 x 4096)
+
+
+def _lora_launches(layers: int, forwards: int, steps: int, plain_forwards: int) -> dict:
+    """The launches of LoRA passes: a flash forward a layer and forward,
+    and a dQ and a dK/dV a layer and backward (in layer 0 q and v take the
+    adapters' gradient, k none); 2 norms a layer and the final one in every
+    forward, and in every backward the norms but layer 0's first, whose
+    input is the frozen embedding and whose weight is frozen."""
+    kernel_forwards = forwards + steps
+    return {"flash_attention_fwd": layers * kernel_forwards,
+            "flash_attention_bwd_dq": layers * steps,
+            "flash_attention_bwd_dkv": layers * steps,
+            "rmsnorm": (2 * layers + 1) * (kernel_forwards + plain_forwards),
+            "rmsnorm_bwd": 2 * layers * steps}
+
+
+def phase_lora(config=None, batch_size=LORA_BATCH, device="cuda") -> dict:
+    """LoRA fine-tuning steps at Llama-2-7B size: identity at init, AdamW
+    steps whose loss falls, then the adapters' gradients against the plain
+    versions. Returns the numbers and the launches the phase implies."""
+    from ray_tpu_torch.models.lora import (
+        LoRAConfig, init_lora, lora_forward, lora_loss, num_lora_params,
+    )
+
+    config = config or TransformerConfig.llama2_7b(max_seq=LORA_SEQ)
+    seq = config.max_seq
+    lcfg = LoRAConfig(rank=8)
+    start = time.perf_counter()
+    params = init_params(config, seed=SEED, device=device)
+    adapters = init_lora(config, lcfg, torch.Generator(device=device).manual_seed(SEED + 18))
+    _sync(device)
+    init_s = time.perf_counter() - start
+    n_lora = num_lora_params(adapters)
+    if config.dim == 4096 and config.n_layers == 32:
+        require(n_lora == LORA_PARAMS_RANK_8, f"lora: {n_lora} adapter parameters")
+    rng = np.random.default_rng(SEED + 18)
+    tokens = torch.from_numpy(rng.integers(0, config.vocab_size, (batch_size, seq + 1))).to(device)
+    counts = {"forwards": 0, "steps": 0, "plain_forwards": 0}
+
+    # B = 0: the adapted model is the base model, bitwise.
+    with torch.inference_mode():
+        identity = torch.equal(lora_forward(params, adapters, tokens[:, :-1], config, lcfg),
+                               forward(params, tokens[:, :-1], config))
+    counts["forwards"] += 2
+    require(identity, "lora: at init lora_forward differs from forward")
+
+    optimizer = make_optimizer(adapters, lr=1e-4)
+    require(not any(leaf.requires_grad for _, leaf in named_leaves(params)),
+            "lora: a base leaf requires grad")
+
+    def step():
+        loss = lora_loss(params, adapters, tokens, config, lcfg)
+        loss.backward()
+        optimizer.step()
+        optimizer.zero_grad(set_to_none=True)
+        return loss.detach()
+
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    first = float(step())
+    _sync(device)
+    start = time.perf_counter()
+    losses = [float(step()) for _ in range(LORA_STEPS)]
+    _sync(device)
+    step_ms = 1e3 * (time.perf_counter() - start) / LORA_STEPS
+    counts["steps"] += 1 + LORA_STEPS
+    peak = torch.cuda.max_memory_allocated() / 2**30 if device == "cuda" else None
+    prof = device_time(lambda: step(), top=8) if device == "cuda" else None
+    if prof is not None:
+        counts["steps"] += 1
+    require(all(np.isfinite(losses)) and losses[-1] < first,
+            f"lora: loss did not fall ({first} -> {losses})")
+
+    # The adapters' gradients (B no longer 0) through the kernels and
+    # through plain attention and the norm's plain backward.
+    names, leaves = zip(*named_leaves(adapters))
+
+    def grads(cfg):
+        loss = lora_loss(params, adapters, tokens, cfg, lcfg)
+        return float(loss.detach()), torch.autograd.grad(loss, leaves)
+
+    loss_k, grads_k = grads(config)
+    counts["steps"] += 1
+    kernel_backward = rmsnorm_mod.rmsnorm_backward
+    rmsnorm_mod.rmsnorm_backward = rmsnorm_mod._rmsnorm_backward
+    try:
+        loss_p, grads_p = grads(dataclasses.replace(config, attention="reference"))
+    finally:
+        rmsnorm_mod.rmsnorm_backward = kernel_backward
+    counts["plain_forwards"] += 1
+    grad_errs = {n: _rel_frobenius(a, b) for n, a, b in zip(names, grads_k, grads_p)}
+    worst = max(grad_errs, key=grad_errs.get)
+    del grads_k, grads_p
+    step_tokens = batch_size * seq
+    result = dict(
+        config="TransformerConfig.llama2_7b(max_seq=2048) (release/train_llama_lora.py --full)",
+        layers=config.n_layers, dim=config.dim, dtype=str(config.dtype), batch=batch_size,
+        seq=seq, rank=lcfg.rank, targets=list(lcfg.targets), lora_params=n_lora,
+        base_params=num_params(params), init_s=init_s, identity_at_init=identity,
+        first_loss=first, losses=losses, step_ms=step_ms,
+        tokens_per_s=step_tokens / (step_ms / 1e3), peak_gib=peak,
+        step_device_ms=prof and prof["device_ms"],
+        device_idle_share=prof and 1.0 - prof["device_ms"] / step_ms,
+        step_top=prof and prof["top"], loss_kernel=loss_k, loss_plain=loss_p,
+        loss_err=abs(loss_k - loss_p), loss_tol=TRAIN_LOSS_TOL, grad_rel_frobenius=grad_errs,
+        grad_tol=TRAIN_GRAD_REL_TOL, per_step_launches=_lora_launches(config.n_layers, 0, 1, 0),
+        want=_lora_launches(config.n_layers, **counts), **counts)
+    log("lora", **result)
+    require(result["loss_err"] < TRAIN_LOSS_TOL, f"lora: kernel vs plain loss {loss_k}, {loss_p}")
+    require(grad_errs[worst] < TRAIN_GRAD_REL_TOL,
+            f"lora: {worst} gradient kernel vs plain {grad_errs[worst]} >= {TRAIN_GRAD_REL_TOL}")
+    del params, adapters, optimizer, leaves
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return result
+
+
+# ---------------------------------------------------------------- phase 19
+# The CNN and the ResNet (models/cnn.py; BASELINE configs 1 and 3): no
+# Pallas kernel stands behind them (their convolutions are XLA's in the
+# reference, cuDNN's here), so the path launches none of the port's
+# kernels. f32 with TF32 off; the first step's logits on the card against
+# the same step on the CPU from the same parameters and batch, max |card -
+# CPU| over max(1, max |CPU|) within CNN_LOGITS_TOL (f32 sums in other
+# orders through up to 17 layers: the f32 forward bound of the parity
+# tests, 2e-5, times ten); then Adam steps whose loss falls, and img/s from
+# the median step, each step ended by a synchronize: a CNN step takes 2-3
+# ms, where one stall of the host moves a short window's mean tenfold.
+CNN_BATCH, RESNET_BATCH, CNN_STEPS = 64, 128, 20
+CNN_LOGITS_TOL = 2e-4
+
+
+def _tree_to(tree, device):
+    """A tree of dicts and lists of tensors, copied to ``device``."""
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_tree_to(v, device) for v in tree]
+    return tree.to(device, copy=True)
+
+
+def _cnn_run(name, config, init, loss_of, forward_of, batch_size, device) -> dict:
+    params = init(config, SEED, "cpu")
+    rng = np.random.default_rng(SEED + 20)
+    size, channels = config.image_size, config.in_channels
+    images = torch.from_numpy(rng.standard_normal((batch_size, size, size, channels))
+                              .astype(np.float32))
+    labels = torch.from_numpy(rng.integers(0, config.num_classes, batch_size))
+    with torch.no_grad():
+        cpu_logits = forward_of(params, images, config)
+    card = _tree_to(params, device)
+    leaves = [leaf.requires_grad_(True) for _, leaf in named_leaves(card)]
+    optimizer = torch.optim.Adam(leaves, lr=1e-3, betas=(0.9, 0.999), eps=1e-8)
+    images, labels = images.to(device), labels.to(device)
+    with torch.no_grad():
+        logits = forward_of(card, images, config)
+    err = float((logits.cpu() - cpu_logits).abs().max() / max(1.0, float(cpu_logits.abs().max())))
+
+    def step():
+        loss, acc = loss_of(card, images, labels, config)
+        loss.backward()
+        optimizer.step()
+        optimizer.zero_grad(set_to_none=True)
+        return loss.detach(), acc
+
+    first = float(step()[0])
+    losses, times = [], []
+    for _ in range(CNN_STEPS):
+        _sync(device)
+        start = time.perf_counter()
+        losses.append(float(step()[0]))
+        times.append(time.perf_counter() - start)
+    step_s = statistics.median(times)
+    out = dict(batch=batch_size, image=[size, size, channels],
+               params=sum(leaf.numel() for leaf in leaves), logits_err=err,
+               logits_tol=CNN_LOGITS_TOL, max_abs_logit=float(cpu_logits.abs().max()),
+               first_loss=first, losses=losses, step_ms=1e3 * step_s,
+               step_ms_mean=1e3 * statistics.mean(times), step_ms_max=1e3 * max(times),
+               img_per_s=batch_size / step_s)
+    require(err < CNN_LOGITS_TOL, f"{name}: logits on the card vs the CPU {err}")
+    require(all(np.isfinite(losses)) and losses[-1] < first,
+            f"{name}: loss did not fall ({first} -> {losses})")
+    return out
+
+
+def phase_cnn(device="cuda") -> dict:
+    from ray_tpu_torch.models.cnn import (
+        CNNConfig, ResNetConfig, cnn_forward, cnn_loss, init_cnn, init_resnet, resnet_forward,
+        resnet_loss,
+    )
+
+    flags = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        result = {
+            "cnn": _cnn_run("cnn", CNNConfig(), init_cnn, cnn_loss, cnn_forward, CNN_BATCH,
+                            device),
+            "resnet": _cnn_run("resnet", ResNetConfig(), init_resnet, resnet_loss,
+                               resnet_forward, RESNET_BATCH, device),
+        }
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = flags
+    result.update(cnn_config="CNNConfig() (release/train_fashion_mnist.py: batch 64, Adam 1e-3)",
+                  resnet_config="ResNetConfig(): ResNet-18 layout, width 64, 32 x 32 x 3 "
+                                "(release/tune_asha_resnet.py's model at full depth), Adam 1e-3",
+                  dtype="float32, TF32 off")
+    log("cnn", **result)
+    return result
+
+
 # ---------------------------------------------------------------- main
 def _path(name: str, want: dict, counts: dict, routes: dict, route: str, **fields) -> None:
     """Logs a path's launch counts and fails unless they are what the path
@@ -2922,6 +3345,16 @@ def main() -> None:
     pipe, counts["pipeline"], routes["pipeline"] = _run_path(phase_pipeline)
     _path("pipeline", pipe["want"], counts["pipeline"], routes["pipeline"], "wgmma")
 
+    ep, counts["expert_parallel"], routes["expert_parallel"] = _run_path(phase_expert_parallel)
+    passes = {k: ep[k] for k in ("kernel_forwards", "kernel_backwards")}
+    _path("expert_parallel", _expected(MOE_TRAIN_LAYERS, **passes), counts["expert_parallel"],
+          routes["expert_parallel"], "wgmma", **passes)
+    lora, counts["lora"], routes["lora"] = _run_path(phase_lora)
+    _path("lora", lora["want"], counts["lora"], routes["lora"], "wgmma")
+    # The CNN and the ResNet launch none of the port's kernels.
+    cnn, counts["cnn"], routes["cnn"] = _run_path(phase_cnn)
+    _path("cnn", {k: 0 for k in counts["cnn"]}, counts["cnn"], routes["cnn"], "wgmma")
+
     # Every launch on the tiny path is of its instantiations (head_dim 16 in
     # f32, RMSNorm at dim 64 in f32); on every other path, of the model's.
     for e in entries:
@@ -2950,6 +3383,9 @@ def main() -> None:
         pipeline_tokens_per_s=pipe["tokens_per_s"],
         pipeline_fused_tokens_per_s=pipe["fused_tokens_per_s"],
         pipeline_bubble_share=pipe["pp_bubble_share"], bubble_fraction=pipe["bubble_fraction"],
+        ep_tokens_per_s=ep["ep_tokens_per_s"], ep_one_rank_tokens_per_s=ep["one_rank_tokens_per_s"],
+        lora_tokens_per_s=lora["tokens_per_s"], lora_peak_gib=lora["peak_gib"],
+        cnn_img_per_s=cnn["cnn"]["img_per_s"], resnet_img_per_s=cnn["resnet"]["img_per_s"],
         seconds=time.perf_counter() - _t_start)
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {

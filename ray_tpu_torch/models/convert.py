@@ -14,6 +14,13 @@ bf16 value exactly.
 under optax's key paths: ``opt_state.0.count`` (int32, torch's ``step``),
 ``opt_state.0.mu.<leaf>`` (``exp_avg``) and ``opt_state.0.nu.<leaf>``
 (``exp_avg_sq``).
+
+``conv_params_from_numpy`` / ``conv_params_to_numpy`` carry the CNN and
+ResNet trees of ``models/cnn.py`` across: the reference's HWIO conv
+weights become OIHW and back, and the CNN's dense rows, which the
+reference flattens in (height, width, channels) order, are permuted to the
+port's (channels, height, width) order and back. LoRA adapters are plain
+dict trees of f32 arrays and go through ``params_from_numpy``.
 """
 
 from __future__ import annotations
@@ -30,9 +37,12 @@ _F32_LEAVES = ("router",)
 
 
 def _map(fn, tree, key=None):
-    """fn(leaf, key of the leaf) over a dict tree."""
+    """fn(leaf, key of the leaf) over a tree of dicts and lists (a list's
+    items take the key the list has)."""
     if isinstance(tree, dict):
         return {k: _map(fn, value, k) for k, value in tree.items()}
+    if isinstance(tree, list):
+        return [_map(fn, value, key) for value in tree]
     return fn(tree, key)
 
 
@@ -72,6 +82,44 @@ def params_to_numpy(params: dict) -> dict:
         return t.numpy()
 
     return _map(leaf, params)
+
+
+def _conv_weights(tree, fn):
+    """fn over every 4-d leaf named "w" (a conv weight) of a tree of dicts
+    and lists; the other leaves as they are."""
+    return _map(lambda leaf, key: fn(leaf) if key == "w" and leaf.ndim == 4 else leaf, tree)
+
+
+def _dense_rows(rows: int, channels: int) -> tuple[int, int]:
+    side = int(round((rows // channels) ** 0.5))
+    if side * side * channels != rows:
+        raise ValueError(f"a dense weight of {rows} rows is not a square map of {channels} "
+                         "channels")
+    return side, channels
+
+
+def conv_params_from_numpy(tree: dict, *, device=None) -> dict:
+    """A CNN or ResNet tree of the JAX package (numpy) -> the port's, on
+    ``device`` (cuda by default): conv weights HWIO -> OIHW; the CNN's
+    dense rows from (h, w, c) order to (c, h, w)."""
+    tree = _conv_weights(tree, lambda w: np.ascontiguousarray(np.asarray(w).transpose(3, 2, 0, 1)))
+    if "convs" in tree:
+        w = np.asarray(tree["dense"]["w"])
+        side, c = _dense_rows(w.shape[0], tree["convs"][-1]["w"].shape[0])
+        w = w.reshape(side, side, c, -1).transpose(2, 0, 1, 3).reshape(w.shape)
+        tree = {**tree, "dense": {**tree["dense"], "w": np.ascontiguousarray(w)}}
+    return params_from_numpy(tree, device=device)
+
+
+def conv_params_to_numpy(params: dict) -> dict:
+    """Inverse of ``conv_params_from_numpy`` (a tree of gradients too)."""
+    tree = _conv_weights(params_to_numpy(params), lambda w: w.transpose(2, 3, 1, 0))
+    if "convs" in tree:
+        w = tree["dense"]["w"]
+        side, c = _dense_rows(w.shape[0], tree["convs"][-1]["w"].shape[-1])
+        w = w.reshape(c, side, side, -1).transpose(1, 2, 0, 3).reshape(w.shape)
+        tree = {**tree, "dense": {**tree["dense"], "w": w}}
+    return tree
 
 
 def _chain_length(optimizer: torch.optim.Optimizer) -> int:

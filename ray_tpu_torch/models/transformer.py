@@ -30,9 +30,10 @@ parameters load one to one (``models/convert.py``).
   * Under the sharded train step (``train/torch_utils.py``) the blocks read
     its tensor-parallel context (``parallel/tensor_parallel.py``): each rank
     holds its column or row shards of the split weights and its share of
-    the heads, and the blocks add Megatron's collectives; the MoE routing
-    and the masked loss run over the global batch across the data ranks.
-    Without one they run as on one device.
+    the heads, and the blocks add Megatron's collectives; each ep rank
+    holds its share of the MoE experts, whose outputs are summed over ep;
+    the MoE routing and the masked loss run over the global batch across
+    the data ranks. Without one they run as on one device.
 """
 
 from __future__ import annotations
@@ -367,23 +368,38 @@ def _moe_mlp(h: torch.Tensor, layer: dict, config: TransformerConfig) -> torch.T
     In a sharded step the routing runs over the global token order across
     the data ranks (``_moe_combine``); dispatch, the experts' products and
     the combine stay local, and the experts' gradients are reduced over the
-    data axes by the step. Refused with tp or ep above 1: the experts would
-    be split across ranks (ROADMAP Queue A item 4b, expert parallelism)."""
+    data axes by the step. Under ep and tp the block does what GSPMD's
+    compiled step does with ``DEFAULT_RULES`` (read from the JAX package's
+    step lowered on a CPU mesh of {dp 2, ep 4} and of {dp 2, tp 2, ep 2}):
+
+      * the ep ranks of one data rank hold the same tokens and the same
+        router, so each routes every token alike (GSPMD splits the
+        routing's expert dim over ep; the port repeats the small routing
+        on each ep rank instead) and keeps its own experts' columns of
+        the combine;
+      * each ep rank runs its experts' einsums on its data rank's dispatch;
+        under tp, w_gate and w_up hold this rank's columns of every expert
+        and w_down their rows, and the experts' outputs are summed over tp
+        before the combine (GSPMD's all-reduce after ``ecm,emd->ecd``);
+      * the combine's contraction over the experts is a sum over ep
+        (``expert_sum``: GSPMD's all-reduce after ``tec,ecd->td``);
+      * the block's input and the router are ``expert_copy``'d: each ep
+        rank's backward covers its own experts, so their gradients, and
+        every replicated leaf's before them, are summed over ep to the
+        whole gradient (GSPMD's all-reduces in the transposed step)."""
     ctx = tp.current()
-    if ctx is not None and (ctx.size > 1 or ctx.ep > 1):
-        raise NotImplementedError(
-            f"MoE under tensor or expert parallelism (tp {ctx.size}, ep {ctx.ep}): the "
-            "experts' split across ranks is expert parallelism (ROADMAP Queue A item 4b)"
-        )
+    moe = config.moe
+    first, held = tp.local_experts(ctx, moe.num_experts, layer["w_gate"].shape[0])
     batch, seq, d = h.shape
-    ht = h.reshape(batch * seq, d)
-    combine = _moe_combine(ht, layer["router"], config.moe, ctx)
-    dispatch = (combine > 0).to(h.dtype)  # [T, E, C]
-    expert_in = torch.einsum("tec,td->ecd", dispatch, ht)  # [E, C, D]
+    ht = tp.expert_copy(h.reshape(batch * seq, d))
+    combine = _moe_combine(ht, tp.expert_copy(layer["router"]), moe, ctx)
+    combine = combine[:, first:first + held]  # [T, E_local, C]
+    dispatch = (combine > 0).to(h.dtype)
+    expert_in = torch.einsum("tec,td->ecd", dispatch, tp.copy(ht))  # [E_local, C, D]
     gate = torch.einsum("ecd,edm->ecm", expert_in, layer["w_gate"]).to(h.dtype)
     up = torch.einsum("ecd,edm->ecm", expert_in, layer["w_up"]).to(h.dtype)
-    expert_out = torch.einsum("ecm,emd->ecd", _silu_mul(gate, up), layer["w_down"])
-    out = torch.einsum("tec,ecd->td", combine.to(h.dtype), expert_out)
+    expert_out = tp.reduce(torch.einsum("ecm,emd->ecd", _silu_mul(gate, up), layer["w_down"]))
+    out = tp.expert_sum(torch.einsum("tec,ecd->td", combine.to(h.dtype), expert_out))
     return out.reshape(batch, seq, d)
 
 

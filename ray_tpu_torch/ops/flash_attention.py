@@ -236,17 +236,22 @@ def _flash_bwd_dkv(q, k, v, do, lse, delta, dk, dv, causal: bool, scale: float) 
 def _flash_backward(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
     lse: torch.Tensor, do: torch.Tensor, *, causal: bool = True,
-    scale: float | None = None,
+    scale: float | None = None, need_dkv: bool = True,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(dQ, dK, dV) of flash attention from the forward's O and LSE and the
     output's gradient dO, in the dtypes of q, k and v. dO is cast to q's
-    dtype first, as the JAX package does, before delta and both kernels."""
+    dtype first, as the JAX package does, before delta and both kernels.
+    ``need_dkv=False`` skips the dK/dV kernel and returns None for dK and
+    dV; the dQ kernel always runs, since it also writes the delta the
+    dK/dV kernel reads."""
     _check_inputs(q, k, v)
     if scale is None:
         scale = q.shape[-1] ** -0.5
     do = do.to(q.dtype)
     if all(t.device.type == "cpu" for t in (q, k, v, out, lse, do)):
-        return _flash_backward_reference(q, k, v, out, lse, do, causal=causal, scale=scale)
+        dq, dk, dv = _flash_backward_reference(q, k, v, out, lse, do, causal=causal,
+                                               scale=scale)
+        return (dq, dk, dv) if need_dkv else (dq, None, None)
     size = _check_kernel_inputs(q, k, v)
     if out.shape != q.shape or do.shape != q.shape or lse.shape != q.shape[:3]:
         raise ValueError(
@@ -265,6 +270,8 @@ def _flash_backward(
         return dq[..., :dim].zero_(), dk[..., :dim].zero_(), dv[..., :dim].zero_()
     delta = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
     _flash_bwd_dq(q, k, v, out, do, lse, delta, dq, causal, scale)
+    if not need_dkv:
+        return dq[..., :dim], None, None
     _flash_bwd_dkv(q, k, v, do, lse, delta, dk, dv, causal, scale)
     return dq[..., :dim], dk[..., :dim], dv[..., :dim]
 
@@ -283,9 +290,15 @@ class _FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, do):
+        # Only the gradients autograd asks for: with a frozen embedding
+        # (LoRA), layer 0's k needs none, and where neither k nor v does the
+        # dK/dV kernel is skipped.
         q, k, v, out, lse = ctx.saved_tensors
-        dq, dk, dv = _flash_backward(q, k, v, out, lse, do, causal=ctx.causal, scale=ctx.scale)
-        return dq, dk, dv, None, None
+        need_q, need_k, need_v = ctx.needs_input_grad[:3]
+        dq, dk, dv = _flash_backward(q, k, v, out, lse, do, causal=ctx.causal, scale=ctx.scale,
+                                     need_dkv=need_k or need_v)
+        return (dq if need_q else None, dk if need_k else None, dv if need_v else None,
+                None, None)
 
 
 def flash_attention(

@@ -139,9 +139,12 @@ class _RMSNorm(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dy):
+        # One kernel writes dx and dw; only those autograd asks for are
+        # handed back (a frozen weight takes none, LoRA's norms).
         x, weight = ctx.saved_tensors
         dx, dw = rmsnorm_backward(x, weight, dy, ctx.eps)
-        return dx, dw, None
+        need_x, need_w = ctx.needs_input_grad[:2]
+        return dx if need_x else None, dw if need_w else None, None
 
 
 def rmsnorm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:

@@ -9,7 +9,7 @@ point-to-point send and receive. ``ProcessGroupWire`` implements it over a
 implementation (ranks as threads of one process on one card, say) plugs in
 through a mesh with a ``wire(axis)`` method (``axis_wire``).
 
-On top of it, three ``torch.autograd.Function``s:
+On top of it, four ``torch.autograd.Function``s:
 
   * ``shift(x, wire, offset)``: x goes to rank + offset, the result comes
     from rank - offset; the backward is the reverse shift;
@@ -17,7 +17,10 @@ On top of it, three ``torch.autograd.Function``s:
     with ``tiled=True``; the backward is the inverse exchange;
   * ``all_reduce_replicated(x, wire)``: the sum over the ranks, whose
     backward passes each rank's cotangent through unchanged: every rank
-    computes what follows alike, so each holds the whole cotangent.
+    computes what follows alike, so each holds the whole cotangent;
+  * ``sum_cotangents(x, wire)``: x itself, whose backward sums the ranks'
+    cotangents: where each rank's work after x is its part of a sum (its
+    experts), x's cotangent and everything's before it is whole again.
 
 Every rank must make the same calls in the same order, forward and
 backward alike.
@@ -252,3 +255,21 @@ def all_reduce_replicated(x: torch.Tensor, wire: Wire) -> torch.Tensor:
     """The sum of x over the ranks; the backward hands each rank's
     cotangent through unchanged (what follows runs alike on every rank)."""
     return _AllReduceReplicated.apply(x, wire)
+
+
+class _SumCotangents(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, wire):
+        ctx.wire = wire
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.wire.all_reduce(g.contiguous()), None
+
+
+def sum_cotangents(x: torch.Tensor, wire: Wire) -> torch.Tensor:
+    """x itself; the backward sums the ranks' cotangents of x (the
+    counterpart of ``all_reduce_replicated``, as tp's ``copy`` is of its
+    ``reduce``)."""
+    return _SumCotangents.apply(x, wire)

@@ -1,10 +1,13 @@
-"""Tensor parallelism for the transformer's blocks: Megatron's split, the
-partitioning that ``DEFAULT_RULES`` gives GSPMD in the JAX package.
+"""Tensor and expert parallelism for the transformer's blocks: Megatron's
+split and the experts' split over ep, the partitioning that
+``DEFAULT_RULES`` gives GSPMD in the JAX package.
 
 wq, w_gate, w_up and the lm_head are split by columns over tp, wo and
-w_down by rows; the embedding table is split over vocab. The model's
-blocks read the step's ``TPContext`` (``current()``) and, where one is
-active, wrap their products in these autograd pieces:
+w_down by rows; the embedding table is split over vocab; the MoE experts
+are split over ep (each rank holds ``num_experts / ep`` of them), and
+each expert's SwiGLU over tp as the dense one's. The model's blocks read
+the step's ``TPContext`` (``current()``) and, where one is active, wrap
+their products in these autograd pieces:
 
   * ``copy``: identity forward, all-reduce backward. Placed where a block's
     input fans out to the rank's column shards, so the input's gradient is
@@ -14,13 +17,16 @@ active, wrap their products in these autograd pieces:
   * ``gather``: all-gather forward along the last dim, slice backward. The
     vocab-split logits are gathered whole, so any loss sees the logits the
     single-device path gives it.
+  * ``expert_copy`` and ``expert_sum``: ``copy`` and ``reduce`` over ep,
+    through the ep ``Wire`` (``parallel/_wire.py``), so that the same code
+    runs on process-group ranks and on ranks that share a card.
 
-With these every leaf that is not split over tp gets the same, whole
-gradient on every tp rank. With no context the blocks run as on one device.
-At tp = 1 the pieces still run, as collectives of one rank. ``calls``
-counts the collectives by mesh axis, as the kernels count launches: the
-pieces count "tp", the sharded step counts its gathers over "fsdp" and
-"dp".
+With these every leaf that is not split over tp or ep gets the same,
+whole gradient on every tp and ep rank. With no context the blocks run as
+on one device. At tp = 1 the tp pieces still run, as collectives of one
+rank; at ep = 1 the ep pieces are not called. ``calls`` counts the
+collectives by mesh axis, as the kernels count launches: the pieces count
+"tp" and "ep", the sharded step counts its gathers over "fsdp" and "dp".
 """
 
 from __future__ import annotations
@@ -32,6 +38,7 @@ from typing import Any
 
 import torch
 
+from ray_tpu_torch.parallel import _wire
 from ray_tpu_torch.parallel.mesh import AXES
 
 # Collectives issued since the counts were last set to 0, by mesh axis.
@@ -51,8 +58,8 @@ class TPContext:
     rank's place in it, the data axes (dp, fsdp) as one group of
     ``data_ranks`` ranks with this rank's index in their dp-major order
     (the MoE routing and the masked loss run over the global batch across
-    them), and ep, which the MoE block refuses above 1 (ROADMAP Queue A
-    item 4b)."""
+    them), and the ep axis: its size, the ``Wire`` between its ranks and
+    this rank's index on it, which says which experts the rank holds."""
 
     group: Any
     rank: int
@@ -61,6 +68,8 @@ class TPContext:
     ep: int = 1
     data_group: Any = None
     data_rank: int = 0
+    ep_wire: Any = None
+    ep_rank: int = 0
 
 
 _CURRENT: contextvars.ContextVar[TPContext | None] = contextvars.ContextVar(
@@ -191,3 +200,39 @@ def local_heads(ctx: TPContext | None, n_heads: int, heads: int) -> tuple[int, i
             "tensor-parallel shards (ROADMAP Queue C)"
         )
     return ctx.rank * heads, heads
+
+
+def local_experts(ctx: TPContext | None, num_experts: int, held: int) -> tuple[int, int]:
+    """(first expert, experts) of this rank's share of ``num_experts``,
+    where ``held`` is the count in its expert leaves. Raises when ep does
+    not split the experts evenly, as the reference's planner does (ROADMAP
+    Queue C item 7)."""
+    ep = 1 if ctx is None else ctx.ep
+    if held * ep != num_experts:
+        raise NotImplementedError(
+            f"ep={ep} with {held} experts a rank for num_experts={num_experts}: the port "
+            "splits the experts evenly over ep and does not pad them (ROADMAP Queue A item "
+            "4b, Queue C item 7)"
+        )
+    return (0 if ctx is None else ctx.ep_rank) * held, held
+
+
+def expert_copy(x: torch.Tensor) -> torch.Tensor:
+    """Identity forward, sum over ep backward (where each ep rank's work
+    after x covers its own experts); x itself outside a context or at ep 1."""
+    ctx = current()
+    if ctx is None or ctx.ep == 1:
+        return x
+    calls["ep"] += 1
+    return _wire.sum_cotangents(x, ctx.ep_wire)
+
+
+def expert_sum(x: torch.Tensor) -> torch.Tensor:
+    """Sum over ep forward, identity backward: the combine's contraction
+    over the experts, each ep rank's part summed. x itself outside a
+    context or at ep 1."""
+    ctx = current()
+    if ctx is None or ctx.ep == 1:
+        return x
+    calls["ep"] += 1
+    return _wire.all_reduce_replicated(x, ctx.ep_wire)

@@ -19,13 +19,15 @@ import torch
 from ray_tpu_torch.models.transformer import TransformerConfig, loss_fn
 
 
-def named_leaves(tree: dict, prefix: str = ""):
-    """(dotted name, leaf) of every leaf of a dict tree, in a fixed order."""
-    for key, value in tree.items():
-        if isinstance(value, dict):
+def named_leaves(tree, prefix: str = ""):
+    """(dotted name, leaf) of every leaf of a tree of dicts and lists (a
+    list's items named by their index), in a fixed order."""
+    items = enumerate(tree) if isinstance(tree, list) else tree.items()
+    for key, value in items:
+        if isinstance(value, (dict, list)):
             yield from named_leaves(value, f"{prefix}{key}.")
         else:
-            yield prefix + key, value
+            yield f"{prefix}{key}", value
 
 
 def make_optimizer(params: dict, lr: float = 3e-4) -> torch.optim.AdamW:

@@ -9,7 +9,7 @@ of ray_tpu's ``train/jax_utils.py`` and of its fused sharded step.
                                     setup)
     params, opt_state, loss = step(setup.params, setup.opt_state, setup.shard_batch(tokens))
 
-One mesh expresses data, FSDP and tensor parallelism. The JAX package runs
+One mesh expresses data, FSDP, tensor and expert parallelism. The JAX package runs
 GSPMD: one program, per-leaf ``NamedSharding``s, collectives inserted by
 the compiler. Here one process runs each device. Each leaf is stored as a
 ``DTensor`` on a named ``DeviceMesh`` with the placements the logical-dim
@@ -27,8 +27,14 @@ group (``build_sharded_train_step(group_name=...)``) with the gradient
 syncs it runs on (``sync_gradients``, ``begin_gradient_sync``,
 ``sync_gradients_sharded``, ``grad_psum``), the sharded state's
 checkpoint (``save_sharded_state``, ``restore_sharded_state``) and the
-train session's mesh. MoE with ep or tp above 1 raises (ROADMAP Queue A
-item 4b).
+train session's mesh.
+
+The MoE experts' leaves are split over ep on their expert dim (``Shard``)
+and stay split for compute, as a tp-split leaf does; each ep rank runs its
+own experts and the model sums their outputs over ep
+(``models/transformer.py``'s ``_moe_mlp``), so an expert leaf's gradient
+is its shard's own, reduced over the data axes only, and every other
+leaf's is whole and equal on every ep rank.
 """
 
 from __future__ import annotations
@@ -44,6 +50,7 @@ import torch
 
 from ray_tpu_torch.parallel import mesh as mesh_mod
 from ray_tpu_torch.parallel import tensor_parallel as tp
+from ray_tpu_torch.parallel._wire import axis_wire
 from ray_tpu_torch.parallel.mesh import (
     LogicalRules, MeshSpec, NamedSharding, auto_shard_specs, mesh_axes, tree_leaves, tree_map,
 )
@@ -256,6 +263,8 @@ def plan_sharded_training(
     (``enforce_budget=False``: an infinite budget). Returns (shapes,
     shardings, estimated bytes per device)."""
     shapes = init_fn("meta")
+    if mesh_axes(mesh).get("ep", 1) > 1:
+        _check_expert_rules(rules or LogicalRules(), mesh, shapes, logical_dims)
     shardings = auto_shard_specs(shapes, mesh, logical_dims=logical_dims, rules=rules,
                                  fsdp_axis=fsdp_axis)
     estimate = ensure_train_state_fits(shapes, shardings, what="sharded train state",
@@ -275,6 +284,34 @@ def _check_tp_rules(rules: LogicalRules, mesh) -> None:
                 "tensor-parallel blocks follow DEFAULT_RULES' split over tp "
                 "(ROADMAP Queue A item 3a)"
             )
+
+
+def _check_expert_rules(rules: LogicalRules, mesh, shapes: Any, logical_dims: Any) -> None:
+    """The MoE block splits the experts over ep and expects the ep ranks of
+    a data rank to hold the same tokens, as ``DEFAULT_RULES`` have it
+    ("expert" on ep, "batch" on the data axes alone); raises for rules that
+    map either otherwise on a mesh with ep above 1, and for a leaf whose
+    expert dim ep does not divide (the reference's planner refuses it too;
+    ROADMAP Queue C item 7)."""
+    default = LogicalRules()
+    for dim in ("batch", "expert"):
+        if rules.spec([dim], mesh) != default.spec([dim], mesh):
+            raise NotImplementedError(
+                f"rules map {dim!r} to {rules.spec([dim], mesh)[0]!r}: the MoE block's "
+                "expert parallelism follows DEFAULT_RULES (ROADMAP Queue A item 4b)"
+            )
+    ep = mesh_axes(mesh)["ep"]
+    for path, leaf in tree_leaves(shapes):
+        dims = logical_dims
+        for key in path:
+            dims = dims.get(key) if isinstance(dims, dict) else None
+        if dims is not None and "expert" in tuple(dims):
+            experts = leaf.shape[tuple(dims).index("expert")]
+            if experts % ep:
+                raise NotImplementedError(
+                    f"{'/'.join(path)}: ep={ep} does not divide its {experts} experts; the "
+                    "port does not pad them (ROADMAP Queue A item 4b, Queue C item 7)"
+                )
 
 
 def setup_sharded_training(
@@ -354,16 +391,17 @@ def _data_group(mesh, data_axes: list[str]):
 
 def _compute_placements(leaf, names: tuple[str, ...]) -> tuple[tuple, tuple]:
     """(placements compute needs, placements of the local gradient) of a
-    stored leaf: whole over every axis but tp, where a tp-split leaf stays
-    split; the local gradient is a partial sum over the data axes (each
-    rank saw its part of the batch), the shard's own over tp for a split
-    leaf, and whole elsewhere (the tensor-parallel blocks give every tp
-    rank the whole gradient of an unsplit leaf)."""
+    stored leaf: whole over every axis but tp and ep, where a split leaf
+    stays split; the local gradient is a partial sum over the data axes
+    (each rank saw its part of the batch), the shard's own over tp or ep
+    for a split leaf, and whole elsewhere (the tensor- and
+    expert-parallel blocks give every tp and ep rank the whole gradient of
+    an unsplit leaf)."""
     from torch.distributed.tensor import Partial, Replicate
 
     compute, grad = [], []
     for axis, placement in zip(names, leaf.placements):
-        keep = axis == "tp" and placement.is_shard()
+        keep = axis in ("tp", "ep") and placement.is_shard()
         compute.append(placement if keep else Replicate())
         grad.append(Partial() if axis in _DATA_AXES else (placement if keep else Replicate()))
     return tuple(compute), tuple(grad)
@@ -442,6 +480,8 @@ def build_sharded_train_step(
         ep=axes.get("ep", 1),
         data_group=_data_group(mesh, data_axes) if data_ranks > 1 else None,
         data_rank=data_rank,
+        ep_wire=axis_wire(mesh, "ep") if axes.get("ep", 1) > 1 else None,
+        ep_rank=mesh.get_local_rank("ep") if "ep" in axes else 0,
     )
 
     def gather(leaf):
@@ -489,8 +529,8 @@ def _split_step(loss_fn, setup: ShardedTrainSetup, group_name: str,
             n > 1 for a, n in axes.items() if a != "dp"):
         raise NotImplementedError(
             f"the split step syncs whole gradients over group {group_name!r} of "
-            f"{group.world_size} workers: it takes a mesh of dp {group.world_size} only, "
-            f"got {axes}")
+            f"{group.world_size} workers: it takes a mesh of dp {group.world_size} only "
+            f"(fsdp, tp and ep split leaves across the workers), got {axes}")
     leaves = [leaf for _, leaf in tree_leaves(setup.params)]
     ctx = tp.TPContext(group=None, rank=0, size=1)  # the worker's own mesh
 

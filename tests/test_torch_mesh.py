@@ -54,6 +54,11 @@ MESHES = {
     "dp4_fsdp2": {"dp": 4, "fsdp": 2},
     "fsdp4_tp2": {"fsdp": 4, "tp": 2},
     "dp2_ep4": {"dp": 2, "ep": 4},
+    # The meshes tests/test_torch_expert_parallel.py trains on.
+    "ep4": {"ep": 4},
+    "dp2_ep2": {"dp": 2, "ep": 2},
+    "tp2_ep2": {"tp": 2, "ep": 2},
+    "fsdp2_ep2": {"fsdp": 2, "ep": 2},
 }
 
 

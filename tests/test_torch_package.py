@@ -131,6 +131,41 @@ def test_flash_gradient_reaches_each_input(which):
     assert float((grad - want).abs().max()) < 1e-5
 
 
+@pytest.mark.parametrize("needs", ["q", "k", "v", "qv"])
+def test_flash_backward_skips_what_autograd_does_not_ask_for(monkeypatch, needs):
+    """With a frozen embedding (LoRA), layer 0's k needs no gradient: the
+    backward hands back None for an input that does not require grad, and
+    skips the dK/dV kernel where neither k nor v does."""
+    rng = np.random.default_rng(6)
+    inputs = {name: torch.from_numpy(rng.standard_normal((1, 2, 16, 32), np.float32))
+              .requires_grad_(name in needs) for name in "qkv"}
+    asked = []
+    backward = port_flash._flash_backward
+
+    def spy(*args, **kwargs):
+        asked.append(kwargs["need_dkv"])
+        return backward(*args, **kwargs)
+
+    monkeypatch.setattr(port_flash, "_flash_backward", spy)
+    out = port_flash.flash_attention(inputs["q"], inputs["k"], inputs["v"])
+    out.sum().backward()
+    assert asked == [needs != "q"]
+    for name, t in inputs.items():
+        assert (t.grad is not None) == (name in needs)
+    dq, dk, dv = backward(*(t.detach() for t in inputs.values()), out.detach(),
+                          port_flash._lse_reference(inputs["q"].detach(), inputs["k"].detach(),
+                                                    causal=True, scale=32 ** -0.5),
+                          torch.ones_like(out), need_dkv=False)
+    assert dq is not None and dk is None and dv is None
+
+
+def test_the_import_scan_covers_every_module_of_the_port():
+    scanned = {p.relative_to(ROOT).as_posix() for p in _port_sources()}
+    for name in ("models/lora.py", "models/cnn.py", "models/transformer.py",
+                 "parallel/tensor_parallel.py", "parallel/_wire.py", "train/torch_utils.py"):
+        assert f"ray_tpu_torch/{name}" in scanned
+
+
 def test_flash_runs_under_inference_mode_with_grad_params():
     q = torch.randn(1, 2, 8, 32, requires_grad=True)
     with torch.inference_mode():

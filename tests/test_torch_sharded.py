@@ -9,8 +9,10 @@ virtual CPU devices, from the same JAX init and batches:
     batch, as its ``_run_sharded`` takes them;
   * ``TransformerConfig.tiny()`` (4 heads over 2 kv heads): two Adam(1e-2)
     steps on fresh batches;
-  * an MoE config on {fsdp 2, tp 2}, which the port refuses: expert
-    parallelism (MoE on data ranks: ``tests/test_torch_data_ranks.py``).
+  * ``tiny()`` with 4 experts, top-2, on {fsdp 2, tp 2}: the same three
+    SGD(0.1) steps, each expert's SwiGLU split over tp (MoE on data
+    ranks: ``tests/test_torch_data_ranks.py``; under ep:
+    ``tests/test_torch_expert_parallel.py``).
 
 On a machine with four cards, ``test_sharded_step_on_four_cards`` runs the
 same trajectories on NCCL ranks, one a card, against the single-device
@@ -131,20 +133,11 @@ def _trajectory(config, init_tree, kind, axes, batches, device="cpu"):
     return {"losses": losses, "params": full, "specs": specs}
 
 
-def _moe_refusal():
-    config = pt.TransformerConfig.tiny(moe=pt.MoEConfig(num_experts=4, top_k=2))
-    setup = torch_utils.setup_sharded_training(
-        lambda d: pt.init_params(config, 0, d), _optimizer("adam"),
-        mesh=MeshSpec({"fsdp": 2, "tp": 2}).build("cpu"),
-        logical_dims=pt.param_logical_dims(config))
-    step = torch_utils.build_sharded_train_step(
-        lambda p, tok: pt.loss_fn(p, tok[:, :-1], tok[:, 1:], config), setup)
-    tokens = torch.zeros(4, 9, dtype=torch.int64)
-    try:
-        step(setup.params, setup.opt_state, tokens)
-    except NotImplementedError as err:
-        return {"raised": "NotImplementedError", "message": str(err)}
-    return {"raised": None}
+MOE_MESH = {"fsdp": 2, "tp": 2}
+
+
+def _moe_config(module):
+    return module.TransformerConfig.tiny(moe=module.MoEConfig(num_experts=4, top_k=2))
 
 
 def _worker(rank, store, out_dir, init_trees, batches):
@@ -162,7 +155,8 @@ def _worker(rank, store, out_dir, init_trees, batches):
                                                  [sgd_batch] * SGD_STEPS)
             results[("adam", name)] = _trajectory(pt.TransformerConfig.tiny(),
                                                   init_trees["adam"], "adam", axes, adam_batches)
-        results["moe"] = _moe_refusal()
+        results["moe"] = _trajectory(_moe_config(pt), init_trees["moe"], "sgd", MOE_MESH,
+                                     [sgd_batch] * SGD_STEPS)
         if rank == 0:
             with open(os.path.join(out_dir, "results.pkl"), "wb") as f:
                 pickle.dump(results, f)
@@ -217,7 +211,8 @@ def trajectories(tmp_path_factory, cpu_mesh_devices):
     # ranks are given.
     jax.config.update("jax_threefry_partitionable", True)
     out_dir = tmp_path_factory.mktemp("sharded")
-    configs = {"sgd": _sgd_config(jt, jnp.float32), "adam": jt.TransformerConfig.tiny()}
+    configs = {"sgd": _sgd_config(jt, jnp.float32), "adam": jt.TransformerConfig.tiny(),
+               "moe": _moe_config(jt)}
     init_trees = {kind: jax.tree.map(np.asarray, jax.jit(jt.init_params, static_argnums=0)(
         c, jax.random.PRNGKey(0))) for kind, c in configs.items()}
     sgd_batch, adam_batches = _batches()
@@ -236,6 +231,8 @@ def trajectories(tmp_path_factory, cpu_mesh_devices):
                 configs["sgd"], "sgd", axes, [sgd_batch] * SGD_STEPS, cpu_mesh_devices)
             jax_results[("adam", name)] = _jax_trajectory(
                 configs["adam"], "adam", axes, adam_batches, cpu_mesh_devices)
+        jax_results["moe"] = _jax_trajectory(configs["moe"], "sgd", MOE_MESH,
+                                             [sgd_batch] * SGD_STEPS, cpu_mesh_devices)
         for p in procs:
             p.join(max(1.0, JOIN_TIMEOUT_S - (time.monotonic() - start)))
     finally:
@@ -283,13 +280,25 @@ def test_sharded_trajectory_matches_jax(trajectories, kind, mesh):
 
 
 def test_moe_on_data_ranks_is_refused(trajectories):
-    # MoE on data ranks trains (tests/test_torch_data_ranks.py); beside tp
-    # it is refused, since the experts would be split across ranks: expert
-    # parallelism.
-    port_results, _, _ = trajectories
-    moe = port_results["moe"]
-    assert moe["raised"] == "NotImplementedError"
-    assert "ROADMAP Queue A item 4b" in moe["message"]
+    # MoE beside tp trains (it was refused before expert parallelism, ROADMAP
+    # Queue A item 4b): each expert's SwiGLU split over tp and its output
+    # summed over tp before the combine, held as the SGD runs are held.
+    # SGD, not Adam: Adam turns a gradient element near zero into a step of
+    # up to lr either way, and in this MoE run one element of embed (row 33,
+    # a token seen once) lands more than lr apart between JAX's own
+    # one-device and {fsdp 2, tp 2} steps, an order past the Adam bound,
+    # where SGD holds the gradients' scale.
+    port_results, jax_results, init_trees = trajectories
+    port, ref = port_results["moe"], jax_results["moe"]
+    assert port["specs"] == ref["specs"]
+    assert port["specs"]["layers/w_gate"][-1] == "tp"
+    np.testing.assert_allclose(port["losses"], ref["losses"], rtol=0, atol=TRAJECTORY_LOSS_TOL)
+    assert port["losses"][-1] < port["losses"][0]
+    init = dict(("/".join(path), leaf) for path, leaf in tree_leaves(init_trees["moe"]))
+    assert port["params"].keys() == ref["params"].keys()
+    for name, got in port["params"].items():
+        err = _leaf_error("sgd", got, ref["params"][name], init[name])
+        assert err < SGD_LEAF_TOL, (name, err)
 
 
 # ------------------------------------------------------------ four cards
