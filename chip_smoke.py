@@ -143,7 +143,25 @@ final line) if anything is wrong:
                off: the first step's logits against the CPU's, Adam(1e-3)
                steps whose loss falls, img/s from the median step; no
                kernel of the port runs
-Each path (4-5, 7, 8, 9, 10, 11, 12, 14, 15, 16, 17, 18, 19) runs with every
+ 20. rllib     the RLlib learner (ray_tpu_torch.rllib) on the card, f32
+               with TF32 off: a PPOLearner for ConvModule's Atari stack
+               ([[32,8,4],[64,4,2],[64,3,1]] + 512 on uint8 [84, 84, 4],
+               Discrete(6); release/rllib_ppo_atari_shaped.py's minibatch
+               128) and one for MLPModule at CartPole's (64, 64)
+               (release/rllib_ppo_cartpole.py's minibatch 256), each
+               against a CPU learner from the same parameters on one
+               seeded minibatch: the loss and each metric within
+               RL_METRIC_TOL, each parameter leaf after the update within
+               RL_PARAM_REL_TOL by relative Frobenius norm; then the
+               update's time (CUDA events), its device time, kernels and
+               idle share from one profiled update, the update's operations
+               and their bound, one GAE bootstrap call's wall time, peak
+               memory; then the learner's half of one Atari-shaped
+               iteration (GAE with its bootstrap calls counted, the
+               minibatch epochs, the weights fetched for the sync); no
+               kernel of the port runs. The env runners and env-steps/s
+               need gymnasium, which the card's machine lacks (RL_GYMNASIUM)
+Each path (4-5, 7, 8, 9, 10, 11, 12, 14, 15, 16, 17, 18, 19, 20) runs with every
 launch count set to 0 just before it; its counts, read just after, must
 equal what its layers and passes imply, every flash launch on the route the
 path's inputs take. The trainer path's kernels launch in its worker
@@ -194,6 +212,13 @@ from ray_tpu_torch.parallel.pipeline import (
 )
 from ray_tpu_torch.parallel.ring_attention import (
     make_ring_attention, make_ulysses_attention, sequence_positions,
+)
+from ray_tpu_torch.rllib.algorithms.ppo.ppo import PPOLearner, value_function
+from ray_tpu_torch.rllib.connectors import GeneralAdvantageEstimation
+from ray_tpu_torch.rllib.core.rl_module import ConvModule, RLModuleSpec
+from ray_tpu_torch.rllib.policy.sample_batch import (
+    ACTION_LOGP, ACTIONS, ADVANTAGES, EPS_ID, NEXT_OBS, OBS, REWARDS, TERMINATEDS, TRUNCATEDS,
+    VALUE_TARGETS, VF_PREDS, SampleBatch,
 )
 from ray_tpu_torch.serve.batching import batch
 from ray_tpu_torch.train import session as session_mod
@@ -342,6 +367,7 @@ def device_time(fn, top: int = 5) -> dict:
     rows.sort(key=lambda r: -r[1])
     return {
         "device_ms": sum(r[1] for r in rows),
+        "device_ops": sum(r[2] for r in rows),
         "top": [{"op": k[:60], "ms": ms, "count": n} for k, ms, n in rows[:top]],
     }
 
@@ -3239,6 +3265,226 @@ def phase_cnn(device="cuda") -> dict:
     return result
 
 
+# ---------------------------------------------------------------- phase 20
+# RLlib (ray_tpu_torch/rllib/; BASELINE config 2 and the north star's
+# PPO-Atari). The learner owns the card and the rollouts stay on the host, as
+# in the reference; its nets are MLPs, VALID convolutions and an LSTM (XLA's
+# in the reference, cuBLAS and cuDNN here), so no kernel of the port runs.
+# gymnasium does not import on the H100 machine (`python3 -c "import
+# gymnasium"` there: ModuleNotFoundError, checked on that machine before
+# this phase was written), and nothing may be installed: the phase
+# runs the learner half, which needs no gymnasium, and the env runners'
+# half (env-steps/s, BASELINE config 2's CartPole to 100) waits for the
+# package.
+RL_GYMNASIUM = False
+# The card's update against the CPU's, from the same parameters on the same
+# minibatch, f32 with TF32 off: the loss and each metric by |card - CPU| over
+# max(1, |CPU|), each parameter leaf after the update by ||card - CPU|| /
+# ||CPU|| (Frobenius). cuDNN's and oneDNN's f32 convolutions and the GEMMs
+# sum in other orders, which moves the gradients by f32 rounding (about
+# 1e-7 relative; reordering the minibatch's rows on the CPU alone moves the
+# leaves by at most 2e-7), and Adam's first step turns each gradient into
+# about lr times its sign. A dropped or doubled term, a wrong layout or a
+# wrong clip is off by order 1.
+RL_METRIC_TOL = 1e-4
+RL_PARAM_REL_TOL = 1e-4
+RL_BOOTSTRAP_CALLS = 50
+
+
+class _Box:
+    """The shape and dtype of a gymnasium Box, which the modules read."""
+
+    def __init__(self, shape, dtype):
+        self.shape, self.dtype = tuple(shape), np.dtype(dtype)
+
+
+class _Discrete:
+    def __init__(self, n):
+        self.n = n
+
+
+RL_CASES = {
+    "ppo_atari": dict(
+        obs=_Box((84, 84, 4), np.uint8), act=_Discrete(6), model={}, minibatch=128,
+        config=dict(lr=3e-4),
+        source="release/rllib_ppo_atari_shaped.py::_throughput: ConvModule "
+               "[[32,8,4],[64,4,2],[64,3,1]] + 512 on uint8 [84, 84, 4], Discrete(6), "
+               "minibatch 128, lr 3e-4"),
+    "ppo_cartpole": dict(
+        obs=_Box((4,), np.float32), act=_Discrete(2), model={"fcnet_hiddens": (64, 64)},
+        minibatch=256, config=dict(lr=3e-4, entropy_coeff=0.01),
+        source="release/rllib_ppo_cartpole.py (BASELINE config 2): MLPModule (64, 64), "
+               "Discrete(2), minibatch 256, lr 3e-4, entropy 0.01"),
+}
+
+
+def _rl_batch(case: dict, seed: int):
+    rng = np.random.default_rng(seed)
+    rows, space = case["minibatch"], case["obs"]
+    if space.dtype == np.uint8:
+        obs = rng.integers(0, 256, (rows, *space.shape), dtype=np.uint8)
+    else:
+        obs = rng.standard_normal((rows, *space.shape)).astype(np.float32)
+    return SampleBatch({
+        OBS: obs, ACTIONS: rng.integers(0, case["act"].n, rows),
+        ACTION_LOGP: np.log(rng.uniform(0.1, 0.9, rows)).astype(np.float32),
+        ADVANTAGES: rng.standard_normal(rows).astype(np.float32),
+        VALUE_TARGETS: rng.standard_normal(rows).astype(np.float32),
+    })
+
+
+def _rl_update_flops(module, rows: int) -> int:
+    """Operations of one update's forward and backward: two per
+    multiply-add, the forward's products once, the backward's twice (dX and
+    dW), the first layer's once (its input takes no gradient). The Adam
+    step and the elementwise work are left out."""
+    layers = []  # (multiply-adds a row, whether its input needs a gradient)
+    if isinstance(module, ConvModule):
+        h, w, c = module.obs_shape
+        for i, (out, k, s) in enumerate(module.filters):
+            h, w = (h - k) // s + 1, (w - k) // s + 1
+            layers.append((h * w * out * k * k * c, i > 0))
+            c = out
+        sizes = (module.conv_out_dim, *module.post_hiddens)
+        layers += [(a * b, True) for a, b in zip(sizes[:-1], sizes[1:])]
+        layers += [(sizes[-1] * module.num_outputs, True), (sizes[-1], True)]
+    else:
+        for outputs in (module.num_outputs, 1):
+            sizes = (module.obs_dim, *module.hiddens, outputs)
+            layers += [(a * b, i > 0) for i, (a, b) in enumerate(zip(sizes[:-1], sizes[1:]))]
+    return sum(2 * macs * rows * (3 if dx else 2) for macs, dx in layers)
+
+
+def _rl_run(name: str, case: dict, device) -> dict:
+    config = {"grad_clip": 40.0, "clip_param": 0.2, "vf_clip_param": 10.0, "vf_loss_coeff": 0.5,
+              "entropy_coeff": 0.0, **case["config"]}
+    spec = RLModuleSpec(model_config=case["model"])
+    cpu, card = (PPOLearner(spec.build(case["obs"], case["act"], device=where), config,
+                            seed=SEED, device=where) for where in ("cpu", device))
+    card.set_weights(cpu.get_weights())
+    minibatch = _rl_batch(case, SEED + 30)
+    cpu_metrics, card_metrics = cpu.update(minibatch), card.update(minibatch)
+    metric_errs = {k: abs(card_metrics[k] - v) / max(1.0, abs(v)) for k, v in cpu_metrics.items()}
+    leaf_errs = {n: float((a.detach().cpu() - b.detach()).norm() / b.detach().norm())
+                 for (n, a), (_, b) in zip(named_leaves(card.params), named_leaves(cpu.params))}
+    on_card = all(leaf.device.type == torch.device(device).type
+                  for _, leaf in named_leaves(card.params))
+    require(on_card, f"{name}: the learner's parameters are not on {device}")
+    require(all(np.isfinite(list(card_metrics.values()))), f"{name}: {card_metrics}")
+    require(max(metric_errs.values()) < RL_METRIC_TOL,
+            f"{name}: metrics on the card vs the CPU {metric_errs}")
+    require(max(leaf_errs.values()) < RL_PARAM_REL_TOL,
+            f"{name}: parameters after the update on the card vs the CPU {leaf_errs}")
+
+    rows = case["minibatch"]
+    flops = _rl_update_flops(card.module, rows)
+    bound_ms = flops / PEAK_OPS_PER_S[torch.float32] * 1e3
+    update = functools.partial(card.update, minibatch)
+    timed = time_ms(update)
+    walls = []
+    for _ in range(20):
+        start = time.perf_counter()
+        update()
+        walls.append(1e3 * (time.perf_counter() - start))
+    prof = device_time(update)
+    require(prof["device_ops"] > 0, f"{name}: the profiled update ran nothing on the card")
+    vf = value_function(card.module, card.params)
+    row = np.ascontiguousarray(minibatch[OBS][:1])
+    vf(row)
+    calls = []
+    for _ in range(RL_BOOTSTRAP_CALLS):
+        start = time.perf_counter()
+        value = vf(row)
+        calls.append(1e3 * (time.perf_counter() - start))
+    require(value.shape == (1,) and np.isfinite(value).all(), f"{name}: bootstrap value {value}")
+    return dict(
+        source=case["source"], minibatch=rows,
+        params=sum(leaf.numel() for _, leaf in named_leaves(card.params)),
+        metrics=card_metrics, metric_errs=metric_errs, metric_tol=RL_METRIC_TOL,
+        leaf_rel_errs=leaf_errs, leaf_rel_tol=RL_PARAM_REL_TOL,
+        update_ms=timed["ms"], update_ms_range=timed["range"],
+        update_wall_ms=statistics.median(walls), update_device_ms=prof["device_ms"],
+        update_device_ops=prof["device_ops"],
+        update_device_idle_share=1.0 - prof["device_ms"] / timed["ms"],
+        update_top=prof["top"], update_flops=flops, update_bound_ms=bound_ms,
+        update_bound_by="operations (f32 outside the tensor cores)",
+        bootstrap_call_ms=statistics.median(calls),
+        bootstrap_call_ms_range=[min(calls), max(calls)],
+    )
+
+
+def _rl_learner_half(card, seed: int) -> dict:
+    """The learner's half of one iteration of release/rllib_ppo_atari_shaped.
+    py's configuration (2 runners x 4 envs x 32 steps = 256 rows, minibatch
+    128, 2 epochs), on fragments made here in the runners' env-major layout:
+    GAE (numpy, with its V(next_obs) bootstrap calls on the card, one for
+    each of the 8 env streams cut at the fragment's end), the minibatch
+    epochs in default_rng(iteration) order, and the weights fetched for the
+    sync. The sampling half needs gymnasium (RL_GYMNASIUM)."""
+    rng = np.random.default_rng(seed)
+    rows, streams = 256, 8
+    frames = rng.integers(0, 256, (rows + 1, 84, 84, 4), dtype=np.uint8)
+    fragments = SampleBatch({
+        OBS: frames[:-1], NEXT_OBS: frames[1:], ACTIONS: rng.integers(0, 6, rows),
+        REWARDS: np.ones(rows, np.float32), TERMINATEDS: np.zeros(rows, bool),
+        TRUNCATEDS: np.zeros(rows, bool),
+        ACTION_LOGP: np.log(rng.uniform(0.1, 0.3, rows)).astype(np.float32),
+        VF_PREDS: rng.standard_normal(rows).astype(np.float32),
+        EPS_ID: np.repeat(np.arange(streams), rows // streams),
+    })
+    vf = value_function(card.module, card.params)
+    calls = []
+
+    def counted(obs):
+        calls.append(1)
+        return vf(obs)
+
+    start = time.perf_counter()
+    fragments = GeneralAdvantageEstimation(gamma=0.99, lambda_=0.95)(fragments,
+                                                                     value_fn=counted)
+    gae_s = time.perf_counter() - start
+    order = np.random.default_rng(0)
+    start = time.perf_counter()
+    updates = 0
+    for _ in range(2):
+        for mb in fragments.minibatches(128, order):
+            card.update(mb)
+            updates += 1
+    learn_s = time.perf_counter() - start
+    start = time.perf_counter()
+    weights = card.get_weights()
+    sync_s = time.perf_counter() - start
+    require(len(calls) == streams and updates == 4, f"learner half: {len(calls)} bootstrap "
+            f"calls, {updates} updates")
+    return dict(rows=rows, gae_ms=1e3 * gae_s, bootstrap_calls=len(calls),
+                learner_updates=updates, learner_ms=1e3 * learn_s,
+                weights_fetch_ms=1e3 * sync_s,
+                weights_mb=sum(w.nbytes for _, w in named_leaves(weights)) / 1e6,
+                sampling="not run: gymnasium is not installed on this machine")
+
+
+def phase_rllib(device="cuda") -> dict:
+    flags = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        result = {name: _rl_run(name, case, device) for name, case in RL_CASES.items()}
+        module = RLModuleSpec().build(RL_CASES["ppo_atari"]["obs"], RL_CASES["ppo_atari"]["act"],
+                                      device=device)
+        config = {"lr": 3e-4, "grad_clip": 40.0, "clip_param": 0.2, "vf_clip_param": 10.0,
+                  "vf_loss_coeff": 0.5, "entropy_coeff": 0.0}
+        card = PPOLearner(module, config, seed=SEED, device=device)
+        _rl_learner_half(card, SEED + 31)  # warm-up
+        result["ppo_atari_iteration_learner_half"] = _rl_learner_half(card, SEED + 32)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = flags
+    result.update(dtype="float32, TF32 off", peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                  gymnasium=RL_GYMNASIUM,
+                  env_runners="not run: gymnasium is not installed on this machine")
+    log("rllib", **result)
+    return result
+
+
 # ---------------------------------------------------------------- main
 def _path(name: str, want: dict, counts: dict, routes: dict, route: str, **fields) -> None:
     """Logs a path's launch counts and fails unless they are what the path
@@ -3354,6 +3600,11 @@ def main() -> None:
     # The CNN and the ResNet launch none of the port's kernels.
     cnn, counts["cnn"], routes["cnn"] = _run_path(phase_cnn)
     _path("cnn", {k: 0 for k in counts["cnn"]}, counts["cnn"], routes["cnn"], "wgmma")
+    # The RLlib learner runs on the card (phase 20 checks its parameters'
+    # device and the profiled update's device work) and launches none of
+    # the port's kernels.
+    rl, counts["rllib"], routes["rllib"] = _run_path(phase_rllib)
+    _path("rllib", {k: 0 for k in counts["rllib"]}, counts["rllib"], routes["rllib"], "wgmma")
 
     # Every launch on the tiny path is of its instantiations (head_dim 16 in
     # f32, RMSNorm at dim 64 in f32); on every other path, of the model's.
@@ -3386,6 +3637,8 @@ def main() -> None:
         ep_tokens_per_s=ep["ep_tokens_per_s"], ep_one_rank_tokens_per_s=ep["one_rank_tokens_per_s"],
         lora_tokens_per_s=lora["tokens_per_s"], lora_peak_gib=lora["peak_gib"],
         cnn_img_per_s=cnn["cnn"]["img_per_s"], resnet_img_per_s=cnn["resnet"]["img_per_s"],
+        ppo_atari_update_ms=rl["ppo_atari"]["update_ms"],
+        ppo_cartpole_update_ms=rl["ppo_cartpole"]["update_ms"],
         seconds=time.perf_counter() - _t_start)
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {

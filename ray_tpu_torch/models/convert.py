@@ -21,6 +21,12 @@ weights become OIHW and back, and the CNN's dense rows, which the
 reference flattens in (height, width, channels) order, are permuted to the
 port's (channels, height, width) order and back. LoRA adapters are plain
 dict trees of f32 arrays and go through ``params_from_numpy``.
+
+``rl_params_from_numpy`` / ``rl_params_to_numpy`` carry the RL modules'
+trees (``rllib/core/rl_module.py``: ``MLPModule``, ``ConvModule``,
+``LSTMModule``) across: ``ConvModule``'s HWIO conv weights become OIHW and
+back; every other leaf keeps its layout (the port flattens the conv map in
+the reference's (h, w, c) order, so ``trunk[0]``'s rows need no permutation).
 """
 
 from __future__ import annotations
@@ -122,6 +128,18 @@ def conv_params_to_numpy(params: dict) -> dict:
     return tree
 
 
+def rl_params_from_numpy(tree: dict, *, device=None) -> dict:
+    """An RL module's tree of the JAX package (``jax.device_get`` of
+    ``Learner.params``) -> the port's, f32 on ``device`` (cuda by default)."""
+    tree = _conv_weights(tree, lambda w: np.ascontiguousarray(np.asarray(w).transpose(3, 2, 0, 1)))
+    return params_from_numpy(tree, device=device, dtype=torch.float32)
+
+
+def rl_params_to_numpy(params: dict) -> dict:
+    """Inverse of ``rl_params_from_numpy`` (a tree of gradients too)."""
+    return _conv_weights(params_to_numpy(params), lambda w: w.transpose(2, 3, 1, 0))
+
+
 def _chain_length(optimizer: torch.optim.Optimizer) -> int:
     """Links of the optax chain the optimizer stands for."""
     if isinstance(optimizer, torch.optim.AdamW):
@@ -172,6 +190,9 @@ def load_optax_adam_state(optimizer: torch.optim.Optimizer, params: dict, state:
         if isinstance(p, dict):
             for k in p:
                 walk(p[k], mu[k], nu[k])
+        elif isinstance(p, list):
+            for leaves in zip(p, mu, nu, strict=True):
+                walk(*leaves)
         else:
             load(p, mu, nu)
 

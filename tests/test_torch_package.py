@@ -162,7 +162,9 @@ def test_flash_backward_skips_what_autograd_does_not_ask_for(monkeypatch, needs)
 def test_the_import_scan_covers_every_module_of_the_port():
     scanned = {p.relative_to(ROOT).as_posix() for p in _port_sources()}
     for name in ("models/lora.py", "models/cnn.py", "models/transformer.py",
-                 "parallel/tensor_parallel.py", "parallel/_wire.py", "train/torch_utils.py"):
+                 "parallel/tensor_parallel.py", "parallel/_wire.py", "train/torch_utils.py",
+                 "rllib/core/rl_module.py", "rllib/core/learner.py",
+                 "rllib/algorithms/ppo/ppo.py", "rllib/env/env_runner.py"):
         assert f"ray_tpu_torch/{name}" in scanned
 
 
