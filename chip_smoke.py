@@ -161,7 +161,28 @@ final line) if anything is wrong:
                minibatch epochs, the weights fetched for the sync); no
                kernel of the port runs. The env runners and env-steps/s
                need gymnasium, which the card's machine lacks (RL_GYMNASIUM)
-Each path (4-5, 7, 8, 9, 10, 11, 12, 14, 15, 16, 17, 18, 19, 20) runs with every
+ 21. rllib_offpolicy  RLlib's second slice on the card, f32 with TF32 off,
+               each case at the widths the repo configures for it
+               (OFFPOLICY_CASES): IMPALA on phase 20's Atari-shaped
+               ConvModule (one fragment of 4 envs x 50 steps) and on
+               CartPole's MLP (4 x 64), APPO on the Atari-shaped fragment
+               for 5 updates (the target sync and the adaptive KL
+               coefficient act), DQN (double-Q, its target tree, batch 64),
+               SAC and CQL (SACModule (256, 256) on Pendulum's spaces, batch
+               256, the step's noise drawn on the CPU and handed to both),
+               BC and MARWIL (MLP (64, 64), 256), and multi-agent PPO (two
+               modules through MultiAgentLearnerGroup.update_module), each
+               against a CPU learner from the same parameters on the same
+               batch: every metric (DQN's per-sample |TD| too) within
+               RL_METRIC_TOL, every leaf, target trees included, within
+               RL_PARAM_REL_TOL, the KL coefficients equal; then each
+               update's time, device time, operations, idle share and top
+               device operations, and its bound (SAC and CQL counted pass
+               by pass); then IMPALA's learner half on the Atari-shaped
+               fragment: the bootstrap call, V-trace on the host alone and
+               as its round trip inside the update, and its share of the
+               update; no kernel of the port runs
+Each path (4-5, 7, 8, 9, 10, 11, 12, 14, 15, 16, 17, 18, 19, 20, 21) runs with every
 launch count set to 0 just before it; its counts, read just after, must
 equal what its layers and passes imply, every flash launch on the route the
 path's inputs take. The trainer path's kernels launch in its worker
@@ -3292,10 +3313,13 @@ RL_BOOTSTRAP_CALLS = 50
 
 
 class _Box:
-    """The shape and dtype of a gymnasium Box, which the modules read."""
+    """The shape and dtype of a gymnasium Box, which the modules read, and
+    its bounds where a module reads them (SAC's action box)."""
 
-    def __init__(self, shape, dtype):
+    def __init__(self, shape, dtype, low=None, high=None):
         self.shape, self.dtype = tuple(shape), np.dtype(dtype)
+        if low is not None:
+            self.low, self.high = np.full(shape, low, dtype), np.full(shape, high, dtype)
 
 
 class _Discrete:
@@ -3333,12 +3357,11 @@ def _rl_batch(case: dict, seed: int):
     })
 
 
-def _rl_update_flops(module, rows: int) -> int:
-    """Operations of one update's forward and backward: two per
-    multiply-add, the forward's products once, the backward's twice (dX and
-    dW), the first layer's once (its input takes no gradient). The Adam
-    step and the elementwise work are left out."""
-    layers = []  # (multiply-adds a row, whether its input needs a gradient)
+def _rl_layers(module, towers=("pi", "vf")) -> list:
+    """(multiply-adds a row, whether its input needs a gradient) of each
+    layer a forward of ``towers`` runs (ConvModule: the shared trunk and both
+    heads)."""
+    layers = []
     if isinstance(module, ConvModule):
         h, w, c = module.obs_shape
         for i, (out, k, s) in enumerate(module.filters):
@@ -3348,11 +3371,50 @@ def _rl_update_flops(module, rows: int) -> int:
         sizes = (module.conv_out_dim, *module.post_hiddens)
         layers += [(a * b, True) for a, b in zip(sizes[:-1], sizes[1:])]
         layers += [(sizes[-1] * module.num_outputs, True), (sizes[-1], True)]
-    else:
-        for outputs in (module.num_outputs, 1):
-            sizes = (module.obs_dim, *module.hiddens, outputs)
-            layers += [(a * b, i > 0) for i, (a, b) in enumerate(zip(sizes[:-1], sizes[1:]))]
-    return sum(2 * macs * rows * (3 if dx else 2) for macs, dx in layers)
+        return layers
+    for tower in towers:
+        outputs = module.num_outputs if tower == "pi" else 1
+        sizes = (module.obs_dim, *module.hiddens, outputs)
+        layers += [(a * b, i > 0) for i, (a, b) in enumerate(zip(sizes[:-1], sizes[1:]))]
+    return layers
+
+
+def _pass_flops(layers, rows: int, backward: bool = True, weights: bool = True) -> int:
+    """Operations of one pass over ``layers``: two per multiply-add, the
+    forward's products once, the backward's once for dX (where the input
+    needs a gradient) and once for dW (``weights``)."""
+    total = 0
+    for macs, dx in layers:
+        products = 1 + (backward and dx) + (backward and weights)
+        total += 2 * macs * rows * products
+    return total
+
+
+def _rl_update_flops(module, rows: int) -> int:
+    """Operations of one PPO-style update's forward and backward over both
+    towers. The Adam step and the elementwise work are left out."""
+    return _pass_flops(_rl_layers(module), rows)
+
+
+def _sac_update_flops(module, rows: int, cql_n: int = 0) -> int:
+    """Operations of one SAC (CQL) update's products, pass by pass: the
+    critic target (pi on next_obs, two target towers: forward only), both
+    critics on the data (forward and backward), the actor (pi forward and
+    backward, both towers forward and dX only: their leaves are detached);
+    CQL adds pi on n x B rows (forward only) and each critic on 2n x B rows
+    (forward and backward)."""
+    pi = [(a * b, i > 0) for i, (a, b) in enumerate(zip(
+        (module.obs_dim, *module.hiddens), (*module.hiddens, 2 * module.act_dim)))]
+    q_sizes = (module.obs_dim + module.act_dim, *module.hiddens, 1)
+    q = [(a * b, i > 0) for i, (a, b) in enumerate(zip(q_sizes[:-1], q_sizes[1:]))]
+    q_dx = [(macs, True) for macs, _ in q]  # the actor's a_pi takes a gradient
+    total = (_pass_flops(pi, rows, backward=False) + 2 * _pass_flops(q, rows, backward=False)
+             + 2 * _pass_flops(q, rows) + _pass_flops(pi, rows)
+             + 2 * _pass_flops(q_dx, rows, weights=False))
+    if cql_n:
+        total += (_pass_flops(pi, cql_n * rows, backward=False)
+                  + 2 * _pass_flops(q, 2 * cql_n * rows))
+    return total
 
 
 def _rl_run(name: str, case: dict, device) -> dict:
@@ -3485,6 +3547,454 @@ def phase_rllib(device="cuda") -> dict:
     return result
 
 
+# ---------------------------------------------------------------- phase 21
+# RLlib's second slice on the card: IMPALA and APPO (V-trace), DQN, SAC and
+# CQL (replay, noise drawn on the learner's device), BC and MARWIL
+# (offline), and multi-agent PPO (a learner a module id). Each case runs at
+# the widths the repo configures for that algorithm, uncut, f32 with TF32
+# off, on a seeded synthetic batch; the card's learner is held against a
+# CPU learner from the same parameters on the same batch with the same
+# noise, to RL_METRIC_TOL and RL_PARAM_REL_TOL (target trees included). The
+# runners and envs wait for gymnasium (RL_GYMNASIUM), as in phase 20.
+# Adam normalises each gradient component by its own size, so a component
+# whose gradient is rounding noise moves by about lr whatever its size
+# (ROADMAP Queue C item 11), and two learners whose sums run in other orders
+# can land up to 2 lr apart there. So the phase holds each update's gradient,
+# leaf by leaf, by relative Frobenius norm (RL_PARAM_REL_TOL): a wrong loss,
+# layout or stop-gradient cannot pass that. It holds the leaves after the
+# updates by relative Frobenius norm (RL_PARAM_REL_TOL) over the components
+# whose gradients the card and the CPU agree on to 1 / RL_GRAD_AGREE of
+# their size at every update, and the rest within Adam's own bound,
+# RL_ADAM_STEP lr a step for each learner (|m_hat / sqrt(v_hat)| <=
+# (1 - b1) / sqrt(1 - b2), 3.16 at Adam's betas; 1 at the first step).
+RL_GRAD_AGREE = 1e3
+RL_ADAM_STEP = 3.2
+OFFPOLICY_CASES = {
+    "impala_atari": dict(
+        algo="impala", obs=_Box((84, 84, 4), np.uint8), act=_Discrete(6), model={},
+        rows=200, envs=4, updates=1,
+        config=dict(lr=5e-4, vf_loss_coeff=0.5, entropy_coeff=0.01, clip_rho_threshold=1.0,
+                    clip_c_threshold=1.0),
+        source="IMPALAConfig() defaults; ConvModule [[32,8,4],[64,4,2],[64,3,1]] + 512 on "
+               "uint8 [84, 84, 4], Discrete(6); one fragment of 4 envs x 50 steps "
+               "(rollout_fragment_length 50)"),
+    "impala_cartpole": dict(
+        algo="impala", obs=_Box((4,), np.float32), act=_Discrete(2),
+        model={"fcnet_hiddens": (64, 64)}, rows=256, envs=4, updates=1,
+        config=dict(lr=1e-3, vf_loss_coeff=0.5, entropy_coeff=0.01, clip_rho_threshold=1.0,
+                    clip_c_threshold=1.0),
+        source="tests/test_rllib.py:270-285: MLP (64, 64), 4 envs x 64 steps, lr 1e-3, "
+               "entropy 0.01"),
+    "appo_atari": dict(
+        algo="appo", obs=_Box((84, 84, 4), np.uint8), act=_Discrete(6), model={},
+        rows=200, envs=4, updates=5,
+        config=dict(lr=5e-4, vf_loss_coeff=0.5, entropy_coeff=0.01, clip_rho_threshold=1.0,
+                    clip_c_threshold=1.0, clip_param=0.3, use_kl_loss=True, kl_coeff=0.2,
+                    kl_target=0.01, target_network_update_freq=4),
+        source="APPOConfig() defaults on impala_atari's net and fragment; 5 consecutive "
+               "updates: the target syncs after the 4th, the KL coefficient adapts"),
+    "dqn_cartpole": dict(
+        algo="dqn", obs=_Box((4,), np.float32), act=_Discrete(2),
+        model={"fcnet_hiddens": (64, 64)}, rows=64, updates=1,
+        config=dict(lr=1e-3, double_q=True),
+        source="tests/test_rllib.py:300-318: MLP (64, 64) with its target tree, batch 64, "
+               "double-Q, lr 1e-3"),
+    "sac_pendulum": dict(
+        algo="sac", obs=_Box((3,), np.float32), act=_Box((1,), np.float32, -2.0, 2.0), model={},
+        rows=256, updates=1,
+        config=dict(lr=3e-4, tau=0.005, target_entropy="auto", initial_alpha=1.0),
+        source="SACConfig() defaults: SACModule (256, 256) on Pendulum's spaces (obs 3, "
+               "Box(1) in [-2, 2]), batch 256"),
+    "cql_pendulum": dict(
+        algo="cql", obs=_Box((3,), np.float32), act=_Box((1,), np.float32, -2.0, 2.0), model={},
+        rows=256, updates=1,
+        config=dict(lr=3e-4, tau=0.005, target_entropy="auto", initial_alpha=1.0,
+                    cql_alpha=5.0, cql_n_actions=10),
+        source="CQLConfig() defaults (n 10, alpha 5.0) on sac_pendulum's net, batch 256"),
+    "bc_cartpole": dict(
+        algo="bc", obs=_Box((4,), np.float32), act=_Discrete(2),
+        model={"fcnet_hiddens": (64, 64)}, rows=256, updates=1, config=dict(lr=1e-3),
+        source="tests/test_rllib_extras.py:599-630: MLP (64, 64), batch 256, lr 1e-3"),
+    "marwil_cartpole": dict(
+        algo="marwil", obs=_Box((4,), np.float32), act=_Discrete(2),
+        model={"fcnet_hiddens": (64, 64)}, rows=256, updates=1,
+        config=dict(lr=1e-3, beta=1.0, vf_coeff=1.0, advantage_clip=10.0),
+        source="tests/test_rllib_extras.py:649-700: MLP (64, 64), batch 256, lr 1e-3, "
+               "beta 1.0"),
+    "multi_agent_ppo": dict(
+        algo="multi_agent_ppo", obs=_Box((4,), np.float32), act=_Discrete(2),
+        model={"fcnet_hiddens": (64, 64)}, rows=256, updates=1,
+        config=dict(lr=3e-4, entropy_coeff=0.01, clip_param=0.2, vf_clip_param=10.0,
+                    vf_loss_coeff=0.5),
+        source="tests/test_rllib_extras.py:376-409: two PPO MLP modules (64, 64) on "
+               "MultiAgentCartPole's spaces, minibatch 256 each, through "
+               "MultiAgentLearnerGroup.update_module"),
+}
+
+
+def _offpolicy_learner(case: dict, device):
+    """(learner, module) of the case's algorithm on ``device``, seed SEED."""
+    from ray_tpu_torch.rllib.algorithms.appo.appo import APPOLearner
+    from ray_tpu_torch.rllib.algorithms.bc.bc import BCLearner
+    from ray_tpu_torch.rllib.algorithms.cql.cql import CQLLearner
+    from ray_tpu_torch.rllib.algorithms.dqn.dqn import DQNLearner
+    from ray_tpu_torch.rllib.algorithms.impala.impala import IMPALALearner
+    from ray_tpu_torch.rllib.algorithms.marwil.marwil import MARWILLearner
+    from ray_tpu_torch.rllib.algorithms.sac.sac import SACLearner, SACModule
+    from ray_tpu_torch.rllib.core.learner import MultiAgentLearnerGroup
+    from ray_tpu_torch.rllib.core.multi_rl_module import MultiRLModuleSpec
+
+    config = {"grad_clip": 40.0, "gamma": 0.99, **case["config"]}
+    if case["algo"] == "multi_agent_ppo":
+        spec = MultiRLModuleSpec({m: RLModuleSpec(model_config=case["model"])
+                                  for m in ("p0", "p1")})
+        spaces = ({m: case["obs"] for m in ("p0", "p1")}, {m: case["act"] for m in ("p0", "p1")})
+        return MultiAgentLearnerGroup(PPOLearner, spec, *spaces, config, device=device)
+    cls = {"impala": IMPALALearner, "appo": APPOLearner, "dqn": DQNLearner, "sac": SACLearner,
+           "cql": CQLLearner, "bc": BCLearner, "marwil": MARWILLearner}[case["algo"]]
+    spec = (RLModuleSpec(SACModule, case["model"]) if case["algo"] in ("sac", "cql")
+            else RLModuleSpec(model_config=case["model"]))
+    return cls(spec.build(case["obs"], case["act"], device=device), config, seed=SEED,
+               device=device)
+
+
+def _offpolicy_batch(case: dict, seed: int) -> SampleBatch:
+    """A seeded batch in the layout the case's algorithm takes: env-major
+    fragments with dones inside (IMPALA, APPO), replayed transitions (DQN,
+    SAC, CQL), offline rows with returns-to-go (BC, MARWIL)."""
+    from ray_tpu_torch.rllib.algorithms.marwil.marwil import RETURNS
+
+    rng = np.random.default_rng(seed)
+    rows, space = case["rows"], case["obs"]
+    if space.dtype == np.uint8:
+        frames = rng.integers(0, 256, (rows + 1, *space.shape), dtype=np.uint8)
+        obs, next_obs = frames[:-1], frames[1:]
+    else:
+        obs = rng.standard_normal((rows + 1, *space.shape)).astype(np.float32)
+        obs, next_obs = obs[:-1], obs[1:]
+    if isinstance(case["act"], _Discrete):
+        actions = rng.integers(0, case["act"].n, rows)
+    else:
+        actions = rng.uniform(-2, 2, (rows, *case["act"].shape)).astype(np.float32)
+    batch = {OBS: obs, ACTIONS: actions, REWARDS: rng.standard_normal(rows).astype(np.float32),
+             TERMINATEDS: rng.random(rows) < 0.02, TRUNCATEDS: np.zeros(rows, bool)}
+    if case["algo"] in ("impala", "appo"):
+        batch[NEXT_OBS] = next_obs
+        batch[ACTION_LOGP] = np.log(rng.uniform(0.1, 0.9, rows)).astype(np.float32)
+        batch["bootstrap_value"] = np.full(rows, rng.standard_normal(), np.float32)
+        batch[EPS_ID] = np.repeat(np.arange(case["envs"]), rows // case["envs"])
+    elif case["algo"] in ("dqn", "sac", "cql"):
+        batch[NEXT_OBS] = next_obs
+        batch["batch_indexes"] = rng.integers(0, 50_000, rows)
+    elif case["algo"] in ("bc", "marwil"):
+        batch[RETURNS] = (10 * rng.random(rows)).astype(np.float32)
+    elif case["algo"] == "multi_agent_ppo":
+        batch[ACTION_LOGP] = np.log(rng.uniform(0.1, 0.9, rows)).astype(np.float32)
+        batch[ADVANTAGES] = rng.standard_normal(rows).astype(np.float32)
+        batch[VALUE_TARGETS] = rng.standard_normal(rows).astype(np.float32)
+    return SampleBatch(batch)
+
+
+def _sac_noise(case: dict, seed: int) -> dict:
+    """One draw of the SAC (CQL) step's noise, handed to both learners."""
+    rng = np.random.default_rng(seed)
+    shape = (case["rows"], *case["act"].shape)
+    noise = {"actor": rng.standard_normal(shape), "next": rng.standard_normal(shape)}
+    n = case["config"].get("cql_n_actions")
+    if case["algo"] == "cql":
+        noise["rand_u"] = rng.uniform(-1, 1, (n, *shape))
+        noise["pi"] = rng.standard_normal((n, *shape))
+    return {k: v.astype(np.float32) for k, v in noise.items()}
+
+
+def _named(tree, grads=None, prefix: str = "") -> dict:
+    """{name: tensor} over a tree's leaves (or ``grads``, a list in the
+    tree's ``named_leaves`` order), detached, on the CPU, in f64."""
+    leaves = named_leaves(tree)
+    values = grads if grads is not None else [leaf for _, leaf in named_leaves(tree)]
+    return {f"{prefix}{n}": torch.as_tensor(v).detach().cpu().double()
+            for (n, _), v in zip(leaves, values, strict=True)}
+
+
+def _rel(a: torch.Tensor, b: torch.Tensor) -> float:
+    """||a - b|| / ||b||; ||a|| where b is all zero (a leaf the loss does
+    not reach)."""
+    norm = float(b.norm())
+    return float((a - b).norm()) / norm if norm > 0 else float(a.norm())
+
+
+def _offpolicy_grads(learner, case: dict, batches: list, noise, step: int) -> dict:
+    """{leaf name: gradient} of the case's loss on batch ``step``."""
+    if case["algo"] == "multi_agent_ppo":
+        out = {}
+        for m in ("p0", "p1"):
+            lr = learner.learners[m]
+            out.update(_named(lr.params, lr.compute_gradients(batches[step][m]), f"{m}."))
+        return out
+    if case["algo"] in ("sac", "cql"):
+        grads = learner.compute_gradients(batches[step], noise=noise[step])
+    else:
+        grads = learner.compute_gradients(batches[step])
+    return _named(learner.params, grads)
+
+
+def _offpolicy_params(learner, case: dict) -> dict:
+    """{leaf name: value} of the learner's parameters and target trees."""
+    if case["algo"] == "multi_agent_ppo":
+        out = {}
+        for m in ("p0", "p1"):
+            out.update(_named(learner.learners[m].params, prefix=f"{m}."))
+        return out
+    out = _named(learner.params)
+    if getattr(learner, "target_params", None) is not None:
+        out.update(_named(learner.target_params, prefix="target."))
+    return out
+
+
+def _offpolicy_update(learner, case: dict, batches: list, noise: dict | None, step: int):
+    """One update of the case's learner; its metrics (floats)."""
+    if case["algo"] == "multi_agent_ppo":
+        return {f"{m}/{k}": v for m in ("p0", "p1")
+                for k, v in learner.update_module(m, batches[step][m]).items()}
+    if case["algo"] in ("sac", "cql"):
+        return learner.update(batches[step], noise=noise[step] if noise else None)
+    return learner.update(batches[step])
+
+
+@contextlib.contextmanager
+def _relu_inputs(learner, recorded: list):
+    """Records the input of every ReLU the learner's modules run (the
+    modules call torch.relu, ConvModule through its ``activation``)."""
+    relu = torch.relu
+
+    def spy(x):
+        recorded.append(x.detach().cpu())
+        return relu(x)
+
+    module = getattr(learner, "module", None)
+    swap = module is not None and getattr(module, "activation", None) is relu
+    torch.relu = spy
+    if swap:
+        module.activation = spy
+    try:
+        yield
+    finally:
+        torch.relu = relu
+        if swap:
+            module.activation = relu
+
+
+def _drop_relu_flips(cpu, card, case: dict, batches: list, noise, step: int) -> int:
+    """Leaves out of batch ``step`` (and its noise) the rows where the card
+    and the CPU put an input of a ReLU on different sides of zero within the
+    loss's passes; returns how many. There the ReLU's derivative jumps, and
+    f32 rounding (about 1e-7 of the layer's scale) decides the side: one
+    such row moved impala_atari's conv.0 and conv.1 gradients by 2.5e-3
+    (relative Frobenius) in a probe on the H100. The card's update is timed
+    on the whole batch."""
+    dropped = 0
+    for _ in range(3):
+        seen = ([], [])
+        for learner, rec in zip((cpu, card), seen):
+            with _relu_inputs(learner, rec):
+                _offpolicy_grads(learner, case, batches, noise, step)
+        rows = len(batches[step])
+        flipped = np.zeros(rows, bool)
+        for a, b in zip(*seen, strict=True):
+            differs = ((a > 0) != (b > 0)).reshape(a.shape[0], -1).any(1).numpy()
+            np.logical_or.at(flipped, np.nonzero(differs)[0] % rows, True)
+        if not flipped.any():
+            return dropped
+        keep = ~flipped
+        dropped += int(flipped.sum())
+        batches[step] = SampleBatch({k: v[keep] for k, v in batches[step].items()})
+        if noise:
+            noise[step] = {k: v[keep] if v.ndim == 2 else v[:, keep]
+                           for k, v in noise[step].items()}
+    raise AssertionError(f"ReLU sides still differ after dropping {dropped} rows")
+
+
+def _offpolicy_run(name: str, case: dict, device) -> dict:
+    from ray_tpu_torch.rllib.core.learner import _numpy, _tensors
+
+    cpu, card = (_offpolicy_learner(case, where) for where in ("cpu", device))
+    card.set_weights(cpu.get_weights())
+    if getattr(cpu, "target_params", None) is not None:
+        card.target_params = _tensors(_numpy(cpu.target_params), device)
+    steps = case["updates"]
+    if case["algo"] == "multi_agent_ppo":
+        batches = [{m: _offpolicy_batch(case, SEED + 40 + 2 * s + i)
+                    for i, m in enumerate(("p0", "p1"))} for s in range(steps)]
+    else:
+        batches = [_offpolicy_batch(case, SEED + 40 + s) for s in range(steps)]
+    noise = ([_sac_noise(case, SEED + 60 + s) for s in range(steps)]
+             if case["algo"] in ("sac", "cql") else None)
+    timed_batch = batches[0]
+    metric_errs, grad_errs, kl_coeffs, held, dropped = {}, {}, [], None, []
+    for step in range(steps):
+        if case["algo"] != "multi_agent_ppo":  # its MLPs are tanh
+            dropped.append(_drop_relu_flips(cpu, card, case, batches, noise, step))
+        cpu_grads = _offpolicy_grads(cpu, case, batches, noise, step)
+        card_grads = _offpolicy_grads(card, case, batches, noise, step)
+        for n, g in cpu_grads.items():
+            grad_errs[f"{step}/{n}"] = _rel(card_grads[n], g)
+        agree = {n: g.abs() >= RL_GRAD_AGREE * (card_grads[n] - g).abs()
+                 for n, g in cpu_grads.items()}
+        held = agree if held is None else {n: held[n] & agree[n] for n in held}
+        cpu_metrics = _offpolicy_update(cpu, case, batches, noise, step)
+        card_metrics = _offpolicy_update(card, case, batches, noise, step)
+        if "td_abs" in cpu_metrics:  # DQN's per-sample |TD|, held as the metrics are
+            want, got = cpu_metrics.pop("td_abs"), card_metrics.pop("td_abs")
+            metric_errs[f"{step}/td_abs"] = float(np.max(np.abs(got - want))
+                                                  / max(1.0, float(np.max(np.abs(want)))))
+        require(sorted(card_metrics) == sorted(cpu_metrics), f"{name}: metric names differ")
+        for k, v in cpu_metrics.items():
+            metric_errs[f"{step}/{k}"] = abs(card_metrics[k] - v) / max(1.0, abs(v))
+        if "kl_coeff" in cpu_metrics:
+            kl_coeffs.append(card_metrics["kl_coeff"])
+            require(card_metrics["kl_coeff"] == cpu_metrics["kl_coeff"],
+                    f"{name}: KL coefficient {card_metrics['kl_coeff']} on the card, "
+                    f"{cpu_metrics['kl_coeff']} on the CPU")
+    cpu_params, card_params = _offpolicy_params(cpu, case), _offpolicy_params(card, case)
+    lr, leaf_errs, floor_dev, floor_count = case["config"]["lr"], {}, 0.0, 0
+    for n, b in cpu_params.items():
+        mask = held[n.removeprefix("target.")]
+        a = card_params[n]
+        leaf_errs[n] = _rel(a[mask], b[mask])
+        if (~mask).any():
+            floor_count += int((~mask).sum())
+            floor_dev = max(floor_dev, float((a - b)[~mask].abs().max()))
+    leaves = ([leaf for lr_ in card.learners.values() for _, leaf in named_leaves(lr_.params)]
+              if case["algo"] == "multi_agent_ppo"
+              else [leaf for _, leaf in named_leaves(card.params)])
+    require(all(leaf.device.type == torch.device(device).type for leaf in leaves),
+            f"{name}: the learner's parameters are not on {device}")
+    require(all(np.isfinite(list(card_metrics.values()))), f"{name}: {card_metrics}")
+    require(max(metric_errs.values()) < RL_METRIC_TOL,
+            f"{name}: metrics on the card vs the CPU {metric_errs}")
+    require(max(grad_errs.values()) < RL_PARAM_REL_TOL,
+            f"{name}: gradients on the card vs the CPU {grad_errs}")
+    require(max(leaf_errs.values()) < RL_PARAM_REL_TOL,
+            f"{name}: parameters after the updates on the card vs the CPU {leaf_errs}")
+    require(floor_dev <= 2 * RL_ADAM_STEP * lr * steps,
+            f"{name}: components at Adam's noise floor moved {floor_dev} apart")
+    if case["algo"] == "appo":
+        require(card._updates_since_sync == cpu._updates_since_sync == steps % 4,
+                f"{name}: target syncs {card._updates_since_sync}")
+
+    # Timing: the card's update on the case's first batch (SAC and CQL draw
+    # their noise on the card, as training does).
+    rows = case["rows"]
+    update = functools.partial(_offpolicy_update, card, case, [timed_batch], None, 0)
+    timed = time_ms(update)
+    walls = []
+    for _ in range(20):
+        start = time.perf_counter()
+        update()
+        walls.append(1e3 * (time.perf_counter() - start))
+    prof = device_time(update)
+    require(prof["device_ops"] > 0, f"{name}: the profiled update ran nothing on the card")
+    if case["algo"] in ("sac", "cql"):
+        flops = _sac_update_flops(card.module, rows, case["config"].get("cql_n_actions", 0)
+                                  if case["algo"] == "cql" else 0)
+    elif case["algo"] == "dqn":
+        pi = _rl_layers(card.module, towers=("pi",))
+        flops = _pass_flops(pi, rows) + 2 * _pass_flops(pi, rows, backward=False)
+    elif case["algo"] == "multi_agent_ppo":
+        flops = sum(_rl_update_flops(lr.module, rows) for lr in card.learners.values())
+    else:
+        flops = _rl_update_flops(card.module, rows)
+        if case["algo"] == "appo":  # the target network's forward
+            flops += _pass_flops(_rl_layers(card.module), rows, backward=False)
+    bound_ms = flops / PEAK_OPS_PER_S[torch.float32] * 1e3
+    return dict(
+        source=case["source"], rows=rows, updates_checked=steps,
+        params=sum(leaf.numel() for leaf in leaves),
+        metrics=card_metrics, metric_errs_max=max(metric_errs.values()),
+        metric_tol=RL_METRIC_TOL, grad_rel_errs_max=max(grad_errs.values()),
+        grad_rel_err_worst=max(grad_errs, key=grad_errs.get),
+        leaf_rel_errs_max=max(leaf_errs.values()),
+        leaf_rel_err_worst=max(leaf_errs, key=leaf_errs.get), leaf_rel_tol=RL_PARAM_REL_TOL,
+        noise_floor_components=floor_count, noise_floor_max_dev=floor_dev,
+        relu_flip_rows_dropped=dropped or None,
+        noise_floor_bound=2 * RL_ADAM_STEP * lr * steps,
+        kl_coeffs=kl_coeffs or None,
+        update_ms=timed["ms"], update_ms_range=timed["range"],
+        update_wall_ms=statistics.median(walls), update_device_ms=prof["device_ms"],
+        update_device_ops=prof["device_ops"],
+        update_device_idle_share=1.0 - prof["device_ms"] / timed["ms"],
+        update_top=prof["top"], update_flops=flops, update_bound_ms=bound_ms,
+        update_bound_by="operations (f32 outside the tensor cores)",
+    )
+
+
+def _impala_learner_half(seed: int, device) -> dict:
+    """IMPALA's learner half on the Atari-shaped fragment (4 envs x 50 steps):
+    the bootstrap call (V(next_obs) of the fragment's last row on the card),
+    V-trace alone on the host (f32 numpy, 200 rows), V-trace's whole round
+    trip inside the update (logp and values to the host, the recursion, the
+    targets back), and the update; V-trace's share of the update."""
+    from ray_tpu_torch.rllib.algorithms.impala.impala import vtrace
+
+    case = OFFPOLICY_CASES["impala_atari"]
+    card = _offpolicy_learner(case, device)
+    fragment = _offpolicy_batch(case, seed)
+    vf = value_function(card.module, card.params)
+    row = np.ascontiguousarray(fragment[NEXT_OBS][-1:])
+    vf(row)
+    calls = []
+    for _ in range(RL_BOOTSTRAP_CALLS):
+        start = time.perf_counter()
+        value = vf(row)
+        calls.append(1e3 * (time.perf_counter() - start))
+    fragment["bootstrap_value"] = np.full(len(fragment), value[0], np.float32)
+    batch = card._device_batch(fragment)
+    with torch.no_grad():
+        logp, _, values = card.module.action_logp(card.params, batch[OBS], batch[ACTIONS])
+    host = [np.asarray(fragment[ACTION_LOGP]), logp.cpu().numpy(), fragment[REWARDS],
+            values.cpu().numpy(), value[0],
+            (0.99 * (1.0 - (fragment[TERMINATEDS] | fragment[TRUNCATEDS]))).astype(np.float32)]
+    host_ms, trip_ms, update_ms = [], [], []
+    for _ in range(20):
+        start = time.perf_counter()
+        vtrace(*host)
+        host_ms.append(1e3 * (time.perf_counter() - start))
+        start = time.perf_counter()
+        card._vtrace(batch, logp, values)
+        trip_ms.append(1e3 * (time.perf_counter() - start))
+        start = time.perf_counter()
+        card.update(fragment)
+        update_ms.append(1e3 * (time.perf_counter() - start))
+    update = statistics.median(update_ms)
+    return dict(rows=len(fragment), bootstrap_call_ms=statistics.median(calls),
+                vtrace_host_ms=statistics.median(host_ms),
+                vtrace_round_trip_ms=statistics.median(trip_ms),
+                update_wall_ms=update,
+                vtrace_share_of_update=statistics.median(trip_ms) / update,
+                sampling="not run: gymnasium is not installed on this machine")
+
+
+def phase_rllib_offpolicy(device="cuda") -> dict:
+    flags = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        result = {name: _offpolicy_run(name, case, device)
+                  for name, case in OFFPOLICY_CASES.items()}
+        _impala_learner_half(SEED + 70, device)  # warm-up
+        result["impala_atari_learner_half"] = _impala_learner_half(SEED + 71, device)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = flags
+    result.update(dtype="float32, TF32 off", peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                  gymnasium=RL_GYMNASIUM,
+                  env_runners="not run: gymnasium is not installed on this machine")
+    for name in OFFPOLICY_CASES:
+        log("rllib_offpolicy", case=name, **result[name])
+    log("rllib_offpolicy", impala_atari_learner_half=result["impala_atari_learner_half"],
+        dtype=result["dtype"], peak_gib=result["peak_gib"], env_runners=result["env_runners"])
+    return result
+
+
 # ---------------------------------------------------------------- main
 def _path(name: str, want: dict, counts: dict, routes: dict, route: str, **fields) -> None:
     """Logs a path's launch counts and fails unless they are what the path
@@ -3605,6 +4115,9 @@ def main() -> None:
     # the port's kernels.
     rl, counts["rllib"], routes["rllib"] = _run_path(phase_rllib)
     _path("rllib", {k: 0 for k in counts["rllib"]}, counts["rllib"], routes["rllib"], "wgmma")
+    rl2, counts["rllib_offpolicy"], routes["rllib_offpolicy"] = _run_path(phase_rllib_offpolicy)
+    _path("rllib_offpolicy", {k: 0 for k in counts["rllib_offpolicy"]},
+          counts["rllib_offpolicy"], routes["rllib_offpolicy"], "wgmma")
 
     # Every launch on the tiny path is of its instantiations (head_dim 16 in
     # f32, RMSNorm at dim 64 in f32); on every other path, of the model's.
@@ -3639,6 +4152,7 @@ def main() -> None:
         cnn_img_per_s=cnn["cnn"]["img_per_s"], resnet_img_per_s=cnn["resnet"]["img_per_s"],
         ppo_atari_update_ms=rl["ppo_atari"]["update_ms"],
         ppo_cartpole_update_ms=rl["ppo_cartpole"]["update_ms"],
+        **{f"{name}_update_ms": rl2[name]["update_ms"] for name in OFFPOLICY_CASES},
         seconds=time.perf_counter() - _t_start)
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -24,9 +24,14 @@ dict trees of f32 arrays and go through ``params_from_numpy``.
 
 ``rl_params_from_numpy`` / ``rl_params_to_numpy`` carry the RL modules'
 trees (``rllib/core/rl_module.py``: ``MLPModule``, ``ConvModule``,
-``LSTMModule``) across: ``ConvModule``'s HWIO conv weights become OIHW and
-back; every other leaf keeps its layout (the port flattens the conv map in
-the reference's (h, w, c) order, so ``trunk[0]``'s rows need no permutation).
+``LSTMModule``; ``rllib/algorithms/sac/sac.py``: ``SACModule``'s
+``{"pi", "q1", "q2", "log_alpha"}`` with its 0-d ``log_alpha``) and the
+learners' target trees (APPO's and DQN's copies of the params, SAC's
+``{"q1", "q2"}``) across: ``ConvModule``'s HWIO conv weights become OIHW
+and back; every other leaf keeps its layout (the port flattens the conv
+map in the reference's (h, w, c) order, so ``trunk[0]``'s rows need no
+permutation). Key order follows the tree given (``jax.device_get`` sorts
+dict keys), so trees are matched by key, never by leaf order.
 """
 
 from __future__ import annotations
@@ -130,7 +135,8 @@ def conv_params_to_numpy(params: dict) -> dict:
 
 def rl_params_from_numpy(tree: dict, *, device=None) -> dict:
     """An RL module's tree of the JAX package (``jax.device_get`` of
-    ``Learner.params``) -> the port's, f32 on ``device`` (cuda by default)."""
+    ``Learner.params``, or of a learner's target tree) -> the port's, f32
+    on ``device`` (cuda by default)."""
     tree = _conv_weights(tree, lambda w: np.ascontiguousarray(np.asarray(w).transpose(3, 2, 0, 1)))
     return params_from_numpy(tree, device=device, dtype=torch.float32)
 

@@ -8,8 +8,13 @@ restore()/from_checkpoint() round-trip learner + config state (the
 learner's state as numpy, written atomically); evaluate() runs greedy
 episodes, a rollout, on the CPU as the runners do. Keeps the tune
 Trainable duck-type (step, save_checkpoint, load_checkpoint). gymnasium
-is imported where envs are made. Multi-agent configs wait for ROADMAP
-Queue A item 7b.
+is imported where envs are made.
+
+A multi-agent config (``config.multi_agent(policies=...)``) builds a
+``MultiAgentLearnerGroup`` (a learner a module id, each on ``device``) and
+runners of ``MultiAgentEnvRunner``; ``config.env`` is then a
+``MultiAgentEnv`` class or factory, which the runner processes call with
+``env_config`` (it must pickle).
 """
 
 from __future__ import annotations
@@ -25,12 +30,25 @@ import torch
 
 from ray_tpu_torch import resolve_device
 from ray_tpu_torch.rllib.algorithms.algorithm_config import AlgorithmConfig
-from ray_tpu_torch.rllib.core.learner import LearnerGroup, _tensors
+from ray_tpu_torch.rllib.core.learner import LearnerGroup, MultiAgentLearnerGroup, _tensors
+from ray_tpu_torch.rllib.core.multi_rl_module import MultiRLModuleSpec
 from ray_tpu_torch.rllib.core.rl_module import RLModuleSpec
 from ray_tpu_torch.rllib.env.env_runner_group import EnvRunnerGroup
 from ray_tpu_torch.rllib.utils.metrics import MetricsLogger
 
-_MULTI_AGENT = "multi-agent RLlib waits for ROADMAP Queue A item 7b"
+
+def value_function(module, params):
+    """V(obs) for a numpy batch of observations, on the device of
+    ``params``: one copy there, the value head under ``torch.no_grad``,
+    one copy back (which waits for the device)."""
+    device = params["vf"][0]["w"].device
+
+    def value_fn(obs):
+        with torch.no_grad():
+            x = torch.from_numpy(np.ascontiguousarray(obs)).to(device)
+            return module.forward_train(params, x)["vf"].cpu().numpy()
+
+    return value_fn
 
 
 def _atomic_write_pickle(path: str, obj) -> None:
@@ -59,6 +77,16 @@ class _VecEnvCreator:
         import gymnasium as gym
 
         return gym.make_vec(self.env_id, num_envs=num_envs, **self.env_config)
+
+
+class _MultiAgentEnvCreator:
+    """``env_cls(env_config)``, picklable for the runner processes."""
+
+    def __init__(self, env_cls, env_config: dict):
+        self.env_cls, self.env_config = env_cls, dict(env_config)
+
+    def __call__(self):
+        return self.env_cls(self.env_config)
 
 
 class Algorithm:
@@ -133,7 +161,54 @@ class Algorithm:
             raise
 
     def _init_multi_agent(self, config: AlgorithmConfig) -> None:
-        raise NotImplementedError(_MULTI_AGENT)
+        from ray_tpu_torch.rllib.env.multi_agent_env_runner import MultiAgentEnvRunner
+
+        if isinstance(config.env, str):
+            raise ValueError(
+                "multi-agent config.env must be a MultiAgentEnv class or "
+                "factory, not a gym id"
+            )
+        probe = config.env(config.env_config)
+        obs_spaces: dict = {}
+        act_spaces: dict = {}
+        for agent in probe.possible_agents:
+            mid = config.policy_mapping_fn(agent)
+            if mid not in config.policies:
+                raise ValueError(
+                    f"policy_mapping_fn({agent!r}) → {mid!r} which is not in "
+                    f"config.policies {sorted(config.policies)}"
+                )
+            obs_spaces.setdefault(mid, probe.get_observation_space(agent))
+            act_spaces.setdefault(mid, probe.get_action_space(agent))
+        probe.close()
+        # module ids with no agent mapped to them would have no spaces
+        missing = set(config.policies) - set(obs_spaces)
+        if missing:
+            raise ValueError(f"no agent maps to policies {sorted(missing)}")
+        self.observation_space = obs_spaces
+        self.action_space = act_spaces
+        self.module_observation_space = obs_spaces
+
+        self._multi_spec = MultiRLModuleSpec({
+            mid: spec or RLModuleSpec(model_config=dict(config.model))
+            for mid, spec in config.policies.items()
+        })
+        self.learner_group = MultiAgentLearnerGroup(
+            self.learner_class, self._multi_spec, obs_spaces, act_spaces,
+            self._learner_config(), device=self.device,
+        )
+        self.env_runner_group = EnvRunnerGroup(
+            _MultiAgentEnvCreator(config.env, config.env_config),
+            self._multi_spec,
+            num_env_runners=config.num_env_runners,
+            num_envs_per_runner=1,
+            rollout_fragment_length=config.rollout_fragment_length,
+            seed=config.seed,
+            env_to_module=config.env_to_module_connector,
+            module_to_env=config.module_to_env_connector,
+            runner_class=MultiAgentEnvRunner,
+            runner_kwargs={"policy_mapping_fn": config.policy_mapping_fn},
+        )
 
     def _env_creator(self):
         config = self.config
@@ -143,6 +218,17 @@ class Algorithm:
 
     def _learner_config(self) -> dict:
         return self.config.learner_config_dict()
+
+    def _value_fn(self):
+        """V(obs) under the current learner params, on the learner's device."""
+        if not hasattr(self, "_vf_module"):
+            spec = self.config.rl_module_spec or RLModuleSpec(model_config=dict(self.config.model))
+            self._vf_module = spec.build(self.module_observation_space, self.action_space,
+                                         device=self.device)
+        learner = self.learner_group.local_learner
+        params = (learner.params if learner is not None
+                  else _tensors(self.learner_group.get_weights(), self.device))
+        return value_function(self._vf_module, params)
 
     # -- the iteration ---------------------------------------------------
     def training_step(self) -> dict:
@@ -188,7 +274,7 @@ class Algorithm:
         """Greedy episodes on a fresh env (evaluation duck-type of the
         reference's evaluation workers), stepped on the CPU."""
         if self.config.is_multi_agent:
-            raise NotImplementedError(_MULTI_AGENT)
+            return self._evaluate_multi_agent()
         env = self._make_env()
         spec = self.config.rl_module_spec or RLModuleSpec(model_config=dict(self.config.model))
         # Params are shaped for the CONNECTOR's output space; evaluation
@@ -231,6 +317,39 @@ class Algorithm:
                 )
                 total += reward
                 done = term or trunc
+            returns.append(total)
+        env.close()
+        return {
+            "episode_return_mean": float(np.mean(returns)),
+            "num_episodes": len(returns),
+        }
+
+    def _evaluate_multi_agent(self) -> dict:
+        env = self.config.env(self.config.env_config)
+        modules = {
+            mid: self._multi_spec.module_specs[mid].build(
+                self.observation_space[mid], self.action_space[mid], device="cpu")
+            for mid in self.config.policies
+        }
+        params = {mid: _tensors(p, "cpu") for mid, p in self.learner_group.get_weights().items()}
+        mapping = self.config.policy_mapping_fn
+        returns = []
+        for _ in range(self.config.evaluation_duration):
+            obs, _ = env.reset()
+            total, done = 0.0, False
+            while not done and obs:
+                actions = {}
+                for agent, o in obs.items():
+                    mid = mapping(agent)
+                    a = modules[mid].forward_inference(
+                        params[mid], torch.from_numpy(np.asarray(o, dtype=np.float32).reshape(1, -1))
+                    ).numpy()[0]
+                    actions[agent] = a.item() if a.shape == () else a
+                obs, rewards, terms, truncs, _ = env.step(actions)
+                total += sum(rewards.values())
+                done = terms.get("__all__", False) or truncs.get("__all__", False)
+                obs = {a: o for a, o in obs.items()
+                       if not (terms.get(a, False) or truncs.get(a, False))}
             returns.append(total)
         env.close()
         return {

@@ -10,8 +10,9 @@ packages see the same minibatches for the same batch.
 GAE bootstraps every episode slice cut mid-fragment from V(next_obs):
 ``value_function`` runs the value head under ``torch.no_grad`` on the
 learner's device, one call per such slice, each one small copy to the
-device and one wait for the answer (the reference's call pattern).
-Multi-agent PPO waits for ROADMAP Queue A item 7b.
+device and one wait for the answer (the reference's call pattern). The
+multi-agent path runs GAE and the epochs per module id, each module's
+bootstrap calls on its own learner's parameters.
 """
 
 from __future__ import annotations
@@ -19,12 +20,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ray_tpu_torch.rllib.algorithms.algorithm import Algorithm
+from ray_tpu_torch.rllib.algorithms.algorithm import Algorithm, value_function
 from ray_tpu_torch.rllib.algorithms.algorithm_config import AlgorithmConfig
-from ray_tpu_torch.rllib.core.learner import Learner, _tensors
+from ray_tpu_torch.rllib.core.learner import Learner
 from ray_tpu_torch.rllib.core.rl_module import RLModuleSpec
 from ray_tpu_torch.rllib.policy.sample_batch import (
-    ACTION_LOGP, ACTIONS, ADVANTAGES, OBS, SampleBatch, TERMINATEDS,
+    ACTION_LOGP, ACTIONS, ADVANTAGES, OBS, MultiAgentBatch, SampleBatch, TERMINATEDS,
     TRUNCATEDS, VALUE_TARGETS,
 )
 
@@ -79,33 +80,19 @@ class PPOLearner(Learner):
         }
 
 
-def value_function(module, params):
-    """V(obs) for a numpy batch of observations, on the device of
-    ``params``: one copy there, the value head under ``torch.no_grad``,
-    one copy back (which waits for the device)."""
-    device = params["vf"][0]["w"].device
-
-    def value_fn(obs):
-        with torch.no_grad():
-            x = torch.from_numpy(np.ascontiguousarray(obs)).to(device)
-            return module.forward_train(params, x)["vf"].cpu().numpy()
-
-    return value_fn
-
-
 class PPO(Algorithm):
     learner_class = PPOLearner
 
-    def _value_fn(self):
-        """V(obs) under the current learner params, on the learner's device."""
-        if not hasattr(self, "_vf_module"):
-            spec = self.config.rl_module_spec or RLModuleSpec(model_config=dict(self.config.model))
-            self._vf_module = spec.build(self.module_observation_space, self.action_space,
-                                         device=self.device)
-        learner = self.learner_group.local_learner
-        params = (learner.params if learner is not None
-                  else _tensors(self.learner_group.get_weights(), self.device))
-        return value_function(self._vf_module, params)
+    def _value_fn_for(self, module_id: str):
+        """Per-module V(obs) in multi-agent mode, on that module's learner."""
+        if not hasattr(self, "_vf_modules"):
+            self._vf_modules = {}
+        if module_id not in self._vf_modules:
+            self._vf_modules[module_id] = self._multi_spec.module_specs[module_id].build(
+                self.observation_space[module_id], self.action_space[module_id],
+                device=self.device)
+        params = self.learner_group.learners[module_id].params
+        return value_function(self._vf_modules[module_id], params)
 
     def _learner_pipeline(self):
         """Learner connector pipeline: user stages + default GAE."""
@@ -177,4 +164,28 @@ class PPO(Algorithm):
         return metrics
 
     def _training_step_multi_agent(self) -> dict:
-        raise NotImplementedError("multi-agent PPO waits for ROADMAP Queue A item 7b")
+        config = self.config
+        batches = []
+        steps = 0
+        while steps < config.train_batch_size:
+            fragment = self.env_runner_group.sample()
+            steps += fragment.env_steps()
+            batches.append(fragment)
+        batch = MultiAgentBatch.concat_samples(batches)
+        self._total_env_steps += batch.env_steps()
+        # per-module GAE, then per-module minibatch SGD epochs
+        pipeline = self._learner_pipeline()
+        processed = {
+            mid: pipeline(sub, value_fn=self._value_fn_for(mid))
+            for mid, sub in batch.items()
+        }
+        rng = np.random.default_rng(self.iteration)
+        metrics: dict = {}
+        for _ in range(config.num_epochs):
+            for mid, sub in processed.items():
+                for mb in sub.minibatches(config.minibatch_size, rng):
+                    metrics[mid] = self.learner_group.update_module(mid, mb)
+        self.env_runner_group.sync_weights(self.learner_group.get_weights())
+        flat = {f"{mid}/{k}": v for mid, m in metrics.items() for k, v in m.items()}
+        flat["num_env_steps_trained"] = batch.env_steps()
+        return flat

@@ -47,8 +47,25 @@ def _numpy(tree):
     return _map(lambda t, _: np.array(t.detach().cpu()), tree)
 
 
+def _clone(tree):
+    """A detached copy of a tree of tensors (a target network)."""
+    return _map(lambda t, _: t.detach().clone(), tree)
+
+
 def _tensors(tree, device):
     return _map(lambda a, _: torch.as_tensor(np.asarray(a)).to(device), tree)
+
+
+def _paired_leaves(dst, src) -> tuple[list, list]:
+    """dst's leaves and the leaves of src at the same keys and indexes (src
+    may hold more keys), in dst's order."""
+    if isinstance(dst, dict):
+        pairs = [_paired_leaves(dst[key], src[key]) for key in dst]
+    elif isinstance(dst, list):
+        pairs = [_paired_leaves(d, s) for d, s in zip(dst, src, strict=True)]
+    else:
+        return [dst], [src]
+    return [x for p in pairs for x in p[0]], [x for p in pairs for x in p[1]]
 
 
 def _copy_into(dst, src) -> None:
@@ -117,17 +134,27 @@ class Learner:
             out[key] = t.to(self.device)
         return out
 
-    def update(self, batch: SampleBatch) -> dict:
-        loss, metrics = self.compute_loss(self.params, self._to_device(batch))
-        loss.backward()
-        self._apply()
-        metrics["total_loss"] = loss
+    def _device_batch(self, batch: SampleBatch) -> dict:
+        """What ``compute_loss`` reads: the batch on the device, plus what a
+        subclass adds (a target network's outputs, its params)."""
+        return self._to_device(batch)
+
+    @staticmethod
+    def _floats(metrics: dict) -> dict:
+        """Scalar metric tensors -> Python floats, in one copy from the device."""
         values = torch.stack([v.detach().float() for v in metrics.values()]).tolist()
         return dict(zip(metrics, values))
 
+    def update(self, batch: SampleBatch) -> dict:
+        loss, metrics = self.compute_loss(self.params, self._device_batch(batch))
+        loss.backward()
+        self._apply()
+        metrics["total_loss"] = loss
+        return self._floats(metrics)
+
     def compute_gradients(self, batch: SampleBatch) -> list:
         """The loss's gradient, one tensor a leaf (``named_leaves`` order)."""
-        loss, _ = self.compute_loss(self.params, self._to_device(batch))
+        loss, _ = self.compute_loss(self.params, self._device_batch(batch))
         return list(torch.autograd.grad(loss, self._leaves, allow_unused=True,
                                         materialize_grads=True))
 

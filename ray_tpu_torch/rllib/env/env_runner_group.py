@@ -8,31 +8,43 @@ member's state, which persists between ``run`` calls. Each process runs
 one torch thread, as an actor of one CPU would, so the runners and the
 learner do not oversubscribe the host. ``sample`` fans out to every runner
 at once and waits for all (PPO's synchronous path); ``sync_weights``
-sends the learner's numpy weights to each.
+sends the learner's numpy weights to each. ``runner_class`` picks the
+runner (``SingleAgentEnvRunner`` by default, ``MultiAgentEnvRunner`` for
+multi-agent configs), built with ``runner_kwargs`` on top of the common
+arguments.
+
+The asynchronous pipeline (IMPALA's): ``sample_async`` posts a ``sample``
+to every idle runner (``WorkerGang.send``) and returns; ``collect_ready``
+harvests the replies that arrive within its timeout (``recv_any``) and
+posts the next ``sample`` to each runner that answered. A runner's pipe
+carries one reply a request, in order, with no tag, so a fan-out (``_all``:
+weights, epsilon, metrics) first drains the samples in flight and keeps
+them for the next ``collect_ready``. That is the reference's timing too:
+its actors run calls one at a time, so ``set_weights`` waits behind the
+runner's ``sample``.
 
 What a runner is built from crosses a process boundary, so the env
-creator, module spec and connector factories must pickle (module-level
-functions and classes). The asynchronous pipeline (``sample_async`` /
-``collect_ready``, IMPALA's) and multi-agent runners wait for ROADMAP
-Queue A item 7b.
+creator, module spec, connector factories and ``runner_kwargs`` (a
+``policy_mapping_fn``) must pickle (module-level functions and classes).
 """
 
 from __future__ import annotations
 
 import logging
+import time
 from typing import Any, Optional
 
 import numpy as np
 
 from ray_tpu_torch.rllib.env.env_runner import SingleAgentEnvRunner
-from ray_tpu_torch.rllib.policy.sample_batch import SampleBatch
+from ray_tpu_torch.rllib.policy.sample_batch import MultiAgentBatch, SampleBatch
 
 
-def _runner_start(ctx, env_creator, module_spec, kwargs: dict) -> str:
+def _runner_start(ctx, runner_class, env_creator, module_spec, kwargs: dict) -> str:
     import torch
 
     torch.set_num_threads(1)
-    ctx.state["runner"] = SingleAgentEnvRunner(env_creator, module_spec, **kwargs)
+    ctx.state["runner"] = runner_class(env_creator, module_spec, **kwargs)
     return "ok"
 
 
@@ -57,18 +69,19 @@ class EnvRunnerGroup:
     ):
         from ray_tpu_torch.util.gang import WorkerGang
 
-        if runner_class not in (None, SingleAgentEnvRunner) or runner_kwargs:
-            raise NotImplementedError(
-                "multi-agent env runners wait for ROADMAP Queue A item 7b")
         self.num_env_runners = max(1, num_env_runners)
         self._gang = WorkerGang(self.num_env_runners, use_gpu=False)
+        # Async pipeline: ranks with a ``sample`` posted and not yet read,
+        # and replies drained before a fan-out, kept for collect_ready.
+        self._inflight: set[int] = set()
+        self._drained: dict[int, Any] = {}
         try:
             self._gang.run(_runner_start, per_rank_args=[
-                (env_creator, module_spec, dict(
+                (runner_class or SingleAgentEnvRunner, env_creator, module_spec, dict(
                     num_envs=num_envs_per_runner,
                     rollout_fragment_length=rollout_fragment_length,
                     worker_index=i, seed=seed, env_to_module=env_to_module,
-                    module_to_env=module_to_env))
+                    module_to_env=module_to_env, **(runner_kwargs or {})))
                 for i in range(self.num_env_runners)
             ], timeout=180)
         except BaseException:
@@ -76,6 +89,7 @@ class EnvRunnerGroup:
             raise
 
     def _all(self, method: str, *args, timeout: float = 120) -> list:
+        self._drain()
         return self._gang.run(_runner_call,
                               per_rank_args=[(method, *args)] * self.num_env_runners,
                               timeout=timeout)
@@ -83,18 +97,65 @@ class EnvRunnerGroup:
     def sync_weights(self, params) -> None:
         self._all("set_weights", params)
 
-    def sample(self) -> SampleBatch:
+    def set_epsilon(self, epsilon: Optional[float]) -> None:
+        """Epsilon-greedy exploration in every runner (DQN)."""
+        self._all("set_epsilon", epsilon)
+
+    def sample(self) -> SampleBatch | MultiAgentBatch:
         """Synchronous fan-out (PPO path)."""
-        return SampleBatch.concat_samples(self._all("sample", timeout=600))
+        batches = self._all("sample", timeout=600)
+        if batches and isinstance(batches[0], MultiAgentBatch):
+            return MultiAgentBatch.concat_samples(batches)
+        return SampleBatch.concat_samples(batches)
 
     # -- async pipeline (IMPALA path) -----------------------------------
+    def _post_sample(self, rank: int) -> None:
+        self._gang.send(rank, ("run", _runner_call, ("sample",), {}))
+        self._inflight.add(rank)
+
+    def _reply(self, rank: int, message):
+        kind, *body = message
+        if kind == "error":
+            from ray_tpu_torch.util.gang import WorkerError
+
+            raise WorkerError(rank, body[0], body[1])
+        return body[0]
+
+    def _drain(self, timeout: float = 600) -> None:
+        """Reads every sample in flight; the replies wait in ``_drained``."""
+        while self._inflight:
+            rank, message = self._gang.recv_any(sorted(self._inflight), timeout=timeout)
+            self._inflight.discard(rank)
+            self._drained[rank] = self._reply(rank, message)
+
     def sample_async(self) -> None:
-        raise NotImplementedError(
-            "the asynchronous sampling pipeline (IMPALA's) waits for ROADMAP Queue A item 7b")
+        for rank in range(self.num_env_runners):
+            if rank not in self._inflight and rank not in self._drained:
+                self._post_sample(rank)
 
     def collect_ready(self, timeout: float = 0.05) -> list[SampleBatch]:
-        raise NotImplementedError(
-            "the asynchronous sampling pipeline (IMPALA's) waits for ROADMAP Queue A item 7b")
+        """Harvest finished rollouts; immediately resubmit those runners."""
+        if not self._inflight and not self._drained:
+            self.sample_async()
+        pending = set(self._inflight)  # waited for up to ``timeout``
+        out = []
+        for rank in sorted(self._drained):
+            out.append(self._drained.pop(rank))
+            self._post_sample(rank)
+        deadline = time.monotonic() + timeout
+        while pending:
+            try:
+                rank, message = self._gang.recv_any(
+                    sorted(pending), timeout=max(0.0, deadline - time.monotonic()))
+            except TimeoutError:
+                break
+            pending.discard(rank)
+            self._inflight.discard(rank)
+            try:
+                out.append(self._reply(rank, message))
+            finally:
+                self._post_sample(rank)
+        return out
 
     def get_connector_state(self) -> dict:
         """Running env→module connector state from runner 0 (the

@@ -1,7 +1,8 @@
 """Advantage estimation (GAE) — the env→learner connector math.
 
 A copy of ``compute_gae`` from ray_tpu's ``rllib/utils/postprocessing.py``
-(vtrace, the other half of that file, waits for ROADMAP Queue A item 7b).
+(V-trace, IMPALA's, is in ``algorithms/impala/impala.py``, as in the
+reference).
 Pure numpy over rollout fragments: each episode slice gets its own
 backward pass; fragments that end mid-episode bootstrap from
 ``value_fn(next_obs)``, one call per such slice (PPO's calls run the value

@@ -336,8 +336,8 @@ def test_entry_points_need_a_card_unless_asked_for_cpu():
 
 
 def test_learner_half_imports_without_gymnasium():
-    """rl_module, learner and ppo (and the package) import where gymnasium
-    cannot be imported."""
+    """rl_module, learner, the algorithms (and the package) import where
+    gymnasium cannot be imported."""
     code = (
         "import sys\n"
         "class Block:\n"
@@ -347,6 +347,10 @@ def test_learner_half_imports_without_gymnasium():
         "sys.meta_path.insert(0, Block())\n"
         "import ray_tpu_torch.rllib.core.rl_module, ray_tpu_torch.rllib.core.learner\n"
         "import ray_tpu_torch.rllib.algorithms.ppo.ppo, ray_tpu_torch.rllib\n"
+        "import ray_tpu_torch.rllib.algorithms.sac.sac, ray_tpu_torch.rllib.algorithms.cql.cql\n"
+        "import ray_tpu_torch.rllib.algorithms.appo.appo, ray_tpu_torch.rllib.algorithms.dqn.dqn\n"
+        "import ray_tpu_torch.rllib.algorithms.marwil.marwil\n"
+        "import ray_tpu_torch.rllib.env.multi_agent_env_runner\n"
         "assert 'gymnasium' not in sys.modules\n"
         "try:\n"
         "    import gymnasium\n"

@@ -15,8 +15,10 @@ this process.
   [84, 84, 4], ``raytpu/RandomImage-v0`` through the runners), of a
   recurrent one (LSTMModule on CartPole) and of two learners;
 * the pixel envs make the reference's frames from the same seed;
-* the multi-agent and IMPALA entry points raise NotImplementedError naming
-  ROADMAP Queue A item 7b.
+* the entry points that waited for ROADMAP Queue A item 7b (multi-agent
+  configs, the asynchronous sampling pipeline) now run: a gym id is
+  refused as a multi-agent env, as in the reference, and the runners'
+  ``sample_async`` / ``collect_ready`` hand back fragments.
 """
 
 import gymnasium as gym
@@ -112,15 +114,17 @@ def test_evaluate(cartpole):
 
 
 def test_multi_agent_and_impala_entry_points_wait_for_7b(cartpole):
+    """Item 7b is ported: what raised NotImplementedError here runs."""
     config = PPOConfig().environment("CartPole-v1").multi_agent(policies={"p0", "p1"})
-    with pytest.raises(NotImplementedError, match="Queue A item 7b"):
+    with pytest.raises(ValueError, match="MultiAgentEnv class"):
         config.build_algo(device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue A item 7b"):
-        cartpole._training_step_multi_agent()
-    with pytest.raises(NotImplementedError, match="Queue A item 7b"):
-        cartpole.env_runner_group.sample_async()
-    with pytest.raises(NotImplementedError, match="Queue A item 7b"):
-        cartpole.env_runner_group.collect_ready()
+    group = cartpole.env_runner_group
+    group.sample_async()
+    ready = []
+    while not ready:
+        ready = group.collect_ready(timeout=60.0)
+    assert all(len(b) == 8 * 64 for b in ready)
+    group.sync_weights(cartpole.learner_group.get_weights())  # drains the resubmitted sample
 
 
 def test_atari_shaped_iteration():
