@@ -182,7 +182,29 @@ final line) if anything is wrong:
                fragment: the bootstrap call, V-trace on the host alone and
                as its round trip inside the update, and its share of the
                update; no kernel of the port runs
-Each path (4-5, 7, 8, 9, 10, 11, 12, 14, 15, 16, 17, 18, 19, 20, 21) runs with every
+ 22. profiler  the step profiler (ray_tpu_torch._private.profiler,
+               train.step_stats): (a) phase 7's cell (bench.py:561-565)
+               through setup_sharded_training on a one-rank NCCL mesh and
+               the split step (fwd, bwd, grad_sync and opt scopes), a
+               StepRecorder boundary a step, a capture of steps 2-3 of 5:
+               in its torch.profiler trace each ProfilerStep window holds
+               every B1-B4 and B4-bwd launch under the scope its phase
+               implies (B1 and B4 under fwd, B2, B3 and B4-bwd under bwd,
+               AdamW's kernels under opt, no compute under grad_sync), as
+               many as the wrappers' counters over the same window; the
+               top 8 device operations by time under each scope, the
+               capture's cost on a step and the trace's size; (b)
+               TorchTrainer with one GPU worker running phase 14's loop (6
+               steps, the split step, no save) and capture_profile(steps=2)
+               from a driver thread: status ok, the merged trace's 2 step
+               slices on rank 0 with the phase slices inside, the worker's
+               trace holding B1-B4, each report's device_kind the card's
+               name, the worker's hbm_stats() within the card's memory and
+               at least what it allocated; (c) a one-rank hier group and
+               SliceTopology({"tp": 1}, {"dp": 1}) mesh: allreduce_sharded
+               of one shard, the two tiers' sum and grad_psum(topology=)
+               bitwise equal to their input
+Each path (4-5, 7, 8, 9, 10, 11, 12, 14, 15, 16, 17, 18, 19, 20, 21, 22) runs with every
 launch count set to 0 just before it; its counts, read just after, must
 equal what its layers and passes imply, every flash launch on the route the
 path's inputs take. The trainer path's kernels launch in its worker
@@ -216,6 +238,8 @@ import torch
 import torch.nn.functional as F
 
 from ray_tpu_torch import _build
+from ray_tpu_torch._private import profiler as profiler_mod
+from ray_tpu_torch._private import telemetry
 from ray_tpu_torch.models import transformer as transformer_mod
 from ray_tpu_torch.models.transformer import (
     MoEConfig, TransformerConfig, decode_step, forward, init_kv_cache, init_params,
@@ -241,8 +265,11 @@ from ray_tpu_torch.rllib.policy.sample_batch import (
     ACTION_LOGP, ACTIONS, ADVANTAGES, EPS_ID, NEXT_OBS, OBS, REWARDS, TERMINATEDS, TRUNCATEDS,
     VALUE_TARGETS, VF_PREDS, SampleBatch,
 )
+from ray_tpu_torch.parallel.topology import SliceTopology
 from ray_tpu_torch.serve.batching import batch
 from ray_tpu_torch.train import session as session_mod
+from ray_tpu_torch.train import step_stats as step_stats_mod
+from ray_tpu_torch.train import torch_utils
 from ray_tpu_torch.train.config import CheckpointConfig, FailureConfig, RunConfig, ScalingConfig
 from ray_tpu_torch.train.stage_runner import PipelineStageRunner, microbatch_slicer
 from ray_tpu_torch.train.step import make_optimizer, named_leaves, train_step
@@ -2281,14 +2308,25 @@ def trainer_loop(loop_config: dict) -> None:
     build_sharded_train_step on the session's mesh, a report a step, a save
     at TRAINER_SAVE_AT; restores from the session's checkpoint when there is
     one. Each report carries the worker's kernel launch counts since the
-    loop began (the counts live in this process)."""
+    loop began (the counts live in this process). Phase 22 runs it with
+    ``save`` False, ``split`` True (the split step over the gang's group,
+    whose scopes a capture traces; the dispatch takes it only above one
+    worker) and ``probe`` True (the HBM probe and the card's memory in each
+    report)."""
     reset_counts()
     ctx = session_mod.get_context()
     config = TransformerConfig(**SHARDED_CONFIG)
     setup = setup_sharded_training(lambda device: init_params(config, seed=SEED, device=device),
                                    make_optimizer, logical_dims=param_logical_dims(config))
-    step = build_sharded_train_step(
-        lambda params, tok: loss_fn(params, tok[:, :-1], tok[:, 1:], config), setup)
+
+    def batch_loss(params, tok):
+        return loss_fn(params, tok[:, :-1], tok[:, 1:], config)
+
+    if loop_config.get("split"):
+        step = torch_utils._split_step(batch_loss, setup, ctx.collective_group,
+                                       lambda x: x.to_local())
+    else:
+        step = build_sharded_train_step(batch_loss, setup)
     start, resumed, restore_s = 0, session_mod.get_checkpoint(), None
     if resumed is not None:
         t0 = time.perf_counter()
@@ -2306,8 +2344,11 @@ def trainer_loop(loop_config: dict) -> None:
         metrics = {"step": i + 1, "loss": loss, "step_s": time.perf_counter() - t0,
                    "restore_s": restore_s, "pid": os.getpid(), "counts": _counts(),
                    "routes": _route_counts(), "world": ctx.world_size}
+        if loop_config.get("probe"):
+            metrics.update(hbm=telemetry.hbm_stats(), allocated=torch.cuda.memory_allocated(),
+                           total_memory=torch.cuda.get_device_properties(0).total_memory)
         checkpoint = None
-        if i + 1 == TRAINER_SAVE_AT:
+        if i + 1 == TRAINER_SAVE_AT and loop_config.get("save", True):
             t0 = time.perf_counter()
             checkpoint = save_sharded_state(params, opt, extra={"step": i + 1})
             metrics["save_s"] = time.perf_counter() - t0
@@ -3995,6 +4036,370 @@ def phase_rllib_offpolicy(device="cuda") -> dict:
     return result
 
 
+# ---------------------------------------------------------------- phase 22
+# The step profiler: phase 7's cell through the split step under a
+# StepRecorder and a capture, then a TorchTrainer capture, then a one-rank
+# hier group. PROFILE_STEPS steps, the capture armed for PROFILE_CAPTURE
+# steps from PROFILE_START. The boundary before the window starts the
+# trace (CUPTI's start-up) and the last one exports it, each timed apart;
+# the capture's cost on a step is read from its second step against the
+# uncaptured ones after the warm-up.
+PROFILE_STEPS, PROFILE_START, PROFILE_CAPTURE = 5, 2, 2
+PROFILE_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_profiles"
+PROFILE_SCOPES = ("fwd", "bwd", "grad_sync", "opt")
+# Each wrapper's kernels by a part of their names, and the scope of the
+# split step its launches belong to: the forward's flash and norms under
+# fwd, their backwards under bwd (the train config has no remat, so bwd
+# recomputes no forward).
+TRACED_KERNELS = {
+    "flash_attention_fwd": ("flash_fwd", "fwd"),
+    "flash_attention_bwd_dq": ("flash_bwd_dq", "bwd"),
+    "flash_attention_bwd_dkv": ("flash_bwd_dkv", "bwd"),
+    "rmsnorm": ("rmsnorm_fwd", "fwd"),
+    "rmsnorm_bwd": ("rmsnorm_bwd", "bwd"),
+}
+# AdamW's kernels (torch's multi-tensor AdamW over the leaves).
+ADAMW_KERNEL = "multi_tensor_apply"
+# The device work a scope's time breaks into, by kernel name.
+KERNEL_CLASSES = (("flash", ("flash_",)), ("rmsnorm", ("rmsnorm_",)),
+                  ("gemm", ("gemm", "xmma", "cutlass", "nvjet", "cublas")),
+                  ("adamw", (ADAMW_KERNEL,)), ("nccl", ("nccl",)),
+                  ("copy", ("copy_kernel", "catarray", "memcpy", "memset")))
+
+
+class _ProfileCtx:
+    """What a StepRecorder reads of a train context, for the in-process
+    capture of phase 22 (a): rank 0 on this process's card."""
+
+    world_rank, node_id, device = 0, "chip_smoke", "cuda:0"
+
+
+def _kernel_class(name: str) -> str:
+    low = name.lower()
+    for cls, parts in KERNEL_CLASSES:
+        if any(part in low for part in parts):
+            return cls
+    return "elementwise"
+
+
+def _trace_events(trace_dir: str) -> list:
+    with open(os.path.join(trace_dir, profiler_mod.TRACE_FILE)) as f:
+        return [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
+
+
+def _attribute(events: list) -> dict:
+    """Puts every device operation (kernel, copy, set) of a torch.profiler
+    trace under the ProfilerStep window and the step_annotation scope that
+    launched it: the launch is the runtime call with the operation's
+    correlation id, and its host time lies inside one scope on the host's
+    timeline, whatever thread made it (autograd's device thread launches the
+    backward). An operation with no launch record falls back to its own
+    device time window, which lies inside its scope because each scope ends
+    with the device synchronized. Returns the operations with their step and
+    scope, and how many each method placed."""
+    launches = {}
+    for e in events:
+        if e.get("cat") in ("cuda_runtime", "cuda_driver"):
+            corr = (e.get("args") or {}).get("correlation")
+            if corr is not None:
+                launches[corr] = e
+    steps = sorted((e for e in events if e.get("cat") == "user_annotation"
+                    and e["name"].startswith("ProfilerStep#")), key=lambda e: e["ts"])
+    scopes = [e for e in events if e.get("cat") == "user_annotation"
+              and e["name"] in PROFILE_SCOPES]
+
+    def within(ts, windows):
+        for w in windows:
+            if w["ts"] <= ts <= w["ts"] + w["dur"]:
+                return w
+        return None
+
+    ops, methods = [], {"launch": 0, "window": 0, "none": 0}
+    for e in events:
+        if e.get("cat") not in ("kernel", "gpu_memcpy", "gpu_memset"):
+            continue
+        launch = launches.get((e.get("args") or {}).get("correlation"))
+        if launch is not None:
+            at, method = launch["ts"], "launch"
+        else:
+            at, method = e["ts"], "window"
+        scope, step = within(at, scopes), within(at, steps)
+        if scope is None and step is None:
+            method = "none"
+        methods[method] += 1
+        ops.append({"name": e["name"], "dur_ms": e["dur"] / 1e3,
+                    "scope": scope["name"] if scope else None,
+                    "step": step["name"] if step else None})
+    return {"ops": ops, "methods": methods, "steps": [s["name"] for s in steps],
+            "scopes": [s["name"] for s in scopes]}
+
+
+def _scope_breakdown(ops: list, top: int = 8) -> dict:
+    """Per scope: device ms, operations, ms by kernel class, and the `top`
+    operations by time with their counts."""
+    out = {}
+    for scope in PROFILE_SCOPES + (None,):
+        mine = [op for op in ops if op["scope"] == scope and op["step"] is not None]
+        by_name, by_class = {}, {}
+        for op in mine:
+            ms, n = by_name.get(op["name"], (0.0, 0))
+            by_name[op["name"]] = (ms + op["dur_ms"], n + 1)
+            cls = _kernel_class(op["name"])
+            by_class[cls] = by_class.get(cls, 0.0) + op["dur_ms"]
+        ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]
+        out[scope or "unscoped"] = {
+            "device_ms": sum(op["dur_ms"] for op in mine), "ops": len(mine),
+            "by_class_ms": by_class,
+            "top": [{"op": name.replace("void at::native::", "")[:160], "ms": ms, "count": n}
+                    for name, (ms, n) in ranked]}
+    return out
+
+
+def _traced_counts(ops: list) -> dict:
+    """Each wrapper's kernels in the trace's ProfilerStep windows, and those
+    that lie under another scope than their phase's."""
+    counts = {k: 0 for k in TRACED_KERNELS}
+    misplaced = []
+    for op in ops:
+        if op["step"] is None:
+            continue
+        for kernel, (part, scope) in TRACED_KERNELS.items():
+            if part in op["name"]:
+                counts[kernel] += 1
+                if op["scope"] != scope:
+                    misplaced.append((kernel, op["scope"], op["name"][:60]))
+    return {"counts": counts, "misplaced": misplaced}
+
+
+def _profile_in_process() -> dict:
+    """(a): bench.py:561-565's train step in the split form on a one-rank
+    NCCL mesh, a StepRecorder boundary a step, a capture of 2 steps; its
+    trace held against the launch counters over the same window."""
+    import torch.distributed as dist
+
+    config = TransformerConfig(**TRAIN_CONFIG)
+    mesh = MeshSpec({"dp": 1}).build()
+    collective_mod.init_collective_group(1, 0, backend="nccl", group_name="profile")
+    try:
+        setup = setup_sharded_training(
+            lambda device: init_params(config, seed=SEED, device=device), make_optimizer,
+            mesh=mesh, logical_dims=param_logical_dims(config))
+        # The dispatch takes the split form above one worker only, as the
+        # reference's does; a capture traces its scopes at one.
+        step = torch_utils._split_step(
+            lambda params, tok: loss_fn(params, tok[:, :-1], tok[:, 1:], config), setup,
+            "profile", lambda x: x.to_local())
+        rng = np.random.default_rng(SEED + 3)
+        tokens = torch.from_numpy(
+            rng.integers(0, config.vocab_size, (TRAIN_BATCH, config.max_seq + 1))).cuda()
+        batch = setup.shard_batch(tokens)
+        step_stats_mod.activate()
+        recorder = step_stats_mod.StepRecorder(_ProfileCtx())
+        plane = profiler_mod.get_plane()
+        # Boundary i ends step i, as a session's i-th report does.
+        armed = plane.arm({"capture_id": "phase22", "start_step": PROFILE_START,
+                           "steps": PROFILE_CAPTURE, "max_s": 120.0,
+                           "session_dir": str(PROFILE_DIR)})
+        require(armed["status"] == "ok", f"profiler: arm {armed}")
+        params, opt = setup.params, setup.opt_state
+        walls, boundaries, records, window = [], [], [], {}
+        for i in range(PROFILE_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, opt, loss = step(params, opt, batch)
+            loss = float(loss)
+            t1 = time.perf_counter()
+            # The boundary starts the trace (CUPTI's start-up) and stops and
+            # exports it: its own time, outside the step's.
+            records.append(recorder.on_report({"tokens": TRAIN_BATCH * config.max_seq}))
+            boundaries.append(time.perf_counter() - t1)
+            walls.append(t1 - t0)
+            recorder.mark_resume()
+            if i + 1 == PROFILE_START:
+                window["before"] = _counts()
+            if i + 1 == PROFILE_START + PROFILE_CAPTURE:
+                window["after"] = _counts()
+        require(np.isfinite(loss), f"profiler: loss {loss}")
+        cap = plane.collect()
+        stats = dict(step.stats)
+        del params, opt, setup, step, batch
+    finally:
+        step_stats_mod.deactivate()
+        collective_mod.destroy_collective_group("profile")
+        dist.destroy_process_group()
+    gc.collect()
+    torch.cuda.empty_cache()
+    require(cap["status"] == "ok" and cap["device_error"] is None,
+            f"profiler: capture {cap.get('status')}, device error {cap.get('device_error')}")
+    require([b["step"] for b in cap["boundaries"]] ==
+            list(range(PROFILE_START - 1, PROFILE_START + PROFILE_CAPTURE)),
+            f"profiler: boundaries {cap['boundaries']}")
+    trace_path = os.path.join(cap["device_trace_dir"], profiler_mod.TRACE_FILE)
+    trace_bytes = os.path.getsize(trace_path)
+    start = time.perf_counter()
+    events = _trace_events(cap["device_trace_dir"])
+    attributed = _attribute(events)
+    parse_s = time.perf_counter() - start
+    want = {k: window["after"][k] - window["before"][k] for k in TRACED_KERNELS}
+    traced = _traced_counts(attributed["ops"])
+    ops = attributed["ops"]
+    adamw = [op for op in ops if ADAMW_KERNEL in op["name"] and op["step"] is not None]
+    breakdown = _scope_breakdown(ops)
+    # The capture's cost: its second step (the first pays CUPTI's start-up)
+    # against the uncaptured steps after the warm-up one.
+    uncaptured = [walls[i] for i in range(1, PROFILE_STEPS)
+                  if not PROFILE_START <= i < PROFILE_START + PROFILE_CAPTURE]
+    result = dict(
+        config="bench.py:561-565", mesh={"dp": 1}, steps=PROFILE_STEPS,
+        captured_steps=list(range(PROFILE_START, PROFILE_START + PROFILE_CAPTURE)),
+        step_ms=[1e3 * w for w in walls],
+        captured_second_step_ms=1e3 * walls[PROFILE_START + 1],
+        uncaptured_step_ms=1e3 * statistics.mean(uncaptured),
+        capture_overhead_ms=1e3 * (walls[PROFILE_START + 1] - statistics.mean(uncaptured)),
+        first_captured_step_ms=1e3 * walls[PROFILE_START], split_stats=stats,
+        boundary_ms=[1e3 * b for b in boundaries],
+        trace_bytes=trace_bytes, trace_events=len(events), trace_parse_s=parse_s,
+        profiler_steps=attributed["steps"], attribution=attributed["methods"],
+        launches_in_window=want, traced=traced["counts"], misplaced=traced["misplaced"][:10],
+        adamw_kernels=len(adamw), adamw_outside_opt=sum(op["scope"] != "opt" for op in adamw),
+        breakdown=breakdown, phase_totals=cap["phase_totals"],
+        step_stats=records[PROFILE_START + 1],
+        kernel_forwards=PROFILE_STEPS, kernel_backwards=PROFILE_STEPS, plain_forwards=0)
+    log("profiler_in_process", **result)
+    require(attributed["steps"] == [f"ProfilerStep#{k}" for k in range(PROFILE_CAPTURE)],
+            f"profiler: ProfilerStep ranges {attributed['steps']}")
+    require(attributed["scopes"] == list(PROFILE_SCOPES) * PROFILE_CAPTURE,
+            f"profiler: scopes {attributed['scopes']}")
+    require(traced["counts"] == want,
+            f"profiler: kernels in the trace {traced['counts']} != launches {want}")
+    require(all(want.values()), f"profiler: a kernel with no launch in the window {want}")
+    require(not traced["misplaced"], f"profiler: kernels under another scope "
+                                     f"{traced['misplaced'][:5]}")
+    require(adamw and not result["adamw_outside_opt"],
+            f"profiler: AdamW's {len(adamw)} kernels, {result['adamw_outside_opt']} outside opt")
+    require(not any(_kernel_class(o["name"]) in ("flash", "rmsnorm", "gemm", "adamw")
+                    for o in ops if o["scope"] == "grad_sync"),
+            f"profiler: grad_sync holds compute {breakdown['grad_sync']}")
+    return result
+
+
+def _profiled_trainer_run() -> tuple:
+    """(b): trainer_loop on one GPU worker, 6 steps, no failure and no save,
+    the split step; capture_profile(steps=2) from a driver thread, taken at
+    the round of the first report."""
+    trainer = TorchTrainer(
+        trainer_loop, train_loop_config={"die_after": None, "save": False, "split": True,
+                                         "probe": True},
+        scaling_config=ScalingConfig(num_workers=1, use_gpu=True, mesh_axes={"dp": 1}),
+        run_config=RunConfig(name="profiled", storage_path=str(PROFILE_DIR)))
+    answer = {}
+    thread = threading.Thread(target=lambda: answer.update(
+        record=trainer.capture_profile(steps=2, timeout_s=600.0)))
+    thread.start()
+    try:
+        result = trainer.fit()
+    finally:
+        thread.join(660)
+    require(not thread.is_alive(), "profiler: capture_profile did not return")
+    return result, answer["record"]
+
+
+def _profile_trainer() -> dict:
+    """(b), checked: the record's status, the merged trace's step and phase
+    slices on rank 0, the worker's trace holding B1-B4, each report's
+    device_kind, the worker's HBM probe against its card."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    start = time.perf_counter()
+    result, record = _profiled_trainer_run()
+    wall = time.perf_counter() - start
+    require(result.error is None, f"profiler trainer: {result.error}")
+    require(record.get("status") == "ok", f"profiler trainer: capture {record}")
+    with open(record["path"]) as f:
+        merged = json.load(f)
+    slices = [e for e in merged["traceEvents"] if e.get("ph") == "X" and e["pid"] == 0]
+    step_slices = [e for e in slices if e.get("cat") == "step"]
+    phase_slices = [e for e in slices if e.get("cat") == "phase"]
+    inside = all(any(s["ts"] <= p["ts"] and p["ts"] + p["dur"] <= s["ts"] + s["dur"]
+                     for s in step_slices) for p in phase_slices)
+    device_dir = merged["metadata"]["device_trace_dirs"]["0"]
+    worker_ops = _attribute(_trace_events(device_dir))["ops"]
+    worker_counts = _traced_counts(worker_ops)["counts"]
+    kind = torch.cuda.get_device_name(0)
+    kinds = {r.get("device_kind") for r in result.step_stats[0]}
+    probes = [(m["hbm"], m["allocated"], m["total_memory"]) for m in result.metrics_history]
+    counts = result.metrics_history[-1]["counts"]
+    out = dict(
+        config="bench.py:133-138", steps=len(result.metrics_history), record=record,
+        merged_step_slices=[e["args"]["step"] for e in step_slices],
+        merged_phase_slices=[e["name"] for e in phase_slices], phases_inside_steps=inside,
+        worker_trace_counts=worker_counts, device_kinds=sorted(k or "" for k in kinds),
+        hbm=probes[-1][0], allocated=probes[-1][1], total_memory=probes[-1][2],
+        step_stats_keys=sorted(result.step_stats[0][-1]), wall_s=wall,
+        step_ms=[1e3 * m["step_s"] for m in result.metrics_history], counts=counts,
+        routes=result.metrics_history[-1]["routes"])
+    log("profiler_trainer", **out)
+    require(len(step_slices) == 2 and len(phase_slices) == 2 * len(PROFILE_SCOPES) and inside,
+            f"profiler trainer: {len(step_slices)} step slices, phases {out['merged_phase_slices']}")
+    require(all(worker_counts[k] > 0 for k in TRACED_KERNELS),
+            f"profiler trainer: the worker's trace holds {worker_counts}")
+    require(kinds == {kind}, f"profiler trainer: device_kind {kinds}, the card is {kind}")
+    require(all(h and allocated <= h["hbm_used"] <= total and h["hbm_total"] <= total
+                for h, allocated, total in probes),
+            f"profiler trainer: hbm_stats {probes}")
+    return out
+
+
+def _profile_hier() -> dict:
+    """(c): a one-rank hier group and a one-rank SliceTopology mesh on the
+    card, the two-tier sums held bitwise against their input."""
+    import torch.distributed as dist
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+    x = _randn(gen, (1024, 4096), torch.float32)
+    collective_mod.init_collective_group(1, 0, backend="hier", group_name="hier")
+    try:
+        group = collective_mod.get_group("hier")
+        sharded = group.allreduce_sharded([x])
+        topology = SliceTopology({"tp": 1}, {"dp": 1})
+        mesh = topology.build_mesh()
+        tiers = topology.hierarchical_psum(x, mesh)
+        via_grad_psum = torch_utils.grad_psum(x, topology=topology, mesh=mesh)
+        checks = dict(backend=group.backend_name, tier2=dist.get_backend(),
+                      sharded_bitwise=bool(torch.equal(sharded, x)),
+                      tiers_bitwise=bool(torch.equal(tiers, x)),
+                      grad_psum_bitwise=bool(torch.equal(via_grad_psum, x)),
+                      mesh=list(mesh.mesh_dim_names))
+    finally:
+        collective_mod.destroy_collective_group("hier")
+    checks["destroyed"] = not dist.is_initialized()
+    log("profiler_hier", **checks)
+    require(all(v for k, v in checks.items() if k.endswith("bitwise") or k == "destroyed"),
+            f"profiler hier: {checks}")
+    return checks
+
+
+def phase_profiler() -> dict:
+    """Phase 22: (a) the in-process capture of phase 7's cell, (b) a
+    TorchTrainer capture, (c) a one-rank hier group. Returns the numbers,
+    the passes (a) ran through the kernels in this process, and (b)'s
+    worker counts and routes."""
+    if PROFILE_DIR.exists():
+        shutil.rmtree(PROFILE_DIR)
+    try:
+        start = time.perf_counter()
+        in_process = _profile_in_process()
+        trainer = _profile_trainer()
+        hier = _profile_hier()
+    finally:
+        shutil.rmtree(PROFILE_DIR, ignore_errors=True)
+    return {**{k: in_process[k] for k in ("kernel_forwards", "kernel_backwards",
+                                          "plain_forwards")},
+            "in_process": in_process, "trainer": trainer, "hier": hier,
+            "seconds": time.perf_counter() - start}
+
+
 # ---------------------------------------------------------------- main
 def _path(name: str, want: dict, counts: dict, routes: dict, route: str, **fields) -> None:
     """Logs a path's launch counts and fails unless they are what the path
@@ -4118,6 +4523,18 @@ def main() -> None:
     rl2, counts["rllib_offpolicy"], routes["rllib_offpolicy"] = _run_path(phase_rllib_offpolicy)
     _path("rllib_offpolicy", {k: 0 for k in counts["rllib_offpolicy"]},
           counts["rllib_offpolicy"], routes["rllib_offpolicy"], "wgmma")
+    # The profiler: (a) runs in this process; (b)'s kernels launch in its
+    # worker, whose counts come back in its reports, as phase 14's do.
+    prof, counts["profiler"], routes["profiler"] = _run_path(phase_profiler)
+    passes = {k: prof[k] for k in ("kernel_forwards", "kernel_backwards", "plain_forwards")}
+    _path("profiler", _expected(TRAIN_CONFIG["n_layers"], **passes), counts["profiler"],
+          routes["profiler"], "wgmma", **passes)
+    counts["profiler_trainer"] = prof["trainer"]["counts"]
+    routes["profiler_trainer"] = prof["trainer"]["routes"]
+    steps = prof["trainer"]["steps"]
+    _path("profiler_trainer", _expected(SHARDED_CONFIG["n_layers"], kernel_forwards=steps,
+                                        kernel_backwards=steps),
+          counts["profiler_trainer"], routes["profiler_trainer"], "wgmma")
 
     # Every launch on the tiny path is of its instantiations (head_dim 16 in
     # f32, RMSNorm at dim 64 in f32); on every other path, of the model's.
@@ -4153,7 +4570,9 @@ def main() -> None:
         ppo_atari_update_ms=rl["ppo_atari"]["update_ms"],
         ppo_cartpole_update_ms=rl["ppo_cartpole"]["update_ms"],
         **{f"{name}_update_ms": rl2[name]["update_ms"] for name in OFFPOLICY_CASES},
-        seconds=time.perf_counter() - _t_start)
+        profiler_capture_overhead_ms=prof["in_process"]["capture_overhead_ms"],
+        profiler_trace_bytes=prof["in_process"]["trace_bytes"],
+        profiler_seconds=prof["seconds"], seconds=time.perf_counter() - _t_start)
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,9 +2,8 @@
 sharding rules (``mesh``), the tensor-parallel pieces the model's blocks
 use under the sharded train step (``tensor_parallel``), the pipeline
 schedules and ``pipeline_apply`` (``pipeline``), ring and Ulysses
-attention (``ring_attention``), and the wire between the ranks of one
-axis they share (``_wire``). The multi-slice ``SliceTopology`` waits for
-ROADMAP Queue A item 4a, two-tier."""
+attention (``ring_attention``), the wire between the ranks of one axis
+they share (``_wire``), and the two-tier ``SliceTopology`` (``topology``)."""
 
 from ray_tpu_torch.parallel.mesh import (
     AXES,
@@ -18,6 +17,7 @@ from ray_tpu_torch.parallel.mesh import (
     single_host_mesh,
     transformer_tp_rules,
 )
+from ray_tpu_torch.parallel.topology import SliceTopology
 
 __all__ = [
     "AXES",
@@ -25,6 +25,7 @@ __all__ = [
     "LogicalRules",
     "LogicalSpec",
     "MeshSpec",
+    "SliceTopology",
     "auto_shard_specs",
     "fsdp_extend_spec",
     "shard_batch",

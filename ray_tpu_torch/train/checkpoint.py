@@ -287,7 +287,11 @@ def save_pytree(
     the manifest and tree.json, then this rank's ``DONE.p<rank>``
     inventory, atomically and last. Every process calls this with the same
     tree; the union of the shard files covers every leaf once. A reader
-    treats a shard dir without a verifying DONE marker as torn."""
+    treats a shard dir without a verifying DONE marker as torn. Inside a
+    train session the save's wall time is the step's "checkpoint" phase."""
+    from ray_tpu_torch.train import step_stats
+
+    start = time.perf_counter()
     leaves = list(_flatten(tree))
     seen: dict[str, tuple] = {}
     for path, _ in leaves:
@@ -346,6 +350,7 @@ def save_pytree(
         _atomic_write_json(os.path.join(directory, _MANIFEST), manifest)
     _atomic_write_json(_done_marker_path(directory, process_index),
                        {"rank": int(process_index), "files": inventory})
+    step_stats.record_phase("checkpoint", time.perf_counter() - start)
 
 
 def _done_markers(directory: str) -> dict[int, dict]:

@@ -5,18 +5,18 @@ Copies of ray_tpu's ``train/config.py`` (``ScalingConfig``, ``RunConfig``,
 ``num_workers`` and ``mesh_axes`` and asks for GPUs where the reference
 asks for TPU chips (``use_gpu``: one card a worker, the counterpart of
 ``resources={"TPU": n}``), and the pipeline fields (``pipeline_stages``,
-``microbatches``, ``virtual_stages``) with the reference's validation.
-Left out, with the runtime they need: elastic sizes and placement (ROADMAP
-Queue A item 4) and the slice topology (the two-tier item); and, until a
-caller needs them, the workers' extra environment, fail-fast, scored
-checkpoint retention, callbacks and stop criteria.
+``microbatches``, ``virtual_stages``) with the reference's validation, and
+``slice_topology``. Left out, with the runtime they need: elastic sizes and
+placement (ROADMAP Queue A item 4); and, until a caller needs them, the
+workers' extra environment, fail-fast, scored checkpoint retention,
+callbacks and stop criteria.
 """
 
 from __future__ import annotations
 
 import os
 from dataclasses import dataclass, field
-from typing import Mapping
+from typing import Any, Mapping
 
 
 @dataclass
@@ -39,6 +39,11 @@ class ScalingConfig:
                    shrinking the bubble from (S-1)/(M+S-1) to
                    (S-1)/(v*M+S-1); above 1 it needs microbatches
                    divisible by pipeline_stages.
+    slice_topology -- a ``parallel.topology.SliceTopology`` composing DCN
+                   axes across domains with ICI axes within them; workers
+                   read it from the train context
+                   (``get_context().slice_topology``), and the session's
+                   mesh is built from it.
     """
 
     num_workers: int = 1
@@ -47,6 +52,7 @@ class ScalingConfig:
     pipeline_stages: int = 1
     microbatches: int = 1
     virtual_stages: int = 1
+    slice_topology: Any = None
 
     def factorization(self) -> dict[str, int]:
         """The (dp, fsdp, tp, pp) this config asks for: pp from

@@ -7,6 +7,13 @@ loop on a thread and the trainer polls it; here the loop runs in the gang
 member's main thread and ``report`` hands (metrics, checkpoint) to the
 trainer over the member's channel, then blocks until the trainer has
 consumed the round: a lockstep barrier across ranks, as the reference's.
+
+Each report carries a StepStats record (``train.step_stats.StepRecorder``)
+cut before the hand-off, and the step clock restarts after the trainer's
+ack, as the reference's session does. The report round also carries the
+trainer's profile captures: an ack may hold an ``arm`` or ``abort`` for
+this worker's capture plane, and the next report brings back the arm's
+answer and, once the capture has ended, the capture itself.
 """
 
 from __future__ import annotations
@@ -14,6 +21,8 @@ from __future__ import annotations
 from dataclasses import dataclass, field
 from typing import Any, Optional
 
+from ray_tpu_torch._private import profiler as profiler_mod
+from ray_tpu_torch.train import step_stats as step_stats_mod
 from ray_tpu_torch.train.checkpoint import Checkpoint
 
 
@@ -36,6 +45,9 @@ class TrainContext:
     # With ScalingConfig.pipeline_stages > 1: {num_stages, microbatches,
     # virtual, attempt, stage, stage_rank}; else None.
     pipeline: Optional[dict] = None
+    # ScalingConfig.slice_topology (a parallel.topology.SliceTopology), which
+    # torch_utils.build_mesh(topology=...) and the session's mesh take.
+    slice_topology: Any = None
 
     def get_world_size(self) -> int:
         return self.world_size
@@ -61,12 +73,59 @@ class _Session:
     def __init__(self, ctx: TrainContext, channel):
         self.ctx = ctx
         self._channel = channel
+        self._recorder = (step_stats_mod.StepRecorder(ctx) if step_stats_mod.enabled()
+                          else None)
+        if self._recorder is not None:
+            step_stats_mod.activate()
+        self._arm_reply: dict | None = None
 
     def report(self, metrics: dict, checkpoint: Checkpoint | None = None) -> None:
-        self._channel.send(("report", {"metrics": dict(metrics), "checkpoint": checkpoint}))
+        # Cut the StepStats record BEFORE blocking on the trainer: the
+        # step's interval covers the user's work, not the round's wait. Its
+        # boundary hook may start or end a capture.
+        stats = self._recorder.on_report(metrics) if self._recorder is not None else None
+        payload = {"metrics": dict(metrics), "checkpoint": checkpoint, "step_stats": stats}
+        profile = self._profile_out()
+        if profile:
+            payload["profile"] = profile
+        self._channel.send(("report", payload))
         reply = self._channel.recv()
         if reply[0] != "ack":
             raise TrainingStopped(f"the trainer answered the report with {reply[0]!r}")
+        if len(reply) > 1 and reply[1].get("profile"):
+            self._profile_in(reply[1]["profile"])
+        # Restart the step clock AFTER the hand-off: the wait above is the
+        # round's rendezvous, not this rank's step.
+        if self._recorder is not None:
+            self._recorder.mark_resume()
+
+    def _profile_out(self) -> dict:
+        """What this report tells the trainer of its capture: the answer to
+        the last arm, and the capture once it has ended."""
+        out = {}
+        if self._arm_reply is not None:
+            out["arm"], self._arm_reply = self._arm_reply, None
+        plane = profiler_mod.get_plane()
+        if plane.state == "done":
+            out["capture"] = plane.collect()
+        return out
+
+    def _profile_in(self, action: dict) -> None:
+        """An ``arm`` or ``abort`` the trainer sent with its ack, run on the
+        loop's thread (the one that owns the device trace)."""
+        plane = profiler_mod.get_plane()
+        if action.get("action") == "arm":
+            self._arm_reply = plane.arm(action)
+        elif action.get("action") == "abort":
+            plane.abort()
+
+    def close(self) -> dict | None:
+        """Ends the session's recording: a capture still running is
+        aborted and its trace written; returns that capture, if any."""
+        step_stats_mod.deactivate()
+        profiler_mod.release_device_trace()
+        plane = profiler_mod.get_plane()
+        return plane.collect() if plane.state == "done" else None
 
 
 _session: _Session | None = None
@@ -91,9 +150,12 @@ def in_session() -> bool:
     return _session is not None
 
 
-def shutdown_session() -> None:
+def shutdown_session() -> dict | None:
+    """Ends the session; returns a capture that ended with it (see
+    ``_Session.close``)."""
     global _session
-    _session = None
+    session, _session = _session, None
+    return session.close() if session is not None else None
 
 
 def report(metrics: dict, *, checkpoint: Optional[Checkpoint] = None) -> None:

@@ -33,11 +33,15 @@ some edge come in another order than their receives
 ``stats`` holds the last step's seconds by phase: ``fwd``, ``bwd``,
 ``opt`` and ``pp_bubble``, the time blocked in ``recv`` (the rank's stream
 synchronized after each compute, so the wait is not the stage's own
-work), and ``step``, the whole step.
+work), and ``step``, the whole step. As in the reference's runner, fwd,
+bwd and opt are also ``step_annotation`` scopes (a device trace names
+them, the StepStats record splits compute by them) and the recv wait is
+the StepStats "pp_bubble" phase.
 """
 
 from __future__ import annotations
 
+import contextlib
 import time
 from typing import Any, Callable, Sequence
 
@@ -46,6 +50,7 @@ import torch
 
 from ray_tpu_torch.parallel import _wire
 from ray_tpu_torch.parallel.mesh import tree_leaves, tree_map
+from ray_tpu_torch.train.step_stats import record_phase, step_annotation
 from ray_tpu_torch.parallel.pipeline import (
     check_message_order, schedule_interleaved_1f1b, validate_schedule,
 )
@@ -139,18 +144,29 @@ class PipelineStageRunner:
         if self.device.type == "cuda":
             torch.cuda.current_stream(self.device).synchronize()
 
-    def _timed(self, phase: str, start: float) -> None:
-        self._sync()
+    @contextlib.contextmanager
+    def _phase(self, phase: str):
+        """A ``step_annotation`` scope for ``phase`` (fwd, bwd or opt) that
+        ends with the device synchronized, so the phase's kernels finish
+        inside it; its seconds add to ``stats`` and to the StepStats
+        split."""
+        start = time.perf_counter()
+        with step_annotation(phase, phase=phase):
+            yield
+            self._sync()
         self.stats[phase] += time.perf_counter() - start
 
     # -- the wire -------------------------------------------------------------
     def _recv(self, src: int, micro: Any) -> torch.Tensor:
         """Blocking neighbour receive; its wall time is the pipeline bubble
-        at this stage."""
+        at this stage (``stats`` and the "pp_bubble" phase)."""
         like = self.activation_like(micro)
         start = time.perf_counter()
         out = self.wire.recv(torch.empty(like.shape, dtype=like.dtype, device=self.device), src)
-        self._timed("pp_bubble", start)
+        self._sync()
+        waited = time.perf_counter() - start
+        self.stats["pp_bubble"] += waited
+        record_phase("pp_bubble", waited)
         return out
 
     # -- the chunk's math ---------------------------------------------------
@@ -197,41 +213,37 @@ class PipelineStageRunner:
                     a_in = torch.as_tensor(self._model_inputs(micro)).to(self.device)
                 else:
                     a_in = self._recv(prev, micro)
-                start = time.perf_counter()
                 if vs == last_vs:
                     # No downstream cotangent to wait for: loss and grads
                     # at once, counted as backward (it dominates).
-                    loss, dp, da = self._last_grad(c, a_in, micro)
+                    with self._phase("bwd"):
+                        loss, dp, da = self._last_grad(c, a_in, micro)
                     losses.append(loss)
                     stash[(m, c)] = (dp, da)
-                    self._timed("bwd", start)
                 else:
                     stash[(m, c)] = a_in
-                    with torch.no_grad():
+                    with self._phase("fwd"), torch.no_grad():
                         y = self._fns[c](self._chunk_params[c], a_in)
-                    self._timed("fwd", start)
                     self.wire.send(y, nxt)
             else:  # "B"
                 if vs == last_vs:
                     dp, da = stash.pop((m, c))
                 else:
                     ct = self._recv(nxt, micro)
-                    start = time.perf_counter()
-                    dp, da = self._vjp(c, stash.pop((m, c)), ct)
-                    self._timed("bwd", start)
+                    with self._phase("bwd"):
+                        dp, da = self._vjp(c, stash.pop((m, c)), ct)
                 if vs > 0:
                     self.wire.send(da, prev)
                 if grads_acc[c] is None:
                     grads_acc[c] = dp
                 else:
                     grads_acc[c] = [a + g for a, g in zip(grads_acc[c], dp)]
-        start = time.perf_counter()
-        for c in range(self.virtual):
-            for leaf, grad in zip(self._leaves[c], grads_acc[c]):
-                leaf.grad = grad / self.microbatches
-            self._optimizers[c].step()
-            self._optimizers[c].zero_grad(set_to_none=True)
-        self._timed("opt", start)
+        with self._phase("opt"):
+            for c in range(self.virtual):
+                for leaf, grad in zip(self._leaves[c], grads_acc[c]):
+                    leaf.grad = grad / self.microbatches
+                self._optimizers[c].step()
+                self._optimizers[c].zero_grad(set_to_none=True)
         self.wire.flush()
         if self.stage == self.num_stages - 1:
             local = torch.stack(losses).float().mean().reshape(1)

@@ -23,11 +23,12 @@ over fsdp. The optimizer, built over the DTensor leaves, keeps its state
 in the params' placements and steps each rank's shards.
 
 Also here: the split fwd/bwd/grad_sync/opt step across a collective
-group (``build_sharded_train_step(group_name=...)``) with the gradient
-syncs it runs on (``sync_gradients``, ``begin_gradient_sync``,
-``sync_gradients_sharded``, ``grad_psum``), the sharded state's
-checkpoint (``save_sharded_state``, ``restore_sharded_state``) and the
-train session's mesh.
+group (``build_sharded_train_step(group_name=...)``), each phase a
+``step_annotation`` scope, with the gradient syncs it runs on
+(``sync_gradients``, ``begin_gradient_sync``, ``sync_gradients_sharded``,
+the two-tier ``sync_gradients_hierarchical``, ``grad_psum``), the sharded
+state's checkpoint (``save_sharded_state``, ``restore_sharded_state``) and
+the train session's mesh, a ``SliceTopology``'s when the session has one.
 
 The MoE experts' leaves are split over ep on their expert dim (``Shard``)
 and stay split for compute, as a tp-split leaf does; each ep rank runs its
@@ -54,6 +55,7 @@ from ray_tpu_torch.parallel._wire import axis_wire
 from ray_tpu_torch.parallel.mesh import (
     LogicalRules, MeshSpec, NamedSharding, auto_shard_specs, mesh_axes, tree_leaves, tree_map,
 )
+from ray_tpu_torch.train.step_stats import record_phase, step_annotation
 
 logger = logging.getLogger(__name__)
 
@@ -146,22 +148,27 @@ def _world_size() -> int:
     return dist.get_world_size() if dist.is_initialized() else 1
 
 
-def build_mesh(axes: dict[str, int] | None = None, device=None):
+def build_mesh(axes: dict[str, int] | None = None, device=None, topology=None):
     """A DeviceMesh over the initialized world; ``axes`` empty or None: a
-    1-D "dp" mesh over every rank. (The JAX package's ``topology=`` for
-    multi-slice meshes waits for ROADMAP Queue A item 4a, two-tier.)"""
+    1-D "dp" mesh over every rank. With ``topology`` (a
+    ``parallel.topology.SliceTopology``) the mesh composes the DCN axes
+    across domains with the ICI axes within them (``axes`` unused), as the
+    trainer's ``topology=`` asks."""
+    if topology is not None:
+        return topology.build_mesh(device)
     return MeshSpec(dict(axes) if axes else {"dp": _world_size()}).build(device)
 
 
 def _session_mesh(device=None):
-    """The mesh of the active train session's ``mesh_axes`` on the worker's
-    device (every rank on "dp" when it names none), or ``build_mesh()``
-    outside a session."""
+    """The mesh of the active train session's ``mesh_axes`` (or its slice
+    topology) on the worker's device (every rank on "dp" when it names
+    none), or ``build_mesh()`` outside a session."""
     from ray_tpu_torch.train import session
 
     if session.in_session():
         ctx = session.get_context()
-        return build_mesh(dict(ctx.mesh or {}), device or ctx.device or None)
+        return build_mesh(dict(ctx.mesh or {}), device or ctx.device or None,
+                          topology=ctx.slice_topology)
     return build_mesh(None, device)
 
 
@@ -448,7 +455,8 @@ def build_sharded_train_step(
 
     ``group_name`` names a collective group of this process's gang
     (``util.collective``): the step then runs JAX's split form across the
-    group's workers (``_split_step``).
+    group's workers (``_split_step``). The fused step is one program in the
+    reference and carries no ``step_annotation`` scopes; neither does this.
     """
     import torch.distributed as dist
     from torch.distributed.tensor import DTensor
@@ -511,10 +519,14 @@ def _split_step(loss_fn, setup: ShardedTrainSetup, group_name: str,
     """JAX's split form across a collective group (``jax_utils.py``'s
     ``build_sharded_train_step`` with ``group_name``): forward, backward,
     an eager gradient mean through the group, then the optimizer, each a
-    phase whose seconds (the device synchronized at its end) land in
-    ``step.stats``. The group's workers are the mesh's data ranks: the
-    mesh must be dp over exactly them, its leaves replicated, so that each
-    rank's gradient is whole before the sync.
+    ``step_annotation`` scope ("fwd", "bwd", "grad_sync", "opt"; the
+    reference's phases: fwd, bwd and opt time the StepStats split, the
+    sync's time is the collective layer's) whose seconds land in
+    ``step.stats``. Each scope ends with the device synchronized, so its
+    kernels finish inside it; each of those syncs closes an edge the next
+    phase waits on anyway. The group's workers are the mesh's data ranks:
+    the mesh must be dp over exactly them, its leaves replicated, so that
+    each rank's gradient is whole before the sync.
 
     As in the reference, where each worker owns a private mesh, the loss
     is this worker's over its part of the batch alone (a masked mean over
@@ -540,22 +552,26 @@ def _split_step(loss_fn, setup: ShardedTrainSetup, group_name: str,
 
     def step(params, opt_state, batch):
         t0 = time.perf_counter()
-        local = tree_map(lambda leaf: leaf.to_local(), params)
-        with tp.tensor_parallel(ctx):
-            loss = loss_fn(local, tree_map(local_batch, batch))
-        sync_device()
+        with step_annotation("fwd", phase="fwd"):
+            local = tree_map(lambda leaf: leaf.to_local(), params)
+            with tp.tensor_parallel(ctx):
+                loss = loss_fn(local, tree_map(local_batch, batch))
+            sync_device()
         t1 = time.perf_counter()
-        loss.backward()
-        sync_device()
+        with step_annotation("bwd", phase="bwd"):
+            loss.backward()
+            sync_device()
         t2 = time.perf_counter()
-        grads = [leaf.grad.to_local() for leaf in leaves]
-        for grad, synced in zip(grads, sync_gradients(grads, group_name)):
-            grad.copy_(synced)
-        sync_device()
+        with step_annotation("grad_sync"):
+            grads = [leaf.grad.to_local() for leaf in leaves]
+            for grad, synced in zip(grads, sync_gradients(grads, group_name)):
+                grad.copy_(synced)
+            sync_device()
         t3 = time.perf_counter()
-        opt_state.step()
-        opt_state.zero_grad(set_to_none=True)
-        sync_device()
+        with step_annotation("opt", phase="opt"):
+            opt_state.step()
+            opt_state.zero_grad(set_to_none=True)
+            sync_device()
         t4 = time.perf_counter()
         step.stats = {"fwd_s": t1 - t0, "bwd_s": t2 - t1, "grad_sync_s": t3 - t2,
                       "opt_s": t4 - t3}
@@ -625,15 +641,20 @@ class GradientSyncHandle:
         self.stats: dict[str, float] = {"buckets": len(buckets), "launch_s": launch_s}
 
     def result(self) -> Any:
-        """Fence: waits for every bucket, records the wait as the exposed
-        communication time, and returns the mean gradient tree."""
+        """Fence: waits for every bucket, each wait a ``fence.b<i>`` scope on
+        the trace, records the whole wait as the exposed communication time
+        (the step's "comm_exposed" phase), and returns the mean gradient
+        tree."""
         start = time.perf_counter()
-        for work in self._works:
-            if work is not None:
-                work.wait()
-        if self._buckets and self._buckets[0][1].device.type == "cuda":
-            torch.cuda.current_stream().synchronize()
+        cuda = bool(self._buckets) and self._buckets[0][1].device.type == "cuda"
+        for i, work in enumerate(self._works):
+            with step_annotation(f"fence.b{i}"):
+                if work is not None:
+                    work.wait()
+                if cuda:
+                    torch.cuda.current_stream().synchronize()
         self.stats["comm_exposed_s"] = time.perf_counter() - start
+        record_phase("comm_exposed", max(self.stats["comm_exposed_s"], 1e-9))
         out: list = [None] * len(self._leaves)
         for indices, flat in self._buckets:
             chunk = [self._leaves[i] for i in indices]
@@ -688,13 +709,44 @@ def sync_gradients_sharded(grads: Any, group_name: str, *, overlap: bool = False
     return sync_gradients(grads, group_name)
 
 
-def grad_psum(x: torch.Tensor, axis: str = "dp", *, mesh=None) -> torch.Tensor:
+def sync_gradients_hierarchical(per_device_grads: list, group_name: str) -> Any:
+    """Two-tier gradient mean for a ``hier`` group: one gradient tree (a dict
+    tree or a list of tensors) per local device in, the tree averaged over
+    every device of every rank out (``jax_utils.sync_gradients_sharded``).
+    Each tree is flattened in f32; ``allreduce_sharded`` reduces the local
+    ones on their device, then across ranks; the sum is divided by world
+    size x local devices and each leaf cast back to its dtype. A group
+    without ``allreduce_sharded`` takes the flat way: the local sum, then
+    its all-reduce."""
+    from ray_tpu_torch.util import collective
+
+    group = collective.get_group(group_name)
+    leaves, rebuild = _tree_leaves_list(per_device_grads[0])
+    flats = [_flat(_tree_leaves_list(grads)[0]) for grads in per_device_grads]
+    denom = group.world_size * len(flats)
+    if hasattr(group, "allreduce_sharded"):
+        total = group.allreduce_sharded(flats)
+    else:
+        total = torch.stack(flats).sum(dim=0)
+        if group.world_size > 1:
+            total = group.allreduce(total)
+    return rebuild(_unflat(total / denom, leaves))
+
+
+def grad_psum(x: torch.Tensor, axis: str = "dp", *, mesh=None,
+              topology=None) -> torch.Tensor:
     """``x`` summed over the ranks of ``mesh``'s ``axis`` (every rank of the
-    process group when no mesh is given): the in-step gradient reduce. The
-    reference's multi-slice ``topology`` waits for ROADMAP Queue A item 4a,
-    two-tier."""
+    process group when no mesh is given): the in-step gradient reduce. With
+    ``topology`` (a ``SliceTopology``) the sum runs tier by tier over the
+    mesh its ``build_mesh`` made (``mesh``, required): ICI axes first, then
+    DCN."""
     import torch.distributed as dist
 
+    if topology is not None:
+        if mesh is None:
+            raise ValueError("grad_psum(topology=...) needs mesh=, the mesh that "
+                             "topology.build_mesh() returned")
+        return topology.hierarchical_psum(x, mesh)
     out = x.detach().clone()
     if mesh is not None and axis not in mesh_axes(mesh):
         return out

@@ -24,16 +24,30 @@ A group of one rank returns its input, as the reference's does.
     (bystanders pass a template), and ``send`` / ``recv(like=...)``.
 
 The group runs on the process group of the process (the gang's world, or
-a one-rank group it starts itself). Out of this port: the ``ring``
-backend and its quantized wire, which talk through the controller's
-key-value store (runtime, not ported), and the ``hier`` backend (ROADMAP
-Queue A item 4a). A group that cannot form raises.
+a one-rank group it starts itself). ``HierarchicalGroup`` is the
+reference's ``hier`` backend: ``allreduce_sharded`` reduces the process's
+local shards on their device (tier 1), then all-reduces the partial over
+the process group (tier 2, gloo or NCCL, where the reference rides its
+controller's key-value ring). Out of this port: the ``ring`` backend and
+its quantized wire, which talk through the controller's key-value store
+(runtime, not ported). A group that cannot form raises.
+
+Every op of a group (``allreduce``, ``allreduce_sharded``, ``allgather``,
+``reducescatter``, ``broadcast``, ``barrier``, ``send``, ``recv``, as the
+reference instruments them) records its wall time as the train step's
+"collective" phase (``train.step_stats.record_phase``; one bool check
+outside a train session), once per user-visible op: an op that calls
+another inside it (``barrier``, the hierarchical group's tiers) records
+once.
 """
 
 from __future__ import annotations
 
+import functools
 import os
 import tempfile
+import threading
+import time
 from typing import Any
 
 import numpy as np
@@ -41,7 +55,30 @@ import torch
 
 SUM, PRODUCT, MIN, MAX = "sum", "product", "min", "max"
 
-_groups: dict[str, "NcclGroup"] = {}
+_groups: dict[str, Any] = {}
+_op_tls = threading.local()
+
+
+def _timed(method):
+    """Records a group op's wall time as the "collective" phase, as the
+    reference's ``_instrumented`` does; an op inside another records
+    nothing."""
+
+    @functools.wraps(method)
+    def op(self, *args, **kwargs):
+        if getattr(_op_tls, "active", False):
+            return method(self, *args, **kwargs)
+        from ray_tpu_torch.train import step_stats
+
+        _op_tls.active = True
+        start = time.perf_counter()
+        try:
+            return method(self, *args, **kwargs)
+        finally:
+            _op_tls.active = False
+            step_stats.record_phase("collective", time.perf_counter() - start)
+
+    return op
 
 
 def _reduce_op(op: str):
@@ -68,9 +105,9 @@ class NcclGroup:
         import torch.distributed as dist
 
         if backend not in ("nccl", "gloo"):
-            raise ValueError(f"collective backend {backend!r}: the port has 'nccl' (the card) "
-                             "and 'gloo' (the CPU); 'ring' is runtime, not ported, and 'hier' "
-                             "waits for ROADMAP Queue A item 4a")
+            raise ValueError(f"collective backend {backend!r}: the port has 'nccl' (the card), "
+                             "'gloo' (the CPU) and 'hier' (HierarchicalGroup over either); "
+                             "'ring' is runtime, not ported")
         if backend == "nccl" and not torch.cuda.is_available():
             raise RuntimeError("an NCCL collective group needs a CUDA device; pass "
                                "backend='gloo' for the CPU")
@@ -125,12 +162,14 @@ class NcclGroup:
         return t
 
     # -- the reference's ops ------------------------------------------------
+    @_timed
     def allreduce(self, array, op: str = SUM):
         _reduce_op(op)
         if self.world_size == 1:
             return array if isinstance(array, torch.Tensor) else np.asarray(array)
         return self._back(self._all_reduce(self._tensor(array), op), array)
 
+    @_timed
     def allgather(self, array) -> list:
         import torch.distributed as dist
 
@@ -141,6 +180,7 @@ class NcclGroup:
         dist.all_gather(parts, t)
         return [self._back(p, array) for p in parts]
 
+    @_timed
     def broadcast(self, array, src_rank: int = 0):
         import torch.distributed as dist
 
@@ -150,6 +190,7 @@ class NcclGroup:
         dist.broadcast(t, src=src_rank)
         return self._back(t, array)
 
+    @_timed
     def reducescatter(self, array, op: str = SUM):
         """This rank's chunk of ``np.array_split`` of the reduced, flattened
         array."""
@@ -172,6 +213,7 @@ class NcclGroup:
         out = out[:sizes[self.rank]]
         return self._back(out.to(flat.dtype) if wide else out, array)
 
+    @_timed
     def barrier(self) -> None:
         self.allreduce(torch.zeros(1, device=self.device))
 
@@ -192,6 +234,7 @@ class NcclGroup:
             return self._back(t, array)
         return None
 
+    @_timed
     def send(self, array, dst_rank: int, tag: str = "") -> None:
         """p2p send; ``dst_rank`` receives it with ``recv(src_rank=<this
         rank>, like=...)``."""
@@ -199,6 +242,7 @@ class NcclGroup:
             raise ValueError("send to self is unsupported")
         self.p2p(array, self.rank, dst_rank)
 
+    @_timed
     def recv(self, src_rank: int, tag: str = "", timeout: float = 60.0, like=None):
         """p2p receive; ``like`` gives the incoming shape and dtype (the
         reference's NCCL recv takes a buffer the same way)."""
@@ -219,14 +263,90 @@ class NcclGroup:
         self._owns_process_group = False
 
 
+class HierarchicalGroup:
+    """Two-tier collectives (the reference's ``hier`` backend, "reduce within
+    the slice, then across"): ``allreduce_sharded`` takes one shard per
+    local device; tier 1 reduces them on the shards' device (the fast tier:
+    the reference's one-jit psum over its local mesh), tier 2 all-reduces
+    the one partial over the process group (the slow tier: ``backend``,
+    "nccl" or "gloo"; the reference's controller-KV ring stays unported).
+    Host-level ops (one array a rank) go to tier 2 alone, as the
+    reference's delegate to its ring."""
+
+    _TIER1 = {SUM: torch.sum, MAX: torch.amax, MIN: torch.amin}
+
+    backend_name = "hier"
+
+    def __init__(self, world_size: int, rank: int, group_name: str, config: Any = None, *,
+                 backend: str = "nccl"):
+        self.world_size, self.rank, self.group_name = int(world_size), int(rank), group_name
+        self.config = config
+        self._dcn = NcclGroup(world_size, rank, group_name + "@dcn", config, backend=backend)
+        self.device = self._dcn.device
+
+    def _local_reduce(self, shards: list, op: str) -> torch.Tensor:
+        if op not in self._TIER1:
+            raise ValueError(f"hierarchical backend supports ops {sorted(self._TIER1)}")
+        if not shards:
+            raise ValueError("allreduce_sharded needs at least one shard")
+        first = shards[0]
+        device = first.device if isinstance(first, torch.Tensor) else self.device
+        stacked = torch.stack([
+            s.detach().to(device) if isinstance(s, torch.Tensor)
+            else torch.from_numpy(np.array(s)).to(device) for s in shards])
+        return self._TIER1[op](stacked, dim=0)
+
+    @_timed
+    def allreduce_sharded(self, per_device_arrays: list, op: str = SUM):
+        """The reduction of every rank's shards: tier 1 over this process's
+        shards, tier 2 across the process group. Answers in the kind of the
+        first shard (numpy in, numpy out; a tensor in, a tensor out)."""
+        partial = self._local_reduce(list(per_device_arrays), op)
+        out = self._dcn.allreduce(partial, op=op)
+        return out if isinstance(per_device_arrays[0], torch.Tensor) else out.cpu().numpy()
+
+    def allreduce(self, array, op: str = SUM):
+        return self._dcn.allreduce(array, op=op)
+
+    def allgather(self, array) -> list:
+        return self._dcn.allgather(array)
+
+    def reducescatter(self, array, op: str = SUM):
+        return self._dcn.reducescatter(array, op=op)
+
+    def broadcast(self, array, src_rank: int = 0):
+        return self._dcn.broadcast(array, src_rank=src_rank)
+
+    def barrier(self) -> None:
+        self._dcn.barrier()
+
+    def send(self, array, dst_rank: int, tag: str = "") -> None:
+        self._dcn.send(array, dst_rank, tag=tag)
+
+    def recv(self, src_rank: int, tag: str = "", timeout: float = 60.0, like=None):
+        return self._dcn.recv(src_rank, tag=tag, timeout=timeout, like=like)
+
+    def destroy(self) -> None:
+        self._dcn.destroy()
+
+
 def init_collective_group(world_size: int, rank: int, backend: str = "nccl",
                           group_name: str = "default", config: Any = None) -> None:
+    """``backend``: "nccl", "gloo" or "hier" (a HierarchicalGroup whose tier
+    2 runs the initialized process group's backend, NCCL without one)."""
+    import torch.distributed as dist
+
     if group_name in _groups:
         raise ValueError(f"collective group {group_name!r} already initialized")
-    _groups[group_name] = NcclGroup(world_size, rank, group_name, config, backend=backend)
+    if backend == "hier":
+        wire = dist.get_backend() if dist.is_initialized() else "nccl"
+        _groups[group_name] = HierarchicalGroup(world_size, rank, group_name, config,
+                                                backend=wire)
+    else:
+        _groups[group_name] = NcclGroup(world_size, rank, group_name, config, backend=backend)
 
 
-def get_group(group_name: str = "default") -> NcclGroup:
+def get_group(group_name: str = "default"):
     if group_name not in _groups:
         raise ValueError(f"collective group {group_name!r} not initialized")
     return _groups[group_name]

@@ -71,10 +71,13 @@ def test_port_imports_no_jax_and_no_ray_tpu(path):
 
 
 # The runtime modules (checkpoint, session, configs, trainer, collective
-# group, gang) read and write bf16 without ml_dtypes, which JAX brings.
+# group, gang, the step profiler and the topology) read and write bf16
+# without ml_dtypes, which JAX brings.
 RUNTIME_MODULES = ["train/checkpoint.py", "train/session.py", "train/config.py",
                    "train/trainer.py", "train/torch_utils.py", "util/collective.py",
-                   "util/gang.py"]
+                   "util/gang.py", "train/step_stats.py", "_private/profiler.py",
+                   "_private/profile_merge.py", "_private/telemetry.py",
+                   "parallel/topology.py"]
 
 
 @pytest.mark.parametrize("name", RUNTIME_MODULES)
@@ -164,7 +167,9 @@ def test_the_import_scan_covers_every_module_of_the_port():
     for name in ("models/lora.py", "models/cnn.py", "models/transformer.py",
                  "parallel/tensor_parallel.py", "parallel/_wire.py", "train/torch_utils.py",
                  "rllib/core/rl_module.py", "rllib/core/learner.py",
-                 "rllib/algorithms/ppo/ppo.py", "rllib/env/env_runner.py"):
+                 "rllib/algorithms/ppo/ppo.py", "rllib/env/env_runner.py",
+                 "train/step_stats.py", "_private/profiler.py", "_private/profile_merge.py",
+                 "_private/telemetry.py", "parallel/topology.py"):
         assert f"ray_tpu_torch/{name}" in scanned
 
 
