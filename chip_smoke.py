@@ -26,12 +26,14 @@ final line) if anything is wrong:
                time beside the events window, the backward's yardstick
                PyTorch's own fused RMSNorm backward; then every other input
                the reference takes (FLASH_INSTANTIATIONS: head_dim 16 in
-               f32, bf16 and f16, f16 at head_dim 64 and 128, head_dim 80
+               f32, bf16 and f16, f16 at head_dim 64 and 128, bf16 at
+               head_dim 64 (BERT-base's heads, phase 23), head_dim 80
                zero-padded to 128, head_dim 256 in f32, bf16 and f16,
                head_dim 192 zero-padded to 256, head_dim 512 in f32, bf16
                and f16, head_dim 320 zero-padded to 384; RMSNORM_INSTANTIATIONS:
-               dim 64, dim 50, f16, bf16 x with an f32 weight), forward and
-               backward, each an entry of its own in the kernels line
+               dim 64, dim 50, f16, bf16 x with an f32 weight, bf16 at dim
+               768), forward and backward, each an entry of its own in the
+               kernels line
   4. serve     TransformerConfig.llama2_7b() at full width and depth in bf16
                behind the @batch decorator (buckets 1, 4, 8) as
                release/serve_bert_http.py serves its encoder: 12 concurrent
@@ -204,18 +206,37 @@ final line) if anything is wrong:
                SliceTopology({"tp": 1}, {"dp": 1}) mesh: allreduce_sharded
                of one shard, the two tiers' sum and grad_psum(topology=)
                bitwise equal to their input
-Each path (4-5, 7, 8, 9, 10, 11, 12, 14, 15, 16, 17, 18, 19, 20, 21, 22) runs with every
-launch count set to 0 just before it; its counts, read just after, must
-equal what its layers and passes imply, every flash launch on the route the
-path's inputs take. The trainer path's kernels launch in its worker
-processes, whose counts start at 0 with each process and come back in its
-reports.
+ 23. serve_http  BASELINE config 4 exactly as release/serve_bert_http.py
+               sets it, its non-tiny branch uncut, through the port's serve
+               plane (ray_tpu_torch.serve): BERT-base widths (vocab 30522,
+               dim 768, 12 layers of 12 heads, hidden 3072, bf16, random
+               weights from the seed) behind @batch (8, 5 ms, buckets 1, 4,
+               8, each warmed at init), max_ongoing_requests 64, autoscaled
+               from 1 to 2 replicas (target 8 ongoing, upscale delay 1 s),
+               each replica a process on half of the card (num_gpus 0.5);
+               16 keep-alive http.client clients in a process of their own
+               post the release script's payload for 8 s (then 4 s bursts
+               until the second replica runs, at most 90 s), and a burst in
+               which one replica profiles 1 s of its serving loop; 8 seeded
+               requests, and 32 tokens of TokenStreamer as SSE. Every answer
+               within LOGITS_TOL of a direct forward here, no request failed,
+               2 replicas reached, 32 SSE tokens; qps, p50/p95/p99, the time
+               to the second replica, batch occupancy, SSE tokens/s and the
+               replica's device idle share
+Each path (4-5, 7, 8, 9, 10, 11, 12, 14, 15, 16, 17, 18, 19, 20, 21, 22, 23) runs with
+every launch count set to 0 just before it; its counts, read just after,
+must equal what its layers and passes imply, every flash launch on the
+route the path's inputs take. The trainer path's kernels launch in its
+worker processes, and the HTTP serving path's in its replica processes,
+whose counts start at 0 with each process and come back in their reports
+and metrics.
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
 """
 
 import asyncio
+import concurrent.futures
 import contextlib
 import dataclasses
 import functools
@@ -226,6 +247,7 @@ import os
 import queue
 import re
 import shutil
+import socket
 import statistics
 import subprocess
 import sys
@@ -266,6 +288,8 @@ from ray_tpu_torch.rllib.policy.sample_batch import (
     VALUE_TARGETS, VF_PREDS, SampleBatch,
 )
 from ray_tpu_torch.parallel.topology import SliceTopology
+from ray_tpu_torch import serve
+from ray_tpu_torch.serve import batching as serve_batching
 from ray_tpu_torch.serve.batching import batch
 from ray_tpu_torch.train import session as session_mod
 from ray_tpu_torch.train import step_stats as step_stats_mod
@@ -1011,6 +1035,10 @@ FLASH_INSTANTIATIONS = [
      [(1, 3, 100, 160, True), (1, 2, 130, 70, True), (2, 2, 37, 200, False)]),
     ("d64_f16", torch.float16, 64, (4, 32, SERVE_SEQ),
      [(2, 4, 256, 256, False), (1, 2, 130, 70, True), (2, 2, 37, 200, False)]),
+    # BERT-base's heads (phase 23): bf16 at 64 on the mma.sync route, timed
+    # at the largest bucket the serving path gives it.
+    ("d64_bf16", torch.bfloat16, 64, (8, 12, 32),
+     [(2, 4, 256, 256, False), (1, 2, 130, 70, True), (2, 2, 37, 200, False)]),
     ("d128_f16", torch.float16, 128, (4, 32, SERVE_SEQ),
      [(1, 2, 192, 192, True), (1, 2, 130, 70, True), (2, 2, 37, 200, False)]),
     ("d80_bf16_padded", torch.bfloat16, 80, (4, 32, SERVE_SEQ),
@@ -1044,9 +1072,14 @@ RMSNORM_INSTANTIATIONS = [
     ("d50_bf16", (8 * SERVE_SEQ, 50), torch.bfloat16, torch.bfloat16, [(9, 50), (3, 7, 50)]),
     ("d4096_f16", (8, SERVE_SEQ, 4096), torch.float16, torch.float16, [(9, 4096), (33, 512)]),
     ("bf16_x_f32_w", (8, SERVE_SEQ, 4096), torch.bfloat16, torch.float32, [(9, 50), (33, 512)]),
+    # BERT-base's width (phase 23), at the largest bucket: the vector route.
+    ("d768_bf16", (8, 32, 768), torch.bfloat16, torch.bfloat16, [(9, 768), (33, 768)]),
 ]
-# The instantiations the tiny path runs; every launch on it is one of these.
-TINY_ENTRIES = ("d16_f32", "d64_f32")
+# The instantiations a main path runs, and the path: every launch on the
+# tiny path is of its two, every launch on the HTTP serving path of its two.
+INSTANTIATION_PATHS = {"d16_f32": "tiny", "d64_f32": "tiny", "d64_bf16": "serve_http",
+                       "d768_bf16": "serve_http"}
+FORWARD_ONLY_PATHS = ("serve_http",)
 
 
 def _flash_sources(route: str, size: int = 128) -> dict:
@@ -1140,7 +1173,7 @@ def _flash_instantiation_entries(gen) -> list[dict]:
         bwd_bounds = _bwd_bounds(b, h, s, s, d, True, dtype)
         sources = _flash_sources(route, size)
         common = dict(route="cuda", kernel_route=route, launches=None, shape=[b, h, s, s, d],
-                      instantiation=label, on_main_path=label in TINY_ENTRIES, checks=checks)
+                      instantiation=label, on_main_path=label in INSTANTIATION_PATHS, checks=checks)
         bwd_library = dict(
             library_ms=by_backend[backend]["ms"] if backend else None,
             library_ms_range=by_backend[backend]["range"] if backend else None,
@@ -1250,7 +1283,7 @@ def _rmsnorm_instantiation_entries(gen) -> list[dict]:
         common = dict(route="cuda", source="ray_tpu_torch/ops/csrc/rmsnorm.cu",
                       replaces="ray_tpu/ops/rmsnorm.py:17", launches=None, shape=list(shape),
                       instantiation=label, kernel_route="scalar" if scalar else "vector",
-                      on_main_path=label in TINY_ENTRIES, checks=checks)
+                      on_main_path=label in INSTANTIATION_PATHS, checks=checks)
         fwd_name = "rmsnorm_fwd_scalar_kernelI" if scalar else (
             "rmsnorm_fwd_f16_kernel" if dtype == torch.float16 else "rmsnorm_fwd_kernelI")
         bwd_name = "rmsnorm_bwd_scalar_kernelI" if scalar else "rmsnorm_bwd_kernelI"
@@ -4400,6 +4433,394 @@ def phase_profiler() -> dict:
             "seconds": time.perf_counter() - start}
 
 
+# ---------------------------------------------------------------- phase 23
+# BASELINE config 4 as release/serve_bert_http.py:30-140 sets it, its
+# non-tiny branch uncut: BERT-base widths in bf16 behind the HTTP proxy.
+BERT_CONFIG = dict(vocab_size=30522, dim=768, n_layers=12, n_heads=12, n_kv_heads=12,
+                   hidden_dim=3072, max_seq=128, dtype=torch.bfloat16)
+BERT_SEQ = 32
+HTTP_CLIENTS = 16
+HTTP_SECONDS = 8.0
+HTTP_PAYLOAD = {"token_ids": [101, 2023, 2003, 1037, 3231, 102]}
+# Extra bursts until the autoscaler's second replica runs, at most this long.
+HTTP_SCALE_WAIT_S = 90.0
+SSE_TOKENS = 32
+# The replica's device window: a burst of this many seconds, profiled for
+# the middle DEVICE_WINDOW_S of it.
+DEVICE_BURST_S = 3.0
+DEVICE_WINDOW_S = 1.0
+# Seeded requests with other first tokens, each held against a direct forward.
+HTTP_CHECKS = 8
+
+
+def _bert_tokens(bodies: list, seq: int) -> np.ndarray:
+    """release/serve_bert_http.py's layout: ids left-aligned in zeros."""
+    tokens = np.zeros((len(bodies), seq), dtype=np.int64)
+    for i, body in enumerate(bodies):
+        ids = (body or {}).get("token_ids") or [101, 102]
+        tokens[i, : min(len(ids), seq)] = ids[:seq]
+    return tokens
+
+
+@serve.deployment(
+    max_ongoing_requests=64,
+    autoscaling_config=serve.AutoscalingConfig(
+        min_replicas=1, max_replicas=2, target_ongoing_requests=8, upscale_delay_s=1.0),
+    ray_actor_options={"num_gpus": 0.5},
+)
+class BertEncoder:
+    """release/serve_bert_http.py's BertEncoder on the port: random weights
+    from the seed, every batch bucket warmed at init, logits[:, 0, :8] as
+    float64 lists."""
+
+    def __init__(self, config_kwargs: dict, seed: int, device: str):
+        # Where a replica's start goes: wall-clock marks for the driver,
+        # which knows when it asked for the replica.
+        self.init_marks = {"init_started": time.time()}
+        self.forward_s = 0.0
+        self.config = TransformerConfig(**config_kwargs)
+        self.device = device
+        self.params = init_params(self.config, seed=seed, device=device)
+        self.seq = min(BERT_SEQ, self.config.max_seq)
+        self.init_marks["params"] = time.time()
+        for bucket in BUCKETS:
+            self._forward(np.zeros((bucket, self.seq), np.int64))
+        if device == "cuda":
+            torch.cuda.synchronize()
+        self.init_marks["warm"] = time.time()
+
+    def _forward(self, tokens: np.ndarray) -> torch.Tensor:
+        with torch.inference_mode():
+            return forward(self.params, torch.from_numpy(tokens).to(self.device), self.config)
+
+    @serve.batch(max_batch_size=8, batch_wait_timeout_s=0.005, bucket_sizes=BUCKETS)
+    async def __call__(self, bodies):
+        start = time.perf_counter()
+        logits = self._forward(_bert_tokens(bodies, self.seq))
+        out = logits[:, 0, :8].double().cpu().numpy()
+        # The batch's wall time on the serving loop, its answer copied back.
+        self.forward_s += time.perf_counter() - start
+        return [{"embedding": row.tolist()} for row in out]
+
+    async def device_window(self, seconds: float) -> dict:
+        """This replica's device time over a window of its serving loop,
+        from torch.profiler's records of what ran on the card. The profiler
+        starts, stops and parses on a thread of its own (CUDA activity is
+        the process's), so the loop serves on meanwhile."""
+
+        def window() -> dict:
+            from torch.autograd import DeviceType
+            from torch.profiler import ProfilerActivity, profile
+
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                torch.cuda.synchronize()
+                batches = serve_batching.queue_stats()["batches"]
+                forward_s = self.forward_s
+                start = time.perf_counter()
+                time.sleep(seconds)
+                torch.cuda.synchronize()
+                window_ms = (time.perf_counter() - start) * 1e3
+                batches = serve_batching.queue_stats()["batches"] - batches
+                forward_s = self.forward_s - forward_s
+            rows = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
+                           for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+                           and not getattr(e, "is_user_annotation", False)),
+                          key=lambda r: -r[1])
+            device_ms = sum(r[1] for r in rows)
+            return {"window_ms": window_ms, "device_ms": device_ms, "batches": batches,
+                    "forward_ms_mean": 1e3 * forward_s / max(1, batches),
+                    "device_ms_per_batch": device_ms / max(1, batches),
+                    "device_ops": sum(r[2] for r in rows),
+                    "idle_share": 1.0 - device_ms / window_ms,
+                    "top": [{"op": k[:60], "ms": ms, "count": n} for k, ms, n in rows[:5]]}
+
+        result = await asyncio.get_running_loop().run_in_executor(None, window)
+        return {**result, "pid": os.getpid(), "init_marks": self.init_marks}
+
+
+@serve.deployment
+class TokenStreamer:
+    """release/serve_bert_http.py's token-streaming deployment (a CPU
+    replica)."""
+
+    def __call__(self, body):
+        n = int((body or {}).get("n", 8))
+        for i in range(n):
+            yield {"token": f"t{i}"}
+
+
+def http_load(conn, port: int, path: str, clients: int) -> None:
+    """The load generator, a process of its own so that its threads do not
+    take the proxy's interpreter: `clients` threads, each on one keep-alive
+    http.client connection, post the payload back to back for each burst
+    the parent asks for (("go", seconds, payload)), and report each
+    request's start, latency and status, and the distinct answers."""
+    import http.client
+
+    conn.send("ready")
+    while True:
+        command = conn.recv()
+        if command[0] != "go":
+            break
+        _, seconds, payload = command
+        body = json.dumps(payload).encode()
+        headers = {"Content-Type": "application/json"}
+        t0 = time.perf_counter()
+        deadline = t0 + seconds
+        results: list = []
+        answers: dict = {}
+        lock = threading.Lock()
+
+        def client():
+            mine, seen = [], {}
+            http_conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+            while time.perf_counter() < deadline:
+                start = time.perf_counter()
+                try:
+                    http_conn.request("POST", path, body=body, headers=headers)
+                    resp = http_conn.getresponse()
+                    data = resp.read()
+                    status = resp.status
+                except (OSError, http.client.HTTPException) as exc:
+                    status, data = f"{type(exc).__name__}: {exc}", b""
+                    http_conn.close()
+                    http_conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+                mine.append((start - t0, time.perf_counter() - start, status))
+                if status == 200:
+                    seen[data] = seen.get(data, 0) + 1
+            http_conn.close()
+            with lock:
+                results.extend(mine)
+                for data, n in seen.items():
+                    answers[data] = answers.get(data, 0) + n
+
+        threads = [threading.Thread(target=client) for _ in range(clients)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        conn.send({"results": results, "answers": [(json.loads(d)["embedding"], n)
+                                                    for d, n in answers.items()],
+                   "seconds": time.perf_counter() - t0})
+
+
+def _percentile_ms(latencies: list, q: float) -> float:
+    ordered = sorted(latencies)
+    return 1e3 * ordered[min(len(ordered) - 1, int(len(ordered) * q))]
+
+
+def _thread_cpu_s(name: str) -> float:
+    """CPU seconds (user and system) of this process's thread ``name``, from
+    /proc (Linux)."""
+    tid = next(t.native_id for t in threading.enumerate() if t.name == name)
+    fields = Path(f"/proc/self/task/{tid}/stat").read_text().rsplit(")", 1)[1].split()
+    return (int(fields[11]) + int(fields[12])) / os.sysconf("SC_CLK_TCK")
+
+
+def _start_split(asked_at: float, marks: dict) -> dict:
+    """A replica's start: when its constructor began, counted from the
+    phase's first serve.run (for the first replica, the spawn and the
+    imports), and the seconds its weights and its warm-up forwards took."""
+    return {"init_started_after_run_s": marks["init_started"] - asked_at,
+            "params_s": marks["params"] - marks["init_started"],
+            "warm_s": marks["warm"] - marks["params"]}
+
+
+def _burst_summary(burst: dict) -> dict:
+    """A burst's length, requests, percentiles and slowest request."""
+    latencies = [lat for _, lat, _ in burst["results"]]
+    slowest = max(burst["results"], key=lambda r: r[1])
+    return {"seconds": burst["seconds"], "requests": len(latencies),
+            "p50_ms": _percentile_ms(latencies, 0.5), "p99_ms": _percentile_ms(latencies, 0.99),
+            "max_ms": 1e3 * slowest[1], "slowest_started_at_s": slowest[0]}
+
+
+def _replica_counts(metrics: list) -> tuple:
+    """The replicas' launch counts summed, in _counts()'s and
+    _route_counts()'s forms, and the forwards they ran: each replica's
+    flushed batches and its len(BUCKETS) warm-up forwards."""
+    names = ("flash_attention_fwd", "flash_attention_bwd_dq", "flash_attention_bwd_dkv",
+             "rmsnorm", "rmsnorm_bwd")
+    counts = {k: sum(m["kernels"][k]["launches"] for m in metrics) for k in names}
+    routes = {k: {r: sum(m["kernels"][k]["launches_by_route"][r] for m in metrics)
+                  for r in ("wgmma", "mma_sync")} for k in names[:3]}
+    forwards = sum(m["batches"] + len(BUCKETS) for m in metrics)
+    return counts, routes, forwards
+
+
+def phase_serve_http(config_kwargs=None, device="cuda", seconds=HTTP_SECONDS) -> dict:
+    """Phase 23: BASELINE config 4 through the port's serve plane. The
+    encoder deployment (num_gpus 0.5, autoscaled 1 to 2 replicas) behind
+    the HTTP proxy; HTTP_CLIENTS clients post for `seconds`, then more
+    bursts until the second replica runs; a profiled burst; 32 tokens of
+    TokenStreamer as SSE; answers against a direct forward in this process.
+    The kernels launch in the replicas, whose counts come back in their
+    metrics."""
+    import torch.multiprocessing as mp
+
+    config_kwargs = config_kwargs or BERT_CONFIG
+    config = TransformerConfig(**config_kwargs)
+    port = _bert_port()
+    start, asked_at = time.perf_counter(), time.time()
+    controller = serve.start(http_port=port)
+    encoder = BertEncoder if device == "cuda" else BertEncoder.options(ray_actor_options={})
+    try:
+        # The streamer's CPU replica starts beside the encoder's.
+        with concurrent.futures.ThreadPoolExecutor(1) as pool:
+            streamer = pool.submit(serve.run, TokenStreamer.bind(), name="stream",
+                                   route_prefix="/stream")
+            handle = serve.run(encoder.bind(config_kwargs, SEED, device), name="bert",
+                               route_prefix="/bert")
+            first_replica_s = time.perf_counter() - start
+            streamer.result(120)
+
+        def running() -> int:
+            return serve.status()["bert"]["deployments"]["BertEncoder"]["running_replicas"]
+
+        ctx = mp.get_context("spawn")
+        parent, child = ctx.Pipe()
+        loader = ctx.Process(target=http_load, args=(child, port, "/bert", HTTP_CLIENTS))
+        loader.start()
+        try:
+            require(parent.poll(120) and parent.recv() == "ready", "serve_http: load generator")
+
+            def burst(length: float, during=None) -> dict:
+                parent.send(("go", length, HTTP_PAYLOAD))
+                extra = during() if during else None
+                require(parent.poll(length + 120), "serve_http: the load generator went silent")
+                out = parent.recv()
+                out["during"] = extra
+                return out
+
+            replicas_seen, reached_s = [], None
+            go = time.perf_counter()
+
+            def watch():
+                nonlocal reached_s
+                while not parent.poll(0.05):
+                    n = running()
+                    replicas_seen.append((time.perf_counter() - go, n))
+                    if n >= 2 and reached_s is None:
+                        reached_s = time.perf_counter() - go
+
+            io_cpu = _thread_cpu_s("serve-io")
+            main = burst(seconds, watch)
+            io_cpu = _thread_cpu_s("serve-io") - io_cpu
+            bursts = [main]
+            while reached_s is None and time.perf_counter() - go < HTTP_SCALE_WAIT_S:
+                bursts.append(burst(4.0, watch))
+            # A profiled window of one replica, in a burst of its own.
+            window = None
+            if device == "cuda":
+                # One replica, by the hash ring's key: a first, empty window
+                # while no load runs takes the profiler's start-up (seconds
+                # in which the replica's loop stalls), then the measured one.
+                profiled_replica = handle.options(session_id="device-window").device_window
+                profiled_replica.remote(0.0).result(timeout=120)
+
+                def profile_one():
+                    time.sleep((DEVICE_BURST_S - DEVICE_WINDOW_S) / 2)
+                    return profiled_replica.remote(DEVICE_WINDOW_S).result(timeout=120)
+                profiled = burst(DEVICE_BURST_S, profile_one)
+                window = profiled["during"]
+                bursts.append(profiled)
+            parent.send(("stop",))
+        finally:
+            loader.join(30)
+            if loader.is_alive():
+                loader.kill()
+        status_after = serve.status()["bert"]["deployments"]["BertEncoder"]
+
+        # Seeded requests with other tokens, over HTTP, for the check below.
+        rng = np.random.default_rng(SEED + 23)
+        check_bodies = [{"token_ids": rng.integers(0, config.vocab_size, BERT_SEQ).tolist()}
+                        for _ in range(HTTP_CHECKS)]
+        check_answers = [_post_json(port, "/bert", body) for body in check_bodies]
+
+        sse_start = time.perf_counter()
+        sse = _post_json(port, "/stream", {"n": SSE_TOKENS}, {"Accept": "text/event-stream"},
+                         raw=True)
+        sse_s = time.perf_counter() - sse_start
+        sse_tokens = sum(1 for line in sse.decode().splitlines() if line.startswith("data: "))
+        metrics = controller.get_metrics()["bert_BertEncoder"]
+    finally:
+        serve.shutdown()
+    shutdown_s = time.perf_counter() - start
+
+    # The direct forward of the same tokens, in this process.
+    params = init_params(config, seed=SEED, device=device)
+    bodies = [HTTP_PAYLOAD] + check_bodies
+    with torch.inference_mode():
+        direct_logits = forward(params, torch.from_numpy(
+            _bert_tokens(bodies, min(BERT_SEQ, config.max_seq))).to(device), config)
+    direct = direct_logits[:, 0, :8].double().cpu().numpy()
+    del params, direct_logits
+
+    latencies = [lat for _, lat, status in main["results"]]
+    failed = [status for b in bursts for _, _, status in b["results"] if status != 200]
+    answer_errs = [float(np.abs(np.asarray(emb) - direct[0]).max())
+                   for b in bursts for emb, _ in b["answers"]]
+    answer_errs += [float(np.abs(np.asarray(a["embedding"]) - direct[i + 1]).max())
+                    for i, a in enumerate(check_answers)]
+    counts, routes, forwards = _replica_counts(metrics)
+    real = sum(m["items_real"] for m in metrics)
+    padded = sum(m["items_padded"] for m in metrics)
+    result = dict(
+        config="release/serve_bert_http.py non-tiny (BERT-base widths, bf16)",
+        params=num_params(init_params(config, seed=SEED, device="meta")),
+        clients=HTTP_CLIENTS, seconds=seconds, requests=len(latencies),
+        qps=len(latencies) / main["seconds"], p50_ms=_percentile_ms(latencies, 0.50),
+        p95_ms=_percentile_ms(latencies, 0.95), p99_ms=_percentile_ms(latencies, 0.99),
+        max_ms=1e3 * max(latencies), failed=len(failed), failed_samples=failed[:5],
+        requests_all_bursts=sum(len(b["results"]) for b in bursts),
+        bursts=[_burst_summary(b) for b in bursts],
+        replicas_reached=max(n for _, n in replicas_seen), replicas_reached_s=reached_s,
+        replicas_after=status_after, first_replica_s=first_replica_s,
+        mean_batch_occupancy=real / padded if padded else None,
+        mean_batch_size=real / sum(m["batches"] for m in metrics),
+        batches=sum(m["batches"] for m in metrics), forwards=forwards,
+        replica_totals=[m["total"] for m in metrics],
+        # This process's serve I/O thread (the proxy, the handles and the
+        # wire) over the main burst: its CPU seconds a request and its share
+        # of the burst's wall time.
+        io_loop_cpu_us_per_request=1e6 * io_cpu / max(1, len(latencies)),
+        io_loop_busy_share=io_cpu / main["seconds"],
+        sse_tokens=sse_tokens, sse_tokens_per_s=sse_tokens / sse_s, sse_seconds=sse_s,
+        device_window=window, max_answer_err=max(answer_errs), answer_tol=LOGITS_TOL,
+        replica_start_s=window and _start_split(asked_at, window["init_marks"]),
+        distinct_answers=sum(len(b["answers"]) for b in bursts),
+        counts=counts, routes=routes, phase_seconds=shutdown_s)
+    log("serve_http", **result)
+    require(not failed, f"serve_http: {len(failed)} requests failed: {failed[:5]}")
+    require(all(np.isfinite(direct).ravel()), "serve_http: non-finite direct logits")
+    require(max(answer_errs) < LOGITS_TOL,
+            f"serve_http: answers {max(answer_errs)} from the direct forward >= {LOGITS_TOL}")
+    require(result["replicas_reached"] == 2, f"serve_http: replicas {replicas_seen[-5:]}")
+    require(sse_tokens == SSE_TOKENS, f"serve_http: {sse_tokens} SSE tokens")
+    return result
+
+
+def _bert_port() -> int:
+    with socket.socket() as probe:
+        probe.bind(("127.0.0.1", 0))
+        return probe.getsockname()[1]
+
+
+def _post_json(port: int, path: str, body, headers=None, raw: bool = False):
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+    try:
+        conn.request("POST", path, body=json.dumps(body),
+                     headers={"Content-Type": "application/json", **(headers or {})})
+        resp = conn.getresponse()
+        data = resp.read()
+        require(resp.status == 200, f"serve_http: {path} answered {resp.status}: {data[:200]}")
+        return data if raw else json.loads(data)
+    finally:
+        conn.close()
+
+
 # ---------------------------------------------------------------- main
 def _path(name: str, want: dict, counts: dict, routes: dict, route: str, **fields) -> None:
     """Logs a path's launch counts and fails unless they are what the path
@@ -4536,14 +4957,30 @@ def main() -> None:
                                         kernel_backwards=steps),
           counts["profiler_trainer"], routes["profiler_trainer"], "wgmma")
 
+    # The HTTP serving path: its kernels launch in the replica processes,
+    # whose counts (from 0 with each process) come back in their metrics;
+    # this process's launches are the direct forwards its check ran.
+    http, local, _ = _run_path(phase_serve_http)
+    require(local == _expected(BERT_CONFIG["n_layers"], kernel_forwards=1),
+            f"serve_http: this process launched {local}, one direct forward's worth expected")
+    counts["serve_http"], routes["serve_http"] = http["counts"], http["routes"]
+    _path("serve_http", _expected(BERT_CONFIG["n_layers"], kernel_forwards=http["forwards"]),
+          counts["serve_http"], routes["serve_http"], "mma_sync", forwards=http["forwards"],
+          replicas=http["replicas_reached"])
+
     # Every launch on the tiny path is of its instantiations (head_dim 16 in
-    # f32, RMSNorm at dim 64 in f32); on every other path, of the model's.
+    # f32, RMSNorm at dim 64 in f32), on the HTTP serving path of BERT-base's
+    # (head_dim 64 and dim 768 in bf16); on every other path, of the model's.
     for e in entries:
         kernel = e["name"].split("[")[0]
         if "instantiation" in e:
-            paths = ["tiny"] if e["on_main_path"] else []
+            path = INSTANTIATION_PATHS.get(e["instantiation"])
+            # Serving runs no backward.
+            paths = [] if path is None or (path in FORWARD_ONLY_PATHS and "bwd" in kernel) \
+                else [path]
+            e["on_main_path"] = bool(paths)
         else:
-            paths = [p for p in counts if p != "tiny"]
+            paths = [p for p in counts if p not in INSTANTIATION_PATHS.values()]
         by_path = {p: counts[p][kernel] for p in paths}
         e["launches"], e["launches_by_path"] = sum(by_path.values()), by_path
         if kernel in routes["serve"]:
@@ -4572,7 +5009,9 @@ def main() -> None:
         **{f"{name}_update_ms": rl2[name]["update_ms"] for name in OFFPOLICY_CASES},
         profiler_capture_overhead_ms=prof["in_process"]["capture_overhead_ms"],
         profiler_trace_bytes=prof["in_process"]["trace_bytes"],
-        profiler_seconds=prof["seconds"], seconds=time.perf_counter() - _t_start)
+        profiler_seconds=prof["seconds"], http_qps=http["qps"], http_p50_ms=http["p50_ms"],
+        http_p99_ms=http["p99_ms"], http_replicas=http["replicas_reached"],
+        http_sse_tokens_per_s=http["sse_tokens_per_s"], seconds=time.perf_counter() - _t_start)
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,0 +1,214 @@
+"""Deployments of the port's serve plane for tests/test_torch_serve_plane.py.
+
+Replicas are processes that import a deployment's class by name, so the
+deployments live at the top level of this module (tests/ is on the path
+that spawned replicas inherit). Each mirrors one of tests/test_serve.py's.
+"""
+
+import asyncio
+import os
+import time
+
+import numpy as np
+import torch
+
+from ray_tpu_torch import serve
+from ray_tpu_torch.models import transformer as pt
+from ray_tpu_torch.models.convert import params_from_numpy
+from ray_tpu_torch.serve import long_poll
+
+# The encoder's sequence length and batch buckets, as
+# release/serve_bert_http.py serves its encoder (cut to the tiny model).
+TINY_SEQ = 16
+BUCKETS = [1, 4, 8]
+
+
+def encode(bodies: list, seq: int) -> np.ndarray:
+    """release/serve_bert_http.py's request layout: token ids left-aligned
+    in a row of zeros."""
+    tokens = np.zeros((len(bodies), seq), dtype=np.int64)
+    for i, body in enumerate(bodies):
+        ids = (body or {}).get("token_ids") or [101, 102]
+        tokens[i, : min(len(ids), seq)] = ids[:seq]
+    return tokens
+
+
+@serve.deployment(max_ongoing_requests=64)
+class TinyEncoder:
+    """TransformerConfig.tiny() (f32) on the CPU behind @batch, answering
+    logits[:, 0, :8] as float64 lists, from parameters the JAX package made."""
+
+    def __init__(self, numpy_params: dict):
+        self.config = pt.TransformerConfig.tiny()
+        self.params = params_from_numpy(numpy_params, device="cpu")
+        for bucket in BUCKETS:
+            self._forward(np.zeros((bucket, TINY_SEQ), np.int64))
+
+    def _forward(self, tokens: np.ndarray) -> torch.Tensor:
+        with torch.inference_mode():
+            return pt.forward(self.params, torch.from_numpy(tokens), self.config)
+
+    @serve.batch(max_batch_size=8, batch_wait_timeout_s=0.005, bucket_sizes=BUCKETS)
+    async def __call__(self, bodies):
+        logits = self._forward(encode(bodies, TINY_SEQ))
+        out = logits[:, 0, :8].double().numpy()
+        return [{"embedding": row.tolist()} for row in out]
+
+
+@serve.deployment
+class Boom:
+    def __call__(self, body):
+        raise ValueError("boom")
+
+
+@serve.deployment
+class Echo:
+    def __call__(self, body):
+        return {"echo": body}
+
+
+@serve.deployment
+class TokenStreamer:
+    """release/serve_bert_http.py's streaming deployment."""
+
+    def __call__(self, body):
+        n = int((body or {}).get("n", 8))
+        for i in range(n):
+            yield {"token": f"t{i}"}
+
+
+@serve.deployment(num_replicas=2)
+class Doubler:
+    def __call__(self, x):
+        return x * 2
+
+    def pid(self, _):
+        return os.getpid()
+
+
+@serve.deployment
+def square(x):
+    return x * x
+
+
+@serve.deployment
+class Preprocess:
+    def __call__(self, x):
+        return x + 1
+
+
+@serve.deployment
+class Model:
+    def __init__(self, pre):
+        self.pre = pre
+
+    def __call__(self, x):
+        return self.pre.remote(x).result() * 10
+
+
+@serve.deployment
+class Calculator:
+    def __init__(self, offset):
+        self.offset = offset
+
+    def add(self, x):
+        return x + self.offset
+
+    def sub(self, x):
+        return x - self.offset
+
+
+@serve.deployment(user_config={"threshold": 1})
+class Thresholder:
+    def __init__(self):
+        self.threshold = 0
+
+    def reconfigure(self, config):
+        self.threshold = config["threshold"]
+
+    def __call__(self, x):
+        return x >= self.threshold
+
+    def pid(self, _):
+        return os.getpid()
+
+
+@serve.deployment
+class BatchedModel:
+    def __init__(self):
+        self.seen = []
+
+    @serve.batch(max_batch_size=8, batch_wait_timeout_s=0.05, bucket_sizes=[4, 8])
+    async def __call__(self, items):
+        self.seen.append(len(items))
+        return [i + 1000 for i in items]
+
+    def sizes(self, _):
+        return list(self.seen)
+
+
+@serve.deployment(num_replicas=1, health_check_period_s=0.5)
+class Fragile:
+    def __call__(self, x):
+        return x
+
+    def pid(self, _):
+        return os.getpid()
+
+    def slow(self, x):
+        time.sleep(1.0)
+        return x
+
+
+@serve.deployment
+def noop(x):
+    return x
+
+
+@serve.deployment
+class Boomer:
+    def __call__(self, body):
+        yield "first"
+        raise ValueError("mid-stream bang")
+
+
+@serve.deployment
+class RouteWatcher:
+    """Reads membership from inside a replica process, and calls another
+    application through a handle made there."""
+
+    def routes(self, _):
+        return long_poll.get_subscriber().get_routes()
+
+    def call(self, app_and_value):
+        app, value = app_and_value
+        return serve.get_deployment_handle("pong", app).remote(value).result()
+
+
+@serve.deployment
+def pong(x):
+    return ("pong", x)
+
+
+@serve.deployment(
+    max_ongoing_requests=8,
+    autoscaling_config=serve.AutoscalingConfig(
+        min_replicas=1, max_replicas=2, target_ongoing_requests=1, upscale_delay_s=0.5,
+        downscale_delay_s=1.0),
+)
+class Autoscaled:
+    async def __call__(self, x):
+        await asyncio.sleep(0.4)
+        return x
+
+
+@serve.deployment(ray_actor_options={"num_gpus": 0.5})
+class OnHalfACard:
+    def __call__(self, x):
+        return x
+
+
+@serve.deployment
+class BrokenInit:
+    def __init__(self):
+        raise RuntimeError("constructor bang")

@@ -17,6 +17,8 @@
   forward skips the autograd Function where autograd records nothing.
 * ``_build.launch`` binds each entry point once and passes the current
   stream's raw handle last.
+* The serve plane imports no aiohttp, httpx, grpc, cloudpickle, starlette
+  or uvicorn: the port depends on none of them.
 """
 
 import ast
@@ -85,6 +87,30 @@ def test_runtime_modules_import_no_ml_dtypes(name):
     path = ROOT / "ray_tpu_torch" / name
     bad = [m for m in _imported_modules(path) if m.split(".")[0] in FORBIDDEN + ("ml_dtypes",)]
     assert not bad, f"{name} imports {bad}"
+
+
+# The serve plane depends on none of these: its
+# proxy is stdlib asyncio, its wire pickle over localhost TCP, and its
+# deployments travel by name.
+SERVE_FORBIDDEN = ("aiohttp", "httpx", "grpc", "cloudpickle", "starlette", "uvicorn")
+
+
+def _serve_sources() -> list[Path]:
+    return sorted((ROOT / "ray_tpu_torch" / "serve").glob("*.py"))
+
+
+@pytest.mark.parametrize("path", _serve_sources(), ids=lambda p: p.name)
+def test_serve_modules_import_no_http_or_pickling_library(path):
+    bad = [m for m in _imported_modules(path)
+           if m.split(".")[0] in FORBIDDEN + SERVE_FORBIDDEN]
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_the_serve_scan_covers_the_serve_plane():
+    names = {p.name for p in _serve_sources()}
+    assert {"api.py", "controller.py", "replica.py", "handle.py", "proxy.py", "long_poll.py",
+            "routing.py", "autoscaling_policy.py", "_common.py", "_channel.py",
+            "batching.py"} <= names
 
 
 def test_forbidden_rule_tells_the_packages_apart():
@@ -169,7 +195,9 @@ def test_the_import_scan_covers_every_module_of_the_port():
                  "rllib/core/rl_module.py", "rllib/core/learner.py",
                  "rllib/algorithms/ppo/ppo.py", "rllib/env/env_runner.py",
                  "train/step_stats.py", "_private/profiler.py", "_private/profile_merge.py",
-                 "_private/telemetry.py", "parallel/topology.py"):
+                 "_private/telemetry.py", "parallel/topology.py", "serve/api.py",
+                 "serve/controller.py", "serve/replica.py", "serve/handle.py",
+                 "serve/proxy.py"):
         assert f"ray_tpu_torch/{name}" in scanned
 
 
