@@ -223,13 +223,35 @@ final line) if anything is wrong:
                2 replicas reached, 32 SSE tokens; qps, p50/p95/p99, the time
                to the second replica, batch occupancy, SSE tokens/s and the
                replica's device idle share
-Each path (4-5, 7, 8, 9, 10, 11, 12, 14, 15, 16, 17, 18, 19, 20, 21, 22, 23) runs with
+ 24. tune      the port's Tune (ray_tpu_torch.tune), each trial a process of
+               its own: (a) BASELINE config 3 as release/tune_asha_resnet.py
+               defines it (the ResNet at width 8 or 16 with one block a
+               stage, Adam, 32 seeded images, 8 epochs of 4 steps; a grid
+               of lr {1e-2, 1e-3, 1e-4} x width {8, 16} under
+               ASHAScheduler(grace 2, max_t 8, reduction 2), the port's
+               default concurrency), f32 with TF32 off: 6 trials, no error,
+               each ending at iteration 2, 4 or 8, the controller's
+               decisions equal to a fresh ASHAScheduler's on the stream it
+               recorded, best_acc the highest last acc, and lr 1e-3 width
+               8's first report within ASHA_LOSS_TOL of the same epoch on
+               the CPU here (accuracy equal); num_trials, early_stopped,
+               best_acc, best_config, the wall time and each trial's time
+               to its first result; (b) Tuner(TorchTrainer) over lr {1e-2,
+               1e-3, 1e-4}, one GPU worker a trial, three at once:
+               ResNet-18 at batch 128, 8 reports of 4 Adam steps under ASHA
+               on the loss; each trial's img/s from its median step, peak
+               memory, the times from its start to its gang ready and to
+               its first report; the reports reach the Tuner through the
+               trainer's callbacks (training_iteration 1..n), each stopped
+               trial's gang member gone within GANG_GONE_S of its stop, no
+               process left below this one after fit()
+Each path (4-5, 7, 8, 9, 10, 11, 12, 14, 15, 16, 17, 18, 19, 20, 21, 22, 23, 24) runs with
 every launch count set to 0 just before it; its counts, read just after,
 must equal what its layers and passes imply, every flash launch on the
 route the path's inputs take. The trainer path's kernels launch in its
 worker processes, and the HTTP serving path's in its replica processes,
 whose counts start at 0 with each process and come back in their reports
-and metrics.
+and metrics; so do the Tune trials' (phase 24, where every count is 0).
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
@@ -253,6 +275,7 @@ import subprocess
 import sys
 import threading
 import time
+import types
 from pathlib import Path
 
 import numpy as np
@@ -288,7 +311,7 @@ from ray_tpu_torch.rllib.policy.sample_batch import (
     VALUE_TARGETS, VF_PREDS, SampleBatch,
 )
 from ray_tpu_torch.parallel.topology import SliceTopology
-from ray_tpu_torch import serve
+from ray_tpu_torch import serve, tune
 from ray_tpu_torch.serve import batching as serve_batching
 from ray_tpu_torch.serve.batching import batch
 from ray_tpu_torch.train import session as session_mod
@@ -303,6 +326,7 @@ from ray_tpu_torch.train.torch_utils import (
     sync_gradients,
 )
 from ray_tpu_torch.train.trainer import TorchTrainer
+from ray_tpu_torch.tune.schedulers import ASHAScheduler
 from ray_tpu_torch.util import collective as collective_mod
 
 SEED = 0
@@ -4821,6 +4845,384 @@ def _post_json(port: int, path: str, body, headers=None, raw: bool = False):
         conn.close()
 
 
+# ---------------------------------------------------------------- phase 24
+# Tune (ray_tpu_torch/tune/): BASELINE config 3 as release/tune_asha_resnet.py
+# defines it, then TorchTrainer trials at ResNet-18's full width. Every
+# trial is a process of its own spawned from this one; it finds its
+# trainable by module and name (the port has no cloudpickle), here this
+# script as the spawn's main module, so the trainables are module-level
+# functions. A trainer trial's gang member is a process the trial spawns.
+# The ResNets' convolutions are cuDNN's (phase 19): no kernel of the port
+# runs, in this process or in a trial's (each report carries its counts).
+ASHA_EPOCHS, ASHA_STEPS, ASHA_IMAGES = 8, 4, 32
+ASHA_SPACE = {"lr": [1e-2, 1e-3, 1e-4], "width": [8, 16]}
+ASHA_RUNGS = (2, 4, 8)
+# The trial whose first report is held against the same trainable run
+# here on the CPU, within tests/test_torch_cnn.py's bound on an f32 loss
+# (F32_TOL, over max(1, |loss|)); its accuracy must be equal.
+ASHA_CHECKED = {"lr": 1e-3, "width": 8}
+ASHA_LOSS_TOL = 2e-5
+TUNE_LRS = [1e-2, 1e-3, 1e-4]
+TUNE_REPORTS, TUNE_STEPS = 8, 4
+TUNE_STORAGE = Path(__file__).resolve().parent / "build" / "chip_smoke_tune"
+# A stopped trial's gang members must be gone within this of the stop.
+GANG_GONE_S = 10.0
+
+
+def asha_resnet_run(config: dict, params: dict, device, report, epochs: int = ASHA_EPOCHS):
+    """release/tune_asha_resnet.py:20-54 from `params`: the ResNet at
+    config["width"] with one block a stage, Adam(config["lr"]) at optax's
+    defaults, the script's 32 seeded images with labels `sum > 0`, and
+    report({"acc", "loss"}) after each epoch of ASHA_STEPS steps (the
+    loss and accuracy of its last step, before that step's update)."""
+    from ray_tpu_torch.models.cnn import ResNetConfig, resnet_loss
+
+    rc = ResNetConfig(width=config["width"], blocks_per_stage=(1, 1))
+    rng = np.random.default_rng(0)
+    images = rng.normal(size=(ASHA_IMAGES, 32, 32, 3)).astype(np.float32)
+    labels = (images.sum(axis=(1, 2, 3)) > 0).astype(np.int32)
+    images = torch.from_numpy(images).to(device)
+    labels = torch.from_numpy(labels).to(device)
+    leaves = [leaf.requires_grad_(True) for _, leaf in named_leaves(params)]
+    optimizer = torch.optim.Adam(leaves, lr=config["lr"], betas=(0.9, 0.999), eps=1e-8)
+    for _ in range(epochs):
+        for _ in range(ASHA_STEPS):
+            loss, acc = resnet_loss(params, images, labels, rc)
+            optimizer.zero_grad(set_to_none=True)
+            loss.backward()
+            optimizer.step()
+        report({"acc": float(acc), "loss": float(loss.detach())})
+
+
+def asha_resnet_trainable(config: dict) -> None:
+    """BASELINE config 3's trainable on the card: the release script's
+    non-smoke branch (8 epochs of 4 steps), f32 with TF32 off, weights from
+    init_resnet(seed=0) on cuda. Each report also carries the wall times
+    at which the function began (its process spawned, imports done) and
+    its weights were on the card (the CUDA context made)."""
+    from ray_tpu_torch.models.cnn import ResNetConfig, init_resnet
+
+    began = time.time()
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    params = init_resnet(ResNetConfig(width=config["width"], blocks_per_stage=(1, 1)),
+                         seed=0, device="cuda")
+    torch.cuda.synchronize()
+    marks = {"began": began, "cuda_ready": time.time()}
+    asha_resnet_run(config, params, "cuda", lambda metrics: tune.report(
+        {**metrics, **marks, "launches": sum(_counts().values())}))
+
+
+def tune_trainer_loop(config: dict) -> None:
+    """Phase 24 (b)'s train_loop_per_worker, in a gang member on the card:
+    ResNetConfig() (ResNet-18, width 64) at batch RESNET_BATCH on seeded
+    32 x 32 x 3 images, f32 with TF32 off, TUNE_REPORTS reports of
+    TUNE_STEPS Adam steps, each step ending in a synchronize. Reports the
+    steps' seconds, peak memory, this process's id and the wall times at
+    which its loop began (its gang ready) and its model and data were on
+    the card."""
+    from ray_tpu_torch.models.cnn import ResNetConfig, init_resnet, resnet_loss
+    from ray_tpu_torch.train import get_context, report
+
+    ready = time.time()
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    device = torch.device(get_context().device)
+    torch.cuda.reset_peak_memory_stats(device)
+    rc = ResNetConfig()
+    params = init_resnet(rc, SEED, device)
+    rng = np.random.default_rng(SEED + 24)
+    images = torch.from_numpy(rng.standard_normal((RESNET_BATCH, 32, 32, 3))
+                              .astype(np.float32)).to(device)
+    labels = torch.from_numpy(rng.integers(0, rc.num_classes, RESNET_BATCH)).to(device)
+    leaves = [leaf.requires_grad_(True) for _, leaf in named_leaves(params)]
+    optimizer = torch.optim.Adam(leaves, lr=config["lr"], betas=(0.9, 0.999), eps=1e-8)
+    torch.cuda.synchronize(device)
+    model_ready = time.time()
+    for _ in range(TUNE_REPORTS):
+        step_s = []
+        for _ in range(TUNE_STEPS):
+            torch.cuda.synchronize(device)
+            start = time.perf_counter()
+            loss, _ = resnet_loss(params, images, labels, rc)
+            optimizer.zero_grad(set_to_none=True)
+            loss.backward()
+            optimizer.step()
+            torch.cuda.synchronize(device)
+            step_s.append(time.perf_counter() - start)
+        report({"loss": float(loss.detach()), "step_s": step_s, "pid": os.getpid(),
+                "gang_ready": ready, "model_ready": model_ready,
+                "peak_gib": torch.cuda.max_memory_allocated(device) / 2**30,
+                "device_name": torch.cuda.get_device_name(device),
+                "launches": sum(_counts().values())})
+
+
+class _TrialClock:
+    """A Tune callback: each trial's start (its addition, just before its
+    process is spawned), its results' arrival times and the gang members'
+    process ids its results name."""
+
+    def __init__(self):
+        self.added, self.results, self.pids = {}, {}, {}
+
+    def on_trial_add(self, trial) -> None:
+        self.added[trial.trial_id] = time.time()
+
+    def on_trial_result(self, trial, result: dict) -> None:
+        self.results.setdefault(trial.trial_id, []).append(time.time())
+        if "pid" in result:
+            self.pids[trial.trial_id] = result["pid"]
+
+
+class RecordingASHA(ASHAScheduler):
+    """An ASHAScheduler that records every call the controller makes of it
+    (what it was fed, what it answered, when), for the replay check."""
+
+    def __init__(self, **kwargs):
+        super().__init__(**kwargs)
+        self.calls = []
+
+    def _fed(self, result: dict) -> dict:
+        return {k: result[k] for k in (self.time_attr, self.metric) if k in result}
+
+    def on_trial_add(self, controller, trial) -> None:
+        self.calls.append(("add", trial.trial_id, None, None, time.time()))
+        super().on_trial_add(controller, trial)
+
+    def on_trial_result(self, controller, trial, result: dict) -> str:
+        decision = super().on_trial_result(controller, trial, result)
+        self.calls.append(("result", trial.trial_id, self._fed(result), decision, time.time()))
+        return decision
+
+    def on_trial_complete(self, controller, trial, result: dict) -> None:
+        self.calls.append(("complete", trial.trial_id, self._fed(result), None, time.time()))
+        super().on_trial_complete(controller, trial, result)
+
+
+def _replay_asha(calls: list, **kwargs) -> list:
+    """The decisions a fresh ASHAScheduler gives for the recorded calls."""
+    fresh, trials, decisions = ASHAScheduler(**kwargs), {}, []
+    for kind, trial_id, fed, _, _ in calls:
+        trial = trials.setdefault(trial_id, types.SimpleNamespace(trial_id=trial_id))
+        if kind == "add":
+            fresh.on_trial_add(None, trial)
+        elif kind == "result":
+            decisions.append(fresh.on_trial_result(None, trial, fed))
+        else:
+            fresh.on_trial_complete(None, trial, fed)
+    return decisions
+
+
+def _stop_times(calls: list) -> dict:
+    return {trial_id: at for kind, trial_id, _, decision, at in calls if decision == "STOP"}
+
+
+def _alive(pid: int) -> bool:
+    """Whether `pid` runs (a zombie counts as gone)."""
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            return f.read().rsplit(")", 1)[1].split()[0] != "Z"
+    except FileNotFoundError:
+        return False
+
+
+def _descendants(root: int) -> set:
+    """The live processes below `root`."""
+    children = {}
+    for entry in os.listdir("/proc"):
+        if entry.isdigit():
+            try:
+                with open(f"/proc/{entry}/stat") as f:
+                    fields = f.read().rsplit(")", 1)[1].split()
+            except (FileNotFoundError, ProcessLookupError):
+                continue
+            if fields[0] != "Z":
+                children.setdefault(int(fields[1]), []).append(int(entry))
+    found, todo = set(), [root]
+    while todo:
+        for pid in children.get(todo.pop(), []):
+            found.add(pid)
+            todo.append(pid)
+    return found
+
+
+class _GoneWatch:
+    """Polls the gang members the clock has seen, every 20 ms, and notes
+    when each stops running."""
+
+    def __init__(self, clock: _TrialClock):
+        self.clock, self.gone = clock, {}
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, name="gone-watch", daemon=True)
+        self._thread.start()
+
+    def _run(self) -> None:
+        while not self._stop.wait(0.02):
+            for trial_id, pid in list(self.clock.pids.items()):
+                if trial_id not in self.gone and not _alive(pid):
+                    self.gone[trial_id] = time.time()
+
+    def close(self) -> dict:
+        self._stop.set()
+        self._thread.join()
+        return self.gone
+
+
+def _tune_config3() -> dict:
+    """(a): release/tune_asha_resnet.py's sweep (lines 60-80) at the port's
+    default concurrency."""
+    from ray_tpu_torch.models.cnn import ResNetConfig, init_resnet
+
+    asha = dict(metric="acc", mode="max", grace_period=2, max_t=8, reduction_factor=2)
+    scheduler, clock = RecordingASHA(**asha), _TrialClock()
+    start = time.perf_counter()
+    results = tune.Tuner(
+        asha_resnet_trainable,
+        param_space={k: tune.grid_search(v) for k, v in ASHA_SPACE.items()},
+        tune_config=tune.TuneConfig(metric="acc", mode="max", scheduler=scheduler),
+        run_config=RunConfig(name="tune_asha_resnet", storage_path=str(TUNE_STORAGE),
+                             callbacks=[clock]),
+    ).fit()
+    wall = time.perf_counter() - start
+    require(len(results) == 6 and results.num_errors == 0
+            and all(r.metrics_history for r in results),
+            f"tune config 3: {len(results)} trials, errors {results.errors}")
+    best = results.get_best_result()
+    early_stopped = sum(1 for r in results if r.metrics.get("training_iteration", 8) < 8)
+    script = {"benchmark": "tune_asha_resnet", "num_trials": len(results),
+              "early_stopped": early_stopped, "best_acc": best.metrics["acc"],
+              "best_config": best.config}
+    trials = []
+    for r in results:
+        iters = [m["training_iteration"] for m in r.metrics_history]
+        added, first = clock.added[r.trial_id], r.metrics_history[0]
+        arrived = clock.results[r.trial_id][0]
+        trials.append({"config": r.config, "last_iteration": r.metrics["training_iteration"],
+                       "acc": r.metrics["acc"], "loss": r.metrics["loss"],
+                       # The time to the first result, then split: the spawn
+                       # and imports until the function began, the CUDA
+                       # context and weights, the first epoch.
+                       "first_result_s": arrived - added,
+                       "spawn_imports_s": first["began"] - added,
+                       "cuda_s": first["cuda_ready"] - first["began"],
+                       "first_epoch_s": arrived - first["cuda_ready"],
+                       "last_result_s": clock.results[r.trial_id][-1] - added,
+                       "iterations": iters,
+                       "launches": [m["launches"] for m in r.metrics_history]})
+    # The checked trial's first epoch again, here on the CPU, from the same
+    # weights (init_resnet's CUDA generator, copied).
+    config = dict(ASHA_CHECKED)
+    weights = _tree_to(init_resnet(ResNetConfig(width=config["width"], blocks_per_stage=(1, 1)),
+                                   seed=0, device="cuda"), "cpu")
+    cpu = []
+    asha_resnet_run(config, weights, "cpu", cpu.append, epochs=1)
+    (checked,) = [r for r in results if r.config == config]
+    first = checked.metrics_history[0]
+    loss_err = abs(first["loss"] - cpu[0]["loss"]) / max(1.0, abs(cpu[0]["loss"]))
+    replayed = _replay_asha(scheduler.calls, **asha)
+    recorded = [decision for kind, _, _, decision, _ in scheduler.calls if kind == "result"]
+    out = dict(script, wall_s=wall, trials=trials, concurrency=os.cpu_count(),
+               checked={"config": config, "card": {k: first[k] for k in ("acc", "loss")},
+                        "cpu": cpu[0], "loss_err": loss_err, "tol": ASHA_LOSS_TOL},
+               decisions=recorded, replay_equal=replayed == recorded)
+    for t in trials:
+        require(t["last_iteration"] in ASHA_RUNGS and t["iterations"] == list(
+            range(1, t["last_iteration"] + 1)), f"tune config 3: trial ended off a rung: {t}")
+        require(not any(t["launches"]), f"tune config 3: kernel launches in a trial: {t}")
+    require(replayed == recorded, "tune config 3: the controller's decisions differ from a "
+            f"fresh ASHAScheduler's on the recorded stream: {recorded} vs {replayed}")
+    require(best.metrics["acc"] == max(r.metrics["acc"] for r in results),
+            "tune config 3: best_acc is not the highest last acc")
+    require(all(np.isfinite([t["loss"] for t in trials])), "tune config 3: non-finite loss")
+    require(loss_err < ASHA_LOSS_TOL and first["acc"] == cpu[0]["acc"],
+            f"tune config 3: first report on the card {first} vs the CPU's {cpu[0]}")
+    return out
+
+
+def _tune_trainers() -> dict:
+    """(b): Tuner(TorchTrainer) over three learning rates, one GPU worker a
+    trial, three trials at once, under ASHA on the loss."""
+    asha = dict(metric="loss", mode="min", grace_period=2, max_t=8, reduction_factor=2)
+    scheduler, clock = RecordingASHA(**asha), _TrialClock()
+    before = _descendants(os.getpid())
+    watch = _GoneWatch(clock)
+    trainer = TorchTrainer(tune_trainer_loop,
+                           scaling_config=ScalingConfig(num_workers=1, use_gpu=True),
+                           run_config=RunConfig(name="resnet18",
+                                                storage_path=str(TUNE_STORAGE / "trainer")))
+    start = time.perf_counter()
+    try:
+        results = tune.Tuner(
+            trainer, param_space={"train_loop_config": {"lr": tune.grid_search(TUNE_LRS)}},
+            tune_config=tune.TuneConfig(metric="loss", mode="min", scheduler=scheduler,
+                                        max_concurrent_trials=3),
+            run_config=RunConfig(name="tune_trainers", storage_path=str(TUNE_STORAGE),
+                                 callbacks=[clock]),
+        ).fit()
+    finally:
+        wall = time.perf_counter() - start
+        gone = watch.close()
+    left = _descendants(os.getpid()) - before
+    stops = _stop_times(scheduler.calls)
+    require(len(results) == 3 and results.num_errors == 0
+            and all(len(r.metrics_history) >= 2 for r in results),
+            f"tune trainers: {len(results)} trials, errors {results.errors}")
+    trials = []
+    for r in results:
+        history, tid = r.metrics_history, r.trial_id
+        first, added, arrived = history[0], clock.added[tid], clock.results[tid][0]
+        steps = [s for m in history[1:] for s in m["step_s"]]  # the first round warms cuDNN
+        trials.append({
+            "lr": r.config["train_loop_config"]["lr"],
+            "iterations": [m["training_iteration"] for m in history],
+            "img_per_s": RESNET_BATCH / statistics.median(steps),
+            "step_ms": 1e3 * statistics.median(steps),
+            "peak_gib": max(m["peak_gib"] for m in history),
+            "gang_ready_s": first["gang_ready"] - added,
+            "first_report_s": arrived - added,
+            # The time to the first report, split: the trial's spawn and
+            # imports until its trainable began (the first result's arrival
+            # less its time_total_s), the gang's formation, the member's
+            # CUDA context, model and data, and the first round's steps.
+            "trial_spawn_imports_s": arrived - first["time_total_s"] - added,
+            "gang_formation_s": first["gang_ready"] - (arrived - first["time_total_s"]),
+            "member_cuda_s": first["model_ready"] - first["gang_ready"],
+            "first_round_s": arrived - first["model_ready"],
+            # Below 0 where the loop had ended, and its gang with it, before
+            # the controller read the last result and decided.
+            "stop_to_gone_s": gone[tid] - stops[tid] if tid in gone and tid in stops else None,
+            "through_trainer": all("factorization" in m for m in history),
+            "launches": [m["launches"] for m in history],
+            "device_name": first["device_name"]})
+    early_stopped = sum(1 for t in trials if t["iterations"][-1] < 8)
+    out = dict(wall_s=wall, early_stopped=early_stopped, trials=trials,
+               processes_left=sorted(left))
+    for t in trials:
+        require(t["iterations"] == list(range(1, len(t["iterations"]) + 1))
+                and t["through_trainer"],
+                f"tune trainers: reports did not come through the trainer's callbacks: {t}")
+        require(t["stop_to_gone_s"] is not None and t["stop_to_gone_s"] < GANG_GONE_S,
+                f"tune trainers: a stopped trial's gang member outlived {GANG_GONE_S} s: {t}")
+        require(not any(t["launches"]), f"tune trainers: kernel launches in a worker: {t}")
+    require(not left, f"tune trainers: processes alive after fit(): {sorted(left)}")
+    return out
+
+
+def phase_tune(resnet_img_per_s: float) -> dict:
+    shutil.rmtree(TUNE_STORAGE, ignore_errors=True)
+    start = time.perf_counter()
+    try:
+        result = {"config3": _tune_config3(), "trainers": _tune_trainers()}
+    finally:
+        shutil.rmtree(TUNE_STORAGE, ignore_errors=True)
+    result["phase19_resnet_img_per_s"] = resnet_img_per_s
+    result["seconds"] = time.perf_counter() - start
+    # The release script's own JSON, then the phase's line.
+    log("tune_asha_resnet", **{k: result["config3"][k] for k in
+                               ("benchmark", "num_trials", "early_stopped", "best_acc",
+                                "best_config")})
+    log("tune", **result)
+    return result
+
+
 # ---------------------------------------------------------------- main
 def _path(name: str, want: dict, counts: dict, routes: dict, route: str, **fields) -> None:
     """Logs a path's launch counts and fails unless they are what the path
@@ -4968,6 +5370,12 @@ def main() -> None:
           counts["serve_http"], routes["serve_http"], "mma_sync", forwards=http["forwards"],
           replicas=http["replicas_reached"])
 
+    # Tune: the trials are processes of their own (and a trainer trial's
+    # worker another), whose reports carry their launch counts (phase 24
+    # requires 0); this process launches none.
+    tuned, counts["tune"], routes["tune"] = _run_path(phase_tune, cnn["resnet"]["img_per_s"])
+    _path("tune", {k: 0 for k in counts["tune"]}, counts["tune"], routes["tune"], "wgmma")
+
     # Every launch on the tiny path is of its instantiations (head_dim 16 in
     # f32, RMSNorm at dim 64 in f32), on the HTTP serving path of BERT-base's
     # (head_dim 64 and dim 768 in bf16); on every other path, of the model's.
@@ -5011,7 +5419,11 @@ def main() -> None:
         profiler_trace_bytes=prof["in_process"]["trace_bytes"],
         profiler_seconds=prof["seconds"], http_qps=http["qps"], http_p50_ms=http["p50_ms"],
         http_p99_ms=http["p99_ms"], http_replicas=http["replicas_reached"],
-        http_sse_tokens_per_s=http["sse_tokens_per_s"], seconds=time.perf_counter() - _t_start)
+        http_sse_tokens_per_s=http["sse_tokens_per_s"],
+        tune_asha_wall_s=tuned["config3"]["wall_s"],
+        tune_asha_best_acc=tuned["config3"]["best_acc"],
+        tune_trainer_img_per_s=[t["img_per_s"] for t in tuned["trainers"]["trials"]],
+        tune_seconds=tuned["seconds"], seconds=time.perf_counter() - _t_start)
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

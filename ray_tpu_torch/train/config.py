@@ -6,10 +6,12 @@ Copies of ray_tpu's ``train/config.py`` (``ScalingConfig``, ``RunConfig``,
 asks for TPU chips (``use_gpu``: one card a worker, the counterpart of
 ``resources={"TPU": n}``), and the pipeline fields (``pipeline_stages``,
 ``microbatches``, ``virtual_stages``) with the reference's validation, and
-``slice_topology``. Left out, with the runtime they need: elastic sizes and
-placement (ROADMAP Queue A item 4); and, until a caller needs them, the
-workers' extra environment, fail-fast, scored checkpoint retention,
-callbacks and stop criteria.
+``slice_topology``. ``RunConfig`` keeps ``callbacks`` (``on_result``
+each report round), ``stop`` and ``verbose``, and ``CheckpointConfig``
+``checkpoint_frequency``, which Tune reads. Left out, with the runtime
+they need: elastic sizes and placement (ROADMAP Queue A item 4); and,
+until a caller needs them, the workers' extra environment, fail-fast and
+scored checkpoint retention.
 """
 
 from __future__ import annotations
@@ -102,9 +104,12 @@ class FailureConfig:
 
 @dataclass
 class CheckpointConfig:
-    """num_to_keep: retain only the last K persisted checkpoints."""
+    """num_to_keep: retain only the last K persisted checkpoints.
+    checkpoint_frequency: Tune saves a trial every this many iterations
+    (0: at its end and at its scheduler's decisions)."""
 
     num_to_keep: int | None = None
+    checkpoint_frequency: int = 0
 
     def __post_init__(self) -> None:
         if self.num_to_keep is not None and self.num_to_keep <= 0:
@@ -114,12 +119,18 @@ class CheckpointConfig:
 @dataclass
 class RunConfig:
     """Where results and checkpoints land (a local path) and how failures
-    are handled."""
+    are handled. callbacks: objects whose ``on_result(metrics)`` the
+    trainer calls each report round (Tune's also get its trial events);
+    stop: {metric: bound}, the run ends at the first round whose metric
+    reaches its bound."""
 
     name: str | None = None
     storage_path: str | None = None
     failure_config: FailureConfig = field(default_factory=FailureConfig)
     checkpoint_config: CheckpointConfig = field(default_factory=CheckpointConfig)
+    verbose: int = 1
+    callbacks: list[Any] = field(default_factory=list)
+    stop: Mapping[str, float] | None = None
 
     def resolved_storage_path(self) -> str:
         return os.path.expanduser(self.storage_path or "~/ray_tpu_results")

@@ -26,6 +26,14 @@ from the latest committed checkpoint up to ``FailureConfig.max_failures``
 times; an exception in the user's loop ends the run with that error, as
 the reference's does; ``resume_from_checkpoint`` starts from a given one.
 
+Each round's metrics go to every ``RunConfig.callbacks`` entry's
+``on_result``, and a round whose metric reaches its ``RunConfig.stop``
+bound ends the run, as the reference's ``_drive`` does; the ranks then
+get ``stop`` in place of their ack. A callback that raises (Tune's
+``report`` when Tune stops the trial) ends the run with its exception,
+after the same ``stop``. A ``TorchTrainer`` pickles (stdlib) without its
+capture state: Tune sends one to its trial's process.
+
 Each report carries the rank's StepStats record; ``Result.step_stats``
 keeps them by rank (the reference hands them to its flight recorder, whose
 driver half waits for ROADMAP item 8b). ``capture_profile`` is the
@@ -37,7 +45,7 @@ that follows its end and merges them into one Perfetto trace under
 ``<trial_dir>/profiles/<capture_id>/``.
 
 Left out, each in ROADMAP Queue A item 4 with its reason: multi-host
-gangs, elastic step-down and grow, datasets, Tune, preemptive drains of
+gangs, elastic step-down and grow, datasets, preemptive drains of
 OOM-flagged ranks, and storage other than a local path.
 """
 
@@ -160,10 +168,22 @@ class TorchTrainer:
                                                       slice_topology=topology)
         self.run_config = run_config or RunConfig()
         self.resume_from_checkpoint = resume_from_checkpoint
+        self._init_captures()
+
+    def _init_captures(self) -> None:
         self._profile_lock = threading.Lock()
         self._profile_queue: list[_Capture] = []
         self._profile_seq = itertools.count()
         self._active: _Capture | None = None
+
+    _CAPTURE_STATE = ("_profile_lock", "_profile_queue", "_profile_seq", "_active")
+
+    def __getstate__(self) -> dict:
+        return {k: v for k, v in self.__dict__.items() if k not in self._CAPTURE_STATE}
+
+    def __setstate__(self, state: dict) -> None:
+        self.__dict__.update(state)
+        self._init_captures()
 
     def capture_profile(self, steps: int = 3, ranks: list | None = None, wait: bool = True,
                         timeout_s: float = 300.0) -> dict:
@@ -291,6 +311,22 @@ class TorchTrainer:
             result.metrics = metrics
             result.metrics_history.append(metrics)
             extras = self._profile_round(reports, storage, result)
+            try:
+                for cb in self.run_config.callbacks:
+                    handler = getattr(cb, "on_result", None)
+                    if handler:
+                        handler(metrics)
+            except BaseException:
+                # Stop the ranks waiting on this round, so that they leave at
+                # the gang's shutdown rather than at its kill.
+                for rank in reports:
+                    gang.send(rank, ("stop",))
+                raise
+            if any(key in metrics and metrics[key] >= bound
+                   for key, bound in (self.run_config.stop or {}).items()):
+                for rank in reports:
+                    gang.send(rank, ("stop",))
+                return None
             for rank in reports:
                 gang.send(rank, ("ack", extras[rank]) if rank in extras else ("ack",))
 

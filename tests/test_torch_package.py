@@ -19,6 +19,9 @@
   stream's raw handle last.
 * The serve plane imports no aiohttp, httpx, grpc, cloudpickle, starlette
   or uvicorn: the port depends on none of them.
+* Tune (``tune/``) and its tracker callbacks (``air/``) are runtime
+  modules (no ml_dtypes) and import no cloudpickle: trials get their
+  trainables by name.
 """
 
 import ast
@@ -79,7 +82,9 @@ RUNTIME_MODULES = ["train/checkpoint.py", "train/session.py", "train/config.py",
                    "train/trainer.py", "train/torch_utils.py", "util/collective.py",
                    "util/gang.py", "train/step_stats.py", "_private/profiler.py",
                    "_private/profile_merge.py", "_private/telemetry.py",
-                   "parallel/topology.py"]
+                   "parallel/topology.py"] + sorted(
+    p.relative_to(ROOT / "ray_tpu_torch").as_posix()
+    for sub in ("tune", "air") for p in (ROOT / "ray_tpu_torch" / sub).rglob("*.py"))
 
 
 @pytest.mark.parametrize("name", RUNTIME_MODULES)
@@ -104,6 +109,35 @@ def test_serve_modules_import_no_http_or_pickling_library(path):
     bad = [m for m in _imported_modules(path)
            if m.split(".")[0] in FORBIDDEN + SERVE_FORBIDDEN]
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+# Tune's trials receive their trainables by module and name, or as
+# stdlib pickle: the port has no cloudpickle.
+TUNE_FORBIDDEN = ("cloudpickle",)
+
+
+def _tune_sources() -> list[Path]:
+    return sorted(p for sub in ("tune", "air") for p in (ROOT / "ray_tpu_torch" / sub).rglob("*.py"))
+
+
+@pytest.mark.parametrize("path", _tune_sources(),
+                         ids=lambda p: p.relative_to(ROOT / "ray_tpu_torch").as_posix())
+def test_tune_modules_import_no_cloudpickle(path):
+    bad = [m for m in _imported_modules(path)
+           if m.split(".")[0] in FORBIDDEN + TUNE_FORBIDDEN + ("ml_dtypes",)]
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_the_tune_scan_covers_tune_and_air():
+    names = {p.relative_to(ROOT / "ray_tpu_torch").as_posix() for p in _tune_sources()}
+    assert {"tune/__init__.py", "tune/tuner.py", "tune/trainable.py", "tune/logger.py",
+            "tune/result_grid.py", "tune/execution/tune_controller.py",
+            "tune/experiment/trial.py", "tune/schedulers/asha.py", "tune/schedulers/pbt.py",
+            "tune/schedulers/median_stopping.py", "tune/schedulers/trial_scheduler.py",
+            "tune/search/sample.py", "tune/search/searcher.py", "tune/search/basic_variant.py",
+            "tune/search/tpe.py", "tune/search/optuna.py", "air/__init__.py",
+            "air/integrations.py"} <= names
+    assert {n for n in RUNTIME_MODULES if n.startswith(("tune/", "air/"))} == names
 
 
 def test_the_serve_scan_covers_the_serve_plane():

@@ -16,6 +16,10 @@ the same data.
   * ``resume_from_checkpoint`` continues from a given checkpoint;
     ``max_failures=0`` surfaces the death; an exception in the loop ends
     the run with that error and no restart, as the reference's does.
+  * ``RunConfig.callbacks``' ``on_result`` fires once a round with the
+    round's metrics, and a ``RunConfig.stop`` bound ends the run at the
+    round where the reference's ``JaxTrainer`` ends it (on a local
+    cluster, ``ray_start_shared``), for the same loop.
 
 On a machine with four cards, ``test_trainer_on_four_cards`` runs the
 restart case on NCCL workers, one a card; elsewhere it skips.
@@ -207,3 +211,58 @@ def test_trainer_on_four_cards(tmp_path):
     whole = dict(np.load(whole_out))
     for name, value in np.load(out).items():
         np.testing.assert_array_equal(value, whole[name], err_msg=name)
+
+
+def _rounds_loop(config):
+    """Reports rounds 1..config["rounds"] through the train session live in
+    this process: a TorchTrainer gang member's or a JaxTrainer worker's."""
+    import sys
+
+    port = sys.modules.get("ray_tpu_torch.train.session")
+    if port is not None and port.in_session():
+        report = port.report
+    else:
+        from ray_tpu.train import report
+    for i in range(1, config["rounds"] + 1):
+        report({"round": i, "score": 0.5 * i})
+
+
+class _Recorder:
+    """A RunConfig callback: the metrics of each round."""
+
+    def __init__(self):
+        self.seen = []
+
+    def on_result(self, metrics):
+        self.seen.append(dict(metrics))
+
+
+@pytest.mark.parametrize("stop", [None, {"score": 1.5}, {"round": 4, "absent": 0}],
+                         ids=["no_stop", "score", "round"])
+def test_callbacks_and_stop_match_the_reference(ray_start_shared, tmp_path, stop):
+    """on_result fires once a round with that round's metrics, and a stop
+    bound ends the run at the round where the reference's JaxTrainer ends
+    it, for the same loop."""
+    import ray_tpu.train as ref_train
+
+    runs = {}
+    for name in ("ref", "port"):
+        recorder = _Recorder()
+        if name == "ref":
+            trainer = ref_train.JaxTrainer(
+                _rounds_loop, train_loop_config={"rounds": 5},
+                scaling_config=ref_train.ScalingConfig(num_workers=2),
+                run_config=ref_train.RunConfig(name=name, storage_path=str(tmp_path),
+                                               callbacks=[recorder], stop=stop))
+        else:
+            trainer = TorchTrainer(
+                _rounds_loop, train_loop_config={"rounds": 5},
+                scaling_config=ScalingConfig(num_workers=2, use_gpu=False),
+                run_config=RunConfig(name=name, storage_path=str(tmp_path),
+                                     callbacks=[recorder], stop=stop))
+        result = trainer.fit()
+        assert result.error is None
+        assert recorder.seen == result.metrics_history
+        runs[name] = [(m["round"], m["score"]) for m in recorder.seen]
+    assert runs["port"] == runs["ref"]
+    assert len(runs["port"]) == {None: 5, 1.5: 3, 4: 4}[stop and next(iter(stop.values()))]
