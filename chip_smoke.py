@@ -245,13 +245,34 @@ final line) if anything is wrong:
                trainer's callbacks (training_iteration 1..n), each stopped
                trial's gang member gone within GANG_GONE_S of its stop, no
                process left below this one after fit()
-Each path (4-5, 7, 8, 9, 10, 11, 12, 14, 15, 16, 17, 18, 19, 20, 21, 22, 23, 24) runs with
+ 25. elastic   the trainer on this host's resource ledger
+               (ray_tpu_torch._private.resources): (a) BASELINE config 1 as
+               release/train_fashion_mnist.py runs it (two CPU workers,
+               CNNConfig(), batch 64, Adam 1e-3, one warm-up and 30 steps,
+               one report with a checkpoint), then one GPU worker from the
+               same params and batch, its first step's logits within
+               CNN_LOGITS_TOL of the CPU worker's; img/s of each; (b)
+               ScalingConfig(num_workers=2, min_workers=1, use_gpu=True,
+               elastic_formation_timeout_s=2) on the one card: formation at
+               2 fails through the ledger and the gang forms at 1, phase
+               14's loop at one layer checkpoints step 1, its worker exits
+               hard after that report, the gang re-forms at 1 and resumes;
+               the resumed steps bitwise equal to a fixed world-1 run's;
+               the step-down wait, each formation, the restore and the
+               run's goodput buckets; (c) release/benchmarks_elastic.py's
+               churn at its smoke scale (10 steps of 0.05 s, the kill at
+               step 3) on 4 CPU gloo workers with min_workers 2, each
+               leasing one of 4 declared trainslots: the churned run must
+               step down, grow back to 4 and reproduce the undisturbed
+               run's losses exactly; its keys, and each gang's timeline
+Each path (4-5, 7, 8, 9, 10, 11, 12, 14, 15, 16, 17, 18, 19, 20, 21, 22, 23, 24, 25) runs with
 every launch count set to 0 just before it; its counts, read just after,
 must equal what its layers and passes imply, every flash launch on the
 route the path's inputs take. The trainer path's kernels launch in its
 worker processes, and the HTTP serving path's in its replica processes,
 whose counts start at 0 with each process and come back in their reports
-and metrics; so do the Tune trials' (phase 24, where every count is 0).
+and metrics; so do the Tune trials' (phase 24, where every count is 0) and
+the elastic trainer's (phase 25).
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
@@ -284,6 +305,7 @@ import torch.nn.functional as F
 
 from ray_tpu_torch import _build
 from ray_tpu_torch._private import profiler as profiler_mod
+from ray_tpu_torch._private import resources
 from ray_tpu_torch._private import telemetry
 from ray_tpu_torch.models import transformer as transformer_mod
 from ray_tpu_torch.models.transformer import (
@@ -315,6 +337,7 @@ from ray_tpu_torch import serve, tune
 from ray_tpu_torch.serve import batching as serve_batching
 from ray_tpu_torch.serve.batching import batch
 from ray_tpu_torch.train import session as session_mod
+from ray_tpu_torch.train import release_loops
 from ray_tpu_torch.train import step_stats as step_stats_mod
 from ray_tpu_torch.train import torch_utils
 from ray_tpu_torch.train.config import CheckpointConfig, FailureConfig, RunConfig, ScalingConfig
@@ -328,6 +351,7 @@ from ray_tpu_torch.train.torch_utils import (
 from ray_tpu_torch.train.trainer import TorchTrainer
 from ray_tpu_torch.tune.schedulers import ASHAScheduler
 from ray_tpu_torch.util import collective as collective_mod
+
 
 SEED = 0
 # H100 SXM data-sheet peaks (dense): HBM bytes/s, and operations/s by type
@@ -521,6 +545,17 @@ def reset_counts() -> None:
 def require(ok: bool, what: str) -> None:
     if not ok:
         raise AssertionError(what)
+
+
+# Neither this script nor any process it starts may load JAX or the JAX
+# package: main checks at its end, and the train loops of phases 14 and 25
+# check in their worker processes after their last step.
+REFERENCE_PACKAGES = ("jax", "jaxlib", "flax", "ray_tpu")
+
+
+def require_no_reference(where: str) -> None:
+    loaded = sorted(m for m in sys.modules if m.split(".")[0] in REFERENCE_PACKAGES)
+    require(not loaded, f"{where}: JAX or the JAX package was imported: {loaded}")
 
 
 # ---------------------------------------------------------------- phase 1
@@ -2369,10 +2404,14 @@ def trainer_loop(loop_config: dict) -> None:
     ``save`` False, ``split`` True (the split step over the gang's group,
     whose scopes a capture traces; the dispatch takes it only above one
     worker) and ``probe`` True (the HBM probe and the card's memory in each
-    report)."""
+    report); phase 25 with fewer ``n_layers`` and ``steps`` and an earlier
+    ``save_at``."""
     reset_counts()
     ctx = session_mod.get_context()
-    config = TransformerConfig(**SHARDED_CONFIG)
+    config = TransformerConfig(**{**SHARDED_CONFIG, "n_layers": loop_config.get(
+        "n_layers", SHARDED_CONFIG["n_layers"])})
+    steps = loop_config.get("steps", TRAINER_STEPS)
+    save_at = loop_config.get("save_at", TRAINER_SAVE_AT)
     setup = setup_sharded_training(lambda device: init_params(config, seed=SEED, device=device),
                                    make_optimizer, logical_dims=param_logical_dims(config))
 
@@ -2392,7 +2431,7 @@ def trainer_loop(loop_config: dict) -> None:
         restore_s, start = time.perf_counter() - t0, extra["step"]
     params, opt = setup.params, setup.opt_state
     init_digest = _params_digest(params) if resumed is None else None
-    for i in range(start, TRAINER_STEPS):
+    for i in range(start, steps):
         batch = setup.shard_batch(_trainer_batch(i, config).cuda())
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -2405,7 +2444,7 @@ def trainer_loop(loop_config: dict) -> None:
             metrics.update(hbm=telemetry.hbm_stats(), allocated=torch.cuda.memory_allocated(),
                            total_memory=torch.cuda.get_device_properties(0).total_memory)
         checkpoint = None
-        if i + 1 == TRAINER_SAVE_AT and loop_config.get("save", True):
+        if i + 1 == save_at and loop_config.get("save", True):
             t0 = time.perf_counter()
             checkpoint = save_sharded_state(params, opt, extra={"step": i + 1})
             metrics["save_s"] = time.perf_counter() - t0
@@ -2413,12 +2452,13 @@ def trainer_loop(loop_config: dict) -> None:
                                         Path(checkpoint.path).rglob("*") if f.is_file())
         if i == 0:  # the parameters before and after the first update
             metrics["init_digest"], metrics["digest"] = init_digest, _params_digest(params)
-        if i + 1 == TRAINER_STEPS:
+        if i + 1 == steps:
             metrics["digest"] = _params_digest(params)
             metrics["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
         session_mod.report(metrics, checkpoint=checkpoint)
         if loop_config.get("die_after") == i + 1 and resumed is None:
             os._exit(1)
+    require_no_reference("trainer worker")
 
 
 def _trainer_run(name: str, die_after: int | None):
@@ -5223,6 +5263,263 @@ def phase_tune(resnet_img_per_s: float) -> dict:
     return result
 
 
+# ---------------------------------------------------------------- phase 25
+# Elasticity in the port's trainer, on one host's resource ledger, and
+# BASELINE config 1 through the trainer. Its checkpoints go to
+# ELASTIC_STORAGE, removed at the phase's end.
+ELASTIC_STORAGE = Path(__file__).resolve().parent / "build" / "chip_smoke_elastic"
+# (a) release/train_fashion_mnist.py:66-83 (not its smoke scale).
+FMNIST_WORKERS, FMNIST_BATCH, FMNIST_LR, FMNIST_STEPS = 2, 64, 1e-3, 30
+# (b) phase 14's loop at one layer: a checkpoint at step 1, the worker's
+# hard exit after step 1's report, steps to 4.
+ELASTIC_LAYERS, ELASTIC_STEPS, ELASTIC_SAVE_AT, ELASTIC_DIE_AFTER = 1, 4, 1, 1
+ELASTIC_FORMATION_TIMEOUT_S = 2.0
+# (c) release/benchmarks_elastic.py at RAY_TPU_RELEASE_SMOKE=1, with its
+# trainer settings.
+CHURN_STEPS, CHURN_STEP_S, CHURN_KILL = 10, 0.05, 3
+
+
+def fmnist_loop(config):
+    """(a)'s worker: the release script's loop on the port, then the check
+    that the worker loaded nothing of JAX or the JAX package."""
+    release_loops.fashion_mnist_loop(config)
+    require_no_reference("config 1 worker")
+
+
+def churn_loop(config):
+    """(c)'s worker: release/benchmarks_elastic.py's loop on the port, then
+    the same check."""
+    release_loops.quadratic_loop(config)
+    require_no_reference("churn worker")
+
+
+def _fmnist_run(name: str, workers: int, use_gpu: bool, params: dict):
+    result = TorchTrainer(
+        fmnist_loop,
+        train_loop_config={"lr": FMNIST_LR, "batch_size": FMNIST_BATCH, "steps": FMNIST_STEPS,
+                           "params": params, "logits": True},
+        scaling_config=ScalingConfig(num_workers=workers, use_gpu=use_gpu),
+        run_config=RunConfig(name=name, storage_path=str(ELASTIC_STORAGE))).fit()
+    require(result.error is None, f"config 1 {name}: {result.error}")
+    return result
+
+
+def _elastic_config1() -> dict:
+    """(a): config 1 as the release script runs it, on two CPU workers,
+    then on one GPU worker from the same params and batch; the first
+    step's logits on the card against the CPU worker's."""
+    from ray_tpu_torch.models.cnn import CNNConfig, init_cnn
+    from ray_tpu_torch.models.convert import conv_params_to_numpy
+
+    params = conv_params_to_numpy(init_cnn(CNNConfig(), SEED, "cpu"))
+    cpu = _fmnist_run("fmnist_cpu", FMNIST_WORKERS, False, params)
+    card = _fmnist_run("fmnist_card", 1, True, params)
+    cpu_logits = np.asarray(cpu.metrics["first_logits"])
+    card_logits = np.asarray(card.metrics["first_logits"])
+    err = float(np.abs(card_logits - cpu_logits).max()
+                / max(1.0, float(np.abs(cpu_logits).max())))
+    out = dict(
+        config="release/train_fashion_mnist.py:66-83: ScalingConfig(num_workers=2), CNNConfig(), "
+               "batch 64, Adam 1e-3, 30 steps after one warm-up",
+        img_per_s=cpu.metrics["img_per_s"], final_loss=cpu.metrics["loss"],
+        final_acc=cpu.metrics["acc"], card_img_per_s=card.metrics["img_per_s"],
+        card_final_loss=card.metrics["loss"], card_final_acc=card.metrics["acc"],
+        logits_err=err, logits_tol=CNN_LOGITS_TOL,
+        worker_launches=[cpu.metrics["launches"], card.metrics["launches"]],
+        gang_form_s=[cpu.attempts[0]["formed"] - cpu.attempts[0]["start"],
+                     card.attempts[0]["formed"] - card.attempts[0]["start"]],
+        goodput=[cpu.goodput, card.goodput])
+    # The release script's own JSON line.
+    log("train_fashion_mnist", benchmark="train_fashion_mnist", img_per_s=out["img_per_s"],
+        final_loss=out["final_loss"])
+    require(err < CNN_LOGITS_TOL, f"config 1: first logits on the card vs the CPU worker {err}")
+    require(all(np.isfinite([out["final_loss"], out["card_final_loss"]])),
+            f"config 1: losses {out['final_loss']}, {out['card_final_loss']}")
+    require(out["worker_launches"] == [0, 0],
+            f"config 1: kernel launches in the workers {out['worker_launches']}")
+    return out
+
+
+def _elastic_card_run(name: str, elastic: bool, die_after: int | None):
+    sc = ScalingConfig(num_workers=2 if elastic else 1, min_workers=1 if elastic else None,
+                       use_gpu=True, mesh_axes=SHARDED_MESH,
+                       elastic_formation_timeout_s=ELASTIC_FORMATION_TIMEOUT_S)
+    result = TorchTrainer(
+        trainer_loop,
+        train_loop_config={"die_after": die_after, "n_layers": ELASTIC_LAYERS,
+                           "steps": ELASTIC_STEPS, "save_at": ELASTIC_SAVE_AT},
+        scaling_config=sc,
+        run_config=RunConfig(name=name, storage_path=str(ELASTIC_STORAGE),
+                             failure_config=FailureConfig(max_failures=1),
+                             checkpoint_config=CheckpointConfig(num_to_keep=1))).fit()
+    shutil.rmtree(result.path, ignore_errors=True)
+    require(result.error is None, f"elastic {name}: {result.error}")
+    return result
+
+
+def _elastic_step_down() -> dict:
+    """(b): ScalingConfig(num_workers=2, min_workers=1) on the one card.
+    Formation at 2 fails through the ledger, the gang forms at 1; its
+    worker exits hard after step 1's report, and the gang re-forms at 1
+    from the step-1 checkpoint. The resumed steps must equal a fixed
+    world-1 run's bitwise. Returns the numbers and the workers' launch
+    counts, summed over their processes."""
+    gc.collect()
+    torch.cuda.empty_cache()  # the workers share the card with this process
+    stepped = _elastic_card_run("elastic_card", True, ELASTIC_DIE_AFTER)
+    whole = _elastic_card_run("fixed_card", False, None)
+
+    def steps(result):
+        return [m["step"] for m in result.metrics_history]
+
+    formations = [[(f["world_size"], f["formed"]) for f in a["formations"]]
+                  for a in stepped.attempts]
+    require(formations == [[(2, False), (1, True)]] * 2,
+            f"elastic: formations {[a['formations'] for a in stepped.attempts]}")
+    require([a["ended_by"] for a in stepped.attempts] == ["gang_died", "done"]
+            and [(r["reason"], r["from"], r["to"]) for r in stepped.resizes]
+            == [("gang_died", 1, None)], f"elastic: {stepped.attempts} {stepped.resizes}")
+    want = list(range(1, ELASTIC_DIE_AFTER + 1)) + list(range(ELASTIC_SAVE_AT + 1,
+                                                              ELASTIC_STEPS + 1))
+    require(steps(stepped) == want and steps(whole) == list(range(1, ELASTIC_STEPS + 1)),
+            f"elastic: steps {steps(stepped)}, {steps(whole)}")
+    require(all(m["world"] == 1 for m in stepped.metrics_history),
+            "elastic: a worker saw a world other than 1")
+    resumed = stepped.metrics_history[ELASTIC_DIE_AFTER:]
+    uninterrupted = whole.metrics_history[ELASTIC_SAVE_AT:]
+    bitwise = ([m["loss"] for m in resumed] == [m["loss"] for m in uninterrupted]
+               and resumed[-1]["digest"] == uninterrupted[-1]["digest"])
+    last_of = {}
+    for m in stepped.metrics_history + whole.metrics_history:
+        last_of[m["pid"]] = m
+    lasts = list(last_of.values())
+    require(len(lasts) == 3, f"elastic: reports came from {len(lasts)} worker processes")
+    counts = {k: sum(m["counts"][k] for m in lasts) for k in lasts[0]["counts"]}
+    routes = {k: {r: sum(m["routes"][k][r] for m in lasts) for r in ("wgmma", "mma_sync")}
+              for k in lasts[0]["routes"]}
+    ran = len(steps(stepped)) + len(steps(whole))
+    first, second = stepped.attempts
+    out = dict(
+        config=f"phase 14's loop at {ELASTIC_LAYERS} layer (bench.py:133-138 widths)",
+        scaling="ScalingConfig(num_workers=2, min_workers=1, use_gpu=True, "
+                f"elastic_formation_timeout_s={ELASTIC_FORMATION_TIMEOUT_S})",
+        bitwise=bitwise, losses=[m["loss"] for m in whole.metrics_history],
+        resumed_losses=[m["loss"] for m in resumed],
+        step_down_wait_s=[a["formations"][0]["seconds"] for a in stepped.attempts],
+        formation_s=[a["formations"][1]["seconds"] for a in stepped.attempts],
+        fixed_formation_s=whole.attempts[0]["formations"][0]["seconds"],
+        formations=[a["formations"] for a in stepped.attempts],
+        first_report_s=[a["first_report"] - a["formed"] for a in stepped.attempts],
+        timeline=_timeline(stepped),
+        restore_s=resumed[0]["restore_s"], save_s=stepped.metrics_history[0].get("save_s"),
+        ckpt_bytes=stepped.metrics_history[0].get("ckpt_bytes"),
+        restart_s=second["first_report"] - first["end"],
+        goodput=stepped.goodput, fixed_goodput=whole.goodput, counts=counts, routes=routes,
+        kernel_forwards=ran, kernel_backwards=ran)
+    require(bitwise, f"elastic: resumed steps {resumed} differ from the fixed run's "
+                     f"{uninterrupted}")
+    require(stepped.goodput["restart_s"] > 0 and stepped.goodput["stalled_s"] > 0,
+            f"elastic: goodput {stepped.goodput}")
+    require(all(counts[k] > 0 for k in counts), f"elastic: worker launch counts {counts}")
+    return out
+
+
+def _timeline(result) -> list:
+    """Each gang of a run, in seconds from the run's start: its attempt's
+    start, formation and end, its formation attempts, and where the one
+    that formed spent its time: the spawn to the last member's entry (the
+    processes' start and imports), to the last member's joined groups,
+    and to the formed gang."""
+    t0 = result.attempts[0]["start"]
+    out = []
+    for a in result.attempts:
+        entered = max(m["entered"] for m in a["members"])
+        joined = max(m["joined"] for m in a["members"])
+        out.append({"start": a["start"] - t0, "formed": a["formed"] - t0,
+                    "first_report": a.get("first_report", a["end"]) - t0, "end": a["end"] - t0,
+                    "world_size": a["world_size"], "ended_by": a["ended_by"],
+                    "formations": [(f["world_size"], f["formed"], f["seconds"])
+                                   for f in a["formations"]],
+                    "spawn_to_entered_s": entered - a["spawned"],
+                    "entered_to_joined_s": joined - entered,
+                    "joined_to_formed_s": a["formed"] - joined})
+    return out
+
+
+def _elastic_churn() -> dict:
+    """(c): release/benchmarks_elastic.py's two fits on CPU gloo workers,
+    4 of them with min_workers 2, each leasing a CPU and one of the 4
+    trainslots this process's ledger declares. The churned fit's callback
+    kills rank 3 at step CHURN_KILL and holds its slot until the gang
+    reports a world of 3. Prints the script's keys and where the churned
+    fit's wall went."""
+    pid_dir = ELASTIC_STORAGE / "pids"
+    pid_dir.mkdir(parents=True, exist_ok=True)
+
+    def fit(name: str, callbacks: list):
+        start = time.monotonic()
+        result = TorchTrainer(
+            churn_loop,
+            train_loop_config={"steps": CHURN_STEPS, "step_time_s": CHURN_STEP_S,
+                               "pid_dir": str(pid_dir)},
+            scaling_config=ScalingConfig(
+                num_workers=4, min_workers=2, use_gpu=False,
+                resources_per_worker={"CPU": 1, "trainslot": 1},
+                elastic_formation_timeout_s=1.0, elastic_grow_probe_period_s=0.05),
+            run_config=RunConfig(name=name, storage_path=str(ELASTIC_STORAGE),
+                                 failure_config=FailureConfig(max_failures=4),
+                                 callbacks=callbacks)).fit()
+        return result, time.monotonic() - start
+
+    resources.declare(resources={"trainslot": 4})
+    try:
+        base, base_wall = fit("elastic-base", [])
+        churn = release_loops.Churn(str(pid_dir), kill_step=CHURN_KILL)
+        churned, churn_wall = fit("elastic-churn", [churn])
+        left = resources.available_resources()["trainslot"]
+    finally:
+        resources.declare()
+    require(base.error is None and churned.error is None,
+            f"churn: {base.error} {churned.error}")
+    base_loss, churn_loss = (release_loops.loss_by_step(base),
+                             release_loops.loss_by_step(churned))
+    covered = sorted(set(base_loss) & set(churn_loss))
+    loss_max_dev = (max(abs(base_loss[s] - churn_loss[s]) for s in covered)
+                    if len(covered) == CHURN_STEPS else float("inf"))
+    reasons = [r["reason"] for r in churned.resizes]
+    out = dict(
+        steps=CHURN_STEPS, wall_undisturbed_s=base_wall, wall_churn_s=churn_wall,
+        wall_ratio=churn_wall / base_wall, loss_max_dev=loss_max_dev,
+        resizes=len(churned.resizes), grew_back=int("grow" in reasons),
+        finished=int(churned.error is None and churned.metrics.get("step") == CHURN_STEPS - 1),
+        final_world_size=churned.metrics.get("world_size", 0))
+    log("benchmarks_elastic", **out)
+    reports = [m["step"] for m in churned.metrics_history]
+    out.update(resize_reasons=reasons, churn_reports=reports,
+               replayed_steps=len(reports) - CHURN_STEPS, base_timeline=_timeline(base),
+               churn_timeline=_timeline(churned), goodput=churned.goodput,
+               base_goodput=base.goodput, trainslots_left=left)
+    require(loss_max_dev == 0 and out["grew_back"] == 1 and out["finished"] == 1
+            and out["final_world_size"] == 4, f"churn: {out}")
+    require(reasons == ["gang_died", "grow"] and left == 4, f"churn: resizes {reasons}, "
+                                                             f"{left} trainslots free after")
+    return out
+
+
+def phase_elastic() -> dict:
+    shutil.rmtree(ELASTIC_STORAGE, ignore_errors=True)
+    ELASTIC_STORAGE.mkdir(parents=True)
+    start = time.perf_counter()
+    try:
+        result = {"config1": _elastic_config1(), "step_down": _elastic_step_down(),
+                  "churn": _elastic_churn()}
+    finally:
+        shutil.rmtree(ELASTIC_STORAGE, ignore_errors=True)
+    result["seconds"] = time.perf_counter() - start
+    log("elastic", **result)
+    return result
+
+
 # ---------------------------------------------------------------- main
 def _path(name: str, want: dict, counts: dict, routes: dict, route: str, **fields) -> None:
     """Logs a path's launch counts and fails unless they are what the path
@@ -5376,6 +5673,18 @@ def main() -> None:
     tuned, counts["tune"], routes["tune"] = _run_path(phase_tune, cnn["resnet"]["img_per_s"])
     _path("tune", {k: 0 for k in counts["tune"]}, counts["tune"], routes["tune"], "wgmma")
 
+    # Elasticity and config 1: (b)'s decoder launches its kernels in its
+    # worker processes, whose counts come back in their reports; config 1's
+    # CNN and the churn's quadratic launch none (their workers report 0),
+    # and this process launches none.
+    elastic, local, _ = _run_path(phase_elastic)
+    require(not any(local.values()), f"elastic: launches in the driver process {local}")
+    down = elastic["step_down"]
+    counts["elastic"], routes["elastic"] = down["counts"], down["routes"]
+    _path("elastic", _expected(ELASTIC_LAYERS, kernel_forwards=down["kernel_forwards"],
+                               kernel_backwards=down["kernel_backwards"]),
+          counts["elastic"], routes["elastic"], "wgmma")
+
     # Every launch on the tiny path is of its instantiations (head_dim 16 in
     # f32, RMSNorm at dim 64 in f32), on the HTTP serving path of BERT-base's
     # (head_dim 64 and dim 768 in bf16); on every other path, of the model's.
@@ -5423,7 +5732,12 @@ def main() -> None:
         tune_asha_wall_s=tuned["config3"]["wall_s"],
         tune_asha_best_acc=tuned["config3"]["best_acc"],
         tune_trainer_img_per_s=[t["img_per_s"] for t in tuned["trainers"]["trials"]],
-        tune_seconds=tuned["seconds"], seconds=time.perf_counter() - _t_start)
+        tune_seconds=tuned["seconds"], fmnist_img_per_s=elastic["config1"]["img_per_s"],
+        fmnist_card_img_per_s=elastic["config1"]["card_img_per_s"],
+        elastic_step_down_wait_s=down["step_down_wait_s"],
+        elastic_restart_s=down["restart_s"], churn_wall_ratio=elastic["churn"]["wall_ratio"],
+        elastic_seconds=elastic["seconds"], seconds=time.perf_counter() - _t_start)
+    require_no_reference("chip_smoke")
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

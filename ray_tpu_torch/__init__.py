@@ -7,11 +7,16 @@ a plain PyTorch version beside it that serves CPU tensors only.
 Every entry point runs on ``cuda`` unless the caller passes ``device="cpu"``.
 With no card and no explicit ``device="cpu"`` it raises ``RuntimeError``: the
 port never runs on the CPU without being asked to.
+
+``cluster_resources()`` and ``available_resources()`` read this host's
+resource ledger (``_private.resources``) under the reference's names.
 """
 
 from __future__ import annotations
 
 import torch
+
+from ray_tpu_torch._private.resources import available_resources, cluster_resources
 
 __version__ = "0.1.0"
 

@@ -45,8 +45,9 @@ Knobs (all env):
   RAY_TPU_PROFILE_AUTO_COOLDOWN_S   min between auto runs    (300)
   RAY_TPU_PROFILE_AUTO_CONSECUTIVE  straggler cuts to arm    (2)
 
-The AUTO knobs are read by the flight recorder's driver half, which waits
-for ROADMAP item 8b; they are kept so the two packages read one set.
+The AUTO knobs are read by the flight recorder's driver half
+(``train.step_stats.FlightRecorder``), whose auto-capture goes through the
+trainer's ``capture_profile`` queue.
 """
 
 from __future__ import annotations

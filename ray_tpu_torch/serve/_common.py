@@ -5,16 +5,15 @@ The port's own copy of ray_tpu's ``serve/_private/common.py``
 (``Deadline`` and the current-deadline helpers, ``RetryPolicy``,
 ``AutoscalingConfig``, ``DeploymentConfig``, ``DeploymentInfo``,
 ``ReplicaInfo``, ``RequestMetadata``, ``new_replica_id``), the serve errors
-of its ``exceptions.py``, ``_private/workload.py``'s ``LatencyHistogram``
-and ``util/backoff.py``'s full-jitter delay: the port imports nothing of
-the JAX package.
+of its ``exceptions.py`` and ``_private/workload.py``'s
+``LatencyHistogram``: the port imports nothing of the JAX package. The
+full-jitter retry delay is ``ray_tpu_torch.util.backoff``'s.
 """
 
 from __future__ import annotations
 
 import contextvars
 import math
-import random
 import time
 import uuid
 from dataclasses import asdict, dataclass, field
@@ -273,22 +272,6 @@ class RequestMetadata:
 
 def new_replica_id(deployment: str) -> str:
     return f"{deployment}#{uuid.uuid4().hex[:6]}"
-
-
-class Backoff:
-    """Full-jitter exponential backoff: each delay is U(0, ceiling), and the
-    ceiling doubles up to ``max_backoff_s``."""
-
-    def __init__(self, initial_backoff_s: float = 0.1, max_backoff_s: float = 10.0):
-        self._ceiling = initial_backoff_s
-        self.max_backoff_s = max_backoff_s
-
-    def next_delay(self, cap: Optional[float] = None) -> float:
-        delay = random.uniform(0, self._ceiling)
-        self._ceiling = min(self._ceiling * 2, self.max_backoff_s)
-        if cap is not None:
-            delay = min(delay, max(0.0, cap))
-        return delay
 
 
 class LatencyHistogram:

@@ -12,7 +12,8 @@ A deployment's class or function must be importable from a module (its
 replicas are processes that import it by name: the port depends on no
 cloudpickle), and so must every argument it is bound with pickle.
 ``ray_actor_options={"num_gpus": g}`` places each replica on the cards
-(``controller._Placement``); ``serve.run`` refuses a deployment that asks
+(a lease of this process's resource ledger, ``_private.resources``);
+``serve.run`` refuses a deployment that asks
 for more cards than the host has, and one that asks for a card on a host
 with none. ``num_cpus`` is accepted and reserves nothing: one host runs
 every replica. Arguments whose feature the port leaves out raise
@@ -225,11 +226,10 @@ def _check_specs(specs: list[dict]) -> None:
     """Refuses, before anything starts, a deployment its replicas could not
     import or be given (a class defined in a function, arguments that do
     not pickle), and one asking for more cards than the host has."""
-    import torch
-
+    from ray_tpu_torch._private import resources
     from ray_tpu_torch.serve.replica import CallableRef
 
-    cards = torch.cuda.device_count()
+    cards = int(resources.cluster_resources()["GPU"])
     for spec in specs:
         CallableRef(spec["cls_or_fn"])
         try:

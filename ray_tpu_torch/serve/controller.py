@@ -13,7 +13,8 @@ is a snapshot routers in the driver read directly and replica processes
 receive through ``poll_update`` on the serve wire.
 
 ``ray_actor_options={"num_gpus": g}`` places a replica on the host's cards
-by fractional share (``_Placement``): two replicas at 0.5 share one card.
+by fractional share, leased from this process's resource ledger
+(``_private.resources``): two replicas at 0.5 share one card.
 The replica's ``CUDA_VISIBLE_DEVICES`` names its card (or none at
 ``num_gpus`` 0) before the process starts. A replica that does not fit
 waits as PENDING in ``get_status``, as the reference's infeasible actor
@@ -29,7 +30,6 @@ from __future__ import annotations
 import asyncio
 import contextlib
 import hashlib
-import os
 import pickle
 import sys
 import threading
@@ -38,6 +38,7 @@ import traceback
 import uuid
 from typing import Any, Optional
 
+from ray_tpu_torch._private import resources
 from ray_tpu_torch.serve import _channel
 from ray_tpu_torch.serve._common import (
     DeploymentInfo, ReplicaInfo, new_replica_id,
@@ -52,40 +53,6 @@ READY_TIMEOUT_S = 900.0
 # stop being replaced, and its application reports DEPLOY_FAILED.
 MAX_START_FAILURES = 3
 
-# The parent's environment is the child's at spawn: set CUDA_VISIBLE_DEVICES
-# for one start at a time.
-_SPAWN_ENV_LOCK = threading.Lock()
-
-
-class _Placement:
-    """Fractional shares of the host's cards. A replica asking for less
-    than one card takes the busiest card that still fits it; one asking for
-    n whole cards takes n free ones."""
-
-    def __init__(self, cards: int):
-        self.free = [1.0] * cards
-
-    def take(self, need: float) -> Optional[list[int]]:
-        if need <= 0:
-            return []
-        if need < 1:
-            fits = [i for i, f in enumerate(self.free) if f >= need - 1e-9]
-            if not fits:
-                return None
-            card = min(fits, key=lambda i: self.free[i])
-            self.free[card] -= need
-            return [card]
-        whole = [i for i, f in enumerate(self.free) if f >= 1.0 - 1e-9][: int(need)]
-        if len(whole) < int(need):
-            return None
-        for card in whole:
-            self.free[card] = 0.0
-        return whole
-
-    def give(self, cards: list[int], need: float) -> None:
-        for card in cards:
-            self.free[card] = min(1.0, self.free[card] + (need if need < 1 else 1.0))
-
 
 class _Replica:
     """The controller's record of one replica and its process."""
@@ -93,7 +60,7 @@ class _Replica:
     def __init__(self, info: ReplicaInfo, need: float):
         self.info = info
         self.need = need
-        self.cards: Optional[list[int]] = None
+        self.lease: Optional[resources.Lease] = None
         self.process = None
         self.conn = None
         self.address: Optional[tuple] = None
@@ -112,8 +79,6 @@ class ServeController:
     """Target state, the reconcile loop and the membership it publishes."""
 
     def __init__(self):
-        import torch
-
         self._lock = threading.RLock()
         self._deployments: dict[str, DeploymentInfo] = {}
         self._replicas: dict[str, list[_Replica]] = {}
@@ -125,7 +90,6 @@ class ServeController:
         self._applied_user_config: dict[str, Any] = {}
         self._start_failures: dict[str, list[str]] = {}
         self._last_health_check: dict[str, float] = {}
-        self._placement = _Placement(torch.cuda.device_count())
         self._version = 0
         self._instance = uuid.uuid4().hex
         self._snapshot: Optional[dict] = None
@@ -399,11 +363,10 @@ class ServeController:
             self._place(rep, info)
 
     def _place(self, rep: _Replica, info: DeploymentInfo) -> bool:
-        with self._lock:
-            cards = self._placement.take(rep.need)
-        if cards is None:
+        try:
+            rep.lease = resources.ledger().acquire({"GPU": rep.need})
+        except resources.PlacementGroupUnschedulableError:
             return False  # stays PENDING until a card frees
-        rep.cards = cards
         self._launch(rep, info)
         return True
 
@@ -412,7 +375,7 @@ class ServeController:
 
         ctx = mp.get_context("spawn")
         parent, child = ctx.Pipe()
-        visible = ",".join(str(c) for c in rep.cards)
+        visible = rep.lease.visible_devices()
         spec = {
             "replica_id": rep.info.replica_id, "deployment": info.qualified_name(),
             "callable": CallableRef(info.cls_or_fn), "init_args": info.init_args,
@@ -422,26 +385,19 @@ class ServeController:
         }
         process = ctx.Process(target=replica_main, args=(spec, child),
                               name=f"serve-replica-{rep.info.replica_id}")
-        with _SPAWN_ENV_LOCK:
-            before = os.environ.get("CUDA_VISIBLE_DEVICES")
-            os.environ["CUDA_VISIBLE_DEVICES"] = visible
-            try:
+        try:
+            with resources.child_visible_devices(visible):
                 process.start()
-            except Exception:  # the spec did not pickle, or no process
-                with self._lock:
-                    self._start_failures.setdefault(rep.info.deployment, []).append(
-                        traceback.format_exc())
-                    self._placement.give(rep.cards, rep.need)
-                    rep.cards = None
-                    rep.state = "DEAD"
-                child.close()
-                parent.close()
-                return
-            finally:
-                if before is None:
-                    os.environ.pop("CUDA_VISIBLE_DEVICES", None)
-                else:
-                    os.environ["CUDA_VISIBLE_DEVICES"] = before
+        except Exception:  # the spec did not pickle, or no process
+            with self._lock:
+                self._start_failures.setdefault(rep.info.deployment, []).append(
+                    traceback.format_exc())
+                rep.lease.release()
+                rep.lease = None
+                rep.state = "DEAD"
+            child.close()
+            parent.close()
+            return
         child.close()
         rep.process, rep.conn, rep.pid = process, parent, process.pid
         rep.info.started_at = time.time()
@@ -515,9 +471,9 @@ class ServeController:
                 rep.process.join(5.0)
             rep.conn.close()
         with self._lock:
-            if rep.cards is not None:
-                self._placement.give(rep.cards, rep.need)
-                rep.cards = None
+            if rep.lease is not None:
+                rep.lease.release()
+                rep.lease = None
             rep.state = "DEAD"
 
     def _health_check(self, qname: str, info: DeploymentInfo) -> None:

@@ -29,11 +29,12 @@ from typing import Any, Optional
 
 from ray_tpu_torch.serve import _channel
 from ray_tpu_torch.serve._common import (
-    LEFT_OUT, Backoff, Deadline, DeadlineExceededError, ReplicaDiedError, ReplicaDrainingError,
+    LEFT_OUT, Deadline, DeadlineExceededError, ReplicaDiedError, ReplicaDrainingError,
     RequestMetadata, RequestShedError, RetryPolicy, TaskError, current_deadline,
 )
 from ray_tpu_torch.serve.long_poll import get_subscriber
 from ray_tpu_torch.serve.routing import HashRing
+from ray_tpu_torch.util.backoff import Backoff
 
 
 _ROUTER_LOCK = threading.Lock()

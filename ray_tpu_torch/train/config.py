@@ -6,12 +6,16 @@ Copies of ray_tpu's ``train/config.py`` (``ScalingConfig``, ``RunConfig``,
 asks for TPU chips (``use_gpu``: one card a worker, the counterpart of
 ``resources={"TPU": n}``), and the pipeline fields (``pipeline_stages``,
 ``microbatches``, ``virtual_stages``) with the reference's validation, and
-``slice_topology``. ``RunConfig`` keeps ``callbacks`` (``on_result``
+``slice_topology``, and bounded elasticity (``min_workers``, the
+formation timeout and the grow-back probe's period) with the resources a
+worker leases from the host's ledger (``resources_per_worker``,
+``worker_resources()``). ``RunConfig`` keeps ``callbacks`` (``on_result``
 each report round), ``stop`` and ``verbose``, and ``CheckpointConfig``
 ``checkpoint_frequency``, which Tune reads. Left out, with the runtime
-they need: elastic sizes and placement (ROADMAP Queue A item 4); and,
-until a caller needs them, the workers' extra environment, fail-fast and
-scored checkpoint retention.
+they need: placement strategies across hosts (ROADMAP Queue A item 4) and
+drains on out-of-memory telemetry (``drain_on_oom_risk``, item 14, which
+raises); and, until a caller needs them, the workers' extra environment,
+fail-fast and scored checkpoint retention.
 """
 
 from __future__ import annotations
@@ -46,6 +50,22 @@ class ScalingConfig:
                    read it from the train context
                    (``get_context().slice_topology``), and the session's
                    mesh is built from it.
+    resources_per_worker -- what each worker leases from the host's
+                   resource ledger beside its CPU (and its card under
+                   use_gpu), e.g. {"trainslot": 1}.
+    min_workers -- bounded elasticity: None keeps the world size fixed.
+                   With it set, a gang that cannot form at num_workers
+                   forms at the largest size down to min_workers that
+                   places, and grows back at a committed checkpoint once
+                   the host can place the missing workers. Every
+                   transition goes checkpoint, re-form, restore.
+    elastic_formation_timeout_s -- how long one formation attempt at one
+                   size waits for its leases before stepping down.
+    elastic_grow_probe_period_s -- below num_workers, the trainer reads
+                   the free resources at most this often; <= 0 never grows.
+    drain_on_oom_risk -- the reference's preemptive drain on out-of-memory
+                   telemetry: True raises NotImplementedError (ROADMAP
+                   Queue A item 14, the node agent's telemetry).
     """
 
     num_workers: int = 1
@@ -55,12 +75,31 @@ class ScalingConfig:
     microbatches: int = 1
     virtual_stages: int = 1
     slice_topology: Any = None
+    resources_per_worker: Mapping[str, float] = field(default_factory=dict)
+    min_workers: int | None = None
+    elastic_formation_timeout_s: float = 30.0
+    elastic_grow_probe_period_s: float = 5.0
+    drain_on_oom_risk: bool = False
 
-    def factorization(self) -> dict[str, int]:
-        """The (dp, fsdp, tp, pp) this config asks for: pp from
-        pipeline_stages (or mesh_axes when that is 1)."""
+    def worker_resources(self) -> dict[str, float]:
+        """One worker's bundle: a CPU, its card under use_gpu (where the
+        reference adds TPU chips under use_tpu), and resources_per_worker."""
+        resources = {"CPU": 1.0, **{k: float(v) for k, v in self.resources_per_worker.items()}}
+        if self.use_gpu and "GPU" not in resources:
+            resources["GPU"] = 1.0
+        return resources
+
+    @property
+    def elastic(self) -> bool:
+        return self.min_workers is not None and self.min_workers < self.num_workers
+
+    def factorization(self, world_size: int | None = None) -> dict[str, int]:
+        """The (dp, fsdp, tp, pp) this config asks for at ``world_size``
+        workers (num_workers by default; an elastic gang may form
+        smaller): pp from pipeline_stages (or mesh_axes when that is 1)."""
         pp = int(self.pipeline_stages)
-        axes = dict(self.mesh_axes) or {"dp": self.num_workers // pp}
+        world = self.num_workers if world_size is None else int(world_size)
+        axes = dict(self.mesh_axes) or {"dp": world // pp}
         out = {a: int(axes.get(a, 1)) for a in ("dp", "fsdp", "tp", "pp")}
         if pp > 1:
             out["pp"] = pp
@@ -69,6 +108,12 @@ class ScalingConfig:
     def __post_init__(self) -> None:
         if self.num_workers < 1:
             raise ValueError("num_workers must be >= 1")
+        if self.min_workers is not None and not 1 <= self.min_workers <= self.num_workers:
+            raise ValueError("min_workers must satisfy 1 <= min_workers <= num_workers")
+        if self.drain_on_oom_risk:
+            raise NotImplementedError(
+                "drain_on_oom_risk needs the node agent's oom_risk telemetry, which the port "
+                "does not have yet (ROADMAP Queue A item 14)")
         if self.pipeline_stages < 1 or self.microbatches < 1:
             raise ValueError("pipeline_stages and microbatches must be >= 1")
         if self.virtual_stages < 1:

@@ -1,0 +1,209 @@
+"""The release suite's train loops on the port, and the churn callback.
+
+* ``fashion_mnist_loop``: BASELINE config 1, release/train_fashion_mnist.py's
+  loop (the Fashion-MNIST CNN, batch 64, Adam, seeded synthetic data, one
+  warm-up step, one report with a checkpoint of the params).
+* ``quadratic_loop``: release/benchmarks_elastic.py's loop, gradient descent
+  on a fixed quadratic, so the loss at step k is a function of k alone and a
+  resumed run must reproduce an undisturbed one's losses exactly;
+  ``loss_by_step`` reads them from a result.
+* ``Churn``: a driver callback that kills one rank and holds its slot on the
+  host's ledger until the gang runs smaller, so an elastic trainer steps
+  down and grows back.
+
+Gang members import these by name, so they live at module level here.
+chip_smoke.py runs them on the card's machine; the CPU tests hold them
+against the JAX package's loops of the same scripts.
+"""
+
+import json
+import os
+import signal
+import sys
+import threading
+import time
+
+import numpy as np
+
+
+def write_pid(config, rank: int) -> None:
+    """This worker's process id in ``<pid_dir>/rank<r>.pid`` (when the
+    config names a ``pid_dir``): ``Churn`` kills a rank by it."""
+    if config.get("pid_dir"):
+        path = os.path.join(config["pid_dir"], f"rank{rank}.pid")
+        with open(f"{path}.tmp", "w") as f:
+            f.write(str(os.getpid()))
+        os.replace(f"{path}.tmp", path)
+
+
+def quadratic_loop(config):
+    """``config``: ``steps``, ``step_time_s`` (the emulated step's compute)
+    and optionally ``pid_dir``. Rank 0 checkpoints {"w", "step"} every
+    step; a resumed gang starts after the latest."""
+    from ray_tpu_torch.train import session
+    from ray_tpu_torch.train.checkpoint import load_pytree_checkpoint, save_pytree_checkpoint
+
+    ctx = session.get_context()
+    write_pid(config, ctx.world_rank)
+    w = np.zeros(8, dtype=np.float64)
+    start = 0
+    ckpt = session.get_checkpoint()
+    if ckpt is not None:
+        state, _ = load_pytree_checkpoint(ckpt)
+        w = np.asarray(state["w"], dtype=np.float64)
+        start = int(state["step"]) + 1
+    target = np.arange(8, dtype=np.float64)
+    for step in range(start, config["steps"]):
+        time.sleep(config["step_time_s"])
+        loss = float(np.sum((w - target) ** 2))
+        w = w - 0.05 * (2.0 * (w - target))
+        checkpoint = None
+        if ctx.world_rank == 0:
+            checkpoint = save_pytree_checkpoint({"w": w, "step": step})
+        session.report({"step": step, "loss": loss, "world_size": ctx.world_size},
+                       checkpoint=checkpoint)
+
+
+def loss_by_step(result) -> dict:
+    """release/benchmarks_elastic.py's ``_loss_by_step``: replayed steps
+    report again, and the last report of a step is the one that counted."""
+    return {int(m["step"]): float(m["loss"]) for m in result.metrics_history if "loss" in m}
+
+
+class Churn:
+    """A driver callback: at ``kill_step`` it kills rank ``victim``'s
+    process and holds ``hold`` of the host ledger's ``slot`` (its request
+    waits in the ledger's line until the dying gang gives its lease back,
+    ahead of the gang's re-formation); once the gang reports a
+    ``world_size`` below its first one, it gives them back when
+    ``restore`` is set, so that the trainer can grow back."""
+
+    def __init__(self, pid_dir, kill_step: int, victim: int = 3, hold: int = 1,
+                 slot: str = "trainslot", restore: bool = True, wait_s: float = 60.0):
+        self.pid_dir, self.kill_step, self.victim = pid_dir, kill_step, victim
+        self.hold, self.slot, self.restore, self.wait_s = hold, slot, restore, wait_s
+        self.killed = self.restored = False
+        self.lease = None
+        self.world_sizes: list[int] = []
+        self._holder = None
+
+    def _take(self, queued: threading.Event) -> None:
+        from ray_tpu_torch._private import resources
+
+        ledger = resources.ledger()
+        queued.set()
+        self.lease = ledger.acquire({self.slot: 1}, self.hold, timeout=self.wait_s)
+
+    def on_result(self, metrics):
+        self.world_sizes.append(metrics.get("world_size"))
+        if not self.killed and metrics.get("step", -1) >= self.kill_step:
+            self.killed = True
+            queued = threading.Event()
+            self._holder = threading.Thread(target=self._take, args=(queued,), daemon=True)
+            self._holder.start()
+            queued.wait()
+            with open(os.path.join(self.pid_dir, f"rank{self.victim}.pid")) as f:
+                os.kill(int(f.read()), signal.SIGKILL)
+        elif (self.killed and self.restore and not self.restored
+              and metrics.get("world_size") < self.world_sizes[0]):
+            self.restored = True
+            self._holder.join(self.wait_s)
+            self.lease.release()
+
+
+# ------------------------------------------------- BASELINE config 1 (Fashion-MNIST)
+def _port_launches() -> int:
+    """The port's kernel launches in this process so far (0 where no op
+    module was imported)."""
+    total = 0
+    flash = sys.modules.get("ray_tpu_torch.ops.flash_attention")
+    if flash is not None:
+        total += (flash.flash_attention.launches + flash._flash_bwd_dq.launches
+                  + flash._flash_bwd_dkv.launches)
+    rms = sys.modules.get("ray_tpu_torch.ops.rmsnorm")
+    if rms is not None:
+        total += rms.rmsnorm.launches + rms.rmsnorm_backward.launches
+    return total
+
+
+def flat(tree, prefix: str = "") -> dict:
+    """A tree of dicts and lists as {"convs/0/w": array, ...}."""
+    if isinstance(tree, dict):
+        items = tree.items()
+    elif isinstance(tree, (list, tuple)):
+        items = enumerate(tree)
+    else:
+        return {prefix: np.asarray(tree)}
+    out = {}
+    for key, value in items:
+        out.update(flat(value, f"{prefix}/{key}" if prefix else str(key)))
+    return out
+
+
+def write_rank(config, rank: int, metrics: dict, params: dict) -> None:
+    """Rank ``rank``'s reported metrics and final params (a numpy tree in
+    the JAX package's layout) in ``out_dir``, when the config names one:
+    the trainer's result holds rank 0's metrics only."""
+    if config.get("out_dir"):
+        with open(os.path.join(config["out_dir"], f"rank{rank}.json"), "w") as f:
+            json.dump(metrics, f)
+        np.savez(os.path.join(config["out_dir"], f"rank{rank}.npz"), **flat(params))
+
+
+def fashion_mnist_loop(config):
+    """``config``: ``params`` (a numpy tree in the JAX package's layout, as
+    ``init_cnn(CNNConfig(), PRNGKey(0))`` makes it), ``lr``, ``batch_size``,
+    ``steps``, and optionally ``out_dir`` and ``logits``. Runs on the
+    worker's device in f32 with TF32 off. The report adds the port's kernel
+    launches in the worker (the CNN has none), and rank 0's the logits of
+    the first step's forward when ``logits`` is set."""
+    import torch
+
+    from ray_tpu_torch.models.cnn import CNNConfig, cnn_forward, cnn_loss
+    from ray_tpu_torch.models.convert import conv_params_from_numpy, conv_params_to_numpy
+    from ray_tpu_torch.train import get_context, report
+    from ray_tpu_torch.train.checkpoint import save_pytree_checkpoint
+    from ray_tpu_torch.train.step import named_leaves
+
+    ctx = get_context()
+    device = torch.device(ctx.device or "cpu")
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    cnn_config = CNNConfig()
+    params = conv_params_from_numpy(config["params"], device=device)
+    leaves = [leaf.requires_grad_(True) for _, leaf in named_leaves(params)]
+    optimizer = torch.optim.Adam(leaves, lr=config["lr"], betas=(0.9, 0.999), eps=1e-8)
+    rank, world = ctx.world_rank, ctx.world_size
+
+    rng = np.random.default_rng(rank)
+    batch = config["batch_size"]
+    images = torch.from_numpy(rng.normal(size=(batch, 28, 28, 1)).astype(np.float32)).to(device)
+    labels = torch.from_numpy(rng.integers(0, 10, size=batch)).to(device)
+
+    def step():
+        loss, acc = cnn_loss(params, images, labels, cnn_config)
+        optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        optimizer.step()
+        return loss.detach(), acc
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    with torch.no_grad():
+        logits = cnn_forward(params, images, cnn_config)
+    loss, acc = step()  # warm-up
+    sync()
+    start = time.perf_counter()
+    steps = config["steps"]
+    for _ in range(steps):
+        loss, acc = step()
+    sync()
+    elapsed = time.perf_counter() - start
+    metrics = {"img_per_s": steps * batch * world / elapsed, "loss": float(loss),
+               "acc": float(acc), "launches": _port_launches()}
+    if config.get("out_dir"):
+        write_rank(config, rank, metrics, conv_params_to_numpy(params))
+    if config.get("logits") and rank == 0:
+        metrics["first_logits"] = logits.cpu().tolist()
+    report(metrics, checkpoint=save_pytree_checkpoint(params, extra={"step": steps}))

@@ -21,10 +21,17 @@ Copy of the worker half of ray_tpu's ``train/_internal/step_stats.py``:
     user's metrics carry them (keys ``tokens`` and ``flops``, per rank per
     step). The record's keys are the reference's.
 
-The driver half (``FlightRecorder``: goodput buckets, the gang aggregator,
-the straggler scan and the capture it triggers) feeds the controller's
-workload store, which is runtime; it waits for ROADMAP item 8b, and the
-trainer keeps each rank's records in ``Result.step_stats`` meanwhile.
+The driver half is :class:`FlightRecorder`, a copy of the reference's:
+the trainer folds each report round's records into the gang aggregator
+(``_private.workload.StepStatsAggregator``), which gives rolling tokens/s,
+MFU and the MAD straggler scan; a rank flagged on
+``RAY_TPU_PROFILE_AUTO_CONSECUTIVE`` summary cuts in a row triggers one
+capture, queued through the trainer's own ``capture_profile`` queue where
+the reference calls its controller; and the run's wall clock is cut into
+goodput buckets (checkpoint, restart, stalled, productive) for
+``Result.goodput``. The reference pushes its samples to the controller's
+workload store (``_maybe_push``); the port has no store yet (ROADMAP
+item 14), so the samples stay in the recorder (``FlightRecorder.samples``).
 """
 
 from __future__ import annotations
@@ -35,6 +42,15 @@ import time
 from typing import Any
 
 from ray_tpu_torch._private import profiler as profiler_mod
+
+# The rolling summary and the straggler scan walk the whole window, so a
+# round cuts one at most this often and the rounds in between reuse it
+# (the reference cuts on its push cadence, of the same period).
+_SUMMARY_INTERVAL_S = 1.0
+_MAX_SAMPLES = 4096  # per series, as the reference bounds its buffer
+# The straggler threshold is median + k * MAD over the gang's step walls
+# (the reference's configured default).
+STRAGGLER_MAD_K = 3.0
 
 
 def enabled() -> bool:
@@ -227,3 +243,143 @@ class StepRecorder:
         session calls this after the hand-off, so walls measure the rank's
         own step, not the driver's backpressure."""
         self._last = time.perf_counter()
+
+
+# -- driver side ---------------------------------------------------------
+class FlightRecorder:
+    """The driver's aggregator, goodput accountant and straggler watch.
+
+    ``request_capture(steps=, ranks=, reason=)`` queues a capture (the
+    trainer's ``_queue_capture``); None turns the auto-capture's request
+    into a no-op, as the reference's fails without a controller."""
+
+    def __init__(self, experiment: str, request_capture=None):
+        from ray_tpu_torch._private.workload import StepStatsAggregator
+
+        self.experiment = experiment
+        self.agg = StepStatsAggregator()
+        self.request_capture = request_capture
+        self._t0 = time.monotonic()
+        self.buckets = {
+            "checkpoint_s": 0.0,
+            "restart_s": 0.0,
+            "stalled_s": 0.0,
+        }
+        self._last_progress: float | None = None
+        self.samples: dict[str, list[dict]] = {}
+        self._summary: dict | None = None
+        self._last_summary = 0.0
+        self.stragglers: list[dict] = []
+        # Ranks flagged straggler on consecutive summary cuts debounce-
+        # trigger one bounded capture.
+        self._straggler_streak: dict[int, int] = {}
+        self._last_auto_req = 0.0
+
+    # -- goodput wall-clock buckets -------------------------------------
+    def note_restart(self, seconds: float) -> None:
+        self.buckets["restart_s"] += max(0.0, seconds)
+
+    def note_checkpoint(self, seconds: float) -> None:
+        self.buckets["checkpoint_s"] += max(0.0, seconds)
+
+    def note_progress(self) -> None:
+        self._last_progress = time.monotonic()
+
+    def note_stalled_since_progress(self) -> None:
+        """The failure path: everything since the last committed round is
+        lost work and detection time, the stalled bucket."""
+        if self._last_progress is not None:
+            self.buckets["stalled_s"] += max(0.0, time.monotonic() - self._last_progress)
+            self._last_progress = None
+
+    def goodput(self) -> dict:
+        from ray_tpu_torch._private.workload import goodput_buckets
+
+        return goodput_buckets(time.monotonic() - self._t0, **self.buckets)
+
+    # -- per-round ingest -----------------------------------------------
+    def on_round(self, round_results: list) -> dict | None:
+        """Ingests one round's per-rank StepStats. Returns the rolling gang
+        summary (tokens/s, MFU, phase fractions), or None until a round has
+        carried records."""
+        self.note_progress()
+        max_ckpt = 0.0
+        saw = False
+        for result in round_results:
+            rec = result.get("step_stats") if isinstance(result, dict) else None
+            if not isinstance(rec, dict):
+                continue
+            if self.agg.add(rec):
+                saw = True
+                max_ckpt = max(max_ckpt, float(rec.get("checkpoint_s") or 0.0))
+                self._queue(f"train/{self.experiment}/rank{rec.get('rank', 0)}", rec)
+        if not saw:
+            return self._summary
+        # Workers save sharded checkpoints inside the step; the slowest
+        # rank's save time is wall clock the gang spent checkpointing.
+        self.buckets["checkpoint_s"] += max_ckpt
+        now = time.monotonic()
+        if self._summary is None or now - self._last_summary >= _SUMMARY_INTERVAL_S:
+            self._last_summary = now
+            self._summary = self._cut_gang_sample()
+        return self._summary
+
+    def _cut_gang_sample(self) -> dict:
+        """The rolling gang summary and the straggler scan, kept as one
+        ``train/<experiment>`` sample."""
+        summary = self.agg.summary()
+        self.stragglers = self.agg.straggler_report(k=STRAGGLER_MAD_K)
+        if self.stragglers:
+            summary["stragglers"] = [s["rank"] for s in self.stragglers]
+        self._maybe_auto_profile()
+        self._queue(f"train/{self.experiment}", {"ts": time.time(), **summary})
+        return summary
+
+    def _maybe_auto_profile(self) -> None:
+        """Debounces straggler flags into ONE capture request: a rank must
+        stay flagged for RAY_TPU_PROFILE_AUTO_CONSECUTIVE summary cuts, and
+        requests are at least RAY_TPU_PROFILE_AUTO_COOLDOWN_S apart."""
+        if not self.stragglers:
+            self._straggler_streak.clear()
+            return
+        if not profiler_mod.knob_bool("AUTO", True):
+            return
+        flagged = {int(s["rank"]) for s in self.stragglers if "rank" in s}
+        for rank in list(self._straggler_streak):
+            if rank not in flagged:
+                del self._straggler_streak[rank]
+        need = profiler_mod.knob_int("AUTO_CONSECUTIVE", 2)
+        ready = []
+        for rank in sorted(flagged):
+            streak = self._straggler_streak.get(rank, 0) + 1
+            self._straggler_streak[rank] = streak
+            if streak >= need:
+                ready.append(rank)
+        if not ready:
+            return
+        now = time.monotonic()
+        cooldown = profiler_mod.knob_float("AUTO_COOLDOWN_S", 300.0)
+        if self._last_auto_req and now - self._last_auto_req < cooldown:
+            return
+        self._last_auto_req = now
+        for rank in ready:
+            self._straggler_streak[rank] = 0
+        if self.request_capture is not None:
+            self.request_capture(steps=profiler_mod.knob_int("AUTO_STEPS", 3), ranks=ready,
+                                 reason="straggler")
+
+    def _queue(self, key: str, sample: dict) -> None:
+        kept = self.samples.setdefault(key, [])
+        kept.append(sample)
+        if len(kept) > _MAX_SAMPLES:
+            del kept[: len(kept) - _MAX_SAMPLES]
+
+    def finalize(self) -> dict:
+        """The end of fit(): the final goodput, kept with a last gang
+        sample; returns the buckets for ``Result.goodput``."""
+        g = self.goodput()
+        if self.agg.records_ingested:
+            # The summary's cadence may have left the last steps out.
+            self._summary = self._cut_gang_sample()
+        self._queue(f"train/{self.experiment}/goodput", {"ts": time.time(), **g})
+        return g

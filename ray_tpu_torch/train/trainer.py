@@ -35,8 +35,13 @@ after the same ``stop``. A ``TorchTrainer`` pickles (stdlib) without its
 capture state: Tune sends one to its trial's process.
 
 Each report carries the rank's StepStats record; ``Result.step_stats``
-keeps them by rank (the reference hands them to its flight recorder, whose
-driver half waits for ROADMAP item 8b). ``capture_profile`` is the
+keeps them by rank, and the driver's flight recorder
+(``step_stats.FlightRecorder``) folds each round's into rolling tokens/s,
+MFU and a straggler scan (both put into the round's metrics, as the
+reference's are), queues one capture when a rank keeps straggling, and
+cuts the run's wall clock into ``Result.goodput``'s buckets: restart
+(formation and backoff), stalled (work lost to a death), checkpoint and
+productive. ``capture_profile`` is the
 reference's coordinated step-aligned capture (``util.state.capture_profile``
 and the controller's side of it), run through the report round: callable
 from another thread while ``fit()`` runs, it arms the selected ranks at the
@@ -44,9 +49,23 @@ same upcoming step boundary, gathers each rank's capture from the report
 that follows its end and merges them into one Perfetto trace under
 ``<trial_dir>/profiles/<capture_id>/``.
 
-Left out, each in ROADMAP Queue A item 4 with its reason: multi-host
-gangs, elastic step-down and grow, datasets, preemptive drains of
-OOM-flagged ranks, and storage other than a local path.
+Elasticity, with ``ScalingConfig.min_workers``: the gang forms at the
+largest size from ``num_workers`` down to ``min_workers`` whose leases the
+host's resource ledger places within ``elastic_formation_timeout_s``; a
+gang death re-forms it (full-jitter backoff between restarts, reset once
+a gang forms); and at a round whose checkpoint committed, a probe of the
+free resources (at most every ``elastic_grow_probe_period_s``) that covers
+every missing worker ends the gang voluntarily, neither counted against
+``max_failures`` nor backed off, and re-forms it at ``num_workers``. Every
+transition goes checkpoint, re-form, restore: each gang restores the
+latest committed checkpoint at its own world size, which
+``TrainContext.world_size`` and the round's ``factorization`` report.
+``Result.resizes`` lists the transitions as the reference does.
+
+Left out, each in ROADMAP with its reason: multi-host gangs and storage
+other than a local path (Queue A item 4), datasets (item 10), and
+preemptive drains of ranks on out-of-memory telemetry and the recorder's
+push to a workload store (item 14).
 """
 
 from __future__ import annotations
@@ -62,11 +81,14 @@ from typing import Any, Callable, Optional
 
 from ray_tpu_torch._private import profile_merge
 from ray_tpu_torch._private import profiler as profiler_mod
+from ray_tpu_torch._private import resources
 from ray_tpu_torch.train import session as session_mod
 from ray_tpu_torch.train.checkpoint import (
     Checkpoint, StorageContext, _atomic_write_json, merge_sharded_checkpoints,
 )
 from ray_tpu_torch.train.config import RunConfig, ScalingConfig
+from ray_tpu_torch.train.step_stats import FlightRecorder
+from ray_tpu_torch.util.backoff import Backoff
 from ray_tpu_torch.util.gang import GangDiedError, WorkerError, WorkerGang
 
 logger = logging.getLogger(__name__)
@@ -76,16 +98,25 @@ ROUND_TIMEOUT_S = 1800.0
 
 
 class TrainingFailedError(RuntimeError):
-    """The gang stalled: a rank sent nothing within the round's time."""
+    """The gang stalled (a rank sent nothing within the round's time), or
+    could not form at any size."""
 
 
 @dataclass
 class Result:
     """What fit() returns, as ray_tpu's ``Result``. ``resizes`` holds every
-    restart of the gang ({"reason": "gang_died", "from": k, "to": None,
-    "error": ...}); ``attempts`` the wall-clock times (``time.time()``) of
-    each gang's start, formation, first report and end; ``step_stats`` each
-    rank's StepStats records, in report order."""
+    world-size transition: {"reason": "gang_died", "from": k, "to": None,
+    "error": ...} for a death (k the gang that died), {"reason": "grow",
+    "from": k, "to": num_workers} for a grow-back; ``attempts`` each gang's
+    wall-clock times (``time.time()``: start, formation, first report, end,
+    and ``spawned``, when the gang that formed spawned its processes), the
+    size it formed at (``world_size``), each formation attempt
+    (``formations``: size, seconds, whether it formed) and the members'
+    ``rank_infos`` (``members``, with the times each entered and joined its
+    groups); ``step_stats`` each rank's StepStats records, in report order;
+    ``goodput`` the flight recorder's
+    buckets (``wall_s``, ``productive_s``, ``checkpoint_s``, ``restart_s``,
+    ``stalled_s``, ``goodput_fraction``)."""
 
     metrics: dict = field(default_factory=dict)
     checkpoint: Optional[Checkpoint] = None
@@ -95,6 +126,7 @@ class Result:
     resizes: list = field(default_factory=list)
     attempts: list = field(default_factory=list)
     step_stats: dict = field(default_factory=dict)
+    goodput: dict = field(default_factory=dict)
 
     @property
     def best_checkpoint(self) -> list:
@@ -133,6 +165,7 @@ class _Capture:
     capture_id: str
     steps: int
     ranks: list | None
+    reason: str = "manual"
     done: threading.Event = field(default_factory=threading.Event)
     record: dict = field(default_factory=dict)
     # Set when the driver loop arms it:
@@ -197,17 +230,25 @@ class TorchTrainer:
         ``workers``, ``arm_errors``, ...); ``wait=False`` returns the
         capture id at once, and a wait past ``timeout_s`` a ``timeout``
         error."""
-        with self._profile_lock:
-            request = _Capture(capture_id=f"prof-{next(self._profile_seq):04d}-manual",
-                               steps=max(1, int(steps)),
-                               ranks=None if ranks is None else [int(r) for r in ranks])
-            self._profile_queue.append(request)
+        request = self._queue_capture(steps, ranks)
         if not wait:
             return {"status": "ok", "capture_id": request.capture_id}
         if request.done.wait(timeout_s):
             return request.record
         return {"status": "error", "code": "timeout", "capture_id": request.capture_id,
                 "error": f"capture did not finish within {timeout_s}s"}
+
+    def _queue_capture(self, steps: int, ranks: list | None, reason: str = "manual") -> _Capture:
+        """Queues one capture request; the driver loop arms it at its next
+        round. The flight recorder's auto-capture comes here too, where the
+        reference's calls its controller."""
+        with self._profile_lock:
+            request = _Capture(capture_id=f"prof-{next(self._profile_seq):04d}-{reason}",
+                               steps=max(1, int(steps)),
+                               ranks=None if ranks is None else [int(r) for r in ranks],
+                               reason=reason)
+            self._profile_queue.append(request)
+        return request
 
     def _experiment_name(self) -> str:
         return self.run_config.name or type(self).__name__.lower()
@@ -219,44 +260,72 @@ class TorchTrainer:
         latest = self.resume_from_checkpoint or storage.latest_checkpoint()
         failures = 0
         result = Result(path=storage.trial_dir)
+        # Full-jitter restart backoff: a death that killed the gang often
+        # killed its neighbours' too, and a fixed schedule re-forms them all
+        # at once.
+        backoff = Backoff(initial_backoff_s=0.1, max_backoff_s=5.0)
+        recorder = FlightRecorder(self._experiment_name(), request_capture=self._queue_capture)
         while True:
             attempt = {"start": time.time()}
             result.attempts.append(attempt)
-            gang, died = None, None
+            gang, died, resize = None, None, None
             try:
-                gang = WorkerGang(sc.num_workers, use_gpu=sc.use_gpu)
-                attempt["formed"] = time.time()
-                gang.run_async(_run_session, train_fn=self.train_loop_per_worker,
-                               train_loop_config=self.train_loop_config,
-                               experiment_name=self._experiment_name(),
-                               trial_dir=storage.trial_dir, latest_checkpoint=latest,
-                               mesh_axes=dict(sc.mesh_axes),
-                               # The attempt fences a re-formed gang's
-                               # traffic from a dead one's.
-                               pipeline=sc.pipeline(attempt=len(result.attempts) - 1),
-                               slice_topology=sc.slice_topology)
-                result.error = self._drive(gang, storage, result, attempt)
-                attempt["ended_by"] = "error" if result.error else "done"
+                form_t0 = time.monotonic()
+                try:
+                    gang = self._form_gang(attempt.setdefault("formations", []))
+                    attempt["formed"], attempt["world_size"] = time.time(), gang.num_workers
+                    attempt["spawned"], attempt["members"] = gang.spawned_at, gang.rank_infos()
+                    gang.run_async(_run_session, train_fn=self.train_loop_per_worker,
+                                   train_loop_config=self.train_loop_config,
+                                   experiment_name=self._experiment_name(),
+                                   trial_dir=storage.trial_dir, latest_checkpoint=latest,
+                                   mesh_axes=dict(sc.mesh_axes),
+                                   # The attempt fences a re-formed gang's
+                                   # traffic from a dead one's.
+                                   pipeline=sc.pipeline(attempt=len(result.attempts) - 1),
+                                   slice_topology=sc.slice_topology)
+                finally:
+                    # Formation is restart time, whether it formed or not.
+                    recorder.note_restart(time.monotonic() - form_t0)
+                recorder.note_progress()
+                backoff.reset()
+                result.error, resize = self._drive(gang, storage, result, attempt, recorder)
+                attempt["ended_by"] = ("error" if result.error else
+                                       resize["reason"] if resize else "done")
             except (GangDiedError, TrainingFailedError) as exc:
                 died = exc
                 attempt["ended_by"] = "gang_died"
             finally:
                 attempt["end"] = time.time()
+                prev_size = gang.num_workers if gang is not None else None
                 if gang is not None:
                     gang.shutdown()
                 self._end_capture(storage)
+            if resize is not None:
+                # A voluntary transition at a committed checkpoint: not a
+                # failure, not counted against max_failures, no backoff.
+                result.resizes.append(resize)
+                latest = storage.latest_checkpoint()
+                continue
             if died is None:
                 break
+            # The wall clock since the last committed round is lost work
+            # and detection time: the stalled bucket.
+            recorder.note_stalled_since_progress()
             result.error = died
             max_failures = run_cfg.failure_config.max_failures
             if 0 <= max_failures <= failures:
                 break
             failures += 1
-            result.resizes.append({"reason": "gang_died", "from": sc.num_workers, "to": None,
+            result.resizes.append({"reason": "gang_died", "from": prev_size, "to": None,
                                    "error": str(died)})
             latest = storage.latest_checkpoint()
             result.error = None
+            sleep_t0 = time.monotonic()
+            backoff.sleep()
+            recorder.note_restart(time.monotonic() - sleep_t0)
         result.checkpoint = storage.latest_checkpoint()
+        result.goodput = recorder.finalize()
         with self._profile_lock:
             queued, self._profile_queue = self._profile_queue, []
         for request in queued:
@@ -266,11 +335,64 @@ class TorchTrainer:
             request.done.set()
         return result
 
+    def _form_gang(self, formations: list) -> WorkerGang:
+        """The gang at num_workers or, when elastic, at the largest size
+        down to min_workers that forms: one attempt a size, each waiting up
+        to elastic_formation_timeout_s for its leases. A fixed-size config
+        makes one attempt. Each attempt's size, seconds and outcome go to
+        ``formations``."""
+        sc = self.scaling_config
+        bundle = sc.worker_resources()
+        sizes = range(sc.num_workers, sc.min_workers - 1, -1) if sc.elastic else [sc.num_workers]
+        # A fixed-size gang waits for its leases as long as a gang does.
+        wait = {"ready_timeout": sc.elastic_formation_timeout_s} if sc.elastic else {}
+        last_exc: Exception | None = None
+        for size in sizes:
+            t0 = time.monotonic()
+            try:
+                gang = WorkerGang(size, use_gpu=sc.use_gpu, resources_per_worker=bundle, **wait)
+            except (resources.PlacementGroupUnschedulableError, GangDiedError) as exc:
+                formations.append({"world_size": size, "seconds": time.monotonic() - t0,
+                                   "formed": False, "error": str(exc)})
+                if not sc.elastic:
+                    raise
+                last_exc = exc
+                continue
+            formations.append({"world_size": size, "seconds": time.monotonic() - t0,
+                               "formed": True})
+            if size < sc.num_workers:
+                print(f"[train] elastic step-down: formed gang at world_size={size} "
+                      f"(target {sc.num_workers})", flush=True)
+            return gang
+        raise TrainingFailedError(f"could not form a gang at any size in "
+                                  f"[{sc.min_workers}, {sc.num_workers}]: {last_exc}")
+
+    def _want_grow(self, gang: WorkerGang, state: dict) -> bool:
+        """The grow-back probe: True when the gang runs below num_workers
+        and the ledger can place every missing worker's bundle (whole cards
+        where a worker takes one, not the sum of free shares). Read at most
+        every elastic_grow_probe_period_s; best effort (a re-formed gang
+        steps down again if the capacity went meanwhile)."""
+        sc = self.scaling_config
+        if not sc.elastic or sc.elastic_grow_probe_period_s <= 0:
+            return False
+        missing = sc.num_workers - gang.num_workers
+        if missing <= 0:
+            return False
+        now = time.monotonic()
+        if now - state.get("last_probe", 0.0) < sc.elastic_grow_probe_period_s:
+            return False
+        state["last_probe"] = now
+        return resources.ledger().can_place(sc.worker_resources(), missing)
+
     def _drive(self, gang: WorkerGang, storage: StorageContext, result: Result,
-               attempt: dict) -> Exception | None:
-        """Rounds until every rank is done or a rank's loop raises
-        (returned). A member's death raises GangDiedError."""
+               attempt: dict, recorder: FlightRecorder) -> tuple:
+        """Rounds until every rank is done, a rank's loop raises, a stop
+        bound is met, or a committed round finds room to grow. Returns
+        (the loop's error or None, a voluntary resize or None). A member's
+        death raises GangDiedError."""
         done: set[int] = set()
+        probe_state: dict = {}
         while True:
             reports: dict[int, dict] = {}
             pending = [r for r in range(gang.num_workers) if r not in done]
@@ -285,7 +407,7 @@ class TorchTrainer:
                     if dead:  # the error echoes a member's death: the gang died
                         raise GangDiedError(f"gang members {dead} died; rank {rank} then "
                                             f"raised {body[0]}")
-                    return WorkerError(rank, body[0], body[1])
+                    return WorkerError(rank, body[0], body[1]), None
                 if kind == "result":
                     done.add(rank)
                     if self._active is not None and (body[0] or {}).get("profile"):
@@ -293,21 +415,41 @@ class TorchTrainer:
                 else:
                     reports[rank] = body[0]
             if len(done) == gang.num_workers:
-                return None
+                return None, None
             if not reports:
                 continue
             attempt.setdefault("first_report", time.time())
             metrics = dict(reports[min(reports)]["metrics"])
-            metrics.setdefault("factorization", self.scaling_config.factorization())
+            summary = recorder.on_round([reports[rank] for rank in sorted(reports)])
+            if summary:
+                metrics.setdefault("tokens_per_s", summary["tokens_per_s"])
+                if summary.get("mfu") is not None:
+                    metrics.setdefault("mfu", summary["mfu"])
+                if recorder.stragglers:
+                    ranks = [s["rank"] for s in recorder.stragglers]
+                    metrics["stragglers"] = ranks
+                    if probe_state.get("stragglers_logged") != ranks:
+                        probe_state["stragglers_logged"] = ranks
+                        logger.warning("straggling ranks detected: %s", recorder.stragglers)
+            # The factorization of the gang that formed, which an elastic
+            # gang may have formed below num_workers.
+            metrics.setdefault("factorization",
+                               self.scaling_config.factorization(gang.num_workers))
             ckpt = merge_sharded_checkpoints(
                 [reports.get(rank, {}).get("checkpoint") for rank in range(gang.num_workers)])
+            committed = False
             if ckpt is not None:
+                persist_t0 = time.monotonic()
                 try:
                     metrics["checkpoint_path"] = storage.persist(ckpt, metrics).path
+                    committed = True
                 except IOError as exc:
                     # A torn save: skip the commit and keep training; recovery
                     # falls back to the previous committed checkpoint.
                     logger.warning("skipping uncommittable checkpoint: %s", exc)
+                finally:
+                    # The commit is checkpoint time, committed or torn.
+                    recorder.note_checkpoint(time.monotonic() - persist_t0)
             result.metrics = metrics
             result.metrics_history.append(metrics)
             extras = self._profile_round(reports, storage, result)
@@ -326,7 +468,14 @@ class TorchTrainer:
                    for key, bound in (self.run_config.stop or {}).items()):
                 for rank in reports:
                     gang.send(rank, ("stop",))
-                return None
+                return None, None
+            # A committed checkpoint is the only safe boundary for a
+            # voluntary transition: nothing since it is lost.
+            if committed and self._want_grow(gang, probe_state):
+                for rank in reports:
+                    gang.send(rank, ("stop",))
+                return None, {"reason": "grow", "from": gang.num_workers,
+                              "to": self.scaling_config.num_workers}
             for rank in reports:
                 gang.send(rank, ("ack", extras[rank]) if rank in extras else ("ack",))
 
@@ -392,7 +541,7 @@ class TorchTrainer:
         cap, self._active = self._active, None
         if cap is None:
             return
-        rec: dict = {"capture_id": cap.capture_id, "ts": time.time(), "reason": "manual",
+        rec: dict = {"capture_id": cap.capture_id, "ts": time.time(), "reason": cap.reason,
                      "steps": cap.steps, "requested_ranks": cap.ranks}
         if code is not None:
             rec.update(status="error", code=code)
@@ -407,7 +556,7 @@ class TorchTrainer:
             os.makedirs(out_dir, exist_ok=True)
             trace = profile_merge.merge_captures(
                 captures, cap.capture_id,
-                meta={"reason": "manual", "start_step": cap.start_step})
+                meta={"reason": cap.reason, "start_step": cap.start_step})
             folded = profile_merge.merge_folded(captures)
             trace_path = os.path.join(out_dir, "merged_trace.json")
             folded_path = os.path.join(out_dir, "merged_folded.json")

@@ -41,8 +41,18 @@ so each trial is a process of its own (``_TrialProcess``):
   for the answer, then kills the trial's process group: a trial killed
   hard takes its gang members with it, where a member alone would only
   notice its parent's death at its next pipe read.
-* Concurrency. ``os.cpu_count()`` over the trial's CPUs, where the
-  reference divides the cluster's CPUs; ``max_concurrent_trials``
+* Resources. A trial's process starts only once this process's resource
+  ledger (``_private.resources``) places ``resources_per_trial``, every
+  key of it, as the reference hands every key to its runtime; the lease
+  goes back when the process ends (``_kill_actor``, and the error paths
+  through it). A trial that does not place stays PENDING until one that
+  runs frees its resources, and one asking for a key the host never
+  declared stays PENDING, as the reference's infeasible actor waits. A
+  trial asking for ``GPU`` gets ``CUDA_VISIBLE_DEVICES`` set to the cards
+  it was given (serve's replicas get theirs the same way); one asking for
+  none sees the host's cards.
+* Concurrency. The ledger's CPU total over the trial's CPUs, as the
+  reference divides its cluster's CPUs; ``max_concurrent_trials``
   overrides it.
 """
 
@@ -61,6 +71,7 @@ import types
 from multiprocessing.connection import wait
 from typing import Any, Optional
 
+from ray_tpu_torch._private import resources
 from ray_tpu_torch.tune.experiment.trial import (
     ERROR, PAUSED, PENDING, RUNNING, TERMINATED, Trial, atomic_write_json,
 )
@@ -78,6 +89,9 @@ RESTORE_TIMEOUT_S = 120.0
 STOP_TIMEOUT_S = 5.0
 # How long a kill may take to end every process of the trial's group.
 KILL_WAIT_S = 10.0
+# How long a step with no call outstanding waits when a trial could not be
+# placed, before it asks the ledger again.
+PLACEMENT_POLL_S = 0.1
 
 logger = logging.getLogger(__name__)
 
@@ -198,13 +212,15 @@ class _TrialProcess:
     reference's ``_TrialActor`` handle. ``submit`` returns a call's number;
     ``result`` waits for that call's answer."""
 
-    def __init__(self, ref: TrainableRef, config: dict, name: str):
+    def __init__(self, ref: TrainableRef, config: dict, name: str,
+                 visible_devices: str | None = None):
         ctx = multiprocessing.get_context("spawn")
         self.conn, child = ctx.Pipe()
         # Not daemonic: a trainer trial's gang members are its children.
         self.process = ctx.Process(target=_trial_main, args=(pickle.dumps((ref, config)), child),
                                    name=name, daemon=False)
-        self.process.start()
+        with resources.child_visible_devices(visible_devices):
+            self.process.start()
         child.close()
         self._seq = 0
         self._replies: dict[int, tuple] = {}
@@ -305,14 +321,17 @@ class TuneController:
 
         self.trials: list[Trial] = []
         self._actors: dict[str, _TrialProcess] = {}  # trial_id -> its process
+        self._leases: dict[str, resources.Lease] = {}  # trial_id -> what it holds
+        self._unplaced_warned: set[str] = set()
         # (process, call number) of an outstanding train() -> Trial
         self._futures: dict[tuple[_TrialProcess, int], Trial] = {}
         self._searcher_exhausted = False
         if max_concurrent_trials:
             self._max_concurrent = max_concurrent_trials
         else:
+            cpus = resources.cluster_resources().get("CPU", 4)
             per_trial = max(self.resources_per_trial.get("CPU", 1), 0.01)
-            self._max_concurrent = max(1, int((os.cpu_count() or 1) / per_trial))
+            self._max_concurrent = max(1, int(cpus / per_trial))
 
     # -- scheduler hooks --
 
@@ -348,7 +367,8 @@ class TuneController:
         if not in_place:
             self._drop_pending_future(trial)
             self._kill_actor(trial)
-            self._start_trial_actor(trial)
+            if not self._start_trial_actor(trial):
+                trial.set_status(PENDING)  # restarts once its resources free
         elif trial.checkpoint is not None:
             proc.call("restore", trial.checkpoint, timeout=CALL_TIMEOUT_S)
 
@@ -386,14 +406,32 @@ class TuneController:
     def _live_suggestions(self) -> list[Trial]:
         return [t for t in self.trials if t.status in (PENDING, RUNNING, PAUSED)]
 
-    def _start_trial_actor(self, trial: Trial) -> None:
-        proc = _TrialProcess(self._ref, trial.config,
-                             name=f"trial-{self.trainable_name}-{trial.trial_id}")
+    def _start_trial_actor(self, trial: Trial) -> bool:
+        """Starts the trial's process once the ledger places its resources;
+        False, and nothing started, while it cannot."""
+        try:
+            lease = resources.ledger().acquire(self.resources_per_trial)
+        except resources.PlacementGroupUnschedulableError as exc:
+            if trial.trial_id not in self._unplaced_warned:
+                self._unplaced_warned.add(trial.trial_id)
+                logger.warning("trial %s waits for resources: %s", trial.trial_id, exc)
+            return False
+        self._leases[trial.trial_id] = lease
+        visible = (lease.visible_devices() if self.resources_per_trial.get("GPU", 0) > 0
+                   else None)
+        try:
+            proc = _TrialProcess(self._ref, trial.config,
+                                 name=f"trial-{self.trainable_name}-{trial.trial_id}",
+                                 visible_devices=visible)
+        except BaseException:
+            self._leases.pop(trial.trial_id).release()
+            raise
         self._actors[trial.trial_id] = proc
         if trial.checkpoint is not None:
             proc.call("restore", trial.checkpoint, timeout=RESTORE_TIMEOUT_S)
         trial.set_status(RUNNING)
         self._futures[(proc, proc.submit("train"))] = trial
+        return True
 
     def _kill_actor(self, trial: Trial) -> None:
         proc = self._actors.pop(trial.trial_id, None)
@@ -404,6 +442,7 @@ class TuneController:
         except Exception:  # stop timed out or the process is gone; the kill follows
             pass
         proc.kill()
+        self._leases.pop(trial.trial_id).release()
 
     def _drop_pending_future(self, trial: Trial) -> None:
         for key, t in list(self._futures.items()):
@@ -426,7 +465,10 @@ class TuneController:
             choice = self.scheduler.choose_trial_to_run(self)
             if choice is None:
                 break
-            self._start_trial_actor(choice)
+            if not self._start_trial_actor(choice):
+                if not self._futures:  # nothing of ours to free it: wait a little
+                    time.sleep(PLACEMENT_POLL_S)
+                break
 
         if not self._futures:
             return
@@ -562,6 +604,7 @@ class TuneController:
             # its gang) behind; on a normal end none is left to kill.
             for trial_id in list(self._actors):
                 self._actors.pop(trial_id).kill()
+                self._leases.pop(trial_id).release()
         self._save_experiment_state()
         return self.trials
 

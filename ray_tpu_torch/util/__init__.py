@@ -1,2 +1,3 @@
 """The port's runtime pieces: collective groups over ``torch.distributed``
-(``collective``) and the single-host gang of worker processes (``gang``)."""
+(``collective``), the single-host gang of worker processes (``gang``) and
+the full-jitter retry delay (``backoff``)."""

@@ -12,12 +12,21 @@ forms its collective group (``util.collective``). ``run``, ``run_async``,
 The gang is the failure domain: one dead member wedges every member's
 collectives, so a member's death raises ``GangDiedError`` in the caller
 (the trainer restarts the whole gang from its checkpoint), and
-``shutdown`` reaps every process. The device probe is
-``torch.cuda.device_count()`` (the reference's
-``BackendExecutor._worker_local_devices``); a gang asking for more cards
-than the host has raises, as the reference's ``resources={"TPU": n}``
-request would not place. Out of this port: placement groups and gangs
-across hosts (ROADMAP Queue A item 4).
+``shutdown`` reaps every process.
+
+Formation takes the place of the reference's placement group: before it
+spawns anything the gang leases one bundle a member (``resources_per_worker``,
+a CPU by default, and a card under ``use_gpu``) from the host's resource
+ledger (``_private.resources``), waiting up to ``ready_timeout`` as the
+reference's ``pg.ready`` does (the members' start then has
+``START_TIMEOUT_S``), and raises the ledger's
+``PlacementGroupUnschedulableError`` when they do not place (at once,
+and as a ``ValueError`` too, when the host could never hold them, such as
+more cards than it has). Each member runs on the card its bundle took,
+not on card ``rank``: with card 1 leased elsewhere, a gang of three runs
+on cards 0, 2 and 3. ``shutdown`` gives the lease back on every path, a
+failed start included. Out of this port: gangs across hosts (ROADMAP
+Queue A item 4).
 """
 
 from __future__ import annotations
@@ -29,6 +38,12 @@ import traceback
 from typing import Any, Callable, Sequence
 
 import torch
+
+from ray_tpu_torch._private import resources
+
+# How long the members may take to start and join their groups, once the
+# gang's lease is placed (a card's first use takes seconds).
+START_TIMEOUT_S = 300.0
 
 
 class GangDiedError(RuntimeError):
@@ -45,16 +60,22 @@ class WorkerError(RuntimeError):
 
 
 class _Channel:
-    """A member's end of its pipe to the caller."""
+    """A member's end of its pipe to the caller. ``stopped`` is set when a
+    function the member runs reads the caller's ``stop`` (a train session
+    waiting on its round): the member ends once that function returns."""
 
     def __init__(self, conn):
         self._conn = conn
+        self.stopped = False
 
     def send(self, message) -> None:
         self._conn.send(message)
 
     def recv(self):
-        return self._conn.recv()
+        message = self._conn.recv()
+        if isinstance(message, tuple) and message[:1] == ("stop",):
+            self.stopped = True
+        return message
 
 
 class GangContext:
@@ -79,9 +100,12 @@ class GangContext:
 
 
 def _member_main(rank: int, world_size: int, group_name: str, backend: str,
-                 master_port: int, conn) -> None:
+                 master_port: int, card: int | None, conn) -> None:
     """A member process: join the process group and the collective group,
-    then run what the caller sends until it says stop."""
+    then run what the caller sends until it says stop. Its ready message
+    carries the wall times (``time.time()``) at which it entered, its
+    imports done, and at which it had joined both groups."""
+    entered = time.time()
     import torch.distributed as dist
 
     from ray_tpu_torch.util import collective
@@ -91,16 +115,17 @@ def _member_main(rank: int, world_size: int, group_name: str, backend: str,
         os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(master_port),
                           RANK=str(rank), WORLD_SIZE=str(world_size), LOCAL_RANK=str(rank))
         device = torch.device("cpu")
-        if backend == "nccl":
-            torch.cuda.set_device(rank)
-            device = torch.device("cuda", rank)
+        if card is not None:
+            torch.cuda.set_device(card)
+            device = torch.device("cuda", card)
         dist.init_process_group(backend, init_method="env://", rank=rank,
                                 world_size=world_size)
         collective.init_collective_group(world_size, rank, backend=backend,
                                          group_name=group_name)
         ctx = GangContext(rank, world_size, group_name, socket.gethostname(), channel, device)
         channel.send(("ready", {"rank": rank, "node_id": ctx.node_id, "pid": os.getpid(),
-                                "device": str(device)}))
+                                "device": str(device), "entered": entered,
+                                "joined": time.time()}))
     except Exception as exc:
         channel.send(("error", repr(exc), traceback.format_exc()))
         return
@@ -119,6 +144,8 @@ def _member_main(rank: int, world_size: int, group_name: str, backend: str,
                 channel.send(("error", repr(exc), traceback.format_exc()))
             else:
                 channel.send(("result", result))
+            if channel.stopped:
+                break
     finally:
         collective.destroy_collective_group(group_name)
         if dist.is_initialized():
@@ -135,34 +162,42 @@ def _free_port() -> int:
 
 class WorkerGang:
     """``num_workers`` member processes, one a card (``use_gpu``) or on the
-    CPU, sharing one process group and collective group ``group_name``."""
+    CPU, sharing one process group and collective group ``group_name``.
+    Each member leases ``resources_per_worker`` ({"CPU": 1} by default;
+    ``use_gpu`` adds a whole card) from the host's ledger."""
 
-    def __init__(self, num_workers: int, *, use_gpu: bool = True, group_name: str | None = None,
+    def __init__(self, num_workers: int, *, use_gpu: bool = True,
+                 resources_per_worker: dict | None = None, group_name: str | None = None,
                  ready_timeout: float = 300.0):
         import torch.multiprocessing as mp
 
         self.num_workers = int(num_workers)
         self.group_name = group_name or f"gang-{os.urandom(4).hex()}"
         self.backend = "nccl" if use_gpu else "gloo"
-        if use_gpu:
-            cards = torch.cuda.device_count()
-            if self.num_workers > cards:
-                raise ValueError(f"gang asks for {self.num_workers} GPUs, this host has {cards}")
-        ctx = mp.get_context("spawn")
-        port = _free_port()
         self.members, self._conns, self._infos = [], [], []
-        for rank in range(self.num_workers):
-            parent, child = ctx.Pipe()
-            proc = ctx.Process(target=_member_main, name=f"{self.group_name}-rank{rank}",
-                               args=(rank, self.num_workers, self.group_name, self.backend,
-                                     port, child))
-            proc.start()
-            child.close()
-            self.members.append(proc)
-            self._conns.append(parent)
+        bundle = dict(resources_per_worker or {"CPU": 1.0})
+        if use_gpu:
+            bundle.setdefault("GPU", 1.0)
+            if bundle["GPU"] < 1:
+                raise ValueError(f"a GPU gang member takes a whole card, got {bundle['GPU']}")
+        self._lease = resources.ledger().acquire(bundle, self.num_workers, timeout=ready_timeout)
+        self.cards = [cards[0] if use_gpu else None for cards in self._lease.cards]
         try:
+            ctx = mp.get_context("spawn")
+            port = _free_port()
+            self.spawned_at = time.time()
             for rank in range(self.num_workers):
-                kind, *body = self.recv(rank, timeout=ready_timeout)
+                parent, child = ctx.Pipe()
+                proc = ctx.Process(target=_member_main, name=f"{self.group_name}-rank{rank}",
+                                   args=(rank, self.num_workers, self.group_name, self.backend,
+                                         port, self.cards[rank], child))
+                proc.start()
+                child.close()
+                self.members.append(proc)
+                self._conns.append(parent)
+            deadline = time.monotonic() + START_TIMEOUT_S
+            for rank in range(self.num_workers):
+                kind, *body = self.recv(rank, timeout=max(0.0, deadline - time.monotonic()))
                 if kind != "ready":
                     raise GangDiedError(f"gang member rank={rank} failed to start: "
                                         f"{body[0]}\n{body[1]}")
@@ -170,10 +205,18 @@ class WorkerGang:
         except (GangDiedError, TimeoutError) as exc:
             self.shutdown()
             raise GangDiedError(f"gang failed to start: {exc}") from exc
+        except BaseException:
+            self.shutdown()
+            raise
 
     # -- messages ------------------------------------------------------------
     def send(self, rank: int, message) -> None:
-        self._conns[rank].send(message)
+        """Sends ``message`` to member ``rank``; GangDiedError when the
+        member is gone."""
+        try:
+            self._conns[rank].send(message)
+        except OSError as exc:  # a broken pipe: the member died
+            raise GangDiedError(f"gang member rank={rank} is gone: {exc!r}") from exc
 
     def recv(self, rank: int, timeout: float | None = None):
         """The next message from member ``rank``. Raises GangDiedError when
@@ -193,7 +236,7 @@ class WorkerGang:
                 if conn.poll():
                     try:
                         return rank, conn.recv()
-                    except EOFError:
+                    except (EOFError, OSError):
                         pass  # the member is gone; its exit code says how
             dead = [(r, p.exitcode) for r, p in enumerate(self.members)
                     if p.exitcode is not None]
@@ -252,20 +295,23 @@ class WorkerGang:
         return all(p.is_alive() for p in self.members)
 
     def shutdown(self, grace_s: float = 5.0) -> None:
-        """Asks every live member to stop, then kills what is left and
-        reaps every process."""
-        for rank, proc in enumerate(self.members):
-            if proc.is_alive():
-                try:
-                    self.send(rank, ("stop",))
-                except (BrokenPipeError, OSError):
-                    pass  # the member is already gone
-        deadline = time.monotonic() + grace_s
-        for proc in self.members:
-            proc.join(max(0.0, deadline - time.monotonic()))
-        for proc in self.members:
-            if proc.is_alive():
-                proc.kill()
-            proc.join()
-        for conn in self._conns:
-            conn.close()
+        """Asks every live member to stop, then kills what is left, reaps
+        every process and gives the gang's lease back."""
+        try:
+            for rank, proc in enumerate(self.members):
+                if proc.is_alive():
+                    try:
+                        self.send(rank, ("stop",))
+                    except GangDiedError:
+                        pass  # the member is already gone
+            deadline = time.monotonic() + grace_s
+            for proc in self.members:
+                proc.join(max(0.0, deadline - time.monotonic()))
+            for proc in self.members:
+                if proc.is_alive():
+                    proc.kill()
+                proc.join()
+            for conn in self._conns:
+                conn.close()
+        finally:
+            self._lease.release()

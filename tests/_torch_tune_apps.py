@@ -149,3 +149,23 @@ def pid_loop(config):
         report({"loss": config["lr"] * (7 - i), "pid": os.getpid(), "ppid": os.getppid()})
         if stall_after is not None and i >= stall_after:
             time.sleep(120)
+
+
+def held(config):
+    """Holds its resources ``hold_s`` seconds, then reports when it began
+    and ended and the cards its process sees: the placement tests read the
+    order of the trials from these. With ``meet_dir`` it first marks its
+    start there and waits (up to 30 s) until ``meet`` trials have marked
+    theirs; ``met`` says whether they did, so trials that ran at once show
+    it however slowly their processes started."""
+    began = time.time()
+    met = None
+    if config.get("meet_dir"):
+        open(os.path.join(config["meet_dir"], str(os.getpid())), "w").close()
+        deadline = time.time() + 30.0
+        while len(os.listdir(config["meet_dir"])) < config["meet"] and time.time() < deadline:
+            time.sleep(0.02)
+        met = len(os.listdir(config["meet_dir"])) >= config["meet"]
+    time.sleep(config.get("hold_s", 0.5))
+    _tune().report({"began": began, "ended": time.time(), "pid": os.getpid(),
+                    "visible": os.environ.get("CUDA_VISIBLE_DEVICES"), "met": met})

@@ -37,8 +37,8 @@ from ray_tpu.serve._private.common import AutoscalingConfig as RefAutoscalingCon
 
 import _torch_serve_apps as apps
 from ray_tpu_torch import serve
+from ray_tpu_torch._private import resources
 from ray_tpu_torch.serve import autoscaling_policy, long_poll, routing
-from ray_tpu_torch.serve.controller import _Placement
 from ray_tpu_torch.serve.replica import CallableRef
 
 # f32 forward of the tiny model, the ROADMAP parity rules' bound.
@@ -138,14 +138,25 @@ def test_route_match_matches_the_reference():
 
 
 def test_placement_packs_fractional_shares():
-    place = _Placement(2)
-    assert place.take(0.5) == [0] and place.take(0.5) == [0]
-    assert place.take(1) == [1]
-    assert place.take(0.5) is None  # waits as PENDING
-    place.give([0], 0.5)
-    assert place.take(0.5) == [0]
-    assert place.take(0) == []
-    assert _Placement(0).take(0.5) is None
+    # The controller's card shares come from the resource ledger.
+    place = resources.HostLedger(num_gpus=2)
+
+    def take(need):
+        try:
+            return place.acquire({"GPU": need}).cards[0]
+        except resources.PlacementGroupUnschedulableError:
+            return None
+
+    first = place.acquire({"GPU": 0.5})
+    assert first.cards[0] == [0] and take(0.5) == [0]
+    assert take(1) == [1]
+    assert take(0.5) is None  # waits as PENDING
+    first.release()
+    assert take(0.5) == [0]
+    assert take(0) == []
+    assert resources.HostLedger(num_gpus=0).acquire({}).cards == [[]]
+    with pytest.raises(resources.InfeasibleResourcesError):
+        resources.HostLedger(num_gpus=0).acquire({"GPU": 0.5})
 
 
 def test_a_local_class_is_refused():

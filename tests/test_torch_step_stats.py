@@ -20,6 +20,7 @@ import json
 import os
 import threading
 import time
+import types
 
 import numpy as np
 import pytest
@@ -305,3 +306,155 @@ def test_capture_profile_outside_fit_and_with_no_rank_selected(tmp_path):
     request = trainer.capture_profile(steps=1, wait=True, timeout_s=0.1)
     assert request["code"] == "timeout"
     assert not os.path.exists(os.path.join(result.path, "profiles"))
+
+
+# ------------------------------------------------- the flight recorder's driver half
+from ray_tpu._private import workload as ref_workload  # noqa: E402
+from ray_tpu_torch._private import workload as port_workload  # noqa: E402
+
+RECORDER_RANKS, RECORDER_ROUNDS, SLOW_RANK = 4, 20, 2
+
+
+def _rounds(seed: int, device_kind: str | None = None) -> list:
+    """Rounds of per-rank StepStats records made with numpy: rank
+    SLOW_RANK a quarter slower from round 3 on, jitter on every wall, some
+    ranks with a fwd/bwd/opt split, a replayed round (the aggregator's
+    chaos guard drops it) and one negative phase (clamped)."""
+    rng = np.random.default_rng(seed)
+    rounds = []
+    for step in range(RECORDER_ROUNDS):
+        round_ = []
+        for rank in range(RECORDER_RANKS):
+            wall = 0.2 + float(rng.uniform(0, 0.004))
+            if rank == SLOW_RANK and step >= 3:
+                wall *= 1.25
+            rec = {"step": step, "rank": rank, "node_id": f"node{rank}", "ts": 100.0 + step,
+                   "wall_s": wall, "data_wait_s": float(rng.uniform(0, 0.01)),
+                   "collective_s": float(rng.uniform(0, 0.03)),
+                   "checkpoint_s": float(rng.uniform(0, 0.02)) if step % 5 == 4 else 0.0,
+                   "pp_bubble_s": 0.0, "comm_exposed_s": 0.0,
+                   "compute_s": wall * 0.7, "tokens": 4096.0, "flops": 3e12}
+            if rank % 2:
+                rec.update(fwd_s=wall * 0.2, bwd_s=wall * 0.4, opt_s=wall * 0.1)
+            if device_kind:
+                rec.update(device_kind=device_kind, devices=1)
+            round_.append({"metrics": {}, "step_stats": rec})
+        rounds.append(round_)
+    rounds[6][1]["step_stats"]["collective_s"] = -0.5
+    rounds.insert(9, rounds[8])  # a replayed round
+    return rounds
+
+
+class _RecorderClock:
+    """time.monotonic and time.time for both recorders: each round is half
+    a second, so a summary is cut every other round."""
+
+    def __init__(self):
+        self.now = 50.0
+
+    def monotonic(self):
+        return self.now
+
+    def time(self):
+        return 0.0
+
+
+class _Controller:
+    """The reference recorder's controller: its calls, kept."""
+
+    def __init__(self):
+        self.calls = []
+
+    def call(self, method, payload, timeout=None):
+        self.calls.append((method, payload))
+
+
+class _Io:
+    @staticmethod
+    def spawn(coro):
+        coro.close()
+
+    @staticmethod
+    def run(coro):
+        coro.close()
+
+
+def test_aggregator_matches_the_reference():
+    ref, port = ref_workload.StepStatsAggregator(), port_workload.StepStatsAggregator()
+    ref_rounds, port_rounds = _rounds(1, "TPU v4"), _rounds(1, "NVIDIA H100 80GB HBM3")
+    for ref_round, port_round in zip(ref_rounds, port_rounds):
+        for a, b in zip(ref_round, port_round):
+            assert ref.add(dict(a["step_stats"])) == port.add(dict(b["step_stats"]))
+    ref_summary, port_summary = ref.summary(), port.summary()
+    ref_mfu, port_mfu = ref_summary.pop("mfu"), port_summary.pop("mfu")
+    assert port_summary == ref_summary
+    assert port_summary["dropped_stale"] == RECORDER_RANKS and port_summary["clamped_negative"] == 1
+    # The same FLOPs over the same walls: the MFUs stand as the peaks do
+    # (the H100's dense bf16 989e12, the v4's 275e12).
+    assert port_mfu == pytest.approx(ref_mfu * 275e12 / 989e12, rel=1e-12)
+    assert port.straggler_report() == ref.straggler_report()
+    assert [s["rank"] for s in port.straggler_report()] == [SLOW_RANK]
+    for args in ((10.0, 1.0, 2.0, 3.0), (1.0, 0.5, 0.8, 0.1), (0.0,)):
+        assert port_workload.goodput_buckets(*args) == ref_workload.goodput_buckets(*args)
+
+
+def test_flight_recorder_matches_the_reference(monkeypatch):
+    """Both recorders fed the same rounds under one patched clock: the
+    summaries each round, the stragglers, the auto-capture requests
+    (debounced over RAY_TPU_PROFILE_AUTO_CONSECUTIVE cuts and spaced by
+    the cooldown), the samples the reference pushes and the port keeps,
+    and the goodput buckets."""
+    from ray_tpu._private import worker as ref_worker
+
+    clock = _RecorderClock()
+    for mod in (ref_stats, step_stats):
+        monkeypatch.setattr(mod, "time", clock)
+    controller = _Controller()
+    monkeypatch.setattr(ref_worker, "get_global_context",
+                        lambda: types.SimpleNamespace(controller=controller, io=_Io))
+    monkeypatch.setenv("RAY_TPU_PROFILE_AUTO_CONSECUTIVE", "2")
+    monkeypatch.setenv("RAY_TPU_PROFILE_AUTO_COOLDOWN_S", "1.0")
+    requests = []
+    ref = ref_stats.FlightRecorder("exp", enabled_=True)
+    port = step_stats.FlightRecorder("exp", request_capture=lambda **kw: requests.append(kw))
+    for rec in (ref, port):
+        rec.note_restart(1.5)
+    for i, round_ in enumerate(_rounds(2)):
+        clock.now += 0.5
+        assert port.on_round(round_) == ref.on_round(round_), i
+        assert port.stragglers == ref.stragglers, i
+        if i == 7:  # a death 0.3 s after the last committed round
+            clock.now += 0.3
+            for rec in (ref, port):
+                rec.note_checkpoint(0.25)
+                rec.note_stalled_since_progress()
+                rec.note_restart(0.75)
+    clock.now += 0.25
+    assert port.finalize() == ref.finalize()
+    assert port.buckets == ref.buckets and port.buckets["stalled_s"] > 0
+    captures = [payload for method, payload in controller.calls if method == "profile_capture"]
+    assert len(captures) >= 2 and requests == captures
+    assert all(c["ranks"] == [SLOW_RANK] and c["reason"] == "straggler" for c in captures)
+    # Every sample the reference pushed (and the last it still holds) the
+    # port keeps, in order; the gang samples' ts is the wall clock's.
+    pushed = {}
+    for method, payload in controller.calls:
+        if method == "workload_ingest":
+            for series in payload["series"]:
+                pushed.setdefault(series["key"], []).extend(series["samples"])
+    for key, samples in ref._pending.items():
+        pushed.setdefault(key, []).extend(samples)
+    assert port.samples == pushed
+    assert sorted(pushed) == ["train/exp", "train/exp/goodput"] + [
+        f"train/exp/rank{r}" for r in range(RECORDER_RANKS)]
+
+
+def test_auto_capture_reaches_the_trainers_queue(tmp_path):
+    """The recorder's request lands in the trainer's capture queue with
+    the reason the reference's controller records."""
+    trainer = TorchTrainer(_profiled_loop, scaling_config=ScalingConfig(num_workers=2,
+                                                                        use_gpu=False),
+                           run_config=RunConfig(name="auto", storage_path=str(tmp_path)))
+    request = trainer._queue_capture(steps=3, ranks=[1], reason="straggler")
+    assert request.capture_id == "prof-0000-straggler" and request.ranks == [1]
+    assert trainer._profile_queue == [request]

@@ -11,7 +11,11 @@ HyperBand, median stopping, PBT and ``ConcurrencyLimiter`` gives equal
 decisions (PBT's transplants and explored configs too). The trial
 processes: a ``<locals>`` trainable is refused; a checkpoint holding a
 tensor restores after the process that saved it has exited; a stopped
-trainer trial, and one killed hard, leave no process alive. Config 3's
+trainer trial, and one killed hard, leave no process alive. Trials wait
+for their resources on the host's ledger: three asking for {"CPU": 1,
+"TPU": 8} on a host declaring 8 TPUs run one at a time, in the order the
+reference's controller runs them on its cluster, and {"GPU": 1} trials
+see only their card. Config 3's
 trainable (``chip_smoke.asha_resnet_run``) on the CPU against the release
 script's JAX step from the same weights: its first two reports within
 ``tests/test_torch_cnn.py``'s f32 bounds.
@@ -35,6 +39,7 @@ from ray_tpu.tune.search import sample as ref_sample
 from ray_tpu.tune.search import searcher as ref_searcher
 from ray_tpu.tune.search import tpe as ref_tpe
 from ray_tpu_torch import tune
+from ray_tpu_torch._private import resources
 from ray_tpu_torch.models.convert import conv_params_from_numpy
 from ray_tpu_torch.train import (
     CheckpointConfig, FailureConfig, RunConfig, ScalingConfig, TorchTrainer,
@@ -429,12 +434,90 @@ def test_a_stopped_trainer_trial_leaves_no_process(tmp_path, stall):
         assert time.monotonic() - start > tune.trainable.STOP_JOIN_S
 
 
-def test_trials_run_concurrently_by_default(tmp_path, monkeypatch):
-    monkeypatch.setattr(tune_controller.os, "cpu_count", lambda: 3)
+@pytest.fixture
+def host():
+    """``resources.declare`` for the test; the host's own ledger after it."""
+    yield resources.declare
+    resources.declare()
+
+
+def test_trials_run_concurrently_by_default(tmp_path, host):
+    # The default concurrency is the ledger's CPUs over the trial's.
+    host(num_cpus=3)
     controller = tune_controller.TuneController(
         tune.wrap_function(apps.slope), searcher=port_bv.BasicVariantGenerator(),
         experiment_dir=str(tmp_path))
     assert controller._max_concurrent == 3
+
+
+# ------------------------------------------------- trials wait for their resources
+HELD_SPACE = {"name": ["a", "b", "c"], "hold_s": 0.5}
+
+
+def _held_trials(controller_cls, wrap, bv, tmp_path, resources_per_trial, meet=None) -> list:
+    """The three held trials; with ``meet``, each waits for that many to
+    have started (``apps.held``)."""
+    space = {"name": tune.grid_search(HELD_SPACE["name"]), "hold_s": HELD_SPACE["hold_s"]}
+    if meet:
+        (tmp_path / "meet").mkdir(parents=True)
+        space.update(meet=meet, meet_dir=str(tmp_path / "meet"))
+    controller = controller_cls(
+        wrap(apps.held), searcher=bv.BasicVariantGenerator(space),
+        experiment_dir=str(tmp_path), resources_per_trial=resources_per_trial)
+    controller.searcher.set_search_properties(None, None, {})
+    return controller.run()
+
+
+def _order(trials) -> tuple:
+    """(names by start, names by end, whether each trial began after the
+    one before it ended): one trial at a time when the last is True."""
+    starts = sorted(trials, key=lambda t: t.last_result["began"])
+    ends = sorted(trials, key=lambda t: t.last_result["ended"])
+    serial = all(b.last_result["began"] >= a.last_result["ended"]
+                 for a, b in zip(starts, starts[1:]))
+    return [t.config["name"] for t in starts], [t.config["name"] for t in ends], serial
+
+
+def test_trials_pend_for_a_declared_resource_as_the_reference(ray_start_shared, tmp_path, host):
+    """Three trials asking for {"CPU": 1, "TPU": 8}: the reference's
+    cluster declares {"TPU": 8} (conftest), the port's ledger the same.
+    Both run one trial at a time, in the same order of starts and ends,
+    the others waiting until the running one frees its TPUs."""
+    from ray_tpu.tune import trainable as ref_trainable
+    from ray_tpu.tune.execution import tune_controller as ref_tc
+
+    want = {"CPU": 1, "TPU": 8}
+    ref = _held_trials(ref_tc.TuneController, ref_trainable.wrap_function, ref_bv,
+                       tmp_path / "ref", want)
+    host(num_cpus=64, resources={"TPU": 8})
+    port = _held_trials(tune_controller.TuneController, tune.wrap_function, port_bv,
+                        tmp_path / "port", want)
+    assert [t.status for t in ref] == [t.status for t in port] == ["TERMINATED"] * 3
+    ref_starts, ref_ends, ref_serial = _order(ref)
+    port_starts, port_ends, port_serial = _order(port)
+    assert ref_serial and port_serial
+    assert port_starts == ref_starts and port_ends == ref_ends
+    assert resources.available_resources()["TPU"] == 8.0  # every lease went back
+
+
+def test_gpu_trials_see_only_their_card(tmp_path, host):
+    """{"GPU": 1} trials on a ledger of one card: one at a time, each
+    process with CUDA_VISIBLE_DEVICES naming card 0; on two cards, two at
+    a time on cards 0 and 1."""
+    host(num_cpus=8, num_gpus=1)
+    trials = _held_trials(tune_controller.TuneController, tune.wrap_function, port_bv,
+                          tmp_path / "one", {"CPU": 1, "GPU": 1})
+    assert [t.last_result["visible"] for t in trials] == ["0", "0", "0"]
+    assert _order(trials)[2]
+    host(num_cpus=8, num_gpus=2)
+    trials = _held_trials(tune_controller.TuneController, tune.wrap_function, port_bv,
+                          tmp_path / "two", {"CPU": 1, "GPU": 1}, meet=2)
+    first_two = sorted(trials, key=lambda t: t.last_result["began"])[:2]
+    assert sorted(t.last_result["visible"] for t in first_two) == ["0", "1"]
+    # The first two ran at once: each saw the other start before it ended.
+    assert all(t.last_result["met"] for t in first_two)
+    assert not _order(first_two)[2]
+    assert resources.available_resources()["GPU"] == 2.0
 
 
 # ------------------------------------------------- BASELINE config 3's trainable
