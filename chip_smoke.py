@@ -255,9 +255,14 @@ final line) if anything is wrong:
                ScalingConfig(num_workers=2, min_workers=1, use_gpu=True,
                elastic_formation_timeout_s=2) on the one card: formation at
                2 fails through the ledger and the gang forms at 1, phase
-               14's loop at one layer checkpoints step 1, its worker exits
-               hard after that report, the gang re-forms at 1 and resumes;
-               the resumed steps bitwise equal to a fixed world-1 run's;
+               14's loop at one layer reads its token batches from a
+               Dataset shard (TorchTrainer(datasets=), 16 seeded rows of
+               release_loops.token_rows) and checkpoints step 1 with the
+               shard's position (ingest.json), its worker exits hard after
+               that report, the gang re-forms at 1 and resumes ingest from
+               the record; the resumed steps bitwise equal to a fixed
+               world-1 run's, the rows consumed over the death and the
+               resume the dataset's, at most 3 batches a rank read twice;
                the step-down wait, each formation, the restore and the
                run's goodput buckets; (c) release/benchmarks_elastic.py's
                churn at its smoke scale (10 steps of 0.05 s, the kill at
@@ -265,7 +270,22 @@ final line) if anything is wrong:
                leasing one of 4 declared trainslots: the churned run must
                step down, grow back to 4 and reproduce the undisturbed
                run's losses exactly; its keys, and each gang's timeline
-Each path (4-5, 7, 8, 9, 10, 11, 12, 14, 15, 16, 17, 18, 19, 20, 21, 22, 23, 24, 25) runs with
+ 26. data      ray_tpu_torch.data on a pool of 4 data worker processes
+               (_private.local_tasks, no CUDA device in them): (a) range(60000)
+               -> map_batches(release_loops.fashion_mnist_rows) (each row's
+               seeded 28x28x1 f32 image and int64 label, Fashion-MNIST's
+               train-split shape) -> random_shuffle(seed=0) -> one epoch of
+               iter_batches(batch_size=64), each stage timed: the pool's
+               start, rows/s and the shuffle's wall; the epoch's ids a
+               permutation of range(60000) and every image and label equal
+               to fashion_mnist_rows of its id computed here; (b) BASELINE
+               config 1's loop (batch 64, Adam 1e-3) on one card worker
+               through TorchTrainer(datasets=), one epoch of (a)'s rows
+               (937 steps) from get_dataset_shard("train").
+               iter_torch_batches: img/s beside phase 25's fixed-batch
+               figure, and the ingest share of a step from the StepStats
+               records' data wait; the pool stopped and its store removed
+Each path (4-5, 7, 8, 9, 10, 11, 12, 14, 15, 16, 17, 18, 19, 20, 21, 22, 23, 24, 25, 26) runs with
 every launch count set to 0 just before it; its counts, read just after,
 must equal what its layers and passes imply, every flash launch on the
 route the path's inputs take. The trainer path's kernels launch in its
@@ -304,6 +324,8 @@ import torch
 import torch.nn.functional as F
 
 from ray_tpu_torch import _build
+from ray_tpu_torch import data as rd
+from ray_tpu_torch._private import local_tasks
 from ray_tpu_torch._private import profiler as profiler_mod
 from ray_tpu_torch._private import resources
 from ray_tpu_torch._private import telemetry
@@ -340,6 +362,7 @@ from ray_tpu_torch.train import session as session_mod
 from ray_tpu_torch.train import release_loops
 from ray_tpu_torch.train import step_stats as step_stats_mod
 from ray_tpu_torch.train import torch_utils
+from ray_tpu_torch.train.checkpoint import StorageContext
 from ray_tpu_torch.train.config import CheckpointConfig, FailureConfig, RunConfig, ScalingConfig
 from ray_tpu_torch.train.stage_runner import PipelineStageRunner, microbatch_slicer
 from ray_tpu_torch.train.step import make_optimizer, named_leaves, train_step
@@ -2404,8 +2427,11 @@ def trainer_loop(loop_config: dict) -> None:
     ``save`` False, ``split`` True (the split step over the gang's group,
     whose scopes a capture traces; the dispatch takes it only above one
     worker) and ``probe`` True (the HBM probe and the card's memory in each
-    report); phase 25 with fewer ``n_layers`` and ``steps`` and an earlier
-    ``save_at``."""
+    report); phase 25 with fewer ``n_layers`` and ``steps``, an earlier
+    ``save_at``, and ``dataset`` True: its tokens then come from the
+    trainer's dataset ``"train"`` (rows of ``release_loops.token_rows``,
+    SHARDED_BATCH of them a step), and each report carries the ids of the
+    rows its step consumed."""
     reset_counts()
     ctx = session_mod.get_context()
     config = TransformerConfig(**{**SHARDED_CONFIG, "n_layers": loop_config.get(
@@ -2431,15 +2457,23 @@ def trainer_loop(loop_config: dict) -> None:
         restore_s, start = time.perf_counter() - t0, extra["step"]
     params, opt = setup.params, setup.opt_state
     init_digest = _params_digest(params) if resumed is None else None
+    rows = (iter(session_mod.get_dataset_shard("train").iter_torch_batches(
+        batch_size=SHARDED_BATCH)) if loop_config.get("dataset") else None)
     for i in range(start, steps):
-        batch = setup.shard_batch(_trainer_batch(i, config).cuda())
+        ids = None
+        if rows is not None:
+            taken = next(rows)
+            tokens, ids = taken["tokens"], taken["id"].tolist()
+        else:
+            tokens = _trainer_batch(i, config)
+        batch = setup.shard_batch(tokens.cuda())
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         params, opt, loss = step(params, opt, batch)
         loss = float(loss)
         metrics = {"step": i + 1, "loss": loss, "step_s": time.perf_counter() - t0,
                    "restore_s": restore_s, "pid": os.getpid(), "counts": _counts(),
-                   "routes": _route_counts(), "world": ctx.world_size}
+                   "routes": _route_counts(), "world": ctx.world_size, "ids": ids}
         if loop_config.get("probe"):
             metrics.update(hbm=telemetry.hbm_stats(), allocated=torch.cuda.memory_allocated(),
                            total_memory=torch.cuda.get_device_properties(0).total_memory)
@@ -5340,34 +5374,54 @@ def _elastic_config1() -> dict:
     return out
 
 
-def _elastic_card_run(name: str, elastic: bool, die_after: int | None):
+def _elastic_tokens() -> "rd.Dataset":
+    """(b)'s dataset: ELASTIC_STEPS x SHARDED_BATCH rows of seeded tokens
+    at the sharded config's sequence (release_loops.token_rows), one block
+    a step's batch, made by the local pool."""
+    local_tasks.init(num_workers=DATA_WORKERS)
+    return rd.range(ELASTIC_STEPS * SHARDED_BATCH, parallelism=ELASTIC_STEPS).map_batches(
+        release_loops.token_rows, fn_kwargs={
+            "seed": SEED, "vocab_size": SHARDED_CONFIG["vocab_size"],
+            "length": SHARDED_CONFIG["max_seq"] + 1}).materialize()
+
+
+def _elastic_card_run(name: str, elastic: bool, die_after: int | None, tokens):
     sc = ScalingConfig(num_workers=2 if elastic else 1, min_workers=1 if elastic else None,
                        use_gpu=True, mesh_axes=SHARDED_MESH,
                        elastic_formation_timeout_s=ELASTIC_FORMATION_TIMEOUT_S)
     result = TorchTrainer(
         trainer_loop,
         train_loop_config={"die_after": die_after, "n_layers": ELASTIC_LAYERS,
-                           "steps": ELASTIC_STEPS, "save_at": ELASTIC_SAVE_AT},
+                           "steps": ELASTIC_STEPS, "save_at": ELASTIC_SAVE_AT, "dataset": True},
         scaling_config=sc,
         run_config=RunConfig(name=name, storage_path=str(ELASTIC_STORAGE),
                              failure_config=FailureConfig(max_failures=1),
-                             checkpoint_config=CheckpointConfig(num_to_keep=1))).fit()
+                             checkpoint_config=CheckpointConfig(num_to_keep=1)),
+        datasets={"train": tokens}).fit()
+    # The committed ingest record, read before the run's directory goes.
+    ingest = StorageContext(str(ELASTIC_STORAGE), name).latest_ingest()
     shutil.rmtree(result.path, ignore_errors=True)
     require(result.error is None, f"elastic {name}: {result.error}")
-    return result
+    return result, ingest
 
 
 def _elastic_step_down() -> dict:
-    """(b): ScalingConfig(num_workers=2, min_workers=1) on the one card.
+    """(b): ScalingConfig(num_workers=2, min_workers=1) on the one card,
+    its tokens read from a Dataset shard (``TorchTrainer(datasets=)``).
     Formation at 2 fails through the ledger, the gang forms at 1; its
     worker exits hard after step 1's report, and the gang re-forms at 1
-    from the step-1 checkpoint. The resumed steps must equal a fixed
-    world-1 run's bitwise. Returns the numbers and the workers' launch
-    counts, summed over their processes."""
+    from the step-1 checkpoint and its ingest record. The resumed steps
+    must equal a fixed world-1 run's bitwise, and the rows each run
+    consumed must be the dataset's, over the death and the resume, with
+    at most 3 batches a rank of the first gang read twice (the bound of
+    tests/test_train_elastic.py:180-183). Returns the numbers and the
+    workers' launch counts, summed over their processes."""
     gc.collect()
     torch.cuda.empty_cache()  # the workers share the card with this process
-    stepped = _elastic_card_run("elastic_card", True, ELASTIC_DIE_AFTER)
-    whole = _elastic_card_run("fixed_card", False, None)
+    tokens = _elastic_tokens()
+    (stepped, ingest), (whole, _) = (_elastic_card_run("elastic_card", True, ELASTIC_DIE_AFTER,
+                                                       tokens),
+                                     _elastic_card_run("fixed_card", False, None, tokens))
 
     def steps(result):
         return [m["step"] for m in result.metrics_history]
@@ -5399,6 +5453,11 @@ def _elastic_step_down() -> dict:
               for k in lasts[0]["routes"]}
     ran = len(steps(stepped)) + len(steps(whole))
     first, second = stepped.attempts
+    rows = ELASTIC_STEPS * SHARDED_BATCH
+    stepped_ids = [i for m in stepped.metrics_history for i in m["ids"]]
+    whole_ids = [i for m in whole.metrics_history for i in m["ids"]]
+    replayed = len(stepped_ids) - rows
+    replay_bound = 3 * SHARDED_BATCH * first["world_size"]
     out = dict(
         config=f"phase 14's loop at {ELASTIC_LAYERS} layer (bench.py:133-138 widths)",
         scaling="ScalingConfig(num_workers=2, min_workers=1, use_gpu=True, "
@@ -5415,9 +5474,19 @@ def _elastic_step_down() -> dict:
         ckpt_bytes=stepped.metrics_history[0].get("ckpt_bytes"),
         restart_s=second["first_report"] - first["end"],
         goodput=stepped.goodput, fixed_goodput=whole.goodput, counts=counts, routes=routes,
-        kernel_forwards=ran, kernel_backwards=ran)
+        kernel_forwards=ran, kernel_backwards=ran, dataset_rows=rows,
+        ids_by_step=[m["ids"] for m in stepped.metrics_history], replayed_rows=replayed,
+        replay_bound=replay_bound, ingest=ingest)
     require(bitwise, f"elastic: resumed steps {resumed} differ from the fixed run's "
                      f"{uninterrupted}")
+    require(sorted(set(stepped_ids)) == list(range(rows)) and 0 <= replayed <= replay_bound,
+            f"elastic: the stepped run consumed {stepped_ids} of {rows} rows "
+            f"(at most {replay_bound} read twice)")
+    require(sorted(whole_ids) == list(range(rows)),
+            f"elastic: the fixed run consumed {whole_ids} of {rows} rows")
+    require(ingest is not None and ingest["world_size"] == 1
+            and ingest["datasets"]["train"][0]["rows"] == ELASTIC_SAVE_AT * SHARDED_BATCH,
+            f"elastic: the committed ingest record {ingest}")
     require(stepped.goodput["restart_s"] > 0 and stepped.goodput["stalled_s"] > 0,
             f"elastic: goodput {stepped.goodput}")
     require(all(counts[k] > 0 for k in counts), f"elastic: worker launch counts {counts}")
@@ -5514,9 +5583,157 @@ def phase_elastic() -> dict:
         result = {"config1": _elastic_config1(), "step_down": _elastic_step_down(),
                   "churn": _elastic_churn()}
     finally:
+        local_tasks.shutdown()
         shutil.rmtree(ELASTIC_STORAGE, ignore_errors=True)
     result["seconds"] = time.perf_counter() - start
     log("elastic", **result)
+    return result
+
+
+# ---------------------------------------------------------------- phase 26
+# ray_tpu_torch.data on this host's pool, and BASELINE config 1 fed by it.
+# The trainer's checkpoints go to DATA_STORAGE, removed at the phase's end.
+DATA_STORAGE = Path(__file__).resolve().parent / "build" / "chip_smoke_data"
+# Pool processes (the host has 8 cores; the trainer's worker needs one),
+# and range's blocks: 7,500 rows each.
+DATA_WORKERS, DATA_BLOCKS, DATA_BATCH = 4, 8, 64
+DATA_REPORT_EVERY = 100
+
+
+def data_worker_devices(batch):
+    """A map_batches UDF: the CUDA devices the data worker that runs it
+    sees, and its pid."""
+    return {"pid": np.full(len(batch["id"]), os.getpid()),
+            "devices": np.full(len(batch["id"]), torch.cuda.device_count()),
+            "visible": np.array([os.environ.get("CUDA_VISIBLE_DEVICES", "unset")]
+                                * len(batch["id"]))}
+
+
+def fmnist_dataset_loop(config):
+    """(b)'s worker: config 1's loop fed by the trainer's dataset, then the
+    check that the worker loaded nothing of JAX or the JAX package."""
+    release_loops.fashion_mnist_dataset_loop(config)
+    require_no_reference("config 1 dataset worker")
+
+
+def _data_plane(rows: int = release_loops.FMNIST_TRAIN_ROWS) -> tuple:
+    """(a): range(rows) -> map_batches(fashion_mnist_rows) -> random_shuffle
+    (seed 0) -> one epoch of iter_batches(batch_size=64), each stage timed
+    (the map and the shuffle materialized in turn). The epoch's ids must be
+    a permutation of range(rows), other than the identity, and every row's
+    image and label equal to fashion_mnist_rows computed here. Returns the
+    numbers and the shuffled Dataset."""
+    runtime = local_tasks.init(num_workers=DATA_WORKERS)
+    pool_start_s = runtime.pool_ready_s()
+    seen = rd.range(4 * DATA_WORKERS, parallelism=4 * DATA_WORKERS).map_batches(
+        data_worker_devices).take_all()
+    require(all(r["devices"] == 0 and r["visible"] == "" for r in seen),
+            f"data: a data worker sees a CUDA device: {seen}")
+    t0 = time.perf_counter()
+    mapped = rd.range(rows, parallelism=DATA_BLOCKS).map_batches(
+        release_loops.fashion_mnist_rows, fn_kwargs={"seed": SEED}).materialize()
+    t1 = time.perf_counter()
+    shuffled = rd.from_block_refs(mapped._refs()).random_shuffle(seed=0).materialize()
+    # The shuffle's merge tasks run behind the refs it hands back.
+    local_tasks.wait(shuffled._refs(), num_returns=shuffled.num_blocks())
+    t2 = time.perf_counter()
+    batches = list(shuffled.iter_batches(batch_size=DATA_BATCH))
+    t3 = time.perf_counter()
+    store = local_tasks.store_stats()
+    want = release_loops.fashion_mnist_rows({"id": np.arange(rows)}, seed=SEED)
+    expected_s = time.perf_counter() - t3
+    ids = np.concatenate([b["id"] for b in batches])
+    images = np.concatenate([b["image"] for b in batches])
+    labels = np.concatenate([b["label"] for b in batches])
+    out = dict(
+        rows=rows, blocks=DATA_BLOCKS, workers=DATA_WORKERS, batch=DATA_BATCH,
+        worker_cuda_devices=sorted({r["devices"] for r in seen}),
+        workers_seen=len({r["pid"] for r in seen}),
+        batches=len(batches), pool_start_s=pool_start_s, map_s=t1 - t0, shuffle_s=t2 - t1,
+        epoch_s=t3 - t2, rows_per_s=rows / (t3 - t0), epoch_rows_per_s=rows / (t3 - t2),
+        store_used_bytes=store["used"], store_capacity_bytes=store["capacity"],
+        store_dir=runtime.store.dir, expected_s=expected_s,
+        # Summed in id order, as the expected rows are.
+        image_checksum=float(images[np.argsort(ids)].astype(np.float64).sum()),
+        expected_checksum=float(want["image"].astype(np.float64).sum()),
+        identity_order=bool(np.array_equal(ids, np.arange(rows))))
+    require(np.array_equal(np.sort(ids), np.arange(rows)),
+            f"data: the epoch's ids are not a permutation of range({rows})")
+    require(not out["identity_order"], "data: random_shuffle left the rows in order")
+    require(np.array_equal(images, want["image"][ids]) and np.array_equal(labels,
+                                                                         want["label"][ids]),
+            "data: the epoch's images or labels differ from fashion_mnist_rows of their ids")
+    require(out["image_checksum"] == out["expected_checksum"],
+            f"data: image checksum {out['image_checksum']} vs {out['expected_checksum']}")
+    return out, shuffled
+
+
+def _data_config1(shuffled, fixed_img_per_s: float, use_gpu: bool = True) -> dict:
+    """(b): release/train_fashion_mnist.py's loop (batch 64, Adam 1e-3) on
+    one card worker through TorchTrainer(datasets=), reading one epoch of
+    (a)'s shuffled rows through get_dataset_shard("train").
+    iter_torch_batches(batch_size=64, drop_last=True): 937 steps. img/s
+    beside phase 25's fixed-batch figure, and the ingest share of a step
+    from the StepStats records' data wait."""
+    from ray_tpu_torch.models.cnn import CNNConfig, init_cnn
+    from ray_tpu_torch.models.convert import conv_params_to_numpy
+
+    rows = shuffled.count()
+    params = conv_params_to_numpy(init_cnn(CNNConfig(), SEED, "cpu"))
+    result = TorchTrainer(
+        fmnist_dataset_loop,
+        train_loop_config={"lr": FMNIST_LR, "batch_size": DATA_BATCH, "params": params,
+                           "report_every": DATA_REPORT_EVERY},
+        scaling_config=ScalingConfig(num_workers=1, use_gpu=use_gpu),
+        run_config=RunConfig(name="fmnist_dataset", storage_path=str(DATA_STORAGE)),
+        datasets={"train": shuffled}).fit()
+    require(result.error is None, f"data config 1: {result.error}")
+    m = result.metrics
+    records = result.step_stats.get(0, [])
+    # The first record holds the model's set-up and the warm-up step.
+    timed = records[1:]
+    wall = sum(r["wall_s"] for r in timed)
+    wait = sum(r["data_wait_s"] for r in timed)
+    steps = rows // DATA_BATCH
+    out = dict(
+        config="release/train_fashion_mnist.py:66-83's loop (CNNConfig(), batch 64, Adam 1e-3) "
+               "on one card worker, one epoch of the Dataset",
+        steps=m["steps"], rows=m["rows"], img_per_s=m["img_per_s"],
+        fixed_batch_img_per_s=fixed_img_per_s, final_loss=m["loss"], final_acc=m["acc"],
+        timed_s=m["timed_s"], loop_data_wait_s=m["data_wait_s"],
+        loop_ingest_share=m["data_wait_s"] / m["timed_s"],
+        step_stats_records=len(records), step_stats_wall_s=wall, step_stats_data_wait_s=wait,
+        ingest_share=wait / wall if wall else None, worker_launches=m["launches"],
+        gang_form_s=result.attempts[0]["formed"] - result.attempts[0]["start"],
+        goodput=result.goodput)
+    require(m["steps"] == steps and m["rows"] == steps * DATA_BATCH
+            and m["distinct_rows"] == m["rows"], f"data config 1: {m}")
+    require(np.isfinite(m["loss"]), f"data config 1: loss {m['loss']}")
+    require(m["launches"] == 0, f"data config 1: kernel launches in the worker {m['launches']}")
+    require(len(records) >= steps // DATA_REPORT_EVERY, f"data config 1: {len(records)} records")
+    return out
+
+
+def phase_data(fixed_img_per_s: float) -> dict:
+    """Phase 26: (a) the data plane alone, (b) config 1 fed by it; the pool
+    is stopped and its store removed at the end."""
+    shutil.rmtree(DATA_STORAGE, ignore_errors=True)
+    DATA_STORAGE.mkdir(parents=True)
+    start = time.perf_counter()
+    try:
+        plane, shuffled = _data_plane()
+        log("data_plane", **plane)
+        config1 = _data_config1(shuffled, fixed_img_per_s)
+        del shuffled
+        store_dir = local_tasks.runtime().store.dir
+        pool = list(local_tasks.runtime().pool)
+    finally:
+        local_tasks.shutdown()
+        shutil.rmtree(DATA_STORAGE, ignore_errors=True)
+    require(not os.path.exists(store_dir) and not any(e.proc.is_alive() for e in pool),
+            "data: the pool or its store outlived shutdown()")
+    result = {"plane": plane, "config1": config1, "seconds": time.perf_counter() - start}
+    log("data", **result)
     return result
 
 
@@ -5685,6 +5902,12 @@ def main() -> None:
                                kernel_backwards=down["kernel_backwards"]),
           counts["elastic"], routes["elastic"], "wgmma")
 
+    # The data plane and config 1 fed by it: the CNN launches none of the
+    # port's kernels (its worker reports 0), nor does this process.
+    data, counts["data"], routes["data"] = _run_path(
+        phase_data, elastic["config1"]["card_img_per_s"])
+    _path("data", {k: 0 for k in counts["data"]}, counts["data"], routes["data"], "wgmma")
+
     # Every launch on the tiny path is of its instantiations (head_dim 16 in
     # f32, RMSNorm at dim 64 in f32), on the HTTP serving path of BERT-base's
     # (head_dim 64 and dim 768 in bf16); on every other path, of the model's.
@@ -5736,7 +5959,11 @@ def main() -> None:
         fmnist_card_img_per_s=elastic["config1"]["card_img_per_s"],
         elastic_step_down_wait_s=down["step_down_wait_s"],
         elastic_restart_s=down["restart_s"], churn_wall_ratio=elastic["churn"]["wall_ratio"],
-        elastic_seconds=elastic["seconds"], seconds=time.perf_counter() - _t_start)
+        elastic_seconds=elastic["seconds"], data_rows_per_s=data["plane"]["rows_per_s"],
+        data_shuffle_s=data["plane"]["shuffle_s"], data_pool_start_s=data["plane"]["pool_start_s"],
+        data_fmnist_img_per_s=data["config1"]["img_per_s"],
+        data_ingest_share=data["config1"]["ingest_share"], data_seconds=data["seconds"],
+        seconds=time.perf_counter() - _t_start)
     require_no_reference("chip_smoke")
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -10,11 +10,12 @@ port never runs on the CPU without being asked to.
 
 ``cluster_resources()`` and ``available_resources()`` read this host's
 resource ledger (``_private.resources``) under the reference's names.
+
+Importing the package imports no torch: a data worker process, which
+unpickles the package's functions by name, starts without it.
 """
 
 from __future__ import annotations
-
-import torch
 
 from ray_tpu_torch._private.resources import available_resources, cluster_resources
 
@@ -23,6 +24,8 @@ __version__ = "0.1.0"
 
 def resolve_device(device: str | torch.device | None = None) -> torch.device:
     """``cuda`` by default; raises when a CUDA device is asked for and absent."""
+    import torch
+
     device = torch.device("cuda" if device is None else device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(

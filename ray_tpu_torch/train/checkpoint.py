@@ -13,6 +13,7 @@ package loads in the other:
     shards/p<rank>/<key>.scalar.pkl    a leaf that is no tensor (rank 0)
     DONE.p<rank>                       this rank's inventory (size, CRC32), last
     extra.pkl                          save_pytree_checkpoint's ``extra``
+    ingest.json                        the ranks' dataset positions (StorageContext)
     COMMIT.json                        StorageContext.persist's stamp
 
 Leaf keys are the JAX package's (``_leaf_key``): dict keys, sequence
@@ -528,6 +529,10 @@ def load_pytree_checkpoint(checkpoint: Checkpoint, template: Any = None) -> tupl
 
 _CKPT_RE = re.compile(r"^checkpoint_(\d{6})$")
 _STAGING_SUFFIX = ".staging"
+# The per-rank dataset-iterator states stamped into a committed checkpoint,
+# {"world_size": W, "datasets": {name: [state per rank]}}, from which a
+# restart at any world size resumes ingest exactly.
+INGEST_FILE = "ingest.json"
 
 
 class StorageContext:
@@ -618,8 +623,10 @@ class StorageContext:
                 int(_CKPT_RE.match(os.path.basename(p)).group(1)) + 1 for p, _ in self._kept))
             self._save_state()
 
-    def persist(self, checkpoint: Checkpoint, metrics: dict) -> Checkpoint:
+    def persist(self, checkpoint: Checkpoint, metrics: dict,
+                ingest: dict | None = None) -> Checkpoint:
         """Two-phase commit of a reported checkpoint directory: stage,
+        write ``ingest`` (the ranks' dataset positions) as ingest.json,
         verify the inventory, stamp COMMIT.json, rename. Raises IOError for
         a torn save; the caller skips the round and keeps the previous
         committed checkpoint."""
@@ -633,14 +640,19 @@ class StorageContext:
                 if os.path.isdir(stale):
                     shutil.rmtree(stale)
             shutil.move(checkpoint.path, staging)
+            if ingest is not None:
+                _atomic_write_json(os.path.join(staging, INGEST_FILE), ingest)
             ok, reason = verify_sharded_checkpoint(staging)
             if not ok:
                 shutil.rmtree(staging, ignore_errors=True)
                 raise IOError(f"refusing to commit torn checkpoint {checkpoint.path}: {reason}")
             _atomic_write_json(os.path.join(staging, _COMMIT), stamp, fsync=True)
             os.replace(staging, dest)
-        elif not is_committed(dest):
-            _atomic_write_json(os.path.join(dest, _COMMIT), stamp, fsync=True)
+        else:
+            if ingest is not None:
+                _atomic_write_json(os.path.join(dest, INGEST_FILE), ingest)
+            if not is_committed(dest):
+                _atomic_write_json(os.path.join(dest, _COMMIT), stamp, fsync=True)
         self._index += 1
         self._kept.append((dest, clean_metrics))
         self._enforce_retention()
@@ -672,6 +684,18 @@ class StorageContext:
             shutil.rmtree(path, ignore_errors=True)
             self._save_state()
         return None
+
+    def latest_ingest(self) -> Optional[dict]:
+        """The ranks' dataset-iterator states stamped into the newest
+        committed checkpoint, or None when it carries none."""
+        ckpt = self.latest_checkpoint()
+        if ckpt is None:
+            return None
+        try:
+            with open(os.path.join(ckpt.path, INGEST_FILE)) as f:
+                return json.load(f)
+        except (OSError, ValueError):
+            return None
 
     def checkpoints(self) -> list[tuple[Checkpoint, dict]]:
         return [(Checkpoint(p), m) for p, m in self._kept]

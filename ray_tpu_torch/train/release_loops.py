@@ -10,6 +10,11 @@
 * ``Churn``: a driver callback that kills one rank and holds its slot on the
   host's ledger until the gang runs smaller, so an elastic trainer steps
   down and grows back.
+* ``fashion_mnist_dataset_loop``: config 1's loop fed by the trainer's
+  dataset (``get_dataset_shard("train").iter_torch_batches``) in place of
+  the fixed batch, over one epoch; ``fashion_mnist_rows`` and
+  ``token_rows`` are the data workers' UDFs that make seeded rows of
+  Fashion-MNIST's train-split shape and of token sequences from row ids.
 
 Gang members import these by name, so they live at module level here.
 chip_smoke.py runs them on the card's machine; the CPU tests hold them
@@ -207,3 +212,94 @@ def fashion_mnist_loop(config):
     if config.get("logits") and rank == 0:
         metrics["first_logits"] = logits.cpu().tolist()
     report(metrics, checkpoint=save_pytree_checkpoint(params, extra={"step": steps}))
+
+
+# ------------------------------------------------- datasets (config 1 fed by a Dataset)
+# Fashion-MNIST's train split: 60,000 rows of 28x28x1 f32 images and int64
+# labels in [0, 10). The real files are not in the repository; these rows
+# are seeded synthetic images of the same shape.
+FMNIST_TRAIN_ROWS = 60_000
+
+
+def fashion_mnist_rows(batch, seed: int = 0):
+    """A map_batches UDF: each row's image (standard normal, f32) and label
+    from a generator seeded by (seed, row id), so a row's content depends on
+    its id alone, whatever the block layout or order."""
+    ids = np.asarray(batch["id"])
+    images = np.empty((len(ids), 28, 28, 1), dtype=np.float32)
+    labels = np.empty(len(ids), dtype=np.int64)
+    for i, row in enumerate(ids.tolist()):
+        rng = np.random.default_rng([seed, row])
+        images[i] = rng.standard_normal((28, 28, 1), dtype=np.float32)
+        labels[i] = rng.integers(0, 10)
+    return {"id": ids, "image": images, "label": labels}
+
+
+def token_rows(batch, seed: int, vocab_size: int, length: int):
+    """A map_batches UDF: each row's ``length`` tokens in [0, vocab_size)
+    from a generator seeded by (seed, row id)."""
+    ids = np.asarray(batch["id"])
+    tokens = np.empty((len(ids), length), dtype=np.int64)
+    for i, row in enumerate(ids.tolist()):
+        tokens[i] = np.random.default_rng([seed, row]).integers(0, vocab_size, length)
+    return {"id": ids, "tokens": tokens}
+
+
+def fashion_mnist_dataset_loop(config):
+    """``fashion_mnist_loop`` reading one epoch of the trainer's dataset
+    ``"train"`` (rows of ``fashion_mnist_rows``) through
+    ``iter_torch_batches(batch_size=..., drop_last=True)``: the first batch's
+    step is the warm-up, the rest are timed. Reports every
+    ``report_every`` steps (each report carries the worker's StepStats
+    record, whose data wait is the shard's), then the epoch's img/s, the
+    rows it consumed (count, distinct count, sum of ids), the shard's data
+    wait over the timed steps and a checkpoint of the params."""
+    import torch
+
+    from ray_tpu_torch.models.cnn import CNNConfig, cnn_loss
+    from ray_tpu_torch.models.convert import conv_params_from_numpy
+    from ray_tpu_torch.train import get_context, get_dataset_shard, report
+    from ray_tpu_torch.train.checkpoint import save_pytree_checkpoint
+    from ray_tpu_torch.train.step import named_leaves
+
+    ctx = get_context()
+    device = torch.device(ctx.device or "cpu")
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    cnn_config = CNNConfig()
+    params = conv_params_from_numpy(config["params"], device=device)
+    leaves = [leaf.requires_grad_(True) for _, leaf in named_leaves(params)]
+    optimizer = torch.optim.Adam(leaves, lr=config["lr"], betas=(0.9, 0.999), eps=1e-8)
+    shard = get_dataset_shard("train")
+    batch_size, every = config["batch_size"], config.get("report_every", 100)
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    ids: list[int] = []
+    steps, start, wait0 = 0, None, 0.0
+    loss = acc = None
+    for batch in shard.iter_torch_batches(batch_size=batch_size, drop_last=True):
+        images = batch["image"].to(device, non_blocking=True)
+        labels = batch["label"].to(device, non_blocking=True)
+        ids += batch["id"].tolist()
+        loss, acc = cnn_loss(params, images, labels, cnn_config)
+        optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        optimizer.step()
+        loss, acc = loss.detach(), acc.detach()
+        steps += 1
+        if start is None:  # the first step is the warm-up
+            sync()
+            start, wait0 = time.perf_counter(), shard.fetch_wait_s
+        elif steps % every == 0:
+            report({"step": steps, "loss": float(loss)})
+    sync()
+    elapsed = time.perf_counter() - start
+    timed = steps - 1
+    report({"step": steps, "steps": steps, "loss": float(loss), "acc": float(acc),
+            "img_per_s": timed * batch_size * ctx.world_size / elapsed, "timed_s": elapsed,
+            "data_wait_s": shard.fetch_wait_s - wait0, "rows": len(ids),
+            "distinct_rows": len(set(ids)), "id_sum": int(sum(ids)),
+            "launches": _port_launches()},
+           checkpoint=save_pytree_checkpoint(params, extra={"step": steps}))

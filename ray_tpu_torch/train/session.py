@@ -8,6 +8,12 @@ member's main thread and ``report`` hands (metrics, checkpoint) to the
 trainer over the member's channel, then blocks until the trainer has
 consumed the round: a lockstep barrier across ranks, as the reference's.
 
+Each rank's dataset shards (``TorchTrainer(datasets=...)``) are in
+``TrainContext.dataset_shards`` and ``get_dataset_shard(name)``; each report
+carries a snapshot of every resumable shard's position (``state_dict()``),
+which the trainer stamps into the checkpoint it commits, as the reference's
+session does.
+
 Each report carries a StepStats record (``train.step_stats.StepRecorder``)
 cut before the hand-off, and the step clock restarts after the trainer's
 ack, as the reference's session does. The report round also carries the
@@ -48,6 +54,9 @@ class TrainContext:
     # ScalingConfig.slice_topology (a parallel.topology.SliceTopology), which
     # torch_utils.build_mesh(topology=...) and the session's mesh take.
     slice_topology: Any = None
+    # name -> this rank's shard: a data.DataIterator for a Dataset, a
+    # strided slice for a list, the object itself otherwise.
+    dataset_shards: dict = field(default_factory=dict)
 
     def get_world_size(self) -> int:
         return self.world_size
@@ -80,11 +89,18 @@ class _Session:
         self._arm_reply: dict | None = None
 
     def report(self, metrics: dict, checkpoint: Checkpoint | None = None) -> None:
+        # This rank's dataset positions beside the report: the trainer
+        # stamps them into the checkpoint it commits, so a restart at any
+        # world size resumes ingest exactly.
+        ingest = {name: shard.state_dict()
+                  for name, shard in (self.ctx.dataset_shards or {}).items()
+                  if getattr(shard, "supports_state", False)}
         # Cut the StepStats record BEFORE blocking on the trainer: the
         # step's interval covers the user's work, not the round's wait. Its
         # boundary hook may start or end a capture.
         stats = self._recorder.on_report(metrics) if self._recorder is not None else None
-        payload = {"metrics": dict(metrics), "checkpoint": checkpoint, "step_stats": stats}
+        payload = {"metrics": dict(metrics), "checkpoint": checkpoint, "step_stats": stats,
+                   "ingest": ingest or None}
         profile = self._profile_out()
         if profile:
             payload["profile"] = profile
@@ -166,6 +182,11 @@ def report(metrics: dict, *, checkpoint: Optional[Checkpoint] = None) -> None:
 
 def get_context() -> TrainContext:
     return get_session().ctx
+
+
+def get_dataset_shard(name: str = "train"):
+    """This rank's shard of the trainer's dataset ``name``, or None."""
+    return get_session().ctx.dataset_shards.get(name)
 
 
 def get_checkpoint() -> Optional[Checkpoint]:

@@ -62,10 +62,21 @@ latest committed checkpoint at its own world size, which
 ``TrainContext.world_size`` and the round's ``factorization`` report.
 ``Result.resizes`` lists the transitions as the reference does.
 
+Datasets, as the reference's ``datasets=``: once a gang has formed, each
+``ray_tpu_torch.data.Dataset`` is split across the size it formed at
+(``streaming_split``; a list is strided and anything else replicated), and
+each rank reads its shard through ``get_dataset_shard(name)``. Every report
+carries the rank's shard positions, and the round's checkpoint commits them
+as ``ingest.json`` (``{"world_size", "datasets": {name: [state per rank]}}``);
+a gang that restarts or resizes re-splits the rows no rank had consumed at
+that commit across its own size. So a death, a step-down or a grow-back
+delivers every row, replaying at most the rows read since the last
+committed round.
+
 Left out, each in ROADMAP with its reason: multi-host gangs and storage
-other than a local path (Queue A item 4), datasets (item 10), and
-preemptive drains of ranks on out-of-memory telemetry and the recorder's
-push to a workload store (item 14).
+other than a local path (Queue A item 4), locality-aware splits and
+ingest across hosts, preemptive drains of ranks on out-of-memory telemetry
+and the recorder's push to a workload store (item 14).
 """
 
 from __future__ import annotations
@@ -133,9 +144,49 @@ class Result:
         return [self.checkpoint] if self.checkpoint else []
 
 
-def _run_session(gang_ctx, train_fn: Callable, train_loop_config: dict, experiment_name: str,
-                 trial_dir: str, latest_checkpoint: Optional[Checkpoint], mesh_axes: dict,
-                 pipeline: dict | None = None, slice_topology: Any = None) -> dict:
+def _split_datasets(datasets: dict, num_workers: int, ingest: dict | None = None) -> list[dict]:
+    """Per-rank dataset shards (ray_tpu's ``jax_trainer._split_datasets``).
+    A Dataset splits through ``streaming_split``; a list or tuple is
+    strided; anything else is replicated. ``ingest`` is the record stamped
+    into the checkpoint being resumed ({"world_size": W, "datasets": {name:
+    [state, ...]}}): a Dataset's shards then resume mid-epoch, the rows no
+    rank had consumed re-split across ``num_workers`` (which may differ
+    from W). Striding is positionless and replays the epoch from its
+    start."""
+    shards: list[dict] = [dict() for _ in range(num_workers)]
+    per_ds_states = (ingest or {}).get("datasets", {})
+    for name, ds in (datasets or {}).items():
+        if hasattr(ds, "streaming_split"):
+            resume_from = None
+            if name in per_ds_states:
+                resume_from = {"world_size": (ingest or {}).get("world_size", 0),
+                               "per_rank": per_ds_states[name]}
+            for rank, it in enumerate(ds.streaming_split(num_workers, resume_from=resume_from)):
+                shards[rank][name] = it
+        elif isinstance(ds, (list, tuple)):
+            for rank in range(num_workers):
+                shards[rank][name] = ds[rank::num_workers]
+        else:
+            for rank in range(num_workers):
+                shards[rank][name] = ds
+    return shards
+
+
+def _ingest_record(world_size: int, reports: dict) -> dict | None:
+    """The round's ingest record: each rank's shard states by dataset name
+    (ray_tpu's ``jax_trainer`` commit), or None when no rank sent one."""
+    states = [reports.get(rank, {}).get("ingest") for rank in range(world_size)]
+    if not any(states):
+        return None
+    names = sorted({n for s in states if s for n in s})
+    return {"world_size": world_size,
+            "datasets": {name: [(s or {}).get(name) for s in states] for name in names}}
+
+
+def _run_session(gang_ctx, dataset_shards: dict, train_fn: Callable, train_loop_config: dict,
+                 experiment_name: str, trial_dir: str, latest_checkpoint: Optional[Checkpoint],
+                 mesh_axes: dict, pipeline: dict | None = None,
+                 slice_topology: Any = None) -> dict:
     """Runs on every member: the user's loop inside a train session. Under
     pipeline stages, gang rank r is stage r // (world / stages):
     contiguous ranks form one stage's gang. Returns, with ``done``, a
@@ -149,7 +200,7 @@ def _run_session(gang_ctx, train_fn: Callable, train_loop_config: dict, experime
         node_id=gang_ctx.node_id, experiment_name=experiment_name, trial_dir=trial_dir,
         train_loop_config=dict(train_loop_config), latest_checkpoint=latest_checkpoint,
         mesh=mesh_axes, collective_group=gang_ctx.group_name, device=str(gang_ctx.device),
-        pipeline=pipeline, slice_topology=slice_topology)
+        pipeline=pipeline, slice_topology=slice_topology, dataset_shards=dict(dataset_shards))
     session_mod.init_session(ctx, gang_ctx.channel)
     try:
         train_fn(dict(train_loop_config))
@@ -188,11 +239,13 @@ class TorchTrainer:
         scaling_config: ScalingConfig | None = None,
         run_config: RunConfig | None = None,
         resume_from_checkpoint: Checkpoint | None = None,
+        datasets: dict | None = None,
         topology: Any = None,
     ):
         """``topology`` (a ``parallel.topology.SliceTopology``) sets
         ``scaling_config.slice_topology``, as the reference's JaxTrainer's
-        does."""
+        does. ``datasets`` maps names to what each rank reads through
+        ``get_dataset_shard(name)``."""
         self.train_loop_per_worker = train_loop_per_worker
         self.train_loop_config = dict(train_loop_config or {})
         self.scaling_config = scaling_config or ScalingConfig()
@@ -201,6 +254,7 @@ class TorchTrainer:
                                                       slice_topology=topology)
         self.run_config = run_config or RunConfig()
         self.resume_from_checkpoint = resume_from_checkpoint
+        self.datasets = dict(datasets or {})
         self._init_captures()
 
     def _init_captures(self) -> None:
@@ -275,7 +329,13 @@ class TorchTrainer:
                     gang = self._form_gang(attempt.setdefault("formations", []))
                     attempt["formed"], attempt["world_size"] = time.time(), gang.num_workers
                     attempt["spawned"], attempt["members"] = gang.spawned_at, gang.rank_infos()
-                    gang.run_async(_run_session, train_fn=self.train_loop_per_worker,
+                    # Split AFTER formation, at the size that formed: a
+                    # resumed gang re-splits the rows left at the commit.
+                    shards = _split_datasets(
+                        self.datasets, gang.num_workers,
+                        ingest=storage.latest_ingest() if latest is not None else None)
+                    gang.run_async(_run_session, per_rank_args=[(s,) for s in shards],
+                                   train_fn=self.train_loop_per_worker,
                                    train_loop_config=self.train_loop_config,
                                    experiment_name=self._experiment_name(),
                                    trial_dir=storage.trial_dir, latest_checkpoint=latest,
@@ -441,7 +501,8 @@ class TorchTrainer:
             if ckpt is not None:
                 persist_t0 = time.monotonic()
                 try:
-                    metrics["checkpoint_path"] = storage.persist(ckpt, metrics).path
+                    metrics["checkpoint_path"] = storage.persist(
+                        ckpt, metrics, ingest=_ingest_record(gang.num_workers, reports)).path
                     committed = True
                 except IOError as exc:
                     # A torn save: skip the commit and keep training; recovery

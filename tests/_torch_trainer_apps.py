@@ -35,7 +35,8 @@ def slots():
 
 
 def elastic_fit(tmp_path, name, loop, config, callbacks, *, workers=4, min_workers=2,
-                probe_s=5.0, use_gpu=False, resources_per_worker=SLOTS, max_failures=2):
+                probe_s=5.0, use_gpu=False, resources_per_worker=SLOTS, max_failures=2,
+                datasets=None):
     """``TorchTrainer(loop).fit()`` on an elastic gang of ``workers`` down
     to ``min_workers``, each formation bounded by 1 s; the loop's config
     gets ``pid_dir`` (``tmp_path``) for the churn callbacks."""
@@ -47,7 +48,8 @@ def elastic_fit(tmp_path, name, loop, config, callbacks, *, workers=4, min_worke
             elastic_grow_probe_period_s=probe_s),
         run_config=RunConfig(name=name, storage_path=str(tmp_path / "runs"),
                              failure_config=FailureConfig(max_failures=max_failures),
-                             callbacks=callbacks))
+                             callbacks=callbacks),
+        datasets=datasets)
     return trainer.fit()
 
 

@@ -23,6 +23,11 @@
 * Tune (``tune/``) and its tracker callbacks (``air/``) are runtime
   modules (no ml_dtypes) and import no cloudpickle: trials get their
   trainables by name.
+* The data package (``data/``) and its local task layer
+  (``_private/local_tasks.py``) import no cloudpickle (workers get their
+  functions by name) and no ml_dtypes; ``ray_tpu_torch.data`` exports the
+  reference's ``__all__`` and loads nothing but numpy and the standard
+  library when imported (no torch, pyarrow, pandas or PIL).
 """
 
 import ast
@@ -140,6 +145,46 @@ def test_the_tune_scan_covers_tune_and_air():
             "tune/search/tpe.py", "tune/search/optuna.py", "air/__init__.py",
             "air/integrations.py"} <= names
     assert {n for n in RUNTIME_MODULES if n.startswith(("tune/", "air/"))} == names
+
+
+def _data_sources() -> list[Path]:
+    return sorted((ROOT / "ray_tpu_torch" / "data").rglob("*.py")) + [
+        ROOT / "ray_tpu_torch" / "_private" / "local_tasks.py"]
+
+
+@pytest.mark.parametrize("path", _data_sources(), ids=lambda p: p.relative_to(ROOT).as_posix())
+def test_data_modules_import_no_cloudpickle(path):
+    bad = [m for m in _imported_modules(path)
+           if m.split(".")[0] in FORBIDDEN + TUNE_FORBIDDEN + ("ml_dtypes",)]
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_the_data_scan_covers_the_data_package():
+    names = {p.relative_to(ROOT / "ray_tpu_torch").as_posix() for p in _data_sources()}
+    assert {"data/__init__.py", "data/block.py", "data/dataset.py", "data/datasource.py",
+            "data/iterator.py", "data/read_api.py", "data/_internal/map_fn.py",
+            "data/_internal/plan.py", "data/_internal/shuffle.py", "data/_internal/stats.py",
+            "data/_internal/streaming_executor.py", "data/_internal/tfrecord.py",
+            "_private/local_tasks.py"} <= names
+
+
+def test_data_package_exports_the_reference_all_and_imports_numpy_alone():
+    import subprocess
+    import sys
+
+    import ray_tpu.data as ref_data
+
+    from ray_tpu_torch import data as port_data
+
+    assert port_data.__all__ == ref_data.__all__
+    assert all(hasattr(port_data, name) for name in port_data.__all__)
+    code = ("import sys, ray_tpu_torch.data; print(sorted({m.split('.')[0] for m in sys.modules"
+            " if m.split('.')[0] in ('torch', 'jax', 'ray_tpu', 'pyarrow', 'pandas', 'PIL',"
+            " 'cloudpickle')}))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=60)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
 
 
 def test_the_serve_scan_covers_the_serve_plane():
