@@ -285,13 +285,39 @@ final line) if anything is wrong:
                iter_torch_batches: img/s beside phase 25's fixed-batch
                figure, and the ingest share of a step from the StepStats
                records' data wait; the pool stopped and its store removed
-Each path (4-5, 7, 8, 9, 10, 11, 12, 14, 15, 16, 17, 18, 19, 20, 21, 22, 23, 24, 25, 26) runs with
+ 27. serve     the serve plane's multiplexing and reliability: (a) phase
+     reliab.   23's encoder as a multiplexed deployment (2 replicas at
+               num_gpus 0.5, @serve.multiplexed(max_num_models_per_replica
+               =2), each model's weights from a seed its id gives, unload
+               freeing them and checkpoint counted), 16 closed-loop driver
+               threads for 6 s drawing model ids m0-m3 40/30/20/10 through
+               handle.options(multiplexed_model_id=...): qps, p50 and p99 of
+               cache hits and misses, loads and evictions a replica, each
+               model's share on its busiest replica, each replica's memory
+               against 2 models' bytes; every answer within LOGITS_TOL of a
+               direct forward of its model's weights, at most 2 models a
+               replica, checkpoint before unload on every eviction; (b)
+               release/benchmarks_serve_chaos.py's phases 1-2 deployed by
+               serve.run_from_config from a YAML (2 replicas at num_gpus 0.5,
+               max_ongoing_requests 32, request_timeout_s 30, retry_policy
+               {max_attempts 8, hedge}, health checks every 1 s; two HTTP
+               proxies, the second a process the controller restarts): 8
+               clients in a process of their own, each preferring its proxy
+               and failing over to the other, honouring 503 Retry-After, a 4 s
+               baseline then a 4 s window that SIGKILLs a replica (1 s) and the
+               second proxy (2.5 s); the bench's gates: lost 0, both kills
+               landed, the replica replaced, the proxy back on its port, chaos
+               p99 under 3x the baseline's; the hedges, breaker states and
+               the route p99 the controller scraped. The oom_risk drain (the
+               bench's phase 3) waits for ROADMAP Queue A item 14
+Each path (4-5, 7, 8, 9, 10, 11, 12, 14, 15, 16, 17, 18, 19, 20, 21, 22, 23, 24, 25, 26, 27) runs with
 every launch count set to 0 just before it; its counts, read just after,
 must equal what its layers and passes imply, every flash launch on the
 route the path's inputs take. The trainer path's kernels launch in its
 worker processes, and the HTTP serving path's in its replica processes,
 whose counts start at 0 with each process and come back in their reports
-and metrics; so do the Tune trials' (phase 24, where every count is 0) and
+and metrics (phase 27's too, each replica's held to its own forwards);
+so do the Tune trials' (phase 24, where every count is 0) and
 the elastic trainer's (phase 25).
 
 The line before the last is {"kernels": [...]}; the last line is
@@ -310,6 +336,7 @@ import os
 import queue
 import re
 import shutil
+import signal
 import socket
 import statistics
 import subprocess
@@ -1157,11 +1184,14 @@ RMSNORM_INSTANTIATIONS = [
     # BERT-base's width (phase 23), at the largest bucket: the vector route.
     ("d768_bf16", (8, 32, 768), torch.bfloat16, torch.bfloat16, [(9, 768), (33, 768)]),
 ]
-# The instantiations a main path runs, and the path: every launch on the
-# tiny path is of its two, every launch on the HTTP serving path of its two.
-INSTANTIATION_PATHS = {"d16_f32": "tiny", "d64_f32": "tiny", "d64_bf16": "serve_http",
-                       "d768_bf16": "serve_http"}
-FORWARD_ONLY_PATHS = ("serve_http",)
+# The instantiations a main path runs, and the paths: every launch on the
+# tiny path is of its two, every launch on the BERT-base serving paths (the
+# HTTP path of phase 23, the multiplexed and chaos paths of phase 27) of
+# their two.
+SERVE_REPLICA_PATHS = ("serve_http", "serve_mux", "serve_chaos")
+INSTANTIATION_PATHS = {"d16_f32": ("tiny",), "d64_f32": ("tiny",),
+                       "d64_bf16": SERVE_REPLICA_PATHS, "d768_bf16": SERVE_REPLICA_PATHS}
+FORWARD_ONLY_PATHS = SERVE_REPLICA_PATHS
 
 
 def _flash_sources(route: str, size: int = 128) -> dict:
@@ -5737,6 +5767,529 @@ def phase_data(fixed_img_per_s: float) -> dict:
     return result
 
 
+# ---------------------------------------------------------------- phase 27
+# The serve plane's multiplexing and reliability on the card: (a) phase
+# 23's encoder as a multiplexed deployment, (b) the chaos bench's phases 1
+# and 2 (release/benchmarks_serve_chaos.py) deployed from YAML.
+MUX_MODELS = ("m0", "m1", "m2", "m3")
+MUX_SHARES = (0.4, 0.3, 0.2, 0.1)
+MUX_CLIENTS, MUX_SECONDS, MUX_PER_REPLICA = 16, 6.0, 2
+# Seeded requests a model id, after the traffic, each held against a
+# direct forward of that model's weights.
+MUX_CHECKS = 2
+CHAOS_CLIENTS, CHAOS_SECONDS = 8, 4.0
+# When the chaos window's kills land, from its start (the bench's times).
+CHAOS_REPLICA_KILL_S, CHAOS_PROXY_KILL_S = 1.0, 2.5
+CHAOS_RECOVER_S = 90.0
+# The chaos deployment's device: its YAML cannot carry init arguments.
+CHAOS_DEVICE = "cuda"
+SERVE_SCRATCH = Path(__file__).resolve().parent / "build" / "chip_smoke_serve"
+
+
+def _mux_seed(model_id: str) -> int:
+    """A model's weights come from a seed its id gives (m<k>: SEED + 100 + k)."""
+    return SEED + 100 + int(model_id[1:])
+
+
+class MuxEncoderModel:
+    """One loaded encoder's weights on the replica's card. ``unload`` drops
+    them; ``checkpoint`` counts the call; both go to the replica's log."""
+
+    def __init__(self, model_id: str, params: dict, owner):
+        self.model_id, self.params, self.owner = model_id, params, owner
+
+    def checkpoint(self):
+        self.owner.log.append(("checkpoint", self.model_id))
+
+    def unload(self):
+        self.params = None
+        self.owner.resident.pop(self.model_id, None)
+        self.owner.log.append(("unload", self.model_id))
+
+
+@serve.deployment(num_replicas=2, max_ongoing_requests=64, ray_actor_options={"num_gpus": 0.5})
+class MuxEncoder:
+    """Phase 23's encoder with one model a model id, at most MUX_PER_REPLICA
+    loaded a replica (@serve.multiplexed); a request's batch runs one forward
+    for each model id in it."""
+
+    def __init__(self, config_kwargs: dict, device: str):
+        self.config = TransformerConfig(**config_kwargs)
+        self.device = device
+        self.seq = min(BERT_SEQ, self.config.max_seq)
+        self.log: list = []
+        self.resident: dict = {}  # model id -> its weights' bytes
+        self.max_resident = 0
+        self.forwards = 0
+        self.load_s: list = []
+        # The most a forward allocated above what it found (activations,
+        # and the first forward's cuBLAS workspace, which stays).
+        self.forward_peak_bytes = 0
+
+    @serve.multiplexed(max_num_models_per_replica=MUX_PER_REPLICA)
+    async def get_model(self, model_id: str) -> MuxEncoderModel:
+        start = time.perf_counter()
+        params = init_params(self.config, seed=_mux_seed(model_id), device=self.device)
+        if self.device == "cuda":
+            torch.cuda.synchronize()
+        self.load_s.append(time.perf_counter() - start)
+        self.log.append(("load", model_id))
+        self.resident[model_id] = _model_bytes(params)
+        return MuxEncoderModel(model_id, params, self)
+
+    async def __call__(self, body):
+        """A hit is a request whose model was loaded here when it came."""
+        model_id = serve.get_multiplexed_model_id()
+        hit = model_id in self.resident
+        row = await self.batched((model_id, body))
+        return {"embedding": row, "hit": hit, "pid": os.getpid()}
+
+    @serve.batch(max_batch_size=8, batch_wait_timeout_s=0.005)
+    async def batched(self, items):
+        groups: dict = {}
+        for i, (model_id, _) in enumerate(items):
+            groups.setdefault(model_id, []).append(i)
+        out = [None] * len(items)
+        for model_id, rows in groups.items():
+            model = await self.get_model(model_id)
+            # Past the load and its eviction: what this replica holds.
+            self.max_resident = max(self.max_resident, len(self.resident))
+            tokens = _bert_tokens([items[i][1] for i in rows], self.seq)
+            if self.device == "cuda":
+                torch.cuda.reset_peak_memory_stats()
+                before = torch.cuda.memory_allocated()
+            with torch.inference_mode():
+                logits = forward(model.params, torch.from_numpy(tokens).to(self.device),
+                                 self.config)
+            answers = logits[:, 0, :8].double().cpu().numpy()
+            if self.device == "cuda":
+                self.forward_peak_bytes = max(self.forward_peak_bytes,
+                                              torch.cuda.max_memory_allocated() - before)
+            self.forwards += 1
+            for i, row in zip(rows, answers):
+                out[i] = row.tolist()
+        return out
+
+    def stats(self, _):
+        return {"pid": os.getpid(), "log": list(self.log), "forwards": self.forwards,
+                "max_resident": self.max_resident, "resident": sorted(self.resident),
+                "resident_bytes": sum(self.resident.values()),
+                "forward_peak_bytes": self.forward_peak_bytes,
+                "load_ms": [1e3 * s for s in self.load_s],
+                "memory_allocated": (torch.cuda.memory_allocated() if self.device == "cuda"
+                                     else 0)}
+
+
+def _by_replica(handle, method: str, replicas: int = 2) -> dict:
+    """{pid: the replica's answer to ``method``}, reaching each replica by a
+    session id the ring sends there."""
+    out = {}
+    for i in range(256):
+        answer = getattr(handle.options(session_id=f"replica-{i}"), method).remote(0).result(
+            timeout=60)
+        out.setdefault(answer["pid"], answer)
+        if len(out) == replicas:
+            return out
+    raise AssertionError(f"{method}: sessions reached {len(out)} of {replicas} replicas")
+
+
+def _metric_counts(metric: dict) -> tuple:
+    """One replica's launch counts and flash routes, from its metrics."""
+    kernels = metric["kernels"]
+    return ({k: kernels[k]["launches"] for k in _counts()},
+            {k: kernels[k]["launches_by_route"] for k in _route_counts()})
+
+
+def _model_bytes(params: dict) -> int:
+    leaves = [params["embed"], params["final_norm"], params["lm_head"],
+              *params["layers"].values()]
+    return sum(leaf.numel() * leaf.element_size() for leaf in leaves)
+
+
+def phase_serve_mux(config_kwargs=None, device="cuda", seconds=MUX_SECONDS) -> dict:
+    """Phase 27 (a): MuxEncoder's 2 replicas (num_gpus 0.5 each) under
+    MUX_CLIENTS closed-loop clients in driver threads for `seconds`, each
+    drawing a model id of MUX_MODELS by MUX_SHARES from its seeded generator
+    and calling handle.options(multiplexed_model_id=...); then MUX_CHECKS
+    seeded requests a model id. Every answer against a direct forward of
+    that model's weights here; the replicas' LRU logs, the models they held,
+    their memory and their launch counts against their forwards."""
+    config_kwargs = config_kwargs or BERT_CONFIG
+    config = TransformerConfig(**config_kwargs)
+    encoder = MuxEncoder if device == "cuda" else MuxEncoder.options(ray_actor_options={})
+    start = time.perf_counter()
+    controller = serve.start(http_port=None)
+    try:
+        handle = serve.run(encoder.bind(config_kwargs, device), name="mux", route_prefix="/mux")
+        ready_s = time.perf_counter() - start
+        by_model = {m: handle.options(multiplexed_model_id=m) for m in MUX_MODELS}
+        t0 = time.perf_counter()
+        deadline = t0 + seconds
+
+        def client(i: int) -> list:
+            rng = np.random.default_rng(SEED + 27 + i)
+            mine = []
+            while time.perf_counter() < deadline:
+                model_id = str(rng.choice(MUX_MODELS, p=MUX_SHARES))
+                sent = time.perf_counter()
+                answer = by_model[model_id].remote(HTTP_PAYLOAD).result(timeout=60)
+                mine.append((model_id, time.perf_counter() - sent, answer))
+            return mine
+
+        with concurrent.futures.ThreadPoolExecutor(MUX_CLIENTS) as pool:
+            results = [r for rs in pool.map(client, range(MUX_CLIENTS)) for r in rs]
+        traffic_s = time.perf_counter() - t0
+        rng = np.random.default_rng(SEED + 270)
+        check_bodies = [{"token_ids": rng.integers(0, config.vocab_size, BERT_SEQ).tolist()}
+                        for _ in range(MUX_CHECKS)]
+        checks = {m: [by_model[m].remote(b).result(timeout=60)["embedding"]
+                      for b in check_bodies] for m in MUX_MODELS}
+        stats = _by_replica(handle, "stats")
+        metrics = {m["pid"]: m for m in controller.get_metrics()["mux_MuxEncoder"]}
+    finally:
+        serve.shutdown()
+
+    # Each model's direct forward here.
+    seq = min(BERT_SEQ, config.max_seq)
+    bodies = [HTTP_PAYLOAD] + check_bodies
+    direct, model_bytes = {}, 0
+    for model_id in MUX_MODELS:
+        params = init_params(config, seed=_mux_seed(model_id), device=device)
+        model_bytes = _model_bytes(params)
+        with torch.inference_mode():
+            logits = forward(params, torch.from_numpy(_bert_tokens(bodies, seq)).to(device),
+                             config)
+            direct[model_id] = logits[:, 0, :8].double().cpu().numpy()
+        del params, logits
+
+    errs = [float(np.abs(np.asarray(a["embedding"]) - direct[m][0]).max())
+            for m, _, a in results]
+    errs += [float(np.abs(np.asarray(row) - direct[m][i + 1]).max())
+             for m, rows in checks.items() for i, row in enumerate(rows)]
+    hits = [lat for _, lat, a in results if a["hit"]]
+    misses = [lat for _, lat, a in results if not a["hit"]]
+    per_replica, counts_by_pid = {}, {}
+    for pid, st in stats.items():
+        events = st["log"]
+        unloads = [i for i, e in enumerate(events) if e[0] == "unload"]
+        per_replica[pid] = {
+            "loads": sum(e[0] == "load" for e in events), "evictions": len(unloads),
+            "checkpoint_then_unload": all(
+                i > 0 and events[i - 1] == ("checkpoint", events[i][1]) for i in unloads),
+            "max_models": st["max_resident"], "resident": st["resident"],
+            "requests": sum(a["pid"] == pid for _, _, a in results),
+            "forwards": st["forwards"],
+            # The first load is the replica's first use of the card.
+            "first_load_ms": st["load_ms"][0] if st["load_ms"] else None,
+            "load_ms_median": (statistics.median(st["load_ms"][1:])
+                               if len(st["load_ms"]) > 1 else None),
+            "memory_allocated": st["memory_allocated"], "resident_bytes": st["resident_bytes"],
+            "forward_peak_bytes": st["forward_peak_bytes"],
+            # What the replica may hold after its evictions: 2 models, and
+            # what its largest forward allocated above what it found.
+            "memory_bound": MUX_PER_REPLICA * model_bytes + st["forward_peak_bytes"],
+            "batches": metrics[pid]["batches"]}
+        counts_by_pid[pid] = _metric_counts(metrics[pid])
+    share = {}
+    for model_id in MUX_MODELS:
+        mine = [a["pid"] for m, _, a in results if m == model_id]
+        share[model_id] = max(mine.count(p) for p in stats) / max(1, len(mine))
+    result = dict(
+        config="release/serve_bert_http.py non-tiny (BERT-base widths, bf16), multiplexed",
+        models=list(MUX_MODELS), shares=list(MUX_SHARES), clients=MUX_CLIENTS,
+        seconds=traffic_s, requests=len(results), qps=len(results) / traffic_s,
+        hit_requests=len(hits), miss_requests=len(misses),
+        hit_p50_ms=_percentile_ms(hits, 0.5) if hits else None,
+        hit_p99_ms=_percentile_ms(hits, 0.99) if hits else None,
+        miss_p50_ms=_percentile_ms(misses, 0.5) if misses else None,
+        miss_p99_ms=_percentile_ms(misses, 0.99) if misses else None,
+        replicas=per_replica, busiest_replica_share=share, model_bytes=model_bytes,
+        max_answer_err=max(errs), answer_tol=LOGITS_TOL, ready_s=ready_s,
+        phase_seconds=time.perf_counter() - start)
+    log("serve_mux", **result)
+    require(max(errs) < LOGITS_TOL,
+            f"serve_mux: answers {max(errs)} from the direct forwards >= {LOGITS_TOL}")
+    require(all(np.isfinite(d).all() for d in direct.values()), "serve_mux: non-finite logits")
+    for pid, rep in per_replica.items():
+        require(rep["max_models"] <= MUX_PER_REPLICA,
+                f"serve_mux: replica {pid} held {rep['max_models']} models")
+        require(rep["checkpoint_then_unload"], f"serve_mux: replica {pid}'s evictions {rep}")
+        if device == "cuda":
+            require(rep["memory_allocated"] <= rep["memory_bound"],
+                    f"serve_mux: replica {pid} holds {rep['memory_allocated']} bytes after the "
+                    f"run, above 2 models and its largest forward's ({rep['memory_bound']})")
+    require(sum(rep["evictions"] for rep in per_replica.values()) > 0
+            or len(MUX_MODELS) <= 2 * MUX_PER_REPLICA, "serve_mux: no eviction")
+    result["counts_by_pid"] = counts_by_pid
+    result["direct_forwards"] = len(MUX_MODELS)
+    return result
+
+
+def chaos_app():
+    """The chaos bench's application, built when run_from_config imports it:
+    phase 23's encoder at BERT-base widths on CHAOS_DEVICE."""
+    return ChaosEncoder.bind(BERT_CONFIG, SEED, CHAOS_DEVICE)
+
+
+# The bench's deployment (release/benchmarks_serve_chaos.py) around phase
+# 23's encoder class; the YAML sets the rest.
+ChaosEncoder = serve.deployment(name="ChaosEncoder", health_check_period_s=1.0)(
+    BertEncoder.func_or_class)
+
+CHAOS_YAML = """\
+http_options: {{host: 127.0.0.1, port: {port}, num_proxies: 2}}
+applications:
+  - name: chaosbench
+    route_prefix: /chaosbench
+    import_path: {module}:chaos_app
+    deployments:
+      - name: ChaosEncoder
+        num_replicas: 2
+        max_ongoing_requests: 32
+        request_timeout_s: 30
+        retry_policy: {{max_attempts: 8, hedge: true}}
+"""
+
+
+def chaos_load(conn, ports: list, path: str, clients: int) -> None:
+    """release/benchmarks_serve_chaos.py's clients, in a process of their
+    own: each of `clients` threads posts logical requests back to back, to
+    its own proxy first (client i to ports[i % 2]) and to the other on a
+    connection error; a 503 waits its Retry-After and counts as shed; any
+    other failure, or no answer within the window and 30 s, is lost. Each
+    burst the parent asks for (("go", seconds, payload)) reports every
+    request's start, latency and answer."""
+    import http.client
+
+    conn.send("ready")
+    while True:
+        command = conn.recv()
+        if command[0] != "go":
+            break
+        _, seconds, payload = command
+        body = json.dumps(payload).encode()
+        headers = {"Content-Type": "application/json"}
+        t0 = time.perf_counter()
+        deadline = t0 + seconds
+        lock = threading.Lock()
+        out = {"results": [], "shed": 0, "lost": 0, "lost_detail": [], "failovers": 0,
+               "answers": {}}
+
+        def client(i: int) -> None:
+            order = ports[i % len(ports):] + ports[:i % len(ports)]
+            conns = {p: http.client.HTTPConnection("127.0.0.1", p, timeout=15) for p in order}
+            while time.perf_counter() < deadline:
+                start, outcome = time.perf_counter(), None
+                while outcome is None and time.perf_counter() < deadline + 30:
+                    for port in order:
+                        try:
+                            conns[port].request("POST", path, body=body, headers=headers)
+                            resp = conns[port].getresponse()
+                            data = resp.read()
+                        except (OSError, http.client.HTTPException):
+                            conns[port].close()
+                            conns[port] = http.client.HTTPConnection("127.0.0.1", port,
+                                                                     timeout=15)
+                            with lock:
+                                out["failovers"] += 1
+                            continue
+                        if resp.status == 200:
+                            outcome = ("ok", data)
+                            break
+                        if resp.status == 503:
+                            with lock:
+                                out["shed"] += 1
+                            time.sleep(float(resp.getheader("Retry-After", "0.2")))
+                            continue
+                        outcome = ("lost", f"HTTP {resp.status}: {data[:120]!r}")
+                        break
+                    else:
+                        time.sleep(0.1)
+                outcome = outcome or ("lost", "no 2xx before the window's end and 30 s")
+                with lock:
+                    if outcome[0] == "ok":
+                        out["results"].append((start - t0, time.perf_counter() - start))
+                        out["answers"][outcome[1]] = out["answers"].get(outcome[1], 0) + 1
+                    else:
+                        out["lost"] += 1
+                        out["lost_detail"].append(outcome[1])
+            for c in conns.values():
+                c.close()
+
+        threads = [threading.Thread(target=client, args=(i,)) for i in range(clients)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        out["answers"] = [(json.loads(d)["embedding"], n) for d, n in out["answers"].items()]
+        out["seconds"] = time.perf_counter() - t0
+        conn.send(out)
+
+
+def _port_pair() -> int:
+    """A port whose next one is free too (the second proxy's)."""
+    while True:
+        port = _bert_port()
+        with socket.socket() as probe:
+            try:
+                probe.bind(("127.0.0.1", port + 1))
+                return port
+            except OSError:
+                continue
+
+
+def phase_serve_chaos(seconds=CHAOS_SECONDS) -> dict:
+    """Phase 27 (b): release/benchmarks_serve_chaos.py's phases 1 and 2 on
+    the card. The YAML above (BERT-base encoder, 2 replicas, hedging on,
+    two proxies) through serve.run_from_config; CHAOS_CLIENTS clients in a
+    process of their own for a `seconds` baseline, then a `seconds` window
+    in which one replica's process and the second proxy's are SIGKILLed;
+    then the wait for the controller to replace the replica and restart the
+    proxy on its port. The bench's gates: nothing lost, both kills landed,
+    both recovered, the chaos p99 under 3x the baseline's."""
+    import torch.multiprocessing as mp
+
+    start = time.perf_counter()
+    SERVE_SCRATCH.mkdir(parents=True, exist_ok=True)
+    port = _port_pair()
+    ports = [port, port + 1]
+    path = SERVE_SCRATCH / "chaos.yaml"
+    yaml_text = CHAOS_YAML.format(port=port, module=chaos_app.__module__)
+    if CHAOS_DEVICE == "cuda":
+        yaml_text += "        ray_actor_options: {num_gpus: 0.5}\n"
+    path.write_text(yaml_text)
+    qname = "chaosbench_ChaosEncoder"
+    try:
+        deployed = serve.run_from_config(str(path))
+        ready_s = time.perf_counter() - start
+        controller = serve.start(http_port=None)
+        require(deployed == {"chaosbench": "ChaosEncoder"}, f"serve_chaos: deployed {deployed}")
+        proxies = {p["port"]: p for p in controller.get_proxies()}
+        require(sorted(proxies) == ports and proxies[port + 1]["pid"],
+                f"serve_chaos: proxies {proxies}")
+
+        def running() -> int:
+            return serve.status()["chaosbench"]["deployments"]["ChaosEncoder"][
+                "running_replicas"]
+
+        ctx = mp.get_context("spawn")
+        parent, child = ctx.Pipe()
+        loader = ctx.Process(target=chaos_load, args=(child, ports, "/chaosbench",
+                                                      CHAOS_CLIENTS))
+        loader.start()
+        try:
+            require(parent.poll(120) and parent.recv() == "ready", "serve_chaos: load generator")
+
+            def burst(during=None) -> dict:
+                parent.send(("go", seconds, HTTP_PAYLOAD))
+                extra = during() if during else None
+                require(parent.poll(seconds + 120), "serve_chaos: the load generator went silent")
+                out = parent.recv()
+                out["during"] = extra
+                return out
+
+            baseline = burst()
+            victims = sorted(m["pid"] for m in controller.get_metrics()[qname])
+            proxy_pid = proxies[port + 1]["pid"]
+
+            def kills() -> list:
+                events, t0 = [], time.perf_counter()
+                for at, pid, what in ((CHAOS_REPLICA_KILL_S, victims[0], "replica"),
+                                      (CHAOS_PROXY_KILL_S, proxy_pid, "proxy")):
+                    time.sleep(max(0.0, at - (time.perf_counter() - t0)))
+                    try:
+                        os.kill(pid, signal.SIGKILL)
+                        events.append({"target": what, "pid": pid, "status": "ok",
+                                       "at_s": time.perf_counter() - t0})
+                    except ProcessLookupError:
+                        events.append({"target": what, "pid": pid, "status": "gone"})
+                return events
+
+            chaos = burst(kills)
+            parent.send(("stop",))
+        finally:
+            loader.join(30)
+            if loader.is_alive():
+                loader.kill()
+        recover_start = time.perf_counter()
+        recovered = proxy_back = False
+        while time.perf_counter() - recover_start < CHAOS_RECOVER_S:
+            pids = {m["pid"] for m in controller.get_metrics().get(qname, [])}
+            recovered = running() == 2 and victims[0] not in pids and len(pids) == 2
+            now = next(p for p in controller.get_proxies() if p["port"] == port + 1)
+            try:
+                proxy_back = now["restarts"] == 1 and _post_json(
+                    port + 1, "/chaosbench", HTTP_PAYLOAD)["embedding"] is not None
+            except (OSError, AssertionError):
+                proxy_back = False
+            if recovered and proxy_back:
+                break
+            time.sleep(0.5)
+        recover_s = time.perf_counter() - recover_start
+        reliability = [controller.proxy_call(f"SERVE_PROXY::{p}", "get_reliability_stats")
+                       for p in ports]
+        route_p99 = controller.get_route_p99().get(qname)
+        metrics = controller.get_metrics()[qname]
+    finally:
+        serve.shutdown()
+        shutil.rmtree(SERVE_SCRATCH, ignore_errors=True)
+
+    config = TransformerConfig(**BERT_CONFIG)
+    params = init_params(config, seed=SEED, device=CHAOS_DEVICE)
+    with torch.inference_mode():
+        direct = forward(params, torch.from_numpy(
+            _bert_tokens([HTTP_PAYLOAD], min(BERT_SEQ, config.max_seq))).to(CHAOS_DEVICE),
+            config)[:, 0, :8].double().cpu().numpy()[0]
+    del params
+    errs = [float(np.abs(np.asarray(emb) - direct).max())
+            for b in (baseline, chaos) for emb, _ in b["answers"]]
+    base_lat = [lat for _, lat in baseline["results"]]
+    chaos_lat = [lat for _, lat in chaos["results"]]
+    events = chaos["during"]
+    hedges = {k: sum((r or {}).get(k, 0) for r in reliability)
+              for k in ("hedges_launched", "hedges_won", "hedges_lost", "hedges_skipped",
+                        "retries", "attempt_deaths")}
+    # A ChaosEncoder replica's forwards: its batches and its warm-up.
+    counts_by_pid = {m["pid"]: (*_metric_counts(m), m["batches"] + len(BUCKETS))
+                     for m in metrics}
+    result = dict(
+        config="release/benchmarks_serve_chaos.py phases 1-2, BERT-base encoder, YAML deploy",
+        clients=CHAOS_CLIENTS, seconds=seconds, ready_s=ready_s,
+        lost=baseline["lost"] + chaos["lost"],
+        lost_detail=(baseline["lost_detail"] + chaos["lost_detail"])[:5],
+        shed=baseline["shed"] + chaos["shed"],
+        failovers=baseline["failovers"] + chaos["failovers"],
+        replica_kills=sum(e["status"] == "ok" and e["target"] == "replica" for e in events),
+        proxy_kills=sum(e["status"] == "ok" and e["target"] == "proxy" for e in events),
+        kills=events, replicas_recovered=int(recovered), proxy_restarted=int(proxy_back),
+        recover_s=recover_s,
+        baseline_requests=len(base_lat), chaos_requests=len(chaos_lat),
+        baseline_qps=len(base_lat) / baseline["seconds"],
+        chaos_qps=len(chaos_lat) / chaos["seconds"],
+        baseline_p50_ms=_percentile_ms(base_lat, 0.5), baseline_p99_ms=_percentile_ms(base_lat, 0.99),
+        chaos_p50_ms=_percentile_ms(chaos_lat, 0.5), chaos_p99_ms=_percentile_ms(chaos_lat, 0.99),
+        p99_ratio=_percentile_ms(chaos_lat, 0.99) / _percentile_ms(base_lat, 0.99),
+        **hedges, breaker_states_seen=sorted({s for r in reliability if r
+                                              for s in r["breaker_states_seen"]}),
+        # The second proxy's counts start again at its restart.
+        by_proxy=dict(zip(map(str, ports), reliability)),
+        route_p99_ms=route_p99, max_answer_err=max(errs), answer_tol=LOGITS_TOL,
+        drain_ok="not run: the oom_risk drain waits for the runtime core (ROADMAP Queue A "
+                 "item 14)",
+        replicas_after=sorted(counts_by_pid), phase_seconds=time.perf_counter() - start)
+    log("serve_chaos", **result)
+    require(result["lost"] == 0, f"serve_chaos: {result['lost']} lost: {result['lost_detail']}")
+    require(result["replica_kills"] >= 1 and result["proxy_kills"] >= 1,
+            f"serve_chaos: kills {events}")
+    require(result["replicas_recovered"] == 1, "serve_chaos: the killed replica not replaced")
+    require(result["proxy_restarted"] == 1, "serve_chaos: the killed proxy not restarted")
+    require(result["p99_ratio"] < 3, f"serve_chaos: p99 ratio {result['p99_ratio']}")
+    require(max(errs) < LOGITS_TOL,
+            f"serve_chaos: answers {max(errs)} from the direct forward >= {LOGITS_TOL}")
+    result["counts_by_pid"] = counts_by_pid
+    return result
+
+
 # ---------------------------------------------------------------- main
 def _path(name: str, want: dict, counts: dict, routes: dict, route: str, **fields) -> None:
     """Logs a path's launch counts and fails unless they are what the path
@@ -5746,6 +6299,25 @@ def _path(name: str, want: dict, counts: dict, routes: dict, route: str, **field
     for kernel, by_route in routes.items():
         require(by_route[route] == counts[kernel] and sum(by_route.values()) == counts[kernel],
                 f"{name}: {kernel} launches by route {by_route}, {counts[kernel]} in all")
+
+
+def _replica_paths(name: str, layers: int, by_pid: dict) -> tuple:
+    """Holds each replica's launch counts (pid: (counts, routes, forwards))
+    to what its forwards imply, every flash launch on the mma.sync route;
+    returns the replicas' counts and routes summed."""
+    counts: dict = {}
+    routes: dict = {}
+    for pid, (mine, my_routes, forwards) in sorted(by_pid.items()):
+        _path(f"{name}[{pid}]", _expected(layers, kernel_forwards=forwards), mine, my_routes,
+              "mma_sync", forwards=forwards)
+        for k, n in mine.items():
+            counts[k] = counts.get(k, 0) + n
+        for k, by_route in my_routes.items():
+            routes.setdefault(k, {r: 0 for r in by_route})
+            for r, n in by_route.items():
+                routes[k][r] += n
+    require(len(by_pid) == 2, f"{name}: launch counts of {len(by_pid)} replicas, 2 expected")
+    return counts, routes
 
 
 def _run_path(fn, *args) -> tuple:
@@ -5908,19 +6480,36 @@ def main() -> None:
         phase_data, elastic["config1"]["card_img_per_s"])
     _path("data", {k: 0 for k in counts["data"]}, counts["data"], routes["data"], "wgmma")
 
+    # Phase 27: the multiplexed replicas, then the chaos bench. Their kernels
+    # launch in the replicas, whose counts come back in their metrics (a
+    # killed replica's with it: (b) reads the survivor's and the
+    # replacement's); this process's launches are its direct forwards.
+    bert_layers = BERT_CONFIG["n_layers"]
+    mux, local, _ = _run_path(phase_serve_mux)
+    require(local == _expected(bert_layers, kernel_forwards=mux["direct_forwards"]),
+            f"serve_mux: this process launched {local}, its direct forwards' worth expected")
+    counts["serve_mux"], routes["serve_mux"] = _replica_paths(
+        "serve_mux", bert_layers, {pid: (*mux["counts_by_pid"][pid], rep["forwards"])
+                                   for pid, rep in mux["replicas"].items()})
+    chaos, local, _ = _run_path(phase_serve_chaos)
+    require(local == _expected(bert_layers, kernel_forwards=1),
+            f"serve_chaos: this process launched {local}, one direct forward's worth expected")
+    counts["serve_chaos"], routes["serve_chaos"] = _replica_paths(
+        "serve_chaos", bert_layers, chaos["counts_by_pid"])
+
     # Every launch on the tiny path is of its instantiations (head_dim 16 in
     # f32, RMSNorm at dim 64 in f32), on the HTTP serving path of BERT-base's
     # (head_dim 64 and dim 768 in bf16); on every other path, of the model's.
     for e in entries:
         kernel = e["name"].split("[")[0]
         if "instantiation" in e:
-            path = INSTANTIATION_PATHS.get(e["instantiation"])
             # Serving runs no backward.
-            paths = [] if path is None or (path in FORWARD_ONLY_PATHS and "bwd" in kernel) \
-                else [path]
+            paths = [p for p in INSTANTIATION_PATHS.get(e["instantiation"], ())
+                     if not (p in FORWARD_ONLY_PATHS and "bwd" in kernel)]
             e["on_main_path"] = bool(paths)
         else:
-            paths = [p for p in counts if p not in INSTANTIATION_PATHS.values()]
+            instantiated = {p for paths_of in INSTANTIATION_PATHS.values() for p in paths_of}
+            paths = [p for p in counts if p not in instantiated]
         by_path = {p: counts[p][kernel] for p in paths}
         e["launches"], e["launches_by_path"] = sum(by_path.values()), by_path
         if kernel in routes["serve"]:
@@ -5963,6 +6552,10 @@ def main() -> None:
         data_shuffle_s=data["plane"]["shuffle_s"], data_pool_start_s=data["plane"]["pool_start_s"],
         data_fmnist_img_per_s=data["config1"]["img_per_s"],
         data_ingest_share=data["config1"]["ingest_share"], data_seconds=data["seconds"],
+        mux_qps=mux["qps"], mux_hit_p99_ms=mux["hit_p99_ms"], mux_miss_p99_ms=mux["miss_p99_ms"],
+        mux_evictions=sum(r["evictions"] for r in mux["replicas"].values()),
+        chaos_lost=chaos["lost"], chaos_p99_ratio=chaos["p99_ratio"],
+        chaos_hedges_launched=chaos["hedges_launched"], chaos_recover_s=chaos["recover_s"],
         seconds=time.perf_counter() - _t_start)
     require_no_reference("chip_smoke")
     print(json.dumps({"kernels": entries}), flush=True)

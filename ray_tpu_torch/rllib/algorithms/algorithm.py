@@ -288,7 +288,7 @@ class Algorithm:
         # to ~0, a distribution the trained policy never saw.
         connector_state = self.env_runner_group.get_connector_state()
         returns = []
-        for _ in range(self.config.evaluation_duration):
+        for episode in range(self.config.evaluation_duration):
             # Fresh pipeline per episode: stateful connectors (framestack)
             # must not carry history across episode boundaries —
             # get_state() excludes per-episode history, so restoring it
@@ -300,7 +300,10 @@ class Algorithm:
             )
             if connector_state:
                 pipeline.set_state(connector_state)
-            obs, _ = env.reset()
+            # The config's seed seeds the first reset, and the env's own
+            # generator the later ones: every evaluation plays the same
+            # episodes' starts, so a seeded run evaluates the same each time.
+            obs, _ = env.reset(seed=self.config.seed if episode == 0 else None)
             total, done = 0.0, False
             stateful = getattr(module, "is_stateful", False)
             state = module.initial_state(1) if stateful else None

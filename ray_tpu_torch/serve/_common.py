@@ -26,9 +26,15 @@ DEFAULT_APP_NAME = "default"
 # each hop re-anchors it on its own clock).
 DEADLINE_HEADER = "X-RayTPU-Deadline"
 
-# Where the parts of the reference's serve plane this port leaves out are
-# listed, with their reasons.
-LEFT_OUT = "ROADMAP Queue A item 9"
+# gRPC metadata key carrying the same budget (lower-case, as gRPC requires).
+DEADLINE_METADATA_KEY = "x-raytpu-deadline"
+
+# Where the parts of the reference's serve plane the port has not yet
+# ported are listed: what stands on the serve-LLM decode engine, and what
+# stands on the runtime core (the controller's KV store and checkpoint,
+# the node agent's memory telemetry, the CLI).
+SERVE_LLM_ITEM = "ROADMAP Queue A item 13"
+RUNTIME_CORE_ITEM = "ROADMAP Queue A item 14"
 
 
 class DeadlineExceededError(TimeoutError):
@@ -162,8 +168,9 @@ def reset_current_deadline(token) -> None:
 class RetryPolicy:
     """A deployment's retry budget: attempts are spent on a replica's death
     only while the request's deadline has budget left, with full-jitter
-    backoff between them. ``hedge`` and ``hedge_after_s`` are the
-    reference's tail-latency hedging, which this port leaves out."""
+    backoff between them. ``hedge`` launches a second attempt on another
+    replica once the first has run ``hedge_after_s`` (or, unset, the
+    route's observed p95) and takes whichever answers first."""
 
     max_attempts: int = 3
     initial_backoff_s: float = 0.02
@@ -182,9 +189,10 @@ class RetryPolicy:
 class AutoscalingConfig:
     """Desired replicas = total ongoing (plus weighted queued) requests over
     ``target_ongoing_requests``, smoothed and clamped; applied after the
-    upscale or downscale delay has held. ``slo_p99_ms`` and
-    ``kv_headroom_min`` are the reference's route-p99 and KV-headroom
-    inputs, which this port leaves out."""
+    upscale or downscale delay has held. A route p99 (scraped from the
+    proxies) above ``slo_p99_ms`` asks for one more replica.
+    ``kv_headroom_min`` waits for the serve-LLM engine (ROADMAP Queue A
+    item 13), the only producer of the KV headroom it reads."""
 
     min_replicas: int = 1
     max_replicas: int = 10

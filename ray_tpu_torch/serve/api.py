@@ -4,20 +4,26 @@ Port of ray_tpu's ``serve/api.py``. ``Deployment.bind(...)`` builds an
 application graph (bound sub-deployments become handles when the replica
 is built); ``serve.run`` hands the graph to the controller, which lives in
 this process, waits until every deployment has its replicas running, and
-returns the ingress handle. ``serve.start`` starts the controller and the
-HTTP proxy. One serve instance per process, as the reference keeps one per
-cluster.
+returns the ingress handle. ``serve.start`` starts the controller, the
+HTTP proxy (on this process's I/O loop), ``num_proxies - 1`` more HTTP
+proxies on the next ports, each a process of its own that the controller
+health-checks and restarts under its name and port, and with
+``grpc_port`` the gRPC proxy. ``serve.run_from_config`` deploys the
+applications a YAML file (or its dict) describes (``schema``). One serve
+instance per process, as the reference keeps one per cluster.
 
 A deployment's class or function must be importable from a module (its
 replicas are processes that import it by name: the port depends on no
 cloudpickle), and so must every argument it is bound with pickle.
 ``ray_actor_options={"num_gpus": g}`` places each replica on the cards
 (a lease of this process's resource ledger, ``_private.resources``);
-``serve.run`` refuses a deployment that asks
-for more cards than the host has, and one that asks for a card on a host
-with none. ``num_cpus`` is accepted and reserves nothing: one host runs
-every replica. Arguments whose feature the port leaves out raise
-``NotImplementedError`` naming ROADMAP Queue A item 9.
+``num_tpus`` and ``resources`` lease their keys from the same ledger, and
+a replica asking for a key the host never declared waits as PENDING.
+``serve.run`` refuses a deployment that asks for more cards than the host
+has, and one that asks for a card on a host with none. ``num_cpus`` is
+accepted and reserves nothing: one host runs every replica.
+``kv_headroom_min`` raises ``NotImplementedError`` naming ROADMAP Queue A
+item 13, the serve-LLM engine that would feed it.
 """
 
 from __future__ import annotations
@@ -31,7 +37,7 @@ from typing import Any, Optional
 
 from ray_tpu_torch.serve import long_poll
 from ray_tpu_torch.serve._common import (
-    DEFAULT_APP_NAME, LEFT_OUT, AutoscalingConfig, DeploymentConfig, RetryPolicy,
+    DEFAULT_APP_NAME, SERVE_LLM_ITEM, AutoscalingConfig, DeploymentConfig, RetryPolicy,
 )
 from ray_tpu_torch.serve.handle import DeploymentHandle, _HandlePlaceholder
 
@@ -43,6 +49,7 @@ class _Serve:
         self.lock = threading.Lock()
         self.controller = None
         self.proxy = None
+        self.grpc_proxy = None
 
 
 _instance = _Serve()
@@ -87,20 +94,23 @@ class Application:
         return specs
 
 
+# The replica options the controller reads, as the reference's does.
+ACTOR_OPTIONS = frozenset({"num_gpus", "num_cpus", "num_tpus", "resources"})
+
+
 def _check_config(config: DeploymentConfig) -> DeploymentConfig:
-    """Refuses the options whose feature the port leaves out."""
-    if config.retry_policy.hedge:
-        raise NotImplementedError(f"hedged requests are not ported ({LEFT_OUT})")
+    """Refuses what no replica could be given."""
     asc = config.autoscaling_config
-    if asc is not None and (asc.slo_p99_ms is not None or asc.kv_headroom_min is not None):
+    if asc is not None and asc.kv_headroom_min is not None:
         raise NotImplementedError(
-            f"autoscaling on a route's p99 or on KV headroom is not ported ({LEFT_OUT})")
+            f"autoscaling on KV headroom waits for the serve-LLM engine ({SERVE_LLM_ITEM})")
     options = dict(config.ray_actor_options)
-    unknown = set(options) - {"num_gpus", "num_cpus"}
+    unknown = set(options) - ACTOR_OPTIONS
     if unknown:
-        raise NotImplementedError(
-            f"ray_actor_options {sorted(unknown)}: replicas take num_gpus (a card's share) "
-            f"and num_cpus only ({LEFT_OUT})")
+        raise ValueError(f"ray_actor_options {sorted(unknown)}: replicas take "
+                         f"{sorted(ACTOR_OPTIONS)}")
+    if not isinstance(options.get("resources") or {}, dict):
+        raise ValueError("ray_actor_options['resources'] is a dict of amounts")
     gpus = float(options.get("num_gpus", 0) or 0)
     if gpus < 0 or (gpus > 1 and gpus != int(gpus)):
         raise ValueError(f"num_gpus must be a share of one card or a whole number, got {gpus}")
@@ -204,11 +214,11 @@ def _running_controller():
 def start(http_host: str = "127.0.0.1", http_port: Optional[int] = 8000,
           grpc_port: Optional[int] = None, num_proxies: int = 1):
     """Starts the controller and an HTTP proxy on ``http_port`` (None: no
-    proxy change). A new port replaces the proxy on the old one."""
-    if grpc_port is not None:
-        raise NotImplementedError(f"the gRPC proxy is not ported ({LEFT_OUT})")
-    if num_proxies != 1:
-        raise NotImplementedError(f"one HTTP proxy a process ({LEFT_OUT})")
+    HTTP proxy change), and ``num_proxies - 1`` more on the ports after it,
+    each a process the controller restarts if it dies; clients fail over
+    between them. ``grpc_port`` starts the gRPC proxy. A new port replaces
+    the proxy on the old one. Every proxy is registered with the
+    controller, which scrapes their route latencies for the autoscaler."""
     controller = _controller()
     if http_port is not None:
         from ray_tpu_torch.serve.proxy import HTTPProxy
@@ -217,9 +227,33 @@ def start(http_host: str = "127.0.0.1", http_port: Optional[int] = 8000,
             proxy = _instance.proxy
             if proxy is None or (proxy.host, proxy.port) != (http_host, http_port):
                 if proxy is not None:
+                    controller.unregister_proxy(_proxy_name("http", proxy.port))
                     proxy.shutdown()
-                _instance.proxy = HTTPProxy(http_host, http_port)
+                proxy = _instance.proxy = HTTPProxy(http_host, http_port)
+                controller.register_proxy(_proxy_name("http", http_port), "http", http_host,
+                                          http_port, local=proxy)
+        registered = {p["name"] for p in controller.get_proxies()}
+        for port in range(http_port + 1, http_port + num_proxies):
+            if _proxy_name("http", port) not in registered:
+                controller.register_proxy(_proxy_name("http", port), "http", http_host, port)
+    if grpc_port is not None:
+        from ray_tpu_torch.serve.grpc_proxy import GRPCProxy
+
+        with _instance.lock:
+            proxy = _instance.grpc_proxy
+            if proxy is None or proxy.port != grpc_port:
+                if proxy is not None:
+                    controller.unregister_proxy(_proxy_name("grpc", proxy.port))
+                    proxy.shutdown()
+                proxy = _instance.grpc_proxy = GRPCProxy(http_host, grpc_port)
+                controller.register_proxy(_proxy_name("grpc", grpc_port), "grpc", http_host,
+                                          grpc_port, local=proxy)
     return controller
+
+
+def _proxy_name(protocol: str, port: int) -> str:
+    """A proxy's name, the reference's."""
+    return f"SERVE_{'GRPC_' if protocol == 'grpc' else ''}PROXY::{port}"
 
 
 def _check_specs(specs: list[dict]) -> None:
@@ -273,6 +307,19 @@ def run(target: Application, *, name: str = DEFAULT_APP_NAME,
     return DeploymentHandle(target.deployment.name, name)
 
 
+def run_from_config(path_or_schema) -> dict:
+    """Deploys the applications of a YAML file, a dict or a
+    ``ServeDeploySchema``; returns ``{app name: ingress deployment}``."""
+    from ray_tpu_torch.serve import schema as schema_mod
+
+    schema = path_or_schema
+    if isinstance(schema, str):
+        schema = schema_mod.ServeDeploySchema.from_yaml(schema)
+    elif isinstance(schema, dict):
+        schema = schema_mod.ServeDeploySchema.from_dict(schema)
+    return schema_mod.deploy_from_config(schema)
+
+
 def get_app_handle(name: str = DEFAULT_APP_NAME) -> DeploymentHandle:
     controller = _running_controller()
     status = controller.get_status()
@@ -303,12 +350,13 @@ def delete(name: str) -> None:
 
 
 def shutdown() -> None:
-    """Stops the proxy, every replica and the controller."""
+    """Stops the proxies, every replica and the controller."""
     with _instance.lock:
-        controller, proxy = _instance.controller, _instance.proxy
-        _instance.controller = _instance.proxy = None
-    if proxy is not None:
-        proxy.shutdown()
+        controller, proxies = _instance.controller, (_instance.proxy, _instance.grpc_proxy)
+        _instance.controller = _instance.proxy = _instance.grpc_proxy = None
+    for proxy in proxies:
+        if proxy is not None:
+            proxy.shutdown()
     if controller is not None:
         long_poll.set_controller(None)
         controller.shutdown()

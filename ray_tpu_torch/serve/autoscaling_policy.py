@@ -3,9 +3,10 @@
 The port's copy of ray_tpu's ``serve/_private/autoscaling_policy.py``:
 desired = ceil(demand / target) with demand the ongoing requests plus the
 weighted queued ones, smoothed and clamped to [min, max]; a scale-up or
-scale-down is applied only after its delay has held continuously. The
-route-p99 and KV-headroom inputs are the reference's; the port's
-controller passes neither (``AutoscalingConfig`` refuses them).
+scale-down is applied only after its delay has held continuously. A route
+p99 above ``slo_p99_ms`` forces one more replica (the controller passes
+the proxies' p99); the KV-headroom input waits for the serve-LLM engine
+(ROADMAP Queue A item 13), and the controller passes none.
 """
 
 from __future__ import annotations

@@ -7,22 +7,27 @@ target state (applications, their deployments and routes) and every
 0.25 s starts and stops replica processes to match each deployment's
 target, replaces replicas whose process died or whose health check failed,
 rolls replicas of an older version, drains replicas before it stops them,
-and autoscales from the replicas' ongoing and queued counts. Membership
+and autoscales from the replicas' ongoing and queued counts and the
+proxies' route p99. A second thread, every second, health-checks the
+proxies registered with it, restarts a dead one under its name and port,
+and scrapes their per-route latencies. Membership
 (routes, running replicas and their addresses, each deployment's policy)
 is a snapshot routers in the driver read directly and replica processes
 receive through ``poll_update`` on the serve wire.
 
 ``ray_actor_options={"num_gpus": g}`` places a replica on the host's cards
 by fractional share, leased from this process's resource ledger
-(``_private.resources``): two replicas at 0.5 share one card.
+(``_private.resources``): two replicas at 0.5 share one card. ``num_tpus``
+and ``resources`` lease their keys from it too.
 The replica's ``CUDA_VISIBLE_DEVICES`` names its card (or none at
 ``num_gpus`` 0) before the process starts. A replica that does not fit
 waits as PENDING in ``get_status``, as the reference's infeasible actor
 waits.
 
-Left out (ROADMAP Queue A item 9): the checkpoint and restore of the
-controller's state (it lives and dies with the driver), drains on
-out-of-memory telemetry, several proxies, and the controller's KV store.
+Waiting for the runtime core (ROADMAP Queue A item 14): the checkpoint and
+restore of the controller's state in the controller's KV store (it lives
+and dies with the driver) and drains on the node agent's out-of-memory
+telemetry; their methods raise ``NotImplementedError`` naming it.
 """
 
 from __future__ import annotations
@@ -41,12 +46,16 @@ from typing import Any, Optional
 from ray_tpu_torch._private import resources
 from ray_tpu_torch.serve import _channel
 from ray_tpu_torch.serve._common import (
-    DeploymentInfo, ReplicaInfo, new_replica_id,
+    RUNTIME_CORE_ITEM, DeploymentInfo, ReplicaInfo, new_replica_id,
 )
 from ray_tpu_torch.serve.autoscaling_policy import AutoscalingState
 from ray_tpu_torch.serve.replica import CallableRef, replica_main
 
 RECONCILE_PERIOD_S = 0.25
+# Proxy liveness and the route-p99 scrape run on a slower tick.
+PROXY_CHECK_PERIOD_S = 1.0
+# A proxy process's start: an interpreter, torch's import, a bound port.
+PROXY_READY_TIMEOUT_S = 120.0
 # A replica's constructor may build kernels and warm every batch bucket.
 READY_TIMEOUT_S = 900.0
 # Replicas of a deployment that fail to start this many times in a row
@@ -54,10 +63,38 @@ READY_TIMEOUT_S = 900.0
 MAX_START_FAILURES = 3
 
 
+def replica_bundle(options: dict) -> dict:
+    """What a replica leases from the ledger: its card share, its TPUs and
+    its custom resources (``num_cpus`` reserves nothing on one host)."""
+    bundle = {key: float(amount) for key, amount in (options.get("resources") or {}).items()}
+    for option, key in (("num_gpus", "GPU"), ("num_tpus", "TPU")):
+        if options.get(option):
+            bundle[key] = bundle.get(key, 0.0) + float(options[option])
+    return bundle
+
+
+class _Proxy:
+    """A proxy registered with the controller: one in this process
+    (``local``), or a process the controller started and restarts."""
+
+    def __init__(self, name: str, protocol: str, host: str, port: int, local=None):
+        self.name, self.protocol, self.host, self.port = name, protocol, host, int(port)
+        self.local = local
+        self.process = None
+        self.conn = None
+        self.address: Optional[tuple] = None
+        self.restarts = 0
+
+    def describe(self) -> dict:
+        return {"name": self.name, "protocol": self.protocol, "host": self.host,
+                "port": self.port, "restarts": self.restarts,
+                "pid": self.process.pid if self.process is not None else None}
+
+
 class _Replica:
     """The controller's record of one replica and its process."""
 
-    def __init__(self, info: ReplicaInfo, need: float):
+    def __init__(self, info: ReplicaInfo, need: dict):
         self.info = info
         self.need = need
         self.lease: Optional[resources.Lease] = None
@@ -90,6 +127,8 @@ class ServeController:
         self._applied_user_config: dict[str, Any] = {}
         self._start_failures: dict[str, list[str]] = {}
         self._last_health_check: dict[str, float] = {}
+        self._proxies: dict[str, _Proxy] = {}
+        self._route_p99: dict[str, float] = {}
         self._version = 0
         self._instance = uuid.uuid4().hex
         self._snapshot: Optional[dict] = None
@@ -101,6 +140,9 @@ class ServeController:
         self._thread = threading.Thread(target=self._reconcile_loop, name="serve-controller",
                                         daemon=True)
         self._thread.start()
+        self._proxy_thread = threading.Thread(target=self._proxy_loop, name="serve-proxies",
+                                              daemon=True)
+        self._proxy_thread.start()
 
     # ------------------------------------------------------------------
     # target state (serve.run, serve.delete, serve.shutdown)
@@ -165,6 +207,7 @@ class ServeController:
             self._bump_version_locked()
         self._stopped.set()
         self._thread.join(timeout=10)
+        self._proxy_thread.join(timeout=10)
         with self._lock:
             replicas = [r for reps in self._replicas.values() for r in reps]
             self._replicas.clear()
@@ -173,6 +216,10 @@ class ServeController:
         for stopper in stoppers:
             if stopper is not None:
                 stopper.join(timeout_s)
+        with self._lock:
+            proxies, self._proxies = list(self._proxies.values()), {}
+        for proxy in proxies:
+            self._end_proxy(proxy)
         self._notify_pollers()
         _channel.run_sync(self._close_server(), timeout=10)
         return "ok"
@@ -229,6 +276,154 @@ class ServeController:
                 if failed:
                     apps[app]["message"] = "\n".join(failed)
             return apps
+
+    def get_route_p99(self) -> dict:
+        """The worst p99 (ms) over the proxies of each route's deployment, as
+        the last scrape read it."""
+        with self._lock:
+            return dict(self._route_p99)
+
+    # ------------------------------------------------------------------
+    # the proxies
+    # ------------------------------------------------------------------
+    def register_proxy(self, name: str, protocol: str, host: str, port: int,
+                       local=None) -> str:
+        """Takes a proxy into the controller's care. Without ``local`` the
+        controller starts it as a process of its own and restarts it under
+        the same name and port when it dies."""
+        proxy = _Proxy(name, protocol, host, port, local)
+        if local is None:
+            self._start_proxy(proxy)
+        with self._lock:
+            old = self._proxies.get(name)
+            self._proxies[name] = proxy
+        if old is not None:
+            self._end_proxy(old)
+        return "ok"
+
+    def unregister_proxy(self, name: str) -> str:
+        with self._lock:
+            proxy = self._proxies.pop(name, None)
+        if proxy is not None:
+            self._end_proxy(proxy)
+        return "ok"
+
+    def get_proxies(self) -> list:
+        with self._lock:
+            return [p.describe() for p in self._proxies.values()]
+
+    def proxy_call(self, name: str, method: str, timeout: float = 10.0) -> Any:
+        """A registered proxy's ``method`` (``get_route_stats``,
+        ``get_num_requests``, ``get_reliability_stats``), or None if it did
+        not answer."""
+        with self._lock:
+            proxy = self._proxies.get(name)
+        if proxy is None:
+            return None
+        try:
+            if proxy.local is not None:
+                return _channel.run_sync(getattr(proxy.local, method)(), timeout)
+            if proxy.address is None:
+                return None
+            return _channel.run_sync(_channel_call(proxy.address, method), timeout)
+        except (ConnectionError, TimeoutError, _channel.RemoteError):
+            return None
+
+    def _start_proxy(self, proxy: _Proxy) -> None:
+        """Starts the proxy's process and waits until it serves; raises if
+        it does not."""
+        import torch.multiprocessing as mp
+
+        from ray_tpu_torch.serve.proxy import proxy_main
+
+        ctx = mp.get_context("spawn")
+        parent, child = ctx.Pipe()
+        spec = {"name": proxy.name, "protocol": proxy.protocol, "host": proxy.host,
+                "port": proxy.port, "controller": self.address,
+                "env": {"CUDA_VISIBLE_DEVICES": ""}}
+        process = ctx.Process(target=proxy_main, args=(spec, child),
+                              name=f"serve-proxy-{proxy.port}")
+        with resources.child_visible_devices(""):
+            process.start()
+        child.close()
+        message = None
+        try:
+            if parent.poll(PROXY_READY_TIMEOUT_S):
+                message = parent.recv()
+        except (EOFError, OSError):
+            pass
+        if not message or message[0] != "ready":
+            process.kill()
+            process.join(5.0)
+            parent.close()
+            reason = message[1] if message else f"exit code {process.exitcode}"
+            raise RuntimeError(f"proxy {proxy.name} did not start: {reason}")
+        proxy.process, proxy.conn = process, parent
+        proxy.address = tuple(message[1]["address"])
+
+    def _end_proxy(self, proxy: _Proxy) -> None:
+        if proxy.local is not None or proxy.process is None:
+            return
+        with contextlib.suppress(OSError, BrokenPipeError):
+            proxy.conn.send(("stop",))
+        proxy.process.join(5.0)
+        if proxy.process.is_alive():
+            proxy.process.kill()
+            proxy.process.join(5.0)
+        proxy.conn.close()
+
+    def _ensure_proxies(self) -> None:
+        """Health-checks each proxy process; restarts a dead one under the
+        same name and port, so that clients holding its address recover."""
+        with self._lock:
+            proxies = [p for p in self._proxies.values() if p.local is None]
+        for proxy in proxies:
+            if (proxy.process is not None and proxy.process.exitcode is None
+                    and self.proxy_call(proxy.name, "get_num_requests", timeout=5.0) is not None):
+                continue
+            print(f"serve: proxy {proxy.name} is down; restarting it", file=sys.stderr,
+                  flush=True)
+            self._end_proxy(proxy)
+            proxy.process = proxy.address = None
+            try:
+                self._start_proxy(proxy)
+            except (RuntimeError, OSError):
+                # The port may not be free yet; the next tick tries again.
+                traceback.print_exc()
+                continue
+            proxy.restarts += 1
+            with self._lock:
+                gone = self._proxies.get(proxy.name) is not proxy
+            if gone:  # unregistered, or serve shut down, meanwhile
+                self._end_proxy(proxy)
+
+    def _scrape_route_p99(self) -> None:
+        """Each HTTP proxy's per-route p99 for the autoscaler; a route that
+        several proxies serve reports its worst."""
+        with self._lock:
+            names = [p.name for p in self._proxies.values() if p.protocol == "http"]
+        merged: dict[str, float] = {}
+        for name in names:
+            for route, snap in (self.proxy_call(name, "get_route_stats", timeout=5.0)
+                                or {}).items():
+                merged[route] = max(merged.get(route, 0.0), snap["p99_ms"])
+        with self._lock:
+            self._route_p99.update(merged)
+
+    # ------------------------------------------------------------------
+    # waiting for the runtime core
+    # ------------------------------------------------------------------
+    def _save_checkpoint(self) -> None:
+        raise NotImplementedError(f"the controller's checkpoint in the controller's KV store "
+                                  f"waits for the runtime core ({RUNTIME_CORE_ITEM})")
+
+    def _restore_checkpoint(self) -> None:
+        raise NotImplementedError(f"the controller's restore from the controller's KV store "
+                                  f"waits for the runtime core ({RUNTIME_CORE_ITEM})")
+
+    def _drain_oom_flagged(self) -> None:
+        raise NotImplementedError(f"drains on the node agent's oom_risk telemetry wait for the "
+                                  f"runtime core ({RUNTIME_CORE_ITEM})")
 
     def get_metrics(self) -> dict:
         """Each deployment's running replicas' metrics."""
@@ -310,6 +505,14 @@ class ServeController:
             return self._autoscale_counts.get(qname, info.config.autoscaling_config.min_replicas)
         return info.config.num_replicas
 
+    def _proxy_loop(self) -> None:
+        while not self._stopped.wait(PROXY_CHECK_PERIOD_S):
+            try:
+                self._ensure_proxies()
+                self._scrape_route_p99()
+            except Exception:
+                traceback.print_exc()
+
     def _reconcile_once(self) -> None:
         with self._lock:
             targets = dict(self._deployments)
@@ -357,16 +560,17 @@ class ServeController:
             rep = _Replica(ReplicaInfo(replica_id=replica_id, deployment=qname,
                                        actor_name=replica_id, state="PENDING",
                                        version=info.version),
-                           float(info.config.ray_actor_options.get("num_gpus", 0) or 0))
+                           replica_bundle(info.config.ray_actor_options))
             with self._lock:
                 replicas.append(rep)
             self._place(rep, info)
 
     def _place(self, rep: _Replica, info: DeploymentInfo) -> bool:
         try:
-            rep.lease = resources.ledger().acquire({"GPU": rep.need})
+            rep.lease = resources.ledger().acquire(rep.need)
         except resources.PlacementGroupUnschedulableError:
-            return False  # stays PENDING until a card frees
+            # Stays PENDING until what it needs frees, or is declared.
+            return False
         self._launch(rep, info)
         return True
 
@@ -503,8 +707,11 @@ class ServeController:
             running = [r for r in self._replicas.get(qname, []) if r.state == "RUNNING"]
         loads = _channel.run_sync(_gather_loads([r.address for r in running]), timeout=10)
         current = self._autoscale_counts.get(qname, info.config.autoscaling_config.min_replicas)
+        # The proxies' route p99 (the slow tick's scrape) turns a breached
+        # latency target into one more replica.
         decision = state.decide(sum(load.get("ongoing", 0) for load in loads), current,
-                                queue_depth=sum(load.get("queue_depth", 0) for load in loads))
+                                queue_depth=sum(load.get("queue_depth", 0) for load in loads),
+                                p99_ms=self.get_route_p99().get(qname))
         if decision != current:
             with self._lock:
                 self._autoscale_counts[qname] = decision

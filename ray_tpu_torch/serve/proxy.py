@@ -15,20 +15,33 @@ header, and generator deployments streamed as SSE (``data: <item>`` lines
 under ``Accept: text/event-stream``) or as newline-delimited chunks.
 Connections are kept alive (HTTP/1.1), and every reply but a stream
 carries its Content-Length; streams use chunked transfer encoding.
+
+Each route keeps a latency histogram and an error count
+(``get_route_stats``: count, p50, p95, p99, mean, max, errors), which the
+controller scrapes for the autoscaler; a stream counts its time to the
+first dispatch. The proxies after the first are processes of their own
+(``proxy_main``) that answer those calls on the serve wire. The flush of
+the route stats to the controller's workload store waits for the runtime
+core (ROADMAP Queue A item 14).
 """
 
 from __future__ import annotations
 
 import asyncio
+import collections
+import functools
 import json
+import os
+import sys
+import time
 import traceback
 from http import HTTPStatus
 from typing import Any, Optional
 from urllib.parse import parse_qsl, urlsplit
 
-from ray_tpu_torch.serve import _channel
+from ray_tpu_torch.serve import _channel, long_poll
 from ray_tpu_torch.serve._common import (
-    DEADLINE_HEADER, Deadline, RequestShedError,
+    DEADLINE_HEADER, Deadline, LatencyHistogram, RequestShedError,
 )
 from ray_tpu_torch.serve.handle import DeploymentHandle, DeploymentResponse, ResponseStream
 from ray_tpu_torch.serve.long_poll import get_subscriber
@@ -128,6 +141,9 @@ class HTTPProxy:
         self.port = port
         self._handles: dict[str, DeploymentHandle] = {}
         self._inflight: dict[str, int] = {}
+        self._num_requests = 0
+        self._route_hist: dict[str, LatencyHistogram] = {}
+        self._route_errors: dict[str, int] = {}
         self._server = _channel.run_sync(asyncio.start_server(self._on_client, host, port))
 
     def shutdown(self) -> None:
@@ -168,6 +184,40 @@ class HTTPProxy:
             headers["Connection"] = "close"
         writer.write(_head(status, headers) + body)
         await writer.drain()
+
+    # -- the stats the controller reads (on the I/O loop) ---------------
+    def _observe_route(self, route: str, seconds: float, error: bool) -> None:
+        hist = self._route_hist.get(route)
+        if hist is None:
+            hist = self._route_hist[route] = LatencyHistogram()
+        hist.observe(seconds)
+        if error:
+            self._route_errors[route] = self._route_errors.get(route, 0) + 1
+
+    async def get_route_stats(self) -> dict:
+        """{route: {count, p50_ms, p95_ms, p99_ms, mean_ms, max_ms, errors}}."""
+        return {route: {**hist.snapshot(), "errors": self._route_errors.get(route, 0)}
+                for route, hist in self._route_hist.items()}
+
+    async def get_num_requests(self) -> int:
+        return self._num_requests
+
+    async def get_reliability_stats(self) -> dict:
+        """Hedges, retries and breaker states of this proxy's routers, summed
+        over its routes."""
+        total: collections.Counter = collections.Counter()
+        seen: set = set()
+        for handle in self._handles.values():
+            stats = handle._get_router().reliability()
+            seen.update(stats.pop("breaker_states_seen"))
+            stats.pop("breakers")
+            total.update(stats)
+        return {**total, "breaker_states_seen": sorted(seen)}
+
+    async def dispatch(self, method: str, args: tuple, kwargs: dict):
+        if method not in ("get_route_stats", "get_num_requests", "get_reliability_stats"):
+            raise AttributeError(f"a proxy has no call {method!r}")
+        return await getattr(self, method)(*args, **kwargs)
 
     # -- requests -------------------------------------------------------
     def _handle_for(self, qualified: str) -> DeploymentHandle:
@@ -219,6 +269,8 @@ class HTTPProxy:
             session_id = str(body.get("session_id", "") or "")
         if session_id:
             handle = handle.options(session_id=session_id)
+        self._num_requests += 1
+        start = time.perf_counter()
         self._inflight[qualified] = self._inflight.get(qualified, 0) + 1
         try:
             try:
@@ -226,13 +278,19 @@ class HTTPProxy:
             except RequestShedError as exc:
                 return await self._shed(send, deadline, exc.retry_after_s)
             except TimeoutError as exc:  # DeadlineExceededError included
+                self._observe_route(qualified, time.perf_counter() - start, error=True)
                 return await send(504, f"deadline exceeded: {exc}")
             except RuntimeError as exc:
                 if "no available replica" in str(exc):
                     return await self._shed(send, deadline)
+                self._observe_route(qualified, time.perf_counter() - start, error=True)
                 return await send(500, f"{type(exc).__name__}: {exc}")
             except Exception as exc:
+                self._observe_route(qualified, time.perf_counter() - start, error=True)
                 return await send(500, f"{type(exc).__name__}: {exc}")
+            # A stream's time is to its first dispatch: its length measures
+            # the client's reading, not the serving.
+            self._observe_route(qualified, time.perf_counter() - start, error=False)
             if isinstance(result, ResponseStream):
                 return await self._stream(request, writer, result, keep_alive)
             if isinstance(result, bytes):
@@ -288,3 +346,30 @@ class HTTPProxy:
             raise
         writer.write(b"0\r\n\r\n")
         await writer.drain()
+
+
+# -- a proxy process ---------------------------------------------------------
+def proxy_main(spec: dict, conn) -> None:
+    """A proxy process: serve HTTP on the spec's port, answer the
+    controller's calls on a serve-wire port, tell the controller through
+    ``conn``, and stop when it says so or closes the pipe."""
+    os.environ.update(spec["env"])
+    try:
+        long_poll.set_controller_address(spec["controller"])
+        proxy = HTTPProxy(spec["host"], spec["port"])
+        server = _channel.run_sync(asyncio.start_server(
+            functools.partial(_channel.serve_connection, dispatch=proxy.dispatch),
+            "127.0.0.1", 0))
+    except Exception:
+        conn.send(("error", traceback.format_exc()))
+        os._exit(1)
+    conn.send(("ready", {"address": server.sockets[0].getsockname()[:2], "pid": os.getpid()}))
+    try:
+        while conn.recv() != ("stop",):
+            pass
+    except (EOFError, OSError):
+        pass
+    sys.stdout.flush()
+    sys.stderr.flush()
+    # The I/O loop's connections end with the process.
+    os._exit(0)

@@ -11,8 +11,12 @@ calls on one asyncio loop: ``handle_request`` runs up to
 method gathers a batch from them; beyond ``max_ongoing_requests +
 max_queued_requests`` it sheds with ``RequestShedError``. Async methods run
 on the loop, plain ones on a thread pool (the reference's actor threads),
-with the request's deadline in their context. Generator
-deployments stream through ``stream_next`` / ``stream_cancel``.
+with the request's deadline and metadata in their context
+(``get_current_request_metadata``: the multiplexed model id reaches
+``serve.get_multiplexed_model_id``). Generator deployments stream through
+``stream_next`` / ``stream_cancel``; a stream pins its multiplexed model
+until it ends. ``drain`` checkpoints the loaded multiplexed models, and
+``cancel_request`` cancels a request a hedge lost.
 
 The class or function reaches the process by name, never by value (the
 port depends on no cloudpickle): it must be importable from a module,
@@ -45,6 +49,14 @@ from ray_tpu_torch.serve._common import (
 
 logger = logging.getLogger(__name__)
 
+# The metadata of the request the running code serves (its model id).
+_request_context: contextvars.ContextVar = contextvars.ContextVar(
+    "ray_tpu_torch_serve_request", default=None)
+
+
+def get_current_request_metadata():
+    return _request_context.get()
+
 
 class CallableRef:
     """A deployment's class or function by module and qualified name. At the
@@ -72,7 +84,7 @@ class CallableRef:
 # The calls a replica answers.
 _METHODS = frozenset({
     "handle_request", "stream_next", "stream_cancel", "reconfigure", "check_health",
-    "get_metrics", "get_load", "get_num_ongoing", "get_warm_shapes", "drain",
+    "get_metrics", "get_load", "get_num_ongoing", "get_warm_shapes", "drain", "cancel_request",
 })
 
 
@@ -84,6 +96,7 @@ class _Stream:
         self.queue: asyncio.Queue = asyncio.Queue(maxsize)
         self.task: asyncio.Task | None = None
         self.last_access = time.monotonic()
+        self.model_id = ""
 
     async def pop_batch(self, max_items: int, timeout_s: float) -> list:
         """At least one event (waiting up to timeout_s), then up to
@@ -127,6 +140,8 @@ class Replica:
         # Stream ids name this incarnation, so an id from a dead one misses.
         self._incarnation = uuid.uuid4().hex[:6]
         self._warm_shapes: set[str] = set()
+        # The tasks of requests in flight, by (request id, attempt).
+        self._requests: dict[tuple, asyncio.Task] = {}
         # Plain (not async) methods run here, as the reference's actor
         # threads run them.
         self._pool = concurrent.futures.ThreadPoolExecutor(
@@ -172,6 +187,9 @@ class Replica:
         self._ongoing += 1
         self._total += 1
         start = time.perf_counter()
+        key = (meta.get("request_id"), meta.get("attempt", 0))
+        self._requests[key] = asyncio.current_task()
+        token = _request_context.set(meta)
         deadline_token = set_current_deadline(deadline)
         try:
             if self._is_function:
@@ -189,7 +207,7 @@ class Replica:
                 result = await result
             if inspect.isgenerator(result) or inspect.isasyncgen(result):
                 # A live stream is an ongoing request until it finishes.
-                stream_id = self._open_stream(result)
+                stream_id = self._open_stream(result, meta.get("multiplexed_model_id", ""))
                 self._ongoing += 1  # released by _finish_stream
                 if meta.get("shape_key"):
                     self._warm_shapes.add(meta["shape_key"])
@@ -200,15 +218,24 @@ class Replica:
             return result
         finally:
             reset_current_deadline(deadline_token)
+            _request_context.reset(token)
+            self._requests.pop(key, None)
             self._ongoing -= 1
             self._latency_hist.observe(time.perf_counter() - start)
 
     # -- streaming ------------------------------------------------------
-    def _open_stream(self, gen) -> str:
+    def _open_stream(self, gen, model_id: str = "") -> str:
         stream_id = f"stream-{self.replica_id}-{self._incarnation}-{self._stream_counter}"
         self._stream_counter += 1
         stream = _Stream()
         stream.task = asyncio.get_running_loop().create_task(self._pump(gen, stream))
+        # An eviction must not checkpoint and unload the model a live
+        # stream still runs: it waits for the stream's end.
+        if model_id:
+            from ray_tpu_torch.serve import multiplex
+
+            multiplex.pin_model(model_id)
+            stream.model_id = model_id
         self._streams[stream_id] = stream
         self._reap_idle_streams()
         return stream_id
@@ -217,6 +244,10 @@ class Replica:
         stream = self._streams.pop(stream_id, None)
         if stream is not None:
             stream.task.cancel()
+            if stream.model_id:
+                from ray_tpu_torch.serve import multiplex
+
+                multiplex.unpin_model(stream.model_id)
             self._ongoing -= 1
 
     def _reap_idle_streams(self) -> None:
@@ -324,10 +355,28 @@ class Replica:
         prefers warm replicas."""
         return sorted(self._warm_shapes | batching.warm_shapes())
 
-    def drain(self) -> dict:
-        """Stops taking new requests; reports what is still in flight."""
+    async def drain(self, checkpoint: bool = True) -> dict:
+        """Stops taking new requests, checkpoints the loaded multiplexed
+        models (on the first drain), and reports what is still in flight."""
+        first = not self._draining
         self._draining = True
-        return {"draining": True, "ongoing": self._ongoing, "streams": len(self._streams)}
+        checkpointed = 0
+        if checkpoint and first:
+            from ray_tpu_torch.serve import multiplex
+
+            checkpointed = await multiplex.checkpoint_loaded_models()
+        return {"draining": True, "ongoing": self._ongoing, "streams": len(self._streams),
+                "checkpointed_models": checkpointed}
+
+    def cancel_request(self, request_id: str, attempt: int) -> bool:
+        """Cancels a request in flight (one a hedge lost): an async method or
+        a wait for its batch stops; a plain method's thread runs to its end,
+        its answer dropped. False if it already ended."""
+        task = self._requests.get((request_id, attempt))
+        if task is None or task.done():
+            return False
+        task.cancel()
+        return True
 
     def on_sigterm(self) -> None:
         logger.info("replica %s received SIGTERM: draining", self.replica_id)

@@ -3,7 +3,10 @@
 The port's copy of ray_tpu's ``serve/_private/routing.py``: ``HashRing``,
 rendezvous (highest-random-weight) hashing of a request's affinity key over
 the live replicas with a bounded-load fallback, and the longest-prefix
-route match of ``RoutingMixin._match``.
+route match of ``RoutingMixin._match``. The key is, in this order, the
+session id, the multiplexed model id, the shape key and the request id:
+a session's or a model's requests stay on the replica holding its state,
+and keyless requests spread.
 """
 
 from __future__ import annotations

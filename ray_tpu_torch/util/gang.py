@@ -3,7 +3,8 @@
 Port of ray_tpu's ``util/gang.py`` (``GangContext``, ``_GangMember``,
 ``WorkerGang``) onto ``torch.multiprocessing`` (spawn). Each rank is a
 process; ``MASTER_ADDR`` / ``MASTER_PORT`` come from a free port on this
-host (the reference's ``coordinator="auto"``), each member calls
+host (the reference's ``coordinator="auto"``; a port another process takes
+before rank 0 binds it starts the gang again on another), each member calls
 ``torch.distributed.init_process_group`` where the reference calls
 ``jax.distributed.initialize`` (NCCL on the card, gloo on the CPU), then
 forms its collective group (``util.collective``). ``run``, ``run_async``,
@@ -44,6 +45,10 @@ from ray_tpu_torch._private import resources
 # How long the members may take to start and join their groups, once the
 # gang's lease is placed (a card's first use takes seconds).
 START_TIMEOUT_S = 300.0
+# The rendezvous port is probed free, then bound by rank 0's store: another
+# process may take it between the two, and the gang then starts again on a
+# new port, at most this many times in all.
+START_ATTEMPTS = 3
 
 
 class GangDiedError(RuntimeError):
@@ -183,31 +188,43 @@ class WorkerGang:
         self._lease = resources.ledger().acquire(bundle, self.num_workers, timeout=ready_timeout)
         self.cards = [cards[0] if use_gpu else None for cards in self._lease.cards]
         try:
-            ctx = mp.get_context("spawn")
-            port = _free_port()
-            self.spawned_at = time.time()
-            for rank in range(self.num_workers):
-                parent, child = ctx.Pipe()
-                proc = ctx.Process(target=_member_main, name=f"{self.group_name}-rank{rank}",
-                                   args=(rank, self.num_workers, self.group_name, self.backend,
-                                         port, self.cards[rank], child))
-                proc.start()
-                child.close()
-                self.members.append(proc)
-                self._conns.append(parent)
-            deadline = time.monotonic() + START_TIMEOUT_S
-            for rank in range(self.num_workers):
-                kind, *body = self.recv(rank, timeout=max(0.0, deadline - time.monotonic()))
-                if kind != "ready":
-                    raise GangDiedError(f"gang member rank={rank} failed to start: "
-                                        f"{body[0]}\n{body[1]}")
-                self._infos.append(body[0])
+            for attempt in range(START_ATTEMPTS):
+                try:
+                    self._start_members(mp.get_context("spawn"))
+                    break
+                except GangDiedError as exc:
+                    if "EADDRINUSE" not in str(exc) or attempt + 1 == START_ATTEMPTS:
+                        raise
+                    self._stop_members()
         except (GangDiedError, TimeoutError) as exc:
             self.shutdown()
             raise GangDiedError(f"gang failed to start: {exc}") from exc
         except BaseException:
             self.shutdown()
             raise
+
+    def _start_members(self, ctx) -> None:
+        """Spawns the members on a fresh rendezvous port and waits for each
+        one's ready message."""
+        self.members, self._conns, self._infos = [], [], []
+        port = _free_port()
+        self.spawned_at = time.time()
+        for rank in range(self.num_workers):
+            parent, child = ctx.Pipe()
+            proc = ctx.Process(target=_member_main, name=f"{self.group_name}-rank{rank}",
+                               args=(rank, self.num_workers, self.group_name, self.backend,
+                                     port, self.cards[rank], child))
+            proc.start()
+            child.close()
+            self.members.append(proc)
+            self._conns.append(parent)
+        deadline = time.monotonic() + START_TIMEOUT_S
+        for rank in range(self.num_workers):
+            kind, *body = self.recv(rank, timeout=max(0.0, deadline - time.monotonic()))
+            if kind != "ready":
+                raise GangDiedError(f"gang member rank={rank} failed to start: "
+                                    f"{body[0]}\n{body[1]}")
+            self._infos.append(body[0])
 
     # -- messages ------------------------------------------------------------
     def send(self, rank: int, message) -> None:
@@ -298,20 +315,23 @@ class WorkerGang:
         """Asks every live member to stop, then kills what is left, reaps
         every process and gives the gang's lease back."""
         try:
-            for rank, proc in enumerate(self.members):
-                if proc.is_alive():
-                    try:
-                        self.send(rank, ("stop",))
-                    except GangDiedError:
-                        pass  # the member is already gone
-            deadline = time.monotonic() + grace_s
-            for proc in self.members:
-                proc.join(max(0.0, deadline - time.monotonic()))
-            for proc in self.members:
-                if proc.is_alive():
-                    proc.kill()
-                proc.join()
-            for conn in self._conns:
-                conn.close()
+            self._stop_members(grace_s)
         finally:
             self._lease.release()
+
+    def _stop_members(self, grace_s: float = 5.0) -> None:
+        for rank, proc in enumerate(self.members):
+            if proc.is_alive():
+                try:
+                    self.send(rank, ("stop",))
+                except GangDiedError:
+                    pass  # the member is already gone
+        deadline = time.monotonic() + grace_s
+        for proc in self.members:
+            proc.join(max(0.0, deadline - time.monotonic()))
+        for proc in self.members:
+            if proc.is_alive():
+                proc.kill()
+            proc.join()
+        for conn in self._conns:
+            conn.close()

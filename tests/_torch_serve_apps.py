@@ -1,4 +1,5 @@
-"""Deployments of the port's serve plane for tests/test_torch_serve_plane.py.
+"""Deployments of the port's serve plane for tests/test_torch_serve_plane.py,
+test_torch_serve_multiplex.py and test_torch_serve_reliability.py.
 
 Replicas are processes that import a deployment's class by name, so the
 deployments live at the top level of this module (tests/ is on the path
@@ -212,3 +213,132 @@ class OnHalfACard:
 class BrokenInit:
     def __init__(self):
         raise RuntimeError("constructor bang")
+
+
+# -------------------------------------------------------------- multiplexing
+class MuxModel:
+    """A loaded model: its scale, and the calls made on it in the replica's
+    event log."""
+
+    def __init__(self, model_id: str, log: list):
+        self.model_id, self.scale, self.log = model_id, int(model_id[-1]), log
+
+    def checkpoint(self):
+        self.log.append(("checkpoint", self.model_id))
+
+    def unload(self):
+        self.log.append(("unload", self.model_id))
+
+
+@serve.deployment
+class MultiModel:
+    """tests/test_serve.py's multiplexed deployment, with its models'
+    checkpoint and unload calls logged."""
+
+    def __init__(self):
+        self.log = []
+
+    @serve.multiplexed(max_num_models_per_replica=2)
+    async def get_model(self, model_id):
+        self.log.append(("load", model_id))
+        return MuxModel(model_id, self.log)
+
+    async def __call__(self, x):
+        model = await self.get_model(serve.get_multiplexed_model_id() or "m1")
+        return x * model.scale
+
+    async def stream(self, n):
+        """A stream that runs its model while it lasts."""
+        model = await self.get_model(serve.get_multiplexed_model_id())
+        for i in range(n):
+            await asyncio.sleep(0.05)
+            yield i * model.scale
+
+    def events(self, _):
+        return list(self.log)
+
+    def pid(self, _):
+        return os.getpid()
+
+
+@serve.deployment(num_replicas=2)
+class MultiModelPair(MultiModel.func_or_class):
+    """Two replicas of MultiModel: a model id's requests go to one."""
+
+
+# --------------------------------------------------------------- reliability
+@serve.deployment(num_replicas=2, retry_policy={"max_attempts": 3, "hedge": True,
+                                                 "hedge_after_s": 0.2})
+class Hedged:
+    """Answers with its pid; the replica whose pid the body names sleeps
+    first, and counts the sleeps a lost hedge cancelled."""
+
+    def __init__(self):
+        self.cancelled = 0
+
+    async def __call__(self, body):
+        if body.get("slow_pid") == os.getpid():
+            try:
+                await asyncio.sleep(body["sleep_s"])
+            except asyncio.CancelledError:
+                self.cancelled += 1
+                raise
+        return os.getpid()
+
+    def cancels(self, _):
+        return self.cancelled
+
+
+@serve.deployment(num_replicas=2)
+class Pid:
+    def __call__(self, _):
+        return os.getpid()
+
+
+@serve.deployment(
+    max_ongoing_requests=32,
+    autoscaling_config=serve.AutoscalingConfig(
+        min_replicas=1, max_replicas=2, target_ongoing_requests=100, upscale_delay_s=0.5,
+        downscale_delay_s=600.0, slo_p99_ms=50.0),
+)
+class SloScaled:
+    """Slower than its route's p99 target: only the p99 can add a replica."""
+
+    async def __call__(self, x):
+        await asyncio.sleep(0.1)
+        return x
+
+
+@serve.deployment(ray_actor_options={"resources": {"accelerator_slot": 1}, "num_tpus": 1})
+class OnASlot:
+    def __call__(self, x):
+        return x
+
+
+@serve.deployment
+class Greeter:
+    """tests/serve_yaml_app.py's Greeter."""
+
+    def __init__(self):
+        self.greeting = "hello"
+
+    def reconfigure(self, config):
+        self.greeting = config.get("greeting", self.greeting)
+
+    def __call__(self, name):
+        return f"{self.greeting} {name}"
+
+
+greeter_app = Greeter.bind()
+
+
+@serve.deployment
+class GrpcEcho:
+    def __call__(self, body):
+        return {"grpc_echo": body}
+
+
+@serve.deployment
+class GrpcTokens:
+    def __call__(self, body):
+        yield from ["alpha", "beta", "gamma"]

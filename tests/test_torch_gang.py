@@ -3,10 +3,12 @@ reference's meaning (``ray_tpu/util/gang.py``): one spawned process a
 rank, each in the process group and the collective group on the CPU
 (gloo); ``run`` SPMD-executes a function on every member; a member's
 exception raises ``WorkerError``, a member's death ``GangDiedError``; and
-``shutdown`` reaps every process.
+``shutdown`` reaps every process; a rendezvous port taken before rank 0
+binds it starts the gang again on another.
 """
 
 import os
+import socket
 
 import numpy as np
 import pytest
@@ -90,3 +92,28 @@ def test_more_gpus_than_the_host_has_are_refused():
         pytest.skip("this host has two cards")
     with pytest.raises(ValueError, match="asks for 2 GPUs"):
         WorkerGang(2, use_gpu=True)
+
+
+def test_a_taken_rendezvous_port_starts_the_gang_again(monkeypatch):
+    """The port probed free is taken before rank 0's store binds it (here
+    by a listening socket of the test): the gang starts again on another
+    port and forms."""
+    from ray_tpu_torch.util import gang as gang_mod
+
+    taken = socket.socket()
+    taken.bind(("127.0.0.1", 0))
+    taken.listen()
+    ports = [taken.getsockname()[1]]
+    real = gang_mod._free_port
+    monkeypatch.setattr(gang_mod, "_free_port",
+                        lambda: ports.pop() if ports else real())
+    try:
+        gang = WorkerGang(2, use_gpu=False)
+    finally:
+        taken.close()
+    try:
+        assert not ports
+        assert [r["sum"] for r in gang.run(_identity, timeout=120)] == [3.0, 3.0]
+    finally:
+        gang.shutdown()
+    assert all(not p.is_alive() for p in gang.members)

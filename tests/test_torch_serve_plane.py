@@ -9,7 +9,7 @@ exception and an expired deadline, and a generator's SSE lines byte for
 byte. Then the port alone, mirroring tests/test_serve.py: deployments,
 composition, reconfigure, @batch, a replica's death, delete, streaming, a
 route added after start, autoscaling from 1 to 2 replicas and back, and
-the refusals. Replicas are CPU processes (num_gpus unset); the
+the refusals that wait for ROADMAP items 13 and 14. Replicas are CPU processes (num_gpus unset); the
 deployments live in tests/_torch_serve_apps.py, since replicas import
 them by name.
 """
@@ -168,17 +168,16 @@ def test_a_local_class_is_refused():
     assert CallableRef(apps.Doubler.func_or_class).resolve() is apps.Doubler.func_or_class
 
 
-@pytest.mark.parametrize("make", [
-    lambda: serve.deployment(retry_policy={"hedge": True})(apps.noop.func_or_class),
-    lambda: serve.deployment(autoscaling_config={"slo_p99_ms": 50.0})(apps.noop.func_or_class),
-    lambda: serve.deployment(ray_actor_options={"num_tpus": 1})(apps.noop.func_or_class),
-    lambda: serve.get_deployment_handle("x").options(multiplexed_model_id="m1"),
-    lambda: serve.start(http_port=None, grpc_port=9000),
-    lambda: serve.start(http_port=None, num_proxies=2),
-], ids=["hedge", "slo_p99", "num_tpus", "multiplexed", "grpc", "num_proxies"])
-def test_left_out_features_raise_naming_their_roadmap_item(make):
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A item 9"):
-        make()
+@pytest.mark.parametrize("make, item", [
+    (lambda c: serve.deployment(autoscaling_config={"kv_headroom_min": 0.2})(
+        apps.noop.func_or_class), 13),
+    (lambda c: c._save_checkpoint(), 14),
+    (lambda c: c._restore_checkpoint(), 14),
+    (lambda c: c._drain_oom_flagged(), 14),
+], ids=["kv_headroom", "controller_checkpoint", "controller_restore", "oom_drain"])
+def test_left_out_features_raise_naming_their_roadmap_item(port_serve, make, item):
+    with pytest.raises(NotImplementedError, match=f"ROADMAP Queue A item {item}"):
+        make(serve.start(http_port=None))
 
 
 # ------------------------------------------------------ the serve instances
