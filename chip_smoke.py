@@ -310,15 +310,44 @@ final line) if anything is wrong:
                p99 under 3x the baseline's; the hedges, breaker states and
                the route p99 the controller scraped. The oom_risk drain (the
                bench's phase 3) waits for ROADMAP Queue A item 14
-Each path (4-5, 7, 8, 9, 10, 11, 12, 14, 15, 16, 17, 18, 19, 20, 21, 22, 23, 24, 25, 26, 27) runs with
+ 28. dag       compiled graphs (ray_tpu_torch.dag) on the local actors
+               (_private.local_tasks, every actor of the phase started at
+               once, all stopped at its end): (a) TransformerConfig.
+               llama2_7b() at full width and depth in bf16 as two stage
+               actors (_private.dag_apps.TransformerStage) at num_gpus 0.5
+               each, each building the tree from the seed and keeping its
+               16 layers (checksums against the driver's partition_stages),
+               compiled as InputNode -> stage0.forward -> stage1.forward on
+               device edges ([8, 512] int64 tokens in, the [8, 512, 4096]
+               bf16 hidden state as a CUDA IPC edge, the last position's
+               f32 logits [8, 32000] out): one warm execution, 16 with up
+               to CHANNEL_DEPTH in flight, 16 one at a time, each held
+               against the driver's own stage_forward chain (bitwise or
+               within LOGITS_TOL, the largest difference printed), each
+               actor's launches held to its layers and none in the driver
+               during the executions; tokens/s pipelined, sequential and of
+               the driver's chain, each actor's start, peak and
+               memory_allocated against its stage's bytes, the compile's
+               seconds; (b) release/benchmarks_dag.py's hop (a 1-stage echo
+               graph on device edges against the raw two-rank exchange on
+               the same kind of group, 4 MiB of host float32 and of CUDA
+               float32, 80 reps; and the 32 MiB hidden state through the
+               echo) and rpc (3 relays by ordinary calls against the same
+               relays compiled onto shm: messages to actors a step, 0 for
+               the graph); (c) release/benchmarks_dag_recovery.py: an
+               unsupervised and a supervised 3-relay shm chain's step, then
+               the middle relay killed with CHANNEL_DEPTH executions in
+               flight: lost 0, duplicates 0, one recovery, its seconds and
+               the replays discarded
+Each path (4-5, 7, 8, 9, 10, 11, 12, 14, 15, 16, 17, 18, 19, 20, 21, 22, 23, 24, 25, 26, 27, 28) runs with
 every launch count set to 0 just before it; its counts, read just after,
 must equal what its layers and passes imply, every flash launch on the
 route the path's inputs take. The trainer path's kernels launch in its
 worker processes, and the HTTP serving path's in its replica processes,
 whose counts start at 0 with each process and come back in their reports
 and metrics (phase 27's too, each replica's held to its own forwards);
-so do the Tune trials' (phase 24, where every count is 0) and
-the elastic trainer's (phase 25).
+so do the Tune trials' (phase 24, where every count is 0),
+the elastic trainer's (phase 25) and the graph's stage actors' (phase 28).
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
@@ -352,10 +381,11 @@ import torch.nn.functional as F
 
 from ray_tpu_torch import _build
 from ray_tpu_torch import data as rd
-from ray_tpu_torch._private import local_tasks
+from ray_tpu_torch._private import dag_apps, local_tasks
 from ray_tpu_torch._private import profiler as profiler_mod
 from ray_tpu_torch._private import resources
 from ray_tpu_torch._private import telemetry
+from ray_tpu_torch.dag import InputNode
 from ray_tpu_torch.models import transformer as transformer_mod
 from ray_tpu_torch.models.transformer import (
     MoEConfig, TransformerConfig, decode_step, forward, init_kv_cache, init_params,
@@ -6290,6 +6320,377 @@ def phase_serve_chaos(seconds=CHAOS_SECONDS) -> dict:
     return result
 
 
+# ---------------------------------------------------------------- phase 28
+# Compiled graphs (ray_tpu_torch.dag) on the port's local actors: (a) the
+# two-stage pipeline of TransformerConfig.llama2_7b() on device edges, two
+# actors at half of the card each; (b) release/benchmarks_dag.py's hop and
+# rpc phases; (c) release/benchmarks_dag_recovery.py's supervised chain.
+DAG_BATCH, DAG_SEQ = 8, 512
+DAG_STAGES = 2
+DAG_INPUTS = 4           # distinct token batches, each held against the driver's chain
+DAG_PIPELINED = 16       # executions with up to CHANNEL_DEPTH in flight
+DAG_SEQUENTIAL = 16      # executions each followed by its get
+DAG_DRIVER_REPS = 5      # the driver's own chain, timed
+DAG_HOP_BYTES = 4 << 20  # release/benchmarks_dag.py's full payload: 1 << 20 float32
+DAG_HOP_REPS, DAG_HOP_WARM = 80, 4
+DAG_RPC_STEPS = 100
+DAG_STEADY_STEPS = 100   # release/benchmarks_dag_recovery.py's full scale
+DAG_CHAOS_PRE, DAG_CHAOS_STREAM = 4, 60
+DAG_START_TIMEOUT_S = 300.0
+
+
+def _dag_config(config: TransformerConfig) -> dict:
+    return {f.name: getattr(config, f.name) for f in dataclasses.fields(config)}
+
+
+def _dag_started(handles: list, spawned: float) -> list:
+    """Futures of each actor's seconds from its spawn to ALIVE (its
+    constructor run), each waited for in a thread of its own from now."""
+    def wait(h):
+        info = local_tasks.actor_info(h._actor_id, wait_ready=True, timeout=DAG_START_TIMEOUT_S)
+        require(info["state"] == "ALIVE", f"dag: actor {h} did not start: {info}")
+        return time.perf_counter() - spawned
+
+    pool = concurrent.futures.ThreadPoolExecutor(len(handles))
+    futures = [pool.submit(wait, h) for h in handles]
+    pool.shutdown(wait=False)
+    return futures
+
+
+def _dag_stage_want(stage: int, executions: int, config: TransformerConfig) -> dict:
+    """One stage actor's launches: a flash forward a layer, two norms a
+    layer, and the final norm on the last stage, per execution."""
+    layers = config.n_layers // DAG_STAGES
+    norms = 2 * layers + (1 if stage == DAG_STAGES - 1 else 0)
+    return {"flash_attention_fwd": layers * executions, "flash_attention_bwd_dq": 0,
+            "flash_attention_bwd_dkv": 0, "rmsnorm": norms * executions, "rmsnorm_bwd": 0}
+
+
+def _dag_pipeline(config: TransformerConfig, stages: list, device: str) -> dict:
+    """Phase 28 (a): the compiled pipeline against the driver's chain."""
+    rng = np.random.default_rng(SEED + 28)
+    inputs = [torch.from_numpy(rng.integers(0, config.vocab_size, (DAG_BATCH, DAG_SEQ))).to(device)
+              for _ in range(DAG_INPUTS)]
+    t0 = time.perf_counter()
+    params = init_params(config, seed=SEED, device=device)
+    parts = partition_stages(params, config, DAG_STAGES)
+    sums = [dag_apps.leaf_checksums(p) for p in parts]
+    params_s = time.perf_counter() - t0
+
+    def chain(tokens):
+        with torch.inference_mode():
+            x = tokens
+            for s, tree in enumerate(parts):
+                x = stage_forward(tree, x, config, first=s == 0, last=s == DAG_STAGES - 1)
+            return x[:, -1, :].contiguous()
+
+    want = [chain(t) for t in inputs]
+    _sync(device)
+    t0 = time.perf_counter()
+    for i in range(DAG_DRIVER_REPS):
+        chain(inputs[i % DAG_INPUTS])
+    _sync(device)
+    driver_s = (time.perf_counter() - t0) / DAG_DRIVER_REPS
+    driver_forwards = DAG_INPUTS + DAG_DRIVER_REPS
+
+    got_sums = local_tasks.get([s.checksums.remote() for s in stages], timeout=600)
+    for s in range(DAG_STAGES):
+        require(got_sums[s] == sums[s], f"dag: stage {s}'s leaves differ from the driver's "
+                                        f"partition: {got_sums[s]} vs {sums[s]}")
+    del params, parts
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    local_tasks.get([s.reset_counts.remote() for s in stages], timeout=60)
+
+    t0 = time.perf_counter()
+    with InputNode() as inp:
+        out = stages[1].forward.bind(stages[0].forward.bind(inp))
+    dag = out.experimental_compile(channel="device")
+    compile_s = time.perf_counter() - t0
+    outs: list = []
+    before = _counts()
+    try:
+        t0 = time.perf_counter()
+        outs.append((0, dag.execute(inputs[0]).get(timeout=600)))  # warm: first IPC opens
+        first_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        refs: dict = {}
+        done = 0
+        while done < DAG_PIPELINED:
+            while len(refs) < dag.CHANNEL_DEPTH and done + len(refs) < DAG_PIPELINED:
+                k = done + len(refs)
+                refs[k] = dag.execute(inputs[k % DAG_INPUTS])
+            outs.append((done % DAG_INPUTS, refs.pop(done).get(timeout=600)))
+            done += 1
+        pipelined_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        for k in range(DAG_SEQUENTIAL):
+            outs.append((k % DAG_INPUTS, dag.execute(inputs[k % DAG_INPUTS]).get(timeout=600)))
+        sequential_s = time.perf_counter() - t0
+    finally:
+        dag.close()
+    require(_counts() == before, f"dag: the driver launched {_counts()} during the executions")
+    executions = len(outs)
+    errs = [max_err(o, want[i]) for i, o in outs]
+    bitwise = all(torch.equal(o, want[i]) for i, o in outs)
+    require(all(o.shape == (DAG_BATCH, config.vocab_size) and o.dtype == torch.float32
+                and bool(torch.isfinite(o).all()) for _, o in outs),
+            "dag: outputs of the wrong shape or type, or not finite")
+    require(bitwise or max(errs) < LOGITS_TOL,
+            f"dag: logits differ from the driver's chain by {max(errs)}")
+    by_actor = local_tasks.get([s.counts.remote() for s in stages], timeout=60)
+    infos = local_tasks.get([s.info.remote() for s in stages], timeout=60)
+    tokens = DAG_BATCH * DAG_SEQ
+    return {
+        "executions": executions, "driver_forwards": driver_forwards,
+        "bitwise_equal": bitwise, "max_abs_err": max(errs), "tol": LOGITS_TOL,
+        "pipelined_tokens_per_s": DAG_PIPELINED * tokens / pipelined_s,
+        "sequential_tokens_per_s": DAG_SEQUENTIAL * tokens / sequential_s,
+        "driver_tokens_per_s": tokens / driver_s,
+        "pipelined_s": pipelined_s, "sequential_s": sequential_s, "driver_chain_s": driver_s,
+        "first_execution_s": first_s, "compile_s": compile_s, "driver_params_s": params_s,
+        "actors": [{**info, "counts": c, "routes": r} for info, (c, r) in zip(infos, by_actor)],
+    }
+
+
+def _dag_echo_hop(actor, payload, reps: int = DAG_HOP_REPS) -> float:
+    """Half the median round trip of a 1-stage echo graph on device edges."""
+    with InputNode() as inp:
+        out = actor.echo.bind(inp)
+    dag = out.experimental_compile(channel="device")
+    try:
+        for _ in range(DAG_HOP_WARM):
+            dag.execute(payload).get(timeout=120)
+        times = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            back = dag.execute(payload).get(timeout=120)
+            times.append(time.perf_counter() - t0)
+        require(tuple(back.shape) == tuple(payload.shape), "dag hop: the echo changed the payload")
+    finally:
+        dag.close()
+    return statistics.median(times) / 2.0
+
+
+def _dag_raw_hop(actor, cuda: bool, device: str) -> float:
+    """Half the median round trip of the raw exchange with ``actor`` on a
+    two-rank DeviceGroup: gloo send/recv of the float32 tensor, or (cuda)
+    the same IPC exchange a device edge makes, without loop or framing."""
+    from ray_tpu_torch.dag import channels
+
+    store = channels.host_store()
+    name = f"raw-hop-{os.getpid()}-{time.monotonic_ns()}"
+    reps = DAG_HOP_REPS + DAG_HOP_WARM
+    peer = actor.pingpong.remote(store.port, name, DAG_HOP_BYTES, reps, cuda)
+    group = channels.DeviceGroup(store, name, 0, 2)
+    times = []
+    if cuda:
+        payload = torch.ones(DAG_HOP_BYTES // 4, dtype=torch.float32, device=device)
+        cache: dict = {}
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            body, held, _ = channels.encode(group, 1, payload)
+            group.send_frame(1, 1, channels.VALUE, body)
+            group.recv_frame(1, 2)
+            _, reply = group.recv_frame(1, 1)
+            value, dec = channels.decode(group, 1, reply, cache)
+            for done in dec.copies:
+                done.synchronize()
+            group.send_frame(1, 2, channels.ACK)
+            times.append(time.perf_counter() - t0)
+            del held, value
+    else:
+        buf = torch.ones(DAG_HOP_BYTES // 4, dtype=torch.float32)
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            group.gloo.send([buf], 1, 1).wait()
+            group.gloo.recv([buf], 1, 1).wait()
+            times.append(time.perf_counter() - t0)
+    local_tasks.get(peer, timeout=120)
+    return statistics.median(times[DAG_HOP_WARM:]) / 2.0
+
+
+def _dag_hop(actor, device: str) -> dict:
+    """Phase 28 (b) hop: the echo graph against the raw exchange, host
+    float32 and (on the card) a CUDA tensor of the same bytes, and the
+    pipeline's 32 MiB hidden state through the echo."""
+    host = np.ones(DAG_HOP_BYTES // 4, dtype=np.float32)
+    out = {"payload_bytes": DAG_HOP_BYTES}
+    raw, dag = _dag_raw_hop(actor, False, device), _dag_echo_hop(actor, host)
+    out["host"] = {"raw_hop_us": raw * 1e6, "dag_hop_us": dag * 1e6,
+                   "hop_overhead_pct": (dag - raw) / raw * 100.0}
+    if device == "cuda":
+        card = torch.ones(DAG_HOP_BYTES // 4, dtype=torch.float32, device=device)
+        raw, dag = _dag_raw_hop(actor, True, device), _dag_echo_hop(actor, card)
+        out["cuda"] = {"raw_hop_us": raw * 1e6, "dag_hop_us": dag * 1e6,
+                       "hop_overhead_pct": (dag - raw) / raw * 100.0}
+        hidden = torch.ones(DAG_BATCH, DAG_SEQ, 4096, dtype=torch.bfloat16, device=device)
+        out["hidden_32mib_hop_us"] = _dag_echo_hop(actor, hidden, reps=20) * 1e6
+    return out
+
+
+def _dag_rpc(relays: list) -> dict:
+    """Phase 28 (b) rpc: three relays driven by ordinary calls, then the
+    same actors compiled onto shm channels; the messages this process sends
+    to actors per step."""
+    a, b, c = relays
+
+    def chain_step(i):
+        v = i
+        for actor in (a, b, c):
+            v = local_tasks.get(actor.add.remote(v), timeout=60)
+        return v
+
+    for i in range(3):
+        chain_step(i)
+    m0 = local_tasks.actor_messages()
+    for i in range(DAG_RPC_STEPS):
+        require(chain_step(i) == i + 3, "dag rpc: the chain's sum")
+    task_messages = local_tasks.actor_messages() - m0
+    with InputNode() as inp:
+        out = c.add.bind(b.add.bind(a.add.bind(inp)))
+    dag = out.experimental_compile(channel="shm")
+    try:
+        dag.execute(0).get(timeout=60)
+        m0 = local_tasks.actor_messages()
+        for i in range(DAG_RPC_STEPS):
+            require(dag.execute(i).get(timeout=60) == i + 3, "dag rpc: the graph's sum")
+        dag_messages = local_tasks.actor_messages() - m0
+    finally:
+        dag.close()
+    require(dag_messages == 0, f"dag rpc: {dag_messages} messages to actors after compile")
+    return {"steps": DAG_RPC_STEPS, "task_messages_per_step": task_messages / DAG_RPC_STEPS,
+            "dag_messages_per_step": dag_messages / DAG_RPC_STEPS,
+            "dag_actor_calls_per_step": dag_messages / DAG_RPC_STEPS}
+
+
+def _dag_median_step_us(dag, steps: int) -> float:
+    times = []
+    for i in range(steps):
+        t0 = time.perf_counter()
+        require(dag.execute(i).get(timeout=60) == i + 3, "dag recovery: a step's sum")
+        times.append(time.perf_counter() - t0)
+    return statistics.median(times) * 1e6
+
+
+def _dag_recovery(baseline: list, supervised: list) -> dict:
+    """Phase 28 (c): release/benchmarks_dag_recovery.py: an unsupervised
+    3-relay shm chain's step, the same shape supervised, then the middle
+    relay killed with a full window (CHANNEL_DEPTH) in flight."""
+    def chain(relays, **kw):
+        a, b, c = relays
+        with InputNode() as inp:
+            out = c.add.bind(b.add.bind(a.add.bind(inp)))
+        return out.experimental_compile(channel="shm", **kw)
+
+    base = chain(baseline)
+    try:
+        base.execute(0).get(timeout=60)
+        baseline_us = _dag_median_step_us(base, DAG_STEADY_STEPS)
+    finally:
+        base.close()
+    dag = chain(supervised, supervise=True)
+    try:
+        dag.execute(0).get(timeout=60)
+        m0 = local_tasks.actor_messages()
+        supervised_us = _dag_median_step_us(dag, DAG_STEADY_STEPS)
+        steady_messages = local_tasks.actor_messages() - m0
+        for i in range(DAG_CHAOS_PRE):
+            require(dag.execute(i).get(timeout=60) == i + 3, "dag recovery: a warm step")
+        start, stop = DAG_CHAOS_PRE, DAG_CHAOS_PRE + DAG_CHAOS_STREAM
+        window = dag.CHANNEL_DEPTH
+        refs = {i: dag.execute(i) for i in range(start, start + window)}
+        local_tasks.kill(supervised[1])
+        time.sleep(0.3)
+        submitted, results = start + window, {}
+        while refs:
+            seq = min(refs)
+            results[seq] = refs.pop(seq).get(timeout=180)
+            if submitted < stop:
+                refs[submitted] = dag.execute(submitted)
+                submitted += 1
+        lost = sum(1 for i in range(start, stop) if results.get(i) != i + 3)
+        dups = sum(len(r._ready) for r in dag._out_readers)
+        rec = dag.last_recovery or {}
+        result = {"steps": DAG_CHAOS_STREAM, "window": window, "lost_outputs": lost,
+                  "dup_outputs": dups, "recoveries": dag.recoveries,
+                  "recovery_latency_s": rec.get("duration_s"), "recovery_epoch": rec.get("epoch"),
+                  "victim_ranks": rec.get("victim_ranks"), "replay_discards": dag.replay_discards,
+                  "baseline_step_us": baseline_us, "supervised_step_us": supervised_us,
+                  "supervise_overhead_pct": (supervised_us - baseline_us) / baseline_us * 100.0,
+                  "dag_actor_messages": steady_messages}
+    finally:
+        dag.close()
+    require(result["lost_outputs"] == 0 and result["dup_outputs"] == 0
+            and result["recoveries"] == 1, f"dag recovery: gates failed {result}")
+    require(steady_messages == 0, f"dag recovery: {steady_messages} messages in the steady state")
+    return result
+
+
+def _dag_paths(pipeline: dict, local: dict, config: TransformerConfig) -> tuple:
+    """Holds phase 28 (a)'s launches: none in this process but its own
+    chains, each stage actor's to its layers, every flash launch on the
+    wgmma route; returns the actors' counts and routes summed."""
+    require(local == _expected(config.n_layers, kernel_forwards=pipeline["driver_forwards"]),
+            f"dag: this process launched {local}, its own chains' worth expected")
+    executions = pipeline["executions"]
+    counts = {k: 0 for k in local}
+    routes = {k: {"wgmma": 0, "mma_sync": 0}
+              for k in ("flash_attention_fwd", "flash_attention_bwd_dq", "flash_attention_bwd_dkv")}
+    for s, actor in enumerate(pipeline["actors"]):
+        _path(f"dag[stage{s}]", _dag_stage_want(s, executions, config), actor["counts"],
+              actor["routes"], "wgmma", executions=executions)
+        for k, n in actor["counts"].items():
+            counts[k] += n
+        for k, by_route in actor["routes"].items():
+            for r, n in by_route.items():
+                routes[k][r] += n
+    _path("dag", _expected(config.n_layers, kernel_forwards=executions), counts, routes,
+          "wgmma", executions=executions)
+    return counts, routes
+
+
+def phase_dag(config: TransformerConfig | None = None, device: str = "cuda") -> dict:
+    """Phase 28: compiled graphs on the port's local actors; every actor
+    starts at once at the phase's start, and every process it started is
+    stopped at its end."""
+    config = config or TransformerConfig.llama2_7b()
+    start = time.perf_counter()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    free_before = resources.available_resources()
+    stage_cls = local_tasks.remote(dag_apps.TransformerStage)
+    if device == "cuda":
+        stage_cls = stage_cls.options(num_gpus=1.0 / DAG_STAGES)
+    relay_cls = local_tasks.remote(dag_apps.Relay)
+    try:
+        spawned = time.perf_counter()
+        stages = [stage_cls.remote(_dag_config(config), s, DAG_STAGES, seed=SEED, device=device,
+                                   last_position=True) for s in range(DAG_STAGES)]
+        relays = [relay_cls.remote() for _ in range(9)]
+        stage_starts, relay_starts = _dag_started(stages, spawned), _dag_started(relays, spawned)
+        pipeline = _dag_pipeline(config, stages, device)
+        pipeline["actor_start_s"] = [f.result() for f in stage_starts]
+        pipeline["relay_start_s"] = max(f.result() for f in relay_starts)
+        log("dag_pipeline", **{k: v for k, v in pipeline.items() if k != "actors"},
+            actors=[{k: v for k, v in a.items() if k not in ("counts", "routes")}
+                    for a in pipeline["actors"]])
+        hop = _dag_hop(stages[1], device)
+        log("dag_hop", **hop)
+        rpc = _dag_rpc(relays[:3])
+        log("dag_rpc", **rpc)
+        recovery = _dag_recovery(relays[3:6], relays[6:])
+        log("dag_recovery", **recovery)
+    finally:
+        local_tasks.shutdown()
+    require(resources.available_resources() == free_before,
+            f"dag: leases outlived the actors: {resources.available_resources()} vs {free_before}")
+    result = {"pipeline": pipeline, "hop": hop, "rpc": rpc, "recovery": recovery,
+              "seconds": time.perf_counter() - start}
+    log("dag", seconds=result["seconds"])
+    return result
+
+
 # ---------------------------------------------------------------- main
 def _path(name: str, want: dict, counts: dict, routes: dict, route: str, **fields) -> None:
     """Logs a path's launch counts and fails unless they are what the path
@@ -6497,6 +6898,16 @@ def main() -> None:
     counts["serve_chaos"], routes["serve_chaos"] = _replica_paths(
         "serve_chaos", bert_layers, chaos["counts_by_pid"])
 
+    # Phase 28: compiled graphs. The pipeline's kernels launch in its two
+    # stage actors, whose counts (set to 0 in each before the graph runs)
+    # come back by call, each held to its stage's layers; this process's
+    # launches are its own stage_forward chains, which the outputs are held
+    # against, and none during the graph's executions.
+    dag_config = TransformerConfig.llama2_7b()
+    dagr, local, _ = _run_path(phase_dag, dag_config)
+    pipe28 = dagr["pipeline"]
+    counts["dag"], routes["dag"] = _dag_paths(pipe28, local, dag_config)
+
     # Every launch on the tiny path is of its instantiations (head_dim 16 in
     # f32, RMSNorm at dim 64 in f32), on the HTTP serving path of BERT-base's
     # (head_dim 64 and dim 768 in bf16); on every other path, of the model's.
@@ -6556,7 +6967,14 @@ def main() -> None:
         mux_evictions=sum(r["evictions"] for r in mux["replicas"].values()),
         chaos_lost=chaos["lost"], chaos_p99_ratio=chaos["p99_ratio"],
         chaos_hedges_launched=chaos["hedges_launched"], chaos_recover_s=chaos["recover_s"],
-        seconds=time.perf_counter() - _t_start)
+        dag_pipelined_tokens_per_s=pipe28["pipelined_tokens_per_s"],
+        dag_sequential_tokens_per_s=pipe28["sequential_tokens_per_s"],
+        dag_driver_tokens_per_s=pipe28["driver_tokens_per_s"],
+        dag_host_hop_overhead_pct=dagr["hop"]["host"]["hop_overhead_pct"],
+        dag_cuda_hop_overhead_pct=dagr["hop"]["cuda"]["hop_overhead_pct"],
+        dag_actor_calls_per_step=dagr["rpc"]["dag_actor_calls_per_step"],
+        dag_recovery_latency_s=dagr["recovery"]["recovery_latency_s"],
+        dag_seconds=dagr["seconds"], seconds=time.perf_counter() - _t_start)
     require_no_reference("chip_smoke")
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {

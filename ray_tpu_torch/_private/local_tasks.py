@@ -15,6 +15,21 @@ package those calls on one host, and nothing more:
 * ``remote(cls)`` makes an actor class: ``cls.remote(*args)`` starts one
   process that holds the instance, and ``handle.method.remote(*args)``
   runs the method there, one call after the other, in submission order.
+  ``cls.options(num_cpus=, num_gpus=, resources=, max_restarts=)`` sets
+  what the actor leases from this host's ledger (``_private.resources``,
+  the reference's ``num_cpus``/``num_tpus``/``resources`` with ``GPU`` for
+  ``TPU``) and how often it is restarted after a death it did not ask for.
+  The lease is taken when the actor starts (a request the host can never
+  hold raises ``InfeasibleResourcesError`` there; one that does not fit
+  now waits, the actor ``PENDING``) and given back when the actor is
+  killed or dies for good. An actor without options leases nothing.
+* Each actor has an id (``handle._actor_id``) and a state (``PENDING``,
+  ``ALIVE``, ``RESTARTING`` or ``DEAD``: ``actor_info``), and
+  ``restart_actor`` starts a new process of a dead actor from the same
+  class and constructor arguments under the same id: the counterparts of
+  the controller's ``get_actor_info`` and ``restart_actor``, which compiled
+  graphs (``ray_tpu_torch.dag``) place and heal their actors by.
+  ``handle.method.bind(*args)`` makes a graph node of a method.
 * ``get(refs, timeout=)``, ``wait(refs, num_returns=, timeout=)``,
   ``put(value)`` and ``kill(actor)`` keep the reference's meaning. A task
   or actor method that raised makes ``get`` raise ``TaskError`` with the
@@ -24,8 +39,18 @@ Workers. Tasks run on a pool of worker processes (``multiprocessing``'s
 spawn context), started once per submitting process and reused; an actor is
 one dedicated process of its own. They start with ``CUDA_VISIBLE_DEVICES``
 empty: a data worker never opens a CUDA context on the card the trainer
-uses. A worker that dies fails the task it ran (``WorkerCrashedError``)
-and is replaced.
+uses. Only an actor that leased ``GPU`` starts with the lease's cards
+visible (two actors at 0.5 see the one card they share). A worker that
+dies fails the task it ran (``WorkerCrashedError``) and is replaced.
+
+An actor process also listens on a local socket for the messages that
+ray_tpu's worker answers for compiled graphs (``worker_proc.py``'s
+``rpc_dag_*``): register (builds the graph's ``DagRuntime``), teardown,
+snapshot and restore (``__dag_snapshot__`` / ``__dag_restore__``), and the
+socket family's push and pop. Its ordinary calls and its graph stages run
+the instance's methods one at a time, under one lock: the reference's
+single-width actor executor. ``actor_messages()`` counts the messages this
+process has sent to actors (calls and graph messages alike).
 
 Objects live in the submitting process's store, a directory of files
 under the temporary directory (``ray_tpu_torch_store_<pid>_<hex>``), each
@@ -289,12 +314,23 @@ def _write_outputs(value: Any, outs: list[str]) -> list[int]:
     return [_write_object(path, v) for path, v in zip(outs, values)]
 
 
-def _worker_main(conn) -> None:
+class _ActorProcess:
+    """What an actor process holds: its instance, the lock its calls and
+    graph stages run under, and its compiled graphs' runtimes by id."""
+
+    instance: Any = None
+    lock = threading.RLock()
+    dags: dict = {}
+    dags_lock = threading.Lock()
+
+
+def _worker_main(conn, visible: str = "", actor: bool = False) -> None:
     """A pool worker or an actor: runs what its feeding thread sends, one message at
-    a time, and answers each with ("ok", sizes) or ("error", error, traceback)."""
-    os.environ["CUDA_VISIBLE_DEVICES"] = ""
-    conn.send(("ready", os.getpid()))
-    instance = None
+    a time, and answers each with ("ok", sizes) or ("error", error, traceback). An
+    actor also serves graph messages on a local socket (``_serve_control``)."""
+    os.environ["CUDA_VISIBLE_DEVICES"] = visible
+    address = _serve_control() if actor else None
+    conn.send(("ready", os.getpid(), address))
     while True:
         try:
             message = conn.recv_bytes()
@@ -303,14 +339,19 @@ def _worker_main(conn) -> None:
         try:
             kind, fn, args, kwargs, outs = pickle.loads(message)
             if kind == "stop":
+                if actor:
+                    _stop_actor_process()
                 return
             args, kwargs = _resolve_args(args, kwargs)
             if kind == "init":
-                instance = fn(*args, **kwargs)
+                _ActorProcess.instance = fn(*args, **kwargs)
                 reply = ("ok", [])
+            elif kind == "call":
+                with _ActorProcess.lock:
+                    value = getattr(_ActorProcess.instance, fn)(*args, **kwargs)
+                reply = ("ok", _write_outputs(value, outs))
             else:
-                target = getattr(instance, fn) if kind == "call" else fn
-                reply = ("ok", _write_outputs(target(*args, **kwargs), outs))
+                reply = ("ok", _write_outputs(fn(*args, **kwargs), outs))
         except Exception as exc:
             reply = ("error", f"{type(exc).__name__}: {exc}", traceback.format_exc())
         try:
@@ -319,24 +360,214 @@ def _worker_main(conn) -> None:
             return
 
 
-_SPAWN_LOCK = threading.Lock()
+# ------------------------------------------------------------ graph messages
+def _stop_actor_process() -> None:
+    """Tears down the actor's graphs and ends the process at once: a graph's
+    device group leaves gloo threads that would abort the interpreter's
+    own finalization."""
+    with _ActorProcess.dags_lock:
+        runtimes, _ActorProcess.dags = list(_ActorProcess.dags.values()), {}
+    for runtime in runtimes:
+        runtime.stop()
+    sys.stdout.flush()
+    sys.stderr.flush()
+    os._exit(0)
 
 
-def _spawn(name: str):
-    """A worker process with ``CUDA_VISIBLE_DEVICES`` empty from its start."""
+def _serve_control() -> str:
+    """Listens on an abstract local socket for graph messages, a thread a
+    connection; returns the address. Peers authenticate with the key every
+    process of this driver shares (``multiprocessing``'s authkey)."""
+    from multiprocessing.connection import Listener
+
+    address = f"\0ray_tpu_torch-actor-{os.getpid()}-{uuid.uuid4().hex[:8]}"
+    listener = Listener(address, family="AF_UNIX",
+                        authkey=multiprocessing.current_process().authkey)
+
+    def accept():
+        while True:
+            try:
+                conn = listener.accept()
+            except Exception:  # rtlint: disable=swallowed-exception - a failed handshake ends that connection only
+                continue
+            threading.Thread(target=_serve_connection, args=(conn,), daemon=True,
+                             name="actor-control").start()
+
+    threading.Thread(target=accept, daemon=True, name="actor-control-accept").start()
+    return address
+
+
+def _serve_connection(conn) -> None:
+    while True:
+        try:
+            op, payload = conn.recv()
+        except (EOFError, OSError):
+            return
+        try:
+            reply = _CONTROL_OPS[op](payload)
+        except Exception:
+            reply = {"status": "error", "error": traceback.format_exc()}
+        try:
+            conn.send(reply)
+        except (BrokenPipeError, OSError):
+            return
+
+
+def _run_stage(method: str, args: list):
+    """One graph stage's call, under the lock the actor's calls take."""
+    with _ActorProcess.lock:
+        return getattr(_ActorProcess.instance, method)(*args)
+
+
+def _dag_register(payload: dict) -> dict:
+    from ray_tpu_torch.dag.executor import DagRuntime
+
+    dag_id, epoch = payload["dag_id"], int(payload.get("epoch", 0))
+    with _ActorProcess.dags_lock:
+        existing = _ActorProcess.dags.get(dag_id)
+        if existing is not None and existing.epoch >= epoch:
+            return {"status": "ok"}  # a repeated register
+        _ActorProcess.dags.pop(dag_id, None)
+    if existing is not None:
+        # A survivor of a recovery rebuilds its loops on the re-opened channels.
+        existing.stop()
+    runtime = DagRuntime(dag_id=dag_id, payload=payload, run_stage=_run_stage,
+                         send_socket=_send_socket)
+    with _ActorProcess.dags_lock:
+        _ActorProcess.dags[dag_id] = runtime
+    return {"status": "ok"}
+
+
+def _send_socket(address: str, payload: dict) -> dict:
+    """A socket-family push from this actor to the stage's actor."""
+    return _control_client(address).call("dag_push", payload, timeout=300.0)
+
+
+def _dag_teardown(payload: dict) -> dict:
+    with _ActorProcess.dags_lock:
+        runtime = _ActorProcess.dags.pop(payload["dag_id"], None)
+    if runtime is not None:
+        runtime.stop()
+    return {"status": "ok"}
+
+
+def _dag_runtime(dag_id: str):
+    with _ActorProcess.dags_lock:
+        return _ActorProcess.dags.get(dag_id)
+
+
+def _dag_push(payload: dict) -> dict:
+    """Socket-family delivery: feeds one buffered input slot."""
+    runtime = _dag_runtime(payload["dag_id"])
+    if runtime is None:
+        return {"status": "error", "error": f"dag {payload['dag_id']} not registered"}
+    if int(payload.get("epoch", 0)) != runtime.epoch:
+        return {"status": "stale_epoch", "epoch": runtime.epoch}
+    from ray_tpu_torch.dag import channel
+
+    value = channel.deserialize(payload["value"], zero_copy=False)
+    try:
+        runtime.feed(payload["node"], payload["slot"], payload["seq"], value)
+    except KeyError as exc:
+        return {"status": "error", "error": str(exc)}
+    return {"status": "ok"}
+
+
+def _dag_pop(payload: dict) -> dict:
+    """Socket-family output: waits for the parked result of one seq."""
+    runtime = _dag_runtime(payload["dag_id"])
+    if runtime is None:
+        return {"status": "error", "error": f"dag {payload['dag_id']} not registered"}
+    return runtime.pop(payload["seq"], payload.get("timeout", 300.0))
+
+
+def _dag_snapshot(payload: dict) -> dict:
+    """``__dag_snapshot__`` of the instance, under the calls' lock; ``no_hook``
+    lets a stateless stage take part in an all-or-nothing snapshot."""
+    hook = getattr(_ActorProcess.instance, "__dag_snapshot__", None)
+    if hook is None:
+        return {"status": "no_hook"}
+    with _ActorProcess.lock:
+        state = hook()
+    return {"status": "ok", "blob": pickle.dumps(state, protocol=5)}
+
+
+def _dag_restore(payload: dict) -> dict:
+    hook = getattr(_ActorProcess.instance, "__dag_restore__", None)
+    if hook is None:
+        return {"status": "no_hook"}
+    with _ActorProcess.lock:
+        hook(pickle.loads(payload["blob"]))
+    return {"status": "ok"}
+
+
+_CONTROL_OPS = {
+    "ping": lambda payload: {"status": "ok", "pid": os.getpid()},
+    "dag_register": _dag_register, "dag_teardown": _dag_teardown,
+    "dag_push": _dag_push, "dag_pop": _dag_pop,
+    "dag_snapshot": _dag_snapshot, "dag_restore": _dag_restore,
+}
+
+
+class _ControlClient:
+    """Requests to one actor's graph socket: a connection a caller at a
+    time (a pop that waits does not hold up a push to the same actor)."""
+
+    def __init__(self, address: str):
+        self.address = address
+        self._idle: list = []
+        self._lock = threading.Lock()
+
+    def call(self, op: str, payload: dict, timeout: float = 60.0) -> dict:
+        from multiprocessing.connection import Client
+
+        with self._lock:
+            conn = self._idle.pop() if self._idle else None
+        if conn is None:
+            conn = Client(self.address, family="AF_UNIX",
+                          authkey=multiprocessing.current_process().authkey)
+        try:
+            conn.send((op, payload))
+            if not conn.poll(timeout):
+                raise TimeoutError(f"{op} to {self.address[1:]} timed out after {timeout} s")
+            reply = conn.recv()
+        except BaseException:
+            conn.close()  # its reply, if any, belongs to no one now
+            raise
+        with self._lock:
+            self._idle.append(conn)
+        return reply
+
+    def close(self) -> None:
+        with self._lock:
+            conns, self._idle = self._idle, []
+        for conn in conns:
+            conn.close()
+
+
+_clients: dict[str, _ControlClient] = {}
+_clients_lock = threading.Lock()
+
+
+def _control_client(address: str) -> _ControlClient:
+    with _clients_lock:
+        client = _clients.get(address)
+        if client is None:
+            client = _clients[address] = _ControlClient(address)
+        return client
+
+
+def _spawn(name: str, visible: str = "", actor: bool = False):
+    """A worker process with ``CUDA_VISIBLE_DEVICES`` set to ``visible`` (empty:
+    no card) from its start."""
+    from ray_tpu_torch._private import resources
+
     ctx = multiprocessing.get_context("spawn")
     parent, child = ctx.Pipe()
-    proc = ctx.Process(target=_worker_main, args=(child,), name=name, daemon=True)
-    with _SPAWN_LOCK:
-        saved = os.environ.get("CUDA_VISIBLE_DEVICES")
-        os.environ["CUDA_VISIBLE_DEVICES"] = ""
-        try:
-            proc.start()
-        finally:
-            if saved is None:
-                del os.environ["CUDA_VISIBLE_DEVICES"]
-            else:
-                os.environ["CUDA_VISIBLE_DEVICES"] = saved
+    proc = ctx.Process(target=_worker_main, args=(child, visible, actor), name=name,
+                       daemon=True)
+    with resources.child_visible_devices(visible):
+        proc.start()
     child.close()
     return proc, parent
 
@@ -425,15 +656,262 @@ class _Executor:
         self.conn.close()
 
 
-class _ActorExecutor(_Executor):
-    """An actor's process: a death is final, and its later calls fail."""
+_RESTART = object()
+# How often an idle actor's feeding thread looks whether its process still runs.
+_WATCH_S = 0.25
 
-    def __init__(self, runtime: "_Runtime", name: str):
-        super().__init__(runtime, name, queue.Queue())
+
+class _ActorExecutor:
+    """An actor: its id, state, lease and process, and the thread here that
+    leases, starts (and restarts) the process and feeds it calls in order.
+
+    States, as the controller's actor table has them: PENDING (waiting for
+    its lease or starting), ALIVE (its constructor ran), RESTARTING and DEAD.
+    A death the actor did not ask for restarts it while ``max_restarts``
+    allows (-1: always); ``kill(no_restart=True)`` and a failed constructor
+    are final until ``restart_actor``."""
+
+    def __init__(self, runtime: "_Runtime", name: str, actor_id: str, bundle: dict,
+                 lease, max_restarts: int):
+        self.runtime, self.name, self.actor_id = runtime, name, actor_id
+        self.tasks: queue.Queue = queue.Queue()
+        self.bundle, self.lease, self.max_restarts = bundle, lease, int(max_restarts)
+        self.restarts = 0
+        self.proc = self.conn = None
+        self.address: str | None = None
+        self.state = "PENDING"
+        self.dead: str | None = None  # why, while DEAD
+        self.no_restart = False
+        self.generation = 0  # one a process
+        self.init_task: _Task | None = None
         self.init_ref: ObjectRef | None = None
+        self.cond = threading.Condition()
+        self.thread = threading.Thread(target=self._loop, name=f"{name}-feed", daemon=True)
+        self.thread.start()
 
-    def died(self) -> None:
-        self.dead = f"the actor process {self.name} ended (exit code {self.proc.exitcode})"
+    # -- state ---------------------------------------------------------------
+    def info(self) -> dict:
+        """The controller's ``get_actor_info``: state, pid, address, cause."""
+        self.check()
+        with self.cond:
+            return {"state": self.state, "pid": self.proc.pid if self.proc else None,
+                    "address": self.address, "death_cause": self.dead,
+                    "restarts": self.restarts}
+
+    def wait_ready(self, timeout: float) -> dict:
+        """Waits until the actor is ALIVE or DEAD (at most ``timeout`` s)."""
+        deadline = time.monotonic() + timeout
+        with self.cond:
+            while self.state not in ("ALIVE", "DEAD"):
+                left = deadline - time.monotonic()
+                if left <= 0:
+                    break
+                self.cond.wait(min(left, _WATCH_S))
+                self.check()
+        return self.info()
+
+    def check(self) -> None:
+        """Notices a process that ended while the actor was idle."""
+        proc, gen = self.proc, self.generation
+        if proc is not None and self.state == "ALIVE" and proc.exitcode is not None:
+            self._died(gen, f"the actor process {self.name} ended (exit code "
+                            f"{proc.exitcode})")
+
+    def _set(self, state: str, dead: str | None = None) -> None:
+        with self.cond:
+            self.state, self.dead = state, dead
+            self.cond.notify_all()
+
+    def _died(self, gen: int, cause: str) -> None:
+        """The process of generation ``gen`` ended: restart it when allowed,
+        else the actor is DEAD and its lease goes back."""
+        with self.cond:
+            if gen != self.generation or self.state in ("DEAD", "RESTARTING"):
+                return
+            restartable = (not self.no_restart and not self.runtime.stopping
+                           and (self.max_restarts < 0 or self.restarts < self.max_restarts))
+            if restartable:
+                self.restarts += 1
+                self.state = "RESTARTING"
+                self.tasks.put(_RESTART)
+            else:
+                self.state, self.dead = "DEAD", cause
+                self._release()
+            self.cond.notify_all()
+
+    def _release(self) -> None:
+        lease, self.lease = self.lease, None
+        if lease is not None:
+            lease.release()
+
+    # -- the process ---------------------------------------------------------
+    def _lease(self) -> bool:
+        """Takes the actor's lease, waiting while the host is full."""
+        if self.lease is not None or not self.bundle:
+            return True
+        from ray_tpu_torch._private import resources
+
+        while not self.runtime.stopping and self.state != "DEAD":
+            try:
+                lease = resources.ledger().acquire(self.bundle, 1, timeout=_WATCH_S)
+            except resources.InfeasibleResourcesError as exc:
+                self._set("DEAD", f"its resources can never be placed: {exc}")
+                return False
+            except resources.PlacementGroupUnschedulableError:
+                continue
+            with self.cond:
+                if self.state == "DEAD":  # killed while it waited
+                    lease.release()
+                    return False
+                self.lease = lease
+                return True
+        return False
+
+    def _start(self) -> bool:
+        """Leases, starts a process and waits for its first message."""
+        if not self._lease():
+            return False
+        visible = self.lease.visible_devices() if self.bundle.get("GPU") else ""
+        with self.cond:
+            self.generation += 1
+        self.proc, self.conn = _spawn(self.name, visible, actor=True)
+        try:
+            _, _, self.address = self.conn.recv()
+        except (EOFError, OSError):
+            self.address = None  # a process that died at its start fails its constructor
+        return True
+
+    def _send(self, message: bytes):
+        self.runtime.count_message()
+        self.conn.send_bytes(message)
+        return self.conn.recv()
+
+    def _restart(self) -> None:
+        """A new process of the same class and constructor arguments."""
+        if self.conn is not None:
+            self.conn.close()
+        if self.proc is not None and self.proc.is_alive():
+            self.proc.kill()
+            self.proc.join()
+        if not self._start():
+            return
+        gen = self.generation
+        try:
+            reply = self._send(self.init_task.message)
+        except (EOFError, OSError):
+            self._set("RESTARTING")
+            self._died(gen, f"the actor process {self.name} ended while restarting")
+            return
+        if reply[0] == "ok":
+            self._set("ALIVE")
+        else:
+            self._set("DEAD", f"its constructor raised {reply[1]}")
+            self._release()
+
+    def _loop(self) -> None:
+        """The only thread that writes to the actor process's pipe."""
+        if not self._start():
+            self._fail_queued()
+            return
+        while True:
+            try:
+                task = self.tasks.get(timeout=_WATCH_S)
+            except queue.Empty:
+                self.check()
+                continue
+            if task is _STOP:
+                if self.conn is not None:
+                    try:
+                        self.conn.send_bytes(_STOP_MESSAGE)
+                    except OSError:
+                        pass  # the process is gone
+                return
+            if task is _RESTART:
+                self._restart()
+                continue
+            if self.state == "DEAD" or self.runtime.stopping:
+                self.runtime.fail(task, WorkerCrashedError(
+                    task.name, self.dead or "the runtime shut down"))
+                continue
+            gen = self.generation
+            try:
+                reply = self._send(task.message)
+            except (EOFError, OSError):
+                self.proc.join(1.0)
+                cause = f"its process {self.name} ended (exit code {self.proc.exitcode})"
+                self.runtime.fail(task, WorkerCrashedError(task.name, cause))
+                self._died(gen, f"the actor process {self.name} ended (exit code "
+                                f"{self.proc.exitcode})")
+                continue
+            if reply[0] == "ok":
+                if task is self.init_task:
+                    self._set("ALIVE")
+                self.runtime.complete(task, reply[1])
+            else:
+                if task is self.init_task:
+                    self._set("DEAD", f"its constructor raised {reply[1]}")
+                    self._release()
+                self.runtime.fail(task, TaskError(task.name, reply[1], reply[2]))
+
+    def _fail_queued(self) -> None:
+        while True:
+            task = self.tasks.get()
+            if task is _STOP:
+                return
+            if task is not _RESTART:
+                self.runtime.fail(task, WorkerCrashedError(
+                    task.name, self.dead or "the runtime shut down"))
+
+    def kill(self, no_restart: bool = True) -> None:
+        with self.cond:
+            self.no_restart = self.no_restart or no_restart
+            proc = self.proc
+            if no_restart:
+                self.state, self.dead = "DEAD", f"the actor {self.name} was killed"
+                self._release()
+                self.cond.notify_all()
+        if proc is not None:
+            proc.kill()
+
+    def restart(self) -> dict:
+        """``restart_actor``: a DEAD actor comes back under its id; any other
+        state is already where the caller wants it."""
+        with self.cond:
+            if self.state == "DEAD" and self.init_task is not None:
+                self.state, self.dead, self.no_restart = "RESTARTING", None, False
+                self.tasks.put(_RESTART)
+                self.cond.notify_all()
+            return {"status": "ok", "state": self.state}
+
+    def control(self, op: str, payload: dict, timeout: float = 60.0) -> dict:
+        """One graph message to the actor process's socket."""
+        address = self.address
+        if address is None:
+            raise WorkerCrashedError(op, f"the actor {self.name} has no graph socket "
+                                         f"(state {self.state})")
+        self.runtime.count_message()
+        return _control_client(address).call(op, payload, timeout)
+
+    def reap(self, deadline: float) -> None:
+        """After a _STOP was queued for this actor's thread: waits for the
+        process until ``deadline``, kills it if it is still running, and
+        closes the pipe."""
+        self.thread.join(max(0.0, deadline - time.monotonic()) + 1.0)
+        if self.proc is not None:
+            self.proc.join(max(0.0, deadline - time.monotonic()))
+            if self.proc.is_alive():
+                self.proc.kill()
+                self.proc.join()
+        self.thread.join(5.0)
+        if self.conn is not None:
+            self.conn.close()
+        if self.address is not None:
+            with _clients_lock:
+                client = _clients.pop(self.address, None)
+            if client is not None:
+                client.close()
+        with self.cond:
+            self._release()
 
 
 class _Runtime:
@@ -453,6 +931,8 @@ class _Runtime:
         self.pool: list[_Executor] = []
         self.pool_started = 0.0
         self.actors: list[_ActorExecutor] = []
+        self.actor_table: dict[str, _ActorExecutor] = {}
+        self.actor_messages = 0
 
     def start_pool(self) -> None:
         with self._cond:
@@ -490,6 +970,8 @@ class _Runtime:
             self.start_pool()
         task = _Task(name, message, outs, deps)
         task.target = self.pool_queue if actor is None else actor.tasks
+        if kind == "init":
+            actor.init_task = task
         with self._cond:
             for ref in outs:
                 self._state[ref.id] = "pending"
@@ -554,22 +1036,50 @@ class _Runtime:
                     return
                 self._cond.wait(left)
 
-    def start_actor(self, cls: "ActorClass", args: tuple, kwargs: dict) -> "ActorHandle":
+    def start_actor(self, cls: "ActorClass", args: tuple, kwargs: dict,
+                    options: dict | None = None) -> "ActorHandle":
+        """Starts an actor: leases what ``options`` ask from this host's
+        ledger (raising at once when the host can never hold it) and runs
+        the constructor in a process of its own."""
+        from ray_tpu_torch._private import resources
+
+        options = options or {}
+        bundle = {"CPU": float(options.get("num_cpus") or 0),
+                  "GPU": float(options.get("num_gpus") or 0),
+                  **{k: float(v) for k, v in (options.get("resources") or {}).items()}}
+        bundle = {k: v for k, v in bundle.items() if v}
+        lease = None
+        if bundle:
+            try:
+                lease = resources.ledger().acquire(bundle, 1, timeout=0.0)
+            except resources.InfeasibleResourcesError:
+                raise
+            except resources.PlacementGroupUnschedulableError:
+                lease = None  # waits in the actor's thread, the actor PENDING
         name = _qualname(cls)
-        actor = _ActorExecutor(self, f"data-actor-{next(self._ids)}-{name}")
+        actor_id = uuid.uuid4().hex[:16]
+        actor = _ActorExecutor(self, f"data-actor-{next(self._ids)}-{name}", actor_id,
+                               bundle, lease, options.get("max_restarts") or 0)
         with self._cond:
             self.actors.append(actor)
-        actor.init_ref = self.submit(f"{name}.__init__", "init", cls, args, kwargs, 1, actor)[0]
+            self.actor_table[actor_id] = actor
+        init = self.submit(f"{name}.__init__", "init", cls, args, kwargs, 1, actor)[0]
+        actor.init_ref = init
         return ActorHandle(actor, name)
 
-    def kill(self, actor: _ActorExecutor) -> None:
-        actor.dead = f"the actor {actor.name} was killed"
-        actor.proc.kill()
-        actor.tasks.put(_STOP)
-        actor.reap(time.monotonic())
+    def kill(self, actor: _ActorExecutor, no_restart: bool = True) -> None:
+        actor.kill(no_restart)
+
+    def actor(self, actor_id: str) -> _ActorExecutor:
         with self._cond:
-            if actor in self.actors:
-                self.actors.remove(actor)
+            actor = self.actor_table.get(actor_id)
+        if actor is None:
+            raise KeyError(f"no actor {actor_id} in this process")
+        return actor
+
+    def count_message(self) -> None:
+        with self._cond:
+            self.actor_messages += 1
 
     def shutdown(self, grace_s: float = 2.0) -> None:
         """Fails what is queued, stops every process (killing one whose task
@@ -611,8 +1121,12 @@ def runtime() -> _Runtime:
 
 
 def shutdown() -> None:
-    """Stops the pool and every actor and removes the store's directory."""
+    """Tears down every live compiled graph, stops the pool and every actor
+    and removes the store's directory."""
     global _runtime
+    dag = sys.modules.get("ray_tpu_torch.dag.dag")
+    if dag is not None:
+        dag.shutdown_all()
     with _runtime_lock:
         rt, _runtime = _runtime, None
     if rt is not None:
@@ -649,13 +1163,23 @@ class RemoteFunction:
 
 
 class ActorClass:
-    """``cls.remote(*args)`` starts an actor process holding ``cls(*args)``."""
+    """``cls.remote(*args)`` starts an actor process holding ``cls(*args)``;
+    ``cls.options(num_cpus=, num_gpus=, resources=, max_restarts=)`` a copy
+    that leases those resources and restarts so often (module docstring)."""
 
-    def __init__(self, cls):
-        self._cls = cls
+    _OPTIONS = ("num_cpus", "num_gpus", "resources", "max_restarts")
+
+    def __init__(self, cls, options: dict | None = None):
+        self._cls, self._options = cls, dict(options or {})
+
+    def options(self, **options) -> "ActorClass":
+        unknown = sorted(set(options) - set(self._OPTIONS))
+        if unknown:
+            raise ValueError(f"unknown actor options {unknown} (known: {list(self._OPTIONS)})")
+        return ActorClass(self._cls, {**self._options, **options})
 
     def remote(self, *args, **kwargs) -> "ActorHandle":
-        return runtime().start_actor(self, args, kwargs)
+        return runtime().start_actor(self, args, kwargs, self._options)
 
     def __call__(self, *args, **kwargs):
         return self._cls(*args, **kwargs)
@@ -685,17 +1209,28 @@ class _ActorMethod:
         return runtime().submit(f"{h._name}.{self._name}", "call", self._name, args, kwargs,
                                 1, h._executor)[0]
 
+    def bind(self, *args):
+        """A compiled graph's node that calls this method (``ray_tpu_torch.dag``)."""
+        from ray_tpu_torch.dag.dag import ClassMethodNode
+
+        return ClassMethodNode(self._handle, self._name, args)
+
 
 class ActorHandle:
-    """A running actor: ``handle.method.remote(*args)``."""
+    """A running actor: ``handle.method.remote(*args)``; ``_actor_id`` names
+    it to ``actor_info`` and ``restart_actor``."""
 
     def __init__(self, executor: _ActorExecutor, name: str):
         self._executor, self._name = executor, name
+        self._actor_id = executor.actor_id
 
     def __getattr__(self, name: str) -> _ActorMethod:
         if name.startswith("_"):
             raise AttributeError(name)
         return _ActorMethod(self, name)
+
+    def __repr__(self):
+        return f"ActorHandle({self._name}, {self._actor_id})"
 
 
 def remote(*args, num_returns: int = 1):
@@ -779,9 +1314,38 @@ def wait(refs: Iterable[ObjectRef], *, num_returns: int = 1,
     return ready, [r for r in refs if r.id not in taken]
 
 
-def kill(actor: ActorHandle) -> None:
-    """Ends the actor's process; its pending and later calls fail."""
-    runtime().kill(actor._executor)
+def kill(actor: ActorHandle, *, no_restart: bool = True) -> None:
+    """Ends the actor's process; its pending and later calls fail. With
+    ``no_restart=False`` the death counts against ``max_restarts`` as any
+    other would."""
+    runtime().kill(actor._executor, no_restart)
+
+
+def actor_info(actor_id: str, wait_ready: bool = False, timeout: float = 60.0) -> dict:
+    """The controller's ``get_actor_info`` for a local actor: its state
+    (PENDING, ALIVE, RESTARTING or DEAD), pid, graph socket, death cause
+    and restarts; with ``wait_ready``, once it is ALIVE or DEAD (at most
+    ``timeout`` s)."""
+    actor = runtime().actor(actor_id)
+    return actor.wait_ready(timeout) if wait_ready else actor.info()
+
+
+def restart_actor(actor_id: str) -> dict:
+    """The controller's ``restart_actor``: a DEAD actor gets a new process
+    from its class and constructor arguments, under the same id (poll
+    ``actor_info`` for ALIVE); any other state is left as it is."""
+    return runtime().actor(actor_id).restart()
+
+
+def actor_control(actor_id: str, op: str, payload: dict, timeout: float = 60.0) -> dict:
+    """One graph message (``dag_register``, ``dag_push``, ...) to an actor."""
+    return runtime().actor(actor_id).control(op, payload, timeout)
+
+
+def actor_messages() -> int:
+    """The messages this process has sent to actors so far: calls (the
+    constructor's too) and graph messages."""
+    return runtime().actor_messages
 
 
 def store_stats() -> dict:

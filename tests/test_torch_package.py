@@ -28,6 +28,10 @@
   functions by name) and no ml_dtypes; ``ray_tpu_torch.data`` exports the
   reference's ``__all__`` and loads nothing but numpy and the standard
   library when imported (no torch, pyarrow, pandas or PIL).
+* Compiled graphs (``dag/``, the reference's seven modules, and
+  ``_private/dag_apps.py``) are runtime modules that import no cloudpickle
+  (actors get their classes by name), and ``ray_tpu_torch.dag`` imports no
+  torch: a relay actor of a shm graph starts without it.
 """
 
 import ast
@@ -91,9 +95,9 @@ RUNTIME_MODULES = ["train/checkpoint.py", "train/session.py", "train/config.py",
                    "util/gang.py", "train/step_stats.py", "_private/profiler.py",
                    "_private/profile_merge.py", "_private/telemetry.py",
                    "parallel/topology.py", "_private/resources.py", "_private/workload.py",
-                   "util/backoff.py"] + sorted(
+                   "util/backoff.py", "_private/dag_apps.py"] + sorted(
     p.relative_to(ROOT / "ray_tpu_torch").as_posix()
-    for sub in ("tune", "air") for p in (ROOT / "ray_tpu_torch" / sub).rglob("*.py"))
+    for sub in ("tune", "air", "dag") for p in (ROOT / "ray_tpu_torch" / sub).rglob("*.py"))
 
 
 @pytest.mark.parametrize("name", RUNTIME_MODULES)
@@ -214,6 +218,39 @@ def test_data_package_exports_the_reference_all_and_imports_numpy_alone():
     code = ("import sys, ray_tpu_torch.data; print(sorted({m.split('.')[0] for m in sys.modules"
             " if m.split('.')[0] in ('torch', 'jax', 'ray_tpu', 'pyarrow', 'pandas', 'PIL',"
             " 'cloudpickle')}))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=60)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
+def _dag_sources() -> list[Path]:
+    return sorted((ROOT / "ray_tpu_torch" / "dag").glob("*.py")) + [
+        ROOT / "ray_tpu_torch" / "_private" / "dag_apps.py"]
+
+
+@pytest.mark.parametrize("path", _dag_sources(), ids=lambda p: p.relative_to(ROOT).as_posix())
+def test_dag_modules_import_no_cloudpickle(path):
+    bad = [m for m in _imported_modules(path)
+           if m.split(".")[0] in FORBIDDEN + TUNE_FORBIDDEN + ("ml_dtypes",)]
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_the_dag_scan_covers_the_reference_layout():
+    """The port's dag/ has the reference's seven modules, each scanned."""
+    ref = {p.name for p in (ROOT / "ray_tpu" / "dag").glob("*.py")}
+    names = {p.relative_to(ROOT / "ray_tpu_torch").as_posix() for p in _dag_sources()}
+    assert ref == {"__init__.py", "dag.py", "placement.py", "channel.py", "channels.py",
+                   "executor.py", "supervisor.py"}
+    assert names == {f"dag/{n}" for n in ref} | {"_private/dag_apps.py"}
+    assert {n for n in RUNTIME_MODULES if n.startswith("dag/")} == {f"dag/{n}" for n in ref}
+
+
+def test_dag_package_imports_no_torch():
+    code = ("import sys, ray_tpu_torch.dag, ray_tpu_torch.dag.executor, "
+            "ray_tpu_torch.dag.supervisor, ray_tpu_torch._private.dag_apps; "
+            "print(sorted({m.split('.')[0] for m in sys.modules"
+            " if m.split('.')[0] in ('torch', 'jax', 'ray_tpu', 'cloudpickle')}))")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                          text=True, timeout=60)
     assert out.returncode == 0, out.stderr
