@@ -339,15 +339,36 @@ final line) if anything is wrong:
                the middle relay killed with CHANNEL_DEPTH executions in
                flight: lost 0, duplicates 0, one recovery, its seconds and
                the replays discarded
-Each path (4-5, 7, 8, 9, 10, 11, 12, 14, 15, 16, 17, 18, 19, 20, 21, 22, 23, 24, 25, 26, 27, 28) runs with
-every launch count set to 0 just before it; its counts, read just after,
+ 29. ring      the host-side collectives (ray_tpu_torch.util.collective):
+               (a) the block-scaled codec on the card, int8 and fp8 at block
+               256, on a seeded flat gradient of bench.py's sharded config's
+               size (1,140,887,552 f32): encode and decode times by CUDA
+               events, the encode's bytes bound, and q, the scales, the
+               decoded values and the error-feedback residual after two
+               encodes bitwise against the numpy plain version on a 64M
+               slice (its seconds beside); (b) TorchTrainer(backend="ring")
+               at that config, two members sharing the card ({"GPU": 0.5}
+               each, a gloo process group, no NCCL), each on its own seeded
+               4 x 1024 batch, the split step over mesh {dp 2}: 3 steps on
+               the exact wire (the synced gradient bitwise the f64 sum of
+               both ranks' at 1M seeded indices), then 6 steps each of int8
+               and fp8 with the bucketed overlap (parameters bitwise equal
+               across the ranks every step, losses within 2% of the exact
+               run's, falling, wire bytes at most 0.3x); step time,
+               tokens/s, grad_sync, collective and exposed comm, wire
+               bytes, peak memory, gang formation, stalls (0), launches;
+               (c) bench.py --overlap on two CPU ring members, on and off,
+               with identical loss trajectories
+Each path (4-5, 7, 8, 9, 10, 11, 12, 14, 15, 16, 17, 18, 19, 20, 21, 22, 23, 24, 25, 26,
+27, 28, 29) runs with every launch count set to 0 just before it; its counts, read just after,
 must equal what its layers and passes imply, every flash launch on the
 route the path's inputs take. The trainer path's kernels launch in its
 worker processes, and the HTTP serving path's in its replica processes,
 whose counts start at 0 with each process and come back in their reports
 and metrics (phase 27's too, each replica's held to its own forwards);
 so do the Tune trials' (phase 24, where every count is 0),
-the elastic trainer's (phase 25) and the graph's stage actors' (phase 28).
+the elastic trainer's (phase 25), the graph's stage actors' (phase 28) and
+the ring members' (phase 29).
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
@@ -362,6 +383,7 @@ import gc
 import json
 import math
 import os
+import pickle
 import queue
 import re
 import shutil
@@ -431,6 +453,9 @@ from ray_tpu_torch.train.torch_utils import (
 from ray_tpu_torch.train.trainer import TorchTrainer
 from ray_tpu_torch.tune.schedulers import ASHAScheduler
 from ray_tpu_torch.util import collective as collective_mod
+from ray_tpu_torch.util.collective import bucketing as bucketing_mod
+from ray_tpu_torch.util.collective import quantization as quant_mod
+from ray_tpu_torch.util.gang import WorkerGang
 
 
 SEED = 0
@@ -6692,6 +6717,418 @@ def phase_dag(config: TransformerConfig | None = None, device: str = "cuda") -> 
 
 
 # ---------------------------------------------------------------- main
+# ---------------------------------------------------------------- phase 29: the ring
+RING_WORKERS = 2
+RING_LAYERS = SHARDED_CONFIG["n_layers"]
+RING_BATCH = 4                 # rows of max_seq + 1 tokens each rank trains on
+RING_EXACT_STEPS, RING_QUANT_STEPS = 3, 6
+RING_SAMPLE = 1 << 20          # seeded indices of the flat gradient held bitwise
+RING_CODEC_SLICE = 64 << 20    # elements of the codec's input held against numpy
+RING_BLOCK = 256
+# The quantized runs' steps 1-3 against the exact wire's (step 1 takes the
+# same parameters and batch, so its loss is the same bits): the int8 and
+# fp8 gradients with error feedback move two AdamW steps' loss by well
+# under this share.
+RING_LOSS_REL_TOL = 2e-2
+RING_WIRE_RATIO = 0.3          # a quantized step's wire bytes against the exact one's
+RING_STORAGE = Path(__file__).resolve().parent / "build" / "chip_smoke_ring"
+# bench.py --overlap: 5 timed steps, buckets of 2 MiB over its ~14 MB tree.
+OVERLAP_STEPS, OVERLAP_BUCKET_BYTES = 5, 2 << 20
+
+
+def _ring_tokens(rank: int, config: TransformerConfig) -> torch.Tensor:
+    """Rank ``rank``'s batch: RING_BATCH rows of max_seq + 1 seeded tokens,
+    the same every step, so that the loss falls."""
+    rng = np.random.default_rng(SEED + 2900 + rank)
+    return torch.from_numpy(rng.integers(0, config.vocab_size,
+                                         (RING_BATCH, config.max_seq + 1)))
+
+
+def ring_loop(loop_config: dict) -> None:
+    """The ring gang's train_loop_per_worker: setup_sharded_training on the
+    session's {dp 2} mesh and build_sharded_train_step over the gang's ring
+    group (the split step: fwd, bwd, grad_sync, opt), on this rank's own
+    batch. After each step the ranks allgather their step's record over the
+    ring, and rank 0's report carries both: the loss, seconds and split,
+    the parameters' digest, the bytes the group sent during the step, the
+    kernel launch counts since the loop began, and at the last step the
+    run's stall count, wire_stats and peak memory. With ``spy`` the group's
+    allreduce is watched: each record then holds the rank's flat gradient
+    and the synced mean at RING_SAMPLE seeded indices. ``config`` (model
+    kwargs) and ``device`` default to the ring config on the card; a CPU
+    rehearsal passes a tiny config and "cpu" (no launch counts there)."""
+    reset_counts()
+    ctx = session_mod.get_context()
+    device = loop_config.get("device", "cuda")
+    cuda = device == "cuda"
+    config = TransformerConfig(**loop_config.get(
+        "config", {**SHARDED_CONFIG, "n_layers": RING_LAYERS}))
+    setup = setup_sharded_training(lambda dev: init_params(config, seed=SEED, device=dev),
+                                   make_optimizer, logical_dims=param_logical_dims(config))
+    group = collective_mod.get_group(ctx.collective_group)
+    require(group.backend_name == "ring", f"ring loop: the gang's group is {group.backend_name}")
+
+    def batch_loss(params, tok):
+        return loss_fn(params, tok[:, :-1], tok[:, 1:], config)
+
+    step = build_sharded_train_step(batch_loss, setup, group_name=ctx.collective_group)
+    total = sum(leaf.numel() for _, leaf in named_leaves(setup.params))
+    samples: list = []
+    if loop_config.get("spy"):
+        gen = torch.Generator(device=device).manual_seed(SEED + 29)
+        idx = torch.randint(0, total, (RING_SAMPLE,), generator=gen, device=device)
+        inner = group.allreduce
+
+        def spy(array, op="sum", tag="__ar"):
+            out = inner(array, op=op, tag=tag)
+            if isinstance(array, torch.Tensor) and array.numel() == total:
+                samples.append((array[idx].cpu().numpy(),
+                                (out / group.world_size)[idx].cpu().numpy()))
+            return out
+
+        group.allreduce = spy
+    # The mesh's shard_batch cuts rank r's rows out of the global batch.
+    tokens = torch.cat([_ring_tokens(r, config) for r in range(ctx.world_size)]).to(device)
+    params, opt = setup.params, setup.opt_state
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    steps = loop_config["steps"]
+    for i in range(steps):
+        if cuda:
+            torch.cuda.synchronize()
+        sent = group.wire_stats["bytes_sent"]
+        t0 = time.perf_counter()
+        params, opt, loss = step(params, opt, tokens)
+        mine = {"loss": float(loss), "step_s": time.perf_counter() - t0,
+                "split": dict(step.stats), "wire_bytes": group.wire_stats["bytes_sent"] - sent,
+                "digest": _params_digest(params), "pid": os.getpid(), "counts": _counts(),
+                "routes": _route_counts(), "sample": samples.pop() if samples else None}
+        if i + 1 == steps:
+            mine.update(stalls=collective_mod.flight.stall_count(),
+                        wire_stats=dict(group.wire_stats),
+                        peak_gib=torch.cuda.max_memory_allocated() / 2**30 if cuda else 0.0)
+        # Rank 1's record rides the ring to rank 0, whose report the trainer keeps.
+        blob = np.frombuffer(pickle.dumps(mine), dtype=np.uint8)
+        ranks = [pickle.loads(b.tobytes()) for b in group.allgather(blob, tag="__rec")]
+        session_mod.report({"step": i + 1, "loss": mine["loss"], "ranks": ranks})
+    require_no_reference("ring worker")
+
+
+def _ring_run(name: str, config, model_kwargs=None, device: str = "cuda") -> dict:
+    """One TorchTrainer(backend="ring") fit of ring_loop with ``config`` on
+    the gang's group, two workers on the one card (``device`` "cpu": on the
+    CPU); returns its records by step and rank, its StepStats and its gang
+    formation."""
+    steps = RING_EXACT_STEPS if not config.enabled else RING_QUANT_STEPS
+    loop_config = {"steps": steps, "spy": not config.enabled, "device": device}
+    if model_kwargs is not None:
+        loop_config["config"] = model_kwargs
+    cuda = device == "cuda"
+    trainer = TorchTrainer(
+        ring_loop, train_loop_config=loop_config, backend="ring",
+        scaling_config=ScalingConfig(num_workers=RING_WORKERS, use_gpu=cuda,
+                                     mesh_axes={"dp": RING_WORKERS},
+                                     resources_per_worker=(
+                                         {"GPU": 1.0 / RING_WORKERS} if cuda else {}),
+                                     collective_config=config),
+        run_config=RunConfig(name=name, storage_path=str(RING_STORAGE)))
+    t0 = time.perf_counter()
+    result = trainer.fit()
+    wall = time.perf_counter() - t0
+    shutil.rmtree(result.path, ignore_errors=True)
+    require(result.error is None, f"ring {name}: {result.error}")
+    require([m["step"] for m in result.metrics_history] == list(range(1, steps + 1)),
+            f"ring {name}: steps {[m['step'] for m in result.metrics_history]}")
+    records = [m["ranks"] for m in result.metrics_history]
+    require(all(len(r) == RING_WORKERS for r in records), f"ring {name}: records {records}")
+    first = result.attempts[0]
+    return {"records": records, "step_stats": result.step_stats, "wall_s": wall,
+            "gang_form_s": first["formed"] - first["start"], "steps": steps}
+
+
+def _ring_summary(name: str, run: dict, config: TransformerConfig) -> dict:
+    """The numbers phase 29 prints for one run, and its checks: the ranks'
+    parameters equal bitwise after every step, no stall, and each member's
+    launches what its steps imply."""
+    records, steps = run["records"], run["steps"]
+    for i, ranks in enumerate(records):
+        require(ranks[0]["digest"] == ranks[1]["digest"],
+                f"ring {name}: the ranks' parameters differ after step {i + 1}: "
+                f"{[r['digest'] for r in ranks]}")
+    last = records[-1]
+    stalls = [r["stalls"] for r in last]
+    require(stalls == [0] * RING_WORKERS, f"ring {name}: stalls {stalls} under uniform load")
+    want = _expected(config.n_layers, kernel_forwards=steps, kernel_backwards=steps)
+    for rank, rec in enumerate(last):
+        _path(f"ring_{name}[rank{rank}]", want, rec["counts"], rec["routes"], "wgmma",
+              steps=steps)
+    timed = records[1:]  # step 1 builds the buckets and warms the allocator
+    step_s = [max(r["step_s"] for r in ranks) for ranks in timed]
+    tokens = RING_WORKERS * RING_BATCH * config.max_seq
+    collective_s, exposed_s = [], []
+    for rank_records in run["step_stats"].values():
+        collective_s += [r.get("collective_s", 0.0) for r in rank_records[1:]]
+        exposed_s += [r.get("comm_exposed_s", 0.0) for r in rank_records[1:]]
+    return dict(
+        steps=steps, losses=[ranks[0]["loss"] for ranks in records],
+        step_ms=1e3 * statistics.median(step_s),
+        tokens_per_s=tokens / statistics.median(step_s),
+        grad_sync_s=statistics.median(max(r["split"]["grad_sync_s"] for r in ranks)
+                                      for ranks in timed),
+        split={k: statistics.median(ranks[0]["split"][k] for ranks in timed)
+               for k in timed[0][0]["split"]},
+        collective_s=statistics.median(collective_s), comm_exposed_s=statistics.median(exposed_s),
+        wire_bytes_per_step=statistics.median(ranks[0]["wire_bytes"] for ranks in timed),
+        wire_stats=[r["wire_stats"] for r in last], peak_gib=[r["peak_gib"] for r in last],
+        gang_form_s=run["gang_form_s"], wall_s=run["wall_s"], stalls=stalls,
+        counts={k: sum(r["counts"][k] for r in last) for k in last[0]["counts"]},
+        routes={k: {rt: sum(r["routes"][k][rt] for r in last) for rt in ("wgmma", "mma_sync")}
+                for k in last[0]["routes"]})
+
+
+def _ring_exact_check(run: dict) -> dict:
+    """Each rank's synced gradient against ((g0.double() + g1.double())
+    .float()) / 2 from both ranks' unsynced gradients, bitwise at the
+    seeded indices, every step."""
+    mismatches = []
+    for i, ranks in enumerate(run["records"]):
+        g0, g1 = (torch.from_numpy(r["sample"][0]) for r in ranks)
+        want = (g0.double() + g1.double()).float() / 2
+        for rank, r in enumerate(ranks):
+            got = torch.from_numpy(r["sample"][1])
+            mismatches.append(int((got.view(torch.int32) != want.view(torch.int32)).sum()))
+    require(not any(mismatches),
+            f"ring exact: synced gradients differ from the f64 sum at {mismatches} indices")
+    return {"indices": RING_SAMPLE, "mismatches": mismatches}
+
+
+def _codec_ms(fn, reps: int = 5) -> float:
+    """Median device milliseconds of fn() by CUDA events."""
+    times = []
+    for _ in range(reps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def _bits_equal(a, b) -> bool:
+    a = torch.as_tensor(a).contiguous().reshape(-1).cpu()
+    b = torch.as_tensor(b).contiguous().reshape(-1).cpu()
+    width = {1: torch.uint8, 2: torch.int16, 4: torch.int32}[a.element_size()]
+    return a.shape == b.shape and torch.equal(a.view(width), b.view(width))
+
+
+def _ring_codec() -> dict:
+    """(a): the block-scaled codec on the card, on a seeded flat gradient of
+    the ring config's size, int8 and fp8 at block 256: its encode and
+    decode times, the encode's bytes bound, and q, the scales and the
+    decoded values held bitwise against the numpy plain version on a
+    block-aligned slice of RING_CODEC_SLICE elements, with the
+    error-feedback residual after two encodes."""
+    config = TransformerConfig(**{**SHARDED_CONFIG, "n_layers": RING_LAYERS})
+    n = num_params(init_params(config, seed=SEED, device="meta"))
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2901)
+    flat = torch.randn(n, generator=gen, device="cuda")
+    flat.mul_(torch.randn(n, generator=gen, device="cuda").mul_(2.0).exp_())
+    rng = np.random.default_rng(SEED + 2902)
+    starts = [int(s) * RING_BLOCK for s in rng.integers(0, (n - RING_CODEC_SLICE) // RING_BLOCK, 2)]
+    out = {"elements": n, "slice": RING_CODEC_SLICE, "block": RING_BLOCK}
+    for kind in ("int8", "fp8"):
+        cfg = quant_mod.CollectiveConfig(quantize=kind, block_size=RING_BLOCK)
+        enc = quant_mod.encode_device(flat, cfg)
+        encode_ms = _codec_ms(lambda: quant_mod.encode_device(flat, cfg))
+        decode_ms = _codec_ms(lambda: quant_mod.decode_device(enc, flat.device))
+        nbytes = 4 * n + enc[1].numel() + 4 * enc[2].numel()
+        s0, s1 = starts
+        x = flat[s0:s0 + RING_CODEC_SLICE].cpu().numpy()
+        t0 = time.perf_counter()
+        plain = quant_mod.encode_plain(x, cfg)
+        plain_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        plain_dec = quant_mod.decode_plain(plain)
+        plain_decode_s = time.perf_counter() - t0
+        blocks = slice(s0 // RING_BLOCK, (s0 + RING_CODEC_SLICE) // RING_BLOCK)
+        decoded = quant_mod.decode_device(enc, flat.device)[s0:s0 + RING_CODEC_SLICE]
+        checks = {"q": _bits_equal(enc[1][s0:s0 + RING_CODEC_SLICE], plain[1]),
+                  "scales": _bits_equal(enc[2][blocks], plain[2]),
+                  "decoded": _bits_equal(decoded, plain_dec)}
+        # Error feedback: two encodes from the same site, on the card and
+        # in numpy; the second encoding and the residual after it.
+        x2 = flat[s1:s1 + RING_CODEC_SLICE]
+        ef_dev, ef_np = quant_mod.ErrorFeedback(), quant_mod.ErrorFeedback()
+        for part in (flat[s0:s0 + RING_CODEC_SLICE], x2):
+            got = quant_mod.to_host(ef_dev.encode_device(("rs", "__ar", 0), part, cfg))
+            want = ef_np.encode(("rs", "__ar", 0), part.cpu().numpy(), cfg)
+        checks["ef_q"] = _bits_equal(got[1], want[1]) and _bits_equal(got[2], want[2])
+        checks["ef_residual"] = _bits_equal(ef_dev.residual(("rs", "__ar", 0)),
+                                            ef_np.residual(("rs", "__ar", 0)))
+        bound_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+        out[kind] = dict(encode_ms=encode_ms, decode_ms=decode_ms, bound_ms=bound_ms,
+                         bound_share=bound_ms / encode_ms, encode_bytes=nbytes,
+                         plain_encode_s=plain_s, plain_decode_s=plain_decode_s,
+                         plain_elements=RING_CODEC_SLICE, wire_kind=enc[0], bitwise=checks)
+        del enc, decoded
+        require(all(checks.values()), f"ring codec {kind}: not the plain version's bits: {checks}")
+    del flat
+    torch.cuda.empty_cache()
+    return out
+
+
+def ring_overlap_worker(ctx, steps: int, overlap: bool, bucket_bytes: int) -> dict:
+    """bench.py's _overlap_worker on the port: the paired gradient-sync
+    microbench on its synthetic tree (leaves in its flattened order, CPU
+    tensors), then its 2-rank data-parallel SGD whose loss trajectory must
+    be identical between the modes."""
+    group_name = ctx.group_name
+    coll = ctx.collective()
+    rng = np.random.default_rng(100 + ctx.rank)
+    tree = {"emb": rng.standard_normal((1024, 512)).astype(np.float32),
+            "layers": [{"w": rng.standard_normal((512, 512)).astype(np.float32),
+                        "b": rng.standard_normal(512).astype(np.float32)} for _ in range(10)],
+            "head": rng.standard_normal((512, 1024)).astype(np.float32),
+            "scale": np.float32(0.5)}
+    # jax.tree.leaves' order: sorted keys, list items in order.
+    leaves = ([tree["emb"], tree["head"]] + [x for layer in tree["layers"]
+                                             for x in (layer["b"], layer["w"])] + [tree["scale"]])
+    grads = [torch.from_numpy(np.array(x)) for x in leaves]
+    nbytes = sum(4 * bucketing_mod.leaf_size(x) for x in grads)
+    n_buckets = len(bucketing_mod.partition_buckets(grads, bucket_bytes))
+    torch_utils.sync_gradients_sharded(grads, group_name, overlap=False)
+    coll.barrier()
+    t0 = time.perf_counter()
+    torch_utils.sync_gradients_sharded(grads, group_name, overlap=False)
+    comm_ref = time.perf_counter() - t0
+    coll.barrier()
+    spin = rng.standard_normal((384, 384)).astype(np.float32)
+    wall = exposed = collective = float("inf")
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        if overlap:
+            handle = torch_utils.begin_gradient_sync(grads, group_name,
+                                                     bucket_bytes=bucket_bytes)
+            acc = spin  # the rest of a backward: BLAS releases the GIL
+            while time.perf_counter() - t0 < 1.5 * comm_ref:
+                acc = (acc @ spin) / 384.0
+            handle.result()
+            step_exposed = handle.stats["comm_exposed_s"]
+            step_collective = handle.stats["collective_s"]
+        else:
+            torch_utils.sync_gradients_sharded(grads, group_name, overlap=False)
+            step_exposed = step_collective = time.perf_counter() - t0
+        wall = min(wall, time.perf_counter() - t0)
+        exposed = min(exposed, step_exposed)
+        collective = min(collective, step_collective)
+        coll.barrier()
+    prng = np.random.default_rng(7)
+    true_w = prng.standard_normal(24).astype(np.float32)
+    x = prng.standard_normal((96, 24)).astype(np.float32)
+    y = x @ true_w
+    xs, ys = x[ctx.rank::ctx.world_size], y[ctx.rank::ctx.world_size]
+    w = {"a": np.zeros(16, np.float32), "b": np.zeros(8, np.float32)}
+    traj = []
+    for _ in range(12):
+        w_full = np.concatenate([w["a"], w["b"]])
+        err = xs @ w_full - ys
+        g_full = ((2.0 / len(xs)) * (xs.T @ err)).astype(np.float32)
+        g = [torch.from_numpy(g_full[:16].copy()), torch.from_numpy(g_full[16:].copy())]
+        if overlap:
+            g = torch_utils.begin_gradient_sync(g, group_name, bucket_bytes=48).result()
+        else:
+            g = torch_utils.sync_gradients_sharded(g, group_name, overlap=False)
+        w = {"a": w["a"] - 0.2 * g[0].numpy(), "b": w["b"] - 0.2 * g[1].numpy()}
+        traj.append(float(np.mean((x @ np.concatenate([w["a"], w["b"]]) - y) ** 2)))
+    return {"wall_s": wall, "comm_exposed_s": exposed, "collective_s": collective,
+            "comm_ref_s": comm_ref, "grad_bytes": int(nbytes), "buckets": n_buckets,
+            "loss_trajectory": traj}
+
+
+def _ring_overlap_bench() -> dict:
+    """(c): bench.py --overlap off and on, on one 2-member CPU ring gang."""
+    gang = WorkerGang(RING_WORKERS, use_gpu=False, backend="ring")
+    try:
+        out = {}
+        for mode in ("off", "on"):
+            per_rank = gang.run(ring_overlap_worker, timeout=600, steps=OVERLAP_STEPS,
+                                overlap=mode == "on", bucket_bytes=OVERLAP_BUCKET_BYTES)
+            slow = max(per_rank, key=lambda r: r["comm_exposed_s"])
+            hidden = (max(0.0, 1.0 - slow["comm_exposed_s"] / slow["collective_s"])
+                      if slow["collective_s"] > 0 else 0.0)
+            out[mode] = dict(slow, hidden=hidden,
+                             bytes_per_s=slow["grad_bytes"] / slow["wall_s"])
+    finally:
+        gang.shutdown()
+    require(out["on"]["loss_trajectory"] == out["off"]["loss_trajectory"],
+            f"ring overlap: trajectories differ: {out['on']['loss_trajectory']} against "
+            f"{out['off']['loss_trajectory']}")
+    return out
+
+
+def phase_ring() -> dict:
+    """Phase 29: the host-side collectives. (a) the codec on the card; (b)
+    TorchTrainer(backend="ring") at bench.py's sharded config, two members
+    sharing the one card, on the exact wire (its synced gradients held to
+    the f64 sum bitwise), then int8 and fp8 with overlap (parameters equal
+    across the ranks, the loss within RING_LOSS_REL_TOL of the exact run's
+    and falling, the wire at most RING_WIRE_RATIO of the exact one); (c)
+    bench.py's overlap microbench on two CPU ring members. Returns the
+    numbers and the members' launch counts and routes, summed."""
+    started = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    codec = _ring_codec()
+    log("ring_codec", **codec)
+    config = TransformerConfig(**{**SHARDED_CONFIG, "n_layers": RING_LAYERS})
+    runs, summaries = {}, {}
+    if RING_STORAGE.exists():
+        shutil.rmtree(RING_STORAGE)
+    RING_STORAGE.mkdir(parents=True)
+    try:
+        for name, cfg in (("exact", quant_mod.CollectiveConfig()),
+                          ("int8", quant_mod.CollectiveConfig(quantize="int8", overlap=True)),
+                          ("fp8", quant_mod.CollectiveConfig(quantize="fp8", overlap=True))):
+            runs[name] = _ring_run(name, cfg)
+            summaries[name] = _ring_summary(name, runs[name], config)
+            log("ring_train", run=name, quantize=cfg.quantize, overlap=cfg.overlap,
+                **summaries[name])
+    finally:
+        shutil.rmtree(RING_STORAGE, ignore_errors=True)
+    exact_check = _ring_exact_check(runs["exact"])
+    exact = summaries["exact"]
+    for name in ("int8", "fp8"):
+        s = summaries[name]
+        close = [abs(a - b) / abs(b) for a, b in zip(s["losses"], exact["losses"])]
+        s["loss_rel_diff"] = close
+        s["wire_ratio"] = s["wire_bytes_per_step"] / exact["wire_bytes_per_step"]
+        require(s["losses"][0] == exact["losses"][0],
+                f"ring {name}: step 1's loss {s['losses'][0]} is not the exact run's "
+                f"{exact['losses'][0]} (same parameters and batch)")
+        require(max(close) <= RING_LOSS_REL_TOL,
+                f"ring {name}: losses {s['losses'][:3]} against the exact wire's "
+                f"{exact['losses']}: relative {close}")
+        require(s["losses"][-1] < s["losses"][0], f"ring {name}: loss did not fall: "
+                                                  f"{s['losses']}")
+        require(s["wire_ratio"] <= RING_WIRE_RATIO,
+                f"ring {name}: {s['wire_bytes_per_step']} wire bytes a step, the exact "
+                f"wire's {exact['wire_bytes_per_step']}")
+    bench = _ring_overlap_bench()
+    log("ring_overlap", **bench)
+    counts = {k: sum(s["counts"][k] for s in summaries.values()) for k in exact["counts"]}
+    routes = {k: {rt: sum(s["routes"][k][rt] for s in summaries.values())
+                  for rt in ("wgmma", "mma_sync")} for k in exact["routes"]}
+    steps = sum(s["steps"] for s in summaries.values()) * RING_WORKERS
+    result = dict(codec=codec, exact_check=exact_check, runs=summaries, overlap_bench=bench,
+                  counts=counts, routes=routes, kernel_forwards=steps, kernel_backwards=steps,
+                  seconds=time.perf_counter() - started)
+    log("ring", exact_check=exact_check, seconds=result["seconds"],
+        wire_ratio={k: summaries[k]["wire_ratio"] for k in ("int8", "fp8")},
+        loss_rel_diff={k: summaries[k]["loss_rel_diff"] for k in ("int8", "fp8")})
+    return result
+
+
 def _path(name: str, want: dict, counts: dict, routes: dict, route: str, **fields) -> None:
     """Logs a path's launch counts and fails unless they are what the path
     implies and every flash launch took `route`."""
@@ -6908,6 +7345,17 @@ def main() -> None:
     pipe28 = dagr["pipeline"]
     counts["dag"], routes["dag"] = _dag_paths(pipe28, local, dag_config)
 
+    # Phase 29: the ring. The training's kernels launch in the two ring
+    # members of each run, whose counts (from 0 in each process) come back
+    # over the ring in rank 0's reports, each member held to its steps;
+    # this process runs the codec alone and launches none.
+    ring, local, _ = _run_path(phase_ring)
+    require(not any(local.values()), f"ring: launches in the driver process {local}")
+    counts["ring"], routes["ring"] = ring["counts"], ring["routes"]
+    _path("ring", _expected(RING_LAYERS, kernel_forwards=ring["kernel_forwards"],
+                            kernel_backwards=ring["kernel_backwards"]),
+          counts["ring"], routes["ring"], "wgmma")
+
     # Every launch on the tiny path is of its instantiations (head_dim 16 in
     # f32, RMSNorm at dim 64 in f32), on the HTTP serving path of BERT-base's
     # (head_dim 64 and dim 768 in bf16); on every other path, of the model's.
@@ -6974,7 +7422,14 @@ def main() -> None:
         dag_cuda_hop_overhead_pct=dagr["hop"]["cuda"]["hop_overhead_pct"],
         dag_actor_calls_per_step=dagr["rpc"]["dag_actor_calls_per_step"],
         dag_recovery_latency_s=dagr["recovery"]["recovery_latency_s"],
-        dag_seconds=dagr["seconds"], seconds=time.perf_counter() - _t_start)
+        dag_seconds=dagr["seconds"],
+        ring_exact_tokens_per_s=ring["runs"]["exact"]["tokens_per_s"],
+        ring_int8_tokens_per_s=ring["runs"]["int8"]["tokens_per_s"],
+        ring_fp8_tokens_per_s=ring["runs"]["fp8"]["tokens_per_s"],
+        ring_int8_wire_ratio=ring["runs"]["int8"]["wire_ratio"],
+        ring_codec_int8_encode_ms=ring["codec"]["int8"]["encode_ms"],
+        ring_overlap_hidden=ring["overlap_bench"]["on"]["hidden"],
+        ring_seconds=ring["seconds"], seconds=time.perf_counter() - _t_start)
     require_no_reference("chip_smoke")
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -33,9 +33,14 @@ member or beside other groups. The epoch rides the tag and the group, so
 a frame sent before a recovery lands in a group no post-recovery pop
 reads.
 
-Left out here: the block-scale wire codec (``quantize_wire``), the comm
-flight records and the watchdog's stall listener (ROADMAP Queue A item
-12), and trace-context envelopes (item 14).
+With a ``wire_cfg`` (the graph's ``quantize_wire``), a ``DeviceChannel``
+block-scale quantizes the float numpy arrays it carries (host payloads)
+with an error-feedback residual an edge, in the reference's envelope
+``("__act", shape, dtype, wire tuple)``; every other payload stays exact.
+Every push and pop records into the comm flight ring under
+``flight.site("dag")``: a note a shm push or pop, a note a device push, and
+a recv record around a blocking device pop, which the watchdog watches.
+Left out here: trace-context envelopes (ROADMAP Queue A item 14).
 """
 
 from __future__ import annotations
@@ -55,6 +60,11 @@ import time
 import zlib
 
 from ray_tpu_torch.dag import channel as shm
+from ray_tpu_torch.util.collective import flight
+
+# Marker of a codec-compressed payload, the envelope the pipeline's
+# activation wire uses too.
+_ACT_WIRE = "__act"
 
 
 class ChannelClosedError(RuntimeError):
@@ -66,11 +76,12 @@ class ShmChannel:
     waits on slot reuse (the consumer's free IS the backpressure release);
     the consumer polls without blocking, backing off while idle."""
 
-    def __init__(self, store, base: str, depth: int, *, epoch: int = 0):
+    def __init__(self, store, base: str, depth: int, *, epoch: int = 0, group: str = "dag"):
         self._store = store
         self.base = base
         self.depth = depth
         self.epoch = epoch
+        self._group = group
 
     def push(self, seq: int, value, timeout: float = 120.0, stop=None) -> None:
         parts, total = shm.serialize_parts(value)
@@ -86,6 +97,8 @@ class ShmChannel:
             if time.monotonic() > deadline:
                 raise TimeoutError(f"channel slot {name} still unread after {timeout}s")
             time.sleep(0.0005)
+        with flight.site("dag"):
+            flight.note(self._group, "chan_push", tag=self.base, nbytes=total)
 
     def pop(self, seq: int, timeout: float | None = None, stop=None):
         name = shm.slot_name(self.base, seq, self.depth)
@@ -95,6 +108,8 @@ class ShmChannel:
         while True:
             value = shm.read_seq_consume(self._store, name, seq, epoch=self.epoch)
             if value is not shm.NOT_READY:
+                with flight.site("dag"):
+                    flight.note(self._group, "chan_pop", tag=self.base)
                 return value
             if stop is not None and stop():
                 raise ChannelClosedError(f"{self.base}: channel closed")
@@ -437,13 +452,19 @@ class DeviceChannel:
       own tags (one message each; an IPC push waits for its ACK).
 
     A producer keeps each IPC payload (the tensor and its event) until the
-    consumer ACKs it, at most ``depth`` an edge.
+    consumer ACKs it, at most ``depth`` an edge. With ``wire_cfg`` and
+    ``ef``, float numpy payloads cross block-scale quantized (the edge's
+    (src, dst, slot), or a tagged push's ``ef_site``, keys the residual).
     """
 
     def __init__(self, group: DeviceGroup, peer: int, *, src: int = 0, dst: int = 0,
-                 slot: int = 0, epoch: int = 0, depth: int = 8, role: str | None = None):
+                 slot: int = 0, epoch: int = 0, depth: int = 8, role: str | None = None,
+                 wire_cfg=None, ef=None, site: str = "dag"):
         self._group = group
         self._peer = peer
+        self._wire_cfg, self._ef, self._site = wire_cfg, ef, site
+        self._ef_site = (src, dst, slot)
+        self._recv_seq = 0
         self.epoch = epoch
         self.depth = depth
         self.tag = f"dagch:p{epoch}:e{src}:{dst}:{slot}"
@@ -459,8 +480,44 @@ class DeviceChannel:
             self._box = group.mailbox(peer, self._ack_tag)
 
     # -- edge mode -------------------------------------------------------
+    # -- codec ---------------------------------------------------------
+    def _encode(self, value, ef_site):
+        import numpy as np
+
+        if (self._wire_cfg is not None and self._ef is not None and ef_site is not None
+                and isinstance(value, np.ndarray) and value.dtype.kind == "f"):
+            enc = self._ef.encode(ef_site, value.ravel(), self._wire_cfg)
+            return (_ACT_WIRE, value.shape, value.dtype.str, enc)
+        return value
+
+    @staticmethod
+    def _decode(out):
+        if isinstance(out, tuple) and len(out) == 4 and out[0] == _ACT_WIRE:
+            import numpy as np
+
+            from ray_tpu_torch.util.collective.quantization import decode_plain
+
+            _, shape, dtype_str, enc = out
+            return decode_plain(enc).reshape(shape).astype(np.dtype(dtype_str))
+        return out
+
+    def _note_push(self, body) -> None:
+        with flight.site(self._site):
+            flight.note(self._group.name, "chan_push", tag=self.tag, rank=self._group.rank,
+                        world_size=self._group.world_size, peer=self._peer,
+                        nbytes=int(body.numel()))
+
+    def _recv_record(self, tag: str):
+        """A recv record the watchdog ages while this end waits."""
+        with flight.site(self._site):
+            rec = flight.p2p_started(self._group.name, "recv", tag, self._recv_seq,
+                                     self._group.rank, self._peer, self._group.world_size)
+        flight.launched(rec)
+        return rec
+
+    # -- edge mode -------------------------------------------------------
     def push_edge(self, value, stop=None) -> None:
-        body, held, nccl = encode(self._group, self._peer, value)
+        body, held, nccl = encode(self._group, self._peer, self._encode(value, self._ef_site))
         if held:
             while len(self._held) >= self.depth:
                 self._take_ack(stop)
@@ -469,6 +526,7 @@ class DeviceChannel:
             self._group.nccl.send([t], self._peer, 0).wait()
         if held:
             self._held.append(held)
+        self._note_push(body)
 
     def _take_ack(self, stop=None, timeout: float | None = None) -> None:
         kind, _ = self._box.get(timeout=timeout, stop=stop)
@@ -478,8 +536,15 @@ class DeviceChannel:
         self._group.torch.cuda.ipc_collect()
 
     def pop_edge(self, *, timeout: float = 60.0, stop=None):
-        kind, body = self._box.get(timeout=timeout, stop=stop)
-        return self._receive(body, self._ack_tag)
+        rec = self._recv_record(self.tag)
+        try:
+            kind, body = self._box.get(timeout=timeout, stop=stop)
+        except BaseException:
+            flight.completed(rec, ok=False)
+            raise
+        flight.completed(rec)
+        self._recv_seq += 1
+        return self._decode(self._receive(body, self._ack_tag))
 
     def _receive(self, body, ack_tag: int):
         value, dec = decode(self._group, self._peer, body, self._cache)
@@ -498,8 +563,8 @@ class DeviceChannel:
         return []
 
     # -- tagged mode -----------------------------------------------------
-    def push(self, value, *, tag: str) -> None:
-        body, held, nccl = encode(self._group, self._peer, value)
+    def push(self, value, *, tag: str, ef_site=None) -> None:
+        body, held, nccl = encode(self._group, self._peer, self._encode(value, ef_site))
         acks = self._group.mailbox(self._peer, int_tag("dagack:" + tag), once=True) \
             if held else None
         self._group.send_frame(self._peer, int_tag(tag), VALUE, body)
@@ -507,11 +572,18 @@ class DeviceChannel:
             self._group.nccl.send([t], self._peer, 0).wait()
         if acks is not None:
             acks.get()
+        self._note_push(body)
 
     def pop(self, *, tag: str, timeout: float = 60.0):
         box = self._group.mailbox(self._peer, int_tag(tag), once=True)
-        _, body = box.get(timeout=timeout)
-        return self._receive(body, int_tag("dagack:" + tag))
+        rec = self._recv_record(tag)
+        try:
+            _, body = box.get(timeout=timeout)
+        except BaseException:
+            flight.completed(rec, ok=False)
+            raise
+        flight.completed(rec)
+        return self._decode(self._receive(body, int_tag("dagack:" + tag)))
 
 
 class LocalChannel:

@@ -23,10 +23,13 @@ backpressure from the ring depth.
     result = ref.get(timeout=60)
     dag.close()                           # drain, free, stop the loops
 
-Left out: ``quantize_wire`` (the block-scale codec) and the watchdog's stall
-listener (ROADMAP Queue A item 12), trace contexts and placement on more
-than one host (item 14). Supervised reads probe liveness every
-``PROBE_INTERVAL_S``.
+``quantize_wire`` ("int8" or "fp8") block-scale quantizes the float
+numpy arrays that device edges carry, with an error-feedback residual an
+edge (``util.collective.quantization``), as the reference's does.
+Supervised reads probe liveness every ``PROBE_INTERVAL_S``, and at once
+when the comm watchdog reports a stall on one of the graph's channels
+(a stall listener on the graph's id). Left out: trace contexts and
+placement on more than one host (ROADMAP Queue A item 14).
 """
 
 from __future__ import annotations
@@ -295,10 +298,8 @@ class CompiledDAG:
         if channel not in _CHANNEL_FAMILIES:
             raise ValueError(f"unknown channel family {channel!r} "
                              f"(use one of {_CHANNEL_FAMILIES[1:]})")
-        if quantize_wire:
-            raise NotImplementedError(
-                "quantize_wire (the block-scale wire codec) comes with the host "
-                "collectives, ROADMAP Queue A item 12")
+        self._quantize_wire = quantize_wire
+        self._wire_cfg, self._wire_ef = self._make_wire_codec()
         self.dag_id = f"dag-{uuid.uuid4().hex[:8]}"
         self.output_node = output_node
         self._channel_override = None if channel == "auto" else channel
@@ -328,6 +329,17 @@ class CompiledDAG:
         self._snapshots: dict[str, Any] | None = None
         self._snapshot_base: int | None = None
         self._last_probe_ts = 0.0
+        # A watchdog stall on any of this graph's channels (any epoch: the
+        # groups' names share the graph's id) wakes the next probe at once.
+        # The callback closes over the event, not the graph.
+        self._stall_event = threading.Event()
+        self._stall_cb = None
+        if self._supervise:
+            from ray_tpu_torch.util.collective import flight
+
+            evt = self._stall_event
+            self._stall_cb = lambda event: evt.set()
+            flight.register_stall_listener(self.dag_id, self._stall_cb)
         self._actor_ids: list[str] = []
         self._compile()
         _LIVE_DAGS[self.dag_id] = self
@@ -476,22 +488,24 @@ class CompiledDAG:
         for t in self._input_targets:
             if t["family"] == "shm":
                 t["chan"] = ShmChannel(self._store, t["channel"], self.CHANNEL_DEPTH,
-                                       epoch=self._epoch)
+                                       epoch=self._epoch, group=self.dag_id)
             elif t["family"] == "device":
                 t["chan"] = DeviceChannel(self._group, plan.rank_of(t["actor_id"]),
                                           src=t["src"], dst=t["dst"], slot=t["slot_id"],
                                           epoch=self._epoch, depth=self.CHANNEL_DEPTH,
-                                          role="producer")
+                                          role="producer", wire_cfg=self._wire_cfg,
+                                          ef=self._wire_ef)
         refit = bool(self._out_readers)
         for i, (aid, out) in enumerate(self._out_specs):
             chan = None
             if out["family"] == "shm":
                 chan = ShmChannel(self._store, out["channel"], self.CHANNEL_DEPTH,
-                                  epoch=self._epoch)
+                                  epoch=self._epoch, group=self.dag_id)
             elif out["family"] == "device":
                 chan = DeviceChannel(self._group, plan.rank_of(aid), src=out["src"],
                                      dst=out["dst"], slot=out["slot_id"], epoch=self._epoch,
-                                     depth=self.CHANNEL_DEPTH, role="consumer")
+                                     depth=self.CHANNEL_DEPTH, role="consumer",
+                                     wire_cfg=self._wire_cfg, ef=self._wire_ef)
             if refit:
                 self._out_readers[i].refit(out, chan, start_seq)
             else:
@@ -519,6 +533,7 @@ class CompiledDAG:
                 resp = self._call_actor(aid, "dag_register", {
                     "dag_id": self.dag_id, "stages": by_actor[aid],
                     "depth": self.CHANNEL_DEPTH, "epoch": epoch, "start_seq": start_seq,
+                    "wire_quant": self._quantize_wire,
                     "store": self._store.root,
                     "group": ({"name": group_name, "world_size": plan.world_size,
                                "rank": plan.rank_of(aid), "port": store.port}
@@ -632,8 +647,10 @@ class CompiledDAG:
     # -- supervised liveness probing -------------------------------------
     def _maybe_probe(self, out: dict, frontier: int) -> None:
         now = time.monotonic()
-        if now - self._last_probe_ts < self.PROBE_INTERVAL_S:
+        stalled = self._stall_event.is_set()
+        if not stalled and now - self._last_probe_ts < self.PROBE_INTERVAL_S:
             return
+        self._stall_event.clear()
         self._last_probe_ts = now
         err = self._probe_death(frontier, out)
         if err is not None:
@@ -739,8 +756,23 @@ class CompiledDAG:
                 except Exception:  # rtlint: disable=swallowed-exception - draining a dead or torn graph; slots are freed below regardless
                     pass
         self._inflight.clear()
+        if self._stall_cb is not None:
+            from ray_tpu_torch.util.collective import flight
+
+            flight.unregister_stall_listener(self._stall_cb)
+            self._stall_cb = None
         self._teardown_actors(timeout)
         self._destroy_group()
+
+    def _make_wire_codec(self) -> tuple:
+        """(activation wire config, the driver's ErrorFeedback) of
+        ``quantize_wire``, or (None, None) for the exact wire."""
+        if not self._quantize_wire:
+            return None, None
+        from ray_tpu_torch.util.collective.quantization import CollectiveConfig, ErrorFeedback
+
+        cfg = CollectiveConfig(quantize_activations=self._quantize_wire)
+        return cfg.activation_wire_config(), ErrorFeedback()
 
     def teardown(self) -> None:
         """Alias of close()."""

@@ -10,7 +10,9 @@ and pop: no message to or from the driver.
 
 Actor-side device pops wait in short slices (``_POP_SLICE_S``), so a
 stopped loop ends promptly. The ``DagRuntime`` of a graph is built by the
-actor process's ``dag_register`` message (``_private.local_tasks``).
+actor process's ``dag_register`` message (``_private.local_tasks``); a
+graph compiled with ``quantize_wire`` gives its device edges the codec and
+one ``ErrorFeedback`` an actor, as the reference's executor does.
 """
 
 from __future__ import annotations
@@ -73,7 +75,7 @@ class StageLoop(threading.Thread):
 
     def __init__(self, *, dag_id: str, stage: dict, store, group, run_stage,
                  deliver_local, send_socket, park_output, epoch: int = 0,
-                 start_seq: int = 0):
+                 start_seq: int = 0, wire_cfg=None, ef=None):
         super().__init__(daemon=True, name=f"rtdag-{dag_id}-n{stage['node']}")
         self.dag_id = dag_id
         self.stage = stage
@@ -87,7 +89,8 @@ class StageLoop(threading.Thread):
 
         def device(edge, role):
             return DeviceChannel(group, edge["peer_rank"], src=edge["src"], dst=edge["dst"],
-                                 slot=edge["slot_id"], epoch=epoch, depth=depth, role=role)
+                                 slot=edge["slot_id"], epoch=epoch, depth=depth, role=role,
+                                 wire_cfg=wire_cfg, ef=ef)
 
         # Input poppers, in declared slot order (== method arg order).
         self._in_pops: list[tuple[str, str, object]] = []
@@ -95,7 +98,7 @@ class StageLoop(threading.Thread):
         for edge in stage.get("in_edges", ()):
             fam = edge["family"]
             if fam == "shm":
-                chan = ShmChannel(store, edge["channel"], depth, epoch=epoch)
+                chan = ShmChannel(store, edge["channel"], depth, epoch=epoch, group=dag_id)
             elif fam == "device":
                 chan = device(edge, "consumer")
             else:  # local / socket: fed via feed()
@@ -106,7 +109,8 @@ class StageLoop(threading.Thread):
         for edge in stage.get("downstream", ()):
             key = (edge["node"], edge["slot"])
             if edge["family"] == "shm":
-                self._down_chans[key] = ShmChannel(store, edge["channel"], depth, epoch=epoch)
+                self._down_chans[key] = ShmChannel(store, edge["channel"], depth, epoch=epoch,
+                                                   group=dag_id)
             elif edge["family"] == "device":
                 self._down_chans[key] = device(edge, "producer")
         # Output edges to the driver (a stage may back several
@@ -114,7 +118,7 @@ class StageLoop(threading.Thread):
         self._out_chans: list[tuple[dict, object]] = []
         for out in stage.get("outs", ()):
             if out["family"] == "shm":
-                chan = ShmChannel(store, out["channel"], depth, epoch=epoch)
+                chan = ShmChannel(store, out["channel"], depth, epoch=epoch, group=dag_id)
             elif out["family"] == "device":
                 chan = device(out, "producer")
             else:  # socket: parked here, pulled by dag_pop
@@ -235,11 +239,21 @@ class DagRuntime:
         if gspec:
             store = join_store(gspec["port"])
             self._group = DeviceGroup(store, gspec["name"], gspec["rank"], gspec["world_size"])
+        wire_cfg = ef = None
+        if payload.get("wire_quant"):
+            from ray_tpu_torch.util.collective.quantization import (
+                CollectiveConfig, ErrorFeedback,
+            )
+
+            wire_cfg = CollectiveConfig(
+                quantize_activations=payload["wire_quant"]).activation_wire_config()
+            ef = ErrorFeedback()
         self._loops = [
             StageLoop(dag_id=dag_id, stage=stage, store=self._store, group=self._group,
                       run_stage=run_stage, deliver_local=self._deliver_local,
                       send_socket=self._send_socket, park_output=self._park_output,
-                      epoch=self.epoch, start_seq=payload.get("start_seq", 0))
+                      epoch=self.epoch, start_seq=payload.get("start_seq", 0),
+                      wire_cfg=wire_cfg, ef=ef)
             for stage in payload["stages"]
         ]
         for loop in self._loops:

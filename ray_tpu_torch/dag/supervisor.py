@@ -26,9 +26,12 @@ between pop slices) calls :func:`recover` instead of raising it:
    below their old cursors, so ``execute()`` stays exactly-once.
 
 The steady state costs nothing: no timer, no thread, no extra message;
-all of this is reached only from a failed pop. Left out: the hang
-doctor's report and the comm flight records the reference lines the
-recovery up with (ROADMAP Queue A item 12).
+all of this is reached only from a failed pop (or a probe the comm
+watchdog's stall listener woke early). A recovery's start and end are
+notes in the comm flight ring (``dag_recovery_start`` / ``_done``, the new
+epoch in the seq field, the triggering edge in the tag), as the
+reference's are. Left out: the hang report the reference reads from its
+controller beside its own victims (ROADMAP Queue A item 14).
 """
 
 from __future__ import annotations
@@ -38,6 +41,7 @@ import time
 from ray_tpu_torch._private import local_tasks
 from ray_tpu_torch.dag import placement
 from ray_tpu_torch.util.backoff import Backoff
+from ray_tpu_torch.util.collective import flight
 
 # How long a recovery waits for one victim to come back ALIVE.
 RECOVERY_TIMEOUT_S = 120.0
@@ -124,6 +128,11 @@ def recover(dag, err) -> None:
     t0 = time.monotonic()
     new_epoch = dag._epoch + 1
     victims = _find_victims(dag, err)
+    with flight.site("dag"):
+        # Fixed-shape flight records: the new epoch rides the seq field,
+        # the triggering edge the tag.
+        flight.note(dag.dag_id, "dag_recovery_start",
+                    tag=getattr(err, "channel", None) or "", seq=new_epoch)
     for aid in victims:
         _restart_victim(dag, aid)
     _quiesce(dag)
@@ -146,6 +155,7 @@ def recover(dag, err) -> None:
                   start_seq=start_seq)
     dag._open_driver_channels(plan, start_seq)
     _replay(dag, start_seq)
+    dag._stall_event.clear()
     dag.last_recovery = {
         "victims": victims,
         "victim_ranks": sorted(plan.rank_of(a) for a in victims),
@@ -153,3 +163,6 @@ def recover(dag, err) -> None:
         "start_seq": start_seq,
         "duration_s": time.monotonic() - t0,
     }
+    with flight.site("dag"):
+        flight.note(dag.dag_id, "dag_recovery_done",
+                    tag=getattr(err, "channel", None) or "", seq=new_epoch)

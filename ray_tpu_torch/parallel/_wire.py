@@ -181,6 +181,62 @@ class ProcessGroupWire(Wire):
         self._pending.clear()
 
 
+# The envelope of a codec-compressed payload on a group wire: (marker, shape,
+# dtype, wire tuple), as the reference's activation wire.
+_ACT_WIRE = "__act"
+
+
+class GroupWire(Wire):
+    """A ``Wire`` over a host-memory collective group (the ``ring``, or a
+    ``hier`` group's ring tier): ``send`` and ``recv`` are the group's
+    tagged messages, paired in order on each edge; ``broadcast`` is the
+    group's, exact. With ``codec`` (a ``CollectiveConfig`` whose
+    ``quantize`` names the kind, the activation wire config) a float
+    tensor sent with a ``site`` crosses block-scale quantized through the
+    wire's ``ErrorFeedback`` (one residual a site), as the reference's
+    stage runner quantizes its activations and cotangents; other payloads
+    stay exact."""
+
+    TAG = "pp"
+    # A stage's receive waits up to this long, as the reference runner's.
+    RECV_TIMEOUT_S = 120.0
+
+    def __init__(self, group, *, codec=None):
+        from ray_tpu_torch.util.collective.quantization import ErrorFeedback
+
+        self.group, self.rank, self.size = group, group.rank, group.world_size
+        self.codec, self.ef = codec, ErrorFeedback()
+
+    def send(self, x, dst, site=None):
+        from ray_tpu_torch.util.collective import flight
+
+        payload = x
+        if (self.codec is not None and site is not None and isinstance(x, torch.Tensor)
+                and x.is_floating_point()):
+            payload = (_ACT_WIRE, tuple(x.shape), str(x.dtype).split(".")[-1],
+                       self.ef.encode(site, x, self.codec))
+        with flight.site("pipeline"):
+            self.group.send(payload, dst, tag=self.TAG)
+
+    def recv(self, like, src):
+        from ray_tpu_torch.util.collective import flight
+        from ray_tpu_torch.util.collective.quantization import decode_device
+
+        with flight.site("pipeline"):
+            data = self.group.recv(src, tag=self.TAG, timeout=self.RECV_TIMEOUT_S)
+        if isinstance(data, tuple) and len(data) == 4 and data[0] == _ACT_WIRE:
+            _, shape, dtype, enc = data
+            return decode_device(enc, like.device).reshape(shape).to(getattr(torch, dtype))
+        if isinstance(data, tuple):  # a tensor numpy has no dtype for
+            from ray_tpu_torch.util.collective.collective import _tensor_of
+
+            return _tensor_of(data, like.device)
+        return torch.from_numpy(data).to(like.device)
+
+    def broadcast(self, x, src):
+        return self.group.broadcast(x.detach(), src_rank=src).clone()
+
+
 def axis_wire(mesh: Any, axis: str) -> Wire:
     """The wire of ``mesh``'s ``axis``: the mesh's own (``mesh.wire(axis)``)
     when it has one, else a ``ProcessGroupWire`` over the ``DeviceMesh``'s

@@ -15,8 +15,8 @@ accelerator, rollouts, replay and the offline datasets stay on the host.
 **The boundary.** The reference runs env runners and learners as
 ``ray_tpu.remote`` actors (``env_runner_group.py:35-51``,
 ``learner.py:182-194``), and multi-learner data parallelism all-reduces
-over the runtime's ``ring`` backend (``learner.py:123-145``). The port has
-no actor runtime (ROADMAP Queue A item 4), so:
+over its ``ring`` backend (``learner.py:123-145``). The port has no actor
+runtime (ROADMAP Queue A item 4), so:
 
   * env runners (single- or multi-agent) each live in a CPU process of
     ``util.gang.WorkerGang(n, use_gpu=False)``, in the member's state, one

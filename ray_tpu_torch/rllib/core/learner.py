@@ -21,12 +21,13 @@ minibatch:
     restores the port's own state exactly.
 
 Multi-learner data parallelism (``num_learners >= 1``): the reference
-runs ``_LearnerActor``s and all-reduces over the runtime's ``ring``
-backend. The port runs the learners on a ``util.gang.WorkerGang`` (a card
-each on ``cuda``, gloo processes on the CPU), each holding a learner in its
-member state; a shard's gradients are summed over the gang's
-``NcclGroup``, divided by the world size, and applied by every member, as
-``update_shard`` does.
+runs ``_LearnerActor``s and all-reduces over its ``ring`` backend. The
+port runs the learners on a ``util.gang.WorkerGang`` (a card each on
+``cuda``, gloo processes on the CPU), each holding a learner in its member
+state; a shard's gradients are summed over the gang's own group (an
+``NcclGroup``; the port's ``RingGroup`` exists too, but the learners keep
+the device wire), divided by the world size, and applied by every member,
+as ``update_shard`` does.
 """
 
 from __future__ import annotations

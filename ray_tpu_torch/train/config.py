@@ -9,7 +9,7 @@ asks for TPU chips (``use_gpu``: one card a worker, the counterpart of
 ``slice_topology``, and bounded elasticity (``min_workers``, the
 formation timeout and the grow-back probe's period) with the resources a
 worker leases from the host's ledger (``resources_per_worker``,
-``worker_resources()``). ``RunConfig`` keeps ``callbacks`` (``on_result``
+``worker_resources()``), and ``collective_config``. ``RunConfig`` keeps ``callbacks`` (``on_result``
 each report round), ``stop`` and ``verbose``, and ``CheckpointConfig``
 ``checkpoint_frequency``, which Tune reads. Left out, with the runtime
 they need: placement strategies across hosts (ROADMAP Queue A item 4) and
@@ -66,6 +66,12 @@ class ScalingConfig:
     drain_on_oom_risk -- the reference's preemptive drain on out-of-memory
                    telemetry: True raises NotImplementedError (ROADMAP
                    Queue A item 14, the node agent's telemetry).
+    collective_config -- the wire knobs of the gang's collective group: a
+                   ``util.collective.CollectiveConfig``, e.g.
+                   ``CollectiveConfig(quantize="int8")`` for the ring's
+                   block-scaled gradient wire with error feedback, or
+                   ``overlap=True`` for the bucketed sync. None: the exact
+                   wire.
     """
 
     num_workers: int = 1
@@ -80,6 +86,7 @@ class ScalingConfig:
     elastic_formation_timeout_s: float = 30.0
     elastic_grow_probe_period_s: float = 5.0
     drain_on_oom_risk: bool = False
+    collective_config: Any = None
 
     def worker_resources(self) -> dict[str, float]:
         """One worker's bundle: a CPU, its card under use_gpu (where the

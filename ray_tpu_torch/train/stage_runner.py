@@ -22,8 +22,13 @@ loss and gradient together; the first takes the microbatch's int tokens
 and sends no cotangent. Gradients are summed over the microbatches,
 divided by their count, and each chunk's optimizer steps once a step.
 
-The wire is exact: the reference's int8/fp8 activation codec belongs to
-its host-memory ``ring``/``hier`` backends, which the port does not have.
+On a gang whose collective group is the host-memory ``ring`` (or a
+``hier`` group with a ring tier) the runner's wire is that group
+(``_wire.GroupWire``), and ``CollectiveConfig.quantize_activations`` there
+quantizes the activation and cotangent hand-offs block by block with an
+``ErrorFeedback`` residual a site (direction, microbatch, virtual stage),
+as the reference's runner does; the loss broadcast and non-float payloads
+stay exact. Elsewhere the wire is exact.
 torch's point-to-point calls pair in posting order where the reference's
 mailbox pairs them by tag, so the runner refuses a schedule whose sends on
 some edge come in another order than their receives
@@ -78,8 +83,10 @@ class PipelineStageRunner:
         ``dtype`` of one microbatch's activations (a meta tensor will do):
         what ``recv`` allocates.
     microbatch_fn : (batch, index, count) -> microbatch.
-    wire : the ranks' wire; by default a ``ProcessGroupWire`` over the
-        process group, with a group per directed neighbour edge.
+    wire : the ranks' wire; by default the session's ring group
+        (``GroupWire``, with the activation codec its config asks for), or
+        a ``ProcessGroupWire`` over the process group, with a group per
+        directed neighbour edge.
     """
 
     def __init__(
@@ -113,7 +120,7 @@ class PipelineStageRunner:
         validate_schedule(schedules, self.virtual)
         check_message_order(schedules, self.virtual)
         self.schedule = schedules[self.stage]
-        self.wire = wire if wire is not None else _wire.ProcessGroupWire(point_to_point=True)
+        self.wire = wire if wire is not None else self._default_wire(ctx)
         if self.wire.size != self.num_stages or self.wire.rank != self.stage:
             raise ValueError(f"the wire is rank {self.wire.rank} of {self.wire.size}; stage "
                              f"{self.stage} of {self.num_stages} needs its own")
@@ -135,6 +142,28 @@ class PipelineStageRunner:
         self._optimizers = [optimizer(p) for p in chunk_params]
         self.device = self._leaves[0][0].device
         self.stats: dict[str, float] = {}
+
+    @staticmethod
+    def _default_wire(ctx: Any) -> _wire.Wire:
+        """The session's ring group as the wire, its activation codec when
+        the group's config asks for one; else the process group's wire."""
+        from ray_tpu_torch.util import collective
+
+        group = (collective._groups.get(ctx.collective_group)
+                 if getattr(ctx, "collective_group", "") else None)
+        if isinstance(getattr(group, "_dcn", group), collective.RingGroup):
+            kind = getattr(group.config, "quantize_activations", None)
+            return _wire.GroupWire(
+                group, codec=group.config.activation_wire_config() if kind else None)
+        return _wire.ProcessGroupWire(point_to_point=True)
+
+    def _send(self, x: torch.Tensor, dst: int, site: tuple) -> None:
+        """Hands x to a neighbour; on a group wire ``site`` keys the codec's
+        error-feedback residual."""
+        if isinstance(self.wire, _wire.GroupWire):
+            self.wire.send(x, dst, site=site)
+        else:
+            self.wire.send(x, dst)
 
     def _virtual_stage(self, chunk: int) -> int:
         return chunk * self.num_stages + self.stage
@@ -224,7 +253,7 @@ class PipelineStageRunner:
                     stash[(m, c)] = a_in
                     with self._phase("fwd"), torch.no_grad():
                         y = self._fns[c](self._chunk_params[c], a_in)
-                    self.wire.send(y, nxt)
+                    self._send(y, nxt, ("f", m, vs))
             else:  # "B"
                 if vs == last_vs:
                     dp, da = stash.pop((m, c))
@@ -233,7 +262,7 @@ class PipelineStageRunner:
                     with self._phase("bwd"):
                         dp, da = self._vjp(c, stash.pop((m, c)), ct)
                 if vs > 0:
-                    self.wire.send(da, prev)
+                    self._send(da, prev, ("b", m, vs))
                 if grads_acc[c] is None:
                     grads_acc[c] = dp
                 else:

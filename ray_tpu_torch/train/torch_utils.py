@@ -521,7 +521,9 @@ def _split_step(loss_fn, setup: ShardedTrainSetup, group_name: str,
     an eager gradient mean through the group, then the optimizer, each a
     ``step_annotation`` scope ("fwd", "bwd", "grad_sync", "opt"; the
     reference's phases: fwd, bwd and opt time the StepStats split, the
-    sync's time is the collective layer's) whose seconds land in
+    sync's time is the collective layer's; the sync is
+    ``sync_gradients_sharded``, so the group's config chooses the bucketed
+    overlap and the wire) whose seconds land in
     ``step.stats``. Each scope ends with the device synchronized, so its
     kernels finish inside it; each of those syncs closes an edge the next
     phase waits on anyway. The group's workers are the mesh's data ranks:
@@ -564,7 +566,7 @@ def _split_step(loss_fn, setup: ShardedTrainSetup, group_name: str,
         t2 = time.perf_counter()
         with step_annotation("grad_sync"):
             grads = [leaf.grad.to_local() for leaf in leaves]
-            for grad, synced in zip(grads, sync_gradients(grads, group_name)):
+            for grad, synced in zip(grads, sync_gradients_sharded(grads, group_name)):
                 grad.copy_(synced)
             sync_device()
         t3 = time.perf_counter()
@@ -621,7 +623,10 @@ def _rebuild(tree: Any, found: dict, path: tuple = ()) -> Any:
 def sync_gradients(grads: Any, group_name: str) -> Any:
     """The mean of ``grads`` (a dict tree or a list of tensors) across the
     group's workers: one all-reduce of the leaves flattened in f32, each
-    leaf cast back to its dtype. A group of one returns ``grads``."""
+    leaf cast back to its dtype. A group of one returns ``grads``. The wire
+    is the group's: on a ring group its ``CollectiveConfig`` (the
+    trainer's ``ScalingConfig.collective_config``) applies, so an int8 or
+    fp8 config quantizes this sync with error feedback."""
     from ray_tpu_torch.util import collective
 
     group = collective.get_group(group_name)
@@ -635,9 +640,9 @@ def sync_gradients(grads: Any, group_name: str) -> Any:
 class GradientSyncHandle:
     """An in-flight overlapped gradient sync (``begin_gradient_sync``)."""
 
-    def __init__(self, works, buckets, leaves, rebuild, denom, launch_s):
+    def __init__(self, works, buckets, leaves, rebuild, denom, launch_s, inner=None):
         self._works, self._buckets, self._leaves = works, buckets, leaves
-        self._rebuild, self._denom = rebuild, denom
+        self._rebuild, self._denom, self._inner = rebuild, denom, inner
         self.stats: dict[str, float] = {"buckets": len(buckets), "launch_s": launch_s}
 
     def result(self) -> Any:
@@ -645,18 +650,26 @@ class GradientSyncHandle:
         the trace, records the whole wait as the exposed communication time
         (the step's "comm_exposed" phase), and returns the mean gradient
         tree."""
-        start = time.perf_counter()
-        cuda = bool(self._buckets) and self._buckets[0][1].device.type == "cuda"
-        for i, work in enumerate(self._works):
-            with step_annotation(f"fence.b{i}"):
-                if work is not None:
-                    work.wait()
-                if cuda:
-                    torch.cuda.current_stream().synchronize()
-        self.stats["comm_exposed_s"] = time.perf_counter() - start
-        record_phase("comm_exposed", max(self.stats["comm_exposed_s"], 1e-9))
+        if self._inner is not None:  # a ring group's overlap.SyncHandle
+            launch_s = self.stats["launch_s"]
+            segments = self._inner.fence()
+            self.stats = {**self._inner.stats, "launch_s": launch_s}
+            flats = [(bucket.leaf_ids, segment)
+                     for bucket, segment in zip(self._inner.buckets, segments)]
+        else:
+            start = time.perf_counter()
+            cuda = bool(self._buckets) and self._buckets[0][1].device.type == "cuda"
+            for i, work in enumerate(self._works):
+                with step_annotation(f"fence.b{i}"):
+                    if work is not None:
+                        work.wait()
+                    if cuda:
+                        torch.cuda.current_stream().synchronize()
+            self.stats["comm_exposed_s"] = time.perf_counter() - start
+            record_phase("comm_exposed", max(self.stats["comm_exposed_s"], 1e-9))
+            flats = self._buckets
         out: list = [None] * len(self._leaves)
-        for indices, flat in self._buckets:
+        for indices, flat in flats:
             chunk = [self._leaves[i] for i in indices]
             for i, value in zip(indices, _unflat(flat / self._denom, chunk)):
                 out[i] = value
@@ -668,42 +681,49 @@ def begin_gradient_sync(grads: Any, group_name: str, *,
     """Launches a bucketed, asynchronous gradient mean of ``grads`` (a dict
     tree or a list of tensors) and returns at once. The port runs one
     process a device, so where the reference takes one tree per local
-    device, this takes the process's one tree. Its leaves are split into
-    buckets of about ``bucket_bytes`` of f32, in reverse leaf order (the
-    last layers' gradients, which the backward makes first, go first),
-    each an all-reduce with ``async_op=True``. ``handle.result()``
-    fences."""
+    device, this takes the process's one tree. Its leaves are split by
+    ``bucketing.partition_buckets`` into buckets of about ``bucket_bytes``
+    of f32 (the group's ``config.bucket_bytes`` by default), in reverse
+    leaf order (the last layers' gradients, which the backward makes
+    first, go first). On a ring group each bucket is a tagged allreduce on
+    the group's pool (``overlap.launch_bucketed_allreduce``, the config's
+    wire); on NCCL or gloo an all-reduce with ``async_op=True``.
+    ``handle.result()`` fences."""
     import torch.distributed as dist
 
     from ray_tpu_torch.util import collective
+    from ray_tpu_torch.util.collective import bucketing, overlap
 
     group = collective.get_group(group_name)
     start = time.perf_counter()
     leaves, rebuild = _tree_leaves_list(grads)
-    limit = (bucket_bytes or DEFAULT_BUCKET_BYTES) // 4
-    buckets, current, size = [], [], 0
-    for i in reversed(range(len(leaves))):
-        current.append(i)
-        size += leaves[i].numel()
-        if size >= limit:
-            buckets.append(current)
-            current, size = [], 0
-    if current:
-        buckets.append(current)
+    if bucket_bytes is None:
+        bucket_bytes = int(getattr(getattr(group, "config", None), "bucket_bytes", 0)
+                           or DEFAULT_BUCKET_BYTES)
+    if overlap.supports_overlap(group):
+        inner = overlap.launch_bucketed_allreduce(group, [leaves], bucket_bytes)
+        return GradientSyncHandle([], inner.buckets, leaves, rebuild, group.world_size,
+                                  time.perf_counter() - start, inner=inner)
     works, flats = [], []
-    for indices in buckets:
-        flat = _flat([leaves[i] for i in indices]).to(group.device)
+    for bucket in bucketing.partition_buckets(leaves, bucket_bytes):
+        flat = _flat([leaves[i] for i in bucket.leaf_ids]).to(group.device)
         works.append(dist.all_reduce(flat, async_op=True) if group.world_size > 1 else None)
-        flats.append((indices, flat))
+        flats.append((bucket.leaf_ids, flat))
     return GradientSyncHandle(works, flats, leaves, rebuild, group.world_size,
                               time.perf_counter() - start)
 
 
-def sync_gradients_sharded(grads: Any, group_name: str, *, overlap: bool = False,
+def sync_gradients_sharded(grads: Any, group_name: str, *, overlap: bool | None = None,
                            bucket_bytes: int | None = None) -> Any:
     """The mean of ``grads`` over the group's workers (one tree: one process
     a device): ``sync_gradients``, or with ``overlap=True`` the bucketed
-    asynchronous path, fenced before returning."""
+    asynchronous path, fenced before returning. ``overlap=None`` takes the
+    group's ``config.overlap``, as the reference's does."""
+    from ray_tpu_torch.util import collective
+
+    if overlap is None:
+        config = getattr(collective.get_group(group_name), "config", None)
+        overlap = bool(getattr(config, "overlap", False))
     if overlap:
         return begin_gradient_sync(grads, group_name, bucket_bytes=bucket_bytes).result()
     return sync_gradients(grads, group_name)

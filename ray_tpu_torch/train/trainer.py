@@ -73,6 +73,14 @@ that commit across its own size. So a death, a step-down or a grow-back
 delivers every row, replaying at most the rows read since the last
 committed round.
 
+The gang's collective group is the reference's: ``TorchTrainer(backend=)``
+names it, as ``DataParallelTrainer(backend=)`` does. The default (None)
+stays the process group's own (NCCL under ``use_gpu``, gloo on the CPU);
+"ring" forms the host-memory ring (``util.collective.RingGroup``), whose
+members may share a card, and the gang's group carries
+``ScalingConfig.collective_config`` either way, so the gradient syncs
+(``train.torch_utils``) honour its quantized wire and its overlap.
+
 Left out, each in ROADMAP with its reason: multi-host gangs and storage
 other than a local path (Queue A item 4), locality-aware splits and
 ingest across hosts, preemptive drains of ranks on out-of-memory telemetry
@@ -241,11 +249,13 @@ class TorchTrainer:
         resume_from_checkpoint: Checkpoint | None = None,
         datasets: dict | None = None,
         topology: Any = None,
+        backend: str | None = None,
     ):
         """``topology`` (a ``parallel.topology.SliceTopology``) sets
         ``scaling_config.slice_topology``, as the reference's JaxTrainer's
         does. ``datasets`` maps names to what each rank reads through
-        ``get_dataset_shard(name)``."""
+        ``get_dataset_shard(name)``. ``backend``: the gang's collective
+        group, None (the process group's own) or "ring"."""
         self.train_loop_per_worker = train_loop_per_worker
         self.train_loop_config = dict(train_loop_config or {})
         self.scaling_config = scaling_config or ScalingConfig()
@@ -255,6 +265,9 @@ class TorchTrainer:
         self.run_config = run_config or RunConfig()
         self.resume_from_checkpoint = resume_from_checkpoint
         self.datasets = dict(datasets or {})
+        if backend not in (None, "ring"):
+            raise ValueError(f"backend {backend!r}: None (the process group's own) or 'ring'")
+        self.backend = backend
         self._init_captures()
 
     def _init_captures(self) -> None:
@@ -410,7 +423,9 @@ class TorchTrainer:
         for size in sizes:
             t0 = time.monotonic()
             try:
-                gang = WorkerGang(size, use_gpu=sc.use_gpu, resources_per_worker=bundle, **wait)
+                gang = WorkerGang(size, use_gpu=sc.use_gpu, resources_per_worker=bundle,
+                                  backend=self.backend,
+                                  collective_config=sc.collective_config, **wait)
             except (resources.PlacementGroupUnschedulableError, GangDiedError) as exc:
                 formations.append({"world_size": size, "seconds": time.monotonic() - t0,
                                    "formed": False, "error": str(exc)})

@@ -10,6 +10,13 @@ before rank 0 binds it starts the gang again on another), each member calls
 forms its collective group (``util.collective``). ``run``, ``run_async``,
 ``rank_infos``, ``healthy`` and ``shutdown`` keep their meaning.
 
+``backend="ring"`` and ``collective_config`` are the reference's: the
+members join a gloo process group, whose ``TCPStore`` holds the ring's
+addresses, and form a ``RingGroup`` carrying the config; they never make
+an NCCL communicator, so two members may share one card (a bundle of
+``{"GPU": 0.5}`` each), which NCCL cannot do. The default backend stays
+the process group's own: NCCL under ``use_gpu``, gloo on the CPU.
+
 The gang is the failure domain: one dead member wedges every member's
 collectives, so a member's death raises ``GangDiedError`` in the caller
 (the trainer restarts the whole gang from its checkpoint), and
@@ -17,7 +24,8 @@ collectives, so a member's death raises ``GangDiedError`` in the caller
 
 Formation takes the place of the reference's placement group: before it
 spawns anything the gang leases one bundle a member (``resources_per_worker``,
-a CPU by default, and a card under ``use_gpu``) from the host's resource
+a CPU by default, and a whole card under ``use_gpu``, or a share of one on a
+ring) from the host's resource
 ledger (``_private.resources``), waiting up to ``ready_timeout`` as the
 reference's ``pg.ready`` does (the members' start then has
 ``START_TIMEOUT_S``), and raises the ledger's
@@ -105,7 +113,8 @@ class GangContext:
 
 
 def _member_main(rank: int, world_size: int, group_name: str, backend: str,
-                 master_port: int, card: int | None, conn) -> None:
+                 master_port: int, card: int | None, conn, collective_backend: str | None = None,
+                 collective_config=None) -> None:
     """A member process: join the process group and the collective group,
     then run what the caller sends until it says stop. Its ready message
     carries the wall times (``time.time()``) at which it entered, its
@@ -125,12 +134,15 @@ def _member_main(rank: int, world_size: int, group_name: str, backend: str,
             device = torch.device("cuda", card)
         dist.init_process_group(backend, init_method="env://", rank=rank,
                                 world_size=world_size)
-        collective.init_collective_group(world_size, rank, backend=backend,
-                                         group_name=group_name)
+        collective.init_collective_group(world_size, rank,
+                                         backend=collective_backend or backend,
+                                         group_name=group_name, config=collective_config)
         ctx = GangContext(rank, world_size, group_name, socket.gethostname(), channel, device)
         channel.send(("ready", {"rank": rank, "node_id": ctx.node_id, "pid": os.getpid(),
                                 "device": str(device), "entered": entered,
-                                "joined": time.time()}))
+                                "joined": time.time(),
+                                # A ring member's listener, which answers comm_flight.
+                                "ring_address": getattr(ctx.collective(), "address", None)}))
     except Exception as exc:
         channel.send(("error", repr(exc), traceback.format_exc()))
         return
@@ -166,25 +178,36 @@ def _free_port() -> int:
 
 
 class WorkerGang:
-    """``num_workers`` member processes, one a card (``use_gpu``) or on the
-    CPU, sharing one process group and collective group ``group_name``.
+    """``num_workers`` member processes, each on a card (``use_gpu``) or on
+    the CPU, sharing one process group and collective group ``group_name``.
     Each member leases ``resources_per_worker`` ({"CPU": 1} by default;
-    ``use_gpu`` adds a whole card) from the host's ledger."""
+    ``use_gpu`` adds a whole card) from the host's ledger. ``backend``:
+    None (NCCL under ``use_gpu``, gloo otherwise), or "ring" (a gloo
+    process group and a ``RingGroup`` with ``collective_config``; a member
+    may then lease a share of a card)."""
 
     def __init__(self, num_workers: int, *, use_gpu: bool = True,
                  resources_per_worker: dict | None = None, group_name: str | None = None,
-                 ready_timeout: float = 300.0):
+                 ready_timeout: float = 300.0, backend: str | None = None,
+                 collective_config=None):
         import torch.multiprocessing as mp
 
+        if backend not in (None, "ring"):
+            raise ValueError(f"gang backend {backend!r}: None (the process group's own) "
+                             "or 'ring'")
         self.num_workers = int(num_workers)
         self.group_name = group_name or f"gang-{os.urandom(4).hex()}"
-        self.backend = "nccl" if use_gpu else "gloo"
+        # The process group's backend; a ring's members meet over gloo.
+        self.backend = "nccl" if use_gpu and backend is None else "gloo"
+        self.collective_backend = backend or self.backend
+        self.collective_config = collective_config
         self.members, self._conns, self._infos = [], [], []
         bundle = dict(resources_per_worker or {"CPU": 1.0})
         if use_gpu:
             bundle.setdefault("GPU", 1.0)
-            if bundle["GPU"] < 1:
-                raise ValueError(f"a GPU gang member takes a whole card, got {bundle['GPU']}")
+            if bundle["GPU"] < 1 and backend != "ring":
+                raise ValueError(f"a GPU gang member takes a whole card (NCCL puts one rank "
+                                 f"on a card), got {bundle['GPU']}; a ring gang may share one")
         self._lease = resources.ledger().acquire(bundle, self.num_workers, timeout=ready_timeout)
         self.cards = [cards[0] if use_gpu else None for cards in self._lease.cards]
         try:
@@ -213,7 +236,8 @@ class WorkerGang:
             parent, child = ctx.Pipe()
             proc = ctx.Process(target=_member_main, name=f"{self.group_name}-rank{rank}",
                                args=(rank, self.num_workers, self.group_name, self.backend,
-                                     port, self.cards[rank], child))
+                                     port, self.cards[rank], child, self.collective_backend,
+                                     self.collective_config))
             proc.start()
             child.close()
             self.members.append(proc)

@@ -262,9 +262,16 @@ def test_one_rank_group_returns_its_input(tmp_path):
 
 @pytest.mark.parametrize("backend", ["ring", "hier", "xla"])
 def test_other_backends_are_refused(backend):
-    """"ring" and "xla" are not ported. "hier" is (HierarchicalGroup,
+    """"xla" is not ported. "hier" is (HierarchicalGroup,
     tests/test_torch_topology.py); with no process group up its tier 2 asks
-    for NCCL, which refuses to start without a card, as "nccl" does."""
+    for NCCL, which refuses to start without a card, as "nccl" does. "ring"
+    is (RingGroup, tests/test_torch_ring.py); it meets in the process
+    group's store, so with none up and no store given it refuses."""
+    if backend == "ring":
+        with pytest.raises(RuntimeError, match="TCPStore"):
+            collective.init_collective_group(1, 0, backend=backend, group_name="refused")
+        assert "refused" not in collective._groups
+        return
     if backend == "hier":
         if torch.cuda.is_available():
             pytest.skip("a CUDA device is present: the NCCL tier can start")

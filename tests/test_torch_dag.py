@@ -344,11 +344,14 @@ def test_local_channel_batches_as_the_reference():
 
 
 def test_quantize_wire_is_refused_naming_the_item():
+    """quantize_wire is ported (tests/test_torch_ring_trainer.py holds its
+    codec); a kind the codec does not have is refused, naming the kinds, as
+    the reference's CollectiveConfig refuses it."""
     a = PORT["Stage"].remote(1)
     with InputNode() as inp:
         out = a.add.bind(inp)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        out.experimental_compile(quantize_wire="int8")
+    with pytest.raises(ValueError, match="quantize_activations must be one of"):
+        out.experimental_compile(quantize_wire="int4")
 
 
 def test_a_cuda_payload_never_rides_the_host(monkeypatch):

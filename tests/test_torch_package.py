@@ -28,6 +28,12 @@
   functions by name) and no ml_dtypes; ``ray_tpu_torch.data`` exports the
   reference's ``__all__`` and loads nothing but numpy and the standard
   library when imported (no torch, pyarrow, pandas or PIL).
+* The host-side collectives (``util/collective/``: the groups, the
+  codec, the buckets, the overlap and the flight recorder) and the hang
+  report (``_private/hang_doctor.py``) are runtime modules (no ml_dtypes:
+  the fp8 wire goes through torch's float8_e4m3fn) and import no
+  cloudpickle; ``util/collective/flight.py`` loads no torch, so the
+  compiled graphs' relay actors record into it without torch.
 * Compiled graphs (``dag/``, the reference's seven modules, and
   ``_private/dag_apps.py``) are runtime modules that import no cloudpickle
   (actors get their classes by name), and ``ray_tpu_torch.dag`` imports no
@@ -91,13 +97,15 @@ def test_port_imports_no_jax_and_no_ray_tpu(path):
 # group, gang, the step profiler and the topology) read and write bf16
 # without ml_dtypes, which JAX brings.
 RUNTIME_MODULES = ["train/checkpoint.py", "train/session.py", "train/config.py",
-                   "train/trainer.py", "train/torch_utils.py", "util/collective.py",
+                   "train/trainer.py", "train/torch_utils.py", "train/stage_runner.py",
                    "util/gang.py", "train/step_stats.py", "_private/profiler.py",
                    "_private/profile_merge.py", "_private/telemetry.py",
-                   "parallel/topology.py", "_private/resources.py", "_private/workload.py",
-                   "util/backoff.py", "_private/dag_apps.py"] + sorted(
+                   "parallel/topology.py", "parallel/_wire.py", "_private/resources.py",
+                   "_private/workload.py", "util/backoff.py", "_private/dag_apps.py",
+                   "_private/hang_doctor.py"] + sorted(
     p.relative_to(ROOT / "ray_tpu_torch").as_posix()
-    for sub in ("tune", "air", "dag") for p in (ROOT / "ray_tpu_torch" / sub).rglob("*.py"))
+    for sub in ("tune", "air", "dag", "util/collective")
+    for p in (ROOT / "ray_tpu_torch" / sub).rglob("*.py"))
 
 
 @pytest.mark.parametrize("name", RUNTIME_MODULES)
@@ -546,3 +554,34 @@ def test_build_without_nvcc_raises(monkeypatch):
     monkeypatch.delenv("CUDA_PATH", raising=False)
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.build()
+
+
+def _collective_sources() -> list[Path]:
+    return sorted((ROOT / "ray_tpu_torch" / "util" / "collective").glob("*.py")) + [
+        ROOT / "ray_tpu_torch" / "_private" / "hang_doctor.py"]
+
+
+@pytest.mark.parametrize("path", _collective_sources(),
+                         ids=lambda p: p.relative_to(ROOT).as_posix())
+def test_collective_modules_import_no_cloudpickle(path):
+    bad = [m for m in _imported_modules(path)
+           if m.split(".")[0] in FORBIDDEN + TUNE_FORBIDDEN + ("ml_dtypes",)]
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_the_collective_scan_covers_the_reference_layout():
+    """The port's util/collective/ has the reference's modules, each in the
+    runtime scan, and the package's names load on first use."""
+    ref = {p.name for p in (ROOT / "ray_tpu" / "util" / "collective").glob("*.py")}
+    names = {p.name for p in _collective_sources()}
+    assert ref == {"__init__.py", "collective.py", "quantization.py", "bucketing.py",
+                   "flight.py", "overlap.py"}
+    assert ref | {"hang_doctor.py"} == names
+    assert {f"util/collective/{n}" for n in ref} <= set(RUNTIME_MODULES)
+    code = ("import sys, ray_tpu_torch.util.collective.flight; "
+            "print(sorted({m.split('.')[0] for m in sys.modules"
+            " if m.split('.')[0] in ('torch', 'jax', 'ray_tpu', 'cloudpickle')}))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=60)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
