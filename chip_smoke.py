@@ -91,9 +91,9 @@ final line) if anything is wrong:
                refusals, and the bucketed asynchronous gradient sync against
                sync_gradients; the group and its process group destroyed
  14. trainer   TorchTrainer with one GPU worker (a spawned process, NCCL)
-               at phase 12's config and mesh: 6 steps, a report each, a
-               save_sharded_state checkpoint at step 3 committed by the
-               trainer; in the first run the worker exits hard after step
+               at phase 12's config cut to 2 layers and its mesh: 6 steps, a
+               report each, a save_sharded_state checkpoint at step 3
+               committed by the trainer; in the first run the worker exits hard after step
                4's report and the trainer restarts it from the step-3
                checkpoint; a second run has no failure. Resumed steps 4-6
                must equal the second run's bitwise (losses and the final
@@ -101,7 +101,7 @@ final line) if anything is wrong:
                before step 1, after it and after step 6; checkpoint
                bytes, save and restore
                seconds (GB/s), the restart's wall time, gang formation, and
-               the step time against phase 12's
+               the step time beside phase 12's (at 4 layers)
  15. sequence_parallel  ring and Ulysses attention (ray_tpu_torch.parallel.
                ring_attention) on 4 ranks run as threads on the card
                (ThreadGroup: the port's wire for ranks that share one card)
@@ -313,10 +313,11 @@ final line) if anything is wrong:
  28. dag       compiled graphs (ray_tpu_torch.dag) on the local actors
                (_private.local_tasks, every actor of the phase started at
                once, all stopped at its end): (a) TransformerConfig.
-               llama2_7b() at full width and depth in bf16 as two stage
-               actors (_private.dag_apps.TransformerStage) at num_gpus 0.5
-               each, each building the tree from the seed and keeping its
-               16 layers (checksums against the driver's partition_stages),
+               llama2_7b() at full width in bf16, its depth cut to 8
+               layers, as two stage actors (_private.dag_apps.
+               TransformerStage) at num_gpus 0.5 each, each building the
+               tree from the seed and keeping its 4 layers (checksums
+               against the driver's partition_stages),
                compiled as InputNode -> stage0.forward -> stage1.forward on
                device edges ([8, 512] int64 tokens in, the [8, 512, 4096]
                bf16 hidden state as a CUDA IPC edge, the last position's
@@ -349,7 +350,7 @@ final line) if anything is wrong:
                slice (its seconds beside); (b) TorchTrainer(backend="ring")
                at that config, two members sharing the card ({"GPU": 0.5}
                each, a gloo process group, no NCCL), each on its own seeded
-               4 x 1024 batch, the split step over mesh {dp 2}: 3 steps on
+               4 x 1024 batch, the split step over mesh {dp 2}: 2 steps on
                the exact wire (the synced gradient bitwise the f64 sum of
                both ranks' at 1M seeded indices), then 6 steps each of int8
                and fp8 with the bucketed overlap (parameters bitwise equal
@@ -359,8 +360,31 @@ final line) if anything is wrong:
                bytes, peak memory, gang formation, stalls (0), launches;
                (c) bench.py --overlap on two CPU ring members, on and off,
                with identical loss trajectories
+ 30. serve_llm the serve-LLM engine (ray_tpu_torch.serve.llm): first an int8
+               and an fp8 KV payload decoded on the card (decode_device) into
+               a KVBlockPool there, bitwise against decode_plain on the host;
+               then release/benchmarks_serve_llm.py's phases 1-3, its
+               deployment uncut (1 prefill replica on the host, 2 decode
+               replicas at a quarter of the card each, max_slots 128, buckets
+               32/64/128, 4096 KV blocks of 16 x 16 f32 on the card, the int8
+               wire, hedging, health checks every 1 s, two proxies) under the
+               bench's full load in 4 s windows: (1) a baseline of 8 handle
+               threads sending generate_batch waves of 64 and 2 HTTP clients,
+               with steady_rpc_probe on a decode replica (0 calls to the
+               controller in a whole window of 100 iterations); (2) a window
+               at 2 handle threads and 2 HTTP clients that SIGKILLs a decode
+               replica (1 s)
+               and the second proxy (2 s), then the wait for both back; (3)
+               the bench's tiny-pool app (2 tokens a block, 64 blocks,
+               kv_headroom_min 0.8 on decode only), whose decode pool must grow
+               from 1 to 2 while prefill stays at 1. Gates: lost 0, every
+               sequence's tokens equal to the digest, both kills landed and
+               recovered, decode_controller_rpcs 0, pools_scale_independent 1,
+               every decode pool on the card; sequences/s beside the
+               reference's full-load release gate of 3,800, the p99s and
+               their ratio
 Each path (4-5, 7, 8, 9, 10, 11, 12, 14, 15, 16, 17, 18, 19, 20, 21, 22, 23, 24, 25, 26,
-27, 28, 29) runs with every launch count set to 0 just before it; its counts, read just after,
+27, 28, 29, 30) runs with every launch count set to 0 just before it; its counts, read just after,
 must equal what its layers and passes imply, every flash launch on the
 route the path's inputs take. The trainer path's kernels launch in its
 worker processes, and the HTTP serving path's in its replica processes,
@@ -437,6 +461,8 @@ from ray_tpu_torch.parallel.topology import SliceTopology
 from ray_tpu_torch import serve, tune
 from ray_tpu_torch.serve import batching as serve_batching
 from ray_tpu_torch.serve.batching import batch
+from ray_tpu_torch.serve import llm
+from ray_tpu_torch.serve.llm import deployments as llm_dep
 from ray_tpu_torch.train import session as session_mod
 from ray_tpu_torch.train import release_loops
 from ray_tpu_torch.train import step_stats as step_stats_mod
@@ -2473,14 +2499,18 @@ def phase_collectives() -> dict:
 
 
 # ---------------------------------------------------------------- phase 14
-# The trainer phase: bench.py's sharded config through TorchTrainer on one
-# GPU worker. The loop takes TRAINER_STEPS steps and saves at
+# The trainer phase: bench.py's sharded config at TRAINER_LAYERS layers
+# through TorchTrainer on one GPU worker. The loop takes TRAINER_STEPS steps and saves at
 # TRAINER_SAVE_AT; in the run that fails, the worker exits hard after
 # TRAINER_DIE_AFTER's report and the trainer restarts it from that save.
 TRAINER_STEPS, TRAINER_SAVE_AT, TRAINER_DIE_AFTER = 6, 3, 4
+# The config's depth, cut from 4 layers to 2 to keep the script inside its
+# time limit; every check of the phase holds at any depth.
+TRAINER_LAYERS = 2
 TRAINER_STORAGE = Path(__file__).resolve().parent / "build" / "chip_smoke_trainer"
-# bf16 params and AdamW's two bf16 moments, plus the step count.
-TRAINER_CKPT_BYTES = 3 * 2 * 1_140_887_552
+# bf16 params and AdamW's two bf16 moments (604,000,256 parameters at 2
+# layers), plus the step count.
+TRAINER_CKPT_BYTES = 3 * 2 * 604_000_256
 
 
 def _trainer_batch(step: int, config: TransformerConfig) -> torch.Tensor:
@@ -2582,7 +2612,7 @@ def trainer_loop(loop_config: dict) -> None:
 
 def _trainer_run(name: str, die_after: int | None):
     trainer = TorchTrainer(
-        trainer_loop, train_loop_config={"die_after": die_after},
+        trainer_loop, train_loop_config={"die_after": die_after, "n_layers": TRAINER_LAYERS},
         scaling_config=ScalingConfig(num_workers=1, use_gpu=True, mesh_axes=SHARDED_MESH),
         run_config=RunConfig(name=name, storage_path=str(TRAINER_STORAGE),
                              failure_config=FailureConfig(max_failures=1),
@@ -2594,7 +2624,8 @@ def _trainer_run(name: str, die_after: int | None):
 
 
 def phase_trainer(sharded_step_ms: float) -> dict:
-    """TorchTrainer with one GPU worker at bench.py's sharded config: a run
+    """TorchTrainer with one GPU worker at bench.py's sharded config, cut to
+    TRAINER_LAYERS layers (``sharded_step_ms`` is phase 12's at 4): a run
     whose worker exits hard after step TRAINER_DIE_AFTER's report and is
     restarted from the step-TRAINER_SAVE_AT checkpoint, then a run with no
     failure. The resumed steps must equal the uninterrupted run's bitwise
@@ -2653,7 +2684,8 @@ def phase_trainer(sharded_step_ms: float) -> dict:
     first = killed.attempts[1]
     step_ms = 1e3 * statistics.median(m["step_s"] for m in whole.metrics_history[1:])
     result = dict(
-        config="bench.py:133-138", mesh=SHARDED_MESH, batch=SHARDED_BATCH, steps=TRAINER_STEPS,
+        config=f"bench.py:133-138 at {TRAINER_LAYERS} layers", mesh=SHARDED_MESH,
+        batch=SHARDED_BATCH, steps=TRAINER_STEPS,
         save_at=TRAINER_SAVE_AT, die_after=TRAINER_DIE_AFTER, bitwise=bitwise,
         losses=losses, resumed_losses=[m["loss"] for m in resumed],
         params_moved=moved, ckpt_bytes=save["ckpt_bytes"], save_s=save["save_s"],
@@ -6310,7 +6342,7 @@ def phase_serve_chaos(seconds=CHAOS_SECONDS) -> dict:
     result = dict(
         config="release/benchmarks_serve_chaos.py phases 1-2, BERT-base encoder, YAML deploy",
         clients=CHAOS_CLIENTS, seconds=seconds, ready_s=ready_s,
-        lost=baseline["lost"] + chaos["lost"],
+        lost=baseline["lost"] + chaos["lost"], baseline_lost=baseline["lost"],
         lost_detail=(baseline["lost_detail"] + chaos["lost_detail"])[:5],
         shed=baseline["shed"] + chaos["shed"],
         failovers=baseline["failovers"] + chaos["failovers"],
@@ -6347,11 +6379,15 @@ def phase_serve_chaos(seconds=CHAOS_SECONDS) -> dict:
 
 # ---------------------------------------------------------------- phase 28
 # Compiled graphs (ray_tpu_torch.dag) on the port's local actors: (a) the
-# two-stage pipeline of TransformerConfig.llama2_7b() on device edges, two
+# two-stage pipeline of TransformerConfig.llama2_7b() at DAG_LAYERS layers
+# on device edges, two
 # actors at half of the card each; (b) release/benchmarks_dag.py's hop and
 # rpc phases; (c) release/benchmarks_dag_recovery.py's supervised chain.
 DAG_BATCH, DAG_SEQ = 8, 512
 DAG_STAGES = 2
+# llama2_7b()'s depth in (a), cut from 32 layers to 8 (4 a stage) to keep
+# the script inside its time limit; every check holds at any depth.
+DAG_LAYERS = 8
 DAG_INPUTS = 4           # distinct token batches, each held against the driver's chain
 DAG_PIPELINED = 16       # executions with up to CHANNEL_DEPTH in flight
 DAG_SEQUENTIAL = 16      # executions each followed by its get
@@ -6679,7 +6715,7 @@ def phase_dag(config: TransformerConfig | None = None, device: str = "cuda") -> 
     """Phase 28: compiled graphs on the port's local actors; every actor
     starts at once at the phase's start, and every process it started is
     stopped at its end."""
-    config = config or TransformerConfig.llama2_7b()
+    config = config or TransformerConfig.llama2_7b(n_layers=DAG_LAYERS)
     start = time.perf_counter()
     if device == "cuda":
         torch.cuda.empty_cache()
@@ -6721,7 +6757,9 @@ def phase_dag(config: TransformerConfig | None = None, device: str = "cuda") -> 
 RING_WORKERS = 2
 RING_LAYERS = SHARDED_CONFIG["n_layers"]
 RING_BATCH = 4                 # rows of max_seq + 1 tokens each rank trains on
-RING_EXACT_STEPS, RING_QUANT_STEPS = 3, 6
+# The exact run's steps, cut from 3 to 2 (8 s each) to keep the script
+# inside its time limit; the bitwise checks hold at every step.
+RING_EXACT_STEPS, RING_QUANT_STEPS = 2, 6
 RING_SAMPLE = 1 << 20          # seeded indices of the flat gradient held bitwise
 RING_CODEC_SLICE = 64 << 20    # elements of the codec's input held against numpy
 RING_BLOCK = 256
@@ -7129,6 +7167,406 @@ def phase_ring() -> dict:
     return result
 
 
+# ---------------------------------------------------------------- phase 30: serve-LLM
+# The serve-LLM engine (ray_tpu_torch.serve.llm): release/benchmarks_serve_llm.py's
+# three phases on the card's host, its deployment uncut (1 prefill replica on
+# the host, 2 decode replicas at max_slots 128 with buckets 32/64/128, the
+# default KV geometry and the int8 wire, hedging, health checks every 1 s,
+# two proxies). The decode replicas take a quarter of the card each, so that
+# phase 3's second app fits beside them: their KV pools and the wire's
+# decode live on the card. The load is the bench's full load (8 handle
+# threads, 2 HTTP clients) in 4 s windows (the bench's are 10 s).
+LLM_BATCH, LLM_MAX_TOKENS = 64, 4      # the bench's BATCH and MAX_TOKENS
+LLM_HANDLE_THREADS, LLM_HTTP_THREADS = 8, 2
+LLM_SECONDS = 4.0
+LLM_KILL_REPLICA_S, LLM_KILL_PROXY_S = 1.0, 2.0
+LLM_RECOVER_S = 90.0
+LLM_SCALE_WAIT_S = 90.0
+LLM_GPU_SHARE = 0.25
+LLM_PROMPT = "warm cache line"
+# The reference's release gate for its full load (release_tests.yaml):
+# printed beside the port's sequences/s as a finding, not held here.
+LLM_RELEASE_GATE_QPS = 3800
+# The card's decode of a quantized KV payload against the plain numpy
+# decode: the ToyLM's KV of these prompts and a seeded normal block.
+LLM_CODEC_PROMPTS = ("warm cache line", " ".join(f"w{i}" for i in range(12)), "hello tpu")
+LLM_CODEC_TOKENS = 4096
+
+
+def llm_expected_tokens(prompt: str, n: int, model_id: str = "") -> list:
+    """The toy LM's tokens, as release/benchmarks_serve_llm.py's
+    _expected_tokens computes them."""
+    toks = llm_dep.tokenize(prompt)
+    return [llm_dep._digest(model_id, tuple(toks), i) % 32000 for i in range(n)]
+
+
+def _llm_codec_on_card(device: str) -> dict:
+    """int8 and fp8 KV payloads decoded on the card (decode_device, pinned
+    copies of q and the scales) and paged into a KVBlockPool there, held
+    bitwise against quantization.decode_plain on the host."""
+    cfg = llm.LLMConfig()
+    rng = np.random.default_rng(SEED)
+    kvs = [llm_dep.ToyLM(cfg).prefill(llm_dep.tokenize(p)) for p in LLM_CODEC_PROMPTS]
+    kvs.append(rng.standard_normal((LLM_CODEC_TOKENS, cfg.kv_dim)).astype(np.float32))
+    out = {}
+    for quantize in ("int8", "fp8"):
+        wire_cfg = llm.LLMConfig(kv_wire_quantize=quantize).wire_config()
+        pool = llm.KVBlockPool(cfg.num_kv_blocks, cfg.block_tokens, cfg.kv_dim, device=device)
+        worst, equal, nbytes = 0.0, True, 0
+        for kv in kvs:
+            payload = llm.encode_kv_blocks(kv, wire_cfg)
+            nbytes += quant_mod.wire_nbytes(payload[2])
+            plain = quant_mod.decode_plain(payload[2]).reshape(kv.shape)
+            ids = pool.alloc(pool.blocks_needed(kv.shape[0]))
+            pool.write(ids, llm.decode_kv_blocks(payload, device))
+            pages = pool.read(ids).cpu().numpy().reshape(-1)[:plain.size].reshape(plain.shape)
+            equal &= pages.tobytes() == plain.tobytes()
+            worst = max(worst, float(np.abs(pages - plain).max()))
+            pool.release(ids)
+        out[quantize] = {"bitwise": bool(equal), "max_abs_diff": worst, "wire_bytes": nbytes,
+                         "f32_bytes": sum(kv.nbytes for kv in kvs),
+                         "pool_device": str(pool.device)}
+    return out
+
+
+def _llm_load(seconds: float, handle_threads: int, http_threads: int, ports: list,
+              probe_box: dict | None = None, during=None) -> dict:
+    """release/benchmarks_serve_llm.py's _run_load: handle threads sending
+    generate_batch waves of LLM_BATCH prompts, HTTP clients sending one
+    sequence a request to the proxies (failing over on a connection error,
+    honouring 503 Retry-After), the steady-state probe once mid-load if
+    `probe_box` is given, and `during()` from the calling thread. Every
+    completed sequence's tokens are held to the digest; a wrong one counts
+    as lost."""
+    import http.client
+
+    stats = {"http_latencies": [], "batch_latencies": [], "completed": 0, "shed": 0,
+             "lost": 0, "lost_detail": [], "failovers": 0, "attempts_shed": 0, "shed_moves": 0}
+    lock = threading.Lock()
+    deadline = time.perf_counter() + seconds
+    expect = llm_expected_tokens(LLM_PROMPT, LLM_MAX_TOKENS)
+
+    def handle_worker(i: int) -> None:
+        handle = serve.get_deployment_handle("llm_decode", "llm").options(
+            method_name="generate_batch")
+        body = {"prompts": [LLM_PROMPT] * LLM_BATCH, "max_tokens": LLM_MAX_TOKENS}
+        while time.perf_counter() < deadline:
+            t0 = time.perf_counter()
+            try:
+                results = handle.remote(body).result(timeout=90)["results"]
+            except Exception as exc:  # a failed wave is lost, with its cause
+                with lock:
+                    stats["lost"] += LLM_BATCH
+                    stats["lost_detail"].append(f"batch failed: {type(exc).__name__}: "
+                                                f"{str(exc)[:160]}")
+                continue
+            bad = [r for r in results if r["tokens"] != expect]
+            with lock:
+                stats["batch_latencies"].append(time.perf_counter() - t0)
+                stats["completed"] += len(results) - len(bad)
+                stats["lost"] += len(bad)
+                if bad:
+                    stats["lost_detail"].append(f"wrong tokens: {bad[0]['tokens']!r}")
+        # Waves a replica shed, and those moved to the other replica.
+        reliability = handle._get_router().reliability()
+        with lock:
+            for key in ("attempts_shed", "shed_moves"):
+                stats[key] += reliability.get(key, 0)
+
+    def http_worker(i: int) -> None:
+        order = ports[i % len(ports):] + ports[:i % len(ports)]
+        conns = {p: http.client.HTTPConnection("127.0.0.1", p, timeout=15) for p in order}
+        n = 0
+        while time.perf_counter() < deadline:
+            body = json.dumps({"prompt": LLM_PROMPT, "max_tokens": LLM_MAX_TOKENS,
+                               "request_id": f"http-{i}-{n}"})
+            n += 1
+            start, outcome = time.perf_counter(), None
+            while outcome is None and time.perf_counter() < deadline + 30:
+                for port in order:
+                    try:
+                        conns[port].request("POST", "/llm", body=body,
+                                            headers={"Content-Type": "application/json"})
+                        resp = conns[port].getresponse()
+                        data = resp.read()
+                    except (OSError, http.client.HTTPException):
+                        conns[port].close()
+                        conns[port] = http.client.HTTPConnection("127.0.0.1", port, timeout=15)
+                        with lock:
+                            stats["failovers"] += 1
+                        continue
+                    if resp.status == 200:
+                        tokens = json.loads(data)["tokens"]
+                        outcome = ("ok",) if tokens == expect else (
+                            "lost", f"http wrong tokens: {tokens!r}")
+                        break
+                    if resp.status == 503:
+                        with lock:
+                            stats["shed"] += 1
+                        time.sleep(float(resp.getheader("Retry-After", "0.2")))
+                        continue
+                    outcome = ("lost", f"HTTP {resp.status}: {data[:120]!r}")
+                    break
+                else:
+                    time.sleep(0.1)
+            outcome = outcome or ("lost", "no 2xx before the window's end and 30 s")
+            with lock:
+                if outcome[0] == "ok":
+                    stats["http_latencies"].append(time.perf_counter() - start)
+                    stats["completed"] += 1
+                else:
+                    stats["lost"] += 1
+                    stats["lost_detail"].append(outcome[1])
+        for c in conns.values():
+            c.close()
+
+    def probe_worker() -> None:
+        # Its windows end with the load's: past it the engine idles, and a
+        # window left open would wait out the probe's whole timeout.
+        lead = min(1.0, seconds / 4)
+        time.sleep(lead)
+        probe_box.update(serve.get_deployment_handle("llm_decode", "llm").options(
+            method_name="steady_rpc_probe").remote(
+                {"timeout_s": max(1.0, seconds - lead - 0.5)}).result(timeout=60))
+
+    workers = handle_threads + http_threads + (probe_box is not None)
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(workers) as pool:
+        futures = ([pool.submit(handle_worker, i) for i in range(handle_threads)]
+                   + [pool.submit(http_worker, i) for i in range(http_threads)])
+        if probe_box is not None:
+            futures.append(pool.submit(probe_worker))
+        stats["during"] = during() if during else None
+        for future in futures:
+            future.result()
+    stats["seconds"] = time.perf_counter() - t0
+    return stats
+
+
+def _llm_scaling_deploy(share: dict) -> float:
+    """Deploys release/benchmarks_serve_llm.py's scaling app: a decode pool
+    with a tiny KV pool (2 tokens a block, 64 blocks) and kv_headroom_min
+    0.8, its decode replicas on the card too. Returns its seconds to
+    RUNNING."""
+    scaling = {"min_replicas": 1, "max_replicas": 2, "target_ongoing_requests": 1000,
+               "upscale_delay_s": 0.5, "downscale_delay_s": 600.0}
+    app = llm.build_llm_app(
+        {"max_slots": 8, "slot_buckets": [8], "block_tokens": 2, "num_kv_blocks": 64,
+         "decode_flops": 250_000},
+        prefill_replicas=1, decode_replicas=1, prefill_autoscaling=scaling,
+        decode_autoscaling={**scaling, "kv_headroom_min": 0.8}, request_timeout_s=120.0,
+        decode_options={"ray_actor_options": share})
+    t0 = time.perf_counter()
+    serve.run(app, name="llmscale", route_prefix="/llmscale")
+    return time.perf_counter() - t0
+
+
+def _llm_scaling(ready_s: float) -> dict:
+    """release/benchmarks_serve_llm.py's _scaling_phase on the deployed
+    scaling app: ten loaders of 12-token prompts hold the free fraction near
+    0.25, and the decode pool must grow from 1 to 2 while prefill stays
+    at 1."""
+    def replicas(dep: str) -> int:
+        return serve.status().get("llmscale", {}).get("deployments", {}).get(dep, {}).get(
+            "running_replicas", 0)
+
+    stop, errors = threading.Event(), []
+    prompt = " ".join(f"w{i}" for i in range(12))
+    expect = llm_expected_tokens(prompt, 40)
+
+    def loader(i: int) -> None:
+        handle = serve.get_deployment_handle("llm_decode", "llmscale").options(
+            method_name="generate")
+        while not stop.is_set():
+            try:
+                out = handle.remote({"prompt": prompt, "max_tokens": 40,
+                                     "request_id": f"scale-{i}-{time.monotonic_ns()}"}
+                                    ).result(timeout=120)
+            except Exception as exc:  # reported in scaling_load_errors
+                if not stop.is_set():
+                    errors.append(f"{type(exc).__name__}: {str(exc)[:160]}")
+                return
+            if out["tokens"] != expect:
+                errors.append(f"wrong tokens: {out['tokens'][:4]!r}")
+
+    threads = [threading.Thread(target=loader, args=(i,), daemon=True) for i in range(10)]
+    for t in threads:
+        t.start()
+    decode_up = prefill_moved = False
+    start = time.perf_counter()
+    grow_s = None
+    while time.perf_counter() - start < LLM_SCALE_WAIT_S:
+        prefill_moved |= replicas("llm_prefill") > 1
+        if replicas("llm_decode") >= 2:
+            decode_up, grow_s = True, time.perf_counter() - start
+            break
+        time.sleep(0.25)
+    stop.set()
+    for t in threads:
+        t.join(timeout=60)
+    prefill_moved |= replicas("llm_prefill") > 1
+    metrics = serve.start(http_port=None).get_metrics().get("llmscale_llm_decode", [])
+    return {"decode_replicas_after": replicas("llm_decode"),
+            "prefill_replicas_after": replicas("llm_prefill"),
+            "pools_scale_independent": int(decode_up and not prefill_moved),
+            "grow_s": grow_s, "ready_s": ready_s, "scaling_load_errors": errors[:3],
+            "threads_left": sum(t.is_alive() for t in threads),
+            "decode_pools": [(m["serve_llm"]["kv_device"], m["serve_llm"]["kv_pool_bytes"])
+                             for m in metrics],
+            "kernels": [m["kernels"] for m in metrics]}
+
+
+def phase_serve_llm(seconds: float = LLM_SECONDS) -> dict:
+    """Phase 30: release/benchmarks_serve_llm.py's phases 1-3 on the port
+    (module comment above), and the card's decode of the quantized KV wire.
+    Gates: lost 0, every completed sequence's tokens equal to the digest,
+    both kills landed and recovered, decode_controller_rpcs 0,
+    pools_scale_independent 1, the decode pools on the card, the card's
+    decode bitwise the plain one's."""
+    start = time.perf_counter()
+    codec = _llm_codec_on_card("cuda")
+    share = {"num_gpus": LLM_GPU_SHARE}
+    log("serve_llm_codec", **codec)
+    port = _port_pair()
+    ports = [port, port + 1]
+    qname = "llm_llm_decode"
+    try:
+        # The second proxy's process and the app's replicas start at once.
+        controller = serve.start(http_port=port)
+        background = concurrent.futures.ThreadPoolExecutor(1)
+        second_proxy = background.submit(serve.start, http_port=port, num_proxies=2)
+        app = llm.build_llm_app(
+            {"max_slots": 128, "slot_buckets": [32, 64, 128]},
+            prefill_replicas=1, decode_replicas=2, max_ongoing_requests=512,
+            request_timeout_s=60.0,
+            decode_options={"health_check_period_s": 1.0,
+                            "retry_policy": {"max_attempts": 8, "hedge": True},
+                            "ray_actor_options": share},
+            prefill_options={"retry_policy": {"max_attempts": 8, "hedge": True}})
+        t0 = time.perf_counter()
+        serve.run(app, name="llm", route_prefix="/llm")
+        second_proxy.result(timeout=300)
+        ready_s = time.perf_counter() - t0
+        warm = _post_json(port, "/llm", {"prompt": LLM_PROMPT, "max_tokens": LLM_MAX_TOKENS})
+        require(warm["tokens"] == llm_expected_tokens(LLM_PROMPT, LLM_MAX_TOKENS),
+                f"serve_llm: warm-up tokens {warm['tokens']}")
+
+        def decode_running() -> int:
+            return serve.status()["llm"]["deployments"]["llm_decode"]["running_replicas"]
+
+        # Phase 1: the baseline and the steady-state probe.
+        probe: dict = {}
+        baseline = _llm_load(seconds, LLM_HANDLE_THREADS, LLM_HTTP_THREADS, ports, probe)
+        before = controller.get_metrics()[qname]
+        victims = sorted(m["pid"] for m in before)
+        proxies = {p["port"]: p for p in controller.get_proxies()}
+        require(len(victims) == 2 and proxies[port + 1]["pid"],
+                f"serve_llm: decode pids {victims}, proxies {proxies}")
+
+        # Phase 2: a decode replica's process and the second proxy's killed
+        # mid-window, at the load the surviving replica can carry alone.
+        def kills() -> list:
+            events, t_kill = [], time.perf_counter()
+            for at, pid, what in ((LLM_KILL_REPLICA_S, victims[0], "replica"),
+                                  (LLM_KILL_PROXY_S, proxies[port + 1]["pid"], "proxy")):
+                time.sleep(max(0.0, at - (time.perf_counter() - t_kill)))
+                try:
+                    os.kill(pid, signal.SIGKILL)
+                    events.append({"target": what, "pid": pid, "status": "ok",
+                                   "at_s": time.perf_counter() - t_kill})
+                except ProcessLookupError:
+                    events.append({"target": what, "pid": pid, "status": "gone"})
+            return events
+
+        chaos = _llm_load(seconds, max(1, LLM_HANDLE_THREADS // 4), LLM_HTTP_THREADS, ports,
+                          during=kills)
+        # Phase 3's app starts while the killed replica and proxy come back.
+        scale_ready = background.submit(_llm_scaling_deploy, share)
+        recover_start = time.perf_counter()
+        recovered = proxy_back = False
+        while time.perf_counter() - recover_start < LLM_RECOVER_S:
+            pids = {m["pid"] for m in controller.get_metrics().get(qname, [])}
+            recovered = decode_running() == 2 and victims[0] not in pids and len(pids) == 2
+            now = next(p for p in controller.get_proxies() if p["port"] == port + 1)
+            try:
+                proxy_back = now["restarts"] == 1 and _post_json(
+                    port + 1, "/llm", {"prompt": LLM_PROMPT, "max_tokens": LLM_MAX_TOKENS}
+                )["tokens"] == llm_expected_tokens(LLM_PROMPT, LLM_MAX_TOKENS)
+            except (OSError, AssertionError):
+                proxy_back = False
+            if recovered and proxy_back:
+                break
+            time.sleep(0.5)
+        recover_s = time.perf_counter() - recover_start
+        after = controller.get_metrics()[qname]
+
+        # Phase 3: the tiny-pool app scales its decode pool on KV headroom.
+        scaling = _llm_scaling(scale_ready.result(timeout=300))
+        background.shutdown()
+    finally:
+        serve.shutdown()
+
+    base_p99 = _percentile_ms(baseline["http_latencies"], 0.99) if baseline[
+        "http_latencies"] else 0.0
+    chaos_p99 = _percentile_ms(chaos["http_latencies"], 0.99) if chaos[
+        "http_latencies"] else 0.0
+    events = chaos["during"]
+    pools = [(m["serve_llm"]["kv_device"], m["serve_llm"]["kv_pool_bytes"])
+             for m in before + after] + scaling["decode_pools"]
+    kernels = [m["kernels"] for m in before + after] + scaling["kernels"]
+    result = dict(
+        config="release/benchmarks_serve_llm.py phases 1-3, deployment and load uncut, 4 s windows",
+        seconds_window=seconds, ready_s=ready_s,
+        qps=baseline["completed"] / seconds, release_gate_qps=LLM_RELEASE_GATE_QPS,
+        sequences=baseline["completed"] + chaos["completed"],
+        batch_waves=len(baseline["batch_latencies"]) + len(chaos["batch_latencies"]),
+        batch_p50_ms=_percentile_ms(baseline["batch_latencies"], 0.5)
+        if baseline["batch_latencies"] else 0.0,
+        http_requests=len(baseline["http_latencies"]) + len(chaos["http_latencies"]),
+        lost=baseline["lost"] + chaos["lost"], baseline_lost=baseline["lost"],
+        lost_detail=(baseline["lost_detail"] + chaos["lost_detail"])[:5],
+        shed=baseline["shed"] + chaos["shed"],
+        handle_attempts_shed=baseline["attempts_shed"] + chaos["attempts_shed"],
+        handle_shed_moves=baseline["shed_moves"] + chaos["shed_moves"],
+        failovers=baseline["failovers"] + chaos["failovers"],
+        baseline_p99_ms=base_p99, chaos_p99_ms=chaos_p99,
+        p99_ratio=chaos_p99 / base_p99 if base_p99 else 0.0,
+        replica_kills=sum(e["status"] == "ok" and e["target"] == "replica" for e in events),
+        proxy_kills=sum(e["status"] == "ok" and e["target"] == "proxy" for e in events),
+        kills=events, replicas_recovered=int(recovered), proxy_restarted=int(proxy_back),
+        recover_s=recover_s,
+        decode_controller_rpcs=probe.get("controller_rpcs", -1),
+        probe_iterations=probe.get("iterations", 0),
+        probe_window_iterations=probe.get("window_iterations", []),
+        probe_rpc_methods=probe.get("rpc_methods", {}),
+        engine_before={m["pid"]: {k: m["serve_llm"][k] for k in
+                                  ("iterations", "admitted", "completed", "shed", "expired",
+                                   "kv_wire_err", "iter_rate_s")} for m in before},
+        decode_pools=pools, codec=codec,
+        **{k: scaling[k] for k in ("decode_replicas_after", "prefill_replicas_after",
+                                   "pools_scale_independent", "grow_s", "scaling_load_errors",
+                                   "threads_left")},
+        scaling_ready_s=scaling["ready_s"], phase_seconds=time.perf_counter() - start)
+    log("serve_llm", **result)
+    require(result["lost"] == 0, f"serve_llm: {result['lost']} lost: {result['lost_detail']}")
+    require(result["replica_kills"] == 1 and result["proxy_kills"] == 1,
+            f"serve_llm: kills {events}")
+    require(result["replicas_recovered"] == 1, "serve_llm: the killed decode replica not replaced")
+    require(result["proxy_restarted"] == 1, "serve_llm: the killed proxy not restarted")
+    require(result["decode_controller_rpcs"] == 0 and probe["best_window_iterations"] >= 100,
+            f"serve_llm: steady probe {probe}")
+    require(result["pools_scale_independent"] == 1 and not scaling["scaling_load_errors"]
+            and not scaling["threads_left"],
+            f"serve_llm: scaling {scaling}")
+    require(len(pools) >= 5 and all(dev.startswith("cuda") and nbytes > 0
+                                    for dev, nbytes in pools),
+            f"serve_llm: decode pools {pools}")
+    require(all(codec[q]["bitwise"] and codec[q]["pool_device"].startswith("cuda")
+                for q in codec), f"serve_llm: the card's KV decode {codec}")
+    result["replica_kernels"] = kernels
+    return result
+
+
 def _path(name: str, want: dict, counts: dict, routes: dict, route: str, **fields) -> None:
     """Logs a path's launch counts and fails unless they are what the path
     implies and every flash launch took `route`."""
@@ -7243,7 +7681,7 @@ def main() -> None:
     require(not any(local.values()), f"trainer: launches in the driver process {local}")
     counts["trainer"], routes["trainer"] = trainer["counts"], trainer["routes"]
     passes = {k: trainer[k] for k in ("kernel_forwards", "kernel_backwards", "plain_forwards")}
-    _path("trainer", _expected(SHARDED_CONFIG["n_layers"], **passes), counts["trainer"],
+    _path("trainer", _expected(TRAINER_LAYERS, **passes), counts["trainer"],
           routes["trainer"], "wgmma", **passes)
 
     sp, counts["sequence_parallel"], routes["sequence_parallel"] = _run_path(
@@ -7340,7 +7778,7 @@ def main() -> None:
     # come back by call, each held to its stage's layers; this process's
     # launches are its own stage_forward chains, which the outputs are held
     # against, and none during the graph's executions.
-    dag_config = TransformerConfig.llama2_7b()
+    dag_config = TransformerConfig.llama2_7b(n_layers=DAG_LAYERS)
     dagr, local, _ = _run_path(phase_dag, dag_config)
     pipe28 = dagr["pipeline"]
     counts["dag"], routes["dag"] = _dag_paths(pipe28, local, dag_config)
@@ -7355,6 +7793,15 @@ def main() -> None:
     _path("ring", _expected(RING_LAYERS, kernel_forwards=ring["kernel_forwards"],
                             kernel_backwards=ring["kernel_backwards"]),
           counts["ring"], routes["ring"], "wgmma")
+
+    # Phase 30: the serve-LLM engine. Its decode replicas (on the card) and
+    # its prefill replicas launch none of the port's kernels: their counts
+    # come back in their metrics, each 0, and this process launches none.
+    llm_run, counts["serve_llm"], routes["serve_llm"] = _run_path(phase_serve_llm)
+    replica_launches = [v["launches"] for k in llm_run["replica_kernels"] for v in k.values()]
+    require(not any(replica_launches), f"serve_llm: replica launches {replica_launches}")
+    _path("serve_llm", {k: 0 for k in counts["serve_llm"]}, counts["serve_llm"],
+          routes["serve_llm"], "wgmma")
 
     # Every launch on the tiny path is of its instantiations (head_dim 16 in
     # f32, RMSNorm at dim 64 in f32), on the HTTP serving path of BERT-base's
@@ -7429,7 +7876,11 @@ def main() -> None:
         ring_int8_wire_ratio=ring["runs"]["int8"]["wire_ratio"],
         ring_codec_int8_encode_ms=ring["codec"]["int8"]["encode_ms"],
         ring_overlap_hidden=ring["overlap_bench"]["on"]["hidden"],
-        ring_seconds=ring["seconds"], seconds=time.perf_counter() - _t_start)
+        ring_seconds=ring["seconds"], llm_qps=llm_run["qps"], llm_lost=llm_run["lost"],
+        llm_p99_ratio=llm_run["p99_ratio"],
+        llm_decode_controller_rpcs=llm_run["decode_controller_rpcs"],
+        llm_pools_scale_independent=llm_run["pools_scale_independent"],
+        llm_seconds=llm_run["phase_seconds"], seconds=time.perf_counter() - _t_start)
     require_no_reference("chip_smoke")
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {

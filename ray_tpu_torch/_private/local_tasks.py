@@ -694,21 +694,28 @@ class _ActorExecutor:
         """The controller's ``get_actor_info``: state, pid, address, cause."""
         self.check()
         with self.cond:
-            return {"state": self.state, "pid": self.proc.pid if self.proc else None,
-                    "address": self.address, "death_cause": self.dead,
-                    "restarts": self.restarts}
+            return self._info_locked()
+
+    def _info_locked(self) -> dict:
+        return {"state": self.state, "pid": self.proc.pid if self.proc else None,
+                "address": self.address, "death_cause": self.dead,
+                "restarts": self.restarts}
 
     def wait_ready(self, timeout: float) -> dict:
-        """Waits until the actor is ALIVE or DEAD (at most ``timeout`` s)."""
+        """Waits until the actor is ALIVE or DEAD (at most ``timeout`` s),
+        through RESTARTING: a death not yet noticed is noticed first, so an
+        ALIVE actor whose process has ended is waited on, not returned."""
         deadline = time.monotonic() + timeout
         with self.cond:
-            while self.state not in ("ALIVE", "DEAD"):
+            while True:
+                self.check()
+                if self.state in ("ALIVE", "DEAD"):
+                    break
                 left = deadline - time.monotonic()
                 if left <= 0:
                     break
                 self.cond.wait(min(left, _WATCH_S))
-                self.check()
-        return self.info()
+            return self._info_locked()
 
     def check(self) -> None:
         """Notices a process that ended while the actor was idle."""
@@ -723,21 +730,27 @@ class _ActorExecutor:
             self.cond.notify_all()
 
     def _died(self, gen: int, cause: str) -> None:
-        """The process of generation ``gen`` ended: restart it when allowed,
-        else the actor is DEAD and its lease goes back."""
+        """The process of generation ``gen`` ended while ALIVE (or before its
+        first constructor answered): its death counts once."""
         with self.cond:
             if gen != self.generation or self.state in ("DEAD", "RESTARTING"):
                 return
-            restartable = (not self.no_restart and not self.runtime.stopping
-                           and (self.max_restarts < 0 or self.restarts < self.max_restarts))
-            if restartable:
-                self.restarts += 1
-                self.state = "RESTARTING"
-                self.tasks.put(_RESTART)
-            else:
-                self.state, self.dead = "DEAD", cause
-                self._release()
-            self.cond.notify_all()
+            self._count_death(cause)
+
+    def _count_death(self, cause: str) -> None:
+        """One death against ``max_restarts``, as the reference's controller
+        counts it: restart while restarts remain, else the actor is DEAD and
+        its lease goes back. Called with ``cond`` held."""
+        restartable = (not self.no_restart and not self.runtime.stopping
+                       and (self.max_restarts < 0 or self.restarts < self.max_restarts))
+        if restartable:
+            self.restarts += 1
+            self.state = "RESTARTING"
+            self.tasks.put(_RESTART)
+        else:
+            self.state, self.dead = "DEAD", cause
+            self._release()
+        self.cond.notify_all()
 
     def _release(self) -> None:
         lease, self.lease = self.lease, None
@@ -799,8 +812,13 @@ class _ActorExecutor:
         try:
             reply = self._send(self.init_task.message)
         except (EOFError, OSError):
-            self._set("RESTARTING")
-            self._died(gen, f"the actor process {self.name} ended while restarting")
+            # The new process died before its constructor answered: one more
+            # death (the actor is RESTARTING, so not through _died).
+            self.proc.join(1.0)
+            with self.cond:
+                if gen == self.generation and self.state == "RESTARTING":
+                    self._count_death(f"the actor process {self.name} ended while restarting "
+                                      f"(exit code {self.proc.exitcode})")
             return
         if reply[0] == "ok":
             self._set("ALIVE")
@@ -863,15 +881,22 @@ class _ActorExecutor:
                     task.name, self.dead or "the runtime shut down"))
 
     def kill(self, no_restart: bool = True) -> None:
+        """Ends the process. With ``no_restart=False`` the death is counted
+        before this returns, so a wait that follows sees RESTARTING (then
+        ALIVE), never the process that was killed."""
         with self.cond:
             self.no_restart = self.no_restart or no_restart
-            proc = self.proc
+            proc, gen = self.proc, self.generation
             if no_restart:
                 self.state, self.dead = "DEAD", f"the actor {self.name} was killed"
                 self._release()
                 self.cond.notify_all()
         if proc is not None:
             proc.kill()
+            if not no_restart:
+                proc.join(5.0)
+                self._died(gen, f"the actor process {self.name} was killed (exit code "
+                                f"{proc.exitcode})")
 
     def restart(self) -> dict:
         """``restart_actor``: a DEAD actor comes back under its id; any other

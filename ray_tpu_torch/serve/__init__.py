@@ -2,16 +2,17 @@
 host's cards, behind a stdlib HTTP proxy with SSE (and more proxies, each
 a process the controller restarts, and a gRPC proxy), reached through
 handles with retries, hedging and circuit breakers, autoscaled on their
-ongoing requests and the routes' p99; ``@batch`` and ``@multiplexed`` in
-front of the model; deploys from YAML.
+ongoing requests, the routes' p99 and a serve-LLM pool's KV headroom;
+``@batch`` and ``@multiplexed`` in front of the model; deploys from YAML.
 
 Port of ray_tpu's ``serve/`` onto the port's single-host processes
 (``api``, ``controller``, ``replica``, ``handle``, ``proxy``,
 ``grpc_proxy``, ``long_poll``, ``routing``, ``autoscaling_policy``,
-``batching``, ``multiplex``, ``schema``). A deployment's class or function
-must be importable from a module: replicas import it by name. Waiting for
-the serve-LLM engine (ROADMAP Queue A item 13): autoscaling on KV
-headroom. Waiting for the runtime core (item 14): the controller's
+``batching``, ``multiplex``, ``schema``, and ``llm``: the serve-LLM
+engine with continuous batching, disaggregated prefill and decode pools
+and the KV pool on the decode replica's card). A deployment's class or
+function must be importable from a module: replicas import it by name.
+Waiting for the runtime core (ROADMAP Queue A item 14): the controller's
 checkpoint in its KV store, drains on out-of-memory telemetry, the flush
 of route stats to the workload store, and the ``serve deploy`` command.
 """

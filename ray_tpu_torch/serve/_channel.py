@@ -19,6 +19,7 @@ Frames are unpickled only from the port's own processes on this host.
 from __future__ import annotations
 
 import asyncio
+import collections
 import itertools
 import pickle
 import socket
@@ -43,6 +44,36 @@ class RemoteError(Exception):
     def __init__(self, error: BaseException, remote_traceback: str):
         super().__init__(f"{type(error).__name__}: {error}")
         self.error, self.remote_traceback = error, remote_traceback
+
+
+# Calls this process has sent to the peers named by ``count_calls_to``,
+# by (peer address, name): the name is the method, or the label of a peer
+# that counts its calls apart (the membership subscriber's parked long
+# poll). A replica counts its calls to the controller, which the serve-LLM
+# engine's steady state probe reads; other peers are not counted.
+_counted: frozenset = frozenset()
+_sent: collections.Counter = collections.Counter()
+_sent_lock = threading.Lock()
+
+
+def count_calls_to(address) -> None:
+    """Counts the calls this process sends to ``address`` from now on."""
+    global _counted
+    with _sent_lock:
+        _counted = _counted | {tuple(address)}
+
+
+def _count_sent(address: tuple, name: str) -> None:
+    if address in _counted:
+        with _sent_lock:
+            _sent[(address, name)] += 1
+
+
+def calls_sent(address) -> dict:
+    """The calls this process has sent to ``address`` so far, by name."""
+    key = tuple(address)
+    with _sent_lock:
+        return {name: n for (peer, name), n in _sent.items() if peer == key}
 
 
 def frame(message: Any) -> bytes:
@@ -141,6 +172,7 @@ class Peer:
         self._pending[call_id] = future
         try:
             self._writer.write(frame((call_id, method, args, kwargs)))
+            _count_sent(self.address, method)
             ok, payload = await future
         finally:
             self._pending.pop(call_id, None)
@@ -187,10 +219,12 @@ def peer(address) -> Peer:
 
 class BlockingPeer:
     """One connection to a peer for a thread that may block (the membership
-    subscriber): calls go one at a time, without the I/O loop."""
+    subscriber): calls go one at a time, without the I/O loop. ``label``
+    counts its calls under that name instead of the method's."""
 
-    def __init__(self, address: tuple[str, int]):
+    def __init__(self, address: tuple[str, int], label: str | None = None):
         self.address = tuple(address)
+        self._label = label
         self._sock: socket.socket | None = None
         self._ids = itertools.count()
 
@@ -201,6 +235,7 @@ class BlockingPeer:
             self._sock.settimeout(timeout)
             call_id = next(self._ids)
             self._sock.sendall(frame((call_id, method, args, kwargs)))
+            _count_sent(self.address, self._label or method)
             (size,) = _HEADER.unpack(self._recv(_HEADER.size))
             _, ok, payload = pickle.loads(self._recv(size))
         except (OSError, EOFError) as exc:

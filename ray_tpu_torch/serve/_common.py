@@ -30,10 +30,8 @@ DEADLINE_HEADER = "X-RayTPU-Deadline"
 DEADLINE_METADATA_KEY = "x-raytpu-deadline"
 
 # Where the parts of the reference's serve plane the port has not yet
-# ported are listed: what stands on the serve-LLM decode engine, and what
-# stands on the runtime core (the controller's KV store and checkpoint,
-# the node agent's memory telemetry, the CLI).
-SERVE_LLM_ITEM = "ROADMAP Queue A item 13"
+# ported are listed: what stands on the runtime core (the controller's KV
+# store and checkpoint, the node agent's memory telemetry, the CLI).
 RUNTIME_CORE_ITEM = "ROADMAP Queue A item 14"
 
 
@@ -190,9 +188,9 @@ class AutoscalingConfig:
     """Desired replicas = total ongoing (plus weighted queued) requests over
     ``target_ongoing_requests``, smoothed and clamped; applied after the
     upscale or downscale delay has held. A route p99 (scraped from the
-    proxies) above ``slo_p99_ms`` asks for one more replica.
-    ``kv_headroom_min`` waits for the serve-LLM engine (ROADMAP Queue A
-    item 13), the only producer of the KV headroom it reads."""
+    proxies) above ``slo_p99_ms`` asks for one more replica, and so does a
+    serve-LLM decode pool whose worst replica has less than
+    ``kv_headroom_min`` of its KV blocks free."""
 
     min_replicas: int = 1
     max_replicas: int = 10

@@ -22,8 +22,9 @@ a replica asking for a key the host never declared waits as PENDING.
 ``serve.run`` refuses a deployment that asks for more cards than the host
 has, and one that asks for a card on a host with none. ``num_cpus`` is
 accepted and reserves nothing: one host runs every replica.
-``kv_headroom_min`` raises ``NotImplementedError`` naming ROADMAP Queue A
-item 13, the serve-LLM engine that would feed it.
+``autoscaling_config={"kv_headroom_min": f}`` scales a serve-LLM decode
+pool (``serve.llm``) up while its worst replica's KV pool has less than
+``f`` of its blocks free.
 """
 
 from __future__ import annotations
@@ -37,7 +38,7 @@ from typing import Any, Optional
 
 from ray_tpu_torch.serve import long_poll
 from ray_tpu_torch.serve._common import (
-    DEFAULT_APP_NAME, SERVE_LLM_ITEM, AutoscalingConfig, DeploymentConfig, RetryPolicy,
+    DEFAULT_APP_NAME, AutoscalingConfig, DeploymentConfig, RetryPolicy,
 )
 from ray_tpu_torch.serve.handle import DeploymentHandle, _HandlePlaceholder
 
@@ -100,10 +101,6 @@ ACTOR_OPTIONS = frozenset({"num_gpus", "num_cpus", "num_tpus", "resources"})
 
 def _check_config(config: DeploymentConfig) -> DeploymentConfig:
     """Refuses what no replica could be given."""
-    asc = config.autoscaling_config
-    if asc is not None and asc.kv_headroom_min is not None:
-        raise NotImplementedError(
-            f"autoscaling on KV headroom waits for the serve-LLM engine ({SERVE_LLM_ITEM})")
     options = dict(config.ray_actor_options)
     unknown = set(options) - ACTOR_OPTIONS
     if unknown:

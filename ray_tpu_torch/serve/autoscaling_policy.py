@@ -5,8 +5,9 @@ desired = ceil(demand / target) with demand the ongoing requests plus the
 weighted queued ones, smoothed and clamped to [min, max]; a scale-up or
 scale-down is applied only after its delay has held continuously. A route
 p99 above ``slo_p99_ms`` forces one more replica (the controller passes
-the proxies' p99); the KV-headroom input waits for the serve-LLM engine
-(ROADMAP Queue A item 13), and the controller passes none.
+the proxies' p99), and so does a KV free fraction below
+``kv_headroom_min`` (the controller passes the serve-LLM decode replicas'
+worst).
 """
 
 from __future__ import annotations

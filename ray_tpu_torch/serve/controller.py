@@ -7,8 +7,9 @@ target state (applications, their deployments and routes) and every
 0.25 s starts and stops replica processes to match each deployment's
 target, replaces replicas whose process died or whose health check failed,
 rolls replicas of an older version, drains replicas before it stops them,
-and autoscales from the replicas' ongoing and queued counts and the
-proxies' route p99. A second thread, every second, health-checks the
+and autoscales from the replicas' ongoing and queued counts, the proxies'
+route p99 and the serve-LLM decode replicas' KV headroom (the worst
+replica's free fraction). A second thread, every second, health-checks the
 proxies registered with it, restarts a dead one under its name and port,
 and scrapes their per-route latencies. Membership
 (routes, running replicas and their addresses, each deployment's policy)
@@ -707,11 +708,16 @@ class ServeController:
             running = [r for r in self._replicas.get(qname, []) if r.state == "RUNNING"]
         loads = _channel.run_sync(_gather_loads([r.address for r in running]), timeout=10)
         current = self._autoscale_counts.get(qname, info.config.autoscaling_config.min_replicas)
+        # Serve-LLM decode replicas report their KV pool's headroom; the
+        # pool scales on its worst replica, since one full pool stalls that
+        # replica's admission however idle the others are.
+        fracs = [load["kv_free_frac"] for load in loads if load.get("kv_free_frac") is not None]
         # The proxies' route p99 (the slow tick's scrape) turns a breached
         # latency target into one more replica.
         decision = state.decide(sum(load.get("ongoing", 0) for load in loads), current,
                                 queue_depth=sum(load.get("queue_depth", 0) for load in loads),
-                                p99_ms=self.get_route_p99().get(qname))
+                                p99_ms=self.get_route_p99().get(qname),
+                                kv_free_frac=min(fracs) if fracs else None)
         if decision != current:
             with self._lock:
                 self._autoscale_counts[qname] = decision

@@ -16,7 +16,12 @@ sent to another one while the deployment's ``RetryPolicy.max_attempts``
 and the deadline allow; a draining replica moves it without charging the
 budget. With ``RetryPolicy.hedge``, a second attempt goes to another
 replica once the first has run ``hedge_after_s`` (or the route's observed
-p95): the first answer wins, and the loser is cancelled. A replica's
+p95): the first answer wins, and the loser is cancelled. An attempt shed
+by its replica is dropped: while another attempt runs, that one goes on;
+otherwise the request moves, free of the retry budget and the breaker, to
+a replica it has not tried that has room now, and is shed only when no
+such replica is left (the reference's handle ends the request at its
+first shed). A replica's
 circuit breaker opens after consecutive deaths and keeps it out of the
 candidates until its cooldown lets one probe through. Every attempt gives
 its router slot back exactly once.
@@ -135,7 +140,8 @@ class Router:
         self._breakers: dict[str, CircuitBreaker] = {}
         self._latencies: collections.deque = collections.deque(maxlen=128)
         # hedges_launched / _won / _lost / _skipped, attempt_deaths,
-        # retries, and each breaker state seen, for get_reliability_stats.
+        # attempts_shed, shed_moves, retries, and each breaker state seen,
+        # for get_reliability_stats.
         self.stats: collections.Counter = collections.Counter()
         self.breaker_states_seen: set[str] = set()
 
@@ -278,6 +284,7 @@ class DeploymentResponse:
         self._attempts: list[_Attempt] = []
         self._hedged = False
         self._drain_moves = 0
+        self._shed_moves = 0
         self._future: concurrent.futures.Future = _channel.submit(
             self._run(args, kwargs, deadline))
 
@@ -330,19 +337,19 @@ class DeploymentResponse:
         return [a for a in self._attempts if not a.discarded]
 
     def _charged(self) -> int:
-        """Attempts spent from the retry budget (moves off a draining
-        replica are free)."""
-        return len(self._attempts) - self._drain_moves
+        """Attempts spent from the retry budget (moves off a draining or a
+        shedding replica are free)."""
+        return len(self._attempts) - self._drain_moves - self._shed_moves
 
     async def _launch_attempt(self, exclude: set | frozenset = frozenset(),
-                              hedge: bool = False) -> _Attempt:
-        """Takes a slot on a replica and sends the request there. A hedge
-        takes a replica free now or none."""
+                              hedge: bool = False, now: bool = False) -> _Attempt:
+        """Takes a slot on a replica and sends the request there. A hedge,
+        or an attempt sent ``now``, takes a replica free now or none."""
         handle, router, meta = self._handle, self._router, self._meta
         affinity = handle._session_id or meta.multiplexed_model_id or handle._shape_key or None
         replica = await router.choose_replica(
             shape_key=handle._shape_key or None,
-            deadline=Deadline.after(0.0) if hedge else self._deadline,
+            deadline=Deadline.after(0.0) if hedge or now else self._deadline,
             exclude=exclude, affinity_key=affinity)
         number = len(self._attempts)
         try:
@@ -443,8 +450,23 @@ class DeploymentResponse:
                         await self._launch_attempt(exclude={a.replica for a in self._attempts})
                     continue
                 if kind is RequestShedError:
-                    raise RequestShedError(f"replica of {self._deployment!r} shed the request",
-                                           retry_after_s=exc.error.retry_after_s) from exc
+                    # The replica is full now; the reference's handle ends
+                    # the request here. An attempt still running may yet
+                    # answer; else a replica not tried with room now takes it.
+                    self._discard(attempt)
+                    router.stats["attempts_shed"] += 1
+                    if len(live) > 1:
+                        continue
+                    try:
+                        await self._launch_attempt(
+                            exclude={a.replica for a in self._attempts}, now=True)
+                    except RuntimeError:
+                        raise RequestShedError(
+                            f"replica of {self._deployment!r} shed the request",
+                            retry_after_s=exc.error.retry_after_s) from exc
+                    self._shed_moves += 1
+                    router.stats["shed_moves"] += 1
+                    continue
                 if kind is DeadlineExceededError:
                     raise DeadlineExceededError(
                         f"deadline expired inside {self._deployment!r}") from exc

@@ -21,6 +21,11 @@ from ray_tpu_torch.serve import _channel
 
 _EMPTY = {"actor_names": [], "addresses": {}, "max_ongoing_requests": 100}
 
+# The name the subscriber's parked ``poll_update`` calls are counted under
+# (``_channel.calls_sent``): a background uplink that answers when the
+# membership moves or its timeout passes, whatever the process is doing.
+PARKED_POLL = "poll_update (parked long poll)"
+
 _source = None
 _source_lock = threading.Lock()
 _controller_address: Optional[tuple] = None
@@ -40,6 +45,13 @@ def set_controller_address(address: tuple) -> None:
     ``address`` when a handle is first used."""
     global _controller_address
     _controller_address = tuple(address)
+    _channel.count_calls_to(_controller_address)
+
+
+def controller_address() -> Optional[tuple]:
+    """The controller's address in a replica process; None in the driver,
+    whose routers read the controller without the wire."""
+    return _controller_address
 
 
 def get_subscriber():
@@ -83,7 +95,7 @@ class UpdateSubscriber(_Snapshot):
     POLL_TIMEOUT_S = 10.0
 
     def __init__(self, address: tuple):
-        self._peer = _channel.BlockingPeer(address)
+        self._peer = _channel.BlockingPeer(address, label=PARKED_POLL)
         self._force = _channel.BlockingPeer(address)
         self._force_lock = threading.Lock()
         self._lock = threading.Lock()

@@ -154,6 +154,12 @@ class Replica:
         else:
             self._callable = cls_or_fn
             self._is_function = True
+        # A callable hosting a serve-LLM decode engine gets its identity
+        # stamped here: the engine cannot know its replica when it is built.
+        engine = getattr(self._callable, "_engine", None)
+        if engine is not None and hasattr(engine, "replica_id"):
+            engine.deployment = deployment_name
+            engine.replica_id = replica_id
         if user_config is not None:
             self._apply_reconfigure(user_config)
 
@@ -322,7 +328,7 @@ class Replica:
     def get_metrics(self) -> dict:
         lat = self._latency_hist.snapshot()
         stats = batching.queue_stats()
-        return {
+        out = {
             "replica_id": self.replica_id,
             "pid": os.getpid(),
             "ongoing": self._ongoing,
@@ -340,15 +346,29 @@ class Replica:
             "items_padded": stats["items_padded"],
             "kernels": kernel_launches(),
         }
+        # A serve-LLM decode engine's slot occupancy stands for the batch
+        # occupancy: its gauges follow the running batch.
+        stats_fn = getattr(self._callable, "serve_llm_stats", None)
+        if callable(stats_fn):
+            llm_stats = stats_fn()
+            out["serve_llm"] = llm_stats
+            out["queue_depth"] += llm_stats.get("queue_depth", 0)
+            out["batch_occupancy"] = llm_stats.get("slot_occupancy_frac")
+        return out
 
     def get_num_ongoing(self) -> int:
         return self._ongoing
 
     def get_load(self) -> dict:
         """The autoscaler's input: requests in flight and those queued for a
-        batch."""
-        return {"ongoing": self._ongoing, "queue_depth": batching.queue_stats()["queue_depth"],
+        batch; a serve-LLM decode replica adds its KV pool's free fraction
+        (its slots are in-flight requests already)."""
+        load = {"ongoing": self._ongoing, "queue_depth": batching.queue_stats()["queue_depth"],
                 "draining": self._draining}
+        load_fn = getattr(self._callable, "serve_llm_load", None)
+        if callable(load_fn):
+            load["kv_free_frac"] = load_fn().get("kv_free_frac")
+        return load
 
     def get_warm_shapes(self) -> list:
         """Shape keys served here and the batch buckets run: the router

@@ -55,3 +55,17 @@ class Accumulator:
 def visible_devices(_):
     """A data worker's (pool task's) ``CUDA_VISIBLE_DEVICES``."""
     return os.environ.get("CUDA_VISIBLE_DEVICES")
+
+
+class ExitOnMarker:
+    """An actor whose constructor ends its process (exit code 3) once the
+    marker file exists: each restart after the marker dies before it
+    answers."""
+
+    def __init__(self, marker):
+        if os.path.exists(marker):
+            os._exit(3)
+        self.marker = marker
+
+    def pid(self):
+        return os.getpid()

@@ -18,8 +18,9 @@
   forward skips the autograd Function where autograd records nothing.
 * ``_build.launch`` binds each entry point once and passes the current
   stream's raw handle last.
-* The serve plane imports no aiohttp, httpx, grpc, cloudpickle, starlette
-  or uvicorn: the port depends on none of them.
+* The serve plane, its serve-LLM engine (``serve/llm/``) included,
+  imports no aiohttp, httpx, grpc, cloudpickle, starlette or uvicorn: the
+  port depends on none of them.
 * Tune (``tune/``) and its tracker callbacks (``air/``) are runtime
   modules (no ml_dtypes) and import no cloudpickle: trials get their
   trainables by name.
@@ -124,8 +125,11 @@ SERVE_FORBIDDEN = ("aiohttp", "httpx", "grpc", "cloudpickle", "starlette", "uvic
 LAZY_IMPORTS = {"grpc_proxy.py": ("grpc",)}
 
 
+SERVE_DIR = ROOT / "ray_tpu_torch" / "serve"
+
+
 def _serve_sources() -> list[Path]:
-    return sorted((ROOT / "ray_tpu_torch" / "serve").glob("*.py"))
+    return sorted(SERVE_DIR.rglob("*.py"))
 
 
 def _module_level_imports(path: Path) -> list[str]:
@@ -146,13 +150,24 @@ def _module_level_imports(path: Path) -> list[str]:
     return names
 
 
-@pytest.mark.parametrize("path", _serve_sources(), ids=lambda p: p.name)
+@pytest.mark.parametrize("path", _serve_sources(),
+                         ids=lambda p: p.relative_to(SERVE_DIR).as_posix())
 def test_serve_modules_import_no_http_or_pickling_library(path):
     lazy = LAZY_IMPORTS.get(path.name, ())
     bad = [m for m in _imported_modules(path)
            if m.split(".")[0] in FORBIDDEN + SERVE_FORBIDDEN and m.split(".")[0] not in lazy]
     bad += [m for m in _module_level_imports(path) if m.split(".")[0] in lazy]
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_the_serve_scan_covers_the_reference_serve_llm():
+    """The port's serve/llm/ has the reference's eight modules, each scanned
+    by the serve rule above (no jax, no ray_tpu, no cloudpickle)."""
+    ref = {p.name for p in (ROOT / "ray_tpu" / "serve" / "llm").glob("*.py")}
+    names = {p.relative_to(SERVE_DIR).as_posix() for p in _serve_sources()}
+    assert ref == {"__init__.py", "config.py", "batch.py", "kv.py", "wire.py",
+                   "observability.py", "engine.py", "deployments.py"}
+    assert {f"llm/{n}" for n in ref} <= names
 
 
 def test_the_serve_plane_imports_without_grpc():

@@ -9,7 +9,7 @@ exception and an expired deadline, and a generator's SSE lines byte for
 byte. Then the port alone, mirroring tests/test_serve.py: deployments,
 composition, reconfigure, @batch, a replica's death, delete, streaming, a
 route added after start, autoscaling from 1 to 2 replicas and back, and
-the refusals that wait for ROADMAP items 13 and 14. Replicas are CPU processes (num_gpus unset); the
+the refusals that wait for ROADMAP item 14, and kv_headroom_min taken. Replicas are CPU processes (num_gpus unset); the
 deployments live in tests/_torch_serve_apps.py, since replicas import
 them by name.
 """
@@ -169,15 +169,23 @@ def test_a_local_class_is_refused():
 
 
 @pytest.mark.parametrize("make, item", [
-    (lambda c: serve.deployment(autoscaling_config={"kv_headroom_min": 0.2})(
-        apps.noop.func_or_class), 13),
     (lambda c: c._save_checkpoint(), 14),
     (lambda c: c._restore_checkpoint(), 14),
     (lambda c: c._drain_oom_flagged(), 14),
-], ids=["kv_headroom", "controller_checkpoint", "controller_restore", "oom_drain"])
+], ids=["controller_checkpoint", "controller_restore", "oom_drain"])
 def test_left_out_features_raise_naming_their_roadmap_item(port_serve, make, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP Queue A item {item}"):
         make(serve.start(http_port=None))
+
+
+def test_kv_headroom_min_is_accepted_and_carried():
+    """The serve-LLM engine feeds kv_headroom_min (tests/test_torch_serve_llm.py
+    scales a decode pool on it); the deployment keeps the floor."""
+    dep = serve.deployment(autoscaling_config={"kv_headroom_min": 0.2})(apps.noop.func_or_class)
+    assert dep._config.autoscaling_config.kv_headroom_min == 0.2
+    again = dep.options(autoscaling_config={"kv_headroom_min": 0.5, "max_replicas": 3})
+    assert again._config.autoscaling_config.kv_headroom_min == 0.5
+    assert dep._config.autoscaling_config.kv_headroom_min == 0.2
 
 
 # ------------------------------------------------------ the serve instances
