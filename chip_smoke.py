@@ -93,9 +93,14 @@ final line) if anything is wrong:
  14. trainer   TorchTrainer with one GPU worker (a spawned process, NCCL)
                at phase 12's config cut to 2 layers and its mesh: 6 steps, a
                report each, a save_sharded_state checkpoint at step 3
-               committed by the trainer; in the first run the worker exits hard after step
-               4's report and the trainer restarts it from the step-3
-               checkpoint; a second run has no failure. Resumed steps 4-6
+               committed by the trainer; in the first run the worker, after
+               step 4's report, arms the chaos fail point
+               train.checkpoint.mid_save (_private/chaos.py) and saves: the
+               fault ends the process between the shards and the commit
+               marker, the torn directory fails verify_sharded_checkpoint,
+               the chaos log holds that one event, the trial's latest
+               committed checkpoint stays step 3's, and the trainer restarts
+               from it; a second run has no failure. Resumed steps 4-6
                must equal the second run's bitwise (losses and the final
                parameters' bits), and the parameters' bits must differ
                before step 1, after it and after step 6; checkpoint
@@ -197,8 +202,11 @@ final line) if anything is wrong:
                top 8 device operations by time under each scope, the
                capture's cost on a step and the trace's size; (b)
                TorchTrainer with one GPU worker running phase 14's loop (6
-               steps, the split step, no save) and capture_profile(steps=2)
-               from a driver thread: status ok, the merged trace's 2 step
+               steps, the split step, no save), traced (the worker inherits
+               RAY_TPU_tracing_enabled and RAYTPU_SESSION_DIR), and
+               capture_profile(steps=2) from a driver thread: the merged
+               trace's trace_ids non-empty, each a span in the session's
+               span files (the worker's execute span), status ok, its 2 step
                slices on rank 0 with the phase slices inside, the worker's
                trace holding B1-B4, each report's device_kind the card's
                name, the worker's hbm_stats() within the card's memory and
@@ -324,7 +332,13 @@ final line) if anything is wrong:
                f32 logits [8, 32000] out): one warm execution, 16 with up
                to CHANNEL_DEPTH in flight, 16 one at a time, each held
                against the driver's own stage_forward chain (bitwise or
-               within LOGITS_TOL, the largest difference printed), each
+               within LOGITS_TOL, the largest difference printed), the 3
+               executions after the warm one each under a driver span (the
+               actors start traced): one trace id from the driver's inject
+               through the input edge, both stages' dag.stage spans, the
+               CUDA edge's channel.push (stage 0) and channel.pop (stage 1,
+               under that push) and the output edge, whose context the
+               driver's reader keeps (last_trace); each
                actor's launches held to its layers and none in the driver
                during the executions; tokens/s pipelined, sequential and of
                the driver's chain, each actor's start, peak and
@@ -355,7 +369,15 @@ final line) if anything is wrong:
                both ranks' at 1M seeded indices), then 6 steps each of int8
                and fp8 with the bucketed overlap (parameters bitwise equal
                across the ranks every step, losses within 2% of the exact
-               run's, falling, wire bytes at most 0.3x); step time,
+               run's, falling, wire bytes at most 0.3x), the int8 run traced:
+               every flight record of a user-visible op joined to exactly one
+               collective span (comm_seq and comm_channel on the span, its
+               trace id on the record), bytes and wire_bytes on each span,
+               a rank's wire_bytes summing to what its ring sent, and rank 1
+               arming a 1 s window of the latency point
+               collective.allreduce.rank1 at step 3 (its chaos log holds the
+               events, each inside the window; rank 0's allreduce of the op
+               it held back ends only after rank 1 wakes); step time,
                tokens/s, grad_sync, collective and exposed comm, wire
                bytes, peak memory, gang formation, stalls (0), launches;
                (c) bench.py --overlap on two CPU ring members, on and off,
@@ -382,7 +404,20 @@ final line) if anything is wrong:
                recovered, decode_controller_rpcs 0, pools_scale_independent 1,
                every decode pool on the card; sequences/s beside the
                reference's full-load release gate of 3,800, the p99s and
-               their ratio
+               their ratio. The phase runs traced with every sequence
+               sampled: one request sent before the load with an
+               X-RayTPU-Trace header keeps the header's trace id from the
+               proxy's serve.request through the decode replica's span,
+               serve.prefill, the prefill replica's span and
+               serve.kv_transfer to its 4 decode.iter spans, its timeline
+               record carries it and its build_sequence_trace view is
+               written and parses; the KV device wire (two ring ranks in
+               this process, the int8 payload decoded on the card) hops
+               under its serve.kv_transfer span; decode.iter spans come
+               from both decode replicas. Then the observability bench's
+               phase 1 in this process (release/benchmarks_serve_llm_
+               observability.py, 24 ABBA pairs of windows, the KV pool on the
+               card): overhead_pct held to 10% (the bench gates 2%)
 Each path (4-5, 7, 8, 9, 10, 11, 12, 14, 15, 16, 17, 18, 19, 20, 21, 22, 23, 24, 25, 26,
 27, 28, 29, 30) runs with every launch count set to 0 just before it; its counts, read just after,
 must equal what its layers and passes imply, every flash launch on the
@@ -394,6 +429,9 @@ so do the Tune trials' (phase 24, where every count is 0),
 the elastic trainer's (phase 25), the graph's stage actors' (phase 28) and
 the ring members' (phase 29).
 
+What phases 14, 22, 28, 29 and 30 showed of tracing and chaos, and their
+walls beside the previous recorded run's, make the "observability" line
+before the summary.
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -427,6 +465,8 @@ import torch.nn.functional as F
 
 from ray_tpu_torch import _build
 from ray_tpu_torch import data as rd
+from ray_tpu_torch._private import chaos as chaos_mod
+from ray_tpu_torch._private import config as config_mod
 from ray_tpu_torch._private import dag_apps, local_tasks
 from ray_tpu_torch._private import profiler as profiler_mod
 from ray_tpu_torch._private import resources
@@ -463,11 +503,12 @@ from ray_tpu_torch.serve import batching as serve_batching
 from ray_tpu_torch.serve.batching import batch
 from ray_tpu_torch.serve import llm
 from ray_tpu_torch.serve.llm import deployments as llm_dep
+from ray_tpu_torch.serve.llm import observability as llm_obs
 from ray_tpu_torch.train import session as session_mod
 from ray_tpu_torch.train import release_loops
 from ray_tpu_torch.train import step_stats as step_stats_mod
 from ray_tpu_torch.train import torch_utils
-from ray_tpu_torch.train.checkpoint import StorageContext
+from ray_tpu_torch.train.checkpoint import StorageContext, verify_sharded_checkpoint
 from ray_tpu_torch.train.config import CheckpointConfig, FailureConfig, RunConfig, ScalingConfig
 from ray_tpu_torch.train.stage_runner import PipelineStageRunner, microbatch_slicer
 from ray_tpu_torch.train.step import make_optimizer, named_leaves, train_step
@@ -479,8 +520,11 @@ from ray_tpu_torch.train.torch_utils import (
 from ray_tpu_torch.train.trainer import TorchTrainer
 from ray_tpu_torch.tune.schedulers import ASHAScheduler
 from ray_tpu_torch.util import collective as collective_mod
+from ray_tpu_torch.util import timeline as timeline_mod
+from ray_tpu_torch.util import tracing
 from ray_tpu_torch.util.collective import bucketing as bucketing_mod
 from ray_tpu_torch.util.collective import quantization as quant_mod
+from ray_tpu_torch.util.chaos import FaultSchedule, read_event_log
 from ray_tpu_torch.util.gang import WorkerGang
 
 
@@ -687,6 +731,69 @@ REFERENCE_PACKAGES = ("jax", "jaxlib", "flax", "ray_tpu")
 def require_no_reference(where: str) -> None:
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in REFERENCE_PACKAGES)
     require(not loaded, f"{where}: JAX or the JAX package was imported: {loaded}")
+
+
+# ---------------------------------------------------------------- tracing and chaos
+# Phases 14, 22, 28, 29 and 30 also drive the port's tracing and chaos
+# planes (util/tracing.py, _private/chaos.py) inside the processes they
+# start anyway; what they find goes into OBSERVABILITY, printed as the
+# "observability" line before the summary.
+TRACE_ROOT = Path(__file__).resolve().parent / "build" / "chip_smoke_trace"
+OBSERVABILITY: dict = {}
+# Those phases' walls in the previous recorded full run, before they were
+# traced (PERF.md sections 4 and 6; phase 22's was not recorded), printed
+# beside this run's.
+PREVIOUS_WALLS_S = {"trainer": 103.4, "profiler": None, "dag": 33.0, "ring": 120.4,
+                "serve_llm": 46.4}
+_TRACE_ENV = ("RAY_TPU_tracing_enabled", "RAYTPU_SESSION_DIR")
+
+
+@contextlib.contextmanager
+def traced(name: str):
+    """Tracing on in this process and in every process started meanwhile
+    (which inherit RAY_TPU_tracing_enabled and RAYTPU_SESSION_DIR), spans
+    exported under TRACE_ROOT/<name>; yields that session directory, which
+    the caller removes once it has read it."""
+    session = TRACE_ROOT / name
+    shutil.rmtree(session, ignore_errors=True)
+    session.mkdir(parents=True)
+    saved = {k: os.environ.get(k) for k in _TRACE_ENV}
+    os.environ.update(RAY_TPU_tracing_enabled="1", RAYTPU_SESSION_DIR=str(session))
+    cfg = config_mod.global_config()
+    was = cfg.tracing_enabled
+    cfg.tracing_enabled = True
+    tracing.configure(str(session))
+    try:
+        yield str(session)
+    finally:
+        tracing.flush()
+        cfg.tracing_enabled = was
+        tracing._dir = None
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def _spans_when(session: str, ready, timeout_s: float = 20.0) -> list:
+    """The session's spans once ``ready(spans)`` holds, or at the timeout
+    (other processes flush theirs every 0.2 s)."""
+    deadline = time.monotonic() + timeout_s
+    while True:
+        spans = tracing.read_spans(session)
+        if ready(spans) or time.monotonic() > deadline:
+            return spans
+        time.sleep(0.2)
+
+
+def _span_counts(spans: list) -> dict:
+    """Span counts by name, the parts after a space (paths, methods) cut."""
+    out: dict = {}
+    for s in spans:
+        key = s["name"].split(" ")[0]
+        out[key] = out.get(key, 0) + 1
+    return dict(sorted(out.items()))
 
 
 # ---------------------------------------------------------------- phase 1
@@ -2606,21 +2713,46 @@ def trainer_loop(loop_config: dict) -> None:
             metrics["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
         session_mod.report(metrics, checkpoint=checkpoint)
         if loop_config.get("die_after") == i + 1 and resumed is None:
+            if loop_config.get("mid_save_log") and ctx.world_rank == 0:
+                # The reference's torn-save kill: the armed fail point fires
+                # between the save's shards and its commit marker, and the
+                # process ends there (tests/test_checkpoint_commit.py).
+                chaos_mod.install(
+                    FaultSchedule(seed=0, fail_points={"train.checkpoint.mid_save": 1}),
+                    identity="trainer-rank0", log_dir=loop_config["mid_save_log"],
+                    export_env=False)
+                try:
+                    save_sharded_state(params, opt, extra={"step": i + 1})
+                except chaos_mod.ChaosFault:
+                    os._exit(1)
+                raise RuntimeError("trainer: the armed mid-save fail point did not fire")
             os._exit(1)
     require_no_reference("trainer worker")
 
 
-def _trainer_run(name: str, die_after: int | None):
+def _trainer_run(name: str, die_after: int | None, mid_save_log: str | None = None):
+    """One fit; with ``mid_save_log`` the killed worker dies inside a torn
+    save (its chaos events logged there). Returns the result and the torn
+    saves left in the trial directory, each with its verdict, and the step
+    of the trial's latest committed checkpoint."""
     trainer = TorchTrainer(
-        trainer_loop, train_loop_config={"die_after": die_after, "n_layers": TRAINER_LAYERS},
+        trainer_loop, train_loop_config={"die_after": die_after, "n_layers": TRAINER_LAYERS,
+                                         "mid_save_log": mid_save_log},
         scaling_config=ScalingConfig(num_workers=1, use_gpu=True, mesh_axes=SHARDED_MESH),
         run_config=RunConfig(name=name, storage_path=str(TRAINER_STORAGE),
                              failure_config=FailureConfig(max_failures=1),
                              checkpoint_config=CheckpointConfig(num_to_keep=1)))
     result = trainer.fit()
+    torn = [(p.name, *verify_sharded_checkpoint(str(p)))
+            for p in sorted(Path(result.path).glob("ray_tpu_ckpt_*")) if p.is_dir()]
+    latest = StorageContext(str(TRAINER_STORAGE), name).latest_checkpoint()
+    latest_step = None
+    if latest is not None:
+        with open(Path(latest.path) / "extra.pkl", "rb") as f:
+            latest_step = pickle.load(f)["step"]
     shutil.rmtree(result.path, ignore_errors=True)
     require(result.error is None, f"trainer {name}: {result.error}")
-    return result
+    return result, torn, latest_step
 
 
 def phase_trainer(sharded_step_ms: float) -> dict:
@@ -2641,9 +2773,11 @@ def phase_trainer(sharded_step_ms: float) -> dict:
     require(free > 1.5 * TRAINER_CKPT_BYTES,
             f"trainer: {free / 1e9:.1f} GB free under {TRAINER_STORAGE}, a checkpoint takes "
             f"{TRAINER_CKPT_BYTES / 1e9:.1f} GB")
+    chaos_log = TRAINER_STORAGE / "chaos"
     try:
-        killed = _trainer_run("killed", TRAINER_DIE_AFTER)
-        whole = _trainer_run("whole", None)
+        killed, torn, latest_step = _trainer_run("killed", TRAINER_DIE_AFTER, str(chaos_log))
+        whole, _, _ = _trainer_run("whole", None)
+        chaos_events = read_event_log(str(chaos_log))
     finally:
         shutil.rmtree(TRAINER_STORAGE, ignore_errors=True)
 
@@ -2696,8 +2830,23 @@ def phase_trainer(sharded_step_ms: float) -> dict:
         gang_form_s=first["formed"] - first["start"],
         step_ms=step_ms, sharded_step_ms=sharded_step_ms,
         peak_gib=whole.metrics_history[-1]["peak_gib"], counts=counts, routes=routes,
-        kernel_forwards=ran, kernel_backwards=ran, plain_forwards=0)
+        kernel_forwards=ran, kernel_backwards=ran, plain_forwards=0,
+        torn_saves=torn, latest_committed_step=latest_step, chaos_events=chaos_events)
     log("trainer", **result)
+    OBSERVABILITY["trainer"] = {"torn_saves": torn, "latest_committed_step": latest_step,
+                                "chaos_events": chaos_events,
+                                "resumed_from_step": resumed_from - 1, "bitwise": bitwise}
+    # The kill landed inside a save: one torn directory, which verification
+    # rejects, one fail-point event, and the restart resumed from the last
+    # committed save, which stays the trial's latest.
+    require(len(torn) == 1 and not torn[0][1],
+            f"trainer: torn saves {torn} (one unverifiable directory expected)")
+    require([(e["point"], e["method"], e["action"]) for e in chaos_events]
+            == [("failpoint", "train.checkpoint.mid_save", "fail")],
+            f"trainer: chaos events {chaos_events}")
+    require(latest_step == TRAINER_SAVE_AT and resumed[0]["restore_s"] is not None,
+            f"trainer: latest committed step {latest_step}, resumed from "
+            f"{resumed[0]['restore_s']}")
     require(all(np.isfinite(losses)), f"trainer: losses {losses}")
     require(moved, f"trainer: parameter digests {digests} (before step 1, after it, after "
                    f"step {TRAINER_STEPS}) are not all different")
@@ -4559,10 +4708,22 @@ def _profile_trainer() -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     start = time.perf_counter()
-    result, record = _profiled_trainer_run()
+    # Traced: the worker's step marks carry its execute span's ids into the
+    # merged trace's trace_ids, each of which must be a span the session holds.
+    with traced("profiler") as session:
+        result, record = _profiled_trainer_run()
     wall = time.perf_counter() - start
+    spans = tracing.read_spans(session)
+    shutil.rmtree(session, ignore_errors=True)
+    span_traces = {s["trace_id"] for s in spans}
+    trace_ids = record.get("trace_ids") or []
+    OBSERVABILITY["profiler"] = {"trace_ids": trace_ids, "spans": _span_counts(spans),
+                                 "ids_in_spans": all(t in span_traces for t in trace_ids)}
     require(result.error is None, f"profiler trainer: {result.error}")
     require(record.get("status") == "ok", f"profiler trainer: capture {record}")
+    require(trace_ids and all(t in span_traces for t in trace_ids),
+            f"profiler trainer: trace_ids {trace_ids}, the session's spans' traces "
+            f"{sorted(span_traces)}")
     with open(record["path"]) as f:
         merged = json.load(f)
     slices = [e for e in merged["traceEvents"] if e.get("ph") == "X" and e["pid"] == 0]
@@ -6392,6 +6553,7 @@ DAG_INPUTS = 4           # distinct token batches, each held against the driver'
 DAG_PIPELINED = 16       # executions with up to CHANNEL_DEPTH in flight
 DAG_SEQUENTIAL = 16      # executions each followed by its get
 DAG_DRIVER_REPS = 5      # the driver's own chain, timed
+DAG_TRACED = 3           # executions after the warm one, each under a driver span
 DAG_HOP_BYTES = 4 << 20  # release/benchmarks_dag.py's full payload: 1 << 20 float32
 DAG_HOP_REPS, DAG_HOP_WARM = 80, 4
 DAG_RPC_STEPS = 100
@@ -6474,6 +6636,14 @@ def _dag_pipeline(config: TransformerConfig, stages: list, device: str) -> dict:
         t0 = time.perf_counter()
         outs.append((0, dag.execute(inputs[0]).get(timeout=600)))  # warm: first IPC opens
         first_s = time.perf_counter() - t0
+        traced_runs = []
+        for k in range(DAG_TRACED):
+            with tracing.span("dag.execute", execution=k) as root:
+                injected = tracing.inject()
+                outs.append((k % DAG_INPUTS, dag.execute(inputs[k % DAG_INPUTS]).get(timeout=600)))
+            traced_runs.append({"trace_id": root.trace_id, "span_id": root.span_id,
+                                "inject": injected,
+                                "last_trace": dag._out_readers[0]._chan.last_trace})
         t0 = time.perf_counter()
         refs: dict = {}
         done = 0
@@ -6511,7 +6681,51 @@ def _dag_pipeline(config: TransformerConfig, stages: list, device: str) -> dict:
         "pipelined_s": pipelined_s, "sequential_s": sequential_s, "driver_chain_s": driver_s,
         "first_execution_s": first_s, "compile_s": compile_s, "driver_params_s": params_s,
         "actors": [{**info, "counts": c, "routes": r} for info, (c, r) in zip(infos, by_actor)],
+        "traced_runs": traced_runs,
     }
+
+
+def _dag_trace_check(session: str, runs: list, stage_pids: list) -> dict:
+    """Phase 28 (a)'s traced executions: each one trace id from the
+    driver's span through the input edge, both stage actors' stage spans,
+    the CUDA edge between them (its push in stage 0's process, its pop in
+    stage 1's, under that push) and the output edge, whose context the
+    driver's reader holds (last_trace)."""
+    wanted = {r["trace_id"] for r in runs}
+
+    def ready(spans):
+        got = [s for s in spans if s["trace_id"] in wanted]
+        return sum(s["name"] == "channel.pop" for s in got) >= 3 * len(wanted)
+
+    spans = _spans_when(session, ready)
+    out = []
+    for run in runs:
+        mine = [s for s in spans if s["trace_id"] == run["trace_id"]]
+        by_name: dict = {}
+        for s in mine:
+            by_name.setdefault(s["name"], []).append(s)
+        pushes, pops = by_name.get("channel.push", []), by_name.get("channel.pop", [])
+        stage_spans = by_name.get("dag.stage forward", [])
+        push_by_pid = {s["pid"]: s for s in pushes}
+        cuda_push = push_by_pid.get(stage_pids[0])
+        cuda_pop = next((p for p in pops if p["pid"] == stage_pids[1] and cuda_push
+                         and p["parent_id"] == cuda_push["span_id"]), None)
+        check = {
+            "trace_id": run["trace_id"],
+            "inject": run["inject"] == {"trace_id": run["trace_id"], "span_id": run["span_id"]},
+            "pushes": len(pushes), "pops": len(pops),
+            "stage_pids": sorted(s["pid"] for s in stage_spans),
+            "cuda_edge": bool(cuda_push and cuda_pop
+                              and cuda_push["attributes"]["family"] == "device"),
+            "pops_under_pushes": all(p["parent_id"] in {q["span_id"] for q in pushes}
+                                     for p in pops),
+            "last_trace": (run["last_trace"] or {}).get("trace_id") == run["trace_id"],
+        }
+        check["ok"] = (check["inject"] and len(pushes) == 3 and len(pops) == 3
+                       and check["stage_pids"] == sorted(stage_pids) and check["cuda_edge"]
+                       and check["pops_under_pushes"] and check["last_trace"])
+        out.append(check)
+    return {"executions": out, "spans": _span_counts(spans)}
 
 
 def _dag_echo_hop(actor, payload, reps: int = DAG_HOP_REPS) -> float:
@@ -6726,11 +6940,24 @@ def phase_dag(config: TransformerConfig | None = None, device: str = "cuda") -> 
     relay_cls = local_tasks.remote(dag_apps.Relay)
     try:
         spawned = time.perf_counter()
-        stages = [stage_cls.remote(_dag_config(config), s, DAG_STAGES, seed=SEED, device=device,
-                                   last_position=True) for s in range(DAG_STAGES)]
-        relays = [relay_cls.remote() for _ in range(9)]
-        stage_starts, relay_starts = _dag_started(stages, spawned), _dag_started(relays, spawned)
-        pipeline = _dag_pipeline(config, stages, device)
+        # The stage actors start traced: phase 28 (a)'s traced executions
+        # need their spans. The relays start beside them; (b) and (c) run
+        # no span (no context flows into their graphs).
+        with traced("dag") as session:
+            stages = [stage_cls.remote(_dag_config(config), s, DAG_STAGES, seed=SEED,
+                                       device=device, last_position=True)
+                      for s in range(DAG_STAGES)]
+            relays = [relay_cls.remote() for _ in range(9)]
+            stage_starts = _dag_started(stages, spawned)
+            relay_starts = _dag_started(relays, spawned)
+            pipeline = _dag_pipeline(config, stages, device)
+        stage_pids = [a["pid"] for a in pipeline["actors"]]
+        trace_check = _dag_trace_check(session, pipeline.pop("traced_runs"), stage_pids)
+        shutil.rmtree(session, ignore_errors=True)
+        OBSERVABILITY["dag"] = trace_check
+        log("dag_trace", **trace_check)
+        require(all(c["ok"] for c in trace_check["executions"]),
+                f"dag: traced executions {trace_check['executions']}")
         pipeline["actor_start_s"] = [f.result() for f in stage_starts]
         pipeline["relay_start_s"] = max(f.result() for f in relay_starts)
         log("dag_pipeline", **{k: v for k, v in pipeline.items() if k != "actors"},
@@ -6770,6 +6997,17 @@ RING_BLOCK = 256
 RING_LOSS_REL_TOL = 2e-2
 RING_WIRE_RATIO = 0.3          # a quantized step's wire bytes against the exact one's
 RING_STORAGE = Path(__file__).resolve().parent / "build" / "chip_smoke_ring"
+# The int8 run is traced, and rank 1 arms a windowed chaos latency point on
+# its allreduces at the start of RING_STALL_STEP (the schedule of
+# tests/test_hang_doctor.py:399-413, scaled down): each allreduce it enters
+# in the window (the overlap runs a few at once) waits RING_STALL_MS before
+# its flight record, and the window closes before they wake. Under the
+# watchdog's 2 s floor, so no stall is flagged.
+RING_STALL_STEP, RING_STALL_MS, RING_STALL_WINDOW_S = 3, 1000.0, 1.0
+# Flight-record kinds of user-visible ops (the ring's hops record send and
+# recv inside them).
+RING_OP_KINDS = ("allreduce", "allreduce_sharded", "allgather", "reducescatter", "broadcast",
+                 "barrier")
 # bench.py --overlap: 5 timed steps, buckets of 2 MiB over its ~14 MB tree.
 OVERLAP_STEPS, OVERLAP_BUCKET_BYTES = 5, 2 << 20
 
@@ -6831,7 +7069,16 @@ def ring_loop(loop_config: dict) -> None:
     if cuda:
         torch.cuda.reset_peak_memory_stats()
     steps = loop_config["steps"]
+    stall = loop_config.get("stall")
+    stall_epoch = None
     for i in range(steps):
+        if stall and i + 1 == stall["step"] and ctx.world_rank == 1:
+            sched = FaultSchedule(seed=14, latency_points={"collective.allreduce.rank1": {
+                "extra_ms": stall["extra_ms"], "start_s": 0.0,
+                "duration_s": stall["duration_s"]}})
+            stall_epoch = sched.epoch
+            chaos_mod.install(sched, identity="ring-rank1", log_dir=stall["log_dir"],
+                              export_env=False)
         if cuda:
             torch.cuda.synchronize()
         sent = group.wire_stats["bytes_sent"]
@@ -6844,7 +7091,14 @@ def ring_loop(loop_config: dict) -> None:
         if i + 1 == steps:
             mine.update(stalls=collective_mod.flight.stall_count(),
                         wire_stats=dict(group.wire_stats),
-                        peak_gib=torch.cuda.max_memory_allocated() / 2**30 if cuda else 0.0)
+                        peak_gib=torch.cuda.max_memory_allocated() / 2**30 if cuda else 0.0,
+                        stall_epoch=stall_epoch)
+            if loop_config.get("trace_flight"):
+                # The records of this process's user-visible ops, which the
+                # driver joins to their collective spans.
+                mine["flight"] = [{k: r[k] for k in ("kind", "seq", "channel", "trace_id")}
+                                  for r in collective_mod.flight.snapshot(1 << 16)
+                                  if r["kind"] in RING_OP_KINDS]
         # Rank 1's record rides the ring to rank 0, whose report the trainer keeps.
         blob = np.frombuffer(pickle.dumps(mine), dtype=np.uint8)
         ranks = [pickle.loads(b.tobytes()) for b in group.allgather(blob, tag="__rec")]
@@ -6852,15 +7106,23 @@ def ring_loop(loop_config: dict) -> None:
     require_no_reference("ring worker")
 
 
-def _ring_run(name: str, config, model_kwargs=None, device: str = "cuda") -> dict:
+def _ring_run(name: str, config, model_kwargs=None, device: str = "cuda",
+              observe: bool = False) -> dict:
     """One TorchTrainer(backend="ring") fit of ring_loop with ``config`` on
     the gang's group, two workers on the one card (``device`` "cpu": on the
     CPU); returns its records by step and rank, its StepStats and its gang
-    formation."""
+    formation. With ``observe`` the run is traced and rank 1 arms the
+    RING_STALL_* latency window; the result then also holds the session's
+    spans and rank 1's chaos events."""
     steps = RING_EXACT_STEPS if not config.enabled else RING_QUANT_STEPS
     loop_config = {"steps": steps, "spy": not config.enabled, "device": device}
     if model_kwargs is not None:
         loop_config["config"] = model_kwargs
+    stall_log = RING_STORAGE / f"chaos_{name}"
+    if observe:
+        loop_config.update(trace_flight=True, stall={
+            "step": RING_STALL_STEP, "extra_ms": RING_STALL_MS,
+            "duration_s": RING_STALL_WINDOW_S, "log_dir": str(stall_log)})
     cuda = device == "cuda"
     trainer = TorchTrainer(
         ring_loop, train_loop_config=loop_config, backend="ring",
@@ -6870,9 +7132,19 @@ def _ring_run(name: str, config, model_kwargs=None, device: str = "cuda") -> dic
                                          {"GPU": 1.0 / RING_WORKERS} if cuda else {}),
                                      collective_config=config),
         run_config=RunConfig(name=name, storage_path=str(RING_STORAGE)))
-    t0 = time.perf_counter()
-    result = trainer.fit()
-    wall = time.perf_counter() - t0
+    observed: dict = {}
+    with traced(f"ring_{name}") if observe else contextlib.nullcontext() as session:
+        t0 = time.perf_counter()
+        result = trainer.fit()
+        wall = time.perf_counter() - t0
+    if observe:
+        # read_event_log drops each event's "t" (seconds from the schedule's
+        # epoch), which places the window: the raw lines keep it.
+        observed = {"spans": tracing.read_spans(session),
+                    "chaos_events": read_event_log(str(stall_log)),
+                    "chaos_times": [json.loads(line)["t"] for f in sorted(stall_log.glob("*.jsonl"))
+                                    for line in f.read_text().splitlines() if line.strip()]}
+        shutil.rmtree(session, ignore_errors=True)
     shutil.rmtree(result.path, ignore_errors=True)
     require(result.error is None, f"ring {name}: {result.error}")
     require([m["step"] for m in result.metrics_history] == list(range(1, steps + 1)),
@@ -6881,7 +7153,79 @@ def _ring_run(name: str, config, model_kwargs=None, device: str = "cuda") -> dic
     require(all(len(r) == RING_WORKERS for r in records), f"ring {name}: records {records}")
     first = result.attempts[0]
     return {"records": records, "step_stats": result.step_stats, "wall_s": wall,
-            "gang_form_s": first["formed"] - first["start"], "steps": steps}
+            "gang_form_s": first["formed"] - first["start"], "steps": steps, **observed}
+
+
+def _ring_trace_check(run: dict) -> dict:
+    """The traced int8 run: every flight record of a user-visible op has
+    exactly one collective span of its rank, joined both ways ((comm_seq,
+    comm_channel) on the span, the span's trace id on the record), each
+    span carries bytes and wire_bytes, and a rank's spans' wire_bytes sum
+    to what its ring sent (the last step's record of it is taken before
+    that step's own __rec allgather). Rank 1's chaos log holds the latency
+    window's events, each inside the window, and rank 0's allreduce of the
+    first op rank 1 held back did not end before rank 1 woke."""
+    spans = [s for s in run["spans"] if s["name"].startswith("collective.")]
+    last = run["records"][-1]
+    out: dict = {"spans": len(spans), "by_rank": []}
+    ok = True
+    for rank, rec in enumerate(last):
+        mine = [s for s in spans if s["attributes"]["rank"] == rank]
+        index: dict = {}
+        for s in mine:
+            key = (s["attributes"].get("comm_channel"), s["attributes"].get("comm_seq"))
+            index.setdefault(key, []).append(s)
+        joined = [index.get((r["channel"], r["seq"]), []) for r in rec["flight"]]
+        one_each = all(len(j) == 1 for j in joined)
+        same_trace = all(len(j) == 1 and j[0]["trace_id"] == r["trace_id"]
+                         for j, r in zip(joined, rec["flight"]))
+        attrs_present = all("bytes" in s["attributes"] and "wire_bytes" in s["attributes"]
+                            for s in mine)
+        recs = [s for s in mine if s["attributes"]["comm_channel"].endswith(":allgather:__rec")]
+        final_rec = max(recs, key=lambda s: s["attributes"]["comm_seq"])
+        wire_sum = sum(s["attributes"]["wire_bytes"] for s in mine)
+        wire_ok = wire_sum - final_rec["attributes"]["wire_bytes"] == \
+            rec["wire_stats"]["bytes_sent"]
+        out["by_rank"].append({"records": len(rec["flight"]), "op_spans": len(mine),
+                               "one_span_each": one_each, "same_trace": same_trace,
+                               "bytes_and_wire_bytes": attrs_present, "wire_bytes": wire_sum,
+                               "ring_bytes_sent": rec["wire_stats"]["bytes_sent"],
+                               "wire_sum_ok": wire_ok})
+        ok &= one_each and same_trace and attrs_present and wire_ok and bool(rec["flight"])
+    # The latency window: one event in rank 1's log; the op it held back.
+    events = [e for e in run["chaos_events"] if e["point"] == "latency_point"]
+    epoch = last[1]["stall_epoch"]
+    window: dict = {"events": events, "extra_ms": RING_STALL_MS}
+    times = run["chaos_times"]
+    if len(events) >= 1 and len(times) == len(events) and epoch is not None:
+        # The event's t is seconds from the epoch, rounded to 0.1 ms.
+        sleep_start_ns = int((epoch + min(times)) * 1e9)
+        woke_ns = sleep_start_ns + int(RING_STALL_MS * 1e6)
+        slack_ns = 200_000
+        held = min((s for s in spans if s["attributes"]["rank"] == 1
+                    and s["name"] == "collective.allreduce"
+                    and s["start_ns"] >= woke_ns - slack_ns), key=lambda s: s["start_ns"],
+                   default=None)
+        peer = next((s for s in spans if held is not None and s["attributes"]["rank"] == 0
+                     and s["attributes"]["comm_channel"] == held["attributes"]["comm_channel"]
+                     and s["attributes"]["comm_seq"] == held["attributes"]["comm_seq"]), None)
+        if peer is not None:
+            window.update(
+                rank0_span_ms=(peer["end_ns"] - peer["start_ns"]) / 1e6,
+                rank0_entered_after_ms=(peer["start_ns"] - sleep_start_ns) / 1e6,
+                rank0_waited_ms=(peer["end_ns"] - max(peer["start_ns"], sleep_start_ns)) / 1e6,
+                comm_seq=held["attributes"]["comm_seq"])
+        window["ok"] = bool(peer is not None and peer["end_ns"] >= woke_ns - slack_ns
+                            and window["rank0_waited_ms"] >= RING_STALL_MS - slack_ns / 1e6)
+    else:
+        window["ok"] = False
+    # Each allreduce rank 1 entered inside the window (the overlap runs a
+    # few at once) waited; none outside it.
+    window["events_in_window"] = bool(times) and all(0.0 <= t < RING_STALL_WINDOW_S
+                                                     for t in times)
+    out["latency_window"] = window
+    out["ok"] = bool(ok and window["ok"] and window["events_in_window"])
+    return out
 
 
 def _ring_summary(name: str, run: dict, config: TransformerConfig) -> dict:
@@ -7128,10 +7472,16 @@ def phase_ring() -> dict:
         for name, cfg in (("exact", quant_mod.CollectiveConfig()),
                           ("int8", quant_mod.CollectiveConfig(quantize="int8", overlap=True)),
                           ("fp8", quant_mod.CollectiveConfig(quantize="fp8", overlap=True))):
-            runs[name] = _ring_run(name, cfg)
+            runs[name] = _ring_run(name, cfg, observe=name == "int8")
             summaries[name] = _ring_summary(name, runs[name], config)
             log("ring_train", run=name, quantize=cfg.quantize, overlap=cfg.overlap,
                 **summaries[name])
+            if name == "int8":
+                trace_check = _ring_trace_check(runs[name])
+                trace_check["span_counts"] = _span_counts(runs[name].pop("spans"))
+                OBSERVABILITY["ring"] = trace_check
+                log("ring_trace", **trace_check)
+                require(trace_check["ok"], f"ring int8: traced run {trace_check}")
     finally:
         shutil.rmtree(RING_STORAGE, ignore_errors=True)
     exact_check = _ring_exact_check(runs["exact"])
@@ -7191,6 +7541,21 @@ LLM_RELEASE_GATE_QPS = 3800
 # decode: the ToyLM's KV of these prompts and a seeded normal block.
 LLM_CODEC_PROMPTS = ("warm cache line", " ".join(f"w{i}" for i in range(12)), "hello tpu")
 LLM_CODEC_TOKENS = 4096
+# Phase 30 runs traced with every sequence sampled. One request, sent with
+# an X-RayTPU-Trace header before the load, must keep the header's trace id
+# from the proxy to its last decode iteration.
+LLM_TRACE_ID, LLM_TRACE_PARENT, LLM_TRACE_REQUEST = "beef" * 8, "cafe" * 4, "chip-trace-1"
+# release/benchmarks_serve_llm_observability.py's phase 1 at its full size:
+# 24 paired OFF/ON decode windows (ABBA) of 16 sequences of 64 tokens, the
+# decode step sized by decode_flops, the KV pool on the card. The bench
+# gates overhead_pct at 2%; here it is held to 10% and recorded. The card
+# machine's process clock advances in ticks of about 10 ms (measured and
+# printed as process_clock_tick_ms), coarse beside a window's 30 ms of
+# CPU: the denominator is the OFF windows' CPU summed over their
+# iterations, and the micro-measures take 100,000 spans and 20,000 records.
+LLM_OBS_WINDOWS, LLM_OBS_SEQS, LLM_OBS_TOKENS = 24, 16, 64
+LLM_OBS_SPAN_REPS, LLM_OBS_RECORD_REPS = 100_000, 20_000
+LLM_OBS_GATE_PCT, LLM_OBS_HOLD_PCT = 2.0, 10.0
 
 
 def llm_expected_tokens(prompt: str, n: int, model_id: str = "") -> list:
@@ -7226,6 +7591,195 @@ def _llm_codec_on_card(device: str) -> dict:
         out[quantize] = {"bitwise": bool(equal), "max_abs_diff": worst, "wire_bytes": nbytes,
                          "f32_bytes": sum(kv.nbytes for kv in kvs),
                          "pool_device": str(pool.device)}
+    return out
+
+
+def _llm_obs_overhead(device: str = "cuda") -> dict:
+    """The observability bench's phase 1 in this process: ABBA-ordered OFF
+    windows (tracing off, no sequence sampled) and ON windows (tracing on,
+    every sequence sampled: decode.iter spans, trace ids on token events,
+    timeline records), each timing submit to drain on the process clock.
+    overhead_pct is the bench's composed ratio: the micro-measured CPU of
+    what the sampled path adds an iteration (one decode.iter span, and the
+    terminal records amortized over the iterations) over the OFF windows'
+    CPU an iteration (their sum over their iterations, not the bench's
+    median window: the process clock's ticks are coarse here)."""
+    from ray_tpu_torch.serve._common import Deadline
+
+    cfg = llm.LLMConfig(max_slots=LLM_OBS_SEQS, slot_buckets=(LLM_OBS_SEQS,),
+                        num_kv_blocks=1024, decode_flops=4_000_000)
+    gcfg = config_mod.global_config()
+    was = gcfg.tracing_enabled
+    trace_ctx = {"trace_id": "ab" * 16, "span_id": "cd" * 8}
+    model = llm_dep.ToyLM(cfg, device=device)
+
+    def build(sampled: bool, n: int = LLM_OBS_SEQS) -> list:
+        seqs = []
+        for i in range(n):
+            toks = llm_dep.tokenize(f"bench seq {i}")
+            s = llm.SequenceState(request_id=f"obs-{time.monotonic_ns()}-{i}",
+                                  prompt_tokens=toks, max_tokens=LLM_OBS_TOKENS,
+                                  kv_data=model.prefill(toks, ""), deadline=Deadline.never())
+            s.sampled, s.trace_ctx = sampled, (dict(trace_ctx) if sampled else None)
+            seqs.append(s)
+        return seqs
+
+    async def window(on: bool) -> tuple:
+        gcfg.tracing_enabled = on
+        eng = llm.DecodeEngine(cfg, model, deployment="bench", replica_id="r0", device=device)
+        seqs = build(on)
+        torch.cuda.synchronize()
+        t0, c0 = time.perf_counter(), time.process_time()
+        for s in seqs:
+            await eng.submit(s)
+        await asyncio.gather(*(s.future for s in seqs))
+        torch.cuda.synchronize()
+        cpu, wall = time.process_time() - c0, time.perf_counter() - t0
+        eng.stop()
+        require(eng.ledger.in_flight() == 0, "serve_llm obs: tokens left in flight")
+        return wall, cpu
+
+    async def run_all() -> tuple:
+        await window(False)  # settle both paths, untimed
+        await window(True)
+        off, on = [], []
+        for i in range(LLM_OBS_WINDOWS):
+            first_on = bool(i % 2)
+            for mode in (first_on, not first_on):
+                (on if mode else off).append(await window(mode))
+        return off, on
+
+    try:
+        off, on = asyncio.run(run_all())
+        gcfg.tracing_enabled = True
+        reps = LLM_OBS_SPAN_REPS
+        c0 = time.process_time()
+        for _ in range(reps):
+            tracing.finish(tracing.begin("decode.iter", parent=trace_ctx, replica="r0",
+                                         slots=LLM_OBS_SEQS, bucket=LLM_OBS_SEQS))
+        span_us = (time.process_time() - c0) / reps * 1e6
+        donor = build(True, 1)[0]
+        donor.generated = list(range(LLM_OBS_TOKENS))
+        base = time.monotonic()
+        donor.enqueued_at, donor.slot_admitted_at = base, base + 0.001
+        donor.first_token_at = base + 0.01
+        donor.token_times = [base + 0.01 * (i + 1) for i in range(LLM_OBS_TOKENS)]
+        donor.prefill_s, donor.kv_transfer_s = 0.005, 0.001
+        reps = LLM_OBS_RECORD_REPS
+        c0 = time.process_time()
+        for _ in range(reps):
+            llm_obs.record(llm_obs.seq_record(donor, outcome="productive", cause="completed",
+                                              split={"replay_discarded": 0}, deployment="bench",
+                                              replica_id="r0", fence="f0"))
+        record_us = (time.process_time() - c0) / reps * 1e6
+    finally:
+        gcfg.tracing_enabled = was
+    llm_obs.flush()
+    tick_start = time.process_time()
+    while (tick := time.process_time() - tick_start) == 0.0:
+        pass
+    tokens = LLM_OBS_SEQS * LLM_OBS_TOKENS
+    off_iter_us = sum(c for _, c in off) / (len(off) * LLM_OBS_TOKENS) * 1e6
+    obs_us = span_us + LLM_OBS_SEQS / LLM_OBS_TOKENS * record_us
+    return {
+        "tokens_per_s_off": tokens / statistics.median(w for w, _ in off),
+        "tokens_per_s_on": tokens / statistics.median(w for w, _ in on),
+        "span_us": span_us, "seq_record_us": record_us, "off_iter_cpu_us": off_iter_us,
+        "overhead_pct": 100.0 * obs_us / off_iter_us,
+        "paired_delta_pct": statistics.median(100.0 * (c_on - c_off) / c_off
+                                              for (_, c_off), (_, c_on) in zip(off, on)),
+        "windows": LLM_OBS_WINDOWS, "gate_pct": LLM_OBS_GATE_PCT, "held_to_pct": LLM_OBS_HOLD_PCT,
+        "kv_device": device, "process_clock_tick_ms": tick * 1e3,
+        "off_window_cpu_ms": [1e3 * c for _, c in off],
+    }
+
+
+def _llm_wire_trace(parent: dict, device: str = "cuda") -> dict:
+    """The KV device wire between two ring ranks (threads of this process)
+    under the sampled request's context: the int8 payload of the toy model's
+    KV crosses with its channel.push span's context, is popped and decoded
+    on the card, bitwise the plain decode, and the pop's span and last_trace
+    join the request's trace."""
+    import torch.distributed as dist
+
+    store = dist.HashStore()
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        groups = list(pool.map(lambda r: collective_mod.RingGroup(2, r, "llm_kv_wire",
+                                                                  store=store), range(2)))
+        try:
+            cfg = llm.LLMConfig()
+            kv = llm_dep.ToyLM(cfg).prefill(llm_dep.tokenize(LLM_PROMPT))
+            tx = llm.KVDeviceWire(groups[0], peer=1, device="cpu", wire_cfg=cfg.wire_config())
+            rx = llm.KVDeviceWire(groups[1], peer=0, device=device)
+            pushed = pool.submit(tx.push, 0, kv, parent)
+            got = rx.pop(0, timeout=60).cpu().numpy()
+            pushed.result(timeout=60)
+        finally:
+            for g in groups:
+                g.destroy()
+    plain = quant_mod.decode_plain(llm.encode_kv_blocks(kv, cfg.wire_config())[2])
+    return {"last_trace": rx.last_trace,
+            "bitwise": got.tobytes() == plain.reshape(kv.shape).tobytes()}
+
+
+def _llm_trace_check(session: str, decode_pids: list, prefill_pids: list, wire: dict) -> dict:
+    """The sampled request's trace, joined across the proxy (this process),
+    a decode replica, the prefill replica and the KV wire; decode.iter spans
+    from every decode replica; the request's timeline record and its
+    Perfetto view."""
+    want = {"serve.request", "serve.replica", "serve.prefill", "serve.kv_transfer",
+            "decode.iter", "channel.push", "channel.pop"}
+
+    def ready(spans):
+        mine = {s["name"].split(" ")[0] for s in spans if s["trace_id"] == LLM_TRACE_ID}
+        iters = {s["pid"] for s in spans if s["name"] == "decode.iter"}
+        return want <= mine and set(decode_pids) <= iters
+
+    spans = _spans_when(session, ready)
+    mine = [s for s in spans if s["trace_id"] == LLM_TRACE_ID]
+    by_name: dict = {}
+    for s in mine:
+        by_name.setdefault(s["name"], []).append(s)
+    req = by_name.get("serve.request /llm", [{}])[0]
+    decode_rep = by_name.get("serve.replica llm_llm_decode", [{}])[0]
+    prefill_rep = by_name.get("serve.replica llm_llm_prefill", [{}])[0]
+    prefill = by_name.get("serve.prefill", [{}])[0]
+    kv = by_name.get("serve.kv_transfer", [{}])[0]
+    iters = by_name.get("decode.iter", [])
+    push = by_name.get("channel.push", [{}])[0]
+    pop = by_name.get("channel.pop", [{}])[0]
+    chain = {
+        "request_under_header": req.get("parent_id") == LLM_TRACE_PARENT
+        and req.get("pid") == os.getpid(),
+        "decode_replica_under_request": decode_rep.get("parent_id") == req.get("span_id")
+        and decode_rep.get("pid") in decode_pids,
+        "prefill_under_decode_replica": prefill.get("parent_id") == decode_rep.get("span_id"),
+        "prefill_replica_under_prefill": prefill_rep.get("parent_id") == prefill.get("span_id")
+        and prefill_rep.get("pid") in prefill_pids,
+        "kv_transfer_under_decode_replica": kv.get("parent_id") == decode_rep.get("span_id"),
+        "wire_push_under_kv_transfer": push.get("parent_id") == kv.get("span_id"),
+        "wire_pop_under_push": pop.get("parent_id") == push.get("span_id")
+        and (wire["last_trace"] or {}).get("span_id") == push.get("span_id"),
+        "decode_iters": len(iters) == LLM_MAX_TOKENS
+        and all(s["parent_id"] == decode_rep.get("span_id") for s in iters),
+        "wire_bitwise": wire["bitwise"],
+    }
+    iter_pids = sorted({s["pid"] for s in spans if s["name"] == "decode.iter"})
+    record = next((r for r in llm_obs.read_sequences(session)
+                   if r.get("kind") == "seq" and r.get("request_id") == LLM_TRACE_REQUEST), None)
+    view_path = Path(session) / f"{LLM_TRACE_REQUEST}.perfetto.json"
+    with open(view_path, "w") as f:
+        json.dump(timeline_mod.build_sequence_trace(session, LLM_TRACE_REQUEST), f)
+    with open(view_path) as f:
+        view = json.load(f)
+    tokens = [e for e in view["traceEvents"] if e.get("cat") == "token"]
+    out = {"chain": chain, "decode_iter_pids": iter_pids, "decode_pids": sorted(decode_pids),
+           "record_trace_id": (record or {}).get("trace_id"),
+           "view_events": len(view["traceEvents"]), "view_tokens": len(tokens),
+           "view_bytes": view_path.stat().st_size, "spans": _span_counts(spans)}
+    out["ok"] = bool(all(chain.values()) and set(decode_pids) <= set(iter_pids)
+                     and out["record_trace_id"] == LLM_TRACE_ID
+                     and len(tokens) == LLM_MAX_TOKENS)
     return out
 
 
@@ -7430,81 +7984,111 @@ def phase_serve_llm(seconds: float = LLM_SECONDS) -> dict:
     port = _port_pair()
     ports = [port, port + 1]
     qname = "llm_llm_decode"
-    try:
-        # The second proxy's process and the app's replicas start at once.
-        controller = serve.start(http_port=port)
-        background = concurrent.futures.ThreadPoolExecutor(1)
-        second_proxy = background.submit(serve.start, http_port=port, num_proxies=2)
-        app = llm.build_llm_app(
-            {"max_slots": 128, "slot_buckets": [32, 64, 128]},
-            prefill_replicas=1, decode_replicas=2, max_ongoing_requests=512,
-            request_timeout_s=60.0,
-            decode_options={"health_check_period_s": 1.0,
-                            "retry_policy": {"max_attempts": 8, "hedge": True},
-                            "ray_actor_options": share},
-            prefill_options={"retry_policy": {"max_attempts": 8, "hedge": True}})
-        t0 = time.perf_counter()
-        serve.run(app, name="llm", route_prefix="/llm")
-        second_proxy.result(timeout=300)
-        ready_s = time.perf_counter() - t0
-        warm = _post_json(port, "/llm", {"prompt": LLM_PROMPT, "max_tokens": LLM_MAX_TOKENS})
-        require(warm["tokens"] == llm_expected_tokens(LLM_PROMPT, LLM_MAX_TOKENS),
-                f"serve_llm: warm-up tokens {warm['tokens']}")
-
-        def decode_running() -> int:
-            return serve.status()["llm"]["deployments"]["llm_decode"]["running_replicas"]
-
-        # Phase 1: the baseline and the steady-state probe.
-        probe: dict = {}
-        baseline = _llm_load(seconds, LLM_HANDLE_THREADS, LLM_HTTP_THREADS, ports, probe)
-        before = controller.get_metrics()[qname]
-        victims = sorted(m["pid"] for m in before)
-        proxies = {p["port"]: p for p in controller.get_proxies()}
-        require(len(victims) == 2 and proxies[port + 1]["pid"],
-                f"serve_llm: decode pids {victims}, proxies {proxies}")
-
-        # Phase 2: a decode replica's process and the second proxy's killed
-        # mid-window, at the load the surviving replica can carry alone.
-        def kills() -> list:
-            events, t_kill = [], time.perf_counter()
-            for at, pid, what in ((LLM_KILL_REPLICA_S, victims[0], "replica"),
-                                  (LLM_KILL_PROXY_S, proxies[port + 1]["pid"], "proxy")):
-                time.sleep(max(0.0, at - (time.perf_counter() - t_kill)))
-                try:
-                    os.kill(pid, signal.SIGKILL)
-                    events.append({"target": what, "pid": pid, "status": "ok",
-                                   "at_s": time.perf_counter() - t_kill})
-                except ProcessLookupError:
-                    events.append({"target": what, "pid": pid, "status": "gone"})
-            return events
-
-        chaos = _llm_load(seconds, max(1, LLM_HANDLE_THREADS // 4), LLM_HTTP_THREADS, ports,
-                          during=kills)
-        # Phase 3's app starts while the killed replica and proxy come back.
-        scale_ready = background.submit(_llm_scaling_deploy, share)
-        recover_start = time.perf_counter()
-        recovered = proxy_back = False
-        while time.perf_counter() - recover_start < LLM_RECOVER_S:
-            pids = {m["pid"] for m in controller.get_metrics().get(qname, [])}
-            recovered = decode_running() == 2 and victims[0] not in pids and len(pids) == 2
-            now = next(p for p in controller.get_proxies() if p["port"] == port + 1)
+    # Traced throughout: the replicas and the second proxy inherit the
+    # tracing environment, and every sequence is sampled.
+    with traced("serve_llm") as session:
+        try:
             try:
-                proxy_back = now["restarts"] == 1 and _post_json(
-                    port + 1, "/llm", {"prompt": LLM_PROMPT, "max_tokens": LLM_MAX_TOKENS}
-                )["tokens"] == llm_expected_tokens(LLM_PROMPT, LLM_MAX_TOKENS)
-            except (OSError, AssertionError):
-                proxy_back = False
-            if recovered and proxy_back:
-                break
-            time.sleep(0.5)
-        recover_s = time.perf_counter() - recover_start
-        after = controller.get_metrics()[qname]
+                # The second proxy's process and the app's replicas start at once.
+                controller = serve.start(http_port=port)
+                background = concurrent.futures.ThreadPoolExecutor(1)
+                second_proxy = background.submit(serve.start, http_port=port, num_proxies=2)
+                app = llm.build_llm_app(
+                    {"max_slots": 128, "slot_buckets": [32, 64, 128], "seq_trace_sample": 1.0},
+                    prefill_replicas=1, decode_replicas=2, max_ongoing_requests=512,
+                    request_timeout_s=60.0,
+                    decode_options={"health_check_period_s": 1.0,
+                                    "retry_policy": {"max_attempts": 8, "hedge": True},
+                                    "ray_actor_options": share},
+                    prefill_options={"retry_policy": {"max_attempts": 8, "hedge": True}})
+                t0 = time.perf_counter()
+                serve.run(app, name="llm", route_prefix="/llm")
+                second_proxy.result(timeout=300)
+                ready_s = time.perf_counter() - t0
+                warm = _post_json(port, "/llm",
+                                  {"prompt": LLM_PROMPT, "max_tokens": LLM_MAX_TOKENS})
+                require(warm["tokens"] == llm_expected_tokens(LLM_PROMPT, LLM_MAX_TOKENS),
+                        f"serve_llm: warm-up tokens {warm['tokens']}")
+                # The sampled request, alone on the app: its decode iterations are
+                # its own.
+                traced_out = _post_json(
+                    port, "/llm", {"prompt": LLM_PROMPT, "max_tokens": LLM_MAX_TOKENS,
+                                   "request_id": LLM_TRACE_REQUEST},
+                    headers={"X-RayTPU-Trace": f"{LLM_TRACE_ID}:{LLM_TRACE_PARENT}"})
+                require(traced_out["tokens"] == llm_expected_tokens(LLM_PROMPT, LLM_MAX_TOKENS),
+                        f"serve_llm: the traced request's tokens {traced_out['tokens']}")
+                prefill_pids = sorted(m["pid"] for m in controller.get_metrics()["llm_llm_prefill"])
 
-        # Phase 3: the tiny-pool app scales its decode pool on KV headroom.
-        scaling = _llm_scaling(scale_ready.result(timeout=300))
-        background.shutdown()
-    finally:
-        serve.shutdown()
+                def decode_running() -> int:
+                    return serve.status()["llm"]["deployments"]["llm_decode"]["running_replicas"]
+
+                # Phase 1: the baseline and the steady-state probe.
+                probe: dict = {}
+                baseline = _llm_load(seconds, LLM_HANDLE_THREADS, LLM_HTTP_THREADS, ports, probe)
+                before = controller.get_metrics()[qname]
+                victims = sorted(m["pid"] for m in before)
+                proxies = {p["port"]: p for p in controller.get_proxies()}
+                require(len(victims) == 2 and proxies[port + 1]["pid"],
+                        f"serve_llm: decode pids {victims}, proxies {proxies}")
+
+                # Phase 2: a decode replica's process and the second proxy's killed
+                # mid-window, at the load the surviving replica can carry alone.
+                def kills() -> list:
+                    events, t_kill = [], time.perf_counter()
+                    for at, pid, what in ((LLM_KILL_REPLICA_S, victims[0], "replica"),
+                                          (LLM_KILL_PROXY_S, proxies[port + 1]["pid"], "proxy")):
+                        time.sleep(max(0.0, at - (time.perf_counter() - t_kill)))
+                        try:
+                            os.kill(pid, signal.SIGKILL)
+                            events.append({"target": what, "pid": pid, "status": "ok",
+                                           "at_s": time.perf_counter() - t_kill})
+                        except ProcessLookupError:
+                            events.append({"target": what, "pid": pid, "status": "gone"})
+                    return events
+
+                chaos = _llm_load(seconds, max(1, LLM_HANDLE_THREADS // 4), LLM_HTTP_THREADS, ports,
+                                  during=kills)
+                # Phase 3's app starts while the killed replica and proxy come back.
+                scale_ready = background.submit(_llm_scaling_deploy, share)
+                recover_start = time.perf_counter()
+                recovered = proxy_back = False
+                while time.perf_counter() - recover_start < LLM_RECOVER_S:
+                    pids = {m["pid"] for m in controller.get_metrics().get(qname, [])}
+                    recovered = decode_running() == 2 and victims[0] not in pids and len(pids) == 2
+                    now = next(p for p in controller.get_proxies() if p["port"] == port + 1)
+                    try:
+                        proxy_back = now["restarts"] == 1 and _post_json(
+                            port + 1, "/llm", {"prompt": LLM_PROMPT, "max_tokens": LLM_MAX_TOKENS}
+                        )["tokens"] == llm_expected_tokens(LLM_PROMPT, LLM_MAX_TOKENS)
+                    except (OSError, AssertionError):
+                        proxy_back = False
+                    if recovered and proxy_back:
+                        break
+                    time.sleep(0.5)
+                recover_s = time.perf_counter() - recover_start
+                after = controller.get_metrics()[qname]
+
+                # Phase 3: the tiny-pool app scales its decode pool on KV headroom.
+                scaling = _llm_scaling(scale_ready.result(timeout=300))
+                background.shutdown()
+            finally:
+                serve.shutdown()
+            # The wire hop under the request's KV-transfer span; then the
+            # chain read back and the observability bench's paired windows.
+            kv_span = next((s for s in tracing.read_spans(session)
+                            if s["trace_id"] == LLM_TRACE_ID
+                            and s["name"] == "serve.kv_transfer"), None)
+            wire = _llm_wire_trace({"trace_id": LLM_TRACE_ID,
+                                    "span_id": (kv_span or {}).get("span_id", "0" * 16)})
+            trace_check = _llm_trace_check(session, victims, prefill_pids, wire)
+            obs = _llm_obs_overhead("cuda")
+        finally:
+            shutil.rmtree(session, ignore_errors=True)
+    OBSERVABILITY["serve_llm"] = {**trace_check, "bench_phase1": obs,
+                                  "decode_controller_rpcs": probe.get("controller_rpcs", -1),
+                                  "probe_window_iterations": probe.get("window_iterations", [])}
+    log("serve_llm_trace", **trace_check)
+    log("serve_llm_observability", **obs)
 
     base_p99 = _percentile_ms(baseline["http_latencies"], 0.99) if baseline[
         "http_latencies"] else 0.0
@@ -7563,6 +8147,10 @@ def phase_serve_llm(seconds: float = LLM_SECONDS) -> dict:
             f"serve_llm: decode pools {pools}")
     require(all(codec[q]["bitwise"] and codec[q]["pool_device"].startswith("cuda")
                 for q in codec), f"serve_llm: the card's KV decode {codec}")
+    require(trace_check["ok"], f"serve_llm: the sampled request's trace {trace_check}")
+    require(obs["overhead_pct"] <= LLM_OBS_HOLD_PCT,
+            f"serve_llm: observability overhead {obs['overhead_pct']:.3f}% above "
+            f"{LLM_OBS_HOLD_PCT}%")
     result["replica_kernels"] = kernels
     return result
 
@@ -7675,9 +8263,12 @@ def main() -> None:
           collective_calls=sharded["collective_calls"])
 
     phase_collectives()
+    walls = {}
     # The trainer path's kernels launch in its worker processes, which
     # count from 0 and report their counts; this process's stay at 0.
+    t0 = time.perf_counter()
     trainer, local, _ = _run_path(phase_trainer, sharded["step_ms"])
+    walls["trainer"] = time.perf_counter() - t0
     require(not any(local.values()), f"trainer: launches in the driver process {local}")
     counts["trainer"], routes["trainer"] = trainer["counts"], trainer["routes"]
     passes = {k: trainer[k] for k in ("kernel_forwards", "kernel_backwards", "plain_forwards")}
@@ -7710,7 +8301,9 @@ def main() -> None:
           counts["rllib_offpolicy"], routes["rllib_offpolicy"], "wgmma")
     # The profiler: (a) runs in this process; (b)'s kernels launch in its
     # worker, whose counts come back in its reports, as phase 14's do.
+    t0 = time.perf_counter()
     prof, counts["profiler"], routes["profiler"] = _run_path(phase_profiler)
+    walls["profiler"] = time.perf_counter() - t0
     passes = {k: prof[k] for k in ("kernel_forwards", "kernel_backwards", "plain_forwards")}
     _path("profiler", _expected(TRAIN_CONFIG["n_layers"], **passes), counts["profiler"],
           routes["profiler"], "wgmma", **passes)
@@ -7779,7 +8372,9 @@ def main() -> None:
     # launches are its own stage_forward chains, which the outputs are held
     # against, and none during the graph's executions.
     dag_config = TransformerConfig.llama2_7b(n_layers=DAG_LAYERS)
+    t0 = time.perf_counter()
     dagr, local, _ = _run_path(phase_dag, dag_config)
+    walls["dag"] = time.perf_counter() - t0
     pipe28 = dagr["pipeline"]
     counts["dag"], routes["dag"] = _dag_paths(pipe28, local, dag_config)
 
@@ -7787,7 +8382,9 @@ def main() -> None:
     # members of each run, whose counts (from 0 in each process) come back
     # over the ring in rank 0's reports, each member held to its steps;
     # this process runs the codec alone and launches none.
+    t0 = time.perf_counter()
     ring, local, _ = _run_path(phase_ring)
+    walls["ring"] = time.perf_counter() - t0
     require(not any(local.values()), f"ring: launches in the driver process {local}")
     counts["ring"], routes["ring"] = ring["counts"], ring["routes"]
     _path("ring", _expected(RING_LAYERS, kernel_forwards=ring["kernel_forwards"],
@@ -7797,7 +8394,9 @@ def main() -> None:
     # Phase 30: the serve-LLM engine. Its decode replicas (on the card) and
     # its prefill replicas launch none of the port's kernels: their counts
     # come back in their metrics, each 0, and this process launches none.
+    t0 = time.perf_counter()
     llm_run, counts["serve_llm"], routes["serve_llm"] = _run_path(phase_serve_llm)
+    walls["serve_llm"] = time.perf_counter() - t0
     replica_launches = [v["launches"] for k in llm_run["replica_kernels"] for v in k.values()]
     require(not any(replica_launches), f"serve_llm: replica launches {replica_launches}")
     _path("serve_llm", {k: 0 for k in counts["serve_llm"]}, counts["serve_llm"],
@@ -7824,6 +8423,14 @@ def main() -> None:
         if paths:
             require(e["launches"] > 0, f"{e['name']}: no launch on the main paths")
         e["max_err"], e["kernel_ms"] = e["max_abs_err"], e["ms"]  # the phase-3 lines' names
+
+    # What the traced phases and the chaos kills showed, and their walls.
+    log("observability", **OBSERVABILITY, walls_s=walls, previous_walls_s=PREVIOUS_WALLS_S,
+        trace_ids=OBSERVABILITY["profiler"]["trace_ids"],
+        chaos_events={"trainer": OBSERVABILITY["trainer"]["chaos_events"],
+                      "ring": OBSERVABILITY["ring"]["latency_window"]["events"]},
+        overhead_pct=OBSERVABILITY["serve_llm"]["bench_phase1"]["overhead_pct"])
+    shutil.rmtree(TRACE_ROOT, ignore_errors=True)
 
     log("summary", train_tokens_per_s=train["tokens_per_s"],
         moe_serve_prefill_tokens_per_s=moe_serve["prefill_tokens_per_s"],

@@ -96,6 +96,8 @@ import traceback
 import uuid
 from typing import Any, Iterable
 
+from ray_tpu_torch.util import tracing
+
 STORE_PREFIX = "ray_tpu_torch_store_"
 # File layout: magic, buffer count, pickle length, each buffer's length;
 # then the pickle, then each buffer, every part at a 64-byte boundary.
@@ -371,6 +373,7 @@ def _stop_actor_process() -> None:
         runtime.stop()
     sys.stdout.flush()
     sys.stderr.flush()
+    tracing.flush()  # a graph's spans
     os._exit(0)
 
 
@@ -466,6 +469,10 @@ def _dag_push(payload: dict) -> dict:
     from ray_tpu_torch.dag import channel
 
     value = channel.deserialize(payload["value"], zero_copy=False)
+    if payload.get("trace") is not None:
+        from ray_tpu_torch.dag.channels import _TR_WIRE
+
+        value = (_TR_WIRE, payload["trace"], value)
     try:
         runtime.feed(payload["node"], payload["slot"], payload["seq"], value)
     except KeyError as exc:

@@ -47,7 +47,9 @@ Knobs (all env):
 
 The AUTO knobs are read by the flight recorder's driver half
 (``train.step_stats.FlightRecorder``), whose auto-capture goes through the
-trainer's ``capture_profile`` queue.
+trainer's ``capture_profile`` queue. A step boundary mark carries the
+ambient span's trace and span ids (``tracing.inject()``) while tracing is
+on, so the merged trace's ``trace_ids`` joins the capture to the spans.
 """
 
 from __future__ import annotations
@@ -60,6 +62,8 @@ import sys
 import tempfile
 import threading
 import time
+
+from ray_tpu_torch.util import tracing
 
 logger = logging.getLogger(__name__)
 
@@ -533,10 +537,15 @@ class ProfilePlane:
         _capturing = True
 
     def _note_boundary_locked(self, step: int) -> None:
-        # The reference joins its span tracer's trace and span ids here
-        # (``tracing.inject()``); that tracer is runtime, not ported, so the
-        # marks carry no ids and the merged trace's ``trace_ids`` is empty.
-        self._boundaries.append({"step": step, "ts": time.time()})
+        # The ambient span's ids join a step to its trace (a gang member's
+        # ``execute`` span, with tracing on); the merged trace gathers them
+        # as ``trace_ids``.
+        mark = {"step": step, "ts": time.time()}
+        ctx = tracing.inject()
+        if ctx:
+            mark["trace_id"] = ctx["trace_id"]
+            mark["span_id"] = ctx["span_id"]
+        self._boundaries.append(mark)
 
     def _start_device_trace_locked(self) -> None:
         try:

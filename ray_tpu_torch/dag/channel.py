@@ -32,12 +32,15 @@ stage that writes its input in place copies it first. A CUDA tensor is
 refused here (``TypeError``): a host channel never moves a card's tensor
 through the host, a device edge carries it (``channels.DeviceChannel``).
 
-Seq framing is the reference's: each slot carries an ``(epoch, seq)``
-header and one trace-length byte (always 0: trace-context segments are
-ROADMAP item 14), so a consumer that polls a slot verifies it holds the
-seq it expects, and a frame written before a recovery's epoch bump is
-discarded and counted (``stale_frame_count``) instead of desequencing the
-re-opened ring.
+Seq framing is the reference's, byte for byte: each slot carries an
+``(epoch, seq)`` header, then a trace segment (one length byte, then that
+many bytes of ``util.tracing.pack_ctx``: 25 for a traced frame, 0 and the
+one ``b"\x00"`` byte when tracing is off), so a consumer that polls a slot
+verifies it holds the seq it expects, and a frame written before a
+recovery's epoch bump is discarded and counted (``stale_frame_count``)
+instead of desequencing the re-opened ring. This module stays
+tracing-agnostic: a producer passes the packed segment in, a consumer
+gets it back raw.
 """
 
 from __future__ import annotations
@@ -347,6 +350,7 @@ def read_consume(store: SlotStore, name: str, timeout_ms: int = 60_000):
 
 
 SEQ_HEADER = struct.Struct("<QQ")  # (epoch, seq)
+# The trace segment of a frame with no trace context: its length byte, 0.
 _NO_TRACE = b"\x00"
 
 # Distinguishes "slot not written yet" from any payload value (None too).
@@ -362,18 +366,23 @@ def stale_frame_count() -> int:
 
 
 def try_write_seq(store: SlotStore, name: str, seq: int, parts, total: int,
-                  epoch: int = 0) -> bool:
+                  epoch: int = 0, trace: bytes = b"") -> bool:
     """One seq-framed write attempt; False while the ring slot still holds
-    an unconsumed earlier seq."""
+    an unconsumed earlier seq. ``trace`` is a packed trace context
+    (``tracing.pack_ctx``) that rides the header after (epoch, seq)."""
     header = SEQ_HEADER.pack(epoch, seq)
-    return try_write(store, name, [header, _NO_TRACE, *parts],
-                     total + SEQ_HEADER.size + len(_NO_TRACE))
+    seg = bytes([len(trace)]) + trace if trace else _NO_TRACE
+    return try_write(store, name, [header, seg, *parts],
+                     total + SEQ_HEADER.size + len(seg))
 
 
-def read_seq_consume(store: SlotStore, name: str, seq: int, epoch: int = 0):
+def read_seq_consume(store: SlotStore, name: str, seq: int, epoch: int = 0,
+                     trace_out: list | None = None):
     """Non-blocking epoch+seq-framed read. NOT_READY when the slot is
     absent or holds a stale-epoch frame (consumed and counted, so the
-    replaying producer can claim the slot); otherwise the slot's value."""
+    replaying producer can claim the slot); otherwise the slot's value.
+    When the frame carries a trace segment and the caller passed
+    ``trace_out``, the segment's raw bytes are appended to it."""
     global _stale_frames
     view = store.get(name, timeout_ms=0)
     if view is None:
@@ -393,5 +402,8 @@ def read_seq_consume(store: SlotStore, name: str, seq: int, epoch: int = 0):
     if got != seq:
         _free_slot(store, name)
         raise RuntimeError(f"channel slot {name}: seq desync (holds {got}, expected {seq})")
-    body = SEQ_HEADER.size + 1 + view[SEQ_HEADER.size]
+    trace_len = view[SEQ_HEADER.size]
+    body = SEQ_HEADER.size + 1 + trace_len
+    if trace_len and trace_out is not None:
+        trace_out.append(bytes(view[SEQ_HEADER.size + 1:body]))
     return _consume_view(store, name, view[body:])

@@ -40,7 +40,17 @@ with an error-feedback residual an edge, in the reference's envelope
 Every push and pop records into the comm flight ring under
 ``flight.site("dag")``: a note a shm push or pop, a note a device push, and
 a recv record around a blocking device pop, which the watchdog watches.
-Left out here: trace-context envelopes (ROADMAP Queue A item 14).
+
+With tracing on and a context flowing (the caller's, else the ambient
+span's), a push opens a ``channel.push`` span whose own context rides the
+frame: in a shm slot's header (``tracing.pack_ctx``), on a device or local
+edge in the reference's envelope ``("__tr", ctx, payload)``. The consumer
+emits a ``channel.pop`` span parented on it, covering its wait, and keeps
+the context on ``last_trace`` (the executor parents its stage span on
+it). The flight records a hop makes carry its trace id. A device pop
+sleeps first for the chaos latency point ``dag.device.pop``. The
+untraced path costs one attribute read and one ``b"\x00"`` byte a shm
+frame.
 """
 
 from __future__ import annotations
@@ -59,12 +69,43 @@ import threading
 import time
 import zlib
 
+from ray_tpu_torch._private import chaos
 from ray_tpu_torch.dag import channel as shm
+from ray_tpu_torch.util import tracing
 from ray_tpu_torch.util.collective import flight
 
 # Marker of a codec-compressed payload, the envelope the pipeline's
 # activation wire uses too.
 _ACT_WIRE = "__act"
+
+# Marker of a payload carrying a trace context, ``(marker, ctx, payload)``:
+# device and local edges have no frame header to extend. Written only
+# while a context flows, so an untraced payload is unchanged.
+_TR_WIRE = "__tr"
+
+
+def _resolve_ctx(trace):
+    """The context a push propagates: the caller's (a popped upstream
+    context), else the ambient span's (None while tracing is off)."""
+    return trace if trace is not None else tracing.inject()
+
+
+def _push_span(ctx, *, channel: str, family: str, seq, nbytes: int):
+    """Opens the ``channel.push`` span whose own context rides the wire, so
+    that the consumer's ``channel.pop`` parents on it."""
+    if ctx is None:
+        return None, None
+    span = tracing.begin("channel.push", parent=ctx, channel=channel, family=family,
+                         seq=seq, nbytes=nbytes)
+    return span, {"trace_id": span.trace_id, "span_id": span.span_id}
+
+
+def _emit_pop(ctx, started: float, **attributes) -> None:
+    """The consumer's ``channel.pop`` span, covering its wait."""
+    wait_s = time.monotonic() - started
+    end_ns = time.time_ns()
+    tracing.emit("channel.pop", ctx, start_ns=end_ns - int(wait_s * 1e9), end_ns=end_ns,
+                 **attributes)
 
 
 class ChannelClosedError(RuntimeError):
@@ -82,34 +123,49 @@ class ShmChannel:
         self.depth = depth
         self.epoch = epoch
         self._group = group
+        # The trace context of the last pop (one consumer a ring).
+        self.last_trace: dict | None = None
 
-    def push(self, seq: int, value, timeout: float = 120.0, stop=None) -> None:
+    def push(self, seq: int, value, timeout: float = 120.0, stop=None,
+             trace: dict | None = None) -> None:
         parts, total = shm.serialize_parts(value)
-        self.push_parts(seq, parts, total, timeout=timeout, stop=stop)
+        self.push_parts(seq, parts, total, timeout=timeout, stop=stop, trace=trace)
 
     def push_parts(self, seq: int, parts, total: int, timeout: float = 120.0,
-                   stop=None) -> None:
+                   stop=None, trace: dict | None = None) -> None:
+        ctx = _resolve_ctx(trace)
+        span, wire_ctx = _push_span(ctx, channel=self.base, family="shm", seq=seq, nbytes=total)
+        wire = tracing.pack_ctx(wire_ctx) if wire_ctx else b""
         name = shm.slot_name(self.base, seq, self.depth)
         deadline = time.monotonic() + timeout
-        while not shm.try_write_seq(self._store, name, seq, parts, total, epoch=self.epoch):
+        while not shm.try_write_seq(self._store, name, seq, parts, total, epoch=self.epoch,
+                                    trace=wire):
             if stop is not None and stop():
                 raise ChannelClosedError(f"{self.base}: channel closed")
             if time.monotonic() > deadline:
                 raise TimeoutError(f"channel slot {name} still unread after {timeout}s")
             time.sleep(0.0005)
-        with flight.site("dag"):
+        with flight.site("dag"), flight.trace(ctx["trace_id"] if ctx else None):
             flight.note(self._group, "chan_push", tag=self.base, nbytes=total)
+        if span is not None:
+            tracing.finish(span)
 
     def pop(self, seq: int, timeout: float | None = None, stop=None):
         name = shm.slot_name(self.base, seq, self.depth)
         deadline = None if timeout is None else time.monotonic() + timeout
         started = time.monotonic()
         delay = 0.0002
+        trace_out: list = []
         while True:
-            value = shm.read_seq_consume(self._store, name, seq, epoch=self.epoch)
+            value = shm.read_seq_consume(self._store, name, seq, epoch=self.epoch,
+                                         trace_out=trace_out)
             if value is not shm.NOT_READY:
-                with flight.site("dag"):
+                ctx = tracing.unpack_ctx(trace_out[0]) if trace_out else None
+                self.last_trace = ctx
+                with flight.site("dag"), flight.trace(ctx["trace_id"] if ctx else None):
                     flight.note(self._group, "chan_pop", tag=self.base)
+                if ctx is not None:
+                    _emit_pop(ctx, started, channel=self.base, family="shm", seq=seq)
                 return value
             if stop is not None and stop():
                 raise ChannelClosedError(f"{self.base}: channel closed")
@@ -473,6 +529,8 @@ class DeviceChannel:
         self._held: collections.deque = collections.deque()
         self._cache: dict = {}
         self._role = role
+        # The trace context of the last edge pop.
+        self.last_trace: dict | None = None
         self._box = None
         if role == "consumer":
             self._box = group.mailbox(peer, self._data_tag)
@@ -516,8 +574,13 @@ class DeviceChannel:
         return rec
 
     # -- edge mode -------------------------------------------------------
-    def push_edge(self, value, stop=None) -> None:
-        body, held, nccl = encode(self._group, self._peer, self._encode(value, self._ef_site))
+    def push_edge(self, value, stop=None, trace: dict | None = None) -> None:
+        payload = self._encode(value, self._ef_site)
+        ctx = _resolve_ctx(trace)
+        span, wire_ctx = _push_span(ctx, channel=self.tag, family="device", seq=None, nbytes=0)
+        if wire_ctx is not None:
+            payload = (_TR_WIRE, wire_ctx, payload)
+        body, held, nccl = encode(self._group, self._peer, payload)
         if held:
             while len(self._held) >= self.depth:
                 self._take_ack(stop)
@@ -526,7 +589,10 @@ class DeviceChannel:
             self._group.nccl.send([t], self._peer, 0).wait()
         if held:
             self._held.append(held)
-        self._note_push(body)
+        with flight.trace(ctx["trace_id"] if ctx else None):
+            self._note_push(body)
+        if span is not None:
+            tracing.finish(span)
 
     def _take_ack(self, stop=None, timeout: float | None = None) -> None:
         kind, _ = self._box.get(timeout=timeout, stop=stop)
@@ -536,6 +602,12 @@ class DeviceChannel:
         self._group.torch.cuda.ipc_collect()
 
     def pop_edge(self, *, timeout: float = 60.0, stop=None):
+        # A windowed schedule makes the whole device wire slow but alive,
+        # which the supervisor must tell from a death.
+        extra = chaos.latency_delay("dag.device.pop")
+        if extra > 0:
+            time.sleep(extra)
+        started = time.monotonic()
         rec = self._recv_record(self.tag)
         try:
             kind, body = self._box.get(timeout=timeout, stop=stop)
@@ -544,7 +616,14 @@ class DeviceChannel:
             raise
         flight.completed(rec)
         self._recv_seq += 1
-        return self._decode(self._receive(body, self._ack_tag))
+        out = self._receive(body, self._ack_tag)
+        if isinstance(out, tuple) and len(out) == 3 and out[0] == _TR_WIRE:
+            _, ctx, out = out
+            self.last_trace = ctx
+            _emit_pop(ctx, started, channel=self.tag, family="device")
+        else:
+            self.last_trace = None
+        return self._decode(out)
 
     def _receive(self, body, ack_tag: int):
         value, dec = decode(self._group, self._peer, body, self._cache)
@@ -596,10 +675,15 @@ class LocalChannel:
         self._q: asyncio.Queue = asyncio.Queue(maxsize=maxsize)
         self._label = label
         self._closed = False
+        # The trace context of the last traced item drained.
+        self.last_trace: dict | None = None
 
-    async def put(self, item) -> None:
+    async def put(self, item, trace: dict | None = None) -> None:
         if self._closed:
             raise ChannelClosedError(f"{self._label}: channel closed")
+        if trace is not None:
+            # The device wire's envelope: pop_batch unwraps it.
+            item = (_TR_WIRE, trace, item)
         await self._q.put(item)
 
     def qsize(self) -> int:
@@ -618,7 +702,13 @@ class LocalChannel:
                 items.append(self._q.get_nowait())
             except asyncio.QueueEmpty:
                 break
-        return items
+        unwrapped: list = []
+        for item in items:
+            if isinstance(item, tuple) and len(item) == 3 and item[0] == _TR_WIRE:
+                self.last_trace = item[1]
+                item = item[2]
+            unwrapped.append(item)
+        return unwrapped
 
     def close(self) -> None:
         self._closed = True

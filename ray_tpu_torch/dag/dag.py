@@ -28,8 +28,11 @@ numpy arrays that device edges carry, with an error-feedback residual an
 edge (``util.collective.quantization``), as the reference's does.
 Supervised reads probe liveness every ``PROBE_INTERVAL_S``, and at once
 when the comm watchdog reports a stall on one of the graph's channels
-(a stall listener on the graph's id). Left out: trace contexts and
-placement on more than one host (ROADMAP Queue A item 14).
+(a stall listener on the graph's id). With tracing on, ``execute``
+pushes the ambient span's context (``tracing.inject()``) into every input
+edge, and a supervised graph retains it with the input, so a replay
+re-pushes each frame under its original trace id. Left out: placement on
+more than one host (ROADMAP Queue A item 14c).
 """
 
 from __future__ import annotations
@@ -51,6 +54,7 @@ from ray_tpu_torch.dag.channels import (
     host_store,
     int_tag,
 )
+from ray_tpu_torch.util import tracing
 
 _node_counter = itertools.count()
 
@@ -580,28 +584,35 @@ class CompiledDAG:
         self._submitted += 1
         self._inflight.add(seq)
         if self._supervise:
-            self._retained[seq] = value
+            # The retained input is the replay log a recovery re-feeds
+            # from; its submit-time trace context rides along, so a replay
+            # re-pushes each frame under its original trace id.
+            self._retained[seq] = (value, tracing.inject())
         self._push_input(seq, value)
         return DAGRef(self, seq)
 
-    def _push_input(self, seq: int, value: Any) -> None:
+    def _push_input(self, seq: int, value: Any, trace: dict | None = None) -> None:
         """Pushes one input seq into every input edge (execute() and the
-        supervisor's replay)."""
+        supervisor's replay). ``trace`` overrides the ambient context: the
+        replay passes the retained submit-time one."""
+        ctx = trace if trace is not None else tracing.inject()
         parts = total = raw = None
         for target in self._input_targets:
             fam = target["family"]
             if fam == "shm":
                 if parts is None:
                     parts, total = shm.serialize_parts(value)
-                target["chan"].push_parts(seq, parts, total)
+                target["chan"].push_parts(seq, parts, total, trace=ctx)
             elif fam == "device":
-                target["chan"].push_edge(value)
+                target["chan"].push_edge(value, trace=ctx)
             else:  # socket fallback: one message a push
                 if raw is None:
                     raw = shm.serialize(value)
-                resp = self._call_actor(target["actor_id"], "dag_push", {
-                    "dag_id": self.dag_id, "node": target["node"], "seq": seq,
-                    "slot": target["slot"], "value": raw, "epoch": self._epoch})
+                payload = {"dag_id": self.dag_id, "node": target["node"], "seq": seq,
+                           "slot": target["slot"], "value": raw, "epoch": self._epoch}
+                if ctx is not None:
+                    payload["trace"] = ctx
+                resp = self._call_actor(target["actor_id"], "dag_push", payload)
                 if (resp or {}).get("status") == "stale_epoch":
                     raise RuntimeError(f"{self.dag_id}: dag_push rejected: the actor is at a "
                                        f"newer epoch than this driver ({self._epoch})")

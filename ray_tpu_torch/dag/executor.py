@@ -13,6 +13,12 @@ stopped loop ends promptly. The ``DagRuntime`` of a graph is built by the
 actor process's ``dag_register`` message (``_private.local_tasks``); a
 graph compiled with ``quantize_wire`` gives its device edges the codec and
 one ``ErrorFeedback`` an actor, as the reference's executor does.
+
+A traced input (a context that rode its frame: a channel's
+``last_trace``, or the ``("__tr", ctx, value)`` envelope on a local or
+socket edge) makes the stage invocation a ``dag.stage <method>`` span
+under it, and that span's context flows into every push downstream, so a
+hop chains push -> pop -> stage -> push.
 """
 
 from __future__ import annotations
@@ -25,12 +31,14 @@ import traceback
 from ray_tpu_torch._private.local_tasks import TaskError
 from ray_tpu_torch.dag import channel as shm
 from ray_tpu_torch.dag.channels import (
+    _TR_WIRE,
     ChannelClosedError,
     DeviceChannel,
     DeviceGroup,
     ShmChannel,
     join_store,
 )
+from ray_tpu_torch.util import tracing
 
 _POP_SLICE_S = 0.5
 
@@ -155,31 +163,41 @@ class StageLoop(threading.Thread):
 
     # -- per-edge ops ----------------------------------------------------
     def _pop_input(self, fam: str, chan, seq: int):
+        """One input value and the trace context that rode its frame (the
+        channel's ``last_trace`` on shm and device edges, the envelope on
+        buffered local and socket edges; None untraced)."""
         if fam == "shm":
-            return chan.pop(seq, timeout=None, stop=self.stopped)
+            value = chan.pop(seq, timeout=None, stop=self.stopped)
+            return value, chan.last_trace
         if fam == "device":
             while True:
                 try:
-                    return chan.pop_edge(timeout=_POP_SLICE_S, stop=self.stopped)
+                    value = chan.pop_edge(timeout=_POP_SLICE_S, stop=self.stopped)
+                    return value, chan.last_trace
                 except TimeoutError:
                     continue
-        return chan.pop(seq, stop=self.stopped)  # SeqBuffer
+        value = chan.pop(seq, stop=self.stopped)  # SeqBuffer
+        if isinstance(value, tuple) and len(value) == 3 and value[0] == _TR_WIRE:
+            return value[2], value[1]
+        return value, None
 
-    def _push_downstream(self, edge, seq: int, result, cache: dict) -> None:
+    def _push_downstream(self, edge, seq: int, result, cache: dict,
+                         trace: dict | None = None) -> None:
         fam = edge["family"]
         if fam == "local":
-            self._deliver_local(edge["node"], edge["slot"], seq, private_copy(result))
+            self._deliver_local(edge["node"], edge["slot"], seq, private_copy(result), trace)
         elif fam == "shm":
             if "parts" not in cache:
                 cache["parts"], cache["total"] = shm.serialize_parts(result)
             self._down_chans[(edge["node"], edge["slot"])].push_parts(
-                seq, cache["parts"], cache["total"], stop=self.stopped)
+                seq, cache["parts"], cache["total"], stop=self.stopped, trace=trace)
         elif fam == "device":
-            self._down_chans[(edge["node"], edge["slot"])].push_edge(result, stop=self.stopped)
+            self._down_chans[(edge["node"], edge["slot"])].push_edge(
+                result, stop=self.stopped, trace=trace)
         else:  # socket
             if "raw" not in cache:
                 cache["raw"] = shm.serialize(result)
-            self._send_socket(edge, seq, cache["raw"])
+            self._send_socket(edge, seq, cache["raw"], trace)
 
     # -- main loop -------------------------------------------------------
     def run(self) -> None:
@@ -191,12 +209,18 @@ class StageLoop(threading.Thread):
             for seq in itertools.count(self.start_seq):
                 if self.stopped():
                     return
-                args, err = [], None
+                args, err, in_ctx = [], None, None
                 for _, fam, chan in self._in_pops:
-                    value = self._pop_input(fam, chan, seq)
+                    value, ctx = self._pop_input(fam, chan, seq)
+                    if in_ctx is None and ctx is not None:
+                        in_ctx = ctx
                     if err is None and isinstance(value, TaskError):
                         err = value
                     args.append(value)
+                stage_span = None
+                if in_ctx is not None and tracing.enabled():
+                    stage_span = tracing.begin(f"dag.stage {stage['method']}", parent=in_ctx,
+                                               dag_id=self.dag_id, node=stage["node"], seq=seq)
                 if err is not None:
                     result = err  # skip compute, forward the failure
                 else:
@@ -205,16 +229,21 @@ class StageLoop(threading.Thread):
                     except Exception as exc:
                         result = TaskError(stage["method"], f"{type(exc).__name__}: {exc}",
                                            traceback.format_exc())
+                        if stage_span is not None:
+                            stage_span.set_error(type(result).__name__)
+                out_ctx = tracing.context_of(stage_span) if stage_span is not None else in_ctx
                 cache: dict = {}
                 for edge in stage.get("downstream", ()):
-                    self._push_downstream(edge, seq, result, cache)
+                    self._push_downstream(edge, seq, result, cache, out_ctx)
                 for out, chan in self._out_chans:
                     if chan is None:
                         self._park_output(seq, result)
                     elif out["family"] == "shm":
-                        chan.push(seq, result, stop=self.stopped)
+                        chan.push(seq, result, stop=self.stopped, trace=out_ctx)
                     else:
-                        chan.push_edge(result, stop=self.stopped)
+                        chan.push_edge(result, stop=self.stopped, trace=out_ctx)
+                if stage_span is not None:
+                    tracing.finish(stage_span)
         except ChannelClosedError:
             return
         except Exception:
@@ -268,13 +297,20 @@ class DagRuntime:
         raise KeyError(f"dag {self.dag_id}: stage {node} not on this actor")
 
     # -- StageLoop callbacks ---------------------------------------------
-    def _deliver_local(self, node: int, slot: str, seq: int, value) -> None:
+    def _deliver_local(self, node: int, slot: str, seq: int, value,
+                       trace: dict | None = None) -> None:
+        if trace is not None:
+            value = (_TR_WIRE, trace, value)
         self.feed(node, slot, seq, value)
 
-    def _send_socket(self, edge: dict, seq: int, raw) -> None:
-        reply = self._send_socket_fn(edge["address"], {
-            "dag_id": self.dag_id, "node": edge["node"], "slot": edge["slot"],
-            "seq": seq, "value": raw, "epoch": self.epoch})
+    def _send_socket(self, edge: dict, seq: int, raw, trace: dict | None = None) -> None:
+        payload = {"dag_id": self.dag_id, "node": edge["node"], "slot": edge["slot"],
+                   "seq": seq, "value": raw, "epoch": self.epoch}
+        if trace is not None:
+            # A sidecar field: the receiver wraps the value after it is
+            # deserialized, so the value's bytes stay as they are.
+            payload["trace"] = trace
+        reply = self._send_socket_fn(edge["address"], payload)
         if (reply or {}).get("status") != "ok":
             raise RuntimeError(f"dag_push to stage {edge['node']} failed: {reply!r}")
 

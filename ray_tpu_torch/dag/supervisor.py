@@ -117,7 +117,8 @@ def _replay(dag, start_seq: int) -> None:
             if seq - laggard._next < dag.CHANNEL_DEPTH:
                 break
             laggard.drain_one(time.monotonic() + _REPLAY_DRAIN_TIMEOUT_S)
-        dag._push_input(seq, dag._retained[seq])
+        value, trace = dag._retained[seq]
+        dag._push_input(seq, value, trace=trace)
 
 
 def recover(dag, err) -> None:

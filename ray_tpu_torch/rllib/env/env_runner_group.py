@@ -110,7 +110,7 @@ class EnvRunnerGroup:
 
     # -- async pipeline (IMPALA path) -----------------------------------
     def _post_sample(self, rank: int) -> None:
-        self._gang.send(rank, ("run", _runner_call, ("sample",), {}))
+        self._gang.send(rank, ("run", _runner_call, ("sample",), {}, None))
         self._inflight.add(rank)
 
     def _reply(self, rank: int, message):

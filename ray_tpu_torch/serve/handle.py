@@ -48,6 +48,7 @@ from ray_tpu_torch.serve._common import (
 )
 from ray_tpu_torch.serve.long_poll import get_subscriber
 from ray_tpu_torch.serve.routing import HashRing
+from ray_tpu_torch.util import tracing
 from ray_tpu_torch.util.backoff import Backoff
 
 
@@ -285,6 +286,9 @@ class DeploymentResponse:
         self._hedged = False
         self._drain_moves = 0
         self._shed_moves = 0
+        # The caller's span (a proxy's serve.request, a replica's span, a
+        # driver's own) parents the replica's span across the call.
+        self._trace_ctx = tracing.inject()
         self._future: concurrent.futures.Future = _channel.submit(
             self._run(args, kwargs, deadline))
 
@@ -358,7 +362,8 @@ class DeploymentResponse:
                 {"request_id": meta.request_id, "method_name": meta.method_name,
                  "multiplexed_model_id": meta.multiplexed_model_id,
                  "shape_key": handle._shape_key, "session_id": meta.session_id,
-                 "deadline_budget_s": self._deadline.budget(), "attempt": number},
+                 "deadline_budget_s": self._deadline.budget(), "attempt": number,
+                 "trace_ctx": self._trace_ctx},
                 self._args, self._kwargs)
         except _channel.ConnectionLost as exc:
             # The replica left the membership since the pick: the attempt

@@ -42,7 +42,7 @@ class SequenceState:
 
     # -- observability --------------------------------------------------
     # Trace context captured at request entry and the deterministic
-    # sampling decision (always False in the port: no tracing yet).
+    # seq_trace_sample decision, stable across replays.
     trace_ctx: Any = None
     sampled: bool = False
     # Tokens the client already holds from a replica that died: the

@@ -58,9 +58,11 @@ class LLMConfig:
     decode_flops: int = 0
 
     # -- sequence observability -----------------------------------------
-    # Fraction of sequences traced; the decision is a deterministic hash
-    # of request_id. The port has no tracing yet (ROADMAP Queue A item
-    # 14a), so no sequence is sampled whatever this says.
+    # Fraction of sequences that get full trace continuity (spans and
+    # per-sequence timeline records) while tracing is on. The decision is a
+    # deterministic hash of request_id, so a replayed sequence keeps its
+    # sampling fate (and its trace id) across replica deaths. 0.0 disables
+    # the traced path; the token ledger is always on.
     seq_trace_sample: float = 1.0
 
     # -- multiplexing ---------------------------------------------------

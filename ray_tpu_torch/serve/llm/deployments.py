@@ -33,9 +33,13 @@ one background uplink the port has: the membership subscriber's parked
 ``poll_update`` (``long_poll.PARKED_POLL``). The reference subtracts its
 metrics flush and task-event report, which the port has neither of.
 
-Left out until the port has them (ROADMAP Queue A item 14a): the chaos
-latency point ``serve.llm.prefill``, the ``serve.prefill`` and
-``serve.kv_transfer`` spans and the sampled sequences' trace contexts.
+With tracing on, a prompt pass is a ``serve.prefill`` span under the
+request's ``serve.replica`` span, and a sampled sequence
+(``seq_trace_sample``) takes the request's context and a backdated
+``serve.kv_transfer`` span for its KV decode into the pool. The prefill
+replica sleeps first for the chaos latency point ``serve.llm.prefill``.
+Left out until the port has metrics (ROADMAP Queue A item 14b): the
+TTFT and TPOT histograms and the replica's gauges.
 """
 
 from __future__ import annotations
@@ -50,13 +54,16 @@ from typing import Any, List, Optional
 import numpy as np
 import torch
 
+from ray_tpu_torch._private import chaos
 from ray_tpu_torch.serve import _channel, long_poll
 from ray_tpu_torch.serve._common import Deadline, current_deadline
+from ray_tpu_torch.serve.llm import observability as seq_obs
 from ray_tpu_torch.serve.llm.batch import SequenceState
 from ray_tpu_torch.serve.llm.config import LLMConfig
 from ray_tpu_torch.serve.llm.engine import DecodeEngine
 from ray_tpu_torch.serve.llm.wire import decode_kv_blocks, encode_kv_blocks
 from ray_tpu_torch.serve.multiplex import multiplexed
+from ray_tpu_torch.util import tracing
 
 
 def _digest(*parts) -> int:
@@ -147,6 +154,9 @@ class LLMPrefill:
         self._served = 0
 
     async def prefill(self, body: dict) -> dict:
+        extra = chaos.latency_delay("serve.llm.prefill")
+        if extra > 0:
+            await asyncio.sleep(extra)
         prompts = body.get("prompts") or [body.get("prompt", "")]
         model_id = str(body.get("model", "") or "")
         seqs = []
@@ -195,13 +205,16 @@ class LLMDecode:
 
     async def _prefill_seqs(self, prompts: list, model_id: str) -> list:
         payload = {"prompts": prompts, "model": model_id}
-        if self._prefill is None:
-            out = await self._local_prefill.prefill(payload)
-        else:
-            # One call per admission batch; to_thread keeps the blocking
-            # handle call off the engine's loop and carries the ambient
-            # deadline with it.
-            out = await asyncio.to_thread(self._run_prefill, payload)
+        # The prompt pass is a phase of the request's trace (the ambient
+        # serve.replica span parents it); a no-op while tracing is off.
+        with tracing.span("serve.prefill", prompts=len(prompts), inline=self._prefill is None):
+            if self._prefill is None:
+                out = await self._local_prefill.prefill(payload)
+            else:
+                # One call per admission batch; to_thread keeps the blocking
+                # handle call off the engine's loop and carries the ambient
+                # deadline and span with it.
+                out = await asyncio.to_thread(self._run_prefill, payload)
         return out["seqs"]
 
     def _make_seq(self, entry: dict, body: dict, model_id: str, deadline: Deadline, *,
@@ -227,6 +240,20 @@ class LLMDecode:
         # After a replica's death, how many tokens the client already
         # holds under the old fence: the ledger charges them as replays.
         seq.resume_from = int(body.get("resume_from", 0) or 0)
+        # A deterministic decision keeps a replayed request's tracing fate
+        # (and its trace id, in the retried request's context) stable.
+        seq.sampled = tracing.enabled() and seq_obs.sampled(request_id,
+                                                            self.cfg.seq_trace_sample)
+        if seq.sampled:
+            seq.trace_ctx = tracing.inject()
+            if seq.trace_ctx and kv_transfer_s > 0:
+                # Backdated: the sampling decision needs request_id, known
+                # only after the decode ran.
+                end_ns = time.time_ns()
+                tracing.emit("serve.kv_transfer", seq.trace_ctx,
+                             start_ns=end_ns - int(kv_transfer_s * 1e9), end_ns=end_ns,
+                             request_id=request_id,
+                             quantized=entry["kv"][0] != "__kv_exact")
         return seq
 
     # -- request surface ------------------------------------------------

@@ -18,19 +18,26 @@ each streaming sequence's token stream. Every iteration:
 The steady state is in-process work: channel ops, pool arithmetic, the
 model step. No call to the serve controller in an iteration.
 
-Left out until the port has the runtime's leaves (ROADMAP Queue A item
-14a): the chaos failpoint ``serve.llm.decode_iter``, the ``decode.iter``
-spans, and the ``util/metrics`` gauges, counters and token-latency
-histograms (slot occupancy, KV blocks, tokens by class, TTFT and TPOT).
+Before each decode step an armed chaos failpoint ``serve.llm.decode_iter``
+ends the replica (the handle's death retry re-prefills on a sibling). With
+tracing on, an iteration with a sampled sequence active is a
+``decode.iter`` span under the first such sequence's context, and a
+sampled sequence's token events carry its trace id (``tr``) and ride its
+stream channel in the trace envelope. Left out until the port has metrics
+(ROADMAP Queue A item 14b): the ``util/metrics`` gauges, counters and
+token-latency histograms (slot occupancy, KV blocks, tokens by class,
+TTFT and TPOT).
 """
 
 from __future__ import annotations
 
 import asyncio
+import os
 import logging
 import time
 import uuid
 
+from ray_tpu_torch._private import chaos
 from ray_tpu_torch.dag.channels import LocalChannel
 from ray_tpu_torch.serve import batching, multiplex
 from ray_tpu_torch.serve._common import DeadlineExceededError, RequestShedError
@@ -38,6 +45,7 @@ from ray_tpu_torch.serve.llm import observability as seq_obs
 from ray_tpu_torch.serve.llm.batch import SequenceState, SlotBatch
 from ray_tpu_torch.serve.llm.config import LLMConfig
 from ray_tpu_torch.serve.llm.kv import KVBlockPool
+from ray_tpu_torch.util import tracing
 
 logger = logging.getLogger(__name__)
 
@@ -185,6 +193,11 @@ class DecodeEngine:
         active = self._batch.active()
         if not active:
             return
+        # An armed mid-decode kill takes the replica down between iterations.
+        try:
+            chaos.failpoint("serve.llm.decode_iter")
+        except chaos.ChaosFault:
+            os._exit(1)
         # 4. one decode step over the active slots at the covering padded
         # bucket, KV pages gathered from the paged pool.
         bucket = self._batch.bucket_for(len(active))
@@ -193,6 +206,14 @@ class DecodeEngine:
             self._last_bucket = bucket
         seqs = [s for _, s in active]
         kv_pages = [self._kv.read(s.kv_blocks) for s in seqs]
+        # Parented on the first sampled active sequence's trace, so the
+        # iteration that made a token sits in that sequence's trace tree.
+        iter_span = None
+        if tracing.enabled():
+            parent = next((s.trace_ctx for s in seqs if s.sampled and s.trace_ctx), None)
+            if parent is not None:
+                iter_span = tracing.begin("decode.iter", parent=parent, replica=self.replica_id,
+                                          slots=len(active), bucket=bucket)
         tokens = self.model.decode_step(seqs, kv_pages, bucket)
         # 5. append or stream tokens; evict completed sequences.
         self.ledger.issue(len(active))
@@ -203,14 +224,19 @@ class DecodeEngine:
             if len(seq.generated) == 1:
                 seq.first_token_at = now_t
             if seq.out_chan is not None:
-                await seq.out_chan.put({"i": len(seq.generated) - 1, "t": int(tok),
-                                        "fence": self.fence})
+                event = {"i": len(seq.generated) - 1, "t": int(tok), "fence": self.fence}
+                if seq.sampled and seq.trace_ctx:
+                    # The trace id follows every token to the client.
+                    event["tr"] = seq.trace_ctx["trace_id"]
+                await seq.out_chan.put(event, trace=seq.trace_ctx if seq.sampled else None)
             if seq.done():
                 self._batch.evict(idx)
                 self._release(seq)
                 self.completed += 1
                 self._finish_ledger(seq, "productive", "completed")
                 await self._finish_ok(seq)
+        if iter_span is not None:
+            tracing.finish(iter_span)
         # 6. per-iteration bookkeeping.
         self.iterations += 1
         now = time.monotonic()

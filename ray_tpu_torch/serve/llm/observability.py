@@ -10,19 +10,18 @@ all owned by the decode replica's event loop:
   (``resume_from`` > 0) charges its first ``resume_from`` tokens to
   ``replay_discarded``.
 
-* **Per-sequence timelines**: one JSONL record per finished sequence
-  (``sequences-<pid>.jsonl``), and periodic ``kv`` records of the KV
-  pool's headroom. The reference writes them under its tracing export
-  directory; the port writes them under ``<RAYTPU_SESSION_DIR>/tracing/``,
-  the session directory the port's profiler also reads
-  (``_private/profiler.py``), and drops them when no session directory is
-  set, as the reference does with tracing off.
+* **Per-sequence timelines**: one JSONL record per finished sampled
+  sequence (``sequences-<pid>.jsonl``), and periodic ``kv`` records of the
+  KV pool's headroom, in the span exporter's directory
+  (``util.tracing._export_dir()``: ``<session_dir>/tracing/``), so that
+  ``util.timeline.build_sequence_trace`` reads spans and records from one
+  place. Without a session directory they are dropped.
 
 * **Sampling**: ``LLMConfig.seq_trace_sample`` gates the traced path by a
-  deterministic hash of request_id. The port has no tracing yet (ROADMAP
-  Queue A item 14a), so the decode deployment samples no sequence and
-  behaves as the reference does with tracing off: the ledger stays on,
-  and only the ``kv`` records are written.
+  deterministic hash of request_id, while tracing is on: a sampled
+  sequence carries its request's trace context, parents the
+  ``serve.kv_transfer`` and ``decode.iter`` spans, and stamps its trace id
+  on each token event and on its timeline record.
 """
 
 from __future__ import annotations
@@ -105,13 +104,10 @@ _flusher_started = False
 _FLUSH_AGE_S = 0.5
 
 
-def _export_dir() -> str | None:
-    session = os.environ.get("RAYTPU_SESSION_DIR")
-    return os.path.join(session, "tracing") if session else None
-
-
 def _export_path() -> str | None:
-    base = _export_dir()
+    from ray_tpu_torch.util import tracing
+
+    base = tracing._export_dir()
     if base is None:
         return None
     os.makedirs(base, exist_ok=True)

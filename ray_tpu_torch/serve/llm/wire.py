@@ -26,23 +26,31 @@ the card, not the f32 KV, and cross without a wait (pinned host buffers,
 copies queued on the stream). Without a device it decodes to numpy, as
 the reference does; ``wire_error`` measures the wire that way.
 
-Left out until the port has tracing (ROADMAP Queue A item 14a): the
-trace-context envelope (``_TR_WIRE``) and the ``channel.push`` /
-``channel.pop`` spans; ``last_trace`` stays None. The comm flight
-recorder's ``serve_llm`` site marks stay.
+With a trace context flowing (the caller's, else the ambient span's),
+``KVDeviceWire.push`` opens a ``channel.push`` span whose own context rides
+the payload in the compiled graphs' envelope ``("__tr", ctx, payload)``;
+``pop`` emits a ``channel.pop`` span under it, covering its wait, and keeps
+the context on ``last_trace``. The flight records of a hop carry its
+trace id (site ``serve_llm``). An untraced payload is unchanged.
 """
 
 from __future__ import annotations
 
+import time
+
 import numpy as np
 import torch
 
+from ray_tpu_torch.util import tracing
 from ray_tpu_torch.util.collective import flight
 
 # Self-describing payload markers, so mixed exact and quantized wires share
 # one decode path.
 _KV_EXACT = "__kv_exact"
 _KV_Q = "__kv_q"
+# A payload carrying a trace context: ``(marker, ctx, payload)``, the
+# compiled graphs' device-wire envelope.
+_TR_WIRE = "__tr"
 
 
 def encode_kv_blocks(kv: np.ndarray, wire_cfg=None) -> tuple:
@@ -113,7 +121,7 @@ class KVDeviceWire:
         self._wire_cfg = wire_cfg
         self._device = torch.device(device)
         self.epoch = epoch
-        # The trace context of the last pop: None until the port has tracing.
+        # The trace context of the last pop (one consumer a wire).
         self.last_trace: dict | None = None
 
     def bump_epoch(self) -> None:
@@ -125,12 +133,34 @@ class KVDeviceWire:
     def _tag(self, seq: int) -> str:
         return f"kvblk:p{self.epoch}:e{self._src}:{self._dst}:{seq}"
 
-    def push(self, seq: int, kv: np.ndarray) -> None:
+    def push(self, seq: int, kv: np.ndarray, trace: dict | None = None) -> None:
+        tag = self._tag(seq)
         payload = encode_kv_blocks(kv, self._wire_cfg)
-        with flight.site("serve_llm"):
-            self._group.send(payload, self._peer, tag=self._tag(seq))
+        ctx = trace if trace is not None else tracing.inject()
+        span = None
+        if ctx is not None:
+            span = tracing.begin("channel.push", parent=ctx, channel=tag, family="kv_wire",
+                                 seq=seq, nbytes=int(kv.nbytes))
+            # The push span's own context rides the wire, so the consumer's
+            # channel.pop parents on it.
+            payload = (_TR_WIRE, tracing.context_of(span), payload)
+        with flight.site("serve_llm"), flight.trace(ctx["trace_id"] if ctx else None):
+            self._group.send(payload, self._peer, tag=tag)
+        if span is not None:
+            tracing.finish(span)
 
     def pop(self, seq: int, *, timeout: float = 60.0):
+        tag = self._tag(seq)
+        started = time.monotonic()
         with flight.site("serve_llm"):
-            payload = self._group.recv(self._peer, tag=self._tag(seq), timeout=timeout)
+            payload = self._group.recv(self._peer, tag=tag, timeout=timeout)
+        if isinstance(payload, tuple) and len(payload) == 3 and payload[0] == _TR_WIRE:
+            _, ctx, payload = payload
+            self.last_trace = ctx
+            wait_s = time.monotonic() - started
+            end_ns = time.time_ns()
+            tracing.emit("channel.pop", ctx, start_ns=end_ns - int(wait_s * 1e9),
+                         end_ns=end_ns, channel=tag, family="kv_wire", seq=seq)
+        else:
+            self.last_trace = None
         return decode_kv_blocks(payload, self._device)

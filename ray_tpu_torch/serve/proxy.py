@@ -29,6 +29,7 @@ from __future__ import annotations
 
 import asyncio
 import collections
+import contextlib
 import functools
 import json
 import os
@@ -39,6 +40,7 @@ from http import HTTPStatus
 from typing import Any, Optional
 from urllib.parse import parse_qsl, urlsplit
 
+from ray_tpu_torch._private import chaos
 from ray_tpu_torch.serve import _channel, long_poll
 from ray_tpu_torch.serve._common import (
     DEADLINE_HEADER, Deadline, LatencyHistogram, RequestShedError,
@@ -46,6 +48,10 @@ from ray_tpu_torch.serve._common import (
 from ray_tpu_torch.serve.handle import DeploymentHandle, DeploymentResponse, ResponseStream
 from ray_tpu_torch.serve.long_poll import get_subscriber
 from ray_tpu_torch.serve.routing import match_route
+from ray_tpu_torch.util import tracing
+
+# True in a proxy process of its own (``proxy_main``), False in the driver.
+_OWN_PROCESS = False
 
 _TEXT = "text/plain; charset=utf-8"
 _JSON = "application/json; charset=utf-8"
@@ -241,6 +247,15 @@ class HTTPProxy:
         path = request.path
         if path == "/-/healthz":
             return await send(200, "ok")
+        # Chaos: an armed "serve.proxy.kill" takes this proxy down mid-request.
+        # A proxy process of its own exits (the controller restarts it); the
+        # driver's proxy drops the connection without an answer instead.
+        try:
+            chaos.failpoint("serve.proxy.kill")
+        except chaos.ChaosFault:
+            if _OWN_PROCESS:
+                os._exit(1)
+            raise ConnectionAbortedError("serve.proxy.kill") from None
         routes = get_subscriber().get_routes()
         if path == "/-/routes":
             return await send(200, json.dumps(routes), _JSON)
@@ -270,11 +285,24 @@ class HTTPProxy:
         if session_id:
             handle = handle.options(session_id=session_id)
         self._num_requests += 1
+        # An incoming trace context rides the X-RayTPU-Trace header
+        # ("<trace_id>:<span_id>"); without one the proxy starts a trace.
+        parent = None
+        header = request.headers.get("x-raytpu-trace")
+        if header and ":" in header:
+            trace_id, _, span_id = header.partition(":")
+            parent = {"trace_id": trace_id, "span_id": span_id}
+        trace_scope = (tracing.span(f"serve.request {path}", parent=parent,
+                                    method=request.method, route=qualified)
+                       if tracing.enabled() else contextlib.nullcontext())
         start = time.perf_counter()
         self._inflight[qualified] = self._inflight.get(qualified, 0) + 1
         try:
             try:
-                result = await DeploymentResponse(handle, (body,), {}, deadline)._result_async()
+                # The handle's call takes this span as its replica span's parent.
+                with trace_scope:
+                    result = await DeploymentResponse(handle, (body,), {},
+                                                      deadline)._result_async()
             except RequestShedError as exc:
                 return await self._shed(send, deadline, exc.retry_after_s)
             except TimeoutError as exc:  # DeadlineExceededError included
@@ -353,6 +381,8 @@ def proxy_main(spec: dict, conn) -> None:
     """A proxy process: serve HTTP on the spec's port, answer the
     controller's calls on a serve-wire port, tell the controller through
     ``conn``, and stop when it says so or closes the pipe."""
+    global _OWN_PROCESS
+    _OWN_PROCESS = True
     os.environ.update(spec["env"])
     try:
         long_poll.set_controller_address(spec["controller"])
@@ -371,5 +401,6 @@ def proxy_main(spec: dict, conn) -> None:
         pass
     sys.stdout.flush()
     sys.stderr.flush()
+    tracing.flush()
     # The I/O loop's connections end with the process.
     os._exit(0)

@@ -41,11 +41,13 @@ import traceback
 import uuid
 from typing import Any
 
+from ray_tpu_torch._private import chaos
 from ray_tpu_torch.serve import _channel, batching, long_poll
 from ray_tpu_torch.serve._common import (
     Deadline, DeadlineExceededError, LatencyHistogram, ReplicaDrainingError, RequestShedError,
     reset_current_deadline, set_current_deadline,
 )
+from ray_tpu_torch.util import tracing
 
 logger = logging.getLogger(__name__)
 
@@ -173,6 +175,13 @@ class Replica:
 
     # -- request path ---------------------------------------------------
     async def handle_request(self, meta: dict, args: tuple, kwargs: dict) -> Any:
+        if not (tracing.enabled() and meta.get("trace_ctx")):
+            return await self._handle_request_inner(meta, args, kwargs)
+        with tracing.span(f"serve.replica {self.deployment_name}", parent=meta["trace_ctx"],
+                          replica_id=self.replica_id, request_id=meta.get("request_id")):
+            return await self._handle_request_inner(meta, args, kwargs)
+
+    async def _handle_request_inner(self, meta: dict, args: tuple, kwargs: dict) -> Any:
         for arg in args:
             if isinstance(arg, dict) and "__serve_stream__" in arg:
                 raise TypeError(
@@ -190,6 +199,15 @@ class Replica:
             raise RequestShedError(
                 f"replica {self.replica_id} over admission limit "
                 f"({self._ongoing} >= {self._admission_limit})")
+        # Chaos: a mid-request kill plays a replica dying while it holds the
+        # request; the latency point plays a slow replica.
+        try:
+            chaos.failpoint("serve.replica.mid_request")
+        except chaos.ChaosFault:
+            os._exit(1)
+        extra = chaos.latency_delay("serve.replica.request")
+        if extra > 0:
+            await asyncio.sleep(extra)
         self._ongoing += 1
         self._total += 1
         start = time.perf_counter()
@@ -431,6 +449,7 @@ def replica_main(spec: dict, conn) -> None:
     finally:
         sys.stdout.flush()
         sys.stderr.flush()
+        tracing.flush()
         # Plain-method threads and the I/O loop's connections end with the
         # process; nothing waits for them.
         os._exit(0)

@@ -31,6 +31,10 @@ opens it: it rebuilds a tree by placing each manifest key into a template
 tree, or from ``tree.json``, the structure it writes beside the manifest.
 A JAX reader of a port checkpoint needs ``treedef.pkl`` supplied from a JAX
 tree of the same structure, and nothing else.
+
+The two torn-save windows carry the reference's chaos fail points:
+``train.checkpoint.mid_save`` (shards written, no DONE marker) and
+``train.storage.pre_commit`` (staged and verified, no COMMIT stamp).
 """
 
 from __future__ import annotations
@@ -50,6 +54,8 @@ from typing import Any, Iterator, Optional
 
 import numpy as np
 import torch
+
+from ray_tpu_torch._private import chaos
 
 logger = logging.getLogger(__name__)
 
@@ -349,6 +355,10 @@ def save_pytree(
         # Not inventoried: a merge rewrites its world_size to the writers
         # present; its own atomic write and the COMMIT stamp protect it.
         _atomic_write_json(os.path.join(directory, _MANIFEST), manifest)
+    # The torn-save window: everything above is on disk, the commit marker
+    # is not. A kill here leaves a directory verify_sharded_checkpoint
+    # rejects and latest_checkpoint() skips.
+    chaos.failpoint("train.checkpoint.mid_save")
     _atomic_write_json(_done_marker_path(directory, process_index),
                        {"rank": int(process_index), "files": inventory})
     step_stats.record_phase("checkpoint", time.perf_counter() - start)
@@ -646,6 +656,9 @@ class StorageContext:
             if not ok:
                 shutil.rmtree(staging, ignore_errors=True)
                 raise IOError(f"refusing to commit torn checkpoint {checkpoint.path}: {reason}")
+            # The kill window: staged and verified, no COMMIT.json or final
+            # name yet. The next StorageContext's reconcile removes it.
+            chaos.failpoint("train.storage.pre_commit")
             _atomic_write_json(os.path.join(staging, _COMMIT), stamp, fsync=True)
             os.replace(staging, dest)
         else:

@@ -57,12 +57,18 @@ reference's).
 
 Every op of a group (``allreduce``, ``allreduce_sharded``, ``allgather``,
 ``reducescatter``, ``broadcast``, ``barrier``, ``send``, ``recv``, as the
-reference instruments them) goes through ``_instrumented``: a flight
-record (``flight.op_started``) and its wall time as the train step's
-"collective" phase (``train.step_stats.record_phase``; one bool check
-outside a train session), once per user-visible op: an op that calls
-another inside it records once. Left out with the runtime core: the
-reference's spans, metrics and chaos points.
+reference instruments them) goes through ``_instrumented``, once per
+user-visible op (an op that calls another inside it records once): the
+chaos latency points ``collective.<op>.rank<r>`` (before the flight
+record) and ``collective.op.uniform`` (inside it), a flight record
+(``flight.op_started``), with tracing on a ``collective.<op>`` span that
+carries the record's ``comm_seq`` and ``comm_channel``, its ``bytes`` and
+the ``wire_bytes`` the op put on the wire (the record takes the span's
+trace id; the reference counts the group's bytes sent meanwhile, which is
+the same unless ops run at once, as the bucketed overlap's do), and its wall time as the train step's "collective" phase
+(``train.step_stats.record_phase``; one bool check outside a train
+session). Left out until the runtime's metrics (ROADMAP Queue A item
+14b): the ``rt_collective_*`` series.
 """
 
 from __future__ import annotations
@@ -84,6 +90,8 @@ from typing import Any
 import numpy as np
 import torch
 
+from ray_tpu_torch._private import chaos
+from ray_tpu_torch.util import tracing
 from ray_tpu_torch.util.collective import flight
 from ray_tpu_torch.util.collective.quantization import CollectiveConfig, ErrorFeedback
 from ray_tpu_torch.util.collective.quantization import decode_device as _q_decode
@@ -93,6 +101,14 @@ SUM, PRODUCT, MIN, MAX = "sum", "product", "min", "max"
 
 _groups: dict[str, Any] = {}
 _op_tls = threading.local()
+# Wire bytes each thread has sent (RingGroup.send_async counts on the
+# issuing thread): an op's span takes the difference over the op, so the
+# bucketed overlap's concurrent ops do not count each other's bytes.
+_sent_tls = threading.local()
+
+
+def _thread_sent() -> int:
+    return getattr(_sent_tls, "bytes", 0)
 
 
 def _reduce_op(op: str):
@@ -531,6 +547,7 @@ class RingGroup:
         pieces, nbytes = _frame(_MSG, (self.rank, f"{tag}#{seq}", _to_wire(payload)))
         self.wire_stats["bytes_sent"] += nbytes
         self.wire_stats["msgs_sent"] += 1
+        _sent_tls.bytes = _thread_sent() + nbytes
         # Enqueued at issue, launched when the frame goes out, completed on
         # the peer's ack: the record names the mailbox slot (tag, seq).
         rec = flight.p2p_started(self.group_name, "send", tag, seq, self.rank, dst_rank,
@@ -931,20 +948,63 @@ def _nbytes(array) -> int:
 def _instrumented_outer(op: str, group, array, call, tag=None):
     from ray_tpu_torch.train import step_stats
 
+    backend = getattr(group, "backend_name", "")
+    nbytes = _nbytes(array) if array is not None else None
+    wire = getattr(group, "wire_stats", None)
+    wire_before = _thread_sent()
+    # A windowed per-rank latency point plays a straggler that has not
+    # reached the op yet: it sleeps before the flight record exists, so the
+    # laggard's evidence is an absent record, which the hang report keys on.
+    stall_delay = chaos.latency_delay(f"collective.{op}.rank{group.rank}")
+    if stall_delay > 0:
+        time.sleep(stall_delay)
     tag = tag if tag is not None else _DEFAULT_TAGS.get(op, "")
     rec = flight.op_started(group.group_name, op, tag, group.rank, group.world_size,
-                            nbytes=_nbytes(array), backend=getattr(group, "backend_name", ""))
+                            nbytes=nbytes or 0, backend=backend)
     start = time.perf_counter()
-    ok = False
-    try:
-        result = call()
-        ok = True
-    finally:
-        flight.completed(rec, ok=ok)
-        # Inside a train session this wall time is the step's "collective"
-        # phase; outside one it is one bool check.
-        step_stats.record_phase("collective", time.perf_counter() - start)
+    if tracing.enabled():
+        attrs = {"group": group.group_name, "world_size": group.world_size,
+                 "rank": group.rank, "backend": backend, "op": op}
+        if nbytes is not None:
+            attrs["bytes"] = int(nbytes)
+        if rec is not None:
+            # The span carries the flight record's (seq, channel) and the
+            # record the span's trace id: a hang report and a timeline
+            # meet on either key.
+            attrs["comm_seq"] = rec.seq
+            attrs["comm_channel"] = rec.channel
+        with tracing.span(f"collective.{op}", **attrs) as span:
+            if span is not None and rec is not None:
+                rec.trace_id = span.trace_id
+            ok = False
+            try:
+                result = _chaos_uniform_then(call)
+                ok = True
+            finally:
+                flight.completed(rec, ok=ok)
+            if span is not None and wire is not None:
+                span.attributes["wire_bytes"] = _thread_sent() - wire_before
+    else:
+        ok = False
+        try:
+            result = _chaos_uniform_then(call)
+            ok = True
+        finally:
+            flight.completed(rec, ok=ok)
+    # Inside a train session this wall time is the step's "collective"
+    # phase; outside one it is one bool check.
+    step_stats.record_phase("collective", time.perf_counter() - start)
     return result
+
+
+def _chaos_uniform_then(call):
+    """The uniform-slowness point: unlike the per-rank one above, it sleeps
+    inside the flight record on every rank that arms it, so completed ops'
+    durations carry the slowness and the adaptive deadline absorbs it."""
+    delay = chaos.latency_delay("collective.op.uniform")
+    if delay > 0:
+        time.sleep(delay)
+    return call()
 
 
 def _traced_method(op: str, fn):

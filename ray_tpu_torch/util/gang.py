@@ -36,6 +36,11 @@ not on card ``rank``: with card 1 leased elsewhere, a gang of three runs
 on cards 0, 2 and 3. ``shutdown`` gives the lease back on every path, a
 failed start included. Out of this port: gangs across hosts (ROADMAP
 Queue A item 4).
+
+With tracing on, each function a member runs is an ``execute <name>`` span
+under the caller's span (``tracing.inject()`` rides the run message), so
+what the function records, such as the profiler's step marks, joins the
+caller's trace; the member flushes its spans before it answers.
 """
 
 from __future__ import annotations
@@ -49,6 +54,7 @@ from typing import Any, Callable, Sequence
 import torch
 
 from ray_tpu_torch._private import resources
+from ray_tpu_torch.util import tracing
 
 # How long the members may take to start and join their groups, once the
 # gang's lease is placed (a card's first use takes seconds).
@@ -154,12 +160,21 @@ def _member_main(rank: int, world_size: int, group_name: str, backend: str,
                 break
             if message[0] == "stop":
                 break
-            _, fn, args, kwargs = message
+            _, fn, args, kwargs, trace = message
             try:
-                result = fn(ctx, *args, **kwargs)
+                if tracing.enabled():
+                    # The reference's worker-side execute span: what the
+                    # function records (a profiler's step marks) joins it.
+                    with tracing.span(f"execute {getattr(fn, '__qualname__', fn)}",
+                                      parent=trace, rank=rank):
+                        result = fn(ctx, *args, **kwargs)
+                else:
+                    result = fn(ctx, *args, **kwargs)
             except Exception as exc:
+                tracing.flush()
                 channel.send(("error", repr(exc), traceback.format_exc()))
             else:
+                tracing.flush()
                 channel.send(("result", result))
             if channel.stopped:
                 break
@@ -299,9 +314,11 @@ class WorkerGang:
         if per_rank_args is not None and len(per_rank_args) != self.num_workers:
             raise ValueError(f"per_rank_args has {len(per_rank_args)} entries for "
                              f"{self.num_workers} workers")
+        # The caller's span parents each member's ``execute`` span.
+        trace = tracing.inject()
         for rank in range(self.num_workers):
             args = tuple(per_rank_args[rank]) if per_rank_args else ()
-            self.send(rank, ("run", fn, args, kwargs))
+            self.send(rank, ("run", fn, args, kwargs, trace))
 
     def run(self, fn: Callable, per_rank_args: Sequence[tuple] | None = None,
             timeout: float | None = None, **kwargs) -> list:
