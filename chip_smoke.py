@@ -7,10 +7,13 @@ Phases, each printing one line and failing the script (non-zero exit, no
 final line) if anything is wrong:
 
   1. device    the card's name and power limit (nvidia-smi)
-  2. build     compiles ops/csrc/*.cu with nvcc into build/ray_tpu_torch/;
+  2. build     compiles ops/csrc/*.cu with nvcc into build/ray_tpu_torch/
+               (and, beside it, the runtime's C++ engine, store and fast lane
+               with g++ into build/ray_tpu_torch/native/);
                ptxas's registers, spills and shared memory per kernel (the
                three TMA/wgmma kernels and the RMSNorm kernels must not
-               spill)
+               spill); phase 30, which needs no kernel of the port, runs
+               beside it
   3. kernels   each hand-written kernel against its plain PyTorch version at
                the JAX test shapes and the shapes the serving and training
                paths give it, with the kernel's, the plain version's and one
@@ -382,7 +385,8 @@ final line) if anything is wrong:
                bytes, peak memory, gang formation, stalls (0), launches;
                (c) bench.py --overlap on two CPU ring members, on and off,
                with identical loss trajectories
- 30. serve_llm the serve-LLM engine (ray_tpu_torch.serve.llm): first an int8
+ 30. serve_llm (run beside phase 2's build, before phase 3)
+               the serve-LLM engine (ray_tpu_torch.serve.llm): first an int8
                and an fp8 KV payload decoded on the card (decode_device) into
                a KVBlockPool there, bitwise against decode_plain on the host;
                then release/benchmarks_serve_llm.py's phases 1-3, its
@@ -393,7 +397,8 @@ final line) if anything is wrong:
                bench's full load in 4 s windows: (1) a baseline of 8 handle
                threads sending generate_batch waves of 64 and 2 HTTP clients,
                with steady_rpc_probe on a decode replica (0 calls to the
-               controller in a whole window of 100 iterations); (2) a window
+               controller in a whole window of 100 iterations; the baseline
+               runs on past 4 s until the probe returns); (2) a window
                at 2 handle threads and 2 HTTP clients that SIGKILLs a decode
                replica (1 s)
                and the second proxy (2 s), then the wait for both back; (3)
@@ -418,16 +423,40 @@ final line) if anything is wrong:
                phase 1 in this process (release/benchmarks_serve_llm_
                observability.py, 24 ABBA pairs of windows, the KV pool on the
                card): overhead_pct held to 10% (the bench gates 2%)
+ 31. runtime   the runtime core (ray_tpu_torch.init/remote/get/put/wait/kill)
+               on this host, init() with no arguments: (a) cluster_resources
+               shows GPU 1 and the card's name key, neither the controller
+               nor the node agent holds a CUDA context (nvidia-smi's compute
+               apps, and no /dev/nvidia* file open where the model actor's
+               process has them), and the engine, the fast lane (or its printed reason)
+               and the agent's lease lane are on; (b) two num_gpus=0.5 tasks
+               at once on the card, each seeing CUDA_VISIBLE_DEVICES=0 and
+               launching B4 once against its plain version, and a CPU task
+               seeing "" and no CUDA; (c) a num_gpus=1 actor that builds
+               llama2_7b() (32 layers, bf16, seed 0) on its card answers 3
+               forward calls on a put [8, 512] int32 batch with the full f32
+               logits as CUDA tensors, each bitwise equal (digest of the
+               bits) to the logits it computed at construction, with its
+               launches (3 x 32 of B1 on wgmma, 3 x 65 of B4), the call's
+               time and its forward, device-to-host and host-to-device
+               shares; (d) 1 GiB of CPU bf16 and 1 GiB of numpy put (GB/s),
+               read back as zero-copy read-only views, and summed on the
+               card by the actor as the driver sums them; (e) the actor
+               killed and its lease back within 10 s, a num_gpus=1,
+               max_restarts=1 probe SIGKILLed (answers again on the card
+               from a new pid) and SIGKILLed again (ActorDiedError, lease
+               back); (f) _private/ray_perf.py's tasks/s and actor calls/s;
+               shutdown() leaves no process and no /dev/shm/raytpu_torch-*
 Each path (4-5, 7, 8, 9, 10, 11, 12, 14, 15, 16, 17, 18, 19, 20, 21, 22, 23, 24, 25, 26,
-27, 28, 29, 30) runs with every launch count set to 0 just before it; its counts, read just after,
+27, 28, 29, 30, 31) runs with every launch count set to 0 just before it; its counts, read just after,
 must equal what its layers and passes imply, every flash launch on the
 route the path's inputs take. The trainer path's kernels launch in its
 worker processes, and the HTTP serving path's in its replica processes,
 whose counts start at 0 with each process and come back in their reports
 and metrics (phase 27's too, each replica's held to its own forwards);
 so do the Tune trials' (phase 24, where every count is 0),
-the elastic trainer's (phase 25), the graph's stage actors' (phase 28) and
-the ring members' (phase 29).
+the elastic trainer's (phase 25), the graph's stage actors' (phase 28),
+the ring members' (phase 29) and the runtime's model actor's (phase 31).
 
 What phases 14, 22, 28, 29 and 30 showed of tracing and chaos, and their
 walls beside the previous recorded run's, make the "observability" line
@@ -593,8 +622,14 @@ GEN_BATCH, GEN_PROMPT, GEN_NEW, GEN_CACHE = 4, 32, 32, 128
 _t_start = time.perf_counter()
 
 
+_log_lock = threading.Lock()
+
+
 def log(phase: str, **fields) -> None:
-    print(f"[{time.perf_counter() - _t_start:7.1f}s] {phase}: {json.dumps(fields)}", flush=True)
+    line = f"[{time.perf_counter() - _t_start:7.1f}s] {phase}: {json.dumps(fields)}\n"
+    with _log_lock:  # the build's thread logs beside phase 30's
+        sys.stdout.write(line)
+        sys.stdout.flush()
 
 
 def time_ms(fn, iters: int = 20, windows: int = 5, warmup: int = 3) -> dict:
@@ -831,14 +866,29 @@ def _ptxas_report(text: str) -> dict:
     return report
 
 
+def _build_native() -> dict:
+    """The runtime's C++ engine, store and fast lane (phase 31), with g++
+    beside nvcc's build."""
+    from ray_tpu_torch import _native
+
+    start = time.perf_counter()
+    _native.build()
+    _native.build_fastlane()
+    return {"seconds": time.perf_counter() - start}
+
+
 def phase_build() -> dict:
     start = time.perf_counter()
-    _build.library()
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        native = pool.submit(_build_native)
+        _build.library()
+        native = native.result()
     report = _ptxas_report((_build.BUILD_DIR / "build.log").read_text())
     wgmma = {name: info for name, info in report.items() if "wgmma" in name}
     norm = {name: info for name, info in report.items() if "rmsnorm" in name}
     log("build", seconds=round(time.perf_counter() - start, 2),
-        nvcc_seconds=_build.build_seconds, wgmma_kernels=wgmma, rmsnorm_kernels=norm,
+        nvcc_seconds=_build.build_seconds, native_gxx_seconds=native["seconds"],
+        wgmma_kernels=wgmma, rmsnorm_kernels=norm,
         ptxas=report)
     require(len(wgmma) == 3, f"build: expected the three wgmma kernels in ptxas's report, {wgmma}")
     require(norm, "build: no RMSNorm kernel in ptxas's report")
@@ -5040,6 +5090,12 @@ def phase_serve_http(config_kwargs=None, device="cuda", seconds=HTTP_SECONDS) ->
     start, asked_at = time.perf_counter(), time.time()
     controller = serve.start(http_port=port)
     encoder = BertEncoder if device == "cuda" else BertEncoder.options(ray_actor_options={})
+    # The load generator's process starts beside the replicas, one wave of
+    # process starts instead of two; it sends nothing before its first "go".
+    ctx = mp.get_context("spawn")
+    parent, child = ctx.Pipe()
+    loader = ctx.Process(target=http_load, args=(child, port, "/bert", HTTP_CLIENTS))
+    loader.start()
     try:
         # The streamer's CPU replica starts beside the encoder's.
         with concurrent.futures.ThreadPoolExecutor(1) as pool:
@@ -5053,10 +5109,6 @@ def phase_serve_http(config_kwargs=None, device="cuda", seconds=HTTP_SECONDS) ->
         def running() -> int:
             return serve.status()["bert"]["deployments"]["BertEncoder"]["running_replicas"]
 
-        ctx = mp.get_context("spawn")
-        parent, child = ctx.Pipe()
-        loader = ctx.Process(target=http_load, args=(child, port, "/bert", HTTP_CLIENTS))
-        loader.start()
         try:
             require(parent.poll(120) and parent.recv() == "ready", "serve_http: load generator")
 
@@ -5120,6 +5172,8 @@ def phase_serve_http(config_kwargs=None, device="cuda", seconds=HTTP_SECONDS) ->
         sse_tokens = sum(1 for line in sse.decode().splitlines() if line.startswith("data: "))
         metrics = controller.get_metrics()["bert_BertEncoder"]
     finally:
+        if loader.is_alive():
+            loader.kill()
         serve.shutdown()
     shutdown_s = time.perf_counter() - start
 
@@ -5860,9 +5914,13 @@ def phase_elastic() -> dict:
     try:
         result = {"config1": _elastic_config1(), "step_down": _elastic_step_down(),
                   "churn": _elastic_churn()}
-    finally:
+    except BaseException:
         local_tasks.shutdown()
+        raise
+    finally:
         shutil.rmtree(ELASTIC_STORAGE, ignore_errors=True)
+    # The pool that made (b)'s Dataset stays up for phase 26, which shuts it
+    # down: one wave of process starts instead of two.
     result["seconds"] = time.perf_counter() - start
     log("elastic", **result)
     return result
@@ -6407,6 +6465,13 @@ def phase_serve_chaos(seconds=CHAOS_SECONDS) -> dict:
         yaml_text += "        ray_actor_options: {num_gpus: 0.5}\n"
     path.write_text(yaml_text)
     qname = "chaosbench_ChaosEncoder"
+    # The clients' process starts beside the deployment's replicas and
+    # proxies, one wave of process starts instead of two; it sends nothing
+    # before its first "go".
+    ctx = mp.get_context("spawn")
+    parent, child = ctx.Pipe()
+    loader = ctx.Process(target=chaos_load, args=(child, ports, "/chaosbench", CHAOS_CLIENTS))
+    loader.start()
     try:
         deployed = serve.run_from_config(str(path))
         ready_s = time.perf_counter() - start
@@ -6420,11 +6485,6 @@ def phase_serve_chaos(seconds=CHAOS_SECONDS) -> dict:
             return serve.status()["chaosbench"]["deployments"]["ChaosEncoder"][
                 "running_replicas"]
 
-        ctx = mp.get_context("spawn")
-        parent, child = ctx.Pipe()
-        loader = ctx.Process(target=chaos_load, args=(child, ports, "/chaosbench",
-                                                      CHAOS_CLIENTS))
-        loader.start()
         try:
             require(parent.poll(120) and parent.recv() == "ready", "serve_chaos: load generator")
 
@@ -6479,6 +6539,8 @@ def phase_serve_chaos(seconds=CHAOS_SECONDS) -> dict:
         route_p99 = controller.get_route_p99().get(qname)
         metrics = controller.get_metrics()[qname]
     finally:
+        if loader.is_alive():
+            loader.kill()
         serve.shutdown()
         shutil.rmtree(SERVE_SCRATCH, ignore_errors=True)
 
@@ -7526,9 +7588,15 @@ def phase_ring() -> dict:
 # phase 3's second app fits beside them: their KV pools and the wire's
 # decode live on the card. The load is the bench's full load (8 handle
 # threads, 2 HTTP clients) in 4 s windows (the bench's are 10 s).
+# sequences/s is over the baseline's wall, which may run past its 4 s.
 LLM_BATCH, LLM_MAX_TOKENS = 64, 4      # the bench's BATCH and MAX_TOKENS
 LLM_HANDLE_THREADS, LLM_HTTP_THREADS = 8, 2
 LLM_SECONDS = 4.0
+# The steady-state probe's own limit (the bench's is 30 s). Phase 1's load
+# runs on past its window until the probe returns: a window counts only
+# once it reached its 100 iterations, and the engine iterates only under
+# load, so a slower host lengthens phase 1 instead of failing it.
+LLM_PROBE_TIMEOUT_S = 20.0
 LLM_KILL_REPLICA_S, LLM_KILL_PROXY_S = 1.0, 2.0
 LLM_RECOVER_S = 90.0
 LLM_SCALE_WAIT_S = 90.0
@@ -7789,9 +7857,9 @@ def _llm_load(seconds: float, handle_threads: int, http_threads: int, ports: lis
     generate_batch waves of LLM_BATCH prompts, HTTP clients sending one
     sequence a request to the proxies (failing over on a connection error,
     honouring 503 Retry-After), the steady-state probe once mid-load if
-    `probe_box` is given, and `during()` from the calling thread. Every
-    completed sequence's tokens are held to the digest; a wrong one counts
-    as lost."""
+    `probe_box` is given (the load then runs on until the probe returns),
+    and `during()` from the calling thread. Every completed sequence's
+    tokens are held to the digest; a wrong one counts as lost."""
     import http.client
 
     stats = {"http_latencies": [], "batch_latencies": [], "completed": 0, "shed": 0,
@@ -7799,12 +7867,18 @@ def _llm_load(seconds: float, handle_threads: int, http_threads: int, ports: lis
     lock = threading.Lock()
     deadline = time.perf_counter() + seconds
     expect = llm_expected_tokens(LLM_PROMPT, LLM_MAX_TOKENS)
+    probe_open = threading.Event()
+    if probe_box is not None:
+        probe_open.set()
+
+    def loading() -> bool:
+        return time.perf_counter() < deadline or probe_open.is_set()
 
     def handle_worker(i: int) -> None:
         handle = serve.get_deployment_handle("llm_decode", "llm").options(
             method_name="generate_batch")
         body = {"prompts": [LLM_PROMPT] * LLM_BATCH, "max_tokens": LLM_MAX_TOKENS}
-        while time.perf_counter() < deadline:
+        while loading():
             t0 = time.perf_counter()
             try:
                 results = handle.remote(body).result(timeout=90)["results"]
@@ -7831,7 +7905,7 @@ def _llm_load(seconds: float, handle_threads: int, http_threads: int, ports: lis
         order = ports[i % len(ports):] + ports[:i % len(ports)]
         conns = {p: http.client.HTTPConnection("127.0.0.1", p, timeout=15) for p in order}
         n = 0
-        while time.perf_counter() < deadline:
+        while loading():
             body = json.dumps({"prompt": LLM_PROMPT, "max_tokens": LLM_MAX_TOKENS,
                                "request_id": f"http-{i}-{n}"})
             n += 1
@@ -7875,13 +7949,15 @@ def _llm_load(seconds: float, handle_threads: int, http_threads: int, ports: lis
             c.close()
 
     def probe_worker() -> None:
-        # Its windows end with the load's: past it the engine idles, and a
-        # window left open would wait out the probe's whole timeout.
-        lead = min(1.0, seconds / 4)
-        time.sleep(lead)
-        probe_box.update(serve.get_deployment_handle("llm_decode", "llm").options(
-            method_name="steady_rpc_probe").remote(
-                {"timeout_s": max(1.0, seconds - lead - 0.5)}).result(timeout=60))
+        # Mid-load, once traffic is established; the load stops only after
+        # the probe's windows have closed.
+        try:
+            time.sleep(min(1.0, seconds / 4))
+            probe_box.update(serve.get_deployment_handle("llm_decode", "llm").options(
+                method_name="steady_rpc_probe").remote(
+                    {"timeout_s": LLM_PROBE_TIMEOUT_S}).result(timeout=60))
+        finally:
+            probe_open.clear()
 
     workers = handle_threads + http_threads + (probe_box is not None)
     t0 = time.perf_counter()
@@ -8099,9 +8175,11 @@ def phase_serve_llm(seconds: float = LLM_SECONDS) -> dict:
              for m in before + after] + scaling["decode_pools"]
     kernels = [m["kernels"] for m in before + after] + scaling["kernels"]
     result = dict(
-        config="release/benchmarks_serve_llm.py phases 1-3, deployment and load uncut, 4 s windows",
+        config="release/benchmarks_serve_llm.py phases 1-3, deployment and load uncut, "
+               "4 s windows, the baseline's until the probe returns",
         seconds_window=seconds, ready_s=ready_s,
-        qps=baseline["completed"] / seconds, release_gate_qps=LLM_RELEASE_GATE_QPS,
+        baseline_seconds=baseline["seconds"],
+        qps=baseline["completed"] / baseline["seconds"], release_gate_qps=LLM_RELEASE_GATE_QPS,
         sequences=baseline["completed"] + chaos["completed"],
         batch_waves=len(baseline["batch_latencies"]) + len(chaos["batch_latencies"]),
         batch_p50_ms=_percentile_ms(baseline["batch_latencies"], 0.5)
@@ -8155,6 +8233,435 @@ def phase_serve_llm(seconds: float = LLM_SECONDS) -> dict:
     return result
 
 
+# ---------------------------------------------------------------- phase 31: the runtime core
+# ray_tpu_torch.init() with no arguments on the card's host: a controller, a
+# node agent with its store, and workers started with `python -m
+# ray_tpu_torch._private.worker_proc` (they never import this script again:
+# the classes and functions below reach them by value). The agent counts the
+# card through nvidia-smi and never opens a context on it; a worker sees
+# only its lease's card through CUDA_VISIBLE_DEVICES.
+RUNTIME_LAYERS = 32          # uncut: the actor's build takes well under 15 s
+RUNTIME_BATCH, RUNTIME_SEQ = 8, 512
+RUNTIME_CALLS = 3
+RUNTIME_OBJECT_BYTES = 1 << 30
+RUNTIME_LEASE_WAIT_S = 10.0
+DEVICE_SMI = None            # phase 1's nvidia-smi line: name, power limit
+RUNTIME_TMP = Path(__file__).resolve().parent / "build" / "chip_smoke_runtime"
+
+
+def _runtime_card_task(marker: str, peer: str) -> dict:
+    """A task at num_gpus=0.5: its CUDA_VISIBLE_DEVICES, and B4 launched
+    once at the serve shape against its plain version, while the other
+    half-card task runs (each waits for the other's marker)."""
+    import os
+    import time
+
+    import torch
+
+    from ray_tpu_torch.ops import rmsnorm as rm
+
+    open(marker, "w").close()
+    deadline = time.monotonic() + 60
+    while not os.path.exists(peer) and time.monotonic() < deadline:
+        time.sleep(0.01)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    x = torch.randn(RUNTIME_BATCH * RUNTIME_SEQ, 4096, generator=gen, device="cuda",
+                    dtype=torch.bfloat16)
+    w = torch.randn(4096, generator=gen, device="cuda", dtype=torch.bfloat16)
+    rm.rmsnorm.launches = 0
+    y = rm.rmsnorm(x, w)
+    launches = rm.rmsnorm.launches
+    plain = rm.rmsnorm_reference(x, w)
+    torch.cuda.synchronize()
+    return {"pid": os.getpid(), "cuda_visible_devices": os.environ.get("CUDA_VISIBLE_DEVICES"),
+            "device": torch.cuda.get_device_name(0), "device_count": torch.cuda.device_count(),
+            "peer_seen": os.path.exists(peer), "launches": launches,
+            "max_abs_err": float((y.float() - plain.float()).abs().max()),
+            "ulps": ulps(y, plain)}
+
+
+def _runtime_cpu_task() -> dict:
+    import os
+
+    import torch
+
+    return {"cuda_visible_devices": os.environ.get("CUDA_VISIBLE_DEVICES"),
+            "cuda_available": torch.cuda.is_available()}
+
+
+def _bits_digest(t: torch.Tensor) -> list:
+    """Two sums over a float32 tensor's bit patterns, on its device: equal
+    digests of equal-shaped tensors mean equal bits but for a collision."""
+    bits = t.contiguous().view(torch.int32).reshape(-1).to(torch.int64)
+    weights = torch.arange(bits.numel(), device=t.device, dtype=torch.int64) % 65521 + 1
+    return [int(bits.sum()), int((bits * weights).sum())]
+
+
+class RuntimeModel:
+    """TransformerConfig.llama2_7b() in bf16 from seed 0 on the actor's card,
+    its logits for the driver's tokens computed at construction, and the
+    launch counts of the remote forwards."""
+
+    def __init__(self, layers: int, tokens):
+        import os
+        import time
+
+        import torch
+
+        from ray_tpu_torch.models.transformer import TransformerConfig, forward, init_params
+
+        self.pid = os.getpid()
+        self.visible = os.environ.get("CUDA_VISIBLE_DEVICES")
+        start = time.perf_counter()
+        self.config = TransformerConfig.llama2_7b(n_layers=layers)
+        self.params = init_params(self.config, seed=SEED, device="cuda")
+        torch.cuda.synchronize()
+        self.build_s = time.perf_counter() - start
+        self.forward = forward
+        with torch.no_grad():
+            self.expected = forward(self.params, self._tokens(tokens), self.config)
+        torch.cuda.synchronize()
+        self.expected_digest = _bits_digest(self.expected)
+        self.forward_ms: list = []
+        flash_mod.reset_launch_counts()
+        rmsnorm_mod.rmsnorm.launches = 0
+
+    @staticmethod
+    def _tokens(tokens):
+        return torch.as_tensor(np.asarray(tokens), dtype=torch.int64).cuda()
+
+    def info(self) -> dict:
+        return {"pid": self.pid, "cuda_visible_devices": self.visible, "build_s": self.build_s,
+                "layers": self.config.n_layers, "device": torch.cuda.get_device_name(0),
+                "expected_digest": self.expected_digest,
+                "expected_shape": list(self.expected.shape)}
+
+    def run(self, tokens):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        tokens = self._tokens(tokens)
+        with torch.no_grad():
+            start.record()
+            logits = self.forward(self.params, tokens, self.config)
+            end.record()
+        torch.cuda.synchronize()
+        self.forward_ms.append(start.elapsed_time(end))
+        return logits
+
+    def counts(self) -> dict:
+        return {"counts": _counts(), "routes": _route_counts(), "forward_ms": self.forward_ms}
+
+    def d2h_ms(self) -> float:
+        """One device-to-host copy of logits the size of a forward's, the
+        copy the store's write of a returned CUDA tensor makes."""
+        import time
+
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        self.expected.cpu()
+        return (time.perf_counter() - start) * 1e3
+
+    def sums(self, tensor, array) -> list:
+        """The two objects' sums, on the card, in float64."""
+        return [float(tensor.cuda().double().sum()), float(torch.from_numpy(
+            np.asarray(array)).cuda().double().sum())]
+
+
+class RuntimeProbe:
+    """A small actor on the card: answers with its pid and the card's name,
+    or holds a call open while it is killed."""
+
+    def where(self) -> dict:
+        import os
+
+        return {"pid": os.getpid(), "device": torch.cuda.get_device_name(0),
+                "on_card": float(torch.ones(4, device="cuda").sum()),
+                "cuda_visible_devices": os.environ.get("CUDA_VISIBLE_DEVICES")}
+
+    def hold(self, ref_value) -> None:
+        import time
+
+        time.sleep(120)
+
+
+def _runtime_processes() -> list:
+    """Pids of this host's processes of the port's runtime."""
+    pids = []
+    for entry in os.listdir("/proc"):
+        if not entry.isdigit():
+            continue
+        try:
+            with open(f"/proc/{entry}/cmdline", "rb") as fh:
+                cmd = fh.read().replace(b"\0", b" ").decode(errors="replace")
+        except OSError:
+            continue
+        if "ray_tpu_torch._private." in cmd and int(entry) != os.getpid():
+            pids.append(int(entry))
+    return pids
+
+
+def _card_files(pid: int) -> list:
+    """The NVIDIA device files a process holds open: a process with a CUDA
+    context holds /dev/nvidiactl, a card's /dev/nvidia<N> and
+    /dev/nvidia-uvm."""
+    held = set()
+    for fd in os.listdir(f"/proc/{pid}/fd"):
+        with contextlib.suppress(OSError):
+            target = os.readlink(f"/proc/{pid}/fd/{fd}")
+            if target.startswith("/dev/nvidia"):
+                held.add(target)
+    return sorted(held)
+
+
+def _compute_app_pids() -> set:
+    out = subprocess.run(["nvidia-smi", "--query-compute-apps=pid", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60, check=True).stdout
+    return {int(p) for p in out.split() if p.strip().isdigit()}
+
+
+def _until(predicate, timeout_s: float, what: str):
+    deadline = time.monotonic() + timeout_s
+    while True:
+        value = predicate()
+        if value:
+            return value
+        require(time.monotonic() < deadline, f"runtime: {what} not within {timeout_s} s")
+        time.sleep(0.05)
+
+
+def _runtime_kill_held(rt, exceptions_mod, probe, pid: int) -> None:
+    """SIGKILLs the probe's process while a call of it is held open: an
+    argument by ref takes the runtime's slow path, whose call fails as soon
+    as the connection closes and drops the driver's cached address."""
+    held = probe.hold.remote(rt.put(0))
+    time.sleep(0.5)
+    os.kill(pid, signal.SIGKILL)
+    with contextlib.suppress(exceptions_mod.RayTpuError):
+        rt.get(held, timeout=60)
+
+
+def _runtime_restart_probe(rt, exceptions_mod, ctx) -> dict:
+    """(e): a num_gpus=1, max_restarts=1 actor SIGKILLed twice. Before the
+    next call the driver waits for the controller to record the death (a
+    call that raced it would redial the dead address for the reference's
+    11-13 s of backoff first)."""
+    probe = rt.remote(num_gpus=1, max_restarts=1)(RuntimeProbe).remote()
+    first = rt.get(probe.where.remote(), timeout=120)
+
+    def state():
+        return ctx.io.run(ctx.controller.call("get_actor_info", {"actor_id": probe._actor_id}))
+
+    old = state()["address"]
+    t0 = time.perf_counter()
+    _runtime_kill_held(rt, exceptions_mod, probe, first["pid"])
+    _until(lambda: (lambda s: s["state"] == "ALIVE" and s["address"] != old)(state()), 60,
+           "the probe's restart")
+    restarted_s = time.perf_counter() - t0
+    second = rt.get(probe.where.remote(), timeout=60)
+    restart_s = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    _runtime_kill_held(rt, exceptions_mod, probe, second["pid"])
+    _until(lambda: state()["state"] == "DEAD", 30, "the probe's death")
+    try:
+        rt.get(probe.where.remote(), timeout=60)
+        ended = "answered"
+    except exceptions_mod.ActorDiedError:
+        ended = "ActorDiedError"
+    death_s = time.perf_counter() - t1
+    _until(lambda: rt.available_resources().get("GPU") == 1.0, RUNTIME_LEASE_WAIT_S,
+           "the probe's lease back after its death")
+    lease_back_s = time.perf_counter() - t1
+    require(second["pid"] != first["pid"] and second["device"] == first["device"]
+            and second["on_card"] == 4.0 and second["cuda_visible_devices"] == "0",
+            f"runtime: restarted probe {first} -> {second}")
+    require(ended == "ActorDiedError", f"runtime: the second kill ended the probe with {ended}")
+    return {"first_pid": first["pid"], "second_pid": second["pid"],
+            "kill_to_alive_s": restarted_s, "restart_s": restart_s,
+            "second_kill_to_died_s": death_s, "lease_back_s": lease_back_s, "ended": ended}
+
+
+def phase_runtime() -> dict:
+    """Phase 31: the runtime core on the card's host, through the public API."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import _native
+    from ray_tpu_torch import exceptions as exceptions_mod
+    from ray_tpu_torch._private import ray_perf
+    from ray_tpu_torch._private import worker as worker_mod
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    name = torch.cuda.get_device_name(0)
+    start = time.perf_counter()
+    rt.init()
+    init_s = time.perf_counter() - start
+    result = {"init_s": init_s}
+    try:
+        # (a) the cluster: the card counted, no context in the daemons, and
+        # every native plane on.
+        total = rt.cluster_resources()
+        name_key = "GPU-" + name.replace(" ", "-")
+        require(total.get("GPU") == 1.0 and total.get(name_key) == 1.0,
+                f"runtime: cluster_resources {total}, GPU 1 and {name_key} 1 expected")
+        ctx = worker_mod.get_global_context()
+        cluster = worker_mod._local_cluster
+        daemons = {"controller": cluster.controller_handle.proc.pid,
+                   "agent": cluster.agents[0].proc.pid}
+        agent_stats = ctx.io.run(ctx.agent.call("store_stats", {}))
+        planes = {"engine": ctx._engine is not None and bool(ctx._engine.stats()),
+                  "fast_lane": ctx._fastlane is not None,
+                  "lease_lane": "native_lease" in agent_stats,
+                  "agent_engine": bool(agent_stats.get("engine"))}
+        require(planes["engine"] and planes["lease_lane"] and planes["agent_engine"],
+                f"runtime: native planes {planes}")
+        require(planes["fast_lane"] or _native.fastlane_off_reason is not None,
+                f"runtime: the fast lane is off with no reason recorded {planes}")
+        result["cluster"] = {"resources": total, "daemons": daemons, "planes": planes,
+                             "fastlane_off_reason": _native.fastlane_off_reason,
+                             "agent_stats": {k: agent_stats.get(k) for k in
+                                             ("native_lease", "capacity", "engine")}}
+
+        # (b) two half-card tasks at once, and a CPU task, started together.
+        # Tasks of one shape pipeline through one leased worker (the
+        # reference's dispatcher, below a depth of 4), so the two differ in
+        # their CPUs.
+        tmp = RUNTIME_TMP
+        shutil.rmtree(tmp, ignore_errors=True)
+        tmp.mkdir(parents=True)
+        card_task = rt.remote(num_gpus=0.5)(_runtime_card_task)
+        a, b = str(tmp / "a"), str(tmp / "b")
+        start = time.perf_counter()
+        refs = [card_task.remote(a, b), card_task.options(num_cpus=2).remote(b, a),
+                rt.remote(_runtime_cpu_task).remote()]
+        half_a, half_b, cpu = rt.get(refs, timeout=120)
+        sharing_s = time.perf_counter() - start
+        for task in (half_a, half_b):
+            require(task["cuda_visible_devices"] == "0" and task["device_count"] == 1
+                    and task["peer_seen"] and task["launches"] == 1,
+                    f"runtime: half-card task {task}")
+            require(task["ulps"] <= RMSNORM_BF16_ULPS,
+                    f"runtime: a task's B4 against its plain version {task}")
+        require(half_a["pid"] != half_b["pid"], "runtime: the half-card tasks shared a process")
+        require(cpu == {"cuda_visible_devices": "", "cuda_available": False},
+                f"runtime: the CPU task saw {cpu}")
+        _until(lambda: rt.available_resources().get("GPU") == 1.0, RUNTIME_LEASE_WAIT_S,
+               "the half-card leases back")
+        result["sharing"] = {"tasks": [half_a, half_b], "cpu_task": cpu, "seconds": sharing_s}
+
+        # (c) the model behind a num_gpus=1 actor, 3 remote forwards.
+        rng = np.random.default_rng(SEED)
+        tokens = rng.integers(0, 32000, (RUNTIME_BATCH, RUNTIME_SEQ)).astype(np.int32)
+        start = time.perf_counter()
+        model = rt.remote(num_gpus=1)(RuntimeModel).remote(RUNTIME_LAYERS, tokens)
+        info = rt.get(model.info.remote(), timeout=300)
+        actor_ready_s = time.perf_counter() - start
+        require(info["cuda_visible_devices"] == "0" and info["device"] == name,
+                f"runtime: the model actor {info}")
+        tokens_ref = rt.put(tokens)
+        calls = []
+        for _ in range(RUNTIME_CALLS):
+            start = time.perf_counter()
+            logits = rt.get(model.run.remote(tokens_ref), timeout=300)
+            torch.cuda.synchronize()
+            call_ms = (time.perf_counter() - start) * 1e3
+            require(logits.is_cuda and logits.dtype == torch.float32
+                    and list(logits.shape) == info["expected_shape"]
+                    and logits.device.index == torch.cuda.current_device(),
+                    f"runtime: logits {logits.dtype} {tuple(logits.shape)} on {logits.device}")
+            calls.append({"call_ms": call_ms,
+                          "bitwise": _bits_digest(logits) == info["expected_digest"],
+                          "finite": bool(torch.isfinite(logits).all())})
+            del logits
+        counted = rt.get(model.counts.remote(), timeout=60)
+        d2h_ms = rt.get(model.d2h_ms.remote(), timeout=60)
+        host = torch.empty(info["expected_shape"], dtype=torch.float32)
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        host.cuda()
+        torch.cuda.synchronize()
+        h2d_ms = (time.perf_counter() - start) * 1e3
+        del host
+        require(all(c["bitwise"] and c["finite"] for c in calls),
+                f"runtime: logits across the store {calls}")
+        call_ms = statistics.median(c["call_ms"] for c in calls)
+        forward_ms = statistics.median(counted["forward_ms"])
+        result["model"] = {
+            "config": "llama2_7b", "layers": info["layers"], "build_s": info["build_s"],
+            "actor_ready_s": actor_ready_s, "calls": calls, "logits_bytes":
+            4 * int(np.prod(info["expected_shape"])), "call_ms": call_ms,
+            "forward_ms": forward_ms, "d2h_ms": d2h_ms, "h2d_ms": h2d_ms,
+            "store_and_rpc_ms": call_ms - forward_ms - d2h_ms - h2d_ms,
+            "counts": counted["counts"], "routes": counted["routes"]}
+
+        # (d) objects: 1 GiB of CPU bf16 and 1 GiB of numpy through put/get,
+        # and their refs to the actor, which sums them on the card.
+        # Integers (bf16 holds 0-255 exactly), made on the card: the sums
+        # in float64 are exact on either side.
+        tensor = (torch.arange(RUNTIME_OBJECT_BYTES // 2, device="cuda", dtype=torch.int32)
+                  % 256).to(torch.bfloat16).cpu()
+        array = (torch.arange(RUNTIME_OBJECT_BYTES // 4, device="cuda", dtype=torch.int32)
+                 % 1000).float().cpu().numpy()
+        puts = {}
+        for label, value in (("tensor_bf16", tensor), ("numpy_f32", array)):
+            start = time.perf_counter()
+            ref = rt.put(value)
+            seconds = time.perf_counter() - start
+            first, second = rt.get(ref, timeout=120), rt.get(ref, timeout=120)
+            if label == "numpy_f32":
+                zero_copy = (not first.flags.writeable) and np.shares_memory(first, second)
+                equal = bool(np.array_equal(first, value))
+            else:
+                zero_copy = first.data_ptr() == second.data_ptr() != value.data_ptr()
+                equal = bool(torch.equal(first, value))
+            puts[label] = {"ref": ref, "put_s": seconds, "gb_per_s": RUNTIME_OBJECT_BYTES / seconds
+                           / 1e9, "zero_copy": zero_copy, "equal": equal}
+            del first, second
+        sums = rt.get(model.sums.remote(puts["tensor_bf16"]["ref"], puts["numpy_f32"]["ref"]),
+                      timeout=300)
+        want = [float(tensor.cuda().double().sum()),
+                float(torch.from_numpy(array).cuda().double().sum())]
+        require(all(p["zero_copy"] and p["equal"] for p in puts.values()),
+                f"runtime: puts {puts}")
+        require(sums == want, f"runtime: the actor's sums {sums}, the driver's {want}")
+        result["objects"] = {k: {f: v for f, v in p.items() if f != "ref"}
+                             for k, p in puts.items()}
+        result["objects"]["sums"] = sums
+        del tensor, array, puts
+
+        # The daemons hold no context on the card while a worker drives it:
+        # neither is among nvidia-smi's compute apps (which name this
+        # container's processes by the host's pids, if at all), nor holds a
+        # card's device file open, as the model actor's process does.
+        apps = _compute_app_pids()
+        files = {name: _card_files(pid) for name, pid in
+                 {**daemons, "model_actor": info["pid"]}.items()}
+        require(not set(daemons.values()) & apps
+                and not files["controller"] and not files["agent"] and files["model_actor"],
+                f"runtime: CUDA contexts {daemons} {apps} {files}")
+        result["cluster"]["compute_apps"] = sorted(apps)
+        result["cluster"]["card_files"] = files
+
+        # (e) faults: the model actor killed, its lease back; the probe's
+        # restart on the card and its death.
+        start = time.perf_counter()
+        rt.kill(model)
+        _until(lambda: rt.available_resources().get("GPU") == 1.0, RUNTIME_LEASE_WAIT_S,
+               "the model actor's lease back after kill")
+        result["faults"] = {"kill_lease_back_s": time.perf_counter() - start}
+        result["faults"].update(_runtime_restart_probe(rt, exceptions_mod, ctx))
+
+        # (f) the reference's microbenchmark on this host.
+        result["microbenchmark"] = ray_perf.main()
+    finally:
+        rt.shutdown()
+        shutil.rmtree(RUNTIME_TMP, ignore_errors=True)
+    left = _runtime_processes()
+    arenas = [n for n in os.listdir("/dev/shm") if n.startswith("raytpu_torch-")]
+    require(not left and not arenas,
+            f"runtime: shutdown left processes {left} and arenas {arenas}")
+    result["seconds"] = time.perf_counter() - t_phase
+    return result
+
+
 def _path(name: str, want: dict, counts: dict, routes: dict, route: str, **fields) -> None:
     """Logs a path's launch counts and fails unless they are what the path
     implies and every flash launch took `route`."""
@@ -8193,13 +8700,28 @@ def _run_path(fn, *args) -> tuple:
 
 
 def main() -> None:
-    phase_device()
-    ptxas = phase_build()
+    global DEVICE_SMI
+    DEVICE_SMI = phase_device()
+    counts, routes = {}, {}
+    # Phase 30: the serve-LLM engine, beside the build (nvcc and g++ in
+    # their own processes), since it needs no kernel of the port. Its
+    # decode replicas (on the card) and its prefill replicas launch none:
+    # their counts come back in their metrics, each 0, and this process
+    # launches none.
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        build = pool.submit(phase_build)
+        t0 = time.perf_counter()
+        llm_run, counts["serve_llm"], routes["serve_llm"] = _run_path(phase_serve_llm)
+        llm_wall = time.perf_counter() - t0
+        ptxas = build.result()
+    replica_launches = [v["launches"] for k in llm_run["replica_kernels"] for v in k.values()]
+    require(not any(replica_launches), f"serve_llm: replica launches {replica_launches}")
+    _path("serve_llm", {k: 0 for k in counts["serve_llm"]}, counts["serve_llm"],
+          routes["serve_llm"], "wgmma")
     entries = phase_kernels()
     for e in entries:  # ptxas's report beside the kernels of each entry's shape
         names = e.pop("ptxas_names", None) or PTXAS_NAMES[e["name"]]
         e["ptxas"] = {k: v for k, v in ptxas.items() if any(part in k for part in names)}
-    counts, routes = {}, {}
 
     start = time.perf_counter()
     config = TransformerConfig.llama2_7b()
@@ -8391,16 +8913,21 @@ def main() -> None:
                             kernel_backwards=ring["kernel_backwards"]),
           counts["ring"], routes["ring"], "wgmma")
 
-    # Phase 30: the serve-LLM engine. Its decode replicas (on the card) and
-    # its prefill replicas launch none of the port's kernels: their counts
-    # come back in their metrics, each 0, and this process launches none.
+    walls["serve_llm"] = llm_wall  # phase 30 ran beside the build
+
+    # Phase 31: the runtime core. The model's kernels launch in its actor,
+    # whose counts (set to 0 after its construction) come back by call, held
+    # to its 3 forwards; the half-card tasks' B4 launches are comparisons
+    # against the plain version, and this process launches none.
     t0 = time.perf_counter()
-    llm_run, counts["serve_llm"], routes["serve_llm"] = _run_path(phase_serve_llm)
-    walls["serve_llm"] = time.perf_counter() - t0
-    replica_launches = [v["launches"] for k in llm_run["replica_kernels"] for v in k.values()]
-    require(not any(replica_launches), f"serve_llm: replica launches {replica_launches}")
-    _path("serve_llm", {k: 0 for k in counts["serve_llm"]}, counts["serve_llm"],
-          routes["serve_llm"], "wgmma")
+    runtime, local, _ = _run_path(phase_runtime)
+    walls["runtime"] = time.perf_counter() - t0
+    require(not any(local.values()), f"runtime: launches in the driver process {local}")
+    model31 = runtime["model"]
+    counts["runtime"], routes["runtime"] = model31["counts"], model31["routes"]
+    _path("runtime", _expected(model31["layers"], kernel_forwards=RUNTIME_CALLS),
+          counts["runtime"], routes["runtime"], "wgmma", forwards=RUNTIME_CALLS)
+    log("runtime", **runtime, nvidia_smi=DEVICE_SMI)
 
     # Every launch on the tiny path is of its instantiations (head_dim 16 in
     # f32, RMSNorm at dim 64 in f32), on the HTTP serving path of BERT-base's
@@ -8487,7 +9014,15 @@ def main() -> None:
         llm_p99_ratio=llm_run["p99_ratio"],
         llm_decode_controller_rpcs=llm_run["decode_controller_rpcs"],
         llm_pools_scale_independent=llm_run["pools_scale_independent"],
-        llm_seconds=llm_run["phase_seconds"], seconds=time.perf_counter() - _t_start)
+        llm_seconds=llm_run["phase_seconds"],
+        runtime_call_ms=model31["call_ms"], runtime_forward_ms=model31["forward_ms"],
+        runtime_d2h_ms=model31["d2h_ms"], runtime_h2d_ms=model31["h2d_ms"],
+        runtime_put_gb_per_s={k: v["gb_per_s"] for k, v in runtime["objects"].items()
+                              if k != "sums"},
+        runtime_tasks_per_s=runtime["microbenchmark"]["async_tasks_per_s"],
+        runtime_actor_calls_per_s=runtime["microbenchmark"]["async_actor_calls_per_s"],
+        runtime_restart_s=runtime["faults"]["restart_s"], runtime_seconds=runtime["seconds"],
+        seconds=time.perf_counter() - _t_start)
     require_no_reference("chip_smoke")
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -17,9 +17,9 @@ point, method, per-point counter)`` through SHA-256, with no shared RNG
 stream, so two runs that issue the same logical sequence of calls take the
 same faults, and every decision that fires is appended to a per-process
 JSONL event log. The decisions and the log lines are the reference's for
-the same schedule and calls. The message-level hooks have no caller in the
-port until its RPC layer (ROADMAP Queue A item 14b); the fail and latency
-points are wired into the ported modules.
+the same schedule and calls. The message-level hooks are called by the
+runtime core's RPC layer (``_private/rpc.py``); the fail and latency points
+are wired into the ported modules.
 
 Config sources, in precedence order:
   1. programmatic :func:`install` (also exports to the environment so the

@@ -1284,6 +1284,12 @@ def put(value: Any) -> ObjectRef:
 
 
 def _get_one(ref: ObjectRef, deadline: float | None) -> Any:
+    if not isinstance(ref, ObjectRef):
+        # The runtime's refs (ray_tpu_torch.put, .remote) are another type
+        # until this layer moves onto the runtime (ROADMAP item 14b-ii).
+        raise TypeError(
+            f"local_tasks.get takes this layer's ObjectRefs, not {type(ref).__module__}."
+            f"{type(ref).__name__}: the two runtimes meet in ROADMAP Queue A item 14b-ii")
     rt = _runtime
     if rt is not None and rt.state(ref) == "pending":
         rt.wait_owned([ref], 1, deadline)
@@ -1308,7 +1314,7 @@ def _get_one(ref: ObjectRef, deadline: float | None) -> Any:
 def get(refs, *, timeout: float | None = None):
     """The value of a ref, or the values of a list of refs."""
     deadline = None if timeout is None else time.monotonic() + timeout
-    if isinstance(refs, ObjectRef):
+    if isinstance(refs, ObjectRef) or not isinstance(refs, (list, tuple)):
         return _get_one(refs, deadline)
     return [_get_one(r, deadline) for r in refs]
 

@@ -38,7 +38,7 @@ request's ``serve.replica`` span, and a sampled sequence
 (``seq_trace_sample``) takes the request's context and a backdated
 ``serve.kv_transfer`` span for its KV decode into the pool. The prefill
 replica sleeps first for the chaos latency point ``serve.llm.prefill``.
-Left out until the port has metrics (ROADMAP Queue A item 14b): the
+Left out until the port has metrics (ROADMAP Queue A item 14b-ii): the
 TTFT and TPOT histograms and the replica's gauges.
 """
 
@@ -343,7 +343,8 @@ class LLMDecode:
         came from. The best of the windows that reached ``iters`` is
         reported (``controller_rpcs`` None when none did); a window cut
         short by ``timeout_s`` is listed in ``window_iterations`` and judged
-        by none."""
+        by none. A window with no call ends the probe, since no later one
+        can report fewer."""
         if isinstance(iters, dict):  # an HTTP-style dict body, as generate()'s
             body, iters = iters, 100
             iters = int(body.get("iters", iters))
@@ -376,6 +377,8 @@ class LLMDecode:
                       if n - before.get(name, 0) > 0 and name not in uplinks}
             if best is None or sum(deltas.values()) < best:
                 best, best_names, best_iters = sum(deltas.values()), deltas, done
+            if best == 0:
+                break
         return {"iterations": sum(window_iters), "window_iterations": window_iters,
                 "best_window_iterations": best_iters, "controller_rpcs": best,
                 "rpc_methods": best_names}

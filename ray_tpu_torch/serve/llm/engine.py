@@ -24,7 +24,7 @@ tracing on, an iteration with a sampled sequence active is a
 ``decode.iter`` span under the first such sequence's context, and a
 sampled sequence's token events carry its trace id (``tr``) and ride its
 stream channel in the trace envelope. Left out until the port has metrics
-(ROADMAP Queue A item 14b): the ``util/metrics`` gauges, counters and
+(ROADMAP Queue A item 14b-ii): the ``util/metrics`` gauges, counters and
 token-latency histograms (slot occupancy, KV blocks, tokens by class,
 TTFT and TPOT).
 """

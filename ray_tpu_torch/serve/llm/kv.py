@@ -13,7 +13,7 @@ are the reference's. ``write`` and ``read`` work on the arena's device and
 never wait for it: the decode loop reads every active slot's pages each
 iteration, and a wait there would stall the engine. The reference's
 ``export_gauges`` (``util/metrics``) is left out until the port has
-metrics (ROADMAP Queue A item 14b).
+metrics (ROADMAP Queue A item 14b-ii).
 """
 
 from __future__ import annotations

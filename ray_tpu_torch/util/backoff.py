@@ -1,9 +1,10 @@
 """Full-jitter exponential backoff, shared by every retry loop of the port.
 
-Copy of ray_tpu's ``util/backoff.py``. Two consumers: serve's handle
+Copy of ray_tpu's ``util/backoff.py``. Three consumers: serve's handle
 retries a request on another replica (``next_delay`` capped by the
-request's remaining deadline), and ``TorchTrainer.fit`` sleeps between
-gang restarts (``sleep``). Both need the same shape, a sleep of U(0,
+request's remaining deadline), ``TorchTrainer.fit`` sleeps between
+gang restarts (``sleep``), and the runtime's RPC clients
+(``_private/rpc.py``) await a redial on the event loop (``async_sleep``). Both need the same shape, a sleep of U(0,
 ceiling) and then a doubled ceiling, because the failure they recover
 from is correlated: a gang's death or a replica's crash strands every
 caller at once, and a fixed schedule turns the retries into a stampede.
@@ -48,6 +49,14 @@ class Backoff:
         """Blocks for the next delay (the trainer's side). Returns it."""
         delay = self.next_delay()
         time.sleep(delay)
+        return delay
+
+    async def async_sleep(self) -> float:
+        """Event-loop variant (RPC clients). Returns the delay awaited."""
+        import asyncio
+
+        delay = self.next_delay()
+        await asyncio.sleep(delay)
         return delay
 
     def reset(self) -> None:

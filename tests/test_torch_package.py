@@ -39,6 +39,11 @@
   ``_private/dag_apps.py``) are runtime modules that import no cloudpickle
   (actors get their classes by name), and ``ray_tpu_torch.dag`` imports no
   torch: a relay actor of a shm graph starts without it.
+* The runtime core (the controller, node agent, workers, core context, RPC,
+  serialization, store and the public API) is runtime (no ml_dtypes), and
+  neither it nor the top-level package imports torch at module level: a
+  worker imports torch only when the user's code does. Its native library
+  is compiled only from sources under ``ray_tpu_torch/``, into ``build/``.
 """
 
 import ast
@@ -103,7 +108,13 @@ RUNTIME_MODULES = ["train/checkpoint.py", "train/session.py", "train/config.py",
                    "_private/profile_merge.py", "_private/telemetry.py",
                    "parallel/topology.py", "parallel/_wire.py", "_private/resources.py",
                    "_private/workload.py", "util/backoff.py", "_private/dag_apps.py",
-                   "_private/hang_doctor.py"] + sorted(
+                   "_private/hang_doctor.py"] + [
+    f"_private/{name}.py" for name in (
+        "ids", "object_ref", "atomic_io", "config", "serialization", "rpc", "object_store",
+        "event_export", "snapshot_store", "kv_store_server", "runtime_env", "controller",
+        "node_agent", "core_context", "worker_proc", "node", "worker", "ray_perf",
+        "wire_gen")] + ["exceptions.py", "runtime_env.py", "remote_function.py", "actor.py",
+                        "__init__.py", "_native/__init__.py"] + sorted(
     p.relative_to(ROOT / "ray_tpu_torch").as_posix()
     for sub in ("tune", "air", "dag", "util/collective")
     for p in (ROOT / "ray_tpu_torch" / sub).rglob("*.py"))
@@ -600,3 +611,64 @@ def test_the_collective_scan_covers_the_reference_layout():
                          text=True, timeout=60)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "[]"
+
+
+# The runtime core and the modules a worker or the node's daemons load
+# before any user code runs.
+RUNTIME_CORE = ["__init__.py", "_private/controller.py", "_private/node_agent.py",
+                "_private/worker_proc.py", "_private/core_context.py", "_private/rpc.py",
+                "_private/serialization.py", "_private/worker.py", "_private/object_store.py",
+                "_private/node.py", "actor.py", "remote_function.py", "_native/__init__.py"]
+
+
+@pytest.mark.parametrize("name", RUNTIME_CORE)
+def test_the_runtime_core_imports_no_torch_at_module_level(name):
+    path = ROOT / "ray_tpu_torch" / name
+    bad = [m for m in _module_level_imports(path) if m.split(".")[0] in ("torch", "triton")]
+    assert not bad, f"{name} imports {bad} at module level"
+
+
+def test_the_runtime_core_loads_no_torch():
+    modules = ", ".join("ray_tpu_torch." + n[:-3].replace("/", ".").replace(".__init__", "")
+                        for n in RUNTIME_CORE if n != "__init__.py")
+    code = (f"import sys, ray_tpu_torch, {modules}; "
+            "print(sorted({m.split('.')[0] for m in sys.modules"
+            " if m.split('.')[0] in ('torch', 'jax', 'ray_tpu', 'ml_dtypes')}))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=60)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
+def test_importing_the_package_loads_none_of_the_runtime():
+    code = ("import sys, ray_tpu_torch; print(sorted(m for m in sys.modules"
+            " if m.startswith('ray_tpu_torch.') or m.split('.')[0] in ('torch', 'cloudpickle',"
+            " 'msgpack')))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=60)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "['ray_tpu_torch._private', 'ray_tpu_torch._private.resources']"
+
+
+def test_the_native_build_compiles_only_the_ports_sources_into_build():
+    from ray_tpu_torch import _native
+
+    src = ROOT / "ray_tpu_torch" / "_native" / "src"
+    sources = [Path(p) for p in _native._sources()] + [Path(_native._FASTLANE_SRC)]
+    assert sorted(p.relative_to(src).as_posix() for p in sources) == [
+        "object_store/store.cc", "pyext/fastlane.cc", "rpc/transport.cc"]
+    assert all(Path(d).is_relative_to(src) for d in _native._SRC_DIRS)
+    assert Path(_native.BUILD_DIR) == ROOT / "build" / "ray_tpu_torch" / "native"
+
+
+def test_the_runtime_copies_keep_the_reference_layout():
+    names = {p.relative_to(ROOT / "ray_tpu_torch").as_posix() for p in
+             (ROOT / "ray_tpu_torch").rglob("*.py")}
+    for name in ("_private/ids.py", "_private/object_ref.py", "_private/atomic_io.py",
+                 "_private/rpc.py", "_private/wire_gen.py", "_private/object_store.py",
+                 "_private/controller.py", "_private/node_agent.py", "_private/core_context.py",
+                 "_private/worker_proc.py", "_private/node.py", "_private/worker.py",
+                 "_private/ray_perf.py", "exceptions.py", "remote_function.py", "actor.py",
+                 "runtime_env.py", "_private/runtime_env.py"):
+        assert name in names
+        assert (ROOT / "ray_tpu" / name).exists()

@@ -597,7 +597,16 @@ def test_app_tokens_over_handle_and_http_equal_the_digest(llm_serve):
     assert status == 200, body
     assert json.loads(body)["tokens"] == _expected_tokens("warm cache line", 4)
     assert set(serve.status()["llm"]["deployments"]) == {"llm_prefill", "llm_decode"}
-    metrics = serve.start(http_port=None).get_metrics()["llm_llm_decode"]
+    # A keyless call takes a replica at random, so the four calls above can
+    # all land on one. A session id pins its calls to one replica by hash:
+    # calls under new ids reach the other, whose pool is then held too.
+    for i in range(32):
+        metrics = serve.start(http_port=None).get_metrics()["llm_llm_decode"]
+        if all(m["serve_llm"]["admitted"] for m in metrics):
+            break
+        spread = handle.options(method_name="generate", session_id=f"spread-{i}").remote(
+            {"prompt": "hello tpu", "max_tokens": 6}).result(timeout=60)
+        assert spread["tokens"] == out["tokens"]
     assert len(metrics) == 2
     for m in metrics:
         llm = m["serve_llm"]
@@ -763,6 +772,40 @@ def test_the_steady_probe_judges_whole_windows_only(monkeypatch):
     assert probe["best_window_iterations"] >= 100, probe
     assert probe["controller_rpcs"] >= 2 and set(probe["rpc_methods"]) == {"report_stats"}, probe
     assert port_channel.calls_sent(("127.0.0.1", 10)) == {}
+
+
+def test_the_steady_probe_stops_at_its_first_window_with_no_call(monkeypatch):
+    """Only the parked long poll, a background uplink, is sent: the first
+    whole window reports 0 calls and ends the probe, as no later window
+    could report fewer."""
+    address = ("127.0.0.1", 9)
+    monkeypatch.setattr(long_poll, "_controller_address", address)
+    port_channel.count_calls_to(address)
+
+    class _Engine:
+        iterations = 0
+
+    decode = port_dep.LLMDecode.__new__(port_dep.LLMDecode)
+    decode._engine = _Engine()
+    stop = asyncio.Event()
+
+    async def ticker():
+        while not stop.is_set():
+            decode._engine.iterations += 1
+            if decode._engine.iterations % 30 == 0:
+                port_channel._count_sent(address, long_poll.PARKED_POLL)
+            await asyncio.sleep(0.001)
+
+    async def main():
+        tick = asyncio.ensure_future(ticker())
+        out = await decode.steady_rpc_probe({"iters": 100, "timeout_s": 10.0, "windows": 3})
+        stop.set()
+        await tick
+        return out
+
+    probe = asyncio.run(main())
+    assert len(probe["window_iterations"]) == 1 and probe["best_window_iterations"] >= 100, probe
+    assert probe["controller_rpcs"] == 0 and probe["rpc_methods"] == {}, probe
 
 
 def test_the_decode_pool_grows_on_kv_headroom_and_prefill_stays(llm_serve):
