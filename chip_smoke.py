@@ -224,16 +224,20 @@ final line) if anything is wrong:
                weights from the seed) behind @batch (8, 5 ms, buckets 1, 4,
                8, each warmed at init), max_ongoing_requests 64, autoscaled
                from 1 to 2 replicas (target 8 ongoing, upscale delay 1 s),
-               each replica a process on half of the card (num_gpus 0.5);
+               on ray_tpu_torch.init(num_cpus=8): the controller, the HTTP
+               proxy and each replica runtime actors, each replica leasing
+               half of the card from the node agent (num_gpus 0.5);
                16 keep-alive http.client clients in a process of their own
                post the release script's payload for 8 s (then 4 s bursts
                until the second replica runs, at most 90 s), and a burst in
                which one replica profiles 1 s of its serving loop; 8 seeded
                requests, and 32 tokens of TokenStreamer as SSE. Every answer
                within LOGITS_TOL of a direct forward here, no request failed,
-               2 replicas reached, 32 SSE tokens; qps, p50/p95/p99, the time
-               to the second replica, batch occupancy, SSE tokens/s and the
-               replica's device idle share
+               2 replicas reached, 32 SSE tokens, each replica's lease "0",
+               device 0 and weights on cuda:0 read inside it; qps,
+               p50/p95/p99, the time to the second replica, batch occupancy,
+               SSE tokens/s, the replica's device idle share and the proxy
+               actor's CPU a request
  24. tune      the port's Tune (ray_tpu_torch.tune), each trial a process of
                its own: (a) BASELINE config 3 as release/tune_asha_resnet.py
                defines it (the ResNet at width 8 or 16 with one block a
@@ -312,7 +316,8 @@ final line) if anything is wrong:
                serve.run_from_config from a YAML (2 replicas at num_gpus 0.5,
                max_ongoing_requests 32, request_timeout_s 30, retry_policy
                {max_attempts 8, hedge}, health checks every 1 s; two HTTP
-               proxies, the second a process the controller restarts): 8
+               proxies, each an actor the controller restarts; each of (a)
+               and (b) on its own ray_tpu_torch.init(num_cpus=8)): 8
                clients in a process of their own, each preferring its proxy
                and failing over to the other, honouring 503 Retry-After, a 4 s
                baseline then a 4 s window that SIGKILLs a replica (1 s) and the
@@ -320,7 +325,7 @@ final line) if anything is wrong:
                landed, the replica replaced, the proxy back on its port, chaos
                p99 under 3x the baseline's; the hedges, breaker states and
                the route p99 the controller scraped. The oom_risk drain (the
-               bench's phase 3) waits for ROADMAP Queue A item 14
+               bench's phase 3) waits for ROADMAP Queue A item 14d
  28. dag       compiled graphs (ray_tpu_torch.dag) on the local actors
                (_private.local_tasks, every actor of the phase started at
                once, all stopped at its end): (a) TransformerConfig.
@@ -389,7 +394,8 @@ final line) if anything is wrong:
                the serve-LLM engine (ray_tpu_torch.serve.llm): first an int8
                and an fp8 KV payload decoded on the card (decode_device) into
                a KVBlockPool there, bitwise against decode_plain on the host;
-               then release/benchmarks_serve_llm.py's phases 1-3, its
+               then release/benchmarks_serve_llm.py's phases 1-3 on
+               ray_tpu_torch.init(num_cpus=32), its
                deployment uncut (1 prefill replica on the host, 2 decode
                replicas at a quarter of the card each, max_slots 128, buckets
                32/64/128, 4096 KV blocks of 16 x 16 f32 on the card, the int8
@@ -397,7 +403,8 @@ final line) if anything is wrong:
                bench's full load in 4 s windows: (1) a baseline of 8 handle
                threads sending generate_batch waves of 64 and 2 HTTP clients,
                with steady_rpc_probe on a decode replica (0 calls to the
-               controller in a whole window of 100 iterations; the baseline
+               runtime's controller, less its metrics flush and task-event
+               report, in a whole window of 100 iterations; the baseline
                runs on past 4 s until the probe returns); (2) a window
                at 2 handle threads and 2 HTTP clients that SIGKILLs a decode
                replica (1 s)
@@ -407,7 +414,8 @@ final line) if anything is wrong:
                from 1 to 2 while prefill stays at 1. Gates: lost 0, every
                sequence's tokens equal to the digest, both kills landed and
                recovered, decode_controller_rpcs 0, pools_scale_independent 1,
-               every decode pool on the card; sequences/s beside the
+               every decode pool on the card and each decode replica's
+               lease and current device read inside it; sequences/s beside the
                reference's full-load release gate of 3,800, the p99s and
                their ratio. The phase runs traced with every sequence
                sampled: one request sent before the load with an
@@ -451,9 +459,10 @@ Each path (4-5, 7, 8, 9, 10, 11, 12, 14, 15, 16, 17, 18, 19, 20, 21, 22, 23, 24,
 27, 28, 29, 30, 31) runs with every launch count set to 0 just before it; its counts, read just after,
 must equal what its layers and passes imply, every flash launch on the
 route the path's inputs take. The trainer path's kernels launch in its
-worker processes, and the HTTP serving path's in its replica processes,
+worker processes, and the HTTP serving path's in its replica actors,
 whose counts start at 0 with each process and come back in their reports
-and metrics (phase 27's too, each replica's held to its own forwards);
+and through each replica's kernel_launches (phase 27's too, each
+replica's held to its own forwards);
 so do the Tune trials' (phase 24, where every count is 0),
 the elastic trainer's (phase 25), the graph's stage actors' (phase 28),
 the ring members' (phase 29) and the runtime's model actor's (phase 31).
@@ -492,6 +501,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+import ray_tpu_torch as rt
 from ray_tpu_torch import _build
 from ray_tpu_torch import data as rd
 from ray_tpu_torch._private import chaos as chaos_mod
@@ -499,6 +509,7 @@ from ray_tpu_torch._private import config as config_mod
 from ray_tpu_torch._private import dag_apps, local_tasks
 from ray_tpu_torch._private import profiler as profiler_mod
 from ray_tpu_torch._private import resources
+from ray_tpu_torch._private import worker as runtime_worker
 from ray_tpu_torch._private import telemetry
 from ray_tpu_torch.dag import InputNode
 from ray_tpu_torch.models import transformer as transformer_mod
@@ -529,6 +540,8 @@ from ray_tpu_torch.rllib.policy.sample_batch import (
 from ray_tpu_torch.parallel.topology import SliceTopology
 from ray_tpu_torch import serve, tune
 from ray_tpu_torch.serve import batching as serve_batching
+from ray_tpu_torch.serve import long_poll
+from ray_tpu_torch.serve import routing as serve_routing
 from ray_tpu_torch.serve.batching import batch
 from ray_tpu_torch.serve import llm
 from ray_tpu_torch.serve.llm import deployments as llm_dep
@@ -4919,6 +4932,14 @@ class BertEncoder:
         with torch.inference_mode():
             return forward(self.params, torch.from_numpy(tokens).to(self.device), self.config)
 
+    def placement(self, _) -> dict:
+        """Read inside the replica: the cards its runtime lease lets it see,
+        the device it opened, and where its weights are."""
+        return {"pid": os.getpid(), "lease": os.environ.get("CUDA_VISIBLE_DEVICES"),
+                "current_device": (torch.cuda.current_device() if self.device == "cuda"
+                                   else None),
+                "params_device": str(self.params["embed"].device)}
+
     @serve.batch(max_batch_size=8, batch_wait_timeout_s=0.005, bucket_sizes=BUCKETS)
     async def __call__(self, bodies):
         start = time.perf_counter()
@@ -5035,12 +5056,36 @@ def _percentile_ms(latencies: list, q: float) -> float:
     return 1e3 * ordered[min(len(ordered) - 1, int(len(ordered) * q))]
 
 
-def _thread_cpu_s(name: str) -> float:
-    """CPU seconds (user and system) of this process's thread ``name``, from
-    /proc (Linux)."""
-    tid = next(t.native_id for t in threading.enumerate() if t.name == name)
-    fields = Path(f"/proc/self/task/{tid}/stat").read_text().rsplit(")", 1)[1].split()
+def _proc_cpu_s(pid: int) -> float:
+    """CPU seconds (user and system) of process ``pid``, from /proc (Linux)."""
+    fields = Path(f"/proc/{pid}/stat").read_text().rsplit(")", 1)[1].split()
     return (int(fields[11]) + int(fields[12])) / os.sysconf("SC_CLK_TCK")
+
+
+# ---------------------------------------------------------------- serve on the runtime
+# Phases 23, 27 and 30 run the serve plane on ray_tpu_torch.init(), as their
+# release scripts do: the controller, the proxies and the replicas are actors
+# of the runtime, each replica's card share leased from the node agent. Each
+# phase boots its cluster and shuts it down at its end, so that no phase
+# inherits another's actors.
+def _ctl(controller, method: str, *args, timeout: float = 60.0):
+    """The serve controller actor's ``method``, waited for."""
+    return rt.get(getattr(controller, method).remote(*args), timeout=timeout)
+
+
+def _serve_metrics(controller, qname: str) -> list:
+    """The deployment's running replicas' metrics, each with its launch
+    counts asked of its actor (``Replica.kernel_launches``)."""
+    metrics = _ctl(controller, "get_metrics").get(qname, [])
+    for m in metrics:
+        actor = rt.get_actor(f"SERVE_REPLICA::{m['replica_id']}")
+        m["kernels"] = rt.get(actor.kernel_launches.remote(), timeout=60)
+    return metrics
+
+
+def _serve_down() -> None:
+    serve.shutdown()
+    rt.shutdown()
 
 
 def _start_split(asked_at: float, marks: dict) -> dict:
@@ -5088,7 +5133,9 @@ def phase_serve_http(config_kwargs=None, device="cuda", seconds=HTTP_SECONDS) ->
     config = TransformerConfig(**config_kwargs)
     port = _bert_port()
     start, asked_at = time.perf_counter(), time.time()
+    rt.init(num_cpus=8)
     controller = serve.start(http_port=port)
+    proxy_pid = _ctl(controller, "get_proxies")[0]["pid"]
     encoder = BertEncoder if device == "cuda" else BertEncoder.options(ray_actor_options={})
     # The load generator's process starts beside the replicas, one wave of
     # process starts instead of two; it sends nothing before its first "go".
@@ -5131,9 +5178,9 @@ def phase_serve_http(config_kwargs=None, device="cuda", seconds=HTTP_SECONDS) ->
                     if n >= 2 and reached_s is None:
                         reached_s = time.perf_counter() - go
 
-            io_cpu = _thread_cpu_s("serve-io")
+            proxy_cpu = _proc_cpu_s(proxy_pid)
             main = burst(seconds, watch)
-            io_cpu = _thread_cpu_s("serve-io") - io_cpu
+            proxy_cpu = _proc_cpu_s(proxy_pid) - proxy_cpu
             bursts = [main]
             while reached_s is None and time.perf_counter() - go < HTTP_SCALE_WAIT_S:
                 bursts.append(burst(4.0, watch))
@@ -5158,6 +5205,8 @@ def phase_serve_http(config_kwargs=None, device="cuda", seconds=HTTP_SECONDS) ->
             if loader.is_alive():
                 loader.kill()
         status_after = serve.status()["bert"]["deployments"]["BertEncoder"]
+        placements = list(_by_replica(handle, "placement",
+                                      status_after["running_replicas"]).values())
 
         # Seeded requests with other tokens, over HTTP, for the check below.
         rng = np.random.default_rng(SEED + 23)
@@ -5170,11 +5219,11 @@ def phase_serve_http(config_kwargs=None, device="cuda", seconds=HTTP_SECONDS) ->
                          raw=True)
         sse_s = time.perf_counter() - sse_start
         sse_tokens = sum(1 for line in sse.decode().splitlines() if line.startswith("data: "))
-        metrics = controller.get_metrics()["bert_BertEncoder"]
+        metrics = _serve_metrics(controller, "bert_BertEncoder")
     finally:
         if loader.is_alive():
             loader.kill()
-        serve.shutdown()
+        _serve_down()
     shutdown_s = time.perf_counter() - start
 
     # The direct forward of the same tokens, in this process.
@@ -5210,14 +5259,15 @@ def phase_serve_http(config_kwargs=None, device="cuda", seconds=HTTP_SECONDS) ->
         mean_batch_size=real / sum(m["batches"] for m in metrics),
         batches=sum(m["batches"] for m in metrics), forwards=forwards,
         replica_totals=[m["total"] for m in metrics],
-        # This process's serve I/O thread (the proxy, the handles and the
-        # wire) over the main burst: its CPU seconds a request and its share
-        # of the burst's wall time.
-        io_loop_cpu_us_per_request=1e6 * io_cpu / max(1, len(latencies)),
-        io_loop_busy_share=io_cpu / main["seconds"],
+        # The HTTP proxy actor's process (its serve I/O loop, its handles
+        # and their actor calls) over the main burst: its CPU seconds a
+        # request and its share of the burst's wall time.
+        proxy_cpu_us_per_request=1e6 * proxy_cpu / max(1, len(latencies)),
+        proxy_busy_share=proxy_cpu / main["seconds"],
         sse_tokens=sse_tokens, sse_tokens_per_s=sse_tokens / sse_s, sse_seconds=sse_s,
         device_window=window, max_answer_err=max(answer_errs), answer_tol=LOGITS_TOL,
         replica_start_s=window and _start_split(asked_at, window["init_marks"]),
+        placements=placements,
         distinct_answers=sum(len(b["answers"]) for b in bursts),
         counts=counts, routes=routes, phase_seconds=shutdown_s)
     log("serve_http", **result)
@@ -5227,6 +5277,11 @@ def phase_serve_http(config_kwargs=None, device="cuda", seconds=HTTP_SECONDS) ->
             f"serve_http: answers {max(answer_errs)} from the direct forward >= {LOGITS_TOL}")
     require(result["replicas_reached"] == 2, f"serve_http: replicas {replicas_seen[-5:]}")
     require(sse_tokens == SSE_TOKENS, f"serve_http: {sse_tokens} SSE tokens")
+    if device == "cuda":
+        # Each replica's weights on the one card its half-card lease names.
+        require(all(p["lease"] == "0" and p["current_device"] == 0
+                    and p["params_device"] == "cuda:0" for p in placements),
+                f"serve_http: replica placements {placements}")
     return result
 
 
@@ -6224,6 +6279,7 @@ def phase_serve_mux(config_kwargs=None, device="cuda", seconds=MUX_SECONDS) -> d
     config = TransformerConfig(**config_kwargs)
     encoder = MuxEncoder if device == "cuda" else MuxEncoder.options(ray_actor_options={})
     start = time.perf_counter()
+    rt.init(num_cpus=8)
     controller = serve.start(http_port=None)
     try:
         handle = serve.run(encoder.bind(config_kwargs, device), name="mux", route_prefix="/mux")
@@ -6251,9 +6307,9 @@ def phase_serve_mux(config_kwargs=None, device="cuda", seconds=MUX_SECONDS) -> d
         checks = {m: [by_model[m].remote(b).result(timeout=60)["embedding"]
                       for b in check_bodies] for m in MUX_MODELS}
         stats = _by_replica(handle, "stats")
-        metrics = {m["pid"]: m for m in controller.get_metrics()["mux_MuxEncoder"]}
+        metrics = {m["pid"]: m for m in _serve_metrics(controller, "mux_MuxEncoder")}
     finally:
-        serve.shutdown()
+        _serve_down()
 
     # Each model's direct forward here.
     seq = min(BERT_SEQ, config.max_seq)
@@ -6472,12 +6528,13 @@ def phase_serve_chaos(seconds=CHAOS_SECONDS) -> dict:
     parent, child = ctx.Pipe()
     loader = ctx.Process(target=chaos_load, args=(child, ports, "/chaosbench", CHAOS_CLIENTS))
     loader.start()
+    rt.init(num_cpus=8)
     try:
         deployed = serve.run_from_config(str(path))
         ready_s = time.perf_counter() - start
         controller = serve.start(http_port=None)
         require(deployed == {"chaosbench": "ChaosEncoder"}, f"serve_chaos: deployed {deployed}")
-        proxies = {p["port"]: p for p in controller.get_proxies()}
+        proxies = {p["port"]: p for p in _ctl(controller, "get_proxies")}
         require(sorted(proxies) == ports and proxies[port + 1]["pid"],
                 f"serve_chaos: proxies {proxies}")
 
@@ -6497,7 +6554,7 @@ def phase_serve_chaos(seconds=CHAOS_SECONDS) -> dict:
                 return out
 
             baseline = burst()
-            victims = sorted(m["pid"] for m in controller.get_metrics()[qname])
+            victims = sorted(m["pid"] for m in _ctl(controller, "get_metrics")[qname])
             proxy_pid = proxies[port + 1]["pid"]
 
             def kills() -> list:
@@ -6522,9 +6579,9 @@ def phase_serve_chaos(seconds=CHAOS_SECONDS) -> dict:
         recover_start = time.perf_counter()
         recovered = proxy_back = False
         while time.perf_counter() - recover_start < CHAOS_RECOVER_S:
-            pids = {m["pid"] for m in controller.get_metrics().get(qname, [])}
+            pids = {m["pid"] for m in _ctl(controller, "get_metrics").get(qname, [])}
             recovered = running() == 2 and victims[0] not in pids and len(pids) == 2
-            now = next(p for p in controller.get_proxies() if p["port"] == port + 1)
+            now = next(p for p in _ctl(controller, "get_proxies") if p["port"] == port + 1)
             try:
                 proxy_back = now["restarts"] == 1 and _post_json(
                     port + 1, "/chaosbench", HTTP_PAYLOAD)["embedding"] is not None
@@ -6534,14 +6591,14 @@ def phase_serve_chaos(seconds=CHAOS_SECONDS) -> dict:
                 break
             time.sleep(0.5)
         recover_s = time.perf_counter() - recover_start
-        reliability = [controller.proxy_call(f"SERVE_PROXY::{p}", "get_reliability_stats")
-                       for p in ports]
-        route_p99 = controller.get_route_p99().get(qname)
-        metrics = controller.get_metrics()[qname]
+        reliability = [_ctl(controller, "proxy_call", f"SERVE_PROXY::{p}",
+                            "get_reliability_stats") for p in ports]
+        route_p99 = _ctl(controller, "get_route_p99").get(qname)
+        metrics = _serve_metrics(controller, qname)
     finally:
         if loader.is_alive():
             loader.kill()
-        serve.shutdown()
+        _serve_down()
         shutil.rmtree(SERVE_SCRATCH, ignore_errors=True)
 
     config = TransformerConfig(**BERT_CONFIG)
@@ -6584,8 +6641,8 @@ def phase_serve_chaos(seconds=CHAOS_SECONDS) -> dict:
         # The second proxy's counts start again at its restart.
         by_proxy=dict(zip(map(str, ports), reliability)),
         route_p99_ms=route_p99, max_answer_err=max(errs), answer_tol=LOGITS_TOL,
-        drain_ok="not run: the oom_risk drain waits for the runtime core (ROADMAP Queue A "
-                 "item 14)",
+        drain_ok="not run: the oom_risk drain waits for the node agent's telemetry (ROADMAP "
+                 "Queue A item 14d)",
         replicas_after=sorted(counts_by_pid), phase_seconds=time.perf_counter() - start)
     log("serve_chaos", **result)
     require(result["lost"] == 0, f"serve_chaos: {result['lost']} lost: {result['lost_detail']}")
@@ -7790,9 +7847,11 @@ def _llm_wire_trace(parent: dict, device: str = "cuda") -> dict:
             "bitwise": got.tobytes() == plain.reshape(kv.shape).tobytes()}
 
 
-def _llm_trace_check(session: str, decode_pids: list, prefill_pids: list, wire: dict) -> dict:
-    """The sampled request's trace, joined across the proxy (this process),
-    a decode replica, the prefill replica and the KV wire; decode.iter spans
+def _llm_trace_check(session: str, decode_pids: list, prefill_pids: list, wire: dict,
+                     proxy_pid: int) -> dict:
+    """The sampled request's trace, joined across the first proxy (its
+    actor's process), a decode replica, the prefill replica and the KV
+    wire; decode.iter spans
     from every decode replica; the request's timeline record and its
     Perfetto view."""
     want = {"serve.request", "serve.replica", "serve.prefill", "serve.kv_transfer",
@@ -7818,7 +7877,7 @@ def _llm_trace_check(session: str, decode_pids: list, prefill_pids: list, wire: 
     pop = by_name.get("channel.pop", [{}])[0]
     chain = {
         "request_under_header": req.get("parent_id") == LLM_TRACE_PARENT
-        and req.get("pid") == os.getpid(),
+        and req.get("pid") == proxy_pid,
         "decode_replica_under_request": decode_rep.get("parent_id") == req.get("span_id")
         and decode_rep.get("pid") in decode_pids,
         "prefill_under_decode_replica": prefill.get("parent_id") == decode_rep.get("span_id"),
@@ -8035,7 +8094,7 @@ def _llm_scaling(ready_s: float) -> dict:
     for t in threads:
         t.join(timeout=60)
     prefill_moved |= replicas("llm_prefill") > 1
-    metrics = serve.start(http_port=None).get_metrics().get("llmscale_llm_decode", [])
+    metrics = _serve_metrics(serve.start(http_port=None), "llmscale_llm_decode")
     return {"decode_replicas_after": replicas("llm_decode"),
             "prefill_replicas_after": replicas("llm_prefill"),
             "pools_scale_independent": int(decode_up and not prefill_moved),
@@ -8043,6 +8102,8 @@ def _llm_scaling(ready_s: float) -> dict:
             "threads_left": sum(t.is_alive() for t in threads),
             "decode_pools": [(m["serve_llm"]["kv_device"], m["serve_llm"]["kv_pool_bytes"])
                              for m in metrics],
+            "decode_leases": [(m["serve_llm"]["lease_cards"], m["serve_llm"]["current_device"])
+                              for m in metrics],
             "kernels": [m["kernels"] for m in metrics]}
 
 
@@ -8060,12 +8121,17 @@ def phase_serve_llm(seconds: float = LLM_SECONDS) -> dict:
     port = _port_pair()
     ports = [port, port + 1]
     qname = "llm_llm_decode"
-    # Traced throughout: the replicas and the second proxy inherit the
-    # tracing environment, and every sequence is sampled.
-    with traced("serve_llm") as session:
+    # Traced throughout: the cluster starts inside, so that its node agent,
+    # and every replica and proxy it starts, inherit the tracing
+    # environment; every sequence is sampled. Every process of the cluster,
+    # this one included once init() has run, exports its spans under the
+    # cluster's session directory.
+    with traced("serve_llm"):
+        rt.init(num_cpus=32)
+        session = runtime_worker.runtime_info()["session_dir"]
         try:
             try:
-                # The second proxy's process and the app's replicas start at once.
+                # The second proxy's actor and the app's replicas start at once.
                 controller = serve.start(http_port=port)
                 background = concurrent.futures.ThreadPoolExecutor(1)
                 second_proxy = background.submit(serve.start, http_port=port, num_proxies=2)
@@ -8081,10 +8147,21 @@ def phase_serve_llm(seconds: float = LLM_SECONDS) -> dict:
                 serve.run(app, name="llm", route_prefix="/llm")
                 second_proxy.result(timeout=300)
                 ready_s = time.perf_counter() - t0
+                first_proxy_pid = next(p["pid"] for p in _ctl(controller, "get_proxies")
+                                       if p["port"] == port)
                 warm = _post_json(port, "/llm",
                                   {"prompt": LLM_PROMPT, "max_tokens": LLM_MAX_TOKENS})
                 require(warm["tokens"] == llm_expected_tokens(LLM_PROMPT, LLM_MAX_TOKENS),
                         f"serve_llm: warm-up tokens {warm['tokens']}")
+                # One warm-up on each decode replica (a session id the proxy's
+                # ring sends there): the sampled request then meets no cold
+                # replica whose first answer outlasts the hedge's delay.
+                decode_names = long_poll.get_subscriber().get_replicas(qname)["actor_names"]
+                ring = serve_routing.HashRing(decode_names)
+                for name in decode_names:
+                    key = next(f"warm-{i}" for i in range(4096) if ring.pick(f"warm-{i}") == name)
+                    _post_json(port, "/llm", {"prompt": LLM_PROMPT, "max_tokens": LLM_MAX_TOKENS},
+                               headers={"X-RayTPU-Session": key})
                 # The sampled request, alone on the app: its decode iterations are
                 # its own.
                 traced_out = _post_json(
@@ -8093,7 +8170,8 @@ def phase_serve_llm(seconds: float = LLM_SECONDS) -> dict:
                     headers={"X-RayTPU-Trace": f"{LLM_TRACE_ID}:{LLM_TRACE_PARENT}"})
                 require(traced_out["tokens"] == llm_expected_tokens(LLM_PROMPT, LLM_MAX_TOKENS),
                         f"serve_llm: the traced request's tokens {traced_out['tokens']}")
-                prefill_pids = sorted(m["pid"] for m in controller.get_metrics()["llm_llm_prefill"])
+                prefill_pids = sorted(m["pid"] for m in
+                                      _ctl(controller, "get_metrics")["llm_llm_prefill"])
 
                 def decode_running() -> int:
                     return serve.status()["llm"]["deployments"]["llm_decode"]["running_replicas"]
@@ -8101,9 +8179,9 @@ def phase_serve_llm(seconds: float = LLM_SECONDS) -> dict:
                 # Phase 1: the baseline and the steady-state probe.
                 probe: dict = {}
                 baseline = _llm_load(seconds, LLM_HANDLE_THREADS, LLM_HTTP_THREADS, ports, probe)
-                before = controller.get_metrics()[qname]
+                before = _serve_metrics(controller, qname)
                 victims = sorted(m["pid"] for m in before)
-                proxies = {p["port"]: p for p in controller.get_proxies()}
+                proxies = {p["port"]: p for p in _ctl(controller, "get_proxies")}
                 require(len(victims) == 2 and proxies[port + 1]["pid"],
                         f"serve_llm: decode pids {victims}, proxies {proxies}")
 
@@ -8129,9 +8207,9 @@ def phase_serve_llm(seconds: float = LLM_SECONDS) -> dict:
                 recover_start = time.perf_counter()
                 recovered = proxy_back = False
                 while time.perf_counter() - recover_start < LLM_RECOVER_S:
-                    pids = {m["pid"] for m in controller.get_metrics().get(qname, [])}
+                    pids = {m["pid"] for m in _ctl(controller, "get_metrics").get(qname, [])}
                     recovered = decode_running() == 2 and victims[0] not in pids and len(pids) == 2
-                    now = next(p for p in controller.get_proxies() if p["port"] == port + 1)
+                    now = next(p for p in _ctl(controller, "get_proxies") if p["port"] == port + 1)
                     try:
                         proxy_back = now["restarts"] == 1 and _post_json(
                             port + 1, "/llm", {"prompt": LLM_PROMPT, "max_tokens": LLM_MAX_TOKENS}
@@ -8142,7 +8220,7 @@ def phase_serve_llm(seconds: float = LLM_SECONDS) -> dict:
                         break
                     time.sleep(0.5)
                 recover_s = time.perf_counter() - recover_start
-                after = controller.get_metrics()[qname]
+                after = _serve_metrics(controller, qname)
 
                 # Phase 3: the tiny-pool app scales its decode pool on KV headroom.
                 scaling = _llm_scaling(scale_ready.result(timeout=300))
@@ -8156,10 +8234,12 @@ def phase_serve_llm(seconds: float = LLM_SECONDS) -> dict:
                             and s["name"] == "serve.kv_transfer"), None)
             wire = _llm_wire_trace({"trace_id": LLM_TRACE_ID,
                                     "span_id": (kv_span or {}).get("span_id", "0" * 16)})
-            trace_check = _llm_trace_check(session, victims, prefill_pids, wire)
+            trace_check = _llm_trace_check(session, victims, prefill_pids, wire,
+                                           first_proxy_pid)
             obs = _llm_obs_overhead("cuda")
         finally:
-            shutil.rmtree(session, ignore_errors=True)
+            rt.shutdown()
+            shutil.rmtree(os.path.join(session, "tracing"), ignore_errors=True)
     OBSERVABILITY["serve_llm"] = {**trace_check, "bench_phase1": obs,
                                   "decode_controller_rpcs": probe.get("controller_rpcs", -1),
                                   "probe_window_iterations": probe.get("window_iterations", [])}
@@ -8173,6 +8253,10 @@ def phase_serve_llm(seconds: float = LLM_SECONDS) -> dict:
     events = chaos["during"]
     pools = [(m["serve_llm"]["kv_device"], m["serve_llm"]["kv_pool_bytes"])
              for m in before + after] + scaling["decode_pools"]
+    # Read inside each decode replica: the cards its lease names, and the
+    # device it opened.
+    leases = [(m["serve_llm"]["lease_cards"], m["serve_llm"]["current_device"])
+              for m in before + after] + scaling["decode_leases"]
     kernels = [m["kernels"] for m in before + after] + scaling["kernels"]
     result = dict(
         config="release/benchmarks_serve_llm.py phases 1-3, deployment and load uncut, "
@@ -8204,7 +8288,7 @@ def phase_serve_llm(seconds: float = LLM_SECONDS) -> dict:
         engine_before={m["pid"]: {k: m["serve_llm"][k] for k in
                                   ("iterations", "admitted", "completed", "shed", "expired",
                                    "kv_wire_err", "iter_rate_s")} for m in before},
-        decode_pools=pools, codec=codec,
+        decode_pools=pools, decode_leases=leases, codec=codec,
         **{k: scaling[k] for k in ("decode_replicas_after", "prefill_replicas_after",
                                    "pools_scale_independent", "grow_s", "scaling_load_errors",
                                    "threads_left")},
@@ -8223,6 +8307,8 @@ def phase_serve_llm(seconds: float = LLM_SECONDS) -> dict:
     require(len(pools) >= 5 and all(dev.startswith("cuda") and nbytes > 0
                                     for dev, nbytes in pools),
             f"serve_llm: decode pools {pools}")
+    require(all(cards == "0" and current == 0 for cards, current in leases),
+            f"serve_llm: decode replicas' leases and devices {leases}")
     require(all(codec[q]["bitwise"] and codec[q]["pool_device"].startswith("cuda")
                 for q in codec), f"serve_llm: the card's KV decode {codec}")
     require(trace_check["ok"], f"serve_llm: the sampled request's trace {trace_check}")
@@ -8706,8 +8792,10 @@ def main() -> None:
     # Phase 30: the serve-LLM engine, beside the build (nvcc and g++ in
     # their own processes), since it needs no kernel of the port. Its
     # decode replicas (on the card) and its prefill replicas launch none:
-    # their counts come back in their metrics, each 0, and this process
-    # launches none.
+    # their counts come back through their kernel_launches, each 0, and
+    # this process launches none. Its init() waits on the file lock of the
+    # runtime's native build when the build holds it, so the two never
+    # build the same library at once.
     with concurrent.futures.ThreadPoolExecutor(1) as pool:
         build = pool.submit(phase_build)
         t0 = time.perf_counter()
@@ -8836,9 +8924,10 @@ def main() -> None:
                                         kernel_backwards=steps),
           counts["profiler_trainer"], routes["profiler_trainer"], "wgmma")
 
-    # The HTTP serving path: its kernels launch in the replica processes,
-    # whose counts (from 0 with each process) come back in their metrics;
-    # this process's launches are the direct forwards its check ran.
+    # The HTTP serving path: its kernels launch in the replica actors, whose
+    # counts (from 0 with each process) come back through their
+    # kernel_launches; this process's launches are the direct forwards its
+    # check ran.
     http, local, _ = _run_path(phase_serve_http)
     require(local == _expected(BERT_CONFIG["n_layers"], kernel_forwards=1),
             f"serve_http: this process launched {local}, one direct forward's worth expected")
@@ -8872,7 +8961,8 @@ def main() -> None:
     _path("data", {k: 0 for k in counts["data"]}, counts["data"], routes["data"], "wgmma")
 
     # Phase 27: the multiplexed replicas, then the chaos bench. Their kernels
-    # launch in the replicas, whose counts come back in their metrics (a
+    # launch in the replicas, whose counts come back through their
+    # kernel_launches (a
     # killed replica's with it: (b) reads the survivor's and the
     # replacement's); this process's launches are its direct forwards.
     bert_layers = BERT_CONFIG["n_layers"]

@@ -17,9 +17,9 @@ worker with no GPU lease sees none.
 
 ``cluster_resources()`` and ``available_resources()`` read the controller
 once ``init()`` has run. Before it, they read this host's resource ledger
-(``_private.resources``), which the gangs, Tune trials and serve replicas of
-this process lease from until they move onto the runtime (ROADMAP item
-14b-ii).
+(``_private.resources``), which the gangs and Tune trials of this process
+lease from until they move onto the runtime (ROADMAP item 14b-ii-b); serve
+runs on the runtime and leases from the node agent.
 
 Importing the package imports no torch and none of the runtime: the names
 of the runtime's API load on first use, so a data worker process, which
@@ -83,7 +83,7 @@ def _runtime_up() -> bool:
 
 def cluster_resources() -> dict:
     """The controller's totals once ``init()`` has run; before it, this
-    host's ledger (``_private.resources``) until ROADMAP item 14b-ii
+    host's ledger (``_private.resources``) until ROADMAP item 14b-ii-b
     retires it."""
     if _runtime_up():
         return sys.modules["ray_tpu_torch._private.worker"].cluster_resources()

@@ -1215,6 +1215,9 @@ class Controller:
         spec = actor.spec
         deadline = time.monotonic() + 120.0
         while True:
+            if actor.state == "DEAD":
+                # Killed while it waited for a place: it must not start.
+                return
             resources = spec.get("resources", {"CPU": 1})
             node = self._pick_node(
                 resources,
@@ -1238,6 +1241,14 @@ class Controller:
                             "creation_args": spec.get("creation_args"),
                         },
                     )
+                    if resp["status"] == "ok" and actor.state == "DEAD":
+                        # Killed while its worker started: end the worker,
+                        # whose exit gives its resources back.
+                        started = True
+                        await client.call("kill_worker", {
+                            "worker_id": resp["worker_id"], "actor_id": actor.actor_id,
+                            "intended": True})
+                        return
                     if resp["status"] == "ok":
                         started = True
                         actor.node_id = node.node_id

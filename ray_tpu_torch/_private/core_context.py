@@ -644,6 +644,22 @@ class CoreContext:
     def as_future(self, ref: ObjectRef) -> concurrent.futures.Future:
         return asyncio.run_coroutine_threadsafe(self._get_one(ref), self.io.loop)
 
+    async def get_on_loop(self, ref: ObjectRef, executor) -> Any:
+        """``ref``'s value, awaited on the caller's own event loop: a direct
+        lane call settles on a thread of ``executor`` (the engine's wait
+        blocks it) and an inline reply or an error is read here, with no
+        hop through this context's io loop; anything else (the store, a
+        ref this process does not own) goes through ``as_future``."""
+        state = self._objects.get(ref.id)
+        record = state.record if state is not None else None
+        if record is not None and record.direct and not record.done:
+            await asyncio.get_running_loop().run_in_executor(
+                executor, self._settle_native, record, None)
+        if state is not None and state.status in (INLINE, FAILED):
+            payload, pinned = await self._payload_from_state(ref.id, state)
+            return self._deserialize_value(ref.id, payload, pinned)
+        return await asyncio.wrap_future(self.as_future(ref))
+
     async def _get_one(self, ref: ObjectRef) -> Any:
         payload, pinned = await self._resolve_payload(ref)
         return self._deserialize_value(ref.id, payload, pinned)

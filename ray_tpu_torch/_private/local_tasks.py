@@ -1286,10 +1286,10 @@ def put(value: Any) -> ObjectRef:
 def _get_one(ref: ObjectRef, deadline: float | None) -> Any:
     if not isinstance(ref, ObjectRef):
         # The runtime's refs (ray_tpu_torch.put, .remote) are another type
-        # until this layer moves onto the runtime (ROADMAP item 14b-ii).
+        # until this layer moves onto the runtime (ROADMAP item 14b-ii-b).
         raise TypeError(
             f"local_tasks.get takes this layer's ObjectRefs, not {type(ref).__module__}."
-            f"{type(ref).__name__}: the two runtimes meet in ROADMAP Queue A item 14b-ii")
+            f"{type(ref).__name__}: the two runtimes meet in ROADMAP Queue A item 14b-ii-b")
     rt = _runtime
     if rt is not None and rt.state(ref) == "pending":
         rt.wait_owned([ref], 1, deadline)

@@ -194,7 +194,7 @@ def shutdown() -> None:
         if _global_ctx is not None:
             # The reference closes its compiled graphs here; the port's run
             # on ``_private/local_tasks.py``'s actors, not on this runtime,
-            # until ROADMAP item 14b-ii moves them.
+            # until ROADMAP item 14b-ii-b moves them.
             _global_ctx.shutdown()
             _global_ctx = None
         if _local_cluster is not None:
@@ -223,14 +223,14 @@ def put(value: Any) -> ObjectRef:
 
 def _check_refs(refs) -> None:
     """A ``_private/local_tasks.py`` ref is another type than this runtime's
-    until that layer moves onto the runtime (ROADMAP item 14b-ii): refuse it
+    until that layer moves onto the runtime (ROADMAP item 14b-ii-b): refuse it
     at once rather than wait on an id the runtime never made."""
     for ref in refs if isinstance(refs, (list, tuple)) else [refs]:
         if type(ref).__module__ == "ray_tpu_torch._private.local_tasks":
             raise TypeError(
                 "ray_tpu_torch.get/wait take the runtime's ObjectRefs, not "
                 "local_tasks.ObjectRef: the local task layer moves onto the "
-                "runtime in ROADMAP Queue A item 14b-ii")
+                "runtime in ROADMAP Queue A item 14b-ii-b")
 
 
 def get(refs, timeout: float | None = None):
@@ -288,8 +288,8 @@ def available_resources() -> dict:
 def timeline(filename: str | None = None) -> dict:
     """Chrome-trace JSON for the whole session, spans merged with the
     controller's task events and counter snapshots. The controller half of
-    ``util/timeline.py`` is ROADMAP item 14b-ii; the span half is
+    ``util/timeline.py`` is ROADMAP item 14b-ii-b; the span half is
     ``util.timeline.build_chrome_trace`` on a session directory."""
     raise NotImplementedError(
         "timeline() merges the controller's task events into the trace, the "
-        "controller half of util/timeline.py: ROADMAP Queue A item 14b-ii")
+        "controller half of util/timeline.py: ROADMAP Queue A item 14b-ii-b")

@@ -1,20 +1,22 @@
-"""The port's serve plane: deployments on replica processes, placed on the
-host's cards, behind a stdlib HTTP proxy with SSE (and more proxies, each
-a process the controller restarts, and a gRPC proxy), reached through
+"""The port's serve plane: deployments on replica actors of the runtime
+core, leasing their card shares from the node agent, behind a stdlib HTTP
+proxy actor with SSE (and more proxies, each a detached actor the
+controller restarts, and a gRPC proxy), reached through
 handles with retries, hedging and circuit breakers, autoscaled on their
 ongoing requests, the routes' p99 and a serve-LLM pool's KV headroom;
 ``@batch`` and ``@multiplexed`` in front of the model; deploys from YAML.
 
-Port of ray_tpu's ``serve/`` onto the port's single-host processes
-(``api``, ``controller``, ``replica``, ``handle``, ``proxy``,
+Port of ray_tpu's ``serve/`` onto the port's runtime core, which
+``ray_tpu_torch.init()`` starts first (``api``, ``controller``,
+``replica``, ``handle``, ``proxy``,
 ``grpc_proxy``, ``long_poll``, ``routing``, ``autoscaling_policy``,
 ``batching``, ``multiplex``, ``schema``, and ``llm``: the serve-LLM
 engine with continuous batching, disaggregated prefill and decode pools
 and the KV pool on the decode replica's card). A deployment's class or
 function must be importable from a module: replicas import it by name.
-Waiting for the runtime core (ROADMAP Queue A item 14): the controller's
-checkpoint in its KV store, drains on out-of-memory telemetry, the flush
-of route stats to the workload store, and the ``serve deploy`` command.
+Waiting for the node agent's telemetry and the runtime's tools (ROADMAP
+Queue A item 14d): drains on out-of-memory telemetry, the flush of route
+stats to the workload store, and the ``serve deploy`` command.
 """
 
 from ray_tpu_torch.serve._common import (

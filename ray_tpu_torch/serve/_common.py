@@ -2,12 +2,13 @@
 request records, and the errors the serve plane raises.
 
 The port's own copy of ray_tpu's ``serve/_private/common.py``
-(``Deadline`` and the current-deadline helpers, ``RetryPolicy``,
-``AutoscalingConfig``, ``DeploymentConfig``, ``DeploymentInfo``,
-``ReplicaInfo``, ``RequestMetadata``, ``new_replica_id``), the serve errors
-of its ``exceptions.py`` and ``_private/workload.py``'s
-``LatencyHistogram``: the port imports nothing of the JAX package. The
-full-jitter retry delay is ``ray_tpu_torch.util.backoff``'s.
+(``CONTROLLER_NAME``, ``Deadline`` and the current-deadline helpers,
+``RetryPolicy``, ``AutoscalingConfig``, ``DeploymentConfig``,
+``DeploymentInfo``, ``ReplicaInfo``, ``RequestMetadata``,
+``new_replica_id``) and of ``_private/workload.py``'s ``LatencyHistogram``:
+the port imports nothing of the JAX package. The serve errors are the
+runtime's (``ray_tpu_torch.exceptions``), re-exported here under the names
+callers use. The full-jitter retry delay is ``ray_tpu_torch.util.backoff``'s.
 """
 
 from __future__ import annotations
@@ -19,7 +20,14 @@ import uuid
 from dataclasses import asdict, dataclass, field
 from typing import Any, Optional
 
+from ray_tpu_torch.exceptions import (  # noqa: F401  (re-exported)
+    DeadlineExceededError, ReplicaDiedError, ReplicaDrainingError, RequestShedError, TaskError,
+)
+
 DEFAULT_APP_NAME = "default"
+
+# The serve controller's detached actor, by name.
+CONTROLLER_NAME = "SERVE_CONTROLLER"
 
 # HTTP header carrying the request's remaining budget in seconds (a
 # relative duration: monotonic clocks do not agree across processes, so
@@ -30,77 +38,9 @@ DEADLINE_HEADER = "X-RayTPU-Deadline"
 DEADLINE_METADATA_KEY = "x-raytpu-deadline"
 
 # Where the parts of the reference's serve plane the port has not yet
-# ported are listed: what stands on the runtime core (the controller's KV
-# store and checkpoint, the node agent's memory telemetry, the CLI).
-RUNTIME_CORE_ITEM = "ROADMAP Queue A item 14"
-
-
-class DeadlineExceededError(TimeoutError):
-    """The request's deadline expired before it completed. Maps to HTTP 504
-    at the proxy."""
-
-    def __init__(self, detail: str = ""):
-        self.detail = detail
-        super().__init__(detail or "request deadline exceeded")
-
-    def __reduce__(self):
-        return (DeadlineExceededError, (self.detail,))
-
-
-class RequestShedError(RuntimeError):
-    """Admission control refused the request before doing work. Maps to
-    HTTP 503 with Retry-After; the handle never retries it."""
-
-    def __init__(self, detail: str = "", retry_after_s: float = 1.0):
-        self.detail = detail
-        self.retry_after_s = retry_after_s
-        super().__init__(detail or "request shed by admission control")
-
-    def __reduce__(self):
-        return (RequestShedError, (self.detail, self.retry_after_s))
-
-
-class ReplicaDrainingError(RuntimeError):
-    """The replica is draining and takes no new work; the handle moves the
-    request to another replica without charging its retry budget."""
-
-    def __init__(self, replica: str = ""):
-        self.replica = replica
-        super().__init__(f"replica {replica!r} is draining and not accepting requests")
-
-    def __reduce__(self):
-        return (ReplicaDrainingError, (self.replica,))
-
-
-class ReplicaDiedError(RuntimeError):
-    """The replica serving the request died and the request could not be
-    completed on another one within its RetryPolicy and deadline."""
-
-    def __init__(self, deployment: str, replica: str, detail: str = ""):
-        self.deployment = deployment
-        self.replica = replica
-        message = (f"replica {replica!r} of deployment {deployment!r} died "
-                   f"while serving the request")
-        if detail:
-            message += f": {detail}"
-        super().__init__(message)
-
-    def __reduce__(self):
-        return (ReplicaDiedError, (self.deployment, self.replica))
-
-
-class TaskError(RuntimeError):
-    """The deployment's code raised in its replica; carries the replica's
-    traceback. Raised at ``DeploymentResponse.result()``, where the value
-    is consumed."""
-
-    def __init__(self, task_name: str, remote_traceback: str):
-        self.task_name = task_name
-        self.remote_traceback = remote_traceback
-        super().__init__(f"task {task_name!r} failed remotely:\n{remote_traceback}")
-
-    def __reduce__(self):
-        return (TaskError, (self.task_name, self.remote_traceback))
+# ported are listed: the drains on the node agent's out-of-memory
+# telemetry, the route stats' flush to the workload store, the CLI.
+RUNTIME_CORE_ITEM = "ROADMAP Queue A item 14d"
 
 
 @dataclass(frozen=True)

@@ -2,58 +2,52 @@
 
 Port of ray_tpu's ``serve/api.py``. ``Deployment.bind(...)`` builds an
 application graph (bound sub-deployments become handles when the replica
-is built); ``serve.run`` hands the graph to the controller, which lives in
-this process, waits until every deployment has its replicas running, and
-returns the ingress handle. ``serve.start`` starts the controller, the
-HTTP proxy (on this process's I/O loop), ``num_proxies - 1`` more HTTP
-proxies on the next ports, each a process of its own that the controller
-health-checks and restarts under its name and port, and with
-``grpc_port`` the gRPC proxy. ``serve.run_from_config`` deploys the
-applications a YAML file (or its dict) describes (``schema``). One serve
-instance per process, as the reference keeps one per cluster.
+is built); ``serve.run`` hands the graph to the controller, waits until
+every deployment has its replicas running, and returns the ingress
+handle. Like the reference's, serve runs on the runtime and needs
+``ray_tpu_torch.init()`` first: ``serve.start`` gets or creates the
+controller (a detached actor named ``SERVE_CONTROLLER``), the HTTP proxy
+on ``http_port`` and ``num_proxies - 1`` more on the next ports (detached
+actors named ``SERVE_PROXY::<port>``, which the controller health-checks
+and restarts under their names and ports), and with ``grpc_port`` the
+gRPC proxy, and returns the controller's actor handle.
+``serve.run_from_config`` deploys the applications a YAML file (or its
+dict) describes (``schema``). ``serve.shutdown`` stops the replicas and
+kills the controller and the proxies.
 
 A deployment's class or function must be importable from a module (its
-replicas are processes that import it by name: the port depends on no
-cloudpickle), and so must every argument it is bound with pickle.
-``ray_actor_options={"num_gpus": g}`` places each replica on the cards
-(a lease of this process's resource ledger, ``_private.resources``);
-``num_tpus`` and ``resources`` lease their keys from the same ledger, and
-a replica asking for a key the host never declared waits as PENDING.
-``serve.run`` refuses a deployment that asks for more cards than the host
-has, and one that asks for a card on a host with none. ``num_cpus`` is
-accepted and reserves nothing: one host runs every replica.
-``autoscaling_config={"kv_headroom_min": f}`` scales a serve-LLM decode
-pool (``serve.llm``) up while its worst replica's KV pool has less than
-``f`` of its blocks free.
+replicas import it by name: the serve plane depends on no cloudpickle),
+and so must every argument it is bound with pickle.
+``ray_actor_options={"num_gpus": g}`` leases each replica a share of a
+card from the node agent; ``num_cpus``, ``num_tpus`` and ``resources``
+lease their keys from it too, and a replica the agent cannot place yet
+waits as PENDING. ``serve.run`` refuses a deployment that asks for more
+cards than the cluster has, and one that asks for a card in a cluster
+with none. ``autoscaling_config={"kv_headroom_min": f}`` scales a
+serve-LLM decode pool (``serve.llm``) up while its worst replica's KV pool
+has less than ``f`` of its blocks free.
 """
 
 from __future__ import annotations
 
-import atexit
 import copy
 import pickle
 import threading
 import time
 from typing import Any, Optional
 
+import ray_tpu_torch
 from ray_tpu_torch.serve import long_poll
 from ray_tpu_torch.serve._common import (
-    DEFAULT_APP_NAME, AutoscalingConfig, DeploymentConfig, RetryPolicy,
+    CONTROLLER_NAME, DEFAULT_APP_NAME, AutoscalingConfig, DeploymentConfig, RetryPolicy,
 )
 from ray_tpu_torch.serve.handle import DeploymentHandle, _HandlePlaceholder
 
-
-class _Serve:
-    """This process's serve instance: the controller and the proxy."""
-
-    def __init__(self):
-        self.lock = threading.Lock()
-        self.controller = None
-        self.proxy = None
-        self.grpc_proxy = None
-
-
-_instance = _Serve()
+# The proxies this process started: (protocol, port) -> actor handle, and
+# the first HTTP proxy's port.
+_proxies: dict[tuple, Any] = {}
+_proxies_lock = threading.Lock()
+_primary_port: Optional[int] = None
 
 
 class Application:
@@ -87,8 +81,11 @@ class Application:
         seen[self.deployment.name] = True
         init_args = resolve(self.args)
         init_kwargs = resolve(self.kwargs)
+        from ray_tpu_torch.serve.replica import CallableRef
+
         specs.append({
-            "name": self.deployment.name, "cls_or_fn": self.deployment.func_or_class,
+            "name": self.deployment.name,
+            "cls_or_fn": CallableRef(self.deployment.func_or_class),
             "init_args": init_args, "init_kwargs": init_kwargs,
             "config": self.deployment._config, "route_prefix": self.deployment._route_prefix,
         })
@@ -190,92 +187,138 @@ def deployment(
 
 
 # ---------------------------------------------------------------------------
-# the serve instance
+# the cluster-facing API
 # ---------------------------------------------------------------------------
-def _controller():
+def _get_controller():
+    """The running controller's handle; ValueError if there is none."""
+    return ray_tpu_torch.get_actor(CONTROLLER_NAME)
+
+
+def _get_or_create_controller():
     from ray_tpu_torch.serve.controller import ServeController
 
-    with _instance.lock:
-        if _instance.controller is None:
-            _instance.controller = ServeController()
-            long_poll.set_controller(_instance.controller)
-        return _instance.controller
+    try:
+        return _get_controller()
+    except ValueError:
+        pass
+    try:
+        # Every serve process keeps one async poll_update parked here.
+        return ray_tpu_torch.remote(ServeController).options(
+            name=CONTROLLER_NAME, lifetime="detached", max_concurrency=256).remote()
+    except ValueError:
+        return _get_controller()  # raced with another creator
 
 
-def _running_controller():
-    if _instance.controller is None:
-        raise RuntimeError("serve is not running: call serve.start() or serve.run()")
-    return _instance.controller
+def _get(ref, timeout: float = 60.0):
+    return ray_tpu_torch.get(ref, timeout=timeout)
+
+
+def _proxy_name(protocol: str, port: int) -> str:
+    """A proxy's actor name, the reference's."""
+    return f"SERVE_{'GRPC_' if protocol == 'grpc' else ''}PROXY::{port}"
+
+
+def start_proxy_actor(protocol: str, host: str, port: int):
+    """Gets or creates the proxy actor for ``(protocol, port)``, race-safe
+    by its name, and waits until it serves. The controller restarts a dead
+    proxy through here."""
+    if protocol == "grpc":
+        from ray_tpu_torch.serve.grpc_proxy import GRPCProxy as proxy_cls
+    else:
+        from ray_tpu_torch.serve.proxy import HTTPProxy as proxy_cls
+    name = _proxy_name(protocol, port)
+    try:
+        handle = ray_tpu_torch.get_actor(name)
+    except ValueError:
+        try:
+            handle = ray_tpu_torch.remote(proxy_cls).options(
+                name=name, lifetime="detached", max_concurrency=64).remote(host, port)
+        except ValueError:
+            handle = ray_tpu_torch.get_actor(name)  # raced with another creator
+    _get(handle.ready.remote(), timeout=120)
+    return handle
+
+
+def _ensure_proxy(controller, protocol: str, host: str, port: int) -> None:
+    """The proxy on ``port``, started and registered with the controller,
+    which health-checks it and restarts it on death."""
+    with _proxies_lock:
+        if (protocol, port) in _proxies:
+            return
+    handle = start_proxy_actor(protocol, host, port)
+    _get(controller.register_proxy.remote(_proxy_name(protocol, port), protocol, host, port),
+         timeout=30)
+    with _proxies_lock:
+        _proxies[(protocol, port)] = handle
+
+
+def _drop_proxies(controller, protocol: str, keep: set) -> None:
+    """Kills this process's proxies of ``protocol`` on ports not in ``keep``
+    (a new port replaces the proxy on the old one)."""
+    with _proxies_lock:
+        gone = [(key, h) for key, h in _proxies.items() if key[0] == protocol
+                and key[1] not in keep]
+        for key, _ in gone:
+            _proxies.pop(key)
+    for (proto, port), handle in gone:
+        _get(controller.unregister_proxy.remote(_proxy_name(proto, port)), timeout=30)
+        _kill_quietly(handle)
+
+
+def _kill_quietly(handle) -> None:
+    if handle is not None:
+        try:
+            ray_tpu_torch.kill(handle)
+        except Exception:
+            pass  # already dead
 
 
 def start(http_host: str = "127.0.0.1", http_port: Optional[int] = 8000,
           grpc_port: Optional[int] = None, num_proxies: int = 1):
     """Starts the controller and an HTTP proxy on ``http_port`` (None: no
-    HTTP proxy change), and ``num_proxies - 1`` more on the ports after it,
-    each a process the controller restarts if it dies; clients fail over
-    between them. ``grpc_port`` starts the gRPC proxy. A new port replaces
-    the proxy on the old one. Every proxy is registered with the
-    controller, which scrapes their route latencies for the autoscaler."""
-    controller = _controller()
+    HTTP proxy change), and ``num_proxies - 1`` more on the ports after it;
+    clients fail over between them. ``grpc_port`` starts the gRPC proxy. A
+    new port replaces the proxy on the old one. Every proxy is registered
+    with the controller, which restarts it when it dies and scrapes its
+    route latencies for the autoscaler. Needs ``ray_tpu_torch.init()``;
+    returns the controller's actor handle."""
+    global _primary_port
+    controller = _get_or_create_controller()
     if http_port is not None:
-        from ray_tpu_torch.serve.proxy import HTTPProxy
-
-        with _instance.lock:
-            proxy = _instance.proxy
-            if proxy is None or (proxy.host, proxy.port) != (http_host, http_port):
-                if proxy is not None:
-                    controller.unregister_proxy(_proxy_name("http", proxy.port))
-                    proxy.shutdown()
-                proxy = _instance.proxy = HTTPProxy(http_host, http_port)
-                controller.register_proxy(_proxy_name("http", http_port), "http", http_host,
-                                          http_port, local=proxy)
-        registered = {p["name"] for p in controller.get_proxies()}
-        for port in range(http_port + 1, http_port + num_proxies):
-            if _proxy_name("http", port) not in registered:
-                controller.register_proxy(_proxy_name("http", port), "http", http_host, port)
+        if _primary_port not in (None, http_port):
+            _drop_proxies(controller, "http", set())
+        _primary_port = http_port
+        for port in range(http_port, http_port + max(1, num_proxies)):
+            _ensure_proxy(controller, "http", http_host, port)
     if grpc_port is not None:
-        from ray_tpu_torch.serve.grpc_proxy import GRPCProxy
-
-        with _instance.lock:
-            proxy = _instance.grpc_proxy
-            if proxy is None or proxy.port != grpc_port:
-                if proxy is not None:
-                    controller.unregister_proxy(_proxy_name("grpc", proxy.port))
-                    proxy.shutdown()
-                proxy = _instance.grpc_proxy = GRPCProxy(http_host, grpc_port)
-                controller.register_proxy(_proxy_name("grpc", grpc_port), "grpc", http_host,
-                                          grpc_port, local=proxy)
+        _drop_proxies(controller, "grpc", {grpc_port})
+        _ensure_proxy(controller, "grpc", http_host, grpc_port)
     return controller
 
 
-def _proxy_name(protocol: str, port: int) -> str:
-    """A proxy's name, the reference's."""
-    return f"SERVE_{'GRPC_' if protocol == 'grpc' else ''}PROXY::{port}"
-
-
-def _check_specs(specs: list[dict]) -> None:
-    """Refuses, before anything starts, a deployment its replicas could not
-    import or be given (a class defined in a function, arguments that do
-    not pickle), and one asking for more cards than the host has."""
-    from ray_tpu_torch._private import resources
-    from ray_tpu_torch.serve.replica import CallableRef
-
-    cards = int(resources.cluster_resources()["GPU"])
+def _seal_specs(specs: list[dict]) -> None:
+    """Refuses, before anything starts, a deployment whose arguments do not
+    pickle, and one asking for more cards than the cluster has. Seals each
+    deployment's init arguments into one pickle that only its replicas
+    open: the controller never loads the user's objects (a torch dtype
+    among them would import torch into it)."""
+    cards = float(ray_tpu_torch.cluster_resources().get("GPU", 0))
     for spec in specs:
-        CallableRef(spec["cls_or_fn"])
         try:
-            pickle.dumps((spec["init_args"], spec["init_kwargs"], spec["config"].user_config))
+            pickle.dumps(spec["config"].user_config)
+            spec["init_args"] = pickle.dumps((spec["init_args"], spec["init_kwargs"]))
+            spec["init_kwargs"] = None
         except (pickle.PicklingError, TypeError, AttributeError) as exc:
             raise TypeError(f"deployment {spec['name']!r}: its arguments must pickle, since "
-                            f"each replica is a process: {exc}") from exc
+                            f"each replica is an actor of its own: {exc}") from exc
         want = float(spec["config"].ray_actor_options.get("num_gpus", 0) or 0)
         if want > 0 and cards == 0:
             raise RuntimeError(
-                f"deployment {spec['name']!r} asks for num_gpus={want} and this host has no "
-                f"CUDA device; a replica without a card sets num_gpus=0")
+                f"deployment {spec['name']!r} asks for num_gpus={want} and this cluster has "
+                f"no CUDA device; a replica without a card sets num_gpus=0")
         if want > cards:
             raise RuntimeError(f"deployment {spec['name']!r} asks for num_gpus={want}; this "
-                               f"host has {cards} cards")
+                               f"cluster has {cards:g} cards")
 
 
 def run(target: Application, *, name: str = DEFAULT_APP_NAME,
@@ -286,14 +329,15 @@ def run(target: Application, *, name: str = DEFAULT_APP_NAME,
     if not isinstance(target, Application):
         raise TypeError("serve.run expects Deployment.bind(...) output")
     specs = target._collect(name, {})
-    _check_specs(specs)
+    _seal_specs(specs)
     if http_port is not None or grpc_port is not None:
-        start(http_port=http_port, grpc_port=grpc_port)
-    controller = _controller()
-    controller.deploy_application(name, specs, route_prefix)
+        controller = start(http_port=http_port, grpc_port=grpc_port)
+    else:
+        controller = _get_or_create_controller()
+    _get(controller.deploy_application.remote(name, specs, route_prefix))
     deadline = time.monotonic() + _blocking_timeout_s
     while True:
-        app = controller.get_status().get(name)
+        app = _get(controller.get_status.remote(), timeout=30).get(name)
         if app and app["status"] == "RUNNING":
             break
         if app and app["status"] == "DEPLOY_FAILED":
@@ -301,6 +345,9 @@ def run(target: Application, *, name: str = DEFAULT_APP_NAME,
         if time.monotonic() > deadline:
             raise TimeoutError(f"application {name!r} did not become RUNNING")
         time.sleep(0.05)
+    # This process's routers see every running replica from the first call,
+    # without waiting for the long poll's push.
+    long_poll.get_subscriber().force_refresh()
     return DeploymentHandle(target.deployment.name, name)
 
 
@@ -318,11 +365,11 @@ def run_from_config(path_or_schema) -> dict:
 
 
 def get_app_handle(name: str = DEFAULT_APP_NAME) -> DeploymentHandle:
-    controller = _running_controller()
-    status = controller.get_status()
+    controller = _get_controller()
+    status = _get(controller.get_status.remote(), timeout=30)
     if name not in status:
         raise ValueError(f"no application {name!r}")
-    for qualified in controller.get_routes().values():
+    for qualified in _get(controller.get_routes.remote(), timeout=30).values():
         app, dep = qualified.split("_", 1)
         if app == name:
             return DeploymentHandle(dep, name)
@@ -337,28 +384,34 @@ def get_deployment_handle(deployment_name: str,
 def status() -> dict:
     """``{app: {"status", "deployments": {name: {"target_replicas",
     "running_replicas", "states"}}}}``; {} when serve is not running."""
-    if _instance.controller is None:
+    try:
+        controller = _get_controller()
+    except ValueError:
         return {}
-    return _instance.controller.get_status()
+    return _get(controller.get_status.remote(), timeout=30)
 
 
 def delete(name: str) -> None:
-    _running_controller().delete_application(name)
+    _get(_get_controller().delete_application.remote(name))
 
 
 def shutdown() -> None:
-    """Stops the proxies, every replica and the controller."""
-    with _instance.lock:
-        controller, proxies = _instance.controller, (_instance.proxy, _instance.grpc_proxy)
-        _instance.controller = _instance.proxy = _instance.grpc_proxy = None
-    for proxy in proxies:
-        if proxy is not None:
-            proxy.shutdown()
+    """Stops every replica, and kills the proxies and the controller."""
+    global _primary_port
+    _primary_port = None
+    long_poll.reset_subscriber()
+    with _proxies_lock:
+        proxies = list(_proxies.values())
+        _proxies.clear()
+    try:
+        controller = _get_controller()
+    except ValueError:
+        controller = None
     if controller is not None:
-        long_poll.set_controller(None)
-        controller.shutdown()
-
-
-# Replicas are processes of this one; stop them before multiprocessing
-# joins its children at exit.
-atexit.register(shutdown)
+        try:
+            _get(controller.shutdown.remote(), timeout=90)
+        except Exception:
+            pass  # a controller that died: its replicas die with the cluster
+        _kill_quietly(controller)
+    for handle in proxies:
+        _kill_quietly(handle)

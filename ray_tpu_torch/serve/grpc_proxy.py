@@ -1,9 +1,10 @@
 """The gRPC proxy: the serve plane's second ingress protocol.
 
-The port's copy of ray_tpu's ``serve/_private/grpc_proxy.py``: a
-``grpc.aio`` server, on a thread and event loop of its own in this
-process, exposing the applications through two generic methods, with no
-compiled user protos (a JSON envelope keeps the ingress schema-free):
+The port's copy of ray_tpu's ``serve/_private/grpc_proxy.py``: a detached
+actor (``SERVE_GRPC_PROXY::<port>``) running a ``grpc.aio`` server on a
+thread and event loop of its own, exposing the applications through two
+generic methods, with no compiled user protos (a JSON envelope keeps the
+ingress schema-free):
 
   /raytpu.serve.Serve/Predict        (unary)   route and payload -> result
   /raytpu.serve.Serve/PredictStream  (server streaming) one message for
@@ -89,6 +90,9 @@ class GRPCProxy:
         self._server = server
         self._started.set()
         await server.wait_for_termination()
+
+    def ready(self) -> str:
+        return "ok"
 
     def shutdown(self) -> None:
         if self._loop is not None and self._server is not None:
@@ -212,5 +216,5 @@ class GRPCProxy:
         async for item in self._drain(result, context):
             yield self._encode(item)
 
-    async def get_num_requests(self) -> int:
+    def get_num_requests(self) -> int:
         return self._num_requests

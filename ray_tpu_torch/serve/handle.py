@@ -5,13 +5,16 @@ the deployment's live replicas from the membership snapshot
 (``long_poll``), picks a replica by rendezvous-hashing the request's
 affinity key over them with bounded load (``routing.HashRing``; the key
 is the session id, else the multiplexed model id, else the shape key),
-preferring replicas that already ran the request's shape key, and sends
-the call over the serve wire (``_channel``). Every call carries a
+preferring replicas that already ran the request's shape key, and calls
+the replica's actor (``SERVE_REPLICA::<id>``, looked up by name once) on
+the runtime. Every call carries a
 ``Deadline``, from the caller (the proxy's header, an enclosing replica
 call) or else the deployment's ``request_timeout_s``.
 
-Each dispatch of a request onto a replica is an attempt. When a replica
-dies with an attempt in flight (its connection closes), the request is
+Each dispatch of a request onto a replica is an attempt: an actor call
+whose ref the response awaits under the request's deadline. When a replica
+dies with an attempt in flight (the runtime fails its ref with
+``ActorDiedError``), the request is
 sent to another one while the deployment's ``RetryPolicy.max_attempts``
 and the deadline allow; a draining replica moves it without charging the
 budget. With ``RetryPolicy.hedge``, a second attempt goes to another
@@ -24,10 +27,15 @@ such replica is left (the reference's handle ends the request at its
 first shed). A replica's
 circuit breaker opens after consecutive deaths and keeps it out of the
 candidates until its cooldown lets one probe through. Every attempt gives
-its router slot back exactly once.
+its router slot back exactly once. A replica's own refusals (draining,
+shed, an expired deadline) cross the runtime as a ``TaskError`` whose
+traceback ends in their class, as the reference's do. Retries, hedges,
+deadline expiries and breaker states feed ``util/metrics``.
 
-The dispatch runs on the process's I/O loop; ``.remote()`` returns at
-once and ``.result()`` waits from any other thread.
+The dispatch runs on the process's serve I/O loop (``io_loop``), where the
+proxy serves too: ``.remote()`` returns at once, ``.result()`` waits from
+any other thread, and a thread of the settle pool waits in the runtime's
+engine for each call's reply, so the loop itself never blocks on one.
 """
 
 from __future__ import annotations
@@ -36,23 +44,116 @@ import asyncio
 import collections
 import concurrent.futures
 import math
+import re
 import threading
 import time
 import uuid
-from typing import Any, Optional
+from typing import Any, Awaitable, Optional
 
-from ray_tpu_torch.serve import _channel
+from ray_tpu_torch import exceptions
 from ray_tpu_torch.serve._common import (
     Deadline, DeadlineExceededError, ReplicaDiedError, ReplicaDrainingError,
-    RequestMetadata, RequestShedError, RetryPolicy, TaskError, current_deadline,
+    RequestMetadata, RequestShedError, RetryPolicy, current_deadline,
 )
 from ray_tpu_torch.serve.long_poll import get_subscriber
 from ray_tpu_torch.serve.routing import HashRing
+from ray_tpu_torch.util import metrics as metrics_mod
 from ray_tpu_torch.util import tracing
 from ray_tpu_torch.util.backoff import Backoff
 
 
 _ROUTER_LOCK = threading.Lock()
+
+
+# -- the process's serve I/O loop -------------------------------------------
+_loop: asyncio.AbstractEventLoop | None = None
+_loop_lock = threading.Lock()
+
+
+def io_loop() -> asyncio.AbstractEventLoop:
+    """This process's serve I/O loop, started on a daemon thread at first
+    use: the handles' dispatch and, in a proxy, its server run on it."""
+    global _loop
+    with _loop_lock:
+        if _loop is None:
+            loop = asyncio.new_event_loop()
+            ready = threading.Event()
+
+            def run():
+                asyncio.set_event_loop(loop)
+                loop.call_soon(ready.set)
+                loop.run_forever()
+
+            threading.Thread(target=run, name="serve-io", daemon=True).start()
+            ready.wait()
+            _loop = loop
+        return _loop
+
+
+def on_io_thread() -> bool:
+    try:
+        return asyncio.get_running_loop() is _loop
+    except RuntimeError:
+        return False
+
+
+def submit(coro: Awaitable) -> concurrent.futures.Future:
+    """Schedules ``coro`` on the I/O loop; returns a concurrent future."""
+    return asyncio.run_coroutine_threadsafe(coro, io_loop())
+
+
+def run_sync(coro: Awaitable, timeout: float | None = None) -> Any:
+    """Runs ``coro`` on the I/O loop and waits for it from another thread."""
+    if on_io_thread():
+        coro.close()
+        raise RuntimeError("a blocking serve call was made on the serve I/O loop")
+    future = submit(coro)
+    try:
+        return future.result(timeout)
+    except TimeoutError:
+        future.cancel()
+        raise
+
+
+# -- calls to replicas --------------------------------------------------------
+class ReplicaGoneError(exceptions.ActorDiedError):
+    """The replica's actor could not be found: it left since the pick."""
+
+
+# Failures of an attempt's ref that mean the replica's process is gone, as
+# opposed to a slow request or the user's code raising.
+_REPLICA_DEATH_ERRORS = (exceptions.ActorDiedError, exceptions.ActorUnavailableError,
+                        exceptions.WorkerCrashedError)
+
+# A replica's own refusals cross the runtime as a TaskError that carries
+# only the remote traceback; its last line names the class.
+_REMOTE_ERROR_KINDS = ("ReplicaDrainingError", "RequestShedError", "DeadlineExceededError")
+
+
+def _remote_error_kind(exc: BaseException) -> Optional[str]:
+    if isinstance(exc, exceptions.TaskError):
+        lines = (exc.remote_traceback or "").strip().splitlines()
+        last = lines[-1] if lines else ""
+        for kind in _REMOTE_ERROR_KINDS:
+            if kind in last:
+                return kind
+    return None
+
+
+# The threads that wait for this process's calls to replicas: a call on
+# the runtime's direct lane settles in a thread blocked in the engine's
+# wait, one a call in flight.
+_SETTLE_THREADS = concurrent.futures.ThreadPoolExecutor(256, thread_name_prefix="serve-settle")
+
+
+async def call_actor(actor, method: str, *args) -> Any:
+    """``actor.method(*args)`` through the runtime, its ref awaited on this
+    loop: the call settles on a thread of ``_SETTLE_THREADS`` and its reply
+    is read here, with no hop through the runtime's io loop."""
+    from ray_tpu_torch._private import worker
+
+    ref = actor._invoke(method, args, {})
+    return await worker.get_global_context().get_on_loop(ref, _SETTLE_THREADS)
 
 
 class CircuitBreaker:
@@ -129,7 +230,8 @@ class Router:
         self.app_name = app_name
         self._qualified = f"{app_name}_{deployment}"
         self._replicas: list[str] = []
-        self._addresses: dict[str, tuple] = {}
+        # Replica actors by name, looked up once each.
+        self._handles: dict[str, Any] = {}
         self._ongoing: dict[str, int] = {}
         # Replicas seen dead, kept out until the membership catches up.
         self._banned: dict[str, float] = {}
@@ -162,6 +264,12 @@ class Router:
     def note_breaker(self, replica: str) -> None:
         self.breaker_states_seen.add(CircuitBreaker.NAMES[self.breaker(replica).state])
 
+    def report_breaker(self, replica: str) -> None:
+        """The breaker's state gauge, set where a failure moved it."""
+        self.note_breaker(replica)
+        metrics_mod.set_serve_breaker_state(self._qualified, replica,
+                                            self.breaker(replica).state)
+
     def note_latency(self, seconds: float) -> None:
         self._latencies.append(seconds)
 
@@ -187,18 +295,27 @@ class Router:
         info = subscriber.get_replicas(self._qualified)
         now = time.monotonic()
         self._banned = {name: until for name, until in self._banned.items() if until > now}
-        self._addresses = dict(info.get("addresses", {}))
         self._replicas = [name for name in info["actor_names"] if name not in self._banned]
         self._max_ongoing = info.get("max_ongoing_requests", 100)
         self._policy = info.get("policy", self._policy)
         for name in self._replicas:
             self._ongoing.setdefault(name, 0)
 
-    def peer(self, replica: str) -> _channel.Peer:
-        address = self._addresses.get(replica)
-        if address is None:
-            raise _channel.ConnectionLost(f"replica {replica} has left the membership")
-        return _channel.peer(address)
+    def replica_handle(self, replica: str):
+        """The replica's actor; ReplicaGoneError if the runtime no longer has
+        it."""
+        found = self._handles.get(replica)
+        if found is None:
+            from ray_tpu_torch.actor import get_actor
+
+            try:
+                found = self._handles[replica] = get_actor(replica)
+            except ValueError:
+                raise ReplicaGoneError(f"replica {replica} has left the runtime") from None
+        return found
+
+    async def call(self, replica: str, method: str, *args) -> Any:
+        return await call_actor(self.replica_handle(replica), method, *args)
 
     async def _refresh_warm(self, candidates: list) -> None:
         """Each replica's warm shape keys, asked at most every 2 s under one
@@ -209,8 +326,8 @@ class Router:
 
         async def ask(name):
             try:
-                return set(await asyncio.wait_for(self.peer(name).call("get_warm_shapes"), 2.0))
-            except (ConnectionError, asyncio.TimeoutError, _channel.RemoteError):
+                return set(await asyncio.wait_for(self.call(name, "get_warm_shapes"), 2.0))
+            except (exceptions.RayTpuError, asyncio.TimeoutError):
                 return None
 
         for name, warm in zip(candidates, await asyncio.gather(*(ask(c) for c in candidates))):
@@ -267,6 +384,7 @@ class Router:
     def drop_replica(self, replica: str) -> None:
         self._replicas = [r for r in self._replicas if r != replica]
         self._banned[replica] = time.monotonic() + self.BAN_S
+        self._handles.pop(replica, None)
 
 
 # Best-effort cancels of lost attempts, held so the loop does not drop them.
@@ -289,13 +407,19 @@ class DeploymentResponse:
         # The caller's span (a proxy's serve.request, a replica's span, a
         # driver's own) parents the replica's span across the call.
         self._trace_ctx = tracing.inject()
-        self._future: concurrent.futures.Future = _channel.submit(
-            self._run(args, kwargs, deadline))
+        # Made on the I/O loop (the proxy's requests), the call runs as a
+        # task of it; from any other thread, it is handed to the loop.
+        self._task: Optional[asyncio.Task] = None
+        self._future: Optional[concurrent.futures.Future] = None
+        if on_io_thread():
+            self._task = asyncio.ensure_future(self._run(args, kwargs, deadline))
+        else:
+            self._future = submit(self._run(args, kwargs, deadline))
 
     def result(self, timeout: Optional[float] = None) -> Any:
         """The call's value. ``timeout`` tightens the request's deadline; it
         never extends it."""
-        if _channel.on_io_thread():
+        if on_io_thread():
             raise RuntimeError("DeploymentResponse.result() blocks; it cannot run on the "
                                "serve I/O loop")
         try:
@@ -307,6 +431,8 @@ class DeploymentResponse:
 
     async def _result_async(self) -> Any:
         """The value, awaited on the I/O loop (the proxy's path)."""
+        if self._task is not None:
+            return await self._task
         return await asyncio.wrap_future(self._future)
 
     async def _run(self, args: tuple, kwargs: dict, ambient: Optional[Deadline]) -> Any:
@@ -356,19 +482,16 @@ class DeploymentResponse:
             deadline=Deadline.after(0.0) if hedge or now else self._deadline,
             exclude=exclude, affinity_key=affinity)
         number = len(self._attempts)
-        try:
-            call = router.peer(replica).call(
-                "handle_request",
-                {"request_id": meta.request_id, "method_name": meta.method_name,
-                 "multiplexed_model_id": meta.multiplexed_model_id,
-                 "shape_key": handle._shape_key, "session_id": meta.session_id,
-                 "deadline_budget_s": self._deadline.budget(), "attempt": number,
-                 "trace_ctx": self._trace_ctx},
-                self._args, self._kwargs)
-        except _channel.ConnectionLost as exc:
-            # The replica left the membership since the pick: the attempt
-            # fails as one on a dead replica does.
-            call = _failed(exc)
+        # A replica that left the runtime since the pick fails the attempt as
+        # a dead one does.
+        call = router.call(
+            replica, "handle_request",
+            {"request_id": meta.request_id, "method_name": meta.method_name,
+             "multiplexed_model_id": meta.multiplexed_model_id,
+             "shape_key": handle._shape_key, "session_id": meta.session_id,
+             "deadline_budget_s": self._deadline.budget(), "attempt": number,
+             "trace_ctx": self._trace_ctx},
+            self._args, self._kwargs)
         attempt = _Attempt(replica, asyncio.ensure_future(call), number, hedge)
         self._attempts.append(attempt)
         return attempt
@@ -386,8 +509,12 @@ class DeploymentResponse:
         except RuntimeError:
             # No spare replica: no hedge; the first attempt goes on.
             self._router.stats["hedges_skipped"] += 1
+            metrics_mod.inc_serve_reliability("hedges", deployment=self._deployment,
+                                              outcome="skipped")
             return
         self._router.stats["hedges_launched"] += 1
+        metrics_mod.inc_serve_reliability("hedges", deployment=self._deployment,
+                                          outcome="launched")
 
     async def _relaunch_or_raise(self, backoff: Backoff, cause: Optional[Exception]) -> None:
         """Sends the request to another replica within the retry budget, or
@@ -400,6 +527,8 @@ class DeploymentResponse:
         await asyncio.sleep(backoff.next_delay(cap=self._deadline.remaining()))
         await self._launch_attempt(exclude={a.replica for a in self._attempts})
         self._router.stats["retries"] += 1
+        metrics_mod.inc_serve_reliability("retries", deployment=self._deployment,
+                                          reason="replica_death")
 
     async def _drive(self) -> Any:
         policy, deadline, router = self._policy, self._deadline, self._router
@@ -413,6 +542,8 @@ class DeploymentResponse:
                 await self._relaunch_or_raise(backoff, cause)
                 continue
             if deadline.expired():
+                metrics_mod.inc_serve_reliability("deadline_exceeded",
+                                                  deployment=self._deployment)
                 raise DeadlineExceededError(f"deadline expired waiting on {self._deployment!r}")
             waits = [deadline.remaining()]
             if (hedge_after is not None and not self._hedged and len(live) == 1
@@ -432,18 +563,18 @@ class DeploymentResponse:
             attempt = next(a for a in live if a.task in done)
             try:
                 value = attempt.task.result()
-            except _channel.ConnectionLost as exc:
+            except _REPLICA_DEATH_ERRORS as exc:
                 # The replica died with the attempt in flight.
                 router.stats["attempt_deaths"] += 1
                 self._discard(attempt)
                 router.breaker(attempt.replica).record_failure()
-                router.note_breaker(attempt.replica)
+                router.report_breaker(attempt.replica)
                 router.drop_replica(attempt.replica)
                 cause = exc
                 continue
-            except _channel.RemoteError as exc:
-                kind = type(exc.error)
-                if kind is ReplicaDrainingError:
+            except exceptions.TaskError as exc:
+                kind = _remote_error_kind(exc)
+                if kind == "ReplicaDrainingError":
                     # A deliberate drain: move without charging the budget
                     # or the breaker, a bounded number of times.
                     self._discard(attempt)
@@ -453,8 +584,10 @@ class DeploymentResponse:
                         raise ReplicaDrainingError(attempt.replica) from exc
                     if not self._live():
                         await self._launch_attempt(exclude={a.replica for a in self._attempts})
+                        metrics_mod.inc_serve_reliability(
+                            "retries", deployment=self._deployment, reason="draining")
                     continue
-                if kind is RequestShedError:
+                if kind == "RequestShedError":
                     # The replica is full now; the reference's handle ends
                     # the request here. An attempt still running may yet
                     # answer; else a replica not tried with room now takes it.
@@ -466,21 +599,26 @@ class DeploymentResponse:
                         await self._launch_attempt(
                             exclude={a.replica for a in self._attempts}, now=True)
                     except RuntimeError:
+                        # The shedder's Retry-After estimate rides its message.
+                        hint = re.search(r"retry_after_s=([0-9.]+)", str(exc))
                         raise RequestShedError(
                             f"replica of {self._deployment!r} shed the request",
-                            retry_after_s=exc.error.retry_after_s) from exc
+                            retry_after_s=float(hint.group(1)) if hint else 1.0) from exc
                     self._shed_moves += 1
                     router.stats["shed_moves"] += 1
                     continue
-                if kind is DeadlineExceededError:
+                if kind == "DeadlineExceededError":
+                    metrics_mod.inc_serve_reliability("deadline_exceeded",
+                                                      deployment=self._deployment)
                     raise DeadlineExceededError(
                         f"deadline expired inside {self._deployment!r}") from exc
-                raise TaskError(f"{attempt.replica}.handle_request",
-                                exc.remote_traceback) from None
+                raise
             router.breaker(attempt.replica).record_success()
             router.note_breaker(attempt.replica)
             if any(a.hedge for a in self._attempts):
                 router.stats["hedges_won" if attempt.hedge else "hedges_lost"] += 1
+                metrics_mod.inc_serve_reliability("hedges", deployment=self._deployment,
+                                                  outcome="lost")
             self._finish_all(winner=attempt)
             if isinstance(value, dict) and "__serve_stream__" in value:
                 # The stream keeps the router's slot until it ends.
@@ -509,18 +647,10 @@ class DeploymentResponse:
             attempt.discarded = True
             attempt.task.cancel()
             self._release(attempt)
-            try:
-                peer = self._router.peer(attempt.replica)
-            except _channel.ConnectionLost:
-                continue
-            cancel = asyncio.ensure_future(
-                peer.call("cancel_request", self._meta.request_id, attempt.number))
+            cancel = asyncio.ensure_future(self._router.call(
+                attempt.replica, "cancel_request", self._meta.request_id, attempt.number))
             _CANCELS.add(cancel)
             cancel.add_done_callback(_settle_cancel)
-
-
-async def _failed(exc: Exception):
-    raise exc
 
 
 def _settle_cancel(task: asyncio.Task) -> None:
@@ -568,10 +698,10 @@ class ResponseStream:
                 raise DeadlineExceededError("stream stalled past the request deadline")
             try:
                 chunk = await asyncio.wait_for(
-                    self._router.peer(self._replica).call("stream_next", self._stream_id),
+                    self._router.call(self._replica, "stream_next", self._stream_id),
                     None if self._deadline.is_unbounded()
                     else max(0.05, self._deadline.remaining()))
-            except _channel.ConnectionLost as exc:
+            except _REPLICA_DEATH_ERRORS as exc:
                 self._finish()
                 raise ReplicaDiedError(self._response._deployment, self._replica,
                                        "the stream's replica died") from exc
@@ -596,25 +726,27 @@ class ResponseStream:
             self._finish()
             try:
                 await asyncio.wait_for(
-                    self._router.peer(self._replica).call("stream_cancel", self._stream_id),
+                    self._router.call(self._replica, "stream_cancel", self._stream_id),
                     max(1.0, self._deadline.remaining(cap=10.0)))
-            except (ConnectionError, asyncio.TimeoutError, _channel.RemoteError):
-                pass  # the replica's reaper collects what is left
+            except (exceptions.RayTpuError, asyncio.TimeoutError):
+                # The replica's reaper collects what is left.
+                metrics_mod.inc_serve_reliability(
+                    "stream_cancel_failures", deployment=self._response._deployment)
 
     def __next__(self):
         if not self._buffer:
             if self._done:
                 self._raise_end()
-            _channel.run_sync(self._fill())
+            run_sync(self._fill())
             if not self._buffer:
                 self._raise_end()
         return self._buffer.pop(0)
 
     def next_batch(self) -> list:
-        return _channel.run_sync(self._next_batch())
+        return run_sync(self._next_batch())
 
     def cancel(self) -> None:
-        _channel.run_sync(self._cancel())
+        run_sync(self._cancel())
 
 
 class DeploymentHandle:

@@ -21,25 +21,27 @@ same way). Its synthetic decode compute (``decode_flops``) runs as a
 ``torch.matmul`` on the pool's device in a decode replica; it changes no
 output.
 
-The device follows the replica's placement: a decode replica the
-controller placed on a card (``CUDA_VISIBLE_DEVICES`` naming it) holds its
-pool there, and raises if CUDA is not there; one with no GPU share
-(``CUDA_VISIBLE_DEVICES`` empty) holds it in host memory. The prefill
-replicas run on the host.
+The device follows the replica's runtime lease: a decode replica whose
+actor holds a GPU share sees only the leased card (the node agent sets
+its ``CUDA_VISIBLE_DEVICES``) and holds its pool there, and raises if that
+card cannot be opened; one with no GPU share (``CUDA_VISIBLE_DEVICES``
+empty) holds it in host memory. ``serve_llm_stats`` reports the lease's
+cards and the current device beside the pool's. The prefill replicas run
+on the host.
 
 ``steady_rpc_probe`` counts the calls this replica process sends to the
-serve controller over the serve wire (``_channel.calls_sent``), less the
-one background uplink the port has: the membership subscriber's parked
-``poll_update`` (``long_poll.PARKED_POLL``). The reference subtracts its
-metrics flush and task-event report, which the port has neither of.
+runtime's controller (the controller client's ``calls_by_method``), less
+the two background uplinks the reference subtracts: the metrics flush
+(``kv_multi_put``) and the throttled task-event report
+(``report_task_events``).
 
 With tracing on, a prompt pass is a ``serve.prefill`` span under the
 request's ``serve.replica`` span, and a sampled sequence
 (``seq_trace_sample``) takes the request's context and a backdated
 ``serve.kv_transfer`` span for its KV decode into the pool. The prefill
 replica sleeps first for the chaos latency point ``serve.llm.prefill``.
-Left out until the port has metrics (ROADMAP Queue A item 14b-ii): the
-TTFT and TPOT histograms and the replica's gauges.
+The engine feeds the TTFT and TPOT histograms and the replica's gauges
+(``util/metrics``).
 """
 
 from __future__ import annotations
@@ -55,7 +57,6 @@ import numpy as np
 import torch
 
 from ray_tpu_torch._private import chaos
-from ray_tpu_torch.serve import _channel, long_poll
 from ray_tpu_torch.serve._common import Deadline, current_deadline
 from ray_tpu_torch.serve.llm import observability as seq_obs
 from ray_tpu_torch.serve.llm.batch import SequenceState
@@ -80,16 +81,18 @@ def tokenize(prompt) -> List[int]:
 
 def replica_device() -> torch.device:
     """Where this process's decode replica holds its KV pool: host memory
-    when ``CUDA_VISIBLE_DEVICES`` is set and empty (a replica with no GPU
-    share), else the card, which must be there."""
-    if os.environ.get("CUDA_VISIBLE_DEVICES", None) == "":
+    when ``CUDA_VISIBLE_DEVICES`` is set and empty (an actor with no GPU
+    share), else the first card its lease names, made the current device.
+    Raises if that card cannot be opened: it never falls back to the CPU."""
+    cards = os.environ.get("CUDA_VISIBLE_DEVICES", None)
+    if cards == "":
         return torch.device("cpu")
-    if not torch.cuda.is_available():
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 1:
         raise RuntimeError(
-            f"this decode replica holds a GPU share (CUDA_VISIBLE_DEVICES="
-            f"{os.environ.get('CUDA_VISIBLE_DEVICES')!r}) and CUDA is not available; a replica "
-            f"without a card sets num_gpus=0")
-    return torch.device("cuda")
+            f"this decode replica holds a GPU share (CUDA_VISIBLE_DEVICES={cards!r}) and "
+            f"its card cannot be opened; a replica without a card sets num_gpus=0")
+    torch.cuda.set_device(0)
+    return torch.device("cuda", 0)
 
 
 class ToyLM:
@@ -327,6 +330,10 @@ class LLMDecode:
         arena = self._engine._kv._arena
         stats["kv_device"] = str(arena.device)
         stats["kv_pool_bytes"] = arena.untyped_storage().nbytes()
+        # The lease's cards and the device the process opened, read here.
+        stats["lease_cards"] = os.environ.get("CUDA_VISIBLE_DEVICES")
+        stats["current_device"] = (torch.cuda.current_device() if arena.device.type == "cuda"
+                                   else None)
         return stats
 
     def serve_llm_load(self) -> dict:
@@ -336,25 +343,25 @@ class LLMDecode:
                                windows: int = 3) -> dict:
         """Runs up to ``windows`` windows of ``iters`` decode iterations
         under whatever traffic flows and counts the calls this process
-        sends to the serve controller in each: continuous batching must
-        report 0. The parked long poll (``long_poll.PARKED_POLL``) is a
-        background uplink, not decode-loop work, and is subtracted by name;
-        anything else is a finding, and the per-name split says where it
-        came from. The best of the windows that reached ``iters`` is
-        reported (``controller_rpcs`` None when none did); a window cut
-        short by ``timeout_s`` is listed in ``window_iterations`` and judged
-        by none. A window with no call ends the probe, since no later one
-        can report fewer."""
+        sends to the runtime's controller in each: continuous batching must
+        report 0. Two calls are background uplinks, not decode-loop work,
+        and are subtracted by name as the reference does: the metrics flush
+        (one ``kv_multi_put`` a 2 s tick) and the throttled task-event
+        report (``report_task_events``); anything else is a finding, and
+        the per-method split says where it came from. The best of the
+        windows that reached ``iters`` is reported (``controller_rpcs``
+        None when none did); a window cut short by ``timeout_s`` is listed
+        in ``window_iterations`` and judged by none. A window with no call
+        ends the probe, since no later one can report fewer."""
+        from ray_tpu_torch._private.worker import get_global_context
+
         if isinstance(iters, dict):  # an HTTP-style dict body, as generate()'s
             body, iters = iters, 100
             iters = int(body.get("iters", iters))
             timeout_s = float(body.get("timeout_s", timeout_s))
             windows = int(body.get("windows", windows))
-        uplinks = (long_poll.PARKED_POLL,)
-        address = long_poll.controller_address()
-
-        def sent() -> dict:
-            return _channel.calls_sent(address) if address is not None else {}
+        uplinks = ("kv_multi_put", "report_task_events")
+        controller = get_global_context().controller
 
         best: int | None = None
         best_names: dict[str, int] = {}
@@ -365,7 +372,7 @@ class LLMDecode:
             if time.monotonic() >= deadline:
                 break
             start_iter = self._engine.iterations
-            before = sent()
+            before = dict(controller.calls_by_method)
             while (self._engine.iterations < start_iter + iters
                    and time.monotonic() < deadline):
                 await asyncio.sleep(0.005)
@@ -373,7 +380,8 @@ class LLMDecode:
             window_iters.append(done)
             if done < iters:
                 continue
-            deltas = {name: n - before.get(name, 0) for name, n in sent().items()
+            deltas = {name: n - before.get(name, 0)
+                      for name, n in dict(controller.calls_by_method).items()
                       if n - before.get(name, 0) > 0 and name not in uplinks}
             if best is None or sum(deltas.values()) < best:
                 best, best_names, best_iters = sum(deltas.values()), deltas, done

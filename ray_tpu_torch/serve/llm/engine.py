@@ -23,10 +23,10 @@ ends the replica (the handle's death retry re-prefills on a sibling). With
 tracing on, an iteration with a sampled sequence active is a
 ``decode.iter`` span under the first such sequence's context, and a
 sampled sequence's token events carry its trace id (``tr``) and ride its
-stream channel in the trace envelope. Left out until the port has metrics
-(ROADMAP Queue A item 14b-ii): the ``util/metrics`` gauges, counters and
-token-latency histograms (slot occupancy, KV blocks, tokens by class,
-TTFT and TPOT).
+stream channel in the trace envelope. Each iteration sets the
+``util/metrics`` gauges of slot occupancy and KV blocks used and free and
+counts the tokens it issued; each token observes TTFT (its sequence's
+first) or TPOT, and a sequence's end counts its tokens by ledger class.
 """
 
 from __future__ import annotations
@@ -45,6 +45,7 @@ from ray_tpu_torch.serve.llm import observability as seq_obs
 from ray_tpu_torch.serve.llm.batch import SequenceState, SlotBatch
 from ray_tpu_torch.serve.llm.config import LLMConfig
 from ray_tpu_torch.serve.llm.kv import KVBlockPool
+from ray_tpu_torch.util import metrics as metrics_mod
 from ray_tpu_torch.util import tracing
 
 logger = logging.getLogger(__name__)
@@ -220,9 +221,14 @@ class DecodeEngine:
         now_t = time.monotonic()
         for (idx, seq), tok in zip(active, tokens):
             seq.generated.append(int(tok))
+            prev_t = seq.token_times[-1] if seq.token_times else 0.0
             seq.token_times.append(now_t)
             if len(seq.generated) == 1:
                 seq.first_token_at = now_t
+                metrics_mod.record_serve_token_latency(
+                    "ttft", now_t - seq.enqueued_at, self.deployment)
+            elif prev_t:
+                metrics_mod.record_serve_token_latency("tpot", now_t - prev_t, self.deployment)
             if seq.out_chan is not None:
                 event = {"i": len(seq.generated) - 1, "t": int(tok), "fence": self.fence}
                 if seq.sampled and seq.trace_ctx:
@@ -246,6 +252,7 @@ class DecodeEngine:
         self._last_iter_t = now
         occ = len(active)
         self._occupancy_ewma = 0.9 * self._occupancy_ewma + 0.1 * occ
+        self._export_gauges(occ)
         self._note_kv_headroom(now)
         await asyncio.sleep(0)
 
@@ -302,9 +309,20 @@ class DecodeEngine:
     # -- observability --------------------------------------------------
     def _finish_ledger(self, seq: SequenceState, outcome: str, cause: str) -> None:
         """Terminal accounting for one sequence: its tokens partitioned in
-        the ledger, and (sampled sequences) its timeline record."""
+        the ledger and counted by class, and (sampled sequences) its
+        timeline record."""
         split = self.ledger.classify(seq, outcome)
+        metrics_mod.inc_serve_tokens(outcome, split["tokens"], self.deployment)
+        metrics_mod.inc_serve_tokens("replay_discarded", split["replay_discarded"],
+                                     self.deployment)
         self._seq_record(seq, outcome=outcome, cause=cause, split=split)
+
+    def _export_gauges(self, occupancy: int) -> None:
+        """This iteration's slot occupancy, tokens issued and KV blocks."""
+        metrics_mod.set_serve_replica_gauge("slot_occupancy", self.deployment, self.replica_id,
+                                            occupancy)
+        metrics_mod.inc_serve_tokens("issued", occupancy, self.deployment)
+        self._kv.export_gauges()
 
     def _seq_record(self, seq: SequenceState, *, outcome: str, cause: str,
                     split: dict) -> None:

@@ -11,9 +11,8 @@ placed on a card holds it in the card's memory, the headroom the reference
 accounts for. ``alloc``, ``release``, ``blocks_needed`` and the free list
 are the reference's. ``write`` and ``read`` work on the arena's device and
 never wait for it: the decode loop reads every active slot's pages each
-iteration, and a wait there would stall the engine. The reference's
-``export_gauges`` (``util/metrics``) is left out until the port has
-metrics (ROADMAP Queue A item 14b-ii).
+iteration, and a wait there would stall the engine. ``export_gauges``
+sets the ``util/metrics`` gauges of blocks used and free.
 """
 
 from __future__ import annotations
@@ -84,3 +83,9 @@ class KVBlockPool:
         """The sequence's KV pages, stacked (n_blocks, block_elems) on the
         arena's device: a copy, as the reference's fancy index is."""
         return torch.stack([self._arena[bid] for bid in block_ids])
+
+    # -- observability --------------------------------------------------
+    def export_gauges(self) -> None:
+        from ray_tpu_torch.util.metrics import set_serve_kv_blocks
+
+        set_serve_kv_blocks(self._deployment, self._replica_id, self.used(), self.free())

@@ -1,14 +1,14 @@
-"""Membership for routers and the proxy: routes, live replicas and policy.
+"""Membership for routers and proxies: routes, live replicas and policy.
 
-The port's counterpart of ray_tpu's ``serve/_private/long_poll.py``. In the
-driver, where the controller lives, a router reads the controller's
-snapshot directly. In a replica process, where a handle was passed to
-another deployment, a subscriber thread sits in the controller's
-``poll_update`` over the serve wire (``_channel``), which answers when the
-membership version advances past the one it holds, so a route or replica
-added after start reaches the replica's routers without polling on the
-request path. The subscriber's calls block its own thread, never the
-I/O loop the routers run on.
+The port's copy of ray_tpu's ``serve/_private/long_poll.py``. One thread a
+process (the driver, a proxy, a replica holding a handle) sits in the
+serve controller actor's ``poll_update``, an async method parked on the
+controller's loop that answers when the membership version passes the one
+the thread holds, so a route or replica added after start reaches every
+router without polling on the request path. Routers read the cached
+snapshot. The thread looks the controller up by name once and again only
+after a call to it failed, so a parked poll costs no call to the runtime's
+controller.
 """
 
 from __future__ import annotations
@@ -17,114 +17,90 @@ import threading
 import time
 from typing import Optional
 
-from ray_tpu_torch.serve import _channel
+from ray_tpu_torch.serve._common import CONTROLLER_NAME
 
-_EMPTY = {"actor_names": [], "addresses": {}, "max_ongoing_requests": 100}
+_EMPTY = {"actor_names": [], "max_ongoing_requests": 100}
 
-# The name the subscriber's parked ``poll_update`` calls are counted under
-# (``_channel.calls_sent``): a background uplink that answers when the
-# membership moves or its timeout passes, whatever the process is doing.
-PARKED_POLL = "poll_update (parked long poll)"
-
-_source = None
-_source_lock = threading.Lock()
-_controller_address: Optional[tuple] = None
+_singleton: Optional["UpdateSubscriber"] = None
+_singleton_lock = threading.Lock()
 
 
-def set_controller(controller) -> None:
-    """The driver: routers read ``controller``'s snapshot (None clears)."""
-    global _source
-    with _source_lock:
-        old, _source = _source, (_LocalMembership(controller) if controller else None)
-    if isinstance(old, UpdateSubscriber):
-        old.stop()
+def get_subscriber() -> "UpdateSubscriber":
+    """This process's membership source (started at first use)."""
+    global _singleton
+    with _singleton_lock:
+        if _singleton is None:
+            _singleton = UpdateSubscriber()
+        return _singleton
 
 
-def set_controller_address(address: tuple) -> None:
-    """A replica process: routers subscribe to the controller at
-    ``address`` when a handle is first used."""
-    global _controller_address
-    _controller_address = tuple(address)
-    _channel.count_calls_to(_controller_address)
+def reset_subscriber() -> None:
+    """Drops the cached subscriber (serve.shutdown)."""
+    global _singleton
+    with _singleton_lock:
+        sub, _singleton = _singleton, None
+    if sub is not None:
+        sub.stop()
 
 
-def controller_address() -> Optional[tuple]:
-    """The controller's address in a replica process; None in the driver,
-    whose routers read the controller without the wire."""
-    return _controller_address
-
-
-def get_subscriber():
-    """This process's membership source."""
-    global _source
-    with _source_lock:
-        if _source is None:
-            if _controller_address is None:
-                raise RuntimeError("serve is not running: call serve.start() or serve.run()")
-            _source = UpdateSubscriber(_controller_address)
-        return _source
-
-
-class _Snapshot:
-    """Readers over one membership snapshot dict."""
-
-    def _snapshot(self) -> dict:
-        raise NotImplementedError
-
-    def get_routes(self) -> dict:
-        return dict(self._snapshot().get("routes", {}))
-
-    def get_replicas(self, qualified_name: str) -> dict:
-        return dict(self._snapshot().get("replicas", {}).get(qualified_name, _EMPTY))
-
-    def force_refresh(self) -> None:
-        pass
-
-
-class _LocalMembership(_Snapshot):
-    def __init__(self, controller):
-        self._controller = controller
-
-    def _snapshot(self) -> dict:
-        return self._controller.membership()
-
-
-class UpdateSubscriber(_Snapshot):
+class UpdateSubscriber:
     """A thread parked in the controller's ``poll_update``."""
 
     POLL_TIMEOUT_S = 10.0
 
-    def __init__(self, address: tuple):
-        self._peer = _channel.BlockingPeer(address, label=PARKED_POLL)
-        self._force = _channel.BlockingPeer(address)
-        self._force_lock = threading.Lock()
+    def __init__(self):
         self._lock = threading.Lock()
-        self._snapshot_dict: dict = {}
+        self._snapshot: dict = {}
         self._version = -1
         self._instance: str | None = None
+        self._controller = None
         self._have_snapshot = threading.Event()
         self._stopped = False
         self._thread = threading.Thread(target=self._loop, name="serve-longpoll", daemon=True)
         self._thread.start()
 
+    # -- readers --------------------------------------------------------
     def wait_ready(self, timeout: float = 30.0) -> bool:
         return self._have_snapshot.wait(timeout)
 
-    def _snapshot(self) -> dict:
+    def get_routes(self) -> dict:
         self.wait_ready()
         with self._lock:
-            return self._snapshot_dict
+            return dict(self._snapshot.get("routes", {}))
+
+    def get_replicas(self, qualified_name: str) -> dict:
+        self.wait_ready()
+        with self._lock:
+            return dict(self._snapshot.get("replicas", {}).get(qualified_name, _EMPTY))
+
+    def get_proxies(self) -> list:
+        """The ingress proxies: [{"name", "protocol", "host", "port"}], for
+        clients that fail over between them."""
+        self.wait_ready()
+        with self._lock:
+            return list(self._snapshot.get("proxies", []))
 
     def force_refresh(self) -> None:
         """A snapshot fetched now, for a router waiting on a new replica."""
+        import ray_tpu_torch
+
         try:
-            with self._force_lock:
-                self._apply(self._force.call("poll_update", -1, 0.0, timeout=5.0))
-        except (ConnectionError, TimeoutError, _channel.RemoteError):
-            pass  # the push path catches up
+            self._apply(ray_tpu_torch.get(self._controller_handle().poll_update.remote(-1, 0.0),
+                                          timeout=30))
+        except Exception:
+            # The push path catches up.
+            self._controller = None
 
     def stop(self) -> None:
         self._stopped = True
+
+    # -- internals ------------------------------------------------------
+    def _controller_handle(self):
+        if self._controller is None:
+            from ray_tpu_torch.actor import get_actor
+
+            self._controller = get_actor(CONTROLLER_NAME)
+        return self._controller
 
     def _apply(self, update: dict) -> None:
         with self._lock:
@@ -134,18 +110,28 @@ class UpdateSubscriber(_Snapshot):
                 self._version = -1
             if update["version"] >= self._version:
                 self._version = update["version"]
-                self._snapshot_dict = {"routes": update.get("routes", {}),
-                                       "replicas": update.get("replicas", {})}
+                self._snapshot = {"routes": update.get("routes", {}),
+                                  "replicas": update.get("replicas", {}),
+                                  "proxies": update.get("proxies", [])}
         self._have_snapshot.set()
 
     def _loop(self) -> None:
+        import ray_tpu_torch
+
         backoff = 0.1
         while not self._stopped:
             try:
-                self._apply(self._peer.call("poll_update", self._version, self.POLL_TIMEOUT_S,
-                                            timeout=self.POLL_TIMEOUT_S + 30))
+                update = ray_tpu_torch.get(
+                    self._controller_handle().poll_update.remote(self._version,
+                                                                 self.POLL_TIMEOUT_S),
+                    timeout=self.POLL_TIMEOUT_S + 30)
+                self._apply(update)
                 backoff = 0.1
-            except (ConnectionError, TimeoutError, _channel.RemoteError):
-                # The controller is gone or busy: keep the last snapshot.
+            except Exception:
+                # The controller is missing or restarting: keep the last
+                # snapshot, look it up again, and back off.
+                self._controller = None
+                if self._stopped:
+                    return
                 time.sleep(backoff)
                 backoff = min(backoff * 2, 2.0)

@@ -1,9 +1,11 @@
 """HTTP proxy: the ingress, an HTTP/1.1 server on stdlib asyncio streams.
 
-Port of ray_tpu's ``serve/_private/proxy.py`` (which runs aiohttp in an
-actor; the port depends on no HTTP library). It runs on the driver's serve
-I/O loop beside the handles it calls, so a request costs no thread hop:
-the route table comes from the membership snapshot, the longest matching
+Port of ray_tpu's ``serve/_private/proxy.py`` (which runs aiohttp; the
+port depends on no HTTP library). Each proxy is a detached actor
+(``SERVE_PROXY::<port>``, ``max_concurrency=64``) that serves on its
+process's serve I/O loop beside the handles it calls, so a request costs
+no thread hop: the route table comes from the membership snapshot, the
+longest matching
 ``route_prefix`` names the ingress deployment, and its handle is awaited
 on the loop. The reference's behaviour is kept: JSON bodies (a body that
 is not JSON passes as bytes; a GET passes its query as a dict), replies in
@@ -18,11 +20,12 @@ carries its Content-Length; streams use chunked transfer encoding.
 
 Each route keeps a latency histogram and an error count
 (``get_route_stats``: count, p50, p95, p99, mean, max, errors), which the
-controller scrapes for the autoscaler; a stream counts its time to the
-first dispatch. The proxies after the first are processes of their own
-(``proxy_main``) that answer those calls on the serve wire. The flush of
-the route stats to the controller's workload store waits for the runtime
-core (ROADMAP Queue A item 14).
+controller scrapes for the autoscaler, with the requests of each route it
+holds now; a stream counts its time to the first dispatch. Every answer feeds ``util/metrics``'s request series, and
+every shed its reliability counter. An armed ``serve.proxy.kill`` ends
+the proxy's process and the controller restarts the actor on its port.
+The flush of the route stats to the controller's workload store waits
+for ROADMAP Queue A item 14d.
 """
 
 from __future__ import annotations
@@ -30,10 +33,8 @@ from __future__ import annotations
 import asyncio
 import collections
 import contextlib
-import functools
 import json
 import os
-import sys
 import time
 import traceback
 from http import HTTPStatus
@@ -41,17 +42,16 @@ from typing import Any, Optional
 from urllib.parse import parse_qsl, urlsplit
 
 from ray_tpu_torch._private import chaos
-from ray_tpu_torch.serve import _channel, long_poll
 from ray_tpu_torch.serve._common import (
     DEADLINE_HEADER, Deadline, LatencyHistogram, RequestShedError,
 )
-from ray_tpu_torch.serve.handle import DeploymentHandle, DeploymentResponse, ResponseStream
+from ray_tpu_torch.serve.handle import (
+    DeploymentHandle, DeploymentResponse, ResponseStream, run_sync,
+)
 from ray_tpu_torch.serve.long_poll import get_subscriber
 from ray_tpu_torch.serve.routing import match_route
+from ray_tpu_torch.util import metrics as metrics_mod
 from ray_tpu_torch.util import tracing
-
-# True in a proxy process of its own (``proxy_main``), False in the driver.
-_OWN_PROCESS = False
 
 _TEXT = "text/plain; charset=utf-8"
 _JSON = "application/json; charset=utf-8"
@@ -140,7 +140,7 @@ def _head(status: int, headers: dict) -> bytes:
 
 
 class HTTPProxy:
-    """Serves HTTP on ``host:port`` from the serve I/O loop."""
+    """Serves HTTP on ``host:port`` from this process's serve I/O loop."""
 
     def __init__(self, host: str = "127.0.0.1", port: int = 8000):
         self.host = host
@@ -150,12 +150,10 @@ class HTTPProxy:
         self._num_requests = 0
         self._route_hist: dict[str, LatencyHistogram] = {}
         self._route_errors: dict[str, int] = {}
-        self._server = _channel.run_sync(asyncio.start_server(self._on_client, host, port))
+        self._server = run_sync(asyncio.start_server(self._on_client, host, port))
 
-    def shutdown(self) -> None:
-        async def close():
-            self._server.close()
-        _channel.run_sync(close(), timeout=10)
+    def ready(self) -> str:
+        return "ok"
 
     # -- connections ----------------------------------------------------
     async def _on_client(self, reader: asyncio.StreamReader,
@@ -192,38 +190,42 @@ class HTTPProxy:
         await writer.drain()
 
     # -- the stats the controller reads (on the I/O loop) ---------------
-    def _observe_route(self, route: str, seconds: float, error: bool) -> None:
+    def _observe_route(self, route: str, seconds: float, error: bool,
+                       status: str | None = None) -> None:
         hist = self._route_hist.get(route)
         if hist is None:
             hist = self._route_hist[route] = LatencyHistogram()
         hist.observe(seconds)
         if error:
             self._route_errors[route] = self._route_errors.get(route, 0) + 1
+        metrics_mod.record_serve_request(route, seconds, status or ("500" if error else "200"))
 
-    async def get_route_stats(self) -> dict:
-        """{route: {count, p50_ms, p95_ms, p99_ms, mean_ms, max_ms, errors}}."""
-        return {route: {**hist.snapshot(), "errors": self._route_errors.get(route, 0)}
-                for route, hist in self._route_hist.items()}
+    # The actor's calls read the loop's state on the loop.
+    def get_route_stats(self) -> dict:
+        """{route: {count, p50_ms, p95_ms, p99_ms, mean_ms, max_ms, errors,
+        inflight}}: ``inflight`` the route's requests this proxy holds now."""
+        async def read():
+            return {route: {**hist.snapshot(), "errors": self._route_errors.get(route, 0),
+                            "inflight": self._inflight.get(route, 0)}
+                    for route, hist in self._route_hist.items()}
+        return run_sync(read(), timeout=10)
 
-    async def get_num_requests(self) -> int:
+    def get_num_requests(self) -> int:
         return self._num_requests
 
-    async def get_reliability_stats(self) -> dict:
+    def get_reliability_stats(self) -> dict:
         """Hedges, retries and breaker states of this proxy's routers, summed
         over its routes."""
-        total: collections.Counter = collections.Counter()
-        seen: set = set()
-        for handle in self._handles.values():
-            stats = handle._get_router().reliability()
-            seen.update(stats.pop("breaker_states_seen"))
-            stats.pop("breakers")
-            total.update(stats)
-        return {**total, "breaker_states_seen": sorted(seen)}
-
-    async def dispatch(self, method: str, args: tuple, kwargs: dict):
-        if method not in ("get_route_stats", "get_num_requests", "get_reliability_stats"):
-            raise AttributeError(f"a proxy has no call {method!r}")
-        return await getattr(self, method)(*args, **kwargs)
+        async def read():
+            total: collections.Counter = collections.Counter()
+            seen: set = set()
+            for handle in self._handles.values():
+                stats = handle._get_router().reliability()
+                seen.update(stats.pop("breaker_states_seen"))
+                stats.pop("breakers")
+                total.update(stats)
+            return {**total, "breaker_states_seen": sorted(seen)}
+        return run_sync(read(), timeout=10)
 
     # -- requests -------------------------------------------------------
     def _handle_for(self, qualified: str) -> DeploymentHandle:
@@ -247,15 +249,12 @@ class HTTPProxy:
         path = request.path
         if path == "/-/healthz":
             return await send(200, "ok")
-        # Chaos: an armed "serve.proxy.kill" takes this proxy down mid-request.
-        # A proxy process of its own exits (the controller restarts it); the
-        # driver's proxy drops the connection without an answer instead.
+        # Chaos: an armed "serve.proxy.kill" takes this proxy's process down
+        # mid-request; the controller restarts it.
         try:
             chaos.failpoint("serve.proxy.kill")
         except chaos.ChaosFault:
-            if _OWN_PROCESS:
-                os._exit(1)
-            raise ConnectionAbortedError("serve.proxy.kill") from None
+            os._exit(1)
         routes = get_subscriber().get_routes()
         if path == "/-/routes":
             return await send(200, json.dumps(routes), _JSON)
@@ -270,7 +269,7 @@ class HTTPProxy:
                                 policy.get("max_ongoing_requests", 100),
                                 policy.get("max_queued_requests", -1))
         if self._inflight.get(qualified, 0) >= limit:
-            return await self._shed(send, deadline)
+            return await self._shed(send, deadline, qualified=qualified, where="proxy")
         if request.method in ("POST", "PUT", "PATCH"):
             try:
                 body: Any = json.loads(request.body) if request.body else None
@@ -304,13 +303,16 @@ class HTTPProxy:
                     result = await DeploymentResponse(handle, (body,), {},
                                                       deadline)._result_async()
             except RequestShedError as exc:
-                return await self._shed(send, deadline, exc.retry_after_s)
+                return await self._shed(send, deadline, exc.retry_after_s, qualified=qualified,
+                                        where="replica")
             except TimeoutError as exc:  # DeadlineExceededError included
-                self._observe_route(qualified, time.perf_counter() - start, error=True)
+                self._observe_route(qualified, time.perf_counter() - start, error=True,
+                                    status="504")
                 return await send(504, f"deadline exceeded: {exc}")
             except RuntimeError as exc:
                 if "no available replica" in str(exc):
-                    return await self._shed(send, deadline)
+                    return await self._shed(send, deadline, qualified=qualified,
+                                            where="router")
                 self._observe_route(qualified, time.perf_counter() - start, error=True)
                 return await send(500, f"{type(exc).__name__}: {exc}")
             except Exception as exc:
@@ -332,8 +334,11 @@ class HTTPProxy:
         finally:
             self._inflight[qualified] = max(0, self._inflight.get(qualified, 1) - 1)
 
-    async def _shed(self, send, deadline: Deadline, retry_after_s: Optional[float] = None):
+    async def _shed(self, send, deadline: Deadline, retry_after_s: Optional[float] = None, *,
+                    qualified: str = "", where: str = "proxy"):
         """A fast 503 with a Retry-After capped by the request's budget."""
+        metrics_mod.inc_serve_reliability("shed", route=qualified, where=where)
+        metrics_mod.record_serve_request(qualified, 0.0, "503")
         hint = retry_after_s if retry_after_s is not None else 1.0
         if not deadline.is_unbounded():
             hint = min(hint, deadline.remaining())
@@ -374,33 +379,3 @@ class HTTPProxy:
             raise
         writer.write(b"0\r\n\r\n")
         await writer.drain()
-
-
-# -- a proxy process ---------------------------------------------------------
-def proxy_main(spec: dict, conn) -> None:
-    """A proxy process: serve HTTP on the spec's port, answer the
-    controller's calls on a serve-wire port, tell the controller through
-    ``conn``, and stop when it says so or closes the pipe."""
-    global _OWN_PROCESS
-    _OWN_PROCESS = True
-    os.environ.update(spec["env"])
-    try:
-        long_poll.set_controller_address(spec["controller"])
-        proxy = HTTPProxy(spec["host"], spec["port"])
-        server = _channel.run_sync(asyncio.start_server(
-            functools.partial(_channel.serve_connection, dispatch=proxy.dispatch),
-            "127.0.0.1", 0))
-    except Exception:
-        conn.send(("error", traceback.format_exc()))
-        os._exit(1)
-    conn.send(("ready", {"address": server.sockets[0].getsockname()[:2], "pid": os.getpid()}))
-    try:
-        while conn.recv() != ("stop",):
-            pass
-    except (EOFError, OSError):
-        pass
-    sys.stdout.flush()
-    sys.stderr.flush()
-    tracing.flush()
-    # The I/O loop's connections end with the process.
-    os._exit(0)

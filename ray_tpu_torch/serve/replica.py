@@ -1,26 +1,30 @@
-"""Replica: one copy of a deployment, in a process of its own.
+"""Replica: the actor hosting one copy of a deployment.
 
 Port of ray_tpu's ``serve/_private/replica.py``. The controller starts each
-replica from the ``torch.multiprocessing`` spawn context (a driver that has
-initialised CUDA cannot fork), with ``CUDA_VISIBLE_DEVICES`` set to the
-card it placed the replica on, or to none for a replica that asks for no
-card. The process builds the user's class (or takes the function) with its
-init arguments, turns bound sub-deployments into handles, and then serves
-calls on one asyncio loop: ``handle_request`` runs up to
+replica as a runtime actor (``SERVE_REPLICA::<id>``) whose GPU share the
+node agent leases: the actor's worker sees only its lease's card through
+``CUDA_VISIBLE_DEVICES``, or none at ``num_gpus`` 0. The actor builds the
+user's class (or takes the function) with its init arguments, turns bound
+sub-deployments into handles, and then serves its async methods on the
+actor's loop: ``handle_request`` runs up to
 ``max_ongoing_requests`` requests concurrently, so that a ``@batch``
 method gathers a batch from them; beyond ``max_ongoing_requests +
-max_queued_requests`` it sheds with ``RequestShedError``. Async methods run
-on the loop, plain ones on a thread pool (the reference's actor threads),
+max_queued_requests`` it sheds with ``RequestShedError``. The user's async
+methods run on that loop, plain ones on a thread pool,
 with the request's deadline and metadata in their context
 (``get_current_request_metadata``: the multiplexed model id reaches
 ``serve.get_multiplexed_model_id``). Generator deployments stream through
 ``stream_next`` / ``stream_cancel``; a stream pins its multiplexed model
 until it ends. ``drain`` checkpoints the loaded multiplexed models, and
-``cancel_request`` cancels a request a hedge lost.
+``cancel_request`` cancels a request a hedge lost. ``get_metrics`` pushes
+the occupancy gauges (``util/metrics``) and reports the process's peak RSS
+and the launch counts of the port's kernels, which ``kernel_launches``
+also answers alone.
 
-The class or function reaches the process by name, never by value (the
-port depends on no cloudpickle): it must be importable from a module,
-at the module's top level.
+The user's class or function reaches the actor by name, never by value
+(the serve plane depends on no cloudpickle): a ``CallableRef`` names its
+module, its qualified name and the directory its module was imported
+from, and the replica imports it.
 """
 
 from __future__ import annotations
@@ -30,19 +34,20 @@ import concurrent.futures
 import contextvars
 import functools
 import importlib
+import importlib.util
 import inspect
 import logging
 import os
+import pickle
 import signal
 import sys
-import threading
 import time
 import traceback
 import uuid
 from typing import Any
 
 from ray_tpu_torch._private import chaos
-from ray_tpu_torch.serve import _channel, batching, long_poll
+from ray_tpu_torch.serve import batching
 from ray_tpu_torch.serve._common import (
     Deadline, DeadlineExceededError, LatencyHistogram, ReplicaDrainingError, RequestShedError,
     reset_current_deadline, set_current_deadline,
@@ -61,9 +66,12 @@ def get_current_request_metadata():
 
 
 class CallableRef:
-    """A deployment's class or function by module and qualified name. At the
-    replica, the name may hold the Deployment the decorator made; its
-    class or function is taken."""
+    """A deployment's class or function by module and qualified name, and
+    the directory the module was imported from (the import root a replica
+    adds to its path when the module is not already importable there). A
+    class of the driver's main script is named by the script's module
+    name. At the replica, the name may hold the Deployment the decorator
+    made; its class or function is taken."""
 
     def __init__(self, target: Any):
         self.module = target.__module__
@@ -72,8 +80,27 @@ class CallableRef:
             raise ValueError(
                 f"{self.module}.{self.qualname}: a deployment's class or function must be "
                 f"defined at the top level of an importable module (replicas import it)")
+        module = sys.modules.get(self.module)
+        if self.module == "__main__":
+            spec = getattr(module, "__spec__", None)
+            path = getattr(module, "__file__", None)
+            if spec is not None and spec.name:
+                self.module = spec.name
+            elif path:
+                self.module = os.path.splitext(os.path.basename(path))[0]
+            else:
+                raise ValueError(f"{self.qualname}: a deployment defined in an interactive "
+                                 f"session cannot be imported by its replicas")
+        self.root = _import_root(module, self.module)
 
     def resolve(self) -> Any:
+        if self.root and self.root not in sys.path:
+            try:
+                found = importlib.util.find_spec(self.module) is not None
+            except (ImportError, ValueError):
+                found = False
+            if not found:
+                sys.path.append(self.root)
         obj = importlib.import_module(self.module)
         for part in self.qualname.split("."):
             obj = getattr(obj, part)
@@ -83,11 +110,17 @@ class CallableRef:
         return f"{self.module}.{self.qualname}"
 
 
-# The calls a replica answers.
-_METHODS = frozenset({
-    "handle_request", "stream_next", "stream_cancel", "reconfigure", "check_health",
-    "get_metrics", "get_load", "get_num_ongoing", "get_warm_shapes", "drain", "cancel_request",
-})
+def _import_root(module, name: str) -> str:
+    """The sys.path entry ``module`` (imported as ``name``) was found under,
+    or "" for one without a file."""
+    path = getattr(module, "__file__", None)
+    if not path:
+        return ""
+    root = os.path.dirname(os.path.abspath(path))
+    depth = name.count(".") + (os.path.basename(path).startswith("__init__.") and 1)
+    for _ in range(depth):
+        root = os.path.dirname(root)
+    return root
 
 
 class _Stream:
@@ -114,15 +147,15 @@ class _Stream:
 
 
 class Replica:
-    """Serves one deployment in this process."""
+    """Runs inside a runtime actor with max_concurrency > 1. ``cls_or_fn``
+    is the deployment's ``CallableRef``; ``init_args`` may be the pickle of
+    ``(init_args, init_kwargs)`` that ``serve.run`` sealed."""
 
     STREAM_IDLE_TTL_S = 120.0
 
     def __init__(self, replica_id: str, deployment_name: str, cls_or_fn: Any,
                  init_args: tuple, init_kwargs: dict, user_config: Any, version: str,
                  limits: dict | None = None):
-        from ray_tpu_torch.serve.handle import _resolve_handle_placeholders
-
         self.replica_id = replica_id
         self.deployment_name = deployment_name
         self.version = version
@@ -136,6 +169,13 @@ class Replica:
         self._admission_limit = self._max_ongoing + (
             self._max_ongoing if max_queued < 0 else max_queued)
         self._draining = False
+        # SIGTERM: stop taking work and let what is in flight finish. The
+        # constructor may run off the main thread, where no handler goes in;
+        # drain() reaches the replica all the same.
+        try:
+            signal.signal(signal.SIGTERM, self._on_sigterm)
+        except (ValueError, OSError):
+            pass
         self._latency_hist = LatencyHistogram()
         self._streams: dict[str, _Stream] = {}
         self._stream_counter = 0
@@ -148,6 +188,23 @@ class Replica:
         # threads run them.
         self._pool = concurrent.futures.ThreadPoolExecutor(
             max_workers=max(8, self._max_ongoing), thread_name_prefix="replica")
+        # The user's constructor raising is reported by the first health
+        # check, which the controller reads as a failed start: the actor
+        # itself comes up, so the runtime does not retry it.
+        self._callable, self._is_function, self._init_error = None, True, None
+        try:
+            self._build(cls_or_fn, init_args, init_kwargs, user_config)
+        except Exception:
+            self._init_error = traceback.format_exc()
+
+    def _build(self, cls_or_fn: Any, init_args: tuple, init_kwargs: dict,
+               user_config: Any) -> None:
+        from ray_tpu_torch.serve.handle import _resolve_handle_placeholders
+
+        if isinstance(cls_or_fn, CallableRef):
+            cls_or_fn = cls_or_fn.resolve()
+        if isinstance(init_args, bytes):
+            init_args, init_kwargs = pickle.loads(init_args)
         init_args = _resolve_handle_placeholders(init_args)
         init_kwargs = _resolve_handle_placeholders(init_kwargs)
         if isinstance(cls_or_fn, type):
@@ -160,18 +217,10 @@ class Replica:
         # stamped here: the engine cannot know its replica when it is built.
         engine = getattr(self._callable, "_engine", None)
         if engine is not None and hasattr(engine, "replica_id"):
-            engine.deployment = deployment_name
-            engine.replica_id = replica_id
+            engine.deployment = self.deployment_name
+            engine.replica_id = self.replica_id
         if user_config is not None:
             self._apply_reconfigure(user_config)
-
-    async def dispatch(self, method: str, args: tuple, kwargs: dict) -> Any:
-        if method not in _METHODS:
-            raise AttributeError(f"a replica has no call {method!r}")
-        result = getattr(self, method)(*args, **kwargs)
-        if inspect.isawaitable(result):
-            result = await result
-        return result
 
     # -- request path ---------------------------------------------------
     async def handle_request(self, meta: dict, args: tuple, kwargs: dict) -> Any:
@@ -321,7 +370,8 @@ class Replica:
             out["error"] = error
         return out
 
-    def stream_cancel(self, stream_id: str) -> str:
+    async def stream_cancel(self, stream_id: str) -> str:
+        # Async: it cancels the pump's task on the actor's loop.
         self._finish_stream(stream_id)
         return "ok"
 
@@ -335,6 +385,8 @@ class Replica:
             self._callable.reconfigure(user_config)
 
     async def check_health(self) -> str:
+        if self._init_error is not None:
+            raise RuntimeError(f"the replica's constructor raised:\n{self._init_error}")
         # The controller's periodic check doubles as the reaper's tick.
         self._reap_idle_streams()
         if not self._is_function and hasattr(self._callable, "check_health"):
@@ -344,6 +396,9 @@ class Replica:
         return "draining" if self._draining else "ok"
 
     def get_metrics(self) -> dict:
+        from ray_tpu_torch._private.worker_proc import _peak_rss_bytes
+        from ray_tpu_torch.util import metrics as metrics_mod
+
         lat = self._latency_hist.snapshot()
         stats = batching.queue_stats()
         out = {
@@ -362,6 +417,7 @@ class Replica:
             "avg_batch_occupancy": stats["avg_occupancy"],
             "items_real": stats["items_real"],
             "items_padded": stats["items_padded"],
+            "rss_bytes": _peak_rss_bytes(),
             "kernels": kernel_launches(),
         }
         # A serve-LLM decode engine's slot occupancy stands for the batch
@@ -372,15 +428,31 @@ class Replica:
             out["serve_llm"] = llm_stats
             out["queue_depth"] += llm_stats.get("queue_depth", 0)
             out["batch_occupancy"] = llm_stats.get("slot_occupancy_frac")
+        # The controller's metrics poll is the gauges' cadence.
+        for name in ("ongoing_requests", "queue_depth", "batch_occupancy"):
+            value = out["ongoing"] if name == "ongoing_requests" else stats[name]
+            if value is not None:
+                metrics_mod.set_serve_replica_gauge(name, self.deployment_name, self.replica_id,
+                                                    value)
         return out
 
-    def get_num_ongoing(self) -> int:
+    def kernel_launches(self) -> dict:
+        """The launch counts of the port's kernels in this replica."""
+        return kernel_launches()
+
+    async def get_num_ongoing(self) -> int:
         return self._ongoing
 
-    def get_load(self) -> dict:
+    def get_node_id(self) -> str:
+        return os.environ.get("RAYTPU_NODE_ID", "")
+
+    async def get_load(self) -> dict:
         """The autoscaler's input: requests in flight and those queued for a
         batch; a serve-LLM decode replica adds its KV pool's free fraction
-        (its slots are in-flight requests already)."""
+        (its slots are in-flight requests already). Async, so it is read on
+        the actor's loop between two turns of it: a batch's forward that
+        holds the loop would otherwise hide the requests that arrived
+        meanwhile and start only when it returns."""
         load = {"ongoing": self._ongoing, "queue_depth": batching.queue_stats()["queue_depth"],
                 "draining": self._draining}
         load_fn = getattr(self._callable, "serve_llm_load", None)
@@ -406,7 +478,7 @@ class Replica:
         return {"draining": True, "ongoing": self._ongoing, "streams": len(self._streams),
                 "checkpointed_models": checkpointed}
 
-    def cancel_request(self, request_id: str, attempt: int) -> bool:
+    async def cancel_request(self, request_id: str, attempt: int) -> bool:
         """Cancels a request in flight (one a hedge lost): an async method or
         a wait for its batch stops; a plain method's thread runs to its end,
         its answer dropped. False if it already ended."""
@@ -416,7 +488,7 @@ class Replica:
         task.cancel()
         return True
 
-    def on_sigterm(self) -> None:
+    def _on_sigterm(self, signum, frame) -> None:
         logger.info("replica %s received SIGTERM: draining", self.replica_id)
         self._draining = True
 
@@ -436,54 +508,3 @@ def kernel_launches() -> dict:
         out["rmsnorm"] = {"launches": norm.rmsnorm.launches}
         out["rmsnorm_bwd"] = {"launches": norm.rmsnorm_backward.launches}
     return out
-
-
-# -- the process -------------------------------------------------------------
-def replica_main(spec: dict, conn) -> None:
-    """A replica process: build the replica, serve on a localhost port,
-    tell the controller through ``conn``, and stop when it says so or
-    closes the pipe."""
-    os.environ.update(spec["env"])
-    try:
-        asyncio.run(_serve(spec, conn))
-    finally:
-        sys.stdout.flush()
-        sys.stderr.flush()
-        tracing.flush()
-        # Plain-method threads and the I/O loop's connections end with the
-        # process; nothing waits for them.
-        os._exit(0)
-
-
-async def _serve(spec: dict, conn) -> None:
-    loop = asyncio.get_running_loop()
-    long_poll.set_controller_address(spec["controller"])
-    try:
-        replica = Replica(spec["replica_id"], spec["deployment"], spec["callable"].resolve(),
-                          spec["init_args"], spec["init_kwargs"], spec["user_config"],
-                          spec["version"], limits=spec["limits"])
-    except Exception:
-        conn.send(("error", traceback.format_exc()))
-        return
-    server = await asyncio.start_server(
-        functools.partial(_channel.serve_connection, dispatch=replica.dispatch), "127.0.0.1", 0)
-    stop = asyncio.Event()
-    try:
-        loop.add_signal_handler(signal.SIGTERM, replica.on_sigterm)
-    except (NotImplementedError, RuntimeError):
-        pass  # no signal handlers on this platform; drain() still reaches it
-
-    def watch():
-        # The controller says stop, or its end of the pipe closes with it.
-        try:
-            while conn.recv() != ("stop",):
-                pass
-        except (EOFError, OSError):
-            pass
-        loop.call_soon_threadsafe(stop.set)
-
-    conn.send(("ready", {"address": server.sockets[0].getsockname()[:2], "pid": os.getpid()}))
-    threading.Thread(target=watch, name="replica-stop", daemon=True).start()
-    await stop.wait()
-    # No wait for the callers' connections to close: the process ends.
-    server.close()

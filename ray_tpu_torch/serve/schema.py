@@ -4,7 +4,7 @@ The port's copy of ray_tpu's ``serve/schema.py``: a YAML file describes
 the applications (each an import path and per-deployment overrides) and
 the HTTP options (host, port, the number of proxies);
 ``serve.run_from_config`` applies it. The ``serve deploy`` command-line
-verb waits for the runtime core's tools (ROADMAP Queue A item 14).
+verb waits for the runtime's tools (ROADMAP Queue A item 14d).
 
 Example:
 

@@ -10,8 +10,8 @@ from the serve-LLM sequence records (``serve/llm/observability.py``).
 
 Timestamps are unix-epoch microseconds (spans record unix nanoseconds).
 
-Left out until the port has a controller (ROADMAP Queue A items 14b-ii and
-14d): the controller's task-event log as per-node events and the counter
+Left out until the controller half is ported (ROADMAP Queue A items 14b-ii-b
+and 14d): the controller's task-event log as per-node events and the counter
 snapshots of its gauges. ``build_chrome_trace`` raises for
 ``task_events`` and renders no counters.
 """
@@ -101,12 +101,12 @@ def build_chrome_trace(
 
     ``task_events`` (the controller's event log) and the counter snapshots
     need the runtime's controller, which the port does not have yet
-    (ROADMAP Queue A items 14b-ii and 14d): a non-empty ``task_events``
+    (ROADMAP Queue A items 14b-ii-b and 14d): a non-empty ``task_events``
     raises, and ``include_counters`` adds nothing, as the reference's
     export does when it is not connected."""
     if task_events:
         raise NotImplementedError(
-            "task events come from the runtime's controller (ROADMAP Queue A items 14b-ii and 14d)")
+            "task events come from the runtime's controller (ROADMAP Queue A items 14b-ii-b and 14d)")
     spans = tracing.read_spans(session_dir)
     return {"traceEvents": _span_events(spans), "displayTimeUnit": "ms"}
 

@@ -1,9 +1,10 @@
 """Deployments of the port's serve plane for tests/test_torch_serve_plane.py,
 test_torch_serve_multiplex.py and test_torch_serve_reliability.py.
 
-Replicas are processes that import a deployment's class by name, so the
-deployments live at the top level of this module (tests/ is on the path
-that spawned replicas inherit). Each mirrors one of tests/test_serve.py's.
+Replicas are runtime actors that import a deployment's class by name, so
+the deployments live at the top level of this module (a replica adds
+tests/, the module's import root, to its path). Each mirrors one of
+tests/test_serve.py's.
 """
 
 import asyncio
@@ -66,6 +67,21 @@ class Boom:
 class Echo:
     def __call__(self, body):
         return {"echo": body}
+
+
+@serve.deployment
+class TinyLogits:
+    """TransformerConfig.tiny() (f32) on the CPU: a batch of token ids in,
+    its whole logits out (numpy), from parameters the JAX package made."""
+
+    def __init__(self, numpy_params: dict):
+        self.config = pt.TransformerConfig.tiny()
+        self.params = params_from_numpy(numpy_params, device="cpu")
+
+    def __call__(self, tokens):
+        with torch.inference_mode():
+            return pt.forward(self.params, torch.from_numpy(np.asarray(tokens)),
+                              self.config).numpy()
 
 
 @serve.deployment
@@ -207,6 +223,10 @@ class Autoscaled:
 class OnHalfACard:
     def __call__(self, x):
         return x
+
+    def visible(self, _):
+        """The cards the node agent's lease let this replica see."""
+        return os.environ.get("CUDA_VISIBLE_DEVICES")
 
 
 @serve.deployment

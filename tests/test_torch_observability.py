@@ -8,8 +8,11 @@ package's where both can run here.
 * a traced compiled graph on the port's local actors (shm and device edges)
   chains the driver's context through every hop and stage span;
 * the proxy's ``serve.request`` span parents the replica's span, from the
-  ``X-RayTPU-Trace`` header or a caller's span, and ``serve.proxy.kill``
-  drops a request;
+  ``X-RayTPU-Trace`` header or a caller's span, on a runtime cluster (the
+  proxy and the replica are actors); ``serve.proxy.kill``, armed for a
+  window of the schedule's clock (the proxy's process inherits the
+  schedule from the cluster), drops a request and ends the proxy, which
+  the controller restarts;
 * the serve-LLM sampling decision is the reference's, and one sampled
   request's trace runs unbroken through prefill, the KV decode, the engine's
   iterations and its token events; the KV wire carries the context;
@@ -224,12 +227,24 @@ def _post(port, path, body, headers=None):
         conn.close()
 
 
-def test_proxy_to_replica_span_propagation_and_the_proxy_kill(session):
+# The proxy kill's window on the schedule's clock: after the cluster, the
+# deployment and the traced requests are up, and short enough that the
+# restarted proxy's first request falls after it.
+KILL_WINDOW = {"start_s": 12.0, "duration_s": 3.0, "count": 1}
+
+
+def test_proxy_to_replica_span_propagation_and_the_proxy_kill(session, monkeypatch):
+    import ray_tpu_torch as rt
     from ray_tpu_torch import serve
 
     import _torch_serve_apps as apps
 
+    schedule = FaultSchedule(seed=0, fail_points={"serve.proxy.kill": KILL_WINDOW})
+    monkeypatch.setenv("RAY_TPU_chaos", schedule.to_json())
+    chaos.reset()
     port = _free_port()
+    info = rt.init(num_cpus=8, _system_config={"rpc_retry_max_backoff_s": 0.05,
+                                               "rpc_retry_max_attempts": 6})
     try:
         serve.start(http_port=port)
         handle = serve.run(apps.Echo.bind(), name="techo", route_prefix="/techo")
@@ -239,18 +254,34 @@ def test_proxy_to_replica_span_propagation_and_the_proxy_kill(session):
         assert status == 200 and json.loads(body) == {"echo": {"v": 1}}
         with tracing.span("client") as client:
             assert handle.remote({"v": 2}).result(timeout=60) == {"echo": {"v": 2}}
-        # An armed serve.proxy.kill drops the request it hits, once.
-        chaos.install(FaultSchedule(seed=0, fail_points={"serve.proxy.kill": 1}),
-                      export_env=False)
-        try:
-            with pytest.raises((ConnectionError, http.client.HTTPException)):
-                _post(port, "/techo", {"v": 3})
-            assert _post(port, "/techo", {"v": 4})[0] == 200
-        finally:
-            chaos.reset()
+        assert schedule.epoch + KILL_WINDOW["start_s"] > time.time(), "set-up outlasted the wait"
+        # The armed serve.proxy.kill drops the request it hits and ends the
+        # proxy's process; the controller restarts the proxy on its port.
+        time.sleep(schedule.epoch + KILL_WINDOW["start_s"] + 0.2 - time.time())
+        with pytest.raises((ConnectionError, http.client.HTTPException)):
+            _post(port, "/techo", {"v": 3})
+        time.sleep(max(0.0, schedule.epoch + sum(KILL_WINDOW[k] for k in ("start_s",
+                                                                            "duration_s"))
+                       - time.time()))
+
+        def served():
+            try:
+                return _post(port, "/techo", {"v": 4})[0] == 200
+            except (ConnectionError, http.client.HTTPException):
+                return False
+
+        deadline = time.monotonic() + 60
+        while not served():
+            assert time.monotonic() < deadline, "the proxy was not restarted"
+            time.sleep(0.2)
+        restarts = [p["restarts"] for p in rt.get(serve.start(http_port=None)
+                                                  .get_proxies.remote(), timeout=30)]
+        assert restarts == [1]
     finally:
         serve.shutdown()
-    spans = _spans(session, lambda s: len([x for x in s if x["name"].startswith(
+        rt.shutdown()
+        chaos.reset()
+    spans = _spans(info["session_dir"], lambda s: len([x for x in s if x["name"].startswith(
         "serve.replica")]) >= 2)
     req = [s for s in spans if s["name"] == "serve.request /techo"]
     assert [s["trace_id"] for s in req if s["parent_id"] == parent_span] == [trace_id]

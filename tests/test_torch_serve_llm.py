@@ -10,10 +10,12 @@ outcomes (completed, expired, shed) and pool use after eviction, and the
 multiplexed models' pins. The pools here live in host memory
 (``device="cpu"``).
 
-Then one serve instance of the port runs ``build_llm_app`` end to end,
-with CPU replicas (no GPU share, so each decode replica's pool is in host
-memory): HTTP and handle tokens equal the digest, streaming, a fast 503
-with Retry-After when the pool is full, ``steady_rpc_probe`` at 0, a shed
+Then one serve instance of the port, on a runtime cluster the module
+boots and shuts down, runs ``build_llm_app`` end to end, with CPU replicas
+(no GPU share, so each decode replica's pool is in host memory): HTTP and
+handle tokens equal the digest, streaming, a fast 503 with Retry-After
+when the pool is full, ``steady_rpc_probe`` at 0 on the runtime
+controller client's counter, a shed
 hedge that leaves its first attempt running, a shed request that moves to
 a replica with room, a pool grown on its KV headroom while the prefill
 pool stays, and a killed decode replica replayed exactly once.
@@ -44,9 +46,10 @@ from ray_tpu.serve.llm import kv as ref_kv
 from ray_tpu.serve.llm import observability as ref_obs
 from ray_tpu.serve.llm import wire as ref_wire
 
+import ray_tpu_torch as rt
 import ray_tpu_torch.serve.llm as port_llm
 from ray_tpu_torch import serve
-from ray_tpu_torch.serve import _channel as port_channel
+from ray_tpu_torch._private import worker as port_worker
 from ray_tpu_torch.serve import _common as port_common
 from ray_tpu_torch.serve import long_poll
 from ray_tpu_torch.serve import multiplex as port_mux
@@ -548,6 +551,8 @@ def llm_serve():
     (release/benchmarks_serve_llm.py's tiny KV pool with kv_headroom_min 0.8
     on the decode pool only)."""
     port = _free_port()
+    rt.init(num_cpus=32, _system_config={"rpc_retry_max_backoff_s": 0.05,
+                                         "rpc_retry_max_attempts": 6})
     serve.start(http_port=port)
     scaling = {"min_replicas": 1, "max_replicas": 2, "target_ongoing_requests": 1000,
                "upscale_delay_s": 0.5, "downscale_delay_s": 600.0}
@@ -577,6 +582,11 @@ def llm_serve():
         handles = {name: f.result() for name, f in futures.items()}
     yield port, handles
     serve.shutdown()
+    rt.shutdown()
+
+
+def _replica_metrics(qualified: str) -> list:
+    return rt.get(serve.start(http_port=None).get_metrics.remote(), timeout=60)[qualified]
 
 
 def test_app_tokens_over_handle_and_http_equal_the_digest(llm_serve):
@@ -601,7 +611,7 @@ def test_app_tokens_over_handle_and_http_equal_the_digest(llm_serve):
     # all land on one. A session id pins its calls to one replica by hash:
     # calls under new ids reach the other, whose pool is then held too.
     for i in range(32):
-        metrics = serve.start(http_port=None).get_metrics()["llm_llm_decode"]
+        metrics = _replica_metrics("llm_llm_decode")
         if all(m["serve_llm"]["admitted"] for m in metrics):
             break
         spread = handle.options(method_name="generate", session_id=f"spread-{i}").remote(
@@ -740,13 +750,30 @@ def test_a_shed_request_moves_to_a_replica_not_tried(llm_serve):
             hog.result(timeout=60)
 
 
+class _ControllerClient:
+    """Stands for the runtime's controller client: its per-method call
+    counts, which the probe reads."""
+
+    def __init__(self):
+        self.calls_by_method: dict[str, int] = {}
+
+    def call(self, method: str) -> None:
+        self.calls_by_method[method] = self.calls_by_method.get(method, 0) + 1
+
+
+def _fake_runtime(monkeypatch) -> _ControllerClient:
+    client = _ControllerClient()
+    monkeypatch.setattr(port_worker, "get_global_context",
+                        lambda: type("Ctx", (), {"controller": client})())
+    return client
+
+
 def test_the_steady_probe_judges_whole_windows_only(monkeypatch):
     """A call to the controller every 40 decode iterations shows in every
     whole window of 100; the probe's last window, cut short by its timeout
-    with no call in it, is listed and judged by none."""
-    address = ("127.0.0.1", 9)
-    monkeypatch.setattr(long_poll, "_controller_address", address)
-    port_channel.count_calls_to(address)
+    with no call in it, is listed and judged by none. The two background
+    uplinks are subtracted by name."""
+    client = _fake_runtime(monkeypatch)
 
     class _Engine:
         iterations = 0
@@ -758,7 +785,10 @@ def test_the_steady_probe_judges_whole_windows_only(monkeypatch):
         for i in range(230):
             decode._engine.iterations += 1
             if i % 40 == 39 and i < 200:
-                port_channel._count_sent(address, "report_stats")
+                client.call("get_actor_info")
+            if i % 25 == 0:
+                client.call("kv_multi_put")
+                client.call("report_task_events")
             await asyncio.sleep(0.001)
 
     async def main():
@@ -770,17 +800,14 @@ def test_the_steady_probe_judges_whole_windows_only(monkeypatch):
     probe = asyncio.run(main())
     assert len(probe["window_iterations"]) == 3 and probe["window_iterations"][2] < 100, probe
     assert probe["best_window_iterations"] >= 100, probe
-    assert probe["controller_rpcs"] >= 2 and set(probe["rpc_methods"]) == {"report_stats"}, probe
-    assert port_channel.calls_sent(("127.0.0.1", 10)) == {}
+    assert probe["controller_rpcs"] >= 2 and set(probe["rpc_methods"]) == {"get_actor_info"}, probe
 
 
 def test_the_steady_probe_stops_at_its_first_window_with_no_call(monkeypatch):
-    """Only the parked long poll, a background uplink, is sent: the first
-    whole window reports 0 calls and ends the probe, as no later window
-    could report fewer."""
-    address = ("127.0.0.1", 9)
-    monkeypatch.setattr(long_poll, "_controller_address", address)
-    port_channel.count_calls_to(address)
+    """Only the background uplinks (the metrics flush and the task-event
+    report) are sent: the first whole window reports 0 calls and ends the
+    probe, as no later window could report fewer."""
+    client = _fake_runtime(monkeypatch)
 
     class _Engine:
         iterations = 0
@@ -793,7 +820,8 @@ def test_the_steady_probe_stops_at_its_first_window_with_no_call(monkeypatch):
         while not stop.is_set():
             decode._engine.iterations += 1
             if decode._engine.iterations % 30 == 0:
-                port_channel._count_sent(address, long_poll.PARKED_POLL)
+                client.call("kv_multi_put")
+                client.call("report_task_events")
             await asyncio.sleep(0.001)
 
     async def main():
@@ -859,8 +887,9 @@ def test_a_killed_decode_replica_is_replayed_exactly_once(llm_serve):
     the request on the survivor (a new fence) and dedups by index; every
     token index arrives once, equal to the digest."""
     _, handles = llm_serve
-    controller = serve.start(http_port=None)
-    pids = {m["replica_id"]: m["pid"] for m in controller.get_metrics()["llm_llm_decode"]}
+    # By actor name, as the stream names its replica.
+    pids = {f"SERVE_REPLICA::{m['replica_id']}": m["pid"]
+            for m in _replica_metrics("llm_llm_decode")}
     assert len(pids) == 2
     n_tokens, seen, fences, killed = 300, {}, set(), None
     for _ in range(6):
@@ -883,5 +912,6 @@ def test_a_killed_decode_replica_is_replayed_exactly_once(llm_serve):
     assert [next(iter(seen[i])) for i in range(n_tokens)] == _expected_tokens(
         "sole survivor", n_tokens)
     _wait(lambda: serve.status()["llm"]["deployments"]["llm_decode"]["running_replicas"] == 2
-          and killed not in {m["replica_id"] for m in controller.get_metrics()["llm_llm_decode"]},
+          and killed not in {f"SERVE_REPLICA::{m['replica_id']}"
+                             for m in _replica_metrics("llm_llm_decode")},
           60, "the killed replica replaced")

@@ -9,8 +9,9 @@ test_serve.py's multiplexed deployment gives the same answers through
 the reference's serve and the port's. Then the port alone: a replica's
 evictions run checkpoint before unload in the order the reference's pure
 LRU gives, a model id's requests stay on one of two replicas, a stream
-pins its model until it ends, and a drain checkpoints the loaded models.
-The deployments live in tests/_torch_serve_apps.py.
+pins its model until it ends, and a drain (an actor call to the replica)
+checkpoints the loaded models. Serve runs on a runtime cluster the module
+boots and shuts down; the deployments live in tests/_torch_serve_apps.py.
 """
 
 import asyncio
@@ -20,10 +21,11 @@ import numpy as np
 import pytest
 
 import _torch_serve_apps as apps
+import ray_tpu_torch as rt
 from ray_tpu.serve import multiplex as ref_mux
 from ray_tpu.serve._private import replica as ref_replica
 from ray_tpu_torch import serve
-from ray_tpu_torch.serve import _channel, long_poll
+from ray_tpu_torch.serve import long_poll
 from ray_tpu_torch.serve import multiplex as port_mux
 from ray_tpu_torch.serve import replica as port_replica
 
@@ -127,9 +129,12 @@ def test_model_id_comes_from_the_request_metadata():
 # ------------------------------------------------------- the serve instances
 @pytest.fixture(scope="module")
 def port_serve():
+    rt.init(num_cpus=16, _system_config={"rpc_retry_max_backoff_s": 0.05,
+                                         "rpc_retry_max_attempts": 6})
     serve.start(http_port=_free_port())
     yield
     serve.shutdown()
+    rt.shutdown()
 
 
 @pytest.fixture(scope="module")
@@ -238,9 +243,10 @@ def test_drain_checkpoints_the_loaded_models(mux):
     mux.options(multiplexed_model_id="m8").remote(1).result()
     mux.options(multiplexed_model_id="m9").remote(1).result()
     info = long_poll.get_subscriber().get_replicas("mux_MultiModel")
-    (address,) = info["addresses"].values()
-    reply = _channel.run_sync(_channel.peer(address).call("drain"), timeout=30)
+    (name,) = info["actor_names"]
+    replica = rt.get_actor(name)
+    reply = rt.get(replica.drain.remote(), timeout=30)
     assert reply["draining"] and reply["checkpointed_models"] == 2
     # A second drain checkpoints nothing more.
-    again = _channel.run_sync(_channel.peer(address).call("drain"), timeout=30)
+    again = rt.get(replica.drain.remote(), timeout=30)
     assert again["checkpointed_models"] == 0

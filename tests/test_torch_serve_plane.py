@@ -8,8 +8,13 @@ within 2e-5, the status codes and texts of an unknown route, a user
 exception and an expired deadline, and a generator's SSE lines byte for
 byte. Then the port alone, mirroring tests/test_serve.py: deployments,
 composition, reconfigure, @batch, a replica's death, delete, streaming, a
-route added after start, autoscaling from 1 to 2 replicas and back, and
-the refusals that wait for ROADMAP item 14, and kv_headroom_min taken. Replicas are CPU processes (num_gpus unset); the
+route added after start, autoscaling from 1 to 2 replicas and back,
+half-card replicas sharing the card the node agent leased, the controller's
+checkpoint through the runtime's KV, the refusal that waits for ROADMAP
+item 14d, and kv_headroom_min taken. Serve runs on a runtime cluster the
+module boots (``ray_tpu_torch.init`` with 32 CPUs and one declared card,
+so that no real card is needed), shut down at the module's end; replicas are
+actors on the CPU unless they ask for a share of the declared card; the
 deployments live in tests/_torch_serve_apps.py, since replicas import
 them by name.
 """
@@ -18,6 +23,7 @@ import concurrent.futures
 import http.client
 import json
 import os
+import pickle
 import re
 import signal
 import socket
@@ -36,9 +42,10 @@ from ray_tpu.serve._private import routing as ref_routing
 from ray_tpu.serve._private.common import AutoscalingConfig as RefAutoscalingConfig
 
 import _torch_serve_apps as apps
+import ray_tpu_torch as rt
 from ray_tpu_torch import serve
-from ray_tpu_torch._private import resources
 from ray_tpu_torch.serve import autoscaling_policy, long_poll, routing
+from ray_tpu_torch.serve.controller import ServeController
 from ray_tpu_torch.serve.replica import CallableRef
 
 # f32 forward of the tiny model, the ROADMAP parity rules' bound.
@@ -62,6 +69,11 @@ def _http(port: int, method: str, path: str, body=None, headers=None):
         return resp.status, dict(resp.getheaders()), resp.read()
     finally:
         conn.close()
+
+
+# The runtime's retry settings for calls to dead actors, as the port's core
+# tests set them: a killed replica's callers fail fast.
+SYSTEM_CONFIG = {"rpc_retry_max_backoff_s": 0.05, "rpc_retry_max_attempts": 6}
 
 
 def _wait(predicate, timeout: float, what: str):
@@ -137,26 +149,24 @@ def test_route_match_matches_the_reference():
     assert routing.match_route({"/a": "x_A"}, "/b") is None
 
 
-def test_placement_packs_fractional_shares():
-    # The controller's card shares come from the resource ledger.
-    place = resources.HostLedger(num_gpus=2)
-
-    def take(need):
-        try:
-            return place.acquire({"GPU": need}).cards[0]
-        except resources.PlacementGroupUnschedulableError:
-            return None
-
-    first = place.acquire({"GPU": 0.5})
-    assert first.cards[0] == [0] and take(0.5) == [0]
-    assert take(1) == [1]
-    assert take(0.5) is None  # waits as PENDING
-    first.release()
-    assert take(0.5) == [0]
-    assert take(0) == []
-    assert resources.HostLedger(num_gpus=0).acquire({}).cards == [[]]
-    with pytest.raises(resources.InfeasibleResourcesError):
-        resources.HostLedger(num_gpus=0).acquire({"GPU": 0.5})
+def test_placement_packs_fractional_shares(port_serve):
+    """Two replicas at num_gpus 0.5 share the one declared card through the
+    node agent's leases; a third waits as PENDING until a share frees."""
+    handle = serve.run(apps.OnHalfACard.options(num_replicas=2).bind(), name="half",
+                       route_prefix="/half")
+    seen = {handle.options(session_id=f"s{i}").visible.remote(0).result(timeout=30)
+            for i in range(16)}
+    assert seen == {"0"}
+    assert rt.available_resources().get("GPU", 0.0) == 0.0
+    controller = serve.start(http_port=None)
+    specs = serve.api.Application(apps.OnHalfACard.options(num_replicas=3), (), {})._collect(
+        "half", {})
+    rt.get(controller.deploy_application.remote("half", specs, "/half"), timeout=30)
+    _wait(lambda: sorted(serve.status()["half"]["deployments"]["OnHalfACard"]["states"])
+          == ["PENDING", "RUNNING", "RUNNING"], 20, "a third replica pending")
+    serve.delete("half")
+    _wait(lambda: rt.available_resources().get("GPU", 0.0) == 1.0, 30,
+          "the card's shares back")
 
 
 def test_a_local_class_is_refused():
@@ -169,13 +179,11 @@ def test_a_local_class_is_refused():
 
 
 @pytest.mark.parametrize("make, item", [
-    (lambda c: c._save_checkpoint(), 14),
-    (lambda c: c._restore_checkpoint(), 14),
-    (lambda c: c._drain_oom_flagged(), 14),
-], ids=["controller_checkpoint", "controller_restore", "oom_drain"])
-def test_left_out_features_raise_naming_their_roadmap_item(port_serve, make, item):
+    (lambda c: c._drain_oom_flagged(), "14d"),
+], ids=["oom_drain"])
+def test_left_out_features_raise_naming_their_roadmap_item(make, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP Queue A item {item}"):
-        make(serve.start(http_port=None))
+        make(ServeController.__new__(ServeController))
 
 
 def test_kv_headroom_min_is_accepted_and_carried():
@@ -199,7 +207,15 @@ def _run_all(apps_to_run: dict) -> dict:
 
 
 @pytest.fixture(scope="module")
-def port_serve():
+def cluster():
+    rt.init(num_cpus=32, num_gpus=1, _system_config=SYSTEM_CONFIG)
+    yield
+    serve.shutdown()
+    rt.shutdown()
+
+
+@pytest.fixture(scope="module")
+def port_serve(cluster):
     port = _free_port()
     serve.start(http_port=port)
     yield port
@@ -530,7 +546,8 @@ def test_autoscaling_from_one_to_two_and_back(port_serve):
 
 
 def test_num_gpus_on_a_host_without_a_card_raises(port_serve, monkeypatch):
-    monkeypatch.setattr(torch.cuda, "device_count", lambda: 0)
+    # A cluster whose node agent found no card.
+    monkeypatch.setattr(rt, "cluster_resources", lambda: {"CPU": 32.0, "GPU": 0.0})
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve.run(apps.OnHalfACard.bind(), name="gpu", route_prefix="/gpu")
     assert "gpu" not in serve.status()
@@ -553,3 +570,44 @@ def test_a_constructor_that_raises_fails_the_deploy(port_serve):
         serve.run(apps.BrokenInit.bind(), name="broken", route_prefix="/broken")
     assert serve.status()["broken"]["status"] == "DEPLOY_FAILED"
     serve.delete("broken")
+
+
+def _kv_checkpoint() -> dict:
+    from ray_tpu_torch._private import worker
+
+    ctx = worker.get_global_context()
+    resp = ctx.io.run(ctx.controller.call(
+        "kv_get", {"namespace": "serve", "key": "controller_checkpoint"}))
+    return pickle.loads(resp["value"])
+
+
+@pytest.mark.parametrize("step", ["save", "restore"])
+def test_the_controller_checkpoint_round_trips_through_the_kv(handles, step):
+    """The target state sits in the runtime controller's KV; a controller
+    started again (the old one killed) restores it, takes back the live
+    replicas, and a delete afterwards leaves the KV."""
+    state = _kv_checkpoint()
+    assert "doubler_Doubler" in state["deployments"]
+    assert state["routes"]["/double"] == "doubler_Doubler"
+    if step == "restore":
+        apps_before = set(serve.status())
+        rt.kill(rt.get_actor("SERVE_CONTROLLER"))
+        _wait(lambda: _no_controller(), 20, "the controller's name to free")
+        serve.start(http_port=None)
+        _wait(lambda: serve.status().get("doubler", {}).get("status") == "RUNNING", 60,
+              "the restored application")
+        assert set(serve.status()) == apps_before
+        # The live replicas were taken back, not started again.
+        assert serve.status()["doubler"]["deployments"]["Doubler"]["states"] == [
+            "RUNNING", "RUNNING"]
+        assert handles["doubler"].remote(21).result(timeout=30) == 42
+        serve.delete("square")
+        assert "square_square" not in _kv_checkpoint()["deployments"]
+
+
+def _no_controller() -> bool:
+    try:
+        rt.get_actor("SERVE_CONTROLLER")
+        return False
+    except ValueError:
+        return True

@@ -10,11 +10,13 @@ then, with the reference's serve booted for the module, a YAML deploy
 the same through both packages. Then the port alone: a hedge launched
 after ``hedge_after_s`` on a slow replica wins on the other one and the
 loser is cancelled; a replica that keeps failing opens its breaker and
-leaves the routing until a probe closes it; the second proxy, killed, is
-restarted by the controller on its port; a route's p99 reaches the
-controller and adds a replica above ``slo_p99_ms``; a replica asking for
-resources the host never declared pends until they are declared; and
-the hedge, route-p99 and resource options are taken.
+leaves the routing until a probe closes it; the second proxy's actor,
+killed, is restarted by the controller on its port; a route's p99 reaches
+the controller and adds a replica above ``slo_p99_ms``; a replica asking
+for custom resources the cluster holds none of free pends until they free
+(the runtime's table, ``ray_tpu_torch.available_resources``); and the
+hedge, route-p99 and resource options are taken. Serve runs on a runtime
+cluster the module boots and shuts down.
 """
 
 import dataclasses
@@ -30,13 +32,13 @@ import numpy as np
 import pytest
 
 import _torch_serve_apps as apps
+import ray_tpu_torch as rt
 from ray_tpu.serve import handle as ref_handle_mod
 from ray_tpu.serve import schema as ref_schema
 from ray_tpu.serve._private import autoscaling_policy as ref_policy
 from ray_tpu.serve._private.common import AutoscalingConfig as RefAutoscalingConfig
 from ray_tpu.serve._private.common import RetryPolicy as RefRetryPolicy
 from ray_tpu_torch import serve
-from ray_tpu_torch._private import resources
 from ray_tpu_torch.serve import autoscaling_policy, routing, schema
 from ray_tpu_torch.serve import handle as port_handle_mod
 
@@ -231,9 +233,18 @@ def port_serve():
                 break
             except OSError:
                 port = _free_port()
+    # One accelerator slot and one TPU, for the pending replica below.
+    rt.init(num_cpus=32, resources={"accelerator_slot": 1, "TPU": 1},
+            _system_config={"rpc_retry_max_backoff_s": 0.05, "rpc_retry_max_attempts": 6})
     serve.start(http_port=port, num_proxies=2)
     yield port
     serve.shutdown()
+    rt.shutdown()
+
+
+def _controller(method: str, *args):
+    """The serve controller actor's ``method``, waited for."""
+    return rt.get(getattr(serve.start(http_port=None), method).remote(*args), timeout=60)
 
 
 def test_yaml_deploy_matches_the_reference_serve(ray_start_shared, port_serve, tmp_path):
@@ -269,7 +280,7 @@ applications:
             assert status["deployments"]["Greeter"]["running_replicas"] == 2
             assert package.get_app_handle("yamlapp").remote("world").result() == "hola world"
         assert _http(port_serve, "POST", "/yaml", "there") == (200, b"hola there")
-        assert len(serve.start(http_port=None).get_proxies()) == 2
+        assert len(_controller("get_proxies")) == 2
     finally:
         ref.shutdown()
         serve.delete("yamlapp")
@@ -369,11 +380,11 @@ def test_a_hedge_on_a_slow_replica_wins_on_the_other(port_serve):
 
 
 def test_a_failing_replicas_breaker_opens_and_drops_it(port_serve, monkeypatch):
-    """A replica whose connection fails (its address refuses while the
-    membership still lists it): three failed attempts, each retried on the
-    other replica, open its breaker; then its requests go to the other
-    replica without trying it, and after the cooldown a probe that
-    succeeds closes the breaker."""
+    """A replica whose calls fail as a dead actor's do while the membership
+    still lists it: three failed attempts, each retried on the other
+    replica, open its breaker; then its requests go to the other replica
+    without trying it, and after the cooldown a probe that succeeds closes
+    the breaker."""
     handle = serve.run(apps.Pid.bind(), name="breaker", route_prefix="/breaker")
     pids = _pids_by_session(handle)
     router = handle._get_router()
@@ -383,13 +394,14 @@ def test_a_failing_replicas_breaker_opens_and_drops_it(port_serve, monkeypatch):
     session = next(f"k{i}" for i in range(1000)
                    if routing.HashRing(router._replicas).rank(f"k{i}")[0] == victim)
     victim_pid = handle.options(session_id=session).remote({}).result(timeout=30)
-    real_refresh, refused = router.refresh, ("127.0.0.1", _free_port())
+    real_call = router.call
 
-    def refresh(force=False):
-        real_refresh(force)
-        router._addresses[victim] = refused
+    async def call(replica, method, *args):
+        if replica == victim:
+            raise rt.exceptions.ActorDiedError(f"actor {victim} died")
+        return await real_call(replica, method, *args)
 
-    monkeypatch.setattr(router, "refresh", refresh)
+    monkeypatch.setattr(router, "call", call)
     retries = router.stats["retries"]
     other_pid = next(p for p in pids if p != victim_pid)
     for _ in range(3):
@@ -400,7 +412,7 @@ def test_a_failing_replicas_breaker_opens_and_drops_it(port_serve, monkeypatch):
         assert handle.options(session_id=session).remote({}).result(timeout=30) == other_pid
     assert router.stats["retries"] - retries == 3  # the open breaker kept it out
     breaker.cooldown_s = 0.2
-    monkeypatch.setattr(router, "refresh", real_refresh)
+    monkeypatch.setattr(router, "call", real_call)
     time.sleep(0.3)
     assert handle.options(session_id=session).remote({}).result(timeout=30) == victim_pid
     assert breaker.state == breaker.CLOSED
@@ -410,8 +422,7 @@ def test_a_failing_replicas_breaker_opens_and_drops_it(port_serve, monkeypatch):
 
 def test_a_killed_proxy_is_restarted_on_its_port(port_serve):
     serve.run(apps.Echo.bind(), name="echo", route_prefix="/echo")
-    controller = serve.start(http_port=None)
-    second = next(p for p in controller.get_proxies() if p["port"] == port_serve + 1)
+    second = next(p for p in _controller("get_proxies") if p["port"] == port_serve + 1)
     assert second["pid"] != os.getpid() and second["restarts"] == 0
     assert _http(port_serve + 1, "POST", "/echo", 1) == (200, b'{"echo": 1}')
     os.kill(second["pid"], signal.SIGKILL)
@@ -419,7 +430,7 @@ def test_a_killed_proxy_is_restarted_on_its_port(port_serve):
     assert _http(port_serve, "POST", "/echo", 2) == (200, b'{"echo": 2}')
 
     def back():
-        now = next(p for p in controller.get_proxies() if p["port"] == port_serve + 1)
+        now = next(p for p in _controller("get_proxies") if p["port"] == port_serve + 1)
         try:
             return now["restarts"] == 1 and _http(port_serve + 1, "GET", "/-/healthz")[1] == b"ok"
         except OSError:
@@ -427,22 +438,21 @@ def test_a_killed_proxy_is_restarted_on_its_port(port_serve):
 
     _wait(back, 60, "the second proxy's restart")
     assert _http(port_serve + 1, "POST", "/echo", 3) == (200, b'{"echo": 3}')
-    now = next(p for p in controller.get_proxies() if p["port"] == port_serve + 1)
+    now = next(p for p in _controller("get_proxies") if p["port"] == port_serve + 1)
     assert now["pid"] != second["pid"]
-    assert controller.proxy_call(now["name"], "get_num_requests") == 1
+    assert _controller("proxy_call", now["name"], "get_num_requests") == 1
     serve.delete("echo")
 
 
 def test_the_route_p99_reaches_the_controller_and_adds_a_replica(port_serve):
     serve.run(apps.SloScaled.bind(), name="slo", route_prefix="/slo")
-    controller = serve.start(http_port=None)
     running = lambda: serve.status()["slo"]["deployments"]["SloScaled"]["running_replicas"]  # noqa: E731
     assert running() == 1
     for i in range(12):
         assert _http(port_serve, "POST", "/slo", i) == (200, str(i).encode())
-    stats = controller.proxy_call(f"SERVE_PROXY::{port_serve}", "get_route_stats")
+    stats = _controller("proxy_call", f"SERVE_PROXY::{port_serve}", "get_route_stats")
     assert stats["slo_SloScaled"]["count"] == 12 and stats["slo_SloScaled"]["p99_ms"] > 100
-    _wait(lambda: controller.get_route_p99().get("slo_SloScaled", 0) > 50.0, 10,
+    _wait(lambda: _controller("get_route_p99").get("slo_SloScaled", 0) > 50.0, 10,
           "the scraped route p99")
     # One replica answers 12 requests in turn: only the p99 asks for more.
     _wait(lambda: running() == 2, 40, "a second replica above slo_p99_ms")
@@ -450,20 +460,28 @@ def test_the_route_p99_reaches_the_controller_and_adds_a_replica(port_serve):
 
 
 def test_resources_a_host_never_declared_pend(port_serve):
+    """The cluster declares one accelerator slot and one TPU: a replica
+    holds them, a second asking for them pends (PENDING in the status)
+    until the first goes, and the runtime's table counts the lease."""
+    serve.run(apps.OnASlot.bind(), name="holder", route_prefix="/holder")
+    assert rt.available_resources().get("accelerator_slot", 0.0) == 0.0
     try:
         with pytest.raises(TimeoutError):
             serve.run(apps.OnASlot.bind(), name="slot", route_prefix="/slot",
                       _blocking_timeout_s=1.5)
         assert serve.status()["slot"]["deployments"]["OnASlot"]["states"] == ["PENDING"]
-        resources.declare(resources={"accelerator_slot": 2, "TPU": 4})
+        serve.delete("holder")
         handle = serve.get_app_handle("slot")
         _wait(lambda: serve.status()["slot"]["status"] == "RUNNING", 30, "the placed replica")
         assert handle.remote(5).result(timeout=30) == 5
-        assert resources.available_resources()["accelerator_slot"] == 1.0
-        assert resources.available_resources()["TPU"] == 3.0
+        assert rt.available_resources().get("accelerator_slot", 0.0) == 0.0
+        assert rt.available_resources().get("TPU", 0.0) == 0.0
     finally:
         serve.delete("slot")
-        resources.declare()
+        if "holder" in serve.status():
+            serve.delete("holder")
+    _wait(lambda: rt.available_resources().get("accelerator_slot") == 1.0, 30,
+          "the slot given back")
 
 
 def test_hedge_and_slo_options_are_taken():
