@@ -93,7 +93,9 @@ final line) if anything is wrong:
                op with the reference's world-size-1 semantics, the
                refusals, and the bucketed asynchronous gradient sync against
                sync_gradients; the group and its process group destroyed
- 14. trainer   TorchTrainer with one GPU worker (a spawned process, NCCL)
+ 14. trainer   TorchTrainer with one GPU worker (a gang member actor in a
+               placement group on ray_tpu_torch.init(num_cpus=8), leasing
+               the card from the node agent, NCCL)
                at phase 12's config cut to 2 layers and its mesh: 6 steps, a
                report each, a save_sharded_state checkpoint at step 3
                committed by the trainer; in the first run the worker, after
@@ -258,18 +260,21 @@ final line) if anything is wrong:
                memory, the times from its start to its gang ready and to
                its first report; the reports reach the Tuner through the
                trainer's callbacks (training_iteration 1..n), each stopped
-               trial's gang member gone within GANG_GONE_S of its stop, no
-               process left below this one after fit()
- 25. elastic   the trainer on this host's resource ledger
-               (ray_tpu_torch._private.resources): (a) BASELINE config 1 as
+               trial's gang member gone within GANG_GONE_S of its stop, the
+               trials' actors and members gone within GANG_GONE_S of fit();
+               the trials are runtime actors on init(num_cpus=8), (a)'s
+               leasing 1/8 of the card each, (b)'s members a third each,
+               the three at once
+ 25. elastic   the trainer's gangs on the runtime (init(num_cpus=8) for
+               (a) and (b), with 4 trainslots for (c)): (a) BASELINE config 1 as
                release/train_fashion_mnist.py runs it (two CPU workers,
                CNNConfig(), batch 64, Adam 1e-3, one warm-up and 30 steps,
                one report with a checkpoint), then one GPU worker from the
                same params and batch, its first step's logits within
                CNN_LOGITS_TOL of the CPU worker's; img/s of each; (b)
                ScalingConfig(num_workers=2, min_workers=1, use_gpu=True,
-               elastic_formation_timeout_s=2) on the one card: formation at
-               2 fails through the ledger and the gang forms at 1, phase
+               elastic_formation_timeout_s=2) on the one card: the group of
+               2 cards waits out the 2 s unplaced and the gang forms at 1, phase
                14's loop at one layer reads its token batches from a
                Dataset shard (TorchTrainer(datasets=), 16 seeded rows of
                release_loops.token_rows) and checkpoints step 1 with the
@@ -282,7 +287,8 @@ final line) if anything is wrong:
                run's goodput buckets; (c) release/benchmarks_elastic.py's
                churn at its smoke scale (10 steps of 0.05 s, the kill at
                step 3) on 4 CPU gloo workers with min_workers 2, each
-               leasing one of 4 declared trainslots: the churned run must
+               leasing one of 4 declared trainslots (the churn holds the
+               killed rank's from an actor): the churned run must
                step down, grow back to 4 and reproduce the undisturbed
                run's losses exactly; its keys, and each gang's timeline
  26. data      ray_tpu_torch.data on a pool of 4 data worker processes
@@ -779,6 +785,76 @@ REFERENCE_PACKAGES = ("jax", "jaxlib", "flax", "ray_tpu")
 def require_no_reference(where: str) -> None:
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in REFERENCE_PACKAGES)
     require(not loaded, f"{where}: JAX or the JAX package was imported: {loaded}")
+
+
+# ---------------------------------------------------------------- the runtime
+# Every phase that forms a gang, a Tune trial or an RLlib actor runs it on a
+# cluster of its own (ray_tpu_torch.init), started as the phase's release
+# script starts its own; after the phase, what it started must be gone.
+# The library actors whose processes a phase must leave ended.
+LIBRARY_ACTORS = ("_GangMember", "_TrialActor", "_LearnerActor", "_SlotHolder")
+# How long the processes and the node agent's resources may take to settle.
+SETTLE_S = 10.0
+
+
+def runtime_actors(class_names=LIBRARY_ACTORS) -> list:
+    """The controller's records of the library actors started so far:
+    class, state and process id."""
+    ctx = runtime_worker.get_global_context()
+    return [a for a in ctx.io.run(ctx.controller.call("list_actors", {}))
+            if a.get("class_name") in class_names]
+
+
+def require_settled(phase: str, free: dict) -> dict:
+    """Within SETTLE_S: every library actor recorded dead and its process
+    gone, no placement group left, and the node agent's free resources back
+    to ``free``. Returns the actors' count and the seconds it took."""
+    from ray_tpu_torch.util import placement_group as pgs
+
+    t0 = time.monotonic()
+    while True:
+        actors = runtime_actors()
+        live = [a for a in actors if a["state"] != "DEAD"]
+        running = [a["pid"] for a in actors if a.get("pid") and _alive(a["pid"])]
+        groups = [g["pg_id"] for g in pgs.placement_group_table() if g["state"] != "REMOVED"]
+        avail = rt.available_resources()
+        if not (live or running or groups) and avail == free:
+            return {"actors": len(actors), "settle_s": time.monotonic() - t0}
+        require(time.monotonic() - t0 < SETTLE_S,
+                f"{phase}: {SETTLE_S} s after the phase, actors not dead {live}, processes "
+                f"running {running}, placement groups {groups}, free {avail} against {free}")
+        time.sleep(0.05)
+
+
+def require_member_leases(phase: str, attempts: list, cards: int = 1) -> list:
+    """Each formed gang's members (``Result.attempts``' ``members``, read
+    inside each member): a GPU member sees only its lease's card, as
+    ``cuda:0``. Returns the members' (CUDA_VISIBLE_DEVICES, current device)."""
+    seen = [(m["cuda_visible_devices"], m["current_device"])
+            for a in attempts for m in a.get("members", [])]
+    require(seen and all(v not in (None, "") and len(v.split(",")) == cards and d == 0
+                         for v, d in seen),
+            f"{phase}: the members' leases and devices {seen}")
+    return seen
+
+
+@contextlib.contextmanager
+def on_runtime(phase: str, **init_kwargs):
+    """``ray_tpu_torch.init(**init_kwargs)`` for the phase; yields the
+    cluster's session directory. After the phase (unless it raised), holds
+    it to ``require_settled`` against the free resources before it; shuts
+    the cluster down either way."""
+    rt.init(**init_kwargs)
+    try:
+        free = rt.available_resources()
+        yield runtime_worker.runtime_info()["session_dir"]
+        SETTLED[phase] = require_settled(phase, free)
+    finally:
+        rt.shutdown()
+
+
+# What require_settled found after each phase on the runtime.
+SETTLED: dict = {}
 
 
 # ---------------------------------------------------------------- tracing and chaos
@@ -2787,10 +2863,19 @@ def trainer_loop(loop_config: dict) -> None:
                 try:
                     save_sharded_state(params, opt, extra={"step": i + 1})
                 except chaos_mod.ChaosFault:
+                    _note_death(loop_config)
                     os._exit(1)
                 raise RuntimeError("trainer: the armed mid-save fail point did not fire")
+            _note_death(loop_config)
             os._exit(1)
     require_no_reference("trainer worker")
+
+
+def _note_death(loop_config: dict) -> None:
+    """The wall time (``time.time()``) at which this worker exits, in the
+    config's ``death_file``: the restart's clock starts there."""
+    if loop_config.get("death_file"):
+        Path(loop_config["death_file"]).write_text(repr(time.time()))
 
 
 def _trainer_run(name: str, die_after: int | None, mid_save_log: str | None = None):
@@ -2800,7 +2885,8 @@ def _trainer_run(name: str, die_after: int | None, mid_save_log: str | None = No
     of the trial's latest committed checkpoint."""
     trainer = TorchTrainer(
         trainer_loop, train_loop_config={"die_after": die_after, "n_layers": TRAINER_LAYERS,
-                                         "mid_save_log": mid_save_log},
+                                         "mid_save_log": mid_save_log,
+                                         "death_file": str(TRAINER_STORAGE / f"{name}.death")},
         scaling_config=ScalingConfig(num_workers=1, use_gpu=True, mesh_axes=SHARDED_MESH),
         run_config=RunConfig(name=name, storage_path=str(TRAINER_STORAGE),
                              failure_config=FailureConfig(max_failures=1),
@@ -2815,6 +2901,8 @@ def _trainer_run(name: str, die_after: int | None, mid_save_log: str | None = No
             latest_step = pickle.load(f)["step"]
     shutil.rmtree(result.path, ignore_errors=True)
     require(result.error is None, f"trainer {name}: {result.error}")
+    death = TRAINER_STORAGE / f"{name}.death"
+    result.died_at = float(death.read_text()) if death.exists() else None
     return result, torn, latest_step
 
 
@@ -2838,11 +2926,16 @@ def phase_trainer(sharded_step_ms: float) -> dict:
             f"{TRAINER_CKPT_BYTES / 1e9:.1f} GB")
     chaos_log = TRAINER_STORAGE / "chaos"
     try:
-        killed, torn, latest_step = _trainer_run("killed", TRAINER_DIE_AFTER, str(chaos_log))
-        whole, _, _ = _trainer_run("whole", None)
+        # The gang's member is a runtime actor leasing the card from the
+        # node agent.
+        with on_runtime("trainer", num_cpus=8):
+            killed, torn, latest_step = _trainer_run("killed", TRAINER_DIE_AFTER,
+                                                     str(chaos_log))
+            whole, _, _ = _trainer_run("whole", None)
         chaos_events = read_event_log(str(chaos_log))
     finally:
         shutil.rmtree(TRAINER_STORAGE, ignore_errors=True)
+    require_member_leases("trainer", killed.attempts + whole.attempts)
 
     def steps(result):
         return [m["step"] for m in result.metrics_history]
@@ -2890,6 +2983,16 @@ def phase_trainer(sharded_step_ms: float) -> dict:
         restore_s=resumed[0]["restore_s"],
         restore_gb_per_s=save["ckpt_bytes"] / resumed[0]["restore_s"] / 1e9,
         restart_s=first["first_report"] - killed.attempts[0]["end"],
+        # From the worker's exit: to the trainer's notice (the first
+        # attempt's end, its gang shut down), and to the resumed run's first
+        # report, split into the re-formed gang's formation, its session's
+        # start and restore, and the first step.
+        death_to_report_s=first["first_report"] - killed.died_at,
+        death_to_notice_s=killed.attempts[0]["end"] - killed.died_at,
+        restart_split_s={"formation": first["formed"] - first["start"],
+                         "restore": resumed[0]["restore_s"],
+                         "first_step": resumed[0]["step_s"]},
+        timeline=_timeline(killed),
         gang_form_s=first["formed"] - first["start"],
         step_ms=step_ms, sharded_step_ms=sharded_step_ms,
         peak_gib=whole.metrics_history[-1]["peak_gib"], counts=counts, routes=routes,
@@ -4773,13 +4876,17 @@ def _profile_trainer() -> dict:
     start = time.perf_counter()
     # Traced: the worker's step marks carry its execute span's ids into the
     # merged trace's trace_ids, each of which must be a span the session holds.
-    with traced("profiler") as session:
-        result, record = _profiled_trainer_run()
+    # The cluster starts inside, so that its member inherits the tracing
+    # environment; every process of it exports under the cluster's session.
+    with traced("profiler") as own:
+        with on_runtime("profiler", num_cpus=8) as session:
+            result, record = _profiled_trainer_run()
+            trace_ids = record.get("trace_ids") or []
+            spans = _spans_when(session, lambda found: set(trace_ids) <= {
+                s["trace_id"] for s in found})
     wall = time.perf_counter() - start
-    spans = tracing.read_spans(session)
-    shutil.rmtree(session, ignore_errors=True)
+    shutil.rmtree(own, ignore_errors=True)
     span_traces = {s["trace_id"] for s in spans}
-    trace_ids = record.get("trace_ids") or []
     OBSERVABILITY["profiler"] = {"trace_ids": trace_ids, "spans": _span_counts(spans),
                                  "ids_in_spans": all(t in span_traces for t in trace_ids)}
     require(result.error is None, f"profiler trainer: {result.error}")
@@ -4801,6 +4908,7 @@ def _profile_trainer() -> dict:
     kinds = {r.get("device_kind") for r in result.step_stats[0]}
     probes = [(m["hbm"], m["allocated"], m["total_memory"]) for m in result.metrics_history]
     counts = result.metrics_history[-1]["counts"]
+    require_member_leases("profiler trainer", result.attempts)
     out = dict(
         config="bench.py:133-138", steps=len(result.metrics_history), record=record,
         merged_step_slices=[e["args"]["step"] for e in step_slices],
@@ -5073,14 +5181,39 @@ def _ctl(controller, method: str, *args, timeout: float = 60.0):
     return rt.get(getattr(controller, method).remote(*args), timeout=timeout)
 
 
-def _serve_metrics(controller, qname: str) -> list:
+def _serve_metrics(controller, qname: str, at_rest: bool = False) -> list:
     """The deployment's running replicas' metrics, each with its launch
-    counts asked of its actor (``Replica.kernel_launches``)."""
-    metrics = _ctl(controller, "get_metrics").get(qname, [])
-    for m in metrics:
-        actor = rt.get_actor(f"SERVE_REPLICA::{m['replica_id']}")
-        m["kernels"] = rt.get(actor.kernel_launches.remote(), timeout=60)
-    return metrics
+    counts asked of its actor (``Replica.kernel_launches``). ``at_rest``:
+    each replica's batches and launches from one read of it
+    (``Replica.get_metrics``), read again every 0.1 s, up to
+    METRICS_AT_REST_S, until two reads agree. A hedge's losing copy can
+    still be in a replica's forward after its request was answered, its
+    batch counted and not all its launches made."""
+    if not at_rest:
+        metrics = _ctl(controller, "get_metrics").get(qname, [])
+        for m in metrics:
+            actor = rt.get_actor(f"SERVE_REPLICA::{m['replica_id']}")
+            m["kernels"] = rt.get(actor.kernel_launches.remote(), timeout=60)
+        return metrics
+
+    def read() -> dict:
+        return {m["pid"]: m for m in _ctl(controller, "get_metrics").get(qname, [])}
+
+    def moving(metrics: dict) -> dict:
+        return {pid: (m["batches"], m["kernels"]) for pid, m in metrics.items()}
+
+    deadline = time.monotonic() + METRICS_AT_REST_S
+    last = read()
+    while True:
+        time.sleep(0.1)
+        now = read()
+        if moving(now) == moving(last) or time.monotonic() > deadline:
+            return list(now.values())
+        last = now
+
+
+# How long _serve_metrics(at_rest=True) waits for the counts to stop moving.
+METRICS_AT_REST_S = 5.0
 
 
 def _serve_down() -> None:
@@ -5219,7 +5352,7 @@ def phase_serve_http(config_kwargs=None, device="cuda", seconds=HTTP_SECONDS) ->
                          raw=True)
         sse_s = time.perf_counter() - sse_start
         sse_tokens = sum(1 for line in sse.decode().splitlines() if line.startswith("data: "))
-        metrics = _serve_metrics(controller, "bert_BertEncoder")
+        metrics = _serve_metrics(controller, "bert_BertEncoder", at_rest=True)
     finally:
         if loader.is_alive():
             loader.kill()
@@ -5309,10 +5442,10 @@ def _post_json(port: int, path: str, body, headers=None, raw: bool = False):
 # ---------------------------------------------------------------- phase 24
 # Tune (ray_tpu_torch/tune/): BASELINE config 3 as release/tune_asha_resnet.py
 # defines it, then TorchTrainer trials at ResNet-18's full width. Every
-# trial is a process of its own spawned from this one; it finds its
-# trainable by module and name (the port has no cloudpickle), here this
-# script as the spawn's main module, so the trainables are module-level
-# functions. A trainer trial's gang member is a process the trial spawns.
+# trial is a runtime actor; it finds its trainable by module and name (user
+# code goes by name, never by value), here this script imported as
+# ``chip_smoke``, so the trainables are module-level functions. A trainer
+# trial's gang member is an actor the trial's actor starts.
 # The ResNets' convolutions are cuDNN's (phase 19): no kernel of the port
 # runs, in this process or in a trial's (each report carries its counts).
 ASHA_EPOCHS, ASHA_STEPS, ASHA_IMAGES = 8, 4, 32
@@ -5328,6 +5461,10 @@ TUNE_REPORTS, TUNE_STEPS = 8, 4
 TUNE_STORAGE = Path(__file__).resolve().parent / "build" / "chip_smoke_tune"
 # A stopped trial's gang members must be gone within this of the stop.
 GANG_GONE_S = 10.0
+# (a)'s trials each lease this share of the card (the 8 CPUs' default
+# concurrency at one CPU a trial); (b)'s three trainer trials a third each.
+ASHA_GPU_SHARE = 0.125
+TUNE_GPU_SHARE = 1 / 3
 
 
 def asha_resnet_run(config: dict, params: dict, device, report, epochs: int = ASHA_EPOCHS):
@@ -5413,6 +5550,8 @@ def tune_trainer_loop(config: dict) -> None:
                 "gang_ready": ready, "model_ready": model_ready,
                 "peak_gib": torch.cuda.max_memory_allocated(device) / 2**30,
                 "device_name": torch.cuda.get_device_name(device),
+                "lease": [os.environ.get("CUDA_VISIBLE_DEVICES"),
+                          torch.cuda.current_device()],
                 "launches": sum(_counts().values())})
 
 
@@ -5485,45 +5624,36 @@ def _alive(pid: int) -> bool:
         return False
 
 
-def _descendants(root: int) -> set:
-    """The live processes below `root`."""
-    children = {}
-    for entry in os.listdir("/proc"):
-        if entry.isdigit():
-            try:
-                with open(f"/proc/{entry}/stat") as f:
-                    fields = f.read().rsplit(")", 1)[1].split()
-            except (FileNotFoundError, ProcessLookupError):
-                continue
-            if fields[0] != "Z":
-                children.setdefault(int(fields[1]), []).append(int(entry))
-    found, todo = set(), [root]
-    while todo:
-        for pid in children.get(todo.pop(), []):
-            found.add(pid)
-            todo.append(pid)
-    return found
-
-
 class _GoneWatch:
     """Polls the gang members the clock has seen, every 20 ms, and notes
     when each stops running."""
 
     def __init__(self, clock: _TrialClock):
         self.clock, self.gone = clock, {}
+        # The trials whose member only close()'s last poll found gone.
+        self.seen_at_close: list = []
         self._stop = threading.Event()
         self._thread = threading.Thread(target=self._run, name="gone-watch", daemon=True)
         self._thread.start()
 
+    def _poll(self) -> list:
+        found = [trial_id for trial_id, pid in list(self.clock.pids.items())
+                 if trial_id not in self.gone and not _alive(pid)]
+        for trial_id in found:
+            self.gone[trial_id] = time.time()
+        return found
+
     def _run(self) -> None:
         while not self._stop.wait(0.02):
-            for trial_id, pid in list(self.clock.pids.items()):
-                if trial_id not in self.gone and not _alive(pid):
-                    self.gone[trial_id] = time.time()
+            self._poll()
 
     def close(self) -> dict:
         self._stop.set()
         self._thread.join()
+        # A member that ended after the thread's last poll: the caller may
+        # have seen it end first (the last trial's member ends as fit()
+        # does), and the thread stops without looking again.
+        self.seen_at_close = self._poll()
         return self.gone
 
 
@@ -5536,7 +5666,8 @@ def _tune_config3() -> dict:
     scheduler, clock = RecordingASHA(**asha), _TrialClock()
     start = time.perf_counter()
     results = tune.Tuner(
-        asha_resnet_trainable,
+        # Each trial's actor leases a share of the card, or it sees none.
+        tune.with_resources(asha_resnet_trainable, {"CPU": 1, "GPU": ASHA_GPU_SHARE}),
         param_space={k: tune.grid_search(v) for k, v in ASHA_SPACE.items()},
         tune_config=tune.TuneConfig(metric="acc", mode="max", scheduler=scheduler),
         run_config=RunConfig(name="tune_asha_resnet", storage_path=str(TUNE_STORAGE),
@@ -5603,10 +5734,12 @@ def _tune_trainers() -> dict:
     trial, three trials at once, under ASHA on the loss."""
     asha = dict(metric="loss", mode="min", grace_period=2, max_t=8, reduction_factor=2)
     scheduler, clock = RecordingASHA(**asha), _TrialClock()
-    before = _descendants(os.getpid())
     watch = _GoneWatch(clock)
+    # A third of the card each: the three trials hold it at once.
     trainer = TorchTrainer(tune_trainer_loop,
-                           scaling_config=ScalingConfig(num_workers=1, use_gpu=True),
+                           scaling_config=ScalingConfig(
+                               num_workers=1, use_gpu=True,
+                               resources_per_worker={"GPU": TUNE_GPU_SHARE}),
                            run_config=RunConfig(name="resnet18",
                                                 storage_path=str(TUNE_STORAGE / "trainer")))
     start = time.perf_counter()
@@ -5620,8 +5753,16 @@ def _tune_trainers() -> dict:
         ).fit()
     finally:
         wall = time.perf_counter() - start
+        # The trials' actors and their gangs' members, which the node agent
+        # started: all gone within GANG_GONE_S of fit()'s end (a kill is
+        # asynchronous, and a member of a trial killed hard follows it).
+        pids = sorted({a["pid"] for a in runtime_actors(("_TrialActor",)) if a.get("pid")}
+                      | set(clock.pids.values()))
+        deadline = time.monotonic() + GANG_GONE_S
+        while any(_alive(p) for p in pids) and time.monotonic() < deadline:
+            time.sleep(0.02)
         gone = watch.close()
-    left = _descendants(os.getpid()) - before
+    left = [p for p in pids if _alive(p)]
     stops = _stop_times(scheduler.calls)
     require(len(results) == 3 and results.num_errors == 0
             and all(len(r.metrics_history) >= 2 for r in results),
@@ -5652,18 +5793,27 @@ def _tune_trainers() -> dict:
             "stop_to_gone_s": gone[tid] - stops[tid] if tid in gone and tid in stops else None,
             "through_trainer": all("factorization" in m for m in history),
             "launches": [m["launches"] for m in history],
-            "device_name": first["device_name"]})
+            "device_name": first["device_name"], "lease": first["lease"],
+            "gang_ready": first["gang_ready"], "last_result": clock.results[tid][-1]})
     early_stopped = sum(1 for t in trials if t["iterations"][-1] < 8)
-    out = dict(wall_s=wall, early_stopped=early_stopped, trials=trials,
-               processes_left=sorted(left))
+    # At once: every trial's gang was on the card before any trial's last
+    # result.
+    at_once = max(t["gang_ready"] for t in trials) < min(t["last_result"] for t in trials)
+    out = dict(wall_s=wall, early_stopped=early_stopped, trials=trials, gpu_share=TUNE_GPU_SHARE,
+               at_once=at_once, processes_checked=len(pids), processes_left=left,
+               gone_seen_at_close=watch.seen_at_close)
     for t in trials:
         require(t["iterations"] == list(range(1, len(t["iterations"]) + 1))
                 and t["through_trainer"],
                 f"tune trainers: reports did not come through the trainer's callbacks: {t}")
         require(t["stop_to_gone_s"] is not None and t["stop_to_gone_s"] < GANG_GONE_S,
-                f"tune trainers: a stopped trial's gang member outlived {GANG_GONE_S} s: {t}")
+                f"tune trainers: a stopped trial's gang member outlived {GANG_GONE_S} s: {t}; "
+                f"processes alive after fit(): {left}")
         require(not any(t["launches"]), f"tune trainers: kernel launches in a worker: {t}")
-    require(not left, f"tune trainers: processes alive after fit(): {sorted(left)}")
+    require(not left, f"tune trainers: processes alive {GANG_GONE_S} s after fit(): {left}")
+    require(at_once, f"tune trainers: the three trials did not hold the card at once: {trials}")
+    require(all(t["lease"] == ["0", 0] for t in trials),
+            f"tune trainers: the members' leases {[t['lease'] for t in trials]}")
     return out
 
 
@@ -5671,7 +5821,9 @@ def phase_tune(resnet_img_per_s: float) -> dict:
     shutil.rmtree(TUNE_STORAGE, ignore_errors=True)
     start = time.perf_counter()
     try:
-        result = {"config3": _tune_config3(), "trainers": _tune_trainers()}
+        # release/tune_asha_resnet.py:63's init.
+        with on_runtime("tune", num_cpus=8):
+            result = {"config3": _tune_config3(), "trainers": _tune_trainers()}
     finally:
         shutil.rmtree(TUNE_STORAGE, ignore_errors=True)
     result["phase19_resnet_img_per_s"] = resnet_img_per_s
@@ -5685,7 +5837,7 @@ def phase_tune(resnet_img_per_s: float) -> dict:
 
 
 # ---------------------------------------------------------------- phase 25
-# Elasticity in the port's trainer, on one host's resource ledger, and
+# Elasticity in the port's trainer, on the runtime's node agent, and
 # BASELINE config 1 through the trainer. Its checkpoints go to
 # ELASTIC_STORAGE, removed at the phase's end.
 ELASTIC_STORAGE = Path(__file__).resolve().parent / "build" / "chip_smoke_elastic"
@@ -5758,6 +5910,7 @@ def _elastic_config1() -> dict:
             f"config 1: losses {out['final_loss']}, {out['card_final_loss']}")
     require(out["worker_launches"] == [0, 0],
             f"config 1: kernel launches in the workers {out['worker_launches']}")
+    out["card_leases"] = require_member_leases("config 1", card.attempts)
     return out
 
 
@@ -5779,7 +5932,8 @@ def _elastic_card_run(name: str, elastic: bool, die_after: int | None, tokens):
     result = TorchTrainer(
         trainer_loop,
         train_loop_config={"die_after": die_after, "n_layers": ELASTIC_LAYERS,
-                           "steps": ELASTIC_STEPS, "save_at": ELASTIC_SAVE_AT, "dataset": True},
+                           "steps": ELASTIC_STEPS, "save_at": ELASTIC_SAVE_AT, "dataset": True,
+                           "death_file": str(ELASTIC_STORAGE / f"{name}.death")},
         scaling_config=sc,
         run_config=RunConfig(name=name, storage_path=str(ELASTIC_STORAGE),
                              failure_config=FailureConfig(max_failures=1),
@@ -5789,13 +5943,17 @@ def _elastic_card_run(name: str, elastic: bool, die_after: int | None, tokens):
     ingest = StorageContext(str(ELASTIC_STORAGE), name).latest_ingest()
     shutil.rmtree(result.path, ignore_errors=True)
     require(result.error is None, f"elastic {name}: {result.error}")
+    death = ELASTIC_STORAGE / f"{name}.death"
+    result.died_at = float(death.read_text()) if death.exists() else None
     return result, ingest
 
 
 def _elastic_step_down() -> dict:
     """(b): ScalingConfig(num_workers=2, min_workers=1) on the one card,
     its tokens read from a Dataset shard (``TorchTrainer(datasets=)``).
-    Formation at 2 fails through the ledger, the gang forms at 1; its
+    Formation at 2 does not place (the node agent has one card; the
+    controller parks the group until the formation's timeout), the gang
+    forms at 1; its
     worker exits hard after step 1's report, and the gang re-forms at 1
     from the step-1 checkpoint and its ingest record. The resumed steps
     must equal a fixed world-1 run's bitwise, and the rows each run
@@ -5860,12 +6018,19 @@ def _elastic_step_down() -> dict:
         restore_s=resumed[0]["restore_s"], save_s=stepped.metrics_history[0].get("save_s"),
         ckpt_bytes=stepped.metrics_history[0].get("ckpt_bytes"),
         restart_s=second["first_report"] - first["end"],
+        death_to_report_s=second["first_report"] - stepped.died_at,
         goodput=stepped.goodput, fixed_goodput=whole.goodput, counts=counts, routes=routes,
         kernel_forwards=ran, kernel_backwards=ran, dataset_rows=rows,
         ids_by_step=[m["ids"] for m in stepped.metrics_history], replayed_rows=replayed,
         replay_bound=replay_bound, ingest=ingest)
     require(bitwise, f"elastic: resumed steps {resumed} differ from the fixed run's "
                      f"{uninterrupted}")
+    # The group of two cards was parked until the formation's timeout, not
+    # refused at once.
+    require(all(w >= 0.9 * ELASTIC_FORMATION_TIMEOUT_S for w in out["step_down_wait_s"]),
+            f"elastic: the step-down waits {out['step_down_wait_s']} against "
+            f"{ELASTIC_FORMATION_TIMEOUT_S} s")
+    out["leases"] = require_member_leases("elastic", stepped.attempts + whole.attempts)
     require(sorted(set(stepped_ids)) == list(range(rows)) and 0 <= replayed <= replay_bound,
             f"elastic: the stepped run consumed {stepped_ids} of {rows} rows "
             f"(at most {replay_bound} read twice)")
@@ -5905,8 +6070,8 @@ def _timeline(result) -> list:
 def _elastic_churn() -> dict:
     """(c): release/benchmarks_elastic.py's two fits on CPU gloo workers,
     4 of them with min_workers 2, each leasing a CPU and one of the 4
-    trainslots this process's ledger declares. The churned fit's callback
-    kills rank 3 at step CHURN_KILL and holds its slot until the gang
+    trainslots its cluster declares. The churned fit's callback kills rank
+    3 at step CHURN_KILL and holds its slot from an actor until the gang
     reports a world of 3. Prints the script's keys and where the churned
     fit's wall went."""
     pid_dir = ELASTIC_STORAGE / "pids"
@@ -5927,14 +6092,18 @@ def _elastic_churn() -> dict:
                                  callbacks=callbacks)).fit()
         return result, time.monotonic() - start
 
-    resources.declare(resources={"trainslot": 4})
+    base, base_wall = fit("elastic-base", [])
+    churn = release_loops.Churn(str(pid_dir), kill_step=CHURN_KILL)
     try:
-        base, base_wall = fit("elastic-base", [])
-        churn = release_loops.Churn(str(pid_dir), kill_step=CHURN_KILL)
         churned, churn_wall = fit("elastic-churn", [churn])
-        left = resources.available_resources()["trainslot"]
     finally:
-        resources.declare()
+        churn.release()
+    # The last gang's placement group is given back asynchronously: the
+    # node agent's free slots within SETTLE_S.
+    deadline = time.monotonic() + SETTLE_S
+    while rt.available_resources()["trainslot"] < 4 and time.monotonic() < deadline:
+        time.sleep(0.05)
+    left = rt.available_resources()["trainslot"]
     require(base.error is None and churned.error is None,
             f"churn: {base.error} {churned.error}")
     base_loss, churn_loss = (release_loops.loss_by_step(base),
@@ -5967,8 +6136,12 @@ def phase_elastic() -> dict:
     ELASTIC_STORAGE.mkdir(parents=True)
     start = time.perf_counter()
     try:
-        result = {"config1": _elastic_config1(), "step_down": _elastic_step_down(),
-                  "churn": _elastic_churn()}
+        # release/train_fashion_mnist.py:72's init for (a) and (b); the churn
+        # declares its trainslots in its own.
+        with on_runtime("elastic", num_cpus=8):
+            result = {"config1": _elastic_config1(), "step_down": _elastic_step_down()}
+        with on_runtime("elastic_churn", num_cpus=8, resources={"trainslot": 4}):
+            result["churn"] = _elastic_churn()
     except BaseException:
         local_tasks.shutdown()
         raise
@@ -6102,6 +6275,8 @@ def _data_config1(shuffled, fixed_img_per_s: float, use_gpu: bool = True) -> dic
     require(np.isfinite(m["loss"]), f"data config 1: loss {m['loss']}")
     require(m["launches"] == 0, f"data config 1: kernel launches in the worker {m['launches']}")
     require(len(records) >= steps // DATA_REPORT_EVERY, f"data config 1: {len(records)} records")
+    if use_gpu:
+        out["leases"] = require_member_leases("data config 1", result.attempts)
     return out
 
 
@@ -6114,7 +6289,9 @@ def phase_data(fixed_img_per_s: float) -> dict:
     try:
         plane, shuffled = _data_plane()
         log("data_plane", **plane)
-        config1 = _data_config1(shuffled, fixed_img_per_s)
+        # release/train_fashion_mnist.py:72's init for (b)'s trainer.
+        with on_runtime("data", num_cpus=8):
+            config1 = _data_config1(shuffled, fixed_img_per_s)
         del shuffled
         store_dir = local_tasks.runtime().store.dir
         pool = list(local_tasks.runtime().pool)
@@ -6142,6 +6319,8 @@ CHAOS_CLIENTS, CHAOS_SECONDS = 8, 4.0
 # When the chaos window's kills land, from its start (the bench's times).
 CHAOS_REPLICA_KILL_S, CHAOS_PROXY_KILL_S = 1.0, 2.5
 CHAOS_RECOVER_S = 90.0
+# How many of each window's slowest requests the record lists.
+CHAOS_SLOWEST = 16
 # The chaos deployment's device: its YAML cannot carry init arguments.
 CHAOS_DEVICE = "cuda"
 SERVE_SCRATCH = Path(__file__).resolve().parent / "build" / "chip_smoke_serve"
@@ -6307,7 +6486,8 @@ def phase_serve_mux(config_kwargs=None, device="cuda", seconds=MUX_SECONDS) -> d
         checks = {m: [by_model[m].remote(b).result(timeout=60)["embedding"]
                       for b in check_bodies] for m in MUX_MODELS}
         stats = _by_replica(handle, "stats")
-        metrics = {m["pid"]: m for m in _serve_metrics(controller, "mux_MuxEncoder")}
+        metrics = {m["pid"]: m
+                   for m in _serve_metrics(controller, "mux_MuxEncoder", at_rest=True)}
     finally:
         _serve_down()
 
@@ -6488,6 +6668,13 @@ def chaos_load(conn, ports: list, path: str, clients: int) -> None:
         conn.send(out)
 
 
+def _slowest(results: list, n: int = CHAOS_SLOWEST) -> list:
+    """The ``n`` slowest of a load window's (start, latency) results, as
+    [start s, latency ms], slowest first."""
+    return [[round(at, 3), round(1e3 * lat, 2)]
+            for at, lat in sorted(results, key=lambda r: -r[1])[:n]]
+
+
 def _port_pair() -> int:
     """A port whose next one is free too (the second proxy's)."""
     while True:
@@ -6594,7 +6781,7 @@ def phase_serve_chaos(seconds=CHAOS_SECONDS) -> dict:
         reliability = [_ctl(controller, "proxy_call", f"SERVE_PROXY::{p}",
                             "get_reliability_stats") for p in ports]
         route_p99 = _ctl(controller, "get_route_p99").get(qname)
-        metrics = _serve_metrics(controller, qname)
+        metrics = _serve_metrics(controller, qname, at_rest=True)
     finally:
         if loader.is_alive():
             loader.kill()
@@ -6636,6 +6823,9 @@ def phase_serve_chaos(seconds=CHAOS_SECONDS) -> dict:
         baseline_p50_ms=_percentile_ms(base_lat, 0.5), baseline_p99_ms=_percentile_ms(base_lat, 0.99),
         chaos_p50_ms=_percentile_ms(chaos_lat, 0.5), chaos_p99_ms=_percentile_ms(chaos_lat, 0.99),
         p99_ratio=_percentile_ms(chaos_lat, 0.99) / _percentile_ms(base_lat, 0.99),
+        # Where the tails lie: the slowest requests of each window, as
+        # (seconds from the window's start, latency ms).
+        baseline_slowest=_slowest(baseline["results"]), chaos_slowest=_slowest(chaos["results"]),
         **hedges, breaker_states_seen=sorted({s for r in reliability if r
                                               for s in r["breaker_states_seen"]}),
         # The second proxy's counts start again at its restart.
@@ -7252,18 +7442,27 @@ def _ring_run(name: str, config, model_kwargs=None, device: str = "cuda",
                                      collective_config=config),
         run_config=RunConfig(name=name, storage_path=str(RING_STORAGE)))
     observed: dict = {}
-    with traced(f"ring_{name}") if observe else contextlib.nullcontext() as session:
-        t0 = time.perf_counter()
-        result = trainer.fit()
-        wall = time.perf_counter() - t0
-    if observe:
-        # read_event_log drops each event's "t" (seconds from the schedule's
-        # epoch), which places the window: the raw lines keep it.
-        observed = {"spans": tracing.read_spans(session),
-                    "chaos_events": read_event_log(str(stall_log)),
-                    "chaos_times": [json.loads(line)["t"] for f in sorted(stall_log.glob("*.jsonl"))
-                                    for line in f.read_text().splitlines() if line.strip()]}
-        shutil.rmtree(session, ignore_errors=True)
+    # Traced runs start their cluster inside, so that the members inherit
+    # the tracing environment; every process of the cluster exports its
+    # spans under the cluster's session directory.
+    with traced(f"ring_{name}") if observe else contextlib.nullcontext() as own:
+        with on_runtime(f"ring_{name}", num_cpus=8) as session:
+            t0 = time.perf_counter()
+            result = trainer.fit()
+            wall = time.perf_counter() - t0
+            if observe:
+                tracing.flush()
+                # read_event_log drops each event's "t" (seconds from the
+                # schedule's epoch), which places the window: the raw lines
+                # keep it.
+                observed = {"spans": tracing.read_spans(session),
+                            "chaos_events": read_event_log(str(stall_log)),
+                            "chaos_times": [json.loads(line)["t"]
+                                            for f in sorted(stall_log.glob("*.jsonl"))
+                                            for line in f.read_text().splitlines()
+                                            if line.strip()]}
+    if own is not None:
+        shutil.rmtree(own, ignore_errors=True)
     shutil.rmtree(result.path, ignore_errors=True)
     require(result.error is None, f"ring {name}: {result.error}")
     require([m["step"] for m in result.metrics_history] == list(range(1, steps + 1)),
@@ -7271,8 +7470,14 @@ def _ring_run(name: str, config, model_kwargs=None, device: str = "cuda",
     records = [m["ranks"] for m in result.metrics_history]
     require(all(len(r) == RING_WORKERS for r in records), f"ring {name}: records {records}")
     first = result.attempts[0]
+    leases = None
+    if cuda:
+        # Both members' shares of the card are on the one card.
+        leases = require_member_leases(f"ring {name}", result.attempts)
+        require(len({v for v, _ in leases}) == 1, f"ring {name}: the members' cards {leases}")
     return {"records": records, "step_stats": result.step_stats, "wall_s": wall,
-            "gang_form_s": first["formed"] - first["start"], "steps": steps, **observed}
+            "gang_form_s": first["formed"] - first["start"], "steps": steps, "leases": leases,
+            **observed}
 
 
 def _ring_trace_check(run: dict) -> dict:
@@ -7621,7 +7826,8 @@ def phase_ring() -> dict:
         require(s["wire_ratio"] <= RING_WIRE_RATIO,
                 f"ring {name}: {s['wire_bytes_per_step']} wire bytes a step, the exact "
                 f"wire's {exact['wire_bytes_per_step']}")
-    bench = _ring_overlap_bench()
+    with on_runtime("ring_overlap", num_cpus=8):
+        bench = _ring_overlap_bench()
     log("ring_overlap", **bench)
     counts = {k: sum(s["counts"][k] for s in summaries.values()) for k in exact["counts"]}
     routes = {k: {rt: sum(s["routes"][k][rt] for s in summaries.values())
@@ -8936,17 +9142,21 @@ def main() -> None:
           counts["serve_http"], routes["serve_http"], "mma_sync", forwards=http["forwards"],
           replicas=http["replicas_reached"])
 
-    # Tune: the trials are processes of their own (and a trainer trial's
-    # worker another), whose reports carry their launch counts (phase 24
-    # requires 0); this process launches none.
+    # Tune: the trials are runtime actors (and a trainer trial's worker
+    # another), whose reports carry their launch counts (phase 24 requires
+    # 0); this process launches none.
+    t0 = time.perf_counter()
     tuned, counts["tune"], routes["tune"] = _run_path(phase_tune, cnn["resnet"]["img_per_s"])
+    walls["tune"] = time.perf_counter() - t0
     _path("tune", {k: 0 for k in counts["tune"]}, counts["tune"], routes["tune"], "wgmma")
 
     # Elasticity and config 1: (b)'s decoder launches its kernels in its
     # worker processes, whose counts come back in their reports; config 1's
     # CNN and the churn's quadratic launch none (their workers report 0),
     # and this process launches none.
+    t0 = time.perf_counter()
     elastic, local, _ = _run_path(phase_elastic)
+    walls["elastic"] = time.perf_counter() - t0
     require(not any(local.values()), f"elastic: launches in the driver process {local}")
     down = elastic["step_down"]
     counts["elastic"], routes["elastic"] = down["counts"], down["routes"]
@@ -8956,8 +9166,10 @@ def main() -> None:
 
     # The data plane and config 1 fed by it: the CNN launches none of the
     # port's kernels (its worker reports 0), nor does this process.
+    t0 = time.perf_counter()
     data, counts["data"], routes["data"] = _run_path(
         phase_data, elastic["config1"]["card_img_per_s"])
+    walls["data"] = time.perf_counter() - t0
     _path("data", {k: 0 for k in counts["data"]}, counts["data"], routes["data"], "wgmma")
 
     # Phase 27: the multiplexed replicas, then the chaos bench. Their kernels
@@ -9043,6 +9255,7 @@ def main() -> None:
 
     # What the traced phases and the chaos kills showed, and their walls.
     log("observability", **OBSERVABILITY, walls_s=walls, previous_walls_s=PREVIOUS_WALLS_S,
+        settled=SETTLED,
         trace_ids=OBSERVABILITY["profiler"]["trace_ids"],
         chaos_events={"trainer": OBSERVABILITY["trainer"]["chaos_events"],
                       "ring": OBSERVABILITY["ring"]["latency_window"]["events"]},

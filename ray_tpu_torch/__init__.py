@@ -15,11 +15,15 @@ engine built from ``_native/src/``. ``@remote(num_gpus=...)`` leases cards;
 a worker sees only its lease's cards through ``CUDA_VISIBLE_DEVICES``, and a
 worker with no GPU lease sees none.
 
+Gangs (``util.gang``, in placement groups: ``util.placement_group`` and
+``util.scheduling_strategies``), the trainer, Tune's trials, RLlib's
+runners and remote learners, and serve all run on the runtime and lease
+from the node agent, so each needs ``init()`` first.
 ``cluster_resources()`` and ``available_resources()`` read the controller
 once ``init()`` has run. Before it, they read this host's resource ledger
-(``_private.resources``), which the gangs and Tune trials of this process
-lease from until they move onto the runtime (ROADMAP item 14b-ii-b); serve
-runs on the runtime and leases from the node agent.
+(``_private.resources``), which only the local task layer of ``data/`` and
+``dag/`` (``_private/local_tasks.py``) leases from, until ROADMAP item
+14b-ii-b-2 moves that layer onto the runtime.
 
 Importing the package imports no torch and none of the runtime: the names
 of the runtime's API load on first use, so a data worker process, which
@@ -83,8 +87,8 @@ def _runtime_up() -> bool:
 
 def cluster_resources() -> dict:
     """The controller's totals once ``init()`` has run; before it, this
-    host's ledger (``_private.resources``) until ROADMAP item 14b-ii-b
-    retires it."""
+    host's ledger (``_private.resources``), the local task layer's, until
+    ROADMAP item 14b-ii-b-2 retires it."""
     if _runtime_up():
         return sys.modules["ray_tpu_torch._private.worker"].cluster_resources()
     return _resources.cluster_resources()

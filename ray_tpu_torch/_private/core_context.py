@@ -653,8 +653,15 @@ class CoreContext:
         state = self._objects.get(ref.id)
         record = state.record if state is not None else None
         if record is not None and record.direct and not record.done:
-            await asyncio.get_running_loop().run_in_executor(
+            settle = asyncio.get_running_loop().run_in_executor(
                 executor, self._settle_native, record, None)
+            # A caller cancelled here (a hedge's loser) leaves the settle
+            # running until the reply or the connection's loss. The ref
+            # rides the settle, so it drops after it: dropped now, its last
+            # ref would make ``_direct_abandon`` wait on this loop for the
+            # settle's lock.
+            settle.add_done_callback(lambda _settled, _ref=ref: None)
+            await asyncio.shield(settle)
         if state is not None and state.status in (INLINE, FAILED):
             payload, pinned = await self._payload_from_state(ref.id, state)
             return self._deserialize_value(ref.id, payload, pinned)

@@ -1,5 +1,5 @@
 """One host's resource ledger: what this process may place, and what its
-gangs, trials and replicas hold.
+local task layer's workers and actors hold.
 
 The counterpart of one node's resource table in ray_tpu's runtime: the
 controller's ``cluster_resources()`` and ``available_resources()``
@@ -25,14 +25,15 @@ process stands in for it:
   ``timeout`` seconds, then raises ``PlacementGroupUnschedulableError``.
   ``release(lease)`` gives everything back.
 
-Scope. The ledger is the driver process's own: gangs (``util.gang``), Tune
-trials (``tune.execution.tune_controller``) and serve replicas
-(``serve.controller``) started from this process take from it. A child
-process (a Tune trial, a serve replica) sees only the cards it was given,
-through ``CUDA_VISIBLE_DEVICES``, so its own ledger's GPU total is its
-share. CPU counts are not split across processes on one host: a child's
-ledger counts the host's CPUs again. That is the boundary until ROADMAP
-item 14's runtime, which would hold one table for every process.
+Scope. The ledger is the process's own, and only the local task layer
+(``_private/local_tasks.py``: the data workers and the compiled graphs'
+actors of ``data/`` and ``dag/``) takes from it. Gangs, the trainer, Tune's
+trials, RLlib's runners and learners, and serve run on the runtime and
+lease from its node agent. A child process sees only the cards it was
+given, through ``CUDA_VISIBLE_DEVICES``, so its own ledger's GPU total is
+its share; CPU counts are not split across processes on one host. The
+ledger goes when ROADMAP item 14b-ii-b-2 moves the local task layer onto
+the runtime, leaving one table for the host.
 """
 
 from __future__ import annotations

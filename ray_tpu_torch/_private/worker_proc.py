@@ -1323,11 +1323,11 @@ class WorkerRuntime:
         ``dag.executor.DagRuntime`` is built by a local_tasks actor's
         ``dag_register`` message (it takes that layer's ``send_socket``,
         not this process's context and loop): compiled graphs move onto the
-        runtime's actors in ROADMAP Queue A item 14b-ii-b, and until then the
+        runtime's actors in ROADMAP Queue A item 14b-ii-b-2, and until then the
         other ``rpc_dag_*`` handlers find no graph registered."""
         raise NotImplementedError(
             "compiled graphs on the runtime's actors are ROADMAP Queue A item "
-            "14b-ii-b; ray_tpu_torch.dag runs on _private/local_tasks.py")
+            "14b-ii-b-2; ray_tpu_torch.dag runs on _private/local_tasks.py")
 
     def _dag_call(self, method_name: str, args):
         """Run one stage invocation on the actor's single-width executor

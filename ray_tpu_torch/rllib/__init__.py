@@ -12,25 +12,23 @@ IMPALA and APPO (asynchronous sampling), DQN and SAC (replay), BC, MARWIL
 and CQL (offline). The reference's own split holds: learners own the
 accelerator, rollouts, replay and the offline datasets stay on the host.
 
-**The boundary.** The reference runs env runners and learners as
-``ray_tpu.remote`` actors (``env_runner_group.py:35-51``,
-``learner.py:182-194``), and multi-learner data parallelism all-reduces
-over its ``ring`` backend (``learner.py:123-145``). The port has no actor
-runtime (ROADMAP Queue A item 4), so:
+**Actors.** As in the reference (``env_runner_group.py:35-51``,
+``learner.py:182-194``), env runners and remote learners are
+``ray_tpu_torch.remote`` actors, so an algorithm that builds them needs
+``ray_tpu_torch.init()`` first:
 
-  * env runners (single- or multi-agent) each live in a CPU process of
-    ``util.gang.WorkerGang(n, use_gpu=False)``, in the member's state, one
-    torch thread each (the reference's actors take one CPU):
-    ``num_env_runners`` keeps its meaning and rollouts stay parallel;
-    IMPALA's asynchronous sampling posts ``sample`` to the members and
-    harvests the replies as they come (``EnvRunnerGroup.sample_async`` /
-    ``collect_ready``);
+  * env runners (single- or multi-agent) are ``num_env_runners`` actors of
+    one CPU each, one torch thread each; IMPALA's asynchronous sampling
+    starts ``sample`` on each and harvests the refs as they come
+    (``EnvRunnerGroup.sample_async`` / ``collect_ready``);
   * with ``num_learners=0`` (the default) the learner is local, in the
-    caller's process, on ``device``; with ``num_learners >= 1`` the learners
-    run on a gang (a card each on cuda, gloo on the CPU) whose
-    ``NcclGroup`` sums the shards' gradients, divided by the world size,
-    as the reference's ``update_shard`` does. Multi-agent learners (one a
-    module id) are local.
+    caller's process, on ``device``; with ``num_learners >= 1`` the
+    learners are ``_LearnerActor``s (a card each on cuda, a CPU each on the
+    CPU) whose collective group (an ``NcclGroup`` on the card, where the
+    reference's moves host copies over ``ring``) sums the shards'
+    gradients, divided by the world size, as the reference's
+    ``update_shard`` does. Multi-agent learners (one a module id) are
+    local, as the reference's.
 
 Where the reference draws from JAX's PRNG inside a jitted step (SAC's and
 CQL's sampled actions), the port's step takes the noise as tensors, drawn

@@ -20,27 +20,33 @@ minibatch:
     state holds the params and Adam's moments and step count; ``set_state``
     restores the port's own state exactly.
 
-Multi-learner data parallelism (``num_learners >= 1``): the reference
-runs ``_LearnerActor``s and all-reduces over its ``ring`` backend. The
-port runs the learners on a ``util.gang.WorkerGang`` (a card each on
-``cuda``, gloo processes on the CPU), each holding a learner in its member
-state; a shard's gradients are summed over the gang's own group (an
-``NcclGroup``; the port's ``RingGroup`` exists too, but the learners keep
-the device wire), divided by the world size, and applied by every member,
-as ``update_shard`` does.
+Multi-learner data parallelism (``num_learners >= 1``): as the
+reference's, the learners are ``_LearnerActor``s, runtime actors (a card
+each on ``cuda``, a CPU each on the CPU), so the group needs
+``ray_tpu_torch.init()`` first. Each joins a process group and its
+collective group as a gang member does (``util.gang._GangMember``); a
+shard's gradients are summed over that group (an ``NcclGroup`` on the
+card, gloo on the CPU, where the reference's ``ring`` moves host copies:
+the learners keep the device wire), divided by the world size, and
+applied by every learner, as the reference's ``update_shard`` does.
+``MultiAgentLearnerGroup`` keeps one local learner a module id, as the
+reference's does.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Optional
 
 import numpy as np
 import torch
 
 from ray_tpu_torch import resolve_device
+from ray_tpu_torch._private.code_ref import pack
 from ray_tpu_torch.models.convert import _map, load_optax_adam_state, optax_adam_state
 from ray_tpu_torch.rllib.policy.sample_batch import SampleBatch
 from ray_tpu_torch.train.step import named_leaves
+from ray_tpu_torch.util.gang import _free_port, _GangMember
 
 
 def _numpy(tree):
@@ -189,31 +195,50 @@ class Learner:
         load_optax_adam_state(self.optimizer, self.params, (adam,))
 
 
-# -- multi-learner data parallelism: functions a gang member runs ----------
-def _learner_start(ctx, learner_cls, module_spec, obs_space, act_space, config: dict) -> str:
-    module = module_spec.build(obs_space, act_space, device=ctx.device)
-    ctx.state["learner"] = learner_cls(module, config, seed=0, device=ctx.device)
-    return "ok"
+class _LearnerActor(_GangMember):
+    """Hosts one Learner shard for multi-learner DP, on its lease's card
+    (or the CPU), in a collective group of ``world_size`` learners."""
 
+    def __init__(self, learner_cls, module_spec, obs_space, act_space, config: dict,
+                 rank: int, world_size: int, group_name: str, master_port: int, use_gpu: bool):
+        backend = "nccl" if use_gpu else "gloo"
+        super().__init__(rank, world_size, group_name, backend, backend, master_port,
+                         use_gpu, None)
+        if self._start_error is None:
+            device = self.gang_ctx.device
+            self.learner: Learner = learner_cls(
+                module_spec.build(obs_space, act_space, device=device), config, seed=0,
+                device=device)
 
-def _learner_update_shard(ctx, batch: SampleBatch) -> dict:
-    """DDP step: local grads → all-reduce (sum) / world size → apply."""
-    learner: Learner = ctx.state["learner"]
-    if ctx.world_size == 1:
-        return learner.update(batch)
-    group = ctx.collective()
-    grads = [group.allreduce(g) / ctx.world_size for g in learner.compute_gradients(batch)]
-    learner.apply_gradients(grads)
-    return {"total_loss": float("nan")}
+    def update_shard(self, batch: SampleBatch) -> dict:
+        """DDP step: local grads → all-reduce (sum) / world size → apply."""
+        ctx = self.gang_ctx
+        if ctx.world_size == 1:
+            return self.learner.update(batch)
+        group = ctx.collective()
+        grads = [group.allreduce(g) / ctx.world_size
+                 for g in self.learner.compute_gradients(batch)]
+        self.learner.apply_gradients(grads)
+        return {"total_loss": float("nan")}
 
+    def get_weights(self):
+        return self.learner.get_weights()
 
-def _learner_call(ctx, method: str, *args):
-    return getattr(ctx.state["learner"], method)(*args)
+    def set_weights(self, params) -> str:
+        self.learner.set_weights(params)
+        return "ok"
+
+    def get_state(self):
+        return self.learner.get_state()
+
+    def set_state(self, state) -> str:
+        self.learner.set_state(state)
+        return "ok"
 
 
 class LearnerGroup:
     """num_learners=0 → local in-process learner on ``device`` (default).
-    num_learners>=1 → learners on a gang with DP gradient all-reduce."""
+    num_learners>=1 → learner actors with DP gradient all-reduce."""
 
     def __init__(
         self,
@@ -227,31 +252,46 @@ class LearnerGroup:
     ):
         self.num_learners = num_learners
         self.device = resolve_device(device)
-        self._gang = None
+        self.actors = []
         if num_learners == 0:
             module = module_spec.build(observation_space, action_space, device=self.device)
             self.local_learner: Optional[Learner] = learner_cls(module, config, device=self.device)
         else:
-            from ray_tpu_torch.util.gang import WorkerGang
+            import ray_tpu_torch
 
             self.local_learner = None
-            self._gang = WorkerGang(num_learners, use_gpu=self.device.type == "cuda")
-            self._gang.run(_learner_start, per_rank_args=[
-                (learner_cls, module_spec, observation_space, action_space, config)
-            ] * num_learners, timeout=180)
+            use_gpu = self.device.type == "cuda"
+            actor_cls = ray_tpu_torch.remote(_LearnerActor)
+            group_name = f"learner-dp-{os.urandom(4).hex()}"
+            port = _free_port()
+            args = [pack(a) for a in (learner_cls, module_spec, observation_space, action_space,
+                                      config)]
+            self.actors = [
+                actor_cls.options(num_cpus=1, num_gpus=1 if use_gpu else 0).remote(
+                    *args, rank, num_learners, group_name, port, use_gpu)
+                for rank in range(num_learners)]
+            try:
+                ray_tpu_torch.get([a.ping.remote() for a in self.actors], timeout=180)
+            except BaseException:
+                self.stop()
+                raise
 
-    def _all(self, method: str, *args) -> list:
-        return self._gang.run(_learner_call, per_rank_args=[(method, *args)] * self.num_learners,
-                              timeout=120)
+    def _all(self, method: str, *args, timeout: float = 120) -> list:
+        import ray_tpu_torch
+
+        return ray_tpu_torch.get([getattr(a, method).remote(*args) for a in self.actors],
+                                 timeout=timeout)
 
     def update(self, batch: SampleBatch) -> dict:
         if self.local_learner is not None:
             return self.local_learner.update(batch)
-        n = self.num_learners
+        import ray_tpu_torch
+
+        n = len(self.actors)
         shard = max(1, len(batch) // n)
         shards = [batch.slice(i * shard, (i + 1) * shard) for i in range(n)]
-        metrics = self._gang.run(_learner_update_shard, per_rank_args=[(s,) for s in shards],
-                                 timeout=600)
+        metrics = ray_tpu_torch.get(
+            [a.update_shard.remote(s) for a, s in zip(self.actors, shards)], timeout=600)
         return metrics[0]
 
     def get_weights(self):
@@ -277,8 +317,13 @@ class LearnerGroup:
             self._all("set_state", state)
 
     def stop(self) -> None:
-        if self._gang is not None:
-            self._gang.shutdown()
+        import ray_tpu_torch
+
+        for actor in self.actors:
+            try:
+                ray_tpu_torch.kill(actor)
+            except ray_tpu_torch.exceptions.RayTpuError:
+                pass  # the learner is already gone
 
 
 class MultiAgentLearnerGroup:

@@ -1,55 +1,42 @@
 """EnvRunnerGroup — the fleet of rollout workers.
 
-Port of ray_tpu's ``rllib/env/env_runner_group.py``. The reference spawns
-``num_env_runners`` ``ray_tpu.remote`` actors (``num_cpus=1`` each); the
-port has no actor runtime (ROADMAP Queue A item 4), so each runner lives in
-a CPU process of a ``util.gang.WorkerGang(n, use_gpu=False)``, in that
-member's state, which persists between ``run`` calls. Each process runs
-one torch thread, as an actor of one CPU would, so the runners and the
-learner do not oversubscribe the host. ``sample`` fans out to every runner
-at once and waits for all (PPO's synchronous path); ``sync_weights``
-sends the learner's numpy weights to each. ``runner_class`` picks the
-runner (``SingleAgentEnvRunner`` by default, ``MultiAgentEnvRunner`` for
-multi-agent configs), built with ``runner_kwargs`` on top of the common
-arguments.
+Port of ray_tpu's ``rllib/env/env_runner_group.py``: ``num_env_runners``
+runtime actors (``ray_tpu_torch.remote(runner_class).options(num_cpus=1)``),
+so building a group needs ``ray_tpu_torch.init()`` first. Each runner's
+process runs one torch thread (``OMP_NUM_THREADS=1`` in its environment),
+as an actor of one CPU would, so the runners and the learner do not
+oversubscribe the host. ``sample`` fans out to every runner at once and
+waits for all (PPO's synchronous path); ``sync_weights`` puts the
+learner's numpy weights in the object store once and hands each runner
+the ref. ``runner_class`` picks the runner (``SingleAgentEnvRunner`` by
+default, ``MultiAgentEnvRunner`` for multi-agent configs), built with
+``runner_kwargs`` on top of the common arguments.
 
-The asynchronous pipeline (IMPALA's): ``sample_async`` posts a ``sample``
-to every idle runner (``WorkerGang.send``) and returns; ``collect_ready``
-harvests the replies that arrive within its timeout (``recv_any``) and
-posts the next ``sample`` to each runner that answered. A runner's pipe
-carries one reply a request, in order, with no tag, so a fan-out (``_all``:
-weights, epsilon, metrics) first drains the samples in flight and keeps
-them for the next ``collect_ready``. That is the reference's timing too:
-its actors run calls one at a time, so ``set_weights`` waits behind the
-runner's ``sample``.
+The asynchronous pipeline (IMPALA's): ``sample_async`` starts a
+``sample`` on every idle runner and returns; ``collect_ready`` harvests
+the samples that finish within its timeout (``ray_tpu_torch.wait``) and
+starts the next ``sample`` on each runner that answered. An actor runs its
+calls one at a time, so a fan-out (weights, epsilon, metrics) waits behind
+a runner's ``sample`` in flight, as the reference's does; the samples it
+waited behind are ready for the next ``collect_ready``.
 
-What a runner is built from crosses a process boundary, so the env
-creator, module spec, connector factories and ``runner_kwargs`` (a
-``policy_mapping_fn``) must pickle (module-level functions and classes).
+What a runner is built from goes to its actor by module and qualified
+name (``_private.code_ref``), so the env creator, module spec, connector
+factories and ``runner_kwargs`` (a ``policy_mapping_fn``) must be defined
+at module level.
 """
 
 from __future__ import annotations
 
 import logging
-import time
 from typing import Any, Optional
 
 import numpy as np
 
+import ray_tpu_torch
+from ray_tpu_torch._private.code_ref import pack
 from ray_tpu_torch.rllib.env.env_runner import SingleAgentEnvRunner
 from ray_tpu_torch.rllib.policy.sample_batch import MultiAgentBatch, SampleBatch
-
-
-def _runner_start(ctx, runner_class, env_creator, module_spec, kwargs: dict) -> str:
-    import torch
-
-    torch.set_num_threads(1)
-    ctx.state["runner"] = runner_class(env_creator, module_spec, **kwargs)
-    return "ok"
-
-
-def _runner_call(ctx, method: str, *args):
-    return getattr(ctx.state["runner"], method)(*args)
 
 
 class EnvRunnerGroup:
@@ -67,35 +54,36 @@ class EnvRunnerGroup:
         runner_class: Any = None,
         runner_kwargs: dict | None = None,
     ):
-        from ray_tpu_torch.util.gang import WorkerGang
-
+        runner_cls = ray_tpu_torch.remote(runner_class or SingleAgentEnvRunner)
         self.num_env_runners = max(1, num_env_runners)
-        self._gang = WorkerGang(self.num_env_runners, use_gpu=False)
-        # Async pipeline: ranks with a ``sample`` posted and not yet read,
-        # and replies drained before a fan-out, kept for collect_ready.
-        self._inflight: set[int] = set()
-        self._drained: dict[int, Any] = {}
+        common = dict(num_envs=num_envs_per_runner,
+                      rollout_fragment_length=rollout_fragment_length, seed=seed,
+                      env_to_module=pack(env_to_module), module_to_env=pack(module_to_env),
+                      **{k: pack(v) for k, v in (runner_kwargs or {}).items()})
+        self.runners = [
+            runner_cls.options(num_cpus=1, runtime_env={"env_vars": {"OMP_NUM_THREADS": "1"}})
+            .remote(pack(env_creator), pack(module_spec), worker_index=i, **common)
+            for i in range(self.num_env_runners)
+        ]
+        self._inflight: dict = {}
         try:
-            self._gang.run(_runner_start, per_rank_args=[
-                (runner_class or SingleAgentEnvRunner, env_creator, module_spec, dict(
-                    num_envs=num_envs_per_runner,
-                    rollout_fragment_length=rollout_fragment_length,
-                    worker_index=i, seed=seed, env_to_module=env_to_module,
-                    module_to_env=module_to_env, **(runner_kwargs or {})))
-                for i in range(self.num_env_runners)
-            ], timeout=180)
+            ray_tpu_torch.get([r.ping.remote() for r in self.runners], timeout=180)
         except BaseException:
-            self._gang.shutdown()
+            self.stop()
             raise
 
     def _all(self, method: str, *args, timeout: float = 120) -> list:
-        self._drain()
-        return self._gang.run(_runner_call,
-                              per_rank_args=[(method, *args)] * self.num_env_runners,
-                              timeout=timeout)
+        # An actor runs its calls in order, so the fan-out waits behind the
+        # samples in flight; waiting for them here too makes them ready for
+        # the next ``collect_ready``, however short its timeout.
+        if self._inflight:
+            ray_tpu_torch.wait(list(self._inflight.values()), num_returns=len(self._inflight),
+                               timeout=timeout)
+        return ray_tpu_torch.get([getattr(r, method).remote(*args) for r in self.runners],
+                                 timeout=timeout)
 
     def sync_weights(self, params) -> None:
-        self._all("set_weights", params)
+        self._all("set_weights", ray_tpu_torch.put(params))
 
     def set_epsilon(self, epsilon: Optional[float]) -> None:
         """Epsilon-greedy exploration in every runner (DQN)."""
@@ -109,52 +97,27 @@ class EnvRunnerGroup:
         return SampleBatch.concat_samples(batches)
 
     # -- async pipeline (IMPALA path) -----------------------------------
-    def _post_sample(self, rank: int) -> None:
-        self._gang.send(rank, ("run", _runner_call, ("sample",), {}, None))
-        self._inflight.add(rank)
-
-    def _reply(self, rank: int, message):
-        kind, *body = message
-        if kind == "error":
-            from ray_tpu_torch.util.gang import WorkerError
-
-            raise WorkerError(rank, body[0], body[1])
-        return body[0]
-
-    def _drain(self, timeout: float = 600) -> None:
-        """Reads every sample in flight; the replies wait in ``_drained``."""
-        while self._inflight:
-            rank, message = self._gang.recv_any(sorted(self._inflight), timeout=timeout)
-            self._inflight.discard(rank)
-            self._drained[rank] = self._reply(rank, message)
-
     def sample_async(self) -> None:
-        for rank in range(self.num_env_runners):
-            if rank not in self._inflight and rank not in self._drained:
-                self._post_sample(rank)
+        for i, runner in enumerate(self.runners):
+            if i not in self._inflight:
+                self._inflight[i] = runner.sample.remote()
 
     def collect_ready(self, timeout: float = 0.05) -> list[SampleBatch]:
         """Harvest finished rollouts; immediately resubmit those runners."""
-        if not self._inflight and not self._drained:
+        if not self._inflight:
             self.sample_async()
-        pending = set(self._inflight)  # waited for up to ``timeout``
+        ref_to_idx = {ref: i for i, ref in self._inflight.items()}
+        ready, _ = ray_tpu_torch.wait(list(ref_to_idx), num_returns=len(ref_to_idx),
+                                      timeout=timeout)
         out = []
-        for rank in sorted(self._drained):
-            out.append(self._drained.pop(rank))
-            self._post_sample(rank)
-        deadline = time.monotonic() + timeout
-        while pending:
+        # In runner order, whatever order they finished in: the learner's
+        # updates then follow the same sequence run to run.
+        for ref in sorted(ready, key=ref_to_idx.__getitem__):
+            idx = ref_to_idx[ref]
             try:
-                rank, message = self._gang.recv_any(
-                    sorted(pending), timeout=max(0.0, deadline - time.monotonic()))
-            except TimeoutError:
-                break
-            pending.discard(rank)
-            self._inflight.discard(rank)
-            try:
-                out.append(self._reply(rank, message))
+                out.append(ray_tpu_torch.get(ref))
             finally:
-                self._post_sample(rank)
+                self._inflight[idx] = self.runners[idx].sample.remote()
         return out
 
     def get_connector_state(self) -> dict:
@@ -189,4 +152,8 @@ class EnvRunnerGroup:
         }
 
     def stop(self) -> None:
-        self._gang.shutdown()
+        for runner in self.runners:
+            try:
+                ray_tpu_torch.kill(runner)
+            except ray_tpu_torch.exceptions.RayTpuError:
+                pass  # the runner is already gone

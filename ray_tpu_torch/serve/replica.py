@@ -16,10 +16,12 @@ with the request's deadline and metadata in their context
 ``serve.get_multiplexed_model_id``). Generator deployments stream through
 ``stream_next`` / ``stream_cancel``; a stream pins its multiplexed model
 until it ends. ``drain`` checkpoints the loaded multiplexed models, and
-``cancel_request`` cancels a request a hedge lost. ``get_metrics`` pushes
-the occupancy gauges (``util/metrics``) and reports the process's peak RSS
-and the launch counts of the port's kernels, which ``kernel_launches``
-also answers alone.
+``cancel_request`` cancels a request a hedge lost. Once built, the
+replica collects garbage and freezes what its start made out of later
+collections, whose full pass would stall every request in flight.
+``get_metrics`` pushes the occupancy gauges (``util/metrics``) and reports
+the process's peak RSS and the launch counts of the port's kernels, which
+``kernel_launches`` also answers alone.
 
 The user's class or function reaches the actor by name, never by value
 (the serve plane depends on no cloudpickle): a ``CallableRef`` names its
@@ -33,8 +35,7 @@ import asyncio
 import concurrent.futures
 import contextvars
 import functools
-import importlib
-import importlib.util
+import gc
 import inspect
 import logging
 import os
@@ -46,7 +47,7 @@ import traceback
 import uuid
 from typing import Any
 
-from ray_tpu_torch._private import chaos
+from ray_tpu_torch._private import chaos, code_ref
 from ray_tpu_torch.serve import batching
 from ray_tpu_torch.serve._common import (
     Deadline, DeadlineExceededError, LatencyHistogram, ReplicaDrainingError, RequestShedError,
@@ -67,60 +68,21 @@ def get_current_request_metadata():
 
 class CallableRef:
     """A deployment's class or function by module and qualified name, and
-    the directory the module was imported from (the import root a replica
-    adds to its path when the module is not already importable there). A
-    class of the driver's main script is named by the script's module
-    name. At the replica, the name may hold the Deployment the decorator
-    made; its class or function is taken."""
+    the directory the module was imported from (``_private.code_ref``: the
+    import root a replica adds to its path when the module is not already
+    importable there). A class of the driver's main script is named by the
+    script's module name. At the replica, the name may hold the Deployment
+    the decorator made; its class or function is taken."""
 
     def __init__(self, target: Any):
-        self.module = target.__module__
-        self.qualname = target.__qualname__
-        if "<locals>" in self.qualname:
-            raise ValueError(
-                f"{self.module}.{self.qualname}: a deployment's class or function must be "
-                f"defined at the top level of an importable module (replicas import it)")
-        module = sys.modules.get(self.module)
-        if self.module == "__main__":
-            spec = getattr(module, "__spec__", None)
-            path = getattr(module, "__file__", None)
-            if spec is not None and spec.name:
-                self.module = spec.name
-            elif path:
-                self.module = os.path.splitext(os.path.basename(path))[0]
-            else:
-                raise ValueError(f"{self.qualname}: a deployment defined in an interactive "
-                                 f"session cannot be imported by its replicas")
-        self.root = _import_root(module, self.module)
+        self.module, self.qualname, self.root = code_ref.name_of(target)
 
     def resolve(self) -> Any:
-        if self.root and self.root not in sys.path:
-            try:
-                found = importlib.util.find_spec(self.module) is not None
-            except (ImportError, ValueError):
-                found = False
-            if not found:
-                sys.path.append(self.root)
-        obj = importlib.import_module(self.module)
-        for part in self.qualname.split("."):
-            obj = getattr(obj, part)
+        obj = code_ref.lookup(self.module, self.qualname, self.root)
         return getattr(obj, "func_or_class", obj)
 
     def __repr__(self):
         return f"{self.module}.{self.qualname}"
-
-
-def _import_root(module, name: str) -> str:
-    """The sys.path entry ``module`` (imported as ``name``) was found under,
-    or "" for one without a file."""
-    path = getattr(module, "__file__", None)
-    if not path:
-        return ""
-    root = os.path.dirname(os.path.abspath(path))
-    depth = name.count(".") + (os.path.basename(path).startswith("__init__.") and 1)
-    for _ in range(depth):
-        root = os.path.dirname(root)
-    return root
 
 
 class _Stream:
@@ -196,6 +158,12 @@ class Replica:
             self._build(cls_or_fn, init_args, init_kwargs, user_config)
         except Exception:
             self._init_error = traceback.format_exc()
+        # What the start built (the modules, the user's model) lives as long
+        # as the replica, and a full collection would walk all of it again:
+        # a pause of the serving loop, and of every request in it. It is
+        # collected once here and frozen out of later collections.
+        gc.collect()
+        gc.freeze()
 
     def _build(self, cls_or_fn: Any, init_args: tuple, init_kwargs: dict,
                user_config: Any) -> None:

@@ -7,9 +7,11 @@
   on a fixed quadratic, so the loss at step k is a function of k alone and a
   resumed run must reproduce an undisturbed one's losses exactly;
   ``loss_by_step`` reads them from a result.
-* ``Churn``: a driver callback that kills one rank and holds its slot on the
-  host's ledger until the gang runs smaller, so an elastic trainer steps
-  down and grows back.
+* ``Churn``: a driver callback that kills one rank and holds its slot, from
+  a runtime actor that leases it from the node agent, until the gang runs
+  smaller, so an elastic trainer steps down and grows back. (The
+  reference's release script adds and removes nodes through
+  ``cluster_utils``, which waits for ROADMAP Queue A item 14c.)
 * ``fashion_mnist_dataset_loop``: config 1's loop fed by the trainer's
   dataset (``get_dataset_shard("train").iter_torch_batches``) in place of
   the fixed batch, over one epoch; ``fashion_mnist_rows`` and
@@ -25,7 +27,6 @@ import json
 import os
 import signal
 import sys
-import threading
 import time
 
 import numpy as np
@@ -75,45 +76,61 @@ def loss_by_step(result) -> dict:
     return {int(m["step"]): float(m["loss"]) for m in result.metrics_history if "loss" in m}
 
 
+class _SlotHolder:
+    """An actor that does nothing but hold what it leased."""
+
+    def ping(self) -> str:
+        return "ok"
+
+
 class Churn:
-    """A driver callback: at ``kill_step`` it kills rank ``victim``'s
-    process and holds ``hold`` of the host ledger's ``slot`` (its request
-    waits in the ledger's line until the dying gang gives its lease back,
-    ahead of the gang's re-formation); once the gang reports a
-    ``world_size`` below its first one, it gives them back when
-    ``restore`` is set, so that the trainer can grow back."""
+    """A driver callback: at ``kill_step`` it asks the runtime for an actor
+    that leases ``hold`` of the resource ``slot`` (the request waits until
+    the dying gang's placement group gives its bundles back, ahead of the
+    gang's re-formation, which waits out the trainer's backoff), then kills
+    rank ``victim``'s process; once the gang reports a ``world_size`` below
+    its first one, it kills the holder when ``restore`` is set and waits
+    until the slot shows free, so that the trainer can grow back."""
 
     def __init__(self, pid_dir, kill_step: int, victim: int = 3, hold: int = 1,
                  slot: str = "trainslot", restore: bool = True, wait_s: float = 60.0):
         self.pid_dir, self.kill_step, self.victim = pid_dir, kill_step, victim
         self.hold, self.slot, self.restore, self.wait_s = hold, slot, restore, wait_s
         self.killed = self.restored = False
-        self.lease = None
+        self.holder = None
         self.world_sizes: list[int] = []
-        self._holder = None
-
-    def _take(self, queued: threading.Event) -> None:
-        from ray_tpu_torch._private import resources
-
-        ledger = resources.ledger()
-        queued.set()
-        self.lease = ledger.acquire({self.slot: 1}, self.hold, timeout=self.wait_s)
 
     def on_result(self, metrics):
+        import ray_tpu_torch
+
         self.world_sizes.append(metrics.get("world_size"))
         if not self.killed and metrics.get("step", -1) >= self.kill_step:
             self.killed = True
-            queued = threading.Event()
-            self._holder = threading.Thread(target=self._take, args=(queued,), daemon=True)
-            self._holder.start()
-            queued.wait()
+            self.holder = ray_tpu_torch.remote(_SlotHolder).options(
+                num_cpus=0, resources={self.slot: float(self.hold)}).remote()
             with open(os.path.join(self.pid_dir, f"rank{self.victim}.pid")) as f:
                 os.kill(int(f.read()), signal.SIGKILL)
         elif (self.killed and self.restore and not self.restored
               and metrics.get("world_size") < self.world_sizes[0]):
             self.restored = True
-            self._holder.join(self.wait_s)
-            self.lease.release()
+            ray_tpu_torch.get(self.holder.ping.remote(), timeout=self.wait_s)
+            self.release()
+
+    def release(self) -> None:
+        """Kills the holder, if any, and waits (up to ``wait_s``) until the
+        cluster's free resources show its slot back, so that the trainer's
+        next grow probe finds it."""
+        import ray_tpu_torch
+
+        if self.holder is None:
+            return
+        before = ray_tpu_torch.available_resources().get(self.slot, 0.0)
+        ray_tpu_torch.kill(self.holder)
+        self.holder = None
+        deadline = time.monotonic() + self.wait_s
+        while (ray_tpu_torch.available_resources().get(self.slot, 0.0) < before + self.hold
+               and time.monotonic() < deadline):
+            time.sleep(0.01)
 
 
 # ------------------------------------------------- BASELINE config 1 (Fashion-MNIST)

@@ -1,12 +1,14 @@
 """The per-worker train session: ``report``, ``get_context`` and
 ``get_checkpoint`` inside ``train_loop_per_worker``.
 
-Copy of ray_tpu's ``train/_internal/session.py`` (``TrainContext``) and of
-the functions ``train/__init__.py`` exports. The reference runs the user's
-loop on a thread and the trainer polls it; here the loop runs in the gang
-member's main thread and ``report`` hands (metrics, checkpoint) to the
-trainer over the member's channel, then blocks until the trainer has
-consumed the round: a lockstep barrier across ranks, as the reference's.
+Copy of ray_tpu's ``train/_internal/session.py`` (``TrainContext``,
+``_Session``) and of the functions ``train/__init__.py`` exports. As in the
+reference, the user's loop runs on a thread of the gang member and the
+trainer polls it with actor calls (``next_result``); ``report`` hands
+(metrics, checkpoint) to the poll, then blocks until the trainer's answer
+to the round comes with its next poll: an ``ack``, which lets the loop go
+on, or a ``stop``, which ends it (``TrainingStopped``). That is a lockstep
+barrier across ranks, as the reference's.
 
 Each rank's dataset shards (``TorchTrainer(datasets=...)``) are in
 ``TrainContext.dataset_shards`` and ``get_dataset_shard(name)``; each report
@@ -24,8 +26,12 @@ answer and, once the capture has ended, the capture itself.
 
 from __future__ import annotations
 
+import contextvars
+import queue
+import threading
+import traceback
 from dataclasses import dataclass, field
-from typing import Any, Optional
+from typing import Any, Callable, Optional
 
 from ray_tpu_torch._private import profiler as profiler_mod
 from ray_tpu_torch.train import step_stats as step_stats_mod
@@ -79,14 +85,53 @@ class TrainingStopped(Exception):
 
 
 class _Session:
-    def __init__(self, ctx: TrainContext, channel):
+    def __init__(self, ctx: TrainContext):
         self.ctx = ctx
-        self._channel = channel
         self._recorder = (step_stats_mod.StepRecorder(ctx) if step_stats_mod.enabled()
                           else None)
         if self._recorder is not None:
             step_stats_mod.activate()
         self._arm_reply: dict | None = None
+        # One report (or the loop's end) at a time toward the trainer, one
+        # answer back.
+        self._results: queue.Queue = queue.Queue(maxsize=1)
+        self._replies: queue.Queue = queue.Queue(maxsize=1)
+
+    def start(self, fn: Callable[[], Any]) -> None:
+        """Runs ``fn`` (the user's loop) on a thread of its own; its end,
+        or its exception, is the poll's last answer."""
+        # The loop runs in the caller's context: under the member's
+        # ``execute`` span, which its profiler step marks then carry.
+        context = contextvars.copy_context()
+        threading.Thread(target=context.run, args=(self._run, fn), name="train-loop",
+                         daemon=True).start()
+
+    def _run(self, fn: Callable[[], Any]) -> None:
+        final: dict = {"done": True}
+        try:
+            fn()
+        except BaseException as exc:
+            final = {"error": repr(exc), "traceback": traceback.format_exc()}
+        # Closed on the loop's thread, which owns the device trace.
+        capture = shutdown_session()
+        if "done" in final:
+            final["profile"] = capture
+        # Every report was answered before the loop went on, so the queue
+        # has room.
+        self._results.put(final)
+
+    def next_result(self, reply: tuple | None = None, timeout: float = 0.0) -> dict | None:
+        """Called by the trainer's poll: hands the loop ``reply`` (the
+        answer to its last report), then returns the next report, or the
+        loop's end (``{"done": True, "profile": ...}``, ``{"error": ...,
+        "traceback": ...}``), or None when neither came within ``timeout``
+        seconds."""
+        if reply is not None:
+            self._replies.put(reply)
+        try:
+            return self._results.get(timeout=timeout)
+        except queue.Empty:
+            return None
 
     def report(self, metrics: dict, checkpoint: Checkpoint | None = None) -> None:
         # This rank's dataset positions beside the report: the trainer
@@ -104,8 +149,8 @@ class _Session:
         profile = self._profile_out()
         if profile:
             payload["profile"] = profile
-        self._channel.send(("report", payload))
-        reply = self._channel.recv()
+        self._results.put(payload)
+        reply = self._replies.get()
         if reply[0] != "ack":
             raise TrainingStopped(f"the trainer answered the report with {reply[0]!r}")
         if len(reply) > 1 and reply[1].get("profile"):
@@ -147,9 +192,9 @@ class _Session:
 _session: _Session | None = None
 
 
-def init_session(ctx: TrainContext, channel) -> _Session:
+def init_session(ctx: TrainContext) -> _Session:
     global _session
-    _session = _Session(ctx, channel)
+    _session = _Session(ctx)
     return _session
 
 

@@ -1,4 +1,4 @@
-"""TorchTrainer: ``train_loop_per_worker`` on a gang of worker processes,
+"""TorchTrainer: ``train_loop_per_worker`` on a gang of runtime actors,
 with lockstep report rounds, committed checkpoints and restart of the
 whole gang from the latest one when a member dies.
 
@@ -6,8 +6,12 @@ The counterpart of ray_tpu's ``JaxTrainer`` / ``DataParallelTrainer``
 (``train/jax_trainer.py``) and of the parts of its ``BackendExecutor``
 the loop needs (``train/_internal/backend_executor.py``: starting the
 sessions, polling a round, merging the ranks' checkpoint directories), on
-the port's single-host gang (``util.gang``) in place of the runtime's
-placement groups and actors:
+the port's gang (``util.gang``: one actor a rank in a placement group).
+Like the reference, ``fit()`` needs ``ray_tpu_torch.init()`` first. Each
+member runs the user's loop on a thread of its session
+(``_start_session_fn``); a round is one actor call a rank
+(``_poll_round``) that returns the rank's report, and the next round's
+call carries the trainer's ``ack`` (or a ``stop``) back to it:
 
     def train_loop(config):
         setup = setup_sharded_training(init_fn, make_optimizer)  # the session's mesh
@@ -32,7 +36,7 @@ bound ends the run, as the reference's ``_drive`` does; the ranks then
 get ``stop`` in place of their ack. A callback that raises (Tune's
 ``report`` when Tune stops the trial) ends the run with its exception,
 after the same ``stop``. A ``TorchTrainer`` pickles (stdlib) without its
-capture state: Tune sends one to its trial's process.
+capture state: Tune sends one to its trial's actor.
 
 Each report carries the rank's StepStats record; ``Result.step_stats``
 keeps them by rank, and the driver's flight recorder
@@ -50,8 +54,8 @@ that follows its end and merges them into one Perfetto trace under
 ``<trial_dir>/profiles/<capture_id>/``.
 
 Elasticity, with ``ScalingConfig.min_workers``: the gang forms at the
-largest size from ``num_workers`` down to ``min_workers`` whose leases the
-host's resource ledger places within ``elastic_formation_timeout_s``; a
+largest size from ``num_workers`` down to ``min_workers`` whose placement
+group places within ``elastic_formation_timeout_s``; a
 gang death re-forms it (full-jitter backoff between restarts, reset once
 a gang forms); and at a round whose checkpoint committed, a probe of the
 free resources (at most every ``elastic_grow_probe_period_s``) that covers
@@ -98,9 +102,11 @@ import time
 from dataclasses import dataclass, field
 from typing import Any, Callable, Optional
 
+import ray_tpu_torch
+from ray_tpu_torch import exceptions
 from ray_tpu_torch._private import profile_merge
 from ray_tpu_torch._private import profiler as profiler_mod
-from ray_tpu_torch._private import resources
+from ray_tpu_torch._private import worker
 from ray_tpu_torch.train import session as session_mod
 from ray_tpu_torch.train.checkpoint import (
     Checkpoint, StorageContext, _atomic_write_json, merge_sharded_checkpoints,
@@ -108,12 +114,18 @@ from ray_tpu_torch.train.checkpoint import (
 from ray_tpu_torch.train.config import RunConfig, ScalingConfig
 from ray_tpu_torch.train.step_stats import FlightRecorder
 from ray_tpu_torch.util.backoff import Backoff
-from ray_tpu_torch.util.gang import GangDiedError, WorkerError, WorkerGang
+from ray_tpu_torch.util.gang import _DEATHS, GangDiedError, WorkerError, WorkerGang
 
 logger = logging.getLogger(__name__)
 
 # Longest wait for one rank's report before the round counts as stalled.
 ROUND_TIMEOUT_S = 1800.0
+# How long one poll of a member's session waits for its next report.
+POLL_S = 1.0
+# How often a round with no answer looks for a member whose process ended.
+DEATH_CHECK_S = 0.5
+# How long the members may take to start their sessions.
+START_SESSION_TIMEOUT_S = 300.0
 
 
 class TrainingFailedError(RuntimeError):
@@ -128,7 +140,7 @@ class Result:
     "error": ...} for a death (k the gang that died), {"reason": "grow",
     "from": k, "to": num_workers} for a grow-back; ``attempts`` each gang's
     wall-clock times (``time.time()``: start, formation, first report, end,
-    and ``spawned``, when the gang that formed spawned its processes), the
+    and ``spawned``, when the gang that formed started its members), the
     size it formed at (``world_size``), each formation attempt
     (``formations``: size, seconds, whether it formed) and the members'
     ``rank_infos`` (``members``, with the times each entered and joined its
@@ -191,14 +203,14 @@ def _ingest_record(world_size: int, reports: dict) -> dict | None:
             "datasets": {name: [(s or {}).get(name) for s in states] for name in names}}
 
 
-def _run_session(gang_ctx, dataset_shards: dict, train_fn: Callable, train_loop_config: dict,
-                 experiment_name: str, trial_dir: str, latest_checkpoint: Optional[Checkpoint],
-                 mesh_axes: dict, pipeline: dict | None = None,
-                 slice_topology: Any = None) -> dict:
-    """Runs on every member: the user's loop inside a train session. Under
-    pipeline stages, gang rank r is stage r // (world / stages):
-    contiguous ranks form one stage's gang. Returns, with ``done``, a
-    capture that ended with the loop."""
+def _start_session_fn(gang_ctx, dataset_shards: dict, train_fn: Callable,
+                      train_loop_config: dict, experiment_name: str, trial_dir: str,
+                      latest_checkpoint: Optional[Checkpoint], mesh_axes: dict,
+                      pipeline: dict | None = None, slice_topology: Any = None) -> bool:
+    """Runs on every member: starts the user's loop inside a train session,
+    on a thread of the member, and returns. Under pipeline stages, gang
+    rank r is stage r // (world / stages): contiguous ranks form one
+    stage's gang."""
     if pipeline is not None:
         per_stage = max(1, gang_ctx.world_size // int(pipeline["num_stages"]))
         pipeline = {**pipeline, "stage": gang_ctx.rank // per_stage,
@@ -209,12 +221,16 @@ def _run_session(gang_ctx, dataset_shards: dict, train_fn: Callable, train_loop_
         train_loop_config=dict(train_loop_config), latest_checkpoint=latest_checkpoint,
         mesh=mesh_axes, collective_group=gang_ctx.group_name, device=str(gang_ctx.device),
         pipeline=pipeline, slice_topology=slice_topology, dataset_shards=dict(dataset_shards))
-    session_mod.init_session(ctx, gang_ctx.channel)
-    try:
-        train_fn(dict(train_loop_config))
-    finally:
-        capture = session_mod.shutdown_session()
-    return {"done": True, "profile": capture}
+    session = session_mod.init_session(ctx)
+    gang_ctx.state["session"] = session
+    session.start(lambda: train_fn(dict(train_loop_config)))
+    return True
+
+
+def _poll_fn(gang_ctx, reply: tuple | None, poll_timeout: float) -> dict | None:
+    """One poll of a member's session: hands its loop ``reply`` (the answer
+    to its last report) and returns its next report or end, or None."""
+    return gang_ctx.state["session"].next_result(reply, timeout=poll_timeout)
 
 
 @dataclass
@@ -321,6 +337,8 @@ class TorchTrainer:
         return self.run_config.name or type(self).__name__.lower()
 
     def fit(self) -> Result:
+        # The gang runs on the runtime: without init() this raises its error.
+        worker.get_global_context()
         run_cfg, sc = self.run_config, self.scaling_config
         storage = StorageContext(run_cfg.resolved_storage_path(), self._experiment_name(),
                                  checkpoint_config=run_cfg.checkpoint_config)
@@ -347,16 +365,17 @@ class TorchTrainer:
                     shards = _split_datasets(
                         self.datasets, gang.num_workers,
                         ingest=storage.latest_ingest() if latest is not None else None)
-                    gang.run_async(_run_session, per_rank_args=[(s,) for s in shards],
-                                   train_fn=self.train_loop_per_worker,
-                                   train_loop_config=self.train_loop_config,
-                                   experiment_name=self._experiment_name(),
-                                   trial_dir=storage.trial_dir, latest_checkpoint=latest,
-                                   mesh_axes=dict(sc.mesh_axes),
-                                   # The attempt fences a re-formed gang's
-                                   # traffic from a dead one's.
-                                   pipeline=sc.pipeline(attempt=len(result.attempts) - 1),
-                                   slice_topology=sc.slice_topology)
+                    gang.get(gang.run_async(
+                        _start_session_fn, per_rank_args=[(s,) for s in shards],
+                        train_fn=self.train_loop_per_worker,
+                        train_loop_config=self.train_loop_config,
+                        experiment_name=self._experiment_name(),
+                        trial_dir=storage.trial_dir, latest_checkpoint=latest,
+                        mesh_axes=dict(sc.mesh_axes),
+                        # The attempt fences a re-formed gang's traffic
+                        # from a dead one's.
+                        pipeline=sc.pipeline(attempt=len(result.attempts) - 1),
+                        slice_topology=sc.slice_topology), timeout=START_SESSION_TIMEOUT_S)
                 finally:
                     # Formation is restart time, whether it formed or not.
                     recorder.note_restart(time.monotonic() - form_t0)
@@ -365,9 +384,12 @@ class TorchTrainer:
                 result.error, resize = self._drive(gang, storage, result, attempt, recorder)
                 attempt["ended_by"] = ("error" if result.error else
                                        resize["reason"] if resize else "done")
-            except (GangDiedError, TrainingFailedError) as exc:
+            except (GangDiedError, TrainingFailedError, TimeoutError) as exc:
                 died = exc
                 attempt["ended_by"] = "gang_died"
+            except WorkerError as exc:  # the session did not start: the run's error
+                result.error = exc
+                attempt["ended_by"] = "error"
             finally:
                 attempt["end"] = time.time()
                 prev_size = gang.num_workers if gang is not None else None
@@ -411,13 +433,13 @@ class TorchTrainer:
     def _form_gang(self, formations: list) -> WorkerGang:
         """The gang at num_workers or, when elastic, at the largest size
         down to min_workers that forms: one attempt a size, each waiting up
-        to elastic_formation_timeout_s for its leases. A fixed-size config
-        makes one attempt. Each attempt's size, seconds and outcome go to
-        ``formations``."""
+        to elastic_formation_timeout_s for its placement group. A fixed-size
+        config makes one attempt. Each attempt's size, seconds and outcome
+        go to ``formations``."""
         sc = self.scaling_config
         bundle = sc.worker_resources()
         sizes = range(sc.num_workers, sc.min_workers - 1, -1) if sc.elastic else [sc.num_workers]
-        # A fixed-size gang waits for its leases as long as a gang does.
+        # A fixed-size gang waits for its group as long as a gang does.
         wait = {"ready_timeout": sc.elastic_formation_timeout_s} if sc.elastic else {}
         last_exc: Exception | None = None
         for size in sizes:
@@ -426,7 +448,7 @@ class TorchTrainer:
                 gang = WorkerGang(size, use_gpu=sc.use_gpu, resources_per_worker=bundle,
                                   backend=self.backend,
                                   collective_config=sc.collective_config, **wait)
-            except (resources.PlacementGroupUnschedulableError, GangDiedError) as exc:
+            except (exceptions.PlacementGroupUnschedulableError, GangDiedError) as exc:
                 formations.append({"world_size": size, "seconds": time.monotonic() - t0,
                                    "formed": False, "error": str(exc)})
                 if not sc.elastic:
@@ -443,11 +465,12 @@ class TorchTrainer:
                                   f"[{sc.min_workers}, {sc.num_workers}]: {last_exc}")
 
     def _want_grow(self, gang: WorkerGang, state: dict) -> bool:
-        """The grow-back probe: True when the gang runs below num_workers
-        and the ledger can place every missing worker's bundle (whole cards
-        where a worker takes one, not the sum of free shares). Read at most
-        every elastic_grow_probe_period_s; best effort (a re-formed gang
-        steps down again if the capacity went meanwhile)."""
+        """The grow-back probe (the reference's): True when the gang runs
+        below num_workers and the cluster's free resources
+        (``ray_tpu_torch.available_resources()``) cover every missing
+        worker's bundle. Read at most every elastic_grow_probe_period_s;
+        best effort (a re-formed gang steps down again if the capacity went
+        meanwhile)."""
         sc = self.scaling_config
         if not sc.elastic or sc.elastic_grow_probe_period_s <= 0:
             return False
@@ -458,7 +481,61 @@ class TorchTrainer:
         if now - state.get("last_probe", 0.0) < sc.elastic_grow_probe_period_s:
             return False
         state["last_probe"] = now
-        return resources.ledger().can_place(sc.worker_resources(), missing)
+        avail = ray_tpu_torch.available_resources()
+        return all(avail.get(key, 0.0) >= amount * missing
+                   for key, amount in sc.worker_resources().items())
+
+    def _poll_round(self, gang: WorkerGang, ranks: list, replies: dict) -> dict:
+        """One result from each of ``ranks`` (the reference's
+        ``BackendExecutor.poll_round``): a report, or the end of its loop.
+        Each rank's first poll carries ``replies[rank]``, the answer to its
+        last report. Returns early on a rank's error (a peer blocked on the
+        failed rank would never report). A member's death raises
+        GangDiedError; no result within ROUND_TIMEOUT_S TrainingFailedError."""
+        deadline = time.monotonic() + ROUND_TIMEOUT_S
+
+        def poll(rank, reply=None):
+            return gang.members[rank].run.remote(_poll_fn, (reply, POLL_S), {})
+
+        refs = {rank: poll(rank, replies.get(rank)) for rank in ranks}
+        results: dict[int, dict] = {}
+        while refs:
+            left = deadline - time.monotonic()
+            if left <= 0:
+                raise TrainingFailedError(f"train workers stalled: ranks {sorted(refs)} did "
+                                          f"not report within {ROUND_TIMEOUT_S} s")
+            ready, _ = ray_tpu_torch.wait(list(refs.values()), num_returns=1,
+                                          timeout=min(left, DEATH_CHECK_S))
+            if not ready:
+                # A call to a dead member waits for the runtime's record of
+                # the death; its process's end shows at once.
+                dead = gang.died()
+                if dead:
+                    raise GangDiedError(f"gang members {dead} died during training")
+                continue
+            for rank in [r for r, ref in refs.items() if ref in ready]:
+                try:
+                    item = ray_tpu_torch.get(refs.pop(rank), timeout=0)
+                except _DEATHS as exc:
+                    raise GangDiedError(f"gang member rank={rank} died during training: "
+                                        f"{exc}") from exc
+                if item is None:
+                    refs[rank] = poll(rank)
+                    continue
+                results[rank] = item
+                if "error" in item:
+                    return results
+        return results
+
+    def _answer(self, gang: WorkerGang, replies: dict) -> None:
+        """Hands each rank its answer now, where no next poll would carry it
+        (a ``stop``)."""
+        refs = [gang.members[rank].run.remote(_poll_fn, (reply, 0.0), {})
+                for rank, reply in replies.items()]
+        try:
+            ray_tpu_torch.get(refs, timeout=60)
+        except (exceptions.RayTpuError, TimeoutError):
+            pass  # a member gone or wedged: the gang's shutdown kills it
 
     def _drive(self, gang: WorkerGang, storage: StorageContext, result: Result,
                attempt: dict, recorder: FlightRecorder) -> tuple:
@@ -468,27 +545,25 @@ class TorchTrainer:
         death raises GangDiedError."""
         done: set[int] = set()
         probe_state: dict = {}
+        replies: dict[int, tuple] = {}
         while True:
             reports: dict[int, dict] = {}
-            pending = [r for r in range(gang.num_workers) if r not in done]
-            while pending:
-                try:
-                    rank, (kind, *body) = gang.recv_any(pending, timeout=ROUND_TIMEOUT_S)
-                except TimeoutError as exc:
-                    raise TrainingFailedError(f"train workers stalled: {exc}") from exc
-                pending.remove(rank)
-                if kind == "error":
+            results = self._poll_round(
+                gang, [r for r in range(gang.num_workers) if r not in done], replies)
+            replies = {}
+            for rank, item in sorted(results.items()):
+                if "error" in item:
                     dead = gang.died(within=2.0)
                     if dead:  # the error echoes a member's death: the gang died
                         raise GangDiedError(f"gang members {dead} died; rank {rank} then "
-                                            f"raised {body[0]}")
-                    return WorkerError(rank, body[0], body[1]), None
-                if kind == "result":
+                                            f"raised {item['error']}")
+                    return WorkerError(rank, item["error"], item["traceback"]), None
+                if item.get("done"):
                     done.add(rank)
-                    if self._active is not None and (body[0] or {}).get("profile"):
-                        self._active.captures[rank] = body[0]["profile"]
+                    if self._active is not None and item.get("profile"):
+                        self._active.captures[rank] = item["profile"]
                 else:
-                    reports[rank] = body[0]
+                    reports[rank] = item
             if len(done) == gang.num_workers:
                 return None, None
             if not reports:
@@ -535,25 +610,23 @@ class TorchTrainer:
                     if handler:
                         handler(metrics)
             except BaseException:
-                # Stop the ranks waiting on this round, so that they leave at
-                # the gang's shutdown rather than at its kill.
-                for rank in reports:
-                    gang.send(rank, ("stop",))
+                # Stop the ranks waiting on this round, so that their loops
+                # end before the gang's shutdown kills them.
+                self._answer(gang, {rank: ("stop",) for rank in reports})
                 raise
             if any(key in metrics and metrics[key] >= bound
                    for key, bound in (self.run_config.stop or {}).items()):
-                for rank in reports:
-                    gang.send(rank, ("stop",))
+                self._answer(gang, {rank: ("stop",) for rank in reports})
                 return None, None
             # A committed checkpoint is the only safe boundary for a
             # voluntary transition: nothing since it is lost.
             if committed and self._want_grow(gang, probe_state):
-                for rank in reports:
-                    gang.send(rank, ("stop",))
+                self._answer(gang, {rank: ("stop",) for rank in reports})
                 return None, {"reason": "grow", "from": gang.num_workers,
                               "to": self.scaling_config.num_workers}
-            for rank in reports:
-                gang.send(rank, ("ack", extras[rank]) if rank in extras else ("ack",))
+            # The next round's polls carry the acks.
+            replies = {rank: ("ack", extras[rank]) if rank in extras else ("ack",)
+                       for rank in reports}
 
     # -- profile captures (the reference controller's side) -----------------
     def _profile_round(self, reports: dict, storage: StorageContext, result: Result) -> dict:

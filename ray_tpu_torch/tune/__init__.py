@@ -8,13 +8,13 @@ experiment resume via Tuner.restore(). SURVEY §2.5.
 
 Port of ray_tpu's ``tune/``, with the reference's exports. Search and
 scheduling are plain Python over ``random.Random``, copied so that one
-seed gives the same draws and decisions in both packages. Trials run in
-processes of their own (``execution/tune_controller.py``); a trial is a
-function or class trainable, or a ``TorchTrainer`` on its gang. Left out,
-each in ROADMAP Queue A item 1 with its reason: multi-host trials,
-per-trial GPU shares and trials pending for them, Optuna and TensorBoard
-where they are not installed, and trial processes kept for reuse
-(``reuse_actors``).
+seed gives the same draws and decisions in both packages. Trials are
+runtime actors (``execution/tune_controller.py``; ``Tuner.fit()`` needs
+``ray_tpu_torch.init()``), leasing ``{"CPU": 1}`` or what
+``with_resources`` asks; a trial is a function or class trainable, or a
+``TorchTrainer`` on its gang. Left out, each in ROADMAP Queue A item 1
+with its reason: multi-host trials, Optuna and TensorBoard where they are
+not installed, and trial actors kept for reuse (``reuse_actors``).
 """
 
 from ray_tpu_torch.tune.result_grid import ResultGrid, TrialResult
@@ -34,6 +34,7 @@ from ray_tpu_torch.tune.trainable import (
     get_checkpoint,
     report,
     with_parameters,
+    with_resources,
     wrap_function,
 )
 from ray_tpu_torch.tune.tuner import TuneConfig, Tuner, run
@@ -48,6 +49,7 @@ __all__ = [
     "report",
     "get_checkpoint",
     "with_parameters",
+    "with_resources",
     "wrap_function",
     "uniform",
     "loguniform",

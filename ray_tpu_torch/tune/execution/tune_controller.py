@@ -6,72 +6,52 @@ trials, consumes intermediate results, consults the scheduler
 (CONTINUE/PAUSE/STOP), persists experiment state for resume, restarts failed
 trials from their last checkpoint, and supports PBT checkpoint transplants.
 
-Port of ray_tpu's ``tune/execution/tune_controller.py``. The reference runs
-each trial as a runtime actor (``_TrialActor``); the port has no runtime,
-so each trial is a process of its own (``_TrialProcess``):
+Port of ray_tpu's ``tune/execution/tune_controller.py``. Each trial is a
+runtime actor, the reference's ``_TrialActor``, so ``Tuner.fit()`` needs
+``ray_tpu_torch.init()`` first:
 
-* Spawn. The trial's process comes from the ``spawn`` context and is not
-  daemonic: a trainer trial starts its own ``WorkerGang``, and
-  ``multiprocessing`` forbids children of daemonic processes. It leads a
-  process group of its own.
-* Interface. It answers ``train`` / ``save`` / ``restore`` / ``reset`` /
-  ``stop`` over a pipe, with the reference's timeouts (``CALL_TIMEOUT_S``,
-  ``RESTORE_TIMEOUT_S``, ``STOP_TIMEOUT_S``). Each call carries a number
-  and its answer the same, so a ``save`` asked of a trial whose ``train``
-  is still running (PBT's donor) waits behind it, as an actor's calls
-  queue. The loop waits on the pipes with
-  ``multiprocessing.connection.wait(..., timeout=1.0)`` where the
-  reference calls ``ray_tpu.wait``.
-* Pickling the trainable. There is no cloudpickle: the user's function or
-  class goes by module and qualified name (``TrainableRef``, as serve's
-  ``CallableRef`` sends deployments) and is wrapped (``wrap_function``)
-  inside the trial's process; a callable instance (the Tuner's trainer
-  wrapper, ``with_parameters``) goes as stdlib pickle, its class and the
-  functions it holds again by name. A trainable defined under
+* Resources. A trial's actor is started with ``num_cpus``, ``num_gpus``
+  and ``resources`` from ``resources_per_trial`` (every key, as the
+  reference hands every key to its runtime), and leases them from the node
+  agent; a trial asking for ``GPU`` sees only its lease's cards. A trial
+  that does not fit waits, PENDING in the runtime, until one that runs
+  frees its resources; one asking for a key the cluster never declared
+  waits as the reference's infeasible actor does.
+* Interface. The actor answers ``train`` / ``save`` / ``restore`` /
+  ``reset`` / ``stop`` with the reference's timeouts (``CALL_TIMEOUT_S``,
+  ``RESTORE_TIMEOUT_S``, ``STOP_TIMEOUT_S``); results are awaited with
+  ``ray_tpu_torch.wait`` and ``get``. A stopped trial is asked to
+  ``stop`` (a function trainable's waits for its thread, and so for a
+  ``TorchTrainer``'s gang to shut down) and then killed.
+* Nesting. A trainer trial's actor forms its gang, a placement group and
+  its member actors, from inside its worker, as in the reference.
+* Pickling the trainable. User code goes by module and qualified name
+  (``TrainableRef``, as serve's ``CallableRef`` sends deployments), never
+  by value, and a function is wrapped (``wrap_function``) inside the
+  trial's actor; a callable instance (the Tuner's trainer wrapper,
+  ``with_parameters``) goes as stdlib pickle, its class and the functions
+  it holds again by name (``_private.code_ref``). A trainable defined under
   ``<locals>`` raises ``ValueError``.
-* Checkpoints that outlive their process. Every message is stdlib
-  ``pickle`` bytes, so tensors cross by value. Once ``torch.multiprocessing``
-  is imported, ``multiprocessing``'s own pickler sends a CUDA tensor as a
-  CUDA IPC handle and a CPU tensor as shared memory, and both die with the
-  trial that saved them: ``_complete_trial`` kills a trial right after its
-  last save, and PBT restores a donor's checkpoint into another trial.
-* Stopped trials orphan no gang. ``_kill_actor`` asks the trial to stop (a
-  function trainable's ``stop`` waits for its thread, and so for a
-  ``TorchTrainer``'s gang to shut down), waits up to ``STOP_TIMEOUT_S``
-  for the answer, then kills the trial's process group: a trial killed
-  hard takes its gang members with it, where a member alone would only
-  notice its parent's death at its next pipe read.
-* Resources. A trial's process starts only once this process's resource
-  ledger (``_private.resources``) places ``resources_per_trial``, every
-  key of it, as the reference hands every key to its runtime; the lease
-  goes back when the process ends (``_kill_actor``, and the error paths
-  through it). A trial that does not place stays PENDING until one that
-  runs frees its resources, and one asking for a key the host never
-  declared stays PENDING, as the reference's infeasible actor waits. A
-  trial asking for ``GPU`` gets ``CUDA_VISIBLE_DEVICES`` set to the cards
-  it was given (serve's replicas get theirs the same way); one asking for
-  none sees the host's cards.
-* Concurrency. The ledger's CPU total over the trial's CPUs, as the
-  reference divides its cluster's CPUs; ``max_concurrent_trials``
-  overrides it.
+* Concurrency. The cluster's CPUs (``ray_tpu_torch.cluster_resources()``)
+  over the trial's CPUs, as the reference divides them;
+  ``max_concurrent_trials`` overrides it.
 """
 
 from __future__ import annotations
 
-import importlib
 import json
 import logging
-import multiprocessing
 import os
 import pickle
-import signal
+import sys
 import time
 import traceback
 import types
-from multiprocessing.connection import wait
 from typing import Any, Optional
 
-from ray_tpu_torch._private import resources
+import ray_tpu_torch
+from ray_tpu_torch import exceptions
+from ray_tpu_torch._private import code_ref
 from ray_tpu_torch.tune.experiment.trial import (
     ERROR, PAUSED, PENDING, RUNNING, TERMINATED, Trial, atomic_write_json,
 )
@@ -82,204 +62,93 @@ from ray_tpu_torch.tune.trainable import wrap_function
 EXPERIMENT_STATE_FILE = "experiment_state.json"
 
 # The reference's timeouts: a result, save, reset or a transplant's restore
-# (60 s), the restore that starts a trial (120 s, which here includes the
-# process's start), and stop (5 s) before the kill.
+# (60 s), the restore that starts a trial (120 s, which includes the actor's
+# start), and stop (5 s) before the kill.
 CALL_TIMEOUT_S = 60.0
 RESTORE_TIMEOUT_S = 120.0
 STOP_TIMEOUT_S = 5.0
-# How long a kill may take to end every process of the trial's group.
-KILL_WAIT_S = 10.0
-# How long a step with no call outstanding waits when a trial could not be
-# placed, before it asks the ledger again.
-PLACEMENT_POLL_S = 0.1
 
 logger = logging.getLogger(__name__)
 
 
-class TrialError(RuntimeError):
-    """A trainable's call raised in its trial's process, or the process
-    died; the message holds the trial's traceback."""
-
-
-def _lookup(module: str, qualname: str) -> Any:
-    obj = importlib.import_module(module)
-    for part in qualname.split("."):
-        obj = getattr(obj, part)
-    return obj
-
-
 class TrainableRef:
-    """A trainable on its way to a trial's process. A function or a
+    """A trainable on its way to a trial's actor. A function or a
     ``Trainable`` subclass goes by module and qualified name and is
     imported there; a function trainable is wrapped there. A callable
-    instance goes as stdlib pickle bytes."""
+    instance goes as stdlib pickle bytes, what it holds by name."""
 
     def __init__(self, trainable_cls: type):
         fn = getattr(trainable_cls, "_train_fn", None)
         self.wrap = fn is not None
         target = fn if self.wrap else trainable_cls
-        self.module = self.qualname = self.payload = None
+        self.name = self.payload = None
         if isinstance(target, (type, types.FunctionType)):
-            self.module, self.qualname = target.__module__, target.__qualname__
-            if "<locals>" in self.qualname:
-                raise ValueError(
-                    f"{self.module}.{self.qualname}: a trainable must be defined at the top "
-                    f"level of an importable module (each trial's process imports it by name)")
-            try:
-                found = _lookup(self.module, self.qualname)
-            except (ImportError, AttributeError):
-                found = None
+            self.name = code_ref.name_of(target)
+            found = sys.modules.get(target.__module__)
+            for part in target.__qualname__.split("."):
+                found = getattr(found, part, None)
             if found is not target:
                 raise ValueError(
-                    f"{self.module}.{self.qualname} is not reachable by its name: a trainable "
+                    f"{self.name[0]}.{self.name[1]} is not reachable by its name: a trainable "
                     f"must be defined at the top level of an importable module (each trial's "
-                    f"process imports it by name)")
+                    f"actor imports it by name)")
         else:
             try:
-                self.payload = pickle.dumps(target)
-            except (pickle.PicklingError, AttributeError, TypeError) as exc:
+                self.payload = code_ref.dumps(target)
+            except (pickle.PicklingError, AttributeError, TypeError, ValueError) as exc:
                 raise ValueError(
                     f"{target!r} does not pickle: a callable trainable's class, and the "
                     f"functions and objects it holds, must be defined at the top level of an "
-                    f"importable module (each trial's process imports them by name): {exc}"
+                    f"importable module (each trial's actor imports them by name): {exc}"
                 ) from exc
 
     def resolve(self) -> type:
-        """The Trainable class, in the trial's process."""
+        """The Trainable class, in the trial's actor."""
         if self.payload is not None:
-            target = pickle.loads(self.payload)
+            target = code_ref.loads(self.payload)
         else:
-            target = _lookup(self.module, self.qualname)
+            target = code_ref.lookup(*self.name)
         return wrap_function(target) if self.wrap else target
 
 
-def _group_running(pgid: int) -> bool:
-    """Whether any process of group ``pgid`` still runs (a zombie, which
-    holds no memory or device, counts as ended)."""
-    for entry in os.listdir("/proc"):
-        if not entry.isdigit():
-            continue
+class _TrialActor:
+    """Hosts one Trainable instance; its remote surface mirrors the
+    reference's trainable-actor protocol (train/save/restore/reset/stop).
+    A trainable whose construction raised answers every call with that
+    error (the runtime would otherwise retry the actor's start until its
+    placement deadline)."""
+
+    def __init__(self, ref: TrainableRef, config: dict):
+        self._trainable, self._failed = None, None
         try:
-            with open(f"/proc/{entry}/stat") as f:
-                fields = f.read().rsplit(")", 1)[1].split()
-        except OSError:  # the process ended while we looked
-            continue
-        if int(fields[2]) == pgid and fields[0] != "Z":
-            return True
-    return False
+            self._trainable = ref.resolve()(config)
+        except Exception:
+            self._failed = traceback.format_exc()
 
+    def _get(self):
+        if self._failed is not None:
+            raise RuntimeError(f"the trainable failed to start:\n{self._failed}")
+        return self._trainable
 
-def _error_text(exc: BaseException) -> str:
-    tb = getattr(exc, "_tb", None) or traceback.format_exc()
-    return f"{type(exc).__name__}: {exc}\n{tb}"
+    def train(self) -> dict:
+        return self._get().train()
 
+    def save(self) -> Any:
+        return self._get().save()
 
-def _trial_main(spec: bytes, conn) -> None:
-    """A trial's process: builds the trainable, then answers the
-    controller's calls, in order, until ``stop``."""
-    # A group of its own: the controller's kill reaches the gang members a
-    # trainer trial starts.
-    os.setpgrp()
-    trainable, failed = None, None
-    try:
-        ref, config = pickle.loads(spec)
-        trainable = ref.resolve()(config)
-    except Exception as exc:  # every call answers with it
-        failed = _error_text(exc)
-    while True:
-        try:
-            seq, method, args = pickle.loads(conn.recv_bytes())
-        except EOFError:  # the controller is gone
-            return
-        if failed is not None:
-            reply = (seq, "error", failed)
-        else:
-            try:
-                reply = (seq, "ok", getattr(trainable, method)(*args))
-            except Exception as exc:
-                reply = (seq, "error", _error_text(exc))
-        try:
-            data = pickle.dumps(reply)
-        except Exception as exc:  # a result or checkpoint stdlib pickle refuses
-            data = pickle.dumps((seq, "error", _error_text(exc)))
-        conn.send_bytes(data)
-        if method == "stop":
-            return
+    def restore(self, checkpoint: Any) -> str:
+        self._get().restore(checkpoint)
+        return "ok"
 
+    def reset(self, new_config: dict) -> bool:
+        return self._get().reset(new_config)
 
-class _TrialProcess:
-    """One trial's process and the controller's end of its pipe: the
-    reference's ``_TrialActor`` handle. ``submit`` returns a call's number;
-    ``result`` waits for that call's answer."""
+    def stop(self) -> str:
+        self._get().stop()
+        return "ok"
 
-    def __init__(self, ref: TrainableRef, config: dict, name: str,
-                 visible_devices: str | None = None):
-        ctx = multiprocessing.get_context("spawn")
-        self.conn, child = ctx.Pipe()
-        # Not daemonic: a trainer trial's gang members are its children.
-        self.process = ctx.Process(target=_trial_main, args=(pickle.dumps((ref, config)), child),
-                                   name=name, daemon=False)
-        with resources.child_visible_devices(visible_devices):
-            self.process.start()
-        child.close()
-        self._seq = 0
-        self._replies: dict[int, tuple] = {}
-        self._dead = False
-
-    def submit(self, method: str, *args) -> int:
-        self._seq += 1
-        try:
-            self.conn.send_bytes(pickle.dumps((self._seq, method, args)))
-        except OSError:  # the process is gone: the call's result says so
-            self._dead = True
-        return self._seq
-
-    def pull(self, timeout: float) -> None:
-        """Reads one answer into the buffer; an answer that does not come
-        within ``timeout`` raises TimeoutError."""
-        if not self.conn.poll(timeout):
-            raise TimeoutError(f"{self.process.name} answered nothing within {timeout} s")
-        try:
-            seq, kind, value = pickle.loads(self.conn.recv_bytes())
-        except (EOFError, OSError):
-            self._dead = True
-            return
-        self._replies[seq] = (kind, value)
-
-    def has_reply(self, seq: int) -> bool:
-        return seq in self._replies or self._dead
-
-    def result(self, seq: int, timeout: float) -> Any:
-        deadline = time.monotonic() + timeout
-        while not self.has_reply(seq):
-            self.pull(max(0.0, deadline - time.monotonic()))
-        if seq not in self._replies:
-            self.process.join(1.0)
-            raise TrialError(f"{self.process.name} died (exit code {self.process.exitcode})")
-        kind, value = self._replies.pop(seq)
-        if kind == "error":
-            raise TrialError(value)
-        return value
-
-    def call(self, method: str, *args, timeout: float) -> Any:
-        return self.result(self.submit(method, *args), timeout)
-
-    def kill(self) -> None:
-        """Kills the trial's process group (the process and the gang
-        members a trainer trial may have left), reaps the process and
-        waits, up to ``KILL_WAIT_S``, until no process of the group runs."""
-        pgid = self.process.pid
-        try:
-            os.killpg(pgid, signal.SIGKILL)
-        except (ProcessLookupError, PermissionError):  # the group is gone
-            pass
-        if self.process.exitcode is None:  # killed before it made its group
-            self.process.kill()
-        self.process.join()
-        self.conn.close()
-        deadline = time.monotonic() + KILL_WAIT_S
-        while _group_running(pgid) and time.monotonic() < deadline:
-            time.sleep(0.01)
+    def pid(self) -> int:
+        return os.getpid()
 
 
 class TuneController:
@@ -320,16 +189,13 @@ class TuneController:
         self.time_budget_s = time_budget_s
 
         self.trials: list[Trial] = []
-        self._actors: dict[str, _TrialProcess] = {}  # trial_id -> its process
-        self._leases: dict[str, resources.Lease] = {}  # trial_id -> what it holds
-        self._unplaced_warned: set[str] = set()
-        # (process, call number) of an outstanding train() -> Trial
-        self._futures: dict[tuple[_TrialProcess, int], Trial] = {}
+        self._actors: dict[str, Any] = {}  # trial_id -> ActorHandle
+        self._futures: dict[Any, Trial] = {}  # train() ObjectRef -> Trial
         self._searcher_exhausted = False
         if max_concurrent_trials:
             self._max_concurrent = max_concurrent_trials
         else:
-            cpus = resources.cluster_resources().get("CPU", 4)
+            cpus = ray_tpu_torch.cluster_resources().get("CPU", 4)
             per_trial = max(self.resources_per_trial.get("CPU", 1), 0.01)
             self._max_concurrent = max(1, int(cpus / per_trial))
 
@@ -341,11 +207,12 @@ class TuneController:
 
     def transplant_trial(self, trial: Trial, donor: Trial, new_config: dict) -> None:
         """PBT exploit: copy donor's latest checkpoint + new config into
-        trial's process (reset in place or recreate)."""
-        donor_proc = self._actors.get(donor.trial_id)
-        if donor_proc is not None:
+        trial's actor (reset in place or recreate)."""
+        donor_actor = self._actors.get(donor.trial_id)
+        if donor_actor is not None:
             try:
-                donor.checkpoint = donor_proc.call("save", timeout=CALL_TIMEOUT_S)
+                donor.checkpoint = ray_tpu_torch.get(donor_actor.save.remote(),
+                                                     timeout=CALL_TIMEOUT_S)
                 donor.checkpoint_iter = donor.iteration
             except Exception:
                 # Exploit proceeds from the donor's LAST saved checkpoint.
@@ -357,20 +224,19 @@ class TuneController:
         trial.config = dict(new_config)
         trial.checkpoint = donor.checkpoint
         trial.checkpoint_iter = donor.checkpoint_iter
-        proc = self._actors.get(trial.trial_id)
-        if proc is None:
+        actor = self._actors.get(trial.trial_id)
+        if actor is None:
             return
         try:
-            in_place = proc.call("reset", new_config, timeout=CALL_TIMEOUT_S)
+            in_place = ray_tpu_torch.get(actor.reset.remote(new_config), timeout=CALL_TIMEOUT_S)
         except Exception:
             in_place = False
         if not in_place:
             self._drop_pending_future(trial)
             self._kill_actor(trial)
-            if not self._start_trial_actor(trial):
-                trial.set_status(PENDING)  # restarts once its resources free
+            self._start_trial_actor(trial)
         elif trial.checkpoint is not None:
-            proc.call("restore", trial.checkpoint, timeout=CALL_TIMEOUT_S)
+            ray_tpu_torch.get(actor.restore.remote(trial.checkpoint), timeout=CALL_TIMEOUT_S)
 
     # -- lifecycle --
 
@@ -406,48 +272,35 @@ class TuneController:
     def _live_suggestions(self) -> list[Trial]:
         return [t for t in self.trials if t.status in (PENDING, RUNNING, PAUSED)]
 
-    def _start_trial_actor(self, trial: Trial) -> bool:
-        """Starts the trial's process once the ledger places its resources;
-        False, and nothing started, while it cannot."""
-        try:
-            lease = resources.ledger().acquire(self.resources_per_trial)
-        except resources.PlacementGroupUnschedulableError as exc:
-            if trial.trial_id not in self._unplaced_warned:
-                self._unplaced_warned.add(trial.trial_id)
-                logger.warning("trial %s waits for resources: %s", trial.trial_id, exc)
-            return False
-        self._leases[trial.trial_id] = lease
-        visible = (lease.visible_devices() if self.resources_per_trial.get("GPU", 0) > 0
-                   else None)
-        try:
-            proc = _TrialProcess(self._ref, trial.config,
-                                 name=f"trial-{self.trainable_name}-{trial.trial_id}",
-                                 visible_devices=visible)
-        except BaseException:
-            self._leases.pop(trial.trial_id).release()
-            raise
-        self._actors[trial.trial_id] = proc
+    def _start_trial_actor(self, trial: Trial) -> None:
+        rpt = dict(self.resources_per_trial)
+        cpus, gpus = rpt.pop("CPU", 1), rpt.pop("GPU", 0)
+        actor = ray_tpu_torch.remote(_TrialActor).options(
+            num_cpus=cpus, num_gpus=gpus, resources=rpt or None,
+        ).remote(self._ref, trial.config)
+        self._actors[trial.trial_id] = actor
         if trial.checkpoint is not None:
-            proc.call("restore", trial.checkpoint, timeout=RESTORE_TIMEOUT_S)
+            ray_tpu_torch.get(actor.restore.remote(trial.checkpoint), timeout=RESTORE_TIMEOUT_S)
         trial.set_status(RUNNING)
-        self._futures[(proc, proc.submit("train"))] = trial
-        return True
+        self._futures[actor.train.remote()] = trial
 
     def _kill_actor(self, trial: Trial) -> None:
-        proc = self._actors.pop(trial.trial_id, None)
-        if proc is None:
+        actor = self._actors.pop(trial.trial_id, None)
+        if actor is None:
             return
         try:
-            proc.call("stop", timeout=STOP_TIMEOUT_S)
-        except Exception:  # stop timed out or the process is gone; the kill follows
+            ray_tpu_torch.get(actor.stop.remote(), timeout=STOP_TIMEOUT_S)
+        except Exception:  # stop timed out or the actor is gone; the kill follows
             pass
-        proc.kill()
-        self._leases.pop(trial.trial_id).release()
+        try:
+            ray_tpu_torch.kill(actor)
+        except exceptions.RayTpuError:
+            pass  # the actor is already gone
 
     def _drop_pending_future(self, trial: Trial) -> None:
-        for key, t in list(self._futures.items()):
+        for ref, t in list(self._futures.items()):
             if t is trial:
-                del self._futures[key]
+                del self._futures[ref]
 
     def _running_count(self) -> int:
         return sum(1 for t in self.trials if t.status == RUNNING)
@@ -465,30 +318,21 @@ class TuneController:
             choice = self.scheduler.choose_trial_to_run(self)
             if choice is None:
                 break
-            if not self._start_trial_actor(choice):
-                if not self._futures:  # nothing of ours to free it: wait a little
-                    time.sleep(PLACEMENT_POLL_S)
-                break
+            self._start_trial_actor(choice)
 
         if not self._futures:
             return
 
-        # 2. consume one completed train() (the reference's num_returns=1),
-        # the first in submission order
-        if not any(proc.has_reply(seq) for proc, seq in self._futures):
-            by_conn = {proc.conn: proc for proc, _ in self._futures}
-            for conn in wait(list(by_conn), timeout=1.0):
-                by_conn[conn].pull(0.0)
-        ready = next((key for key in self._futures if key[0].has_reply(key[1])), None)
-        if ready is None:
-            return
-        trial = self._futures.pop(ready)
-        try:
-            result = ready[0].result(ready[1], timeout=CALL_TIMEOUT_S)
-        except Exception as exc:
-            self._handle_trial_error(trial, exc)
-            return
-        self._handle_result(trial, result)
+        # 2. consume one completed train() (the reference's num_returns=1)
+        ready, _ = ray_tpu_torch.wait(list(self._futures), num_returns=1, timeout=1.0)
+        for ref in ready:
+            trial = self._futures.pop(ref)
+            try:
+                result = ray_tpu_torch.get(ref, timeout=CALL_TIMEOUT_S)
+            except Exception as exc:
+                self._handle_trial_error(trial, exc)
+                continue
+            self._handle_result(trial, result)
 
     def _handle_result(self, trial: Trial, result: dict) -> None:
         trial.iteration = result.get("training_iteration", trial.iteration + 1)
@@ -517,10 +361,10 @@ class TuneController:
             and trial.iteration - trial.checkpoint_iter >= self.checkpoint_freq
         )
         if (checkpoint_now or done or decision != TrialScheduler.CONTINUE) and (
-            proc := self._actors.get(trial.trial_id)
+            actor := self._actors.get(trial.trial_id)
         ):
             try:
-                ckpt = proc.call("save", timeout=CALL_TIMEOUT_S)
+                ckpt = ray_tpu_torch.get(actor.save.remote(), timeout=CALL_TIMEOUT_S)
                 if ckpt is not None:
                     trial.checkpoint = ckpt
                     trial.checkpoint_iter = trial.iteration
@@ -541,9 +385,9 @@ class TuneController:
             trial.set_status(PAUSED)
             self._kill_actor(trial)
         else:
-            proc = self._actors.get(trial.trial_id)
-            if proc is not None:
-                self._futures[(proc, proc.submit("train"))] = trial
+            actor = self._actors.get(trial.trial_id)
+            if actor is not None:
+                self._futures[actor.train.remote()] = trial
         self._save_experiment_state()
 
     def _complete_trial(
@@ -600,11 +444,13 @@ class TuneController:
                     if self._next_trial() is None:
                         break
         finally:
-            # An exception out of the loop leaves no trial's process (nor
-            # its gang) behind; on a normal end none is left to kill.
+            # An exception out of the loop leaves no trial's actor (nor its
+            # gang) behind; on a normal end none is left to kill.
             for trial_id in list(self._actors):
-                self._actors.pop(trial_id).kill()
-                self._leases.pop(trial_id).release()
+                try:
+                    ray_tpu_torch.kill(self._actors.pop(trial_id))
+                except exceptions.RayTpuError:
+                    pass  # the actor is already gone
         self._save_experiment_state()
         return self.trials
 

@@ -20,7 +20,7 @@ controller to send. ``with_parameters`` returns an instance of a
 module-level class for the same reason (the reference returns a closure).
 Stopping a function trainable waits for its thread, up to
 ``STOP_JOIN_S``, so that what the function started (a ``TorchTrainer``'s
-gang) is shut down before the trial's process answers ``stop``.
+gang) is shut down before the trial's actor answers ``stop``.
 """
 
 from __future__ import annotations
@@ -61,7 +61,7 @@ class Trainable:
 
     def reset_config(self, new_config: dict) -> bool:
         """In-place config swap (PBT explore). False = controller must
-        restart the trial's process instead."""
+        restart the trial's actor instead."""
         return False
 
     def cleanup(self) -> None:
@@ -226,7 +226,7 @@ def wrap_function(train_fn: Callable[[dict], Any]) -> type:
 
 class _WithParameters:
     """``fn(config, **params)``: a module-level class, so that stdlib
-    pickle takes it to the trial's process (by ``fn``'s qualified name and
+    pickle takes it to the trial's actor (by ``fn``'s qualified name and
     the parameters' values)."""
 
     def __init__(self, fn: Callable, params: dict):
@@ -241,5 +241,25 @@ def with_parameters(fn: Callable, **params) -> Callable:
     """ray.tune.with_parameters-equivalent: close large objects over the
     trainable without putting them in the config dict. ``fn`` must be
     defined at the top level of an importable module, and ``params``
-    picklable: both go to the trial's process."""
+    picklable: both go to the trial's actor."""
     return _WithParameters(fn, params)
+
+
+class _WithResources:
+    """``fn`` with the resources each of its trials' actors leases."""
+
+    def __init__(self, fn: Callable, resources: dict):
+        self.fn, self.resources = fn, {k: float(v) for k, v in resources.items()}
+        self.__name__ = getattr(fn, "__name__", "trainable")
+
+    def __call__(self, config: dict):
+        return self.fn(config)
+
+
+def with_resources(fn: Callable, resources: dict) -> Callable:
+    """ray.tune.with_resources-equivalent: each trial of ``fn`` leases
+    ``resources`` (the runtime's keys: ``{"CPU": 1, "GPU": 0.125}``) in
+    place of the default ``{"CPU": 1}``; a trial that runs on a card must
+    ask for a share of one, or it sees none. ``fn`` must be defined at the
+    top level of an importable module."""
+    return _WithResources(fn, resources)

@@ -28,7 +28,7 @@ from ray_tpu_torch.tune.result_grid import ResultGrid
 from ray_tpu_torch.tune.schedulers.trial_scheduler import FIFOScheduler, TrialScheduler
 from ray_tpu_torch.tune.search.basic_variant import BasicVariantGenerator
 from ray_tpu_torch.tune.search.searcher import ConcurrencyLimiter, Searcher
-from ray_tpu_torch.tune.trainable import Trainable, report, wrap_function
+from ray_tpu_torch.tune.trainable import Trainable, _WithResources, report, wrap_function
 
 
 @dataclass
@@ -61,7 +61,7 @@ class _ForwardToTune:
 class _TrainerTrainable:
     """Runs a copy of the trainer inside the trial, forwarding per-round
     metrics to tune.report via a RunConfig callback. Stdlib pickle takes
-    it, and the trainer it holds, to the trial's process."""
+    it, and the trainer it holds, to the trial's actor."""
 
     def __init__(self, trainer):
         self.trainer = trainer
@@ -99,6 +99,9 @@ class Tuner:
         self.run_config = run_config or RunConfig()
         self._restore_path = _restore_path
         self._resume_errored = _resume_errored
+        # What each trial's actor leases (``tune.with_resources``).
+        self._resources = getattr(trainable, "resources", None) if isinstance(
+            trainable, _WithResources) else None
 
         if isinstance(trainable, type) and issubclass(trainable, Trainable):
             self._trainable_cls = trainable
@@ -180,6 +183,7 @@ class Tuner:
             checkpoint_freq=self.run_config.checkpoint_config.checkpoint_frequency,
             callbacks=self.run_config.callbacks,
             time_budget_s=cfg.time_budget_s,
+            resources_per_trial=self._resources,
         )
         if self._restore_path:
             controller.restore_experiment_state(self._resume_errored)

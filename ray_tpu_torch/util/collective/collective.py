@@ -67,8 +67,9 @@ the ``wire_bytes`` the op put on the wire (the record takes the span's
 trace id; the reference counts the group's bytes sent meanwhile, which is
 the same unless ops run at once, as the bucketed overlap's do), and its wall time as the train step's "collective" phase
 (``train.step_stats.record_phase``; one bool check outside a train
-session). Left out until the runtime's metrics (ROADMAP Queue A item
-14b): the ``rt_collective_*`` series.
+session), and each op feeds the ``rt_collective_bytes_total`` and
+``rt_collective_op_latency_s`` series (``util.metrics.record_collective_op``,
+tagged {op, backend}), which a runtime process flushes to the controller.
 """
 
 from __future__ import annotations
@@ -991,9 +992,18 @@ def _instrumented_outer(op: str, group, array, call, tag=None):
             ok = True
         finally:
             flight.completed(rec, ok=ok)
+    elapsed = time.perf_counter() - start
     # Inside a train session this wall time is the step's "collective"
     # phase; outside one it is one bool check.
-    step_stats.record_phase("collective", time.perf_counter() - start)
+    step_stats.record_phase("collective", elapsed)
+    from ray_tpu_torch.util import metrics
+
+    wire_delta = _thread_sent() - wire_before if wire is not None else 0
+    # Ring-family backends report the bytes they put on the wire; the
+    # process group's own the logical payload.
+    metrics.record_collective_op(op=op, backend=backend,
+                                 nbytes=wire_delta if wire_delta else int(nbytes or 0),
+                                 seconds=elapsed)
     return result
 
 

@@ -20,8 +20,11 @@ stall is kept in ``stall_events()`` and handed to the in-process stall
 listeners (the compiled graphs' supervisor registers one).
 ``hang_doctor.build_report`` merges the ranks' rings into one verdict.
 
-Left out until the runtime core (ROADMAP Queue A item 14): publishing a
-stall to a controller and the in-flight metrics gauge.
+A stall also counts in ``rt_comm_stalls_total{group, channel}``, and the
+watchdog sets the ``rt_comm_inflight`` and ``rt_comm_inflight_oldest_age_s``
+gauges each tick (``util.metrics``), which a runtime process flushes to the
+controller. Left out until ROADMAP Queue A item 14d: publishing a stall
+event to the controller.
 
 The hot path is a slot store into a preallocated ring addressed by
 ``next(itertools.count())`` (atomic under CPython) plus dict and deque
@@ -227,10 +230,8 @@ class FlightRecorder:
         # rid -> live record; the watchdog's scan set
         self._inflight: dict[int, CommRecord] = {}
         self._stalls: list[dict] = []
-        # Where a stall goes besides stall_events() and the listeners: the
-        # reference's controller and metrics come with the runtime core
-        # (ROADMAP Queue A item 14).
-        self._publish = publish if publish is not None else (lambda event: None)
+        # Where a stall goes besides stall_events() and the listeners.
+        self._publish = publish if publish is not None else _default_publish
         # watchdog tunables
         self.tick_s = _env_f("RAY_TPU_COMM_WATCHDOG_TICK_S", 0.25)
         self.min_deadline_s = _env_f("RAY_TPU_COMM_WATCHDOG_MIN_S", 2.0)
@@ -394,8 +395,29 @@ class FlightRecorder:
             time.sleep(self.tick_s)
             try:
                 self.check_once()
+                _export_inflight_gauge(self)
             except Exception:  # the watchdog outlives a failing scan
                 pass
+
+
+def _default_publish(event: dict) -> None:
+    """A stall's metric: rt_comm_stalls_total{group, channel}."""
+    from ray_tpu_torch.util import metrics
+
+    metrics.record_comm_stall(event.get("group", "?"), event.get("channel", "?"))
+
+
+def _export_inflight_gauge(rec: FlightRecorder) -> None:
+    """rt_comm_inflight rides the metrics flush: the gauge is overwritten
+    each tick (a snapshot, never drained), so a retried flush sends the
+    same value again instead of losing it."""
+    from ray_tpu_torch._private import worker as worker_mod
+    from ray_tpu_torch.util import metrics
+
+    summary = rec.inflight_summary()
+    identity = (worker_mod.get_global_context().worker_id or "driver"
+                if worker_mod.is_initialized() else "driver")
+    metrics.set_comm_inflight(summary["count"], summary["oldest_age_s"], identity)
 
 
 # ---------------------------------------------------------------------------

@@ -13,11 +13,11 @@ flush.
 
 The serve series (the proxy's request latency and status, the handle's
 reliability events and breaker states, the replicas' occupancy gauges, the
-serve-LLM engine's TTFT, TPOT, token ledger and KV blocks) have their
-callers. The collective series (``record_collective_op``,
-``record_comm_stall``, ``set_comm_inflight``) wait for the gangs' move onto
-the runtime (ROADMAP item 14b-ii-b): a gang member has no runtime context
-to flush to.
+serve-LLM engine's TTFT, TPOT, token ledger and KV blocks) and the
+collective series (``record_collective_op`` from every collective op,
+``record_comm_stall`` and ``set_comm_inflight`` from the comm flight
+recorder's watchdog) have their callers; a gang member is a runtime actor
+and flushes its points as any worker does.
 """
 
 from __future__ import annotations

@@ -8,6 +8,7 @@ tests/test_serve.py's.
 """
 
 import asyncio
+import gc
 import os
 import time
 
@@ -101,6 +102,11 @@ class Doubler:
 
     def pid(self, _):
         return os.getpid()
+
+    def frozen(self, _):
+        """This process's pid and how many objects its start froze out of
+        the collector."""
+        return os.getpid(), gc.get_freeze_count()
 
 
 @serve.deployment

@@ -16,7 +16,7 @@ import time
 import numpy as np
 import pytest
 
-from ray_tpu_torch._private import resources
+import ray_tpu_torch as rt
 from ray_tpu_torch.train.config import FailureConfig, RunConfig, ScalingConfig
 from ray_tpu_torch.train.release_loops import write_pid, write_rank
 from ray_tpu_torch.train.trainer import TorchTrainer
@@ -26,12 +26,13 @@ from ray_tpu_torch.train.trainer import TorchTrainer
 SLOTS = {"CPU": 1, "trainslot": 1}
 
 
-@pytest.fixture
+@pytest.fixture(scope="module")
 def slots():
-    """Four trainslots on this process's ledger; the host's own after."""
-    ledger = resources.declare(num_cpus=8, resources={"trainslot": 4})
-    yield ledger
-    resources.declare()
+    """A cluster of the module's (``ray_tpu_torch.init``) with 8 CPUs and
+    four trainslots."""
+    rt.init(num_cpus=8, resources={"trainslot": 4})
+    yield
+    rt.shutdown()
 
 
 def elastic_fit(tmp_path, name, loop, config, callbacks, *, workers=4, min_workers=2,
@@ -155,7 +156,8 @@ def fsdp_loop(config):
 
 def cards_loop(config):
     """A dp all-reduce a step on NCCL workers, one a card: each report holds
-    every rank's card (gathered) and rank 0 checkpoints {"step"}."""
+    every rank's card, as its lease named it (gathered), and rank 0
+    checkpoints {"step"}."""
     import torch
     import torch.distributed as dist
 
@@ -172,7 +174,8 @@ def cards_loop(config):
         grad = torch.full((1024,), float(ctx.world_rank + 1), device=device)
         dist.all_reduce(grad)
         cards = [None] * ctx.world_size
-        dist.all_gather_object(cards, device.index)
+        # The card this member's lease named (each member sees its own as 0).
+        dist.all_gather_object(cards, int(os.environ["CUDA_VISIBLE_DEVICES"]))
         checkpoint = save_pytree_checkpoint({"step": step}) if ctx.world_rank == 0 else None
         session.report({"step": step, "world_size": ctx.world_size, "cards": cards,
                         "sum": float(grad[0])}, checkpoint=checkpoint)

@@ -138,15 +138,14 @@ def trainer_loop(config):
 
 
 def pid_loop(config):
-    """A TorchTrainer loop that reports its process (a gang member) and its
-    parent (the trial's process) each round; after round ``stall_after``
-    it sleeps, so that its trial cannot stop before the controller's
-    kill."""
+    """A TorchTrainer loop that reports its process (a gang member) each
+    round; after round ``stall_after`` it sleeps, so that its trial cannot
+    stop before the controller's kill."""
     from ray_tpu_torch.train import report
 
     stall_after = config.get("stall_after")
     for i in range(1, config.get("rounds", 6) + 1):
-        report({"loss": config["lr"] * (7 - i), "pid": os.getpid(), "ppid": os.getppid()})
+        report({"loss": config["lr"] * (7 - i), "pid": os.getpid()})
         if stall_after is not None and i >= stall_after:
             time.sleep(120)
 

@@ -75,6 +75,10 @@ class Counter:
     def crash(self):
         os._exit(1)
 
+    def nap(self, seconds):
+        time.sleep(seconds)
+        return seconds
+
 
 def _eventually(predicate, timeout=10.0):
     deadline = time.monotonic() + timeout
@@ -232,6 +236,46 @@ def test_actors_named_ordered_and_killed(cluster):
     rt.kill(counter)
     with pytest.raises((exceptions.ActorDiedError, exceptions.ActorUnavailableError)):
         rt.get(counter.read.remote(), timeout=60)
+
+
+def test_a_wait_cancelled_on_a_loop_leaves_the_loop_running(cluster):
+    """A call awaited on an event loop (``get_on_loop``, as a serve
+    handle's attempt is) and cancelled there, as a hedge's loser is, drops
+    its ref while the engine's wait for the reply still runs on a settle
+    thread. The loop goes on at once: before, the drop waited on the loop
+    for that wait's lock, until the reply (or a dead replica's lost
+    connection), and every request on the loop with it."""
+    import asyncio
+    import concurrent.futures
+
+    from ray_tpu_torch._private import worker
+
+    counter = Counter.remote()
+    # Started, and its direct connection made (the lane the settle drives).
+    assert rt.get([counter.nap.remote(0) for _ in range(3)], timeout=60) == [0, 0, 0]
+    ctx = worker.get_global_context()
+    settle_threads = concurrent.futures.ThreadPoolExecutor(2)
+
+    async def cancel_a_slow_call() -> float:
+        async def call():
+            return await ctx.get_on_loop(counter.nap.remote(2.0), settle_threads)
+
+        task = asyncio.ensure_future(call())
+        await asyncio.sleep(0.2)
+        task.cancel()
+        t0 = time.monotonic()
+        with pytest.raises(asyncio.CancelledError):
+            await task
+        await asyncio.sleep(0.05)
+        return time.monotonic() - t0
+
+    try:
+        assert asyncio.run(cancel_a_slow_call()) < 1.0
+        # The call still ran to its end, and the actor goes on answering.
+        assert rt.get(counter.nap.remote(0), timeout=60) == 0
+    finally:
+        settle_threads.shutdown(wait=True)
+        rt.kill(counter)
 
 
 def test_max_restarts_then_actor_died(cluster):

@@ -18,6 +18,10 @@ that resumes exactly after a death and across an elastic step-down.
   (tests/test_train_elastic.py:180-183).
 * The local store leaves no file after shutdown, removes a dead process's
   store, and a data worker sees no CUDA device.
+
+The trainer's gang members are runtime actors (the module boots one
+cluster); the shards they read are still the local task layer's
+(``_private/local_tasks.py``), which any process of the host can read.
 """
 
 import json
@@ -28,14 +32,20 @@ import numpy as np
 import pytest
 
 import _torch_data_apps as apps
+import _torch_runtime as runtime
 import ray_tpu.data as rd_ref
-from _torch_trainer_apps import elastic_fit, slots  # noqa: F401 (a fixture)
+from _torch_trainer_apps import elastic_fit
 from ray_tpu_torch import data as rd
 from ray_tpu_torch._private import local_tasks
 from ray_tpu_torch.train import release_loops
 from ray_tpu_torch.train.checkpoint import INGEST_FILE, StorageContext
 from ray_tpu_torch.train.config import FailureConfig, RunConfig, ScalingConfig
 from ray_tpu_torch.train.trainer import TorchTrainer
+
+
+# The trainer's gangs run on a cluster of the module's, with four
+# trainslots for the elastic case.
+slots = runtime.cluster_fixture(autouse=True, num_cpus=8, resources={"trainslot": 4})
 
 
 @pytest.fixture(scope="module")
@@ -201,7 +211,7 @@ def test_a_death_mid_epoch_resumes_exactly(pool, tmp_path):
     assert len(ids) - n <= 3 * batch * 2
 
 
-def test_an_elastic_step_down_mid_epoch_resumes_exactly(pool, tmp_path, slots):  # noqa: F811
+def test_an_elastic_step_down_mid_epoch_resumes_exactly(pool, tmp_path, slots):
     """Item 4c's churn on an ingest loop: rank 3 is killed at step 1 and
     its slot held, so the gang re-forms at 3 over the rows left."""
     n, batch = 96, 8
@@ -213,8 +223,7 @@ def test_an_elastic_step_down_mid_epoch_resumes_exactly(pool, tmp_path, slots): 
                              {"batch_size": batch, "log_dir": str(log_dir)}, [churn],
                              probe_s=0.0, datasets={"train": rd.range(n, parallelism=4)})
     finally:
-        if churn.lease is not None:
-            churn.lease.release()
+        churn.release()
     assert result.error is None, result.error
     assert [(r["reason"], r["from"]) for r in result.resizes] == [("gang_died", 4)]
     assert result.metrics["world_size"] == 3 and result.metrics.get("epoch_done") is True

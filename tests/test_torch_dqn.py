@@ -35,6 +35,11 @@ from ray_tpu_torch.rllib.policy.sample_batch import (
 )
 from ray_tpu_torch.rllib.utils import replay_buffers as prb
 
+import _torch_runtime as runtime  # noqa: E402
+
+# The gangs, trials and RLlib actors here run on one cluster a module.
+cluster = runtime.cluster_fixture(autouse=True, num_cpus=8)
+
 MODEL = {"fcnet_hiddens": (16, 16)}
 
 

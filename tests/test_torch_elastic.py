@@ -1,6 +1,7 @@
 """Bounded elasticity in the port's ``TorchTrainer`` against the JAX
 package's ``JaxTrainer``, on gloo gangs whose workers lease a CPU and one
-of four declared ``trainslot``s from the host's resource ledger.
+of four declared ``trainslot``s from the node agent of the module's
+cluster (``ray_tpu_torch.init``).
 
 * ``ScalingConfig``'s elastic validation equals the reference's.
 * release/benchmarks_elastic.py's churn at its smoke scale: the churned
@@ -9,9 +10,9 @@ of four declared ``trainslot``s from the host's resource ledger.
   the flight recorder's restart and stalled time above 0.
 * An fsdp-sharded state committed at world 4 restores at world 2 bitwise
   through ``restore_sharded_state``.
-* On four cards (``cuda``-marked, skipped elsewhere): with card 1 leased
-  elsewhere, a gang of three NCCL workers runs on cards 0, 2 and 3 and
-  grows back to four when the card frees.
+* On four cards (``cuda``-marked, skipped elsewhere): with one card leased
+  by another actor, a gang of three NCCL workers runs on the other three
+  and grows back to four when the card frees.
 
 Step-down and grow-back against the reference's own runs are
 ``tests/test_torch_elastic_resize.py``: the reference needs an in-process
@@ -22,9 +23,10 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_runtime as runtime
 import _torch_trainer_apps as apps
+import ray_tpu_torch as rt
 from _torch_trainer_apps import elastic_fit, slots, transitions  # noqa: F401 (a fixture)
-from ray_tpu_torch._private import resources
 from ray_tpu_torch.train import release_loops
 from ray_tpu_torch.train.config import ScalingConfig
 
@@ -53,6 +55,7 @@ def test_scaling_config_elastic_validation_matches_the_reference():
 
 
 def test_churned_quadratic_equals_the_undisturbed_runs(ray_start_shared, tmp_path, slots):
+    free = rt.available_resources()
     from ray_tpu.train import JaxTrainer
     from ray_tpu.train import RunConfig as RefRunConfig
     from ray_tpu.train import ScalingConfig as RefScalingConfig
@@ -83,6 +86,7 @@ def test_churned_quadratic_equals_the_undisturbed_runs(ray_start_shared, tmp_pat
     assert abs(sum(good[k] for k in ("productive_s", "checkpoint_s", "restart_s", "stalled_s"))
                - good["wall_s"]) < 1e-9
     assert base.goodput["stalled_s"] == 0.0
+    assert runtime.settled(free)
 
 
 @pytest.fixture(scope="module")
@@ -105,7 +109,7 @@ def test_fsdp_state_committed_at_four_restores_at_two(tmp_path, slots, tiny_init
     result = elastic_fit(tmp_path, "fsdp", apps.fsdp_loop,
                       {"init": tiny_init, "steps": 3, "save_at": 2, "out_dir": str(tmp_path)},
                       [churn])
-    churn.lease.release()
+    churn.release()
     assert result.error is None, result.error
     assert [a.get("world_size") for a in result.attempts] == [4, 2]
     saved = dict(np.load(tmp_path / "saved_w4.npz"))
@@ -116,38 +120,42 @@ def test_fsdp_state_committed_at_four_restores_at_two(tmp_path, slots, tiny_init
     assert [m["world_size"] for m in result.metrics_history] == [4, 4, 2]
 
 
+class _Card:
+    """An actor that holds a whole card."""
+
+    def device(self) -> str:
+        import os
+
+        return os.environ.get("CUDA_VISIBLE_DEVICES", "")
+
+
 @pytest.mark.cuda
-def test_gang_on_four_cards_skips_a_leased_card_and_grows_back(tmp_path):
-    """Four cards, NCCL: card 1 leased elsewhere when the gang forms, so
-    three workers run on cards 0, 2 and 3 (a dp all-reduce a step); the
-    card frees and the gang grows back to four."""
+def test_gang_on_four_cards_skips_a_leased_card_and_grows_back(tmp_path, slots):
+    """Four cards, NCCL: one card leased by another actor when the gang
+    forms, so three workers run on the other three (a dp all-reduce a
+    step); the card frees and the gang grows back to four."""
     if torch.cuda.device_count() < 4:
         pytest.skip(f"needs 4 CUDA cards, found {torch.cuda.device_count()}")
-    ledger = resources.declare()
-    try:
-        held = ledger.acquire({"GPU": 1})
-        assert held.cards == [[0]]
-        # Card 0 back, card 1 held: the next whole card taken is 0, then 2, 3.
-        spare = ledger.acquire({"GPU": 1})
-        held.release()
-        churn = _ReleaseAt(spare, world=3)
-        result = elastic_fit(tmp_path, "cards", apps.cards_loop, {"steps": 6}, [churn],
-                          use_gpu=True, resources_per_worker={"CPU": 1}, probe_s=0.01)
-        assert result.error is None, result.error
-        first = [m for m in result.metrics_history if m["world_size"] == 3]
-        assert first and first[0]["cards"] == [0, 2, 3]
-        assert result.metrics["world_size"] == 4 and result.metrics["cards"] == [0, 1, 2, 3]
-        assert transitions(result) == [{"reason": "grow", "from": 3, "to": 4}]
-    finally:
-        resources.declare()
+    holder = rt.remote(_Card).options(num_gpus=1).remote()
+    held = int(rt.get(holder.device.remote(), timeout=120))
+    churn = _ReleaseAt(holder, world=3)
+    result = elastic_fit(tmp_path, "cards", apps.cards_loop, {"steps": 6}, [churn],
+                         use_gpu=True, resources_per_worker={"CPU": 1}, probe_s=0.01)
+    assert result.error is None, result.error
+    first = [m for m in result.metrics_history if m["world_size"] == 3]
+    assert first and held not in first[0]["cards"] and len(set(first[0]["cards"])) == 3
+    assert result.metrics["world_size"] == 4
+    assert sorted(result.metrics["cards"]) == [0, 1, 2, 3]
+    assert transitions(result) == [{"reason": "grow", "from": 3, "to": 4}]
 
 
 class _ReleaseAt:
-    """Gives ``lease`` back at the first round of a gang of ``world``."""
+    """Kills ``holder`` at the first round of a gang of ``world``."""
 
-    def __init__(self, lease, world: int):
-        self.lease, self.world = lease, world
+    def __init__(self, holder, world: int):
+        self.holder, self.world = holder, world
 
     def on_result(self, metrics):
-        if metrics["world_size"] == self.world:
-            self.lease.release()
+        if metrics["world_size"] == self.world and self.holder is not None:
+            rt.kill(self.holder)
+            self.holder = None

@@ -6,9 +6,9 @@ its loop, its callbacks and its trainer settings) on an in-process
 cluster of four one-``trainslot`` nodes, where a node is removed at step
 1 and, for the grow-back, added again once the gang runs at 3. The port
 runs the same loop on a gloo gang whose workers lease a CPU and one of
-four ``trainslot``s declared on the host's ledger; the churn callback
-kills rank 3's process at step 1 and holds its slot, and gives it back
-once the gang runs at 3. Each test holds the port to the reference's run:
+four ``trainslot``s declared on its cluster (``ray_tpu_torch.init``); the
+churn callback kills rank 3's process at step 1 and holds its slot from an
+actor, and gives it back once the gang runs at 3. Each test holds the port to the reference's run:
 ``Result.resizes`` (reason, from, to), the world sizes its gangs reported
 in order, and the last report's step, world size and ``resumed``.
 
@@ -16,9 +16,10 @@ A module of its own: ``ray_start_cluster`` makes a cluster a test, which
 cannot share a module with ``ray_start_shared``.
 """
 
+import _torch_runtime as runtime
 import _torch_trainer_apps as apps
+import ray_tpu_torch as rt
 from _torch_trainer_apps import elastic_fit, slots, transitions, worlds  # noqa: F401 (a fixture)
-from ray_tpu_torch._private import resources
 from ray_tpu_torch.train import release_loops
 
 
@@ -58,16 +59,17 @@ def test_step_down_when_a_slot_is_held(ray_start_cluster, tmp_path, slots):
     from test_train_elastic import _KillNodeAt
 
     ref = _reference(ray_start_cluster, tmp_path, "step-down", 8, _KillNodeAt)
+    free = rt.available_resources()
     churn = release_loops.Churn(str(tmp_path), kill_step=1, restore=False)
     port = elastic_fit(tmp_path, "step-down", apps.elastic_loop, {"steps": 8}, [churn])
-    churn.lease.release()
+    churn.release()
     _same_run(port, ref)
     # The reference test's own asserts: all steps, resumed, at 3.
     assert port.metrics["step"] == 7 and port.metrics["resumed"] is True
     assert port.metrics["world_size"] == 3
     assert transitions(port) == [{"reason": "gang_died", "from": 4, "to": None}]
     assert [a.get("world_size") for a in port.attempts] == [4, 3]
-    assert resources.available_resources()["trainslot"] == 4
+    assert runtime.settled(free) and rt.available_resources()["trainslot"] == 4
 
 
 def test_grow_back_when_the_slot_frees(ray_start_cluster, tmp_path, slots):
@@ -75,6 +77,7 @@ def test_grow_back_when_the_slot_frees(ray_start_cluster, tmp_path, slots):
 
     ref = _reference(ray_start_cluster, tmp_path, "grow-back", 12, _ChurnAndRestore,
                      probe_s=0.01)
+    free = rt.available_resources()
     churn = release_loops.Churn(str(tmp_path), kill_step=1)
     port = elastic_fit(tmp_path, "grow-back", apps.elastic_loop, {"steps": 12}, [churn],
                        probe_s=0.01)
@@ -87,4 +90,4 @@ def test_grow_back_when_the_slot_frees(ray_start_cluster, tmp_path, slots):
     # Each gang reports the factorization of its own world.
     dps = {m["world_size"]: m["factorization"]["dp"] for m in port.metrics_history}
     assert dps == {4: 4, 3: 3}
-    assert resources.available_resources()["trainslot"] == 4
+    assert runtime.settled(free) and rt.available_resources()["trainslot"] == 4

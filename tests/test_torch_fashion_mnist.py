@@ -31,6 +31,11 @@ from ray_tpu_torch.train.checkpoint import load_pytree_checkpoint
 from ray_tpu_torch.train.config import RunConfig, ScalingConfig
 from ray_tpu_torch.train.trainer import TorchTrainer
 
+import _torch_runtime as runtime  # noqa: E402
+
+# The gangs, trials and RLlib actors here run on one cluster a module.
+cluster = runtime.cluster_fixture(autouse=True, num_cpus=8)
+
 STEPS = 4
 LR, BATCH = 1e-3, 64
 # tests/test_torch_cnn.py's f32 bound on a loss (over max(1, |loss|)), as

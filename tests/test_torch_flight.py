@@ -25,6 +25,11 @@ from ray_tpu_torch.util.collective import comm_flight
 from ray_tpu_torch.util.collective import flight
 from ray_tpu_torch.util.gang import WorkerGang
 
+import _torch_runtime as runtime  # noqa: E402
+
+# The gangs, trials and RLlib actors here run on one cluster a module.
+cluster = runtime.cluster_fixture(autouse=True, num_cpus=8)
+
 
 class FakeClock:
     def __init__(self, t: float = 1000.0):
@@ -229,21 +234,11 @@ def _slow_rank_1(ctx, delay: float):
 
 @pytest.fixture(scope="module")
 def ring(tmp_path_factory):
-    import os
-
     knobs = {"RAY_TPU_COMM_WATCHDOG_MIN_S": str(DEADLINE_S),
              "RAY_TPU_COMM_WATCHDOG_STARTUP_S": str(DEADLINE_S),
              "RAY_TPU_COMM_WATCHDOG_TICK_S": "0.05"}
-    saved = {k: os.environ.get(k) for k in knobs}
-    os.environ.update(knobs)  # the spawned members read them
-    try:
-        gang = WorkerGang(2, use_gpu=False, backend="ring")
-    finally:
-        for k, v in saved.items():
-            if v is None:
-                os.environ.pop(k)
-            else:
-                os.environ[k] = v
+    # The members read them (their recorders start at their first op).
+    gang = WorkerGang(2, use_gpu=False, backend="ring", env_vars=knobs)
     yield gang
     gang.shutdown()
 
@@ -256,7 +251,7 @@ def test_uniform_delays_raise_no_stall(ring):
 def test_one_slow_rank_is_named_by_the_hang_report(ring):
     addresses = {info["rank"]: tuple(info["ring_address"]) for info in ring.rank_infos()}
     before = comm_flight(addresses[0])["stalls"]
-    ring.run_async(_slow_rank_1, delay=SLOW_S)
+    refs = ring.run_async(_slow_rank_1, delay=SLOW_S)
     deadline = time.monotonic() + SLOW_S - 1.0
     while len(comm_flight(addresses[0])["stalls"]) == len(before):
         assert time.monotonic() < deadline, "rank 0's watchdog never fired"
@@ -271,4 +266,4 @@ def test_one_slow_rank_is_named_by_the_hang_report(ring):
     assert waiting == {0}
     assert any("suspect rank 1" in line for line in report["summary"])
     # The stall resolves once rank 1 arrives.
-    assert [ring.recv(r, timeout=60) for r in range(2)] == [("result", 2.0)] * 2
+    assert ring.get(refs, timeout=60) == [2.0, 2.0]

@@ -43,6 +43,11 @@ from ray_tpu_torch.rllib.policy.sample_batch import (
     ACTION_LOGP, ACTIONS, EPS_ID, OBS, REWARDS, SampleBatch, TERMINATEDS, TRUNCATEDS,
 )
 
+import _torch_runtime as runtime  # noqa: E402
+
+# The gangs, trials and RLlib actors here run on one cluster a module.
+cluster = runtime.cluster_fixture(autouse=True, num_cpus=8)
+
 VTRACE_TOL = 1e-6
 MODELS = {
     "mlp": (CARTPOLE, {"fcnet_hiddens": (16, 16)}),

@@ -13,6 +13,11 @@
 * ``flush()`` sends one ``kv_multi_put`` a tick, whatever the number of
   series, and the values come back from the port controller's KV; a
   process with no runtime context drops its points at the flush.
+* A two-member ``ring`` gang of each package, one all-reduce in which
+  rank 1 comes late enough for rank 0's watchdog to call it a stall, then
+  one ``flush()`` in each member: the ``rt_collective_*`` and ``rt_comm_*``
+  points in each controller's KV are equal in keys, kinds and tags (a
+  worker id's value aside).
 """
 
 import json
@@ -144,7 +149,7 @@ def _sections(text: str, recorded: set) -> tuple[list, set]:
 
 @pytest.fixture(scope="module")
 def clusters(ray_start_shared):
-    rt.init(num_cpus=2)
+    rt.init(num_cpus=4)
     yield
     rt.shutdown()
 
@@ -208,3 +213,90 @@ def test_a_flush_is_one_kv_multi_put_and_reads_back(clusters):
     text = port_metrics.collect_prometheus_text()
     assert re.search(r'^ray_tpu_rt_serve_kv_blocks_free\{deployment="llm_llm_decode",'
                      r'replica="llm_llm_decode#b2"\} 52\.0$', text, re.M)
+
+
+# The watchdog's knobs in the gang members: a deadline short enough that
+# rank 1's lateness (LATE_S) is a stall on rank 0.
+WATCHDOG = {"RAY_TPU_COMM_WATCHDOG_MIN_S": "0.5", "RAY_TPU_COMM_WATCHDOG_STARTUP_S": "0.5",
+            "RAY_TPU_COMM_WATCHDOG_TICK_S": "0.05"}
+LATE_S = 1.5
+
+
+def _late_allreduce(ctx) -> float:
+    """One all-reduce, rank 1 LATE_S late; then this member's flush, once
+    its watchdog has set its in-flight gauge since and, on rank 0, has
+    called both the all-reduce and the ring's receive stalled (a loaded
+    host runs the watchdog's ticks late)."""
+    import importlib
+
+    import numpy as np
+
+    package = type(ctx).__module__.split(".")[0]
+    metrics = importlib.import_module(f"{package}.util.metrics")
+    flight = importlib.import_module(f"{package}.util.collective.flight")
+    if ctx.rank == 1:
+        time.sleep(LATE_S)
+    total = float(np.asarray(ctx.collective().allreduce(np.ones(4), tag="late"))[0])
+
+    def ready() -> bool:
+        with metrics._local_lock:
+            gauge = any(key.startswith("rt_comm_inflight{") for key in metrics._pending)
+        kinds = {event["channel"].split(":")[1] for event in flight.stall_events()}
+        return gauge and (ctx.rank != 0 or {"allreduce", "recv"} <= kinds)
+
+    deadline = time.monotonic() + 30
+    while not ready() and time.monotonic() < deadline:
+        time.sleep(0.05)
+    metrics.flush()
+    return total
+
+
+def _kv_points(worker_mod) -> list:
+    ctx = worker_mod.get_global_context()
+    keys = ctx.io.run(ctx.controller.call("kv_keys", {"namespace": "metrics", "prefix": ""}))
+    points = []
+    for key in keys:
+        resp = ctx.io.run(ctx.controller.call("kv_get", {"namespace": "metrics", "key": key}))
+        if resp.get("status") == "ok":
+            points.append(json.loads(resp["value"]))
+    return points
+
+
+def _comm_series(points) -> list:
+    """(name, kind, tags) of the collective and comm series, a worker id's
+    value replaced by its key."""
+    return sorted((p["name"], p["kind"], tuple(sorted(
+        (k, "<worker>" if k == "worker" else v) for k, v in p["tags"].items())))
+        for p in points if p["name"].startswith(("rt_collective_", "rt_comm_")))
+
+
+def test_a_ring_gangs_collective_and_stall_series_are_the_references(clusters):
+    from ray_tpu._private import worker as ref_worker
+    from ray_tpu.util.gang import WorkerGang as RefGang
+    from ray_tpu_torch._private import worker as port_worker
+    from ray_tpu_torch.util.gang import WorkerGang as PortGang
+
+    series = {}
+    for name, make, worker_mod in (
+            ("ref", lambda: RefGang(2, backend="ring", group_name="metrics_ring",
+                                    env_vars=WATCHDOG), ref_worker),
+            ("port", lambda: PortGang(2, use_gpu=False, backend="ring",
+                                      group_name="metrics_ring", env_vars=WATCHDOG),
+             port_worker)):
+        gang = make()
+        try:
+            assert gang.run(_late_allreduce, timeout=120) == [2.0, 2.0]
+        finally:
+            gang.shutdown()
+        series[name] = _comm_series(_kv_points(worker_mod))
+    assert series["port"] == series["ref"]
+    names = {s[0] for s in series["ref"]}
+    assert {"rt_collective_bytes_total", "rt_collective_op_latency_s", "rt_comm_stalls_total",
+            "rt_comm_inflight", "rt_comm_inflight_oldest_age_s"} <= names
+    # Rank 0's stall on the late all-reduce (the module's other tests
+    # recorded series of their own groups).
+    assert any(s[0] == "rt_comm_stalls_total" and dict(s[2])["group"] == "metrics_ring"
+               for s in series["port"])
+    assert any(s[0] == "rt_collective_bytes_total" and dict(s[2]) == {"op": "allreduce",
+                                                                      "backend": "ring"}
+               for s in series["port"])

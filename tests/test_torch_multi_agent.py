@@ -46,6 +46,11 @@ from ray_tpu_torch.rllib.policy.sample_batch import (
     SampleBatch, TERMINATEDS, TRUNCATEDS, VF_PREDS,
 )
 
+import _torch_runtime as runtime  # noqa: E402
+
+# The gangs, trials and RLlib actors here run on one cluster a module.
+cluster = runtime.cluster_fixture(autouse=True, num_cpus=8)
+
 
 def _policy_for(agent_id, *args, **kwargs):
     return "p0" if agent_id.endswith("0") else "p1"

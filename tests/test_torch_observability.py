@@ -386,17 +386,28 @@ def test_the_kv_wire_carries_the_context(session):
 
 # ---------------------------------------------------------------- gangs and the profiler
 def test_a_gang_members_function_runs_under_an_execute_span(session):
+    """On a cluster booted with tracing on: the member's ``execute
+    <function>`` span is the caller's span's child (the runtime's own
+    ``execute`` span of the actor call, which carries a ``task_id``, sits
+    beside it)."""
+    import ray_tpu_torch as rt
     from ray_tpu_torch.util.gang import WorkerGang
 
-    gang = WorkerGang(1, use_gpu=False)
+    info = rt.init(num_cpus=4)
     try:
-        with tracing.span("driver") as root:
-            (got,) = gang.run(obs_apps.ambient_trace, timeout=120)
-        (untraced,) = gang.run(obs_apps.ambient_trace, timeout=120)
+        gang = WorkerGang(1, use_gpu=False)
+        try:
+            with tracing.span("driver") as root:
+                (got,) = gang.run(obs_apps.ambient_trace, timeout=120)
+            (untraced,) = gang.run(obs_apps.ambient_trace, timeout=120)
+        finally:
+            gang.shutdown()
     finally:
-        gang.shutdown()
+        rt.shutdown()
     assert got["inject"]["trace_id"] == root.trace_id
-    spans = [s for s in tracing.read_spans(session) if s["name"].startswith("execute ")]
+    spans = [s for s in _spans(info["session_dir"], lambda found: any(
+        x["name"] == "execute ambient_trace" for x in found))
+        if s["name"].startswith("execute ") and "task_id" not in s["attributes"]]
     assert [(s["name"], s["trace_id"], s["parent_id"], s["span_id"]) for s in spans
             if s["trace_id"] == root.trace_id] == [
         ("execute ambient_trace", root.trace_id, root.span_id, got["inject"]["span_id"])]

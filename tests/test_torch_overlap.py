@@ -22,6 +22,11 @@ from ray_tpu_torch.train.step import named_leaves
 from ray_tpu_torch.util.collective import CollectiveConfig, bucketing
 from ray_tpu_torch.util.gang import WorkerGang
 
+import _torch_runtime as runtime  # noqa: E402
+
+# The gangs, trials and RLlib actors here run on one cluster a module.
+cluster = runtime.cluster_fixture(autouse=True, num_cpus=8)
+
 # bench.py's sharded config (chip_smoke.py phase 29's).
 SHARDED = dict(vocab_size=8192, dim=4096, n_layers=4, n_heads=32, n_kv_heads=32,
                hidden_dim=16384, max_seq=1024, dtype=torch.bfloat16)

@@ -49,6 +49,11 @@ from ray_tpu_torch.rllib.policy.sample_batch import (
 )
 from ray_tpu_torch.rllib.utils import postprocessing as ppost
 
+import _torch_runtime as runtime  # noqa: E402
+
+# The gangs, trials and RLlib actors here run on one cluster a module.
+cluster = runtime.cluster_fixture(autouse=True, num_cpus=8)
+
 F32_TOL = 2e-5
 PARAM_TOL = 2e-4
 CARTPOLE = (gym.spaces.Box(-1, 1, (4,), np.float32), gym.spaces.Discrete(2))

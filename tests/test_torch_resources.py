@@ -10,7 +10,9 @@ port's stand-in for one node's resource table in the reference runtime.
 * A lease places every bundle or none; a request the host can never hold
   raises at once, one that does not fit now after its timeout; waiting
   requests are served in the order they were made.
-* A gang's lease goes back when it shuts down, and when its start fails.
+* A gang's placement group (on a runtime cluster, ``ray_tpu_torch.init``)
+  gives its bundles back to the node agent when the gang shuts down, and
+  when its start fails; the ledger is left to the local task layer.
 """
 
 import os
@@ -21,14 +23,47 @@ import pytest
 import torch
 
 import ray_tpu_torch
+from ray_tpu_torch import exceptions
 from ray_tpu_torch._private import resources
 from ray_tpu_torch.util import gang as gang_mod
+
+import _torch_runtime as runtime  # noqa: E402
+
+# The gang tests' cluster; the ledger's tests run without one.
+cluster = runtime.cluster_fixture(num_cpus=8, num_gpus=2, resources={"trainslot": 2})
 
 
 @pytest.fixture
 def host():
     yield resources.declare
     resources.declare()
+
+
+def test_gangs_trainers_trials_and_runners_need_init(tmp_path):
+    # First in the module: its cluster, once booted, stays up to the end.
+    """Without ``ray_tpu_torch.init()`` nothing forms a gang, a trial or a
+    runner outside the runtime: each raises the runtime's own error."""
+    from ray_tpu_torch import tune
+    from ray_tpu_torch.rllib.core.rl_module import RLModuleSpec
+    from ray_tpu_torch.rllib.env.env_runner_group import EnvRunnerGroup
+    from ray_tpu_torch.train.config import RunConfig, ScalingConfig
+    from ray_tpu_torch.train.trainer import TorchTrainer
+
+    assert not ray_tpu_torch.is_initialized()
+    uninitialized = "has not been initialized"
+    with pytest.raises(RuntimeError, match=uninitialized):
+        gang_mod.WorkerGang(1, use_gpu=False)
+    with pytest.raises(RuntimeError, match=uninitialized):
+        TorchTrainer(_no_loop, scaling_config=ScalingConfig(num_workers=1, use_gpu=False),
+                     run_config=RunConfig(storage_path=str(tmp_path))).fit()
+    with pytest.raises(RuntimeError, match=uninitialized):
+        tune.Tuner(_no_loop, run_config=RunConfig(storage_path=str(tmp_path))).fit()
+    with pytest.raises(RuntimeError, match=uninitialized):
+        EnvRunnerGroup("CartPole-v1", RLModuleSpec(), num_env_runners=1)
+
+
+def _no_loop(config):
+    pass
 
 
 def test_totals_come_from_the_host(host):
@@ -70,10 +105,20 @@ def test_card_shares_follow_serves_rules():
     assert two.cards == [[0, 1]] and two.visible_devices() == "0,1"
 
 
-def test_a_gpu_gang_does_not_grow_onto_two_half_free_cards(host):
+class _Share:
+    """An actor that holds the card share it leased."""
+
+    def ping(self) -> str:
+        return "ok"
+
+
+def test_a_gpu_gang_does_not_grow_onto_two_half_free_cards(host, cluster):
     """Two cards with half of each free sum to one card's worth, but a
-    gang member leases a whole card: the grow-back probe stays False until
-    a whole card is free (``can_place``, not the summed ``GPU``)."""
+    whole-card bundle needs a whole card: the ledger does not place it
+    (``can_place``, not the summed ``GPU``). The trainer's grow-back probe
+    reads the runtime's free resources, as the reference's does: summed,
+    so it stays False while less than a card's worth is free and turns True
+    once a card's worth is (a whole card or not: ROADMAP 14c)."""
     from types import SimpleNamespace
 
     from ray_tpu_torch.train.config import ScalingConfig
@@ -89,14 +134,26 @@ def test_a_gpu_gang_does_not_grow_onto_two_half_free_cards(host):
     assert not ledger.can_place({"CPU": 1, "GPU": 1})
     assert ledger.can_place({"CPU": 1, "GPU": 0.5}, 2)
     assert not ledger.can_place({"CPU": 1, "GPU": 0.5}, 3)
+    first.release()
+    assert ledger.can_place({"CPU": 1, "GPU": 1})
     trainer = TorchTrainer(lambda config: None, scaling_config=ScalingConfig(
         num_workers=2, min_workers=1, use_gpu=True, elastic_grow_probe_period_s=1e-6))
     gang = SimpleNamespace(num_workers=1)
-    assert not trainer._want_grow(gang, {})
-    first.release()
-    assert ledger.can_place({"CPU": 1, "GPU": 1})
-    assert trainer._want_grow(gang, {})
-    assert ledger.available_resources()["GPU"] == pytest.approx(1.5)  # nothing taken
+    share = ray_tpu_torch.remote(_Share)
+    held = [share.options(num_cpus=0, num_gpus=0.5).remote() for _ in range(3)]
+    try:
+        ray_tpu_torch.get([h.ping.remote() for h in held], timeout=60)
+        assert ray_tpu_torch.available_resources()["GPU"] == pytest.approx(0.5)
+        assert not trainer._want_grow(gang, {})
+        ray_tpu_torch.kill(held.pop())
+        deadline = time.monotonic() + 10
+        while not trainer._want_grow(gang, {}) and time.monotonic() < deadline:
+            time.sleep(0.05)
+        assert ray_tpu_torch.available_resources()["GPU"] == pytest.approx(1.0)
+        assert trainer._want_grow(gang, {})
+    finally:
+        for h in held:
+            ray_tpu_torch.kill(h)
 
 
 def test_a_request_the_host_cannot_hold_raises_at_once():
@@ -163,8 +220,8 @@ def test_waiting_requests_are_served_in_order():
 
 
 @pytest.mark.parametrize("how", ["no_port", "start_timeout"])
-def test_a_failed_gang_start_gives_its_lease_back(host, monkeypatch, how):
-    host(num_cpus=8, resources={"trainslot": 2})
+def test_a_failed_gang_start_gives_its_lease_back(cluster, monkeypatch, how):
+    free = ray_tpu_torch.available_resources()
     if how == "no_port":
         def no_port():
             raise OSError("no free port")
@@ -176,18 +233,20 @@ def test_a_failed_gang_start_gives_its_lease_back(host, monkeypatch, how):
         monkeypatch.setattr(gang_mod, "START_TIMEOUT_S", 0.0)
         with pytest.raises(gang_mod.GangDiedError, match="failed to start"):
             gang_mod.WorkerGang(2, use_gpu=False, resources_per_worker={"CPU": 1, "trainslot": 1})
-    assert resources.available_resources() == {"CPU": 8.0, "GPU": 0.0, "trainslot": 2.0}
+    assert runtime.settled(free) and free["trainslot"] == 2.0
 
 
-def test_a_gang_holds_its_lease_until_shutdown(host):
-    host(num_cpus=8, resources={"trainslot": 2})
+def test_a_gang_holds_its_lease_until_shutdown(cluster):
+    free = ray_tpu_torch.available_resources()
     gang = gang_mod.WorkerGang(2, use_gpu=False, resources_per_worker={"CPU": 1, "trainslot": 1})
     try:
-        assert resources.available_resources()["trainslot"] == 0.0
-        assert gang.cards == [None, None]
-        with pytest.raises(resources.PlacementGroupUnschedulableError):
+        assert ray_tpu_torch.available_resources()["trainslot"] == 0.0
+        # A member with no GPU lease sees no card.
+        assert [i["cuda_visible_devices"] for i in gang.rank_infos()] == ["", ""]
+        with pytest.raises(exceptions.PlacementGroupUnschedulableError):
             gang_mod.WorkerGang(1, use_gpu=False, resources_per_worker={"trainslot": 1},
                                 ready_timeout=0.1)
     finally:
         gang.shutdown()
-    assert resources.available_resources()["trainslot"] == 2.0
+    assert runtime.settled(free) and ray_tpu_torch.available_resources()["trainslot"] == 2.0
+

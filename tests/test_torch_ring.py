@@ -2,8 +2,8 @@
 against the reference's ``RingGroup`` (``ray_tpu/util/collective/
 collective.py``) run on the reference's runtime: the same functions run in
 a reference ``WorkerGang(backend="ring")`` on ``ray_start_shared`` and in
-the port's ``WorkerGang(backend="ring", use_gpu=False)`` (spawned CPU
-processes meeting in a gloo process group's store), on the same seeded
+the port's ``WorkerGang(backend="ring", use_gpu=False)`` (CPU actors of
+the module's cluster meeting in a gloo process group's store), on the same seeded
 inputs, and every result is held bitwise: allreduce (sum, max, min,
 product; int arrays on the exact wire), four quantized allreduces in a row
 (error feedback carried between them), allgather, broadcast, reducescatter
@@ -19,9 +19,14 @@ import pytest
 
 from ray_tpu.util.collective.quantization import CollectiveConfig as RefConfig
 from ray_tpu.util.gang import WorkerGang as RefGang
-from ray_tpu_torch._private import resources
+import ray_tpu_torch
 from ray_tpu_torch.util.collective import CollectiveConfig
 from ray_tpu_torch.util.gang import GangDiedError, WorkerGang
+
+import _torch_runtime as runtime  # noqa: E402
+
+# The gangs, trials and RLlib actors here run on one cluster a module.
+cluster = runtime.cluster_fixture(autouse=True, num_cpus=8)
 
 QCONFIG = {"quantize": "int8", "block_size": 128}
 
@@ -31,12 +36,12 @@ def gangs(ray_start_shared):
     """The reference's and the port's gangs, by (world size, quantized),
     made on first use and shut down at the module's end."""
     made: dict = {}
-    cpus = resources.cluster_resources().get("CPU", 0.0)  # what the port's gangs lease
+    cpus = ray_tpu_torch.cluster_resources().get("CPU", 0.0)  # what the port's gangs lease
 
     def get(world: int, quantized: bool = False):
         key = (world, quantized)
         if key not in made:
-            # The port's gangs lease the host's CPUs: make room.
+            # The port's gangs lease the cluster's CPUs: make room.
             while made and sum(k[0] for k in made) + world > cpus:
                 ref, port = made.pop(next(iter(made)))
                 ref.shutdown()
@@ -211,7 +216,7 @@ def test_member_death_raises():
         with pytest.raises(GangDiedError):
             doomed.run(_crash_rank_1, timeout=120)
     finally:
-        doomed.shutdown(grace_s=1.0)
+        doomed.shutdown()
 
 
 def test_a_ring_member_may_take_a_share_of_a_card_nccl_may_not():

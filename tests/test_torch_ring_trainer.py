@@ -40,6 +40,11 @@ from ray_tpu_torch.train.stage_runner import PipelineStageRunner, microbatch_sli
 from ray_tpu_torch.train.trainer import TorchTrainer
 from ray_tpu_torch.util.collective import CollectiveConfig
 
+import _torch_runtime as runtime  # noqa: E402
+
+# The gangs, trials and RLlib actors here run on one cluster a module.
+cluster = runtime.cluster_fixture(autouse=True, num_cpus=8)
+
 INT8 = {"quantize": "int8", "block_size": 128}
 
 

@@ -37,6 +37,11 @@ from ray_tpu_torch.rllib.policy.sample_batch import (
 )
 from ray_tpu_torch.train.step import named_leaves
 
+import _torch_runtime as runtime  # noqa: E402
+
+# The gangs, trials and RLlib actors here run on one cluster a module.
+cluster = runtime.cluster_fixture(autouse=True, num_cpus=8)
+
 ROOT = Path(__file__).resolve().parent.parent
 F32_TOL = 2e-5
 GRAD_F32_TOL = 2e-4

@@ -30,6 +30,11 @@ import ray_tpu_torch.rllib.env.pixel_envs as ppix
 from ray_tpu_torch.rllib import PPOConfig
 from ray_tpu_torch.rllib.algorithms.ppo.ppo import PPO
 
+import _torch_runtime as runtime  # noqa: E402
+
+# The gangs, trials and RLlib actors here run on one cluster a module.
+cluster = runtime.cluster_fixture(autouse=True, num_cpus=8)
+
 BAR, MAX_ITERS = 100.0, 12
 
 

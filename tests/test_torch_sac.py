@@ -41,6 +41,11 @@ from ray_tpu_torch.rllib.policy.sample_batch import (
     ACTIONS, NEXT_OBS, OBS, REWARDS, SampleBatch, TERMINATEDS,
 )
 
+import _torch_runtime as runtime  # noqa: E402
+
+# The gangs, trials and RLlib actors here run on one cluster a module.
+cluster = runtime.cluster_fixture(autouse=True, num_cpus=8)
+
 MODEL = {"fcnet_hiddens": (16, 16)}
 BOX2 = (PENDULUM[0], gym.spaces.Box(-1.0, 3.0, (2,), np.float32))
 

@@ -381,6 +381,16 @@ def test_basic_deployment(handles):
     assert len({handle.pid.remote(i).result() for i in range(20)}) == 2
 
 
+def test_each_replica_freezes_what_its_start_built(handles):
+    """A replica collects once after its start and freezes what is left
+    (the modules, the user's object) out of later collections: a full
+    pass over it in a busy replica stalled every request in flight."""
+    handle = handles["doubler"].options(method_name="frozen")
+    frozen = dict(handle.remote(i).result(timeout=60) for i in range(20))
+    assert len(frozen) == 2
+    assert all(count > 10_000 for count in frozen.values()), frozen
+
+
 def test_many_threads_share_one_handle(handles):
     """32 threads call one handle (and option clones of it) with the
     interpreter switching threads as often as it can: every answer is

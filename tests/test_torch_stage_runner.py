@@ -36,6 +36,11 @@ from ray_tpu_torch.train.config import RunConfig, ScalingConfig
 from ray_tpu_torch.train.stage_runner import PipelineStageRunner, microbatch_slicer
 from ray_tpu_torch.train.trainer import TorchTrainer
 
+import _torch_runtime as runtime  # noqa: E402
+
+# The gangs, trials and RLlib actors here run on one cluster a module.
+cluster = runtime.cluster_fixture(autouse=True, num_cpus=8)
+
 # tests/test_torch_train.py's bound on a trajectory's losses against JAX's.
 TRAJECTORY_LOSS_TOL = 1e-4
 # The reference holds its pipeline to its fused step at rtol = atol = 2e-6.

@@ -39,6 +39,11 @@ from ray_tpu_torch.train.step import make_optimizer
 from ray_tpu_torch.train.trainer import TorchTrainer
 from ray_tpu_torch.util import collective
 
+import _torch_runtime as runtime  # noqa: E402
+
+# The gangs, trials and RLlib actors here run on one cluster a module.
+cluster = runtime.cluster_fixture(autouse=True, num_cpus=8)
+
 MODULES = {"reference": ref_stats, "port": step_stats}
 
 

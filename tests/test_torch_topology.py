@@ -30,6 +30,11 @@ from ray_tpu_torch.train.config import RunConfig, ScalingConfig
 from ray_tpu_torch.train.trainer import TorchTrainer
 from ray_tpu_torch.util import collective
 
+import _torch_runtime as runtime  # noqa: E402
+
+# The gangs, trials and RLlib actors here run on one cluster a module.
+cluster = runtime.cluster_fixture(autouse=True, num_cpus=8)
+
 WORLD = 4
 DOMAINS = [[0, 1], [2, 3]]
 TOPOLOGY = {"ici_axes": {"tp": 2}, "dcn_axes": {"dp": 2}}

@@ -21,11 +21,15 @@ the same data.
     round where the reference's ``JaxTrainer`` ends it (on a local
     cluster, ``ray_start_shared``), for the same loop.
 
-On a machine with four cards, ``test_trainer_on_four_cards`` runs the
-restart case on NCCL workers, one a card; elsewhere it skips.
+The gang's members are runtime actors: the module boots one cluster
+(``ray_tpu_torch.init``) for every test. On a machine with four cards,
+``test_trainer_on_four_cards`` runs the restart case on NCCL workers, one
+a card; elsewhere it skips.
 """
 
 import os
+import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -39,6 +43,12 @@ from ray_tpu_torch.train.config import CheckpointConfig, FailureConfig, RunConfi
 from ray_tpu_torch.train.step import make_optimizer
 from ray_tpu_torch.train.trainer import TorchTrainer
 from ray_tpu_torch.util.gang import GangDiedError, WorkerError
+
+sys.path.insert(0, str(Path(__file__).resolve().parent))
+import _torch_runtime as runtime  # noqa: E402
+
+cluster = runtime.cluster_fixture(
+    autouse=True, num_cpus=4, num_gpus=torch.cuda.device_count() or None)
 
 STEPS = 4
 # tests/test_torch_train.py's bound on a trajectory's losses against JAX's.

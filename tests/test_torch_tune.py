@@ -9,13 +9,14 @@ in the same order (nested spaces, ``sample_from`` and the global-random
 suggestions, and one result stream fed to each package's ASHA,
 HyperBand, median stopping, PBT and ``ConcurrencyLimiter`` gives equal
 decisions (PBT's transplants and explored configs too). The trial
-processes: a ``<locals>`` trainable is refused; a checkpoint holding a
-tensor restores after the process that saved it has exited; a stopped
-trainer trial, and one killed hard, leave no process alive. Trials wait
-for their resources on the host's ledger: three asking for {"CPU": 1,
-"TPU": 8} on a host declaring 8 TPUs run one at a time, in the order the
-reference's controller runs them on its cluster, and {"GPU": 1} trials
-see only their card. Config 3's
+actors, on one cluster the module boots (``ray_tpu_torch.init``): a
+``<locals>`` trainable is refused; a checkpoint holding a tensor restores
+after the actor that saved it was killed; a stopped trainer trial, and one
+killed hard, leave no actor, process or placement group behind. Trials
+wait for their resources on the node agent: three asking for {"CPU": 1,
+"TPU": 8} on a cluster declaring 8 TPUs run one at a time, in the order
+the reference's controller runs them on its cluster, and {"GPU": 1}
+trials see only their card. Config 3's
 trainable (``chip_smoke.asha_resnet_run``) on the CPU against the release
 script's JAX step from the same weights: its first two reports within
 ``tests/test_torch_cnn.py``'s f32 bounds.
@@ -30,8 +31,10 @@ import numpy as np
 import optax
 import pytest
 
+import _torch_runtime as runtime
 import _torch_tune_apps as apps
 import chip_smoke
+import ray_tpu_torch as rt
 from ray_tpu.models import cnn as jc
 from ray_tpu.tune import schedulers as ref_sched
 from ray_tpu.tune.search import basic_variant as ref_bv
@@ -39,7 +42,6 @@ from ray_tpu.tune.search import sample as ref_sample
 from ray_tpu.tune.search import searcher as ref_searcher
 from ray_tpu.tune.search import tpe as ref_tpe
 from ray_tpu_torch import tune
-from ray_tpu_torch._private import resources
 from ray_tpu_torch.models.convert import conv_params_from_numpy
 from ray_tpu_torch.train import (
     CheckpointConfig, FailureConfig, RunConfig, ScalingConfig, TorchTrainer,
@@ -58,6 +60,9 @@ PACKAGES = {
 }
 # tests/test_torch_cnn.py's bound on an f32 loss against JAX's.
 F32_TOL = 2e-5
+# The module's cluster: 8 TPUs for the held trials, one (declared) card.
+CLUSTER = dict(num_cpus=8, num_gpus=1, resources={"TPU": 8})
+cluster = runtime.cluster_fixture(**CLUSTER)
 
 
 # ---------------------------------------------------------------- search
@@ -296,7 +301,7 @@ def test_scheduler_decisions_match(name, seed, mode):
 
 
 # ------------------------------------------------------- the trial processes
-def test_a_locals_trainable_is_refused(tmp_path):
+def test_a_locals_trainable_is_refused(cluster, tmp_path):
     def nested(config):
         tune.report({"x": 1})
 
@@ -314,34 +319,28 @@ def test_a_locals_trainable_is_refused(tmp_path):
                    run_config=RunConfig(storage_path=str(tmp_path))).fit()
 
 
-def _alive(pid: int) -> bool:
-    try:
-        with open(f"/proc/{pid}/stat") as f:
-            return f.read().rsplit(")", 1)[1].split()[0] != "Z"
-    except FileNotFoundError:
-        return False
-
-
-def test_a_tensor_checkpoint_restores_after_its_process_exited():
+def test_a_tensor_checkpoint_restores_after_its_process_exited(cluster):
     ref = tune_controller.TrainableRef(apps.TensorCounter)
-    first = tune_controller._TrialProcess(ref, {}, "trial-first")
-    assert [first.call("train", timeout=120)["value"] for _ in range(2)] == [4.0, 8.0]
-    checkpoint = first.call("save", timeout=60)
-    first.call("stop", timeout=5)
-    first.kill()
-    assert not first.process.is_alive() and not _alive(first.process.pid)
-    second = tune_controller._TrialProcess(ref, {}, "trial-second")
+    actor_cls = rt.remote(tune_controller._TrialActor)
+    first = actor_cls.remote(ref, {})
+    assert [rt.get(first.train.remote(), timeout=120)["value"] for _ in range(2)] == [4.0, 8.0]
+    checkpoint = rt.get(first.save.remote(), timeout=60)
+    first_pid = rt.get(first.pid.remote(), timeout=60)
+    rt.get(first.stop.remote(), timeout=5)
+    rt.kill(first)
+    assert runtime.gone([first_pid])
+    second = actor_cls.remote(ref, {})
     try:
-        second.call("restore", checkpoint, timeout=120)
-        result = second.call("train", timeout=60)
-        assert result["value"] == 12.0 and result["pid"] != first.process.pid
+        rt.get(second.restore.remote(checkpoint), timeout=120)
+        result = rt.get(second.train.remote(), timeout=60)
+        assert result["value"] == 12.0 and result["pid"] != first_pid
     finally:
-        second.kill()
+        rt.kill(second)
     assert checkpoint["state"].tolist() == [2.0] * 4
 
 
 @pytest.mark.parametrize("fail", ["raise", "exit"])
-def test_a_failed_trial_retries_from_a_tensor_checkpoint(tmp_path, fail):
+def test_a_failed_trial_retries_from_a_tensor_checkpoint(cluster, tmp_path, fail):
     """The trial raises, or its process exits, at its third step; the retry
     restores the step-2 tensor saved by the process that then failed."""
     results = tune.Tuner(
@@ -353,15 +352,17 @@ def test_a_failed_trial_retries_from_a_tensor_checkpoint(tmp_path, fail):
     ).fit()
     (trial,) = results
     assert trial.error is None and results._trials[0].num_failures == 1
-    assert ("died (exit code 3)" if fail == "exit" else "boom at 3") in \
+    # An exit is the actor's death (the runtime names the exit code when its
+    # record of the death came before the failed call's answer).
+    assert ("ActorDiedError" if fail == "exit" else "boom at 3") in \
         results._trials[0].error_message
     history = [m["value"] for m in trial.metrics_history]
     assert history == [4.0, 8.0, 12.0, 16.0, 20.0]
     pids = [m["pid"] for m in trial.metrics_history]
-    assert pids[0] == pids[1] != pids[2] and not any(_alive(p) for p in pids)
+    assert pids[0] == pids[1] != pids[2] and runtime.gone(pids)
 
 
-def test_a_transplant_moves_a_tensor_checkpoint_between_processes(tmp_path):
+def test_a_transplant_moves_a_tensor_checkpoint_between_processes(cluster, tmp_path):
     """PBT's exploit through the controller: the donor's save waits behind
     its running train() (whose answer is kept for the loop), and the
     trial, which cannot reset in place, restarts in a new process from
@@ -382,7 +383,7 @@ def test_a_transplant_moves_a_tensor_checkpoint_between_processes(tmp_path):
     saved = float(donor.checkpoint["state"].sum())
     results = controller.run()
     assert [t.status for t in results] == ["TERMINATED", "TERMINATED"]
-    assert trial.config == new_config and not _alive(old_pid)
+    assert trial.config == new_config and runtime.gone([old_pid])
     after = [m for m in trial.metric_history if m["pid"] != old_pid]
     assert after and after[0]["value"] == saved + 4 and after[-1]["value"] == 80
     # The donor lost no result to the save that waited behind its train().
@@ -391,7 +392,7 @@ def test_a_transplant_moves_a_tensor_checkpoint_between_processes(tmp_path):
     assert [m["training_iteration"] for m in donor.metric_history] == list(range(1, 21))
 
 
-def test_with_parameters_reaches_the_trial(tmp_path):
+def test_with_parameters_reaches_the_trial(cluster, tmp_path):
     results = tune.run(tune.with_parameters(apps.scaled, offset=100.0),
                        config={"x": tune.grid_search([1.0, 2.0])}, metric="score", mode="max",
                        storage_path=str(tmp_path), name="with_params",
@@ -400,12 +401,14 @@ def test_with_parameters_reaches_the_trial(tmp_path):
 
 
 @pytest.mark.parametrize("stall", [False, True], ids=["stopped", "killed_hard"])
-def test_a_stopped_trainer_trial_leaves_no_process(tmp_path, stall):
+def test_a_stopped_trainer_trial_leaves_no_process(cluster, tmp_path, stall):
     """TorchTrainer trials (CPU gloo gangs of one worker) whose loops would
     report 6 rounds, stopped at their second. Two trials at once, stopped by
     ASHA at max_t; or, with ``stall``, one whose loop sleeps after its
     second report, so that its trial cannot stop before the controller's
-    kill, stopped by ``RunConfig.stop``."""
+    kill, stopped by ``RunConfig.stop``. Either way no trial actor, gang
+    member or placement group is left, and the cluster's resources are all
+    free again."""
     loop_config = {"rounds": 6, "stall_after": 2} if stall else {"rounds": 6}
     trainer = TorchTrainer(apps.pid_loop, train_loop_config=loop_config,
                            scaling_config=ScalingConfig(num_workers=1, use_gpu=False),
@@ -426,28 +429,25 @@ def test_a_stopped_trainer_trial_leaves_no_process(tmp_path, stall):
         assert [m["training_iteration"] for m in r.metrics_history] == [1, 2]
         assert [m["loss"] for m in r.metrics_history] == [6 * r.config["train_loop_config"]["lr"],
                                                           5 * r.config["train_loop_config"]["lr"]]
-        pids = {m["pid"] for m in r.metrics_history} | {m["ppid"] for m in r.metrics_history}
-        assert len(pids) == 2 and not any(_alive(p) for p in pids), (r.config, pids)
+        pids = {m["pid"] for m in r.metrics_history}
+        assert len(pids) == 1 and runtime.gone(pids), (r.config, pids)
+    trial_pids = [a["pid"] for a in runtime.actors("_TrialActor")]
+    member_pids = [a["pid"] for a in runtime.actors("_GangMember")]
+    assert len(trial_pids) >= len(lrs) and runtime.gone(trial_pids + member_pids)
+    assert runtime.all_dead()
+    assert runtime.settled(rt.cluster_resources())
     if stall:
         # The stall costs the stop's wait for the trainable's thread
         # (STOP_JOIN_S), then the group is killed.
         assert time.monotonic() - start > tune.trainable.STOP_JOIN_S
 
 
-@pytest.fixture
-def host():
-    """``resources.declare`` for the test; the host's own ledger after it."""
-    yield resources.declare
-    resources.declare()
-
-
-def test_trials_run_concurrently_by_default(tmp_path, host):
-    # The default concurrency is the ledger's CPUs over the trial's.
-    host(num_cpus=3)
+def test_trials_run_concurrently_by_default(cluster, tmp_path):
+    # The default concurrency is the cluster's CPUs over the trial's.
     controller = tune_controller.TuneController(
         tune.wrap_function(apps.slope), searcher=port_bv.BasicVariantGenerator(),
         experiment_dir=str(tmp_path))
-    assert controller._max_concurrent == 3
+    assert controller._max_concurrent == CLUSTER["num_cpus"]
 
 
 # ------------------------------------------------- trials wait for their resources
@@ -478,9 +478,10 @@ def _order(trials) -> tuple:
     return [t.config["name"] for t in starts], [t.config["name"] for t in ends], serial
 
 
-def test_trials_pend_for_a_declared_resource_as_the_reference(ray_start_shared, tmp_path, host):
+def test_trials_pend_for_a_declared_resource_as_the_reference(ray_start_shared, cluster,
+                                                              tmp_path):
     """Three trials asking for {"CPU": 1, "TPU": 8}: the reference's
-    cluster declares {"TPU": 8} (conftest), the port's ledger the same.
+    cluster declares {"TPU": 8} (conftest), the port's cluster the same.
     Both run one trial at a time, in the same order of starts and ends,
     the others waiting until the running one frees its TPUs."""
     from ray_tpu.tune import trainable as ref_trainable
@@ -489,7 +490,6 @@ def test_trials_pend_for_a_declared_resource_as_the_reference(ray_start_shared, 
     want = {"CPU": 1, "TPU": 8}
     ref = _held_trials(ref_tc.TuneController, ref_trainable.wrap_function, ref_bv,
                        tmp_path / "ref", want)
-    host(num_cpus=64, resources={"TPU": 8})
     port = _held_trials(tune_controller.TuneController, tune.wrap_function, port_bv,
                         tmp_path / "port", want)
     assert [t.status for t in ref] == [t.status for t in port] == ["TERMINATED"] * 3
@@ -497,27 +497,32 @@ def test_trials_pend_for_a_declared_resource_as_the_reference(ray_start_shared, 
     port_starts, port_ends, port_serial = _order(port)
     assert ref_serial and port_serial
     assert port_starts == ref_starts and port_ends == ref_ends
-    assert resources.available_resources()["TPU"] == 8.0  # every lease went back
+    assert runtime.settled(rt.cluster_resources())  # every lease went back
+    assert rt.available_resources()["TPU"] == 8.0
 
 
-def test_gpu_trials_see_only_their_card(tmp_path, host):
-    """{"GPU": 1} trials on a ledger of one card: one at a time, each
-    process with CUDA_VISIBLE_DEVICES naming card 0; on two cards, two at
-    a time on cards 0 and 1."""
-    host(num_cpus=8, num_gpus=1)
+def test_gpu_trials_see_only_their_card(cluster, tmp_path):
+    """{"GPU": 1} trials on a cluster of one card: one at a time, each
+    actor with CUDA_VISIBLE_DEVICES naming card 0; on a cluster of two
+    cards, two at a time on cards 0 and 1."""
     trials = _held_trials(tune_controller.TuneController, tune.wrap_function, port_bv,
                           tmp_path / "one", {"CPU": 1, "GPU": 1})
     assert [t.last_result["visible"] for t in trials] == ["0", "0", "0"]
     assert _order(trials)[2]
-    host(num_cpus=8, num_gpus=2)
-    trials = _held_trials(tune_controller.TuneController, tune.wrap_function, port_bv,
-                          tmp_path / "two", {"CPU": 1, "GPU": 1}, meet=2)
-    first_two = sorted(trials, key=lambda t: t.last_result["began"])[:2]
-    assert sorted(t.last_result["visible"] for t in first_two) == ["0", "1"]
-    # The first two ran at once: each saw the other start before it ended.
-    assert all(t.last_result["met"] for t in first_two)
-    assert not _order(first_two)[2]
-    assert resources.available_resources()["GPU"] == 2.0
+    rt.shutdown()
+    try:
+        rt.init(**{**CLUSTER, "num_gpus": 2})
+        trials = _held_trials(tune_controller.TuneController, tune.wrap_function, port_bv,
+                              tmp_path / "two", {"CPU": 1, "GPU": 1}, meet=2)
+        first_two = sorted(trials, key=lambda t: t.last_result["began"])[:2]
+        assert sorted(t.last_result["visible"] for t in first_two) == ["0", "1"]
+        # The first two ran at once: each saw the other start before it ended.
+        assert all(t.last_result["met"] for t in first_two)
+        assert not _order(first_two)[2]
+        assert runtime.settled({**rt.cluster_resources()})
+    finally:
+        rt.shutdown()
+        rt.init(**CLUSTER)
 
 
 # ------------------------------------------------- BASELINE config 3's trainable

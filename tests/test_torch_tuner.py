@@ -39,6 +39,11 @@ from ray_tpu_torch.tune import logger as port_logger
 from ray_tpu_torch.tune.search import basic_variant as port_bv
 from ray_tpu_torch.tune.search import searcher as port_searcher
 
+import _torch_runtime as runtime  # noqa: E402
+
+# The gangs, trials and RLlib actors here run on one cluster a module.
+cluster = runtime.cluster_fixture(autouse=True, num_cpus=8)
+
 TIMING = {"time_total_s", "timestamp", "ts"}
 
 SIDES = {

@@ -5,12 +5,15 @@ On a host with one CUDA card, from the root of the repo:
     python3 tools/serve_phases.py                  # phases 30, 23, 27 (a), 27 (b)
     python3 tools/serve_phases.py --phases 23      # phase 23 only
     python3 tools/serve_phases.py --start-trials 2 # when one replica starts
+    python3 tools/serve_phases.py --phases 27b --repeat 5
 
 With ``--phases`` (the default: all four) the card's kernels are built
 first, phase 30 beside the build as main() runs it, then each phase runs
 with every launch count set to 0 before it and is held to the same checks
 main() holds it to. The last line is ``SERVE_PHASES {json}``: each phase's
-wall and its numbers, or the error that stopped the run.
+wall and its numbers, or the error that stopped the run. ``--repeat N``
+runs the phases N times after the one build, each round to its end or its
+first error, and lists the rounds under ``rounds``.
 
 With ``--start-trials N`` it instead times one BERT-base replica's start
 N times, each on a cluster of its own: when ``init()``, ``serve.start``
@@ -91,10 +94,12 @@ def _phase_27b(out: dict) -> None:
     c._replica_paths("serve_chaos", layers, chaos["counts_by_pid"])
     out["p27b"] = {k: chaos.get(k) for k in (
         "lost", "replica_kills", "proxy_kills", "replicas_recovered", "proxy_restarted",
-        "p99_ratio", "recover_s", "ready_s", "phase_seconds", "baseline_qps")}
+        "p99_ratio", "recover_s", "ready_s", "phase_seconds", "baseline_qps",
+        "baseline_p99_ms", "chaos_p99_ms", "failovers", "hedges_launched", "hedges_won",
+        "baseline_slowest", "chaos_slowest")}
 
 
-def run_phases(phases: list[str]) -> dict:
+def run_phases(phases: list[str], repeat: int = 1) -> dict:
     out: dict = {"phases": phases}
     t_all = time.perf_counter()
     try:
@@ -103,10 +108,22 @@ def run_phases(phases: list[str]) -> dict:
             _phase_30(out)  # builds the kernels beside it
         else:
             c.phase_build()
-        for name, fn in (("23", _phase_23), ("27a", _phase_27a), ("27b", _phase_27b)):
-            if name in phases:
-                fn(out)
-        out["ok"] = True
+        rounds = []
+        for _ in range(repeat):
+            this: dict = {}
+            try:
+                for name, fn in (("23", _phase_23), ("27a", _phase_27a), ("27b", _phase_27b)):
+                    if name in phases:
+                        fn(this)
+            except BaseException:
+                this["error"] = traceback.format_exc()[-3000:]
+            rounds.append(this)
+            print("SERVE_ROUND " + json.dumps(this, default=str), flush=True)
+        if repeat == 1:
+            out.update(rounds[0])
+        else:
+            out["rounds"] = rounds
+        out["ok"] = not any("error" in r for r in rounds)
     except BaseException:
         out["error"] = traceback.format_exc()
     out["total_s"] = time.perf_counter() - t_all
@@ -170,6 +187,8 @@ def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--phases", default=",".join(PHASES),
                         help=f"a comma-separated subset of {','.join(PHASES)}")
+    parser.add_argument("--repeat", type=int, default=1,
+                        help="run the phases this many times after the one build")
     parser.add_argument("--start-trials", type=int, default=0,
                         help="time this many replica starts instead of running phases")
     args = parser.parse_args()
@@ -180,7 +199,7 @@ def main() -> None:
     unknown = set(phases) - set(PHASES)
     if unknown:
         parser.error(f"unknown phases {sorted(unknown)}")
-    out = run_phases(phases)
+    out = run_phases(phases, args.repeat)
     print("SERVE_PHASES " + json.dumps(out, default=str), flush=True)
     sys.exit(0 if out.get("ok") else 1)
 
